@@ -1,0 +1,22 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
+
+The JAX package ``paddle_tpu`` is the reference; this package is its
+counterpart for one NVIDIA H100. It imports ``torch`` and numpy, never
+``jax`` and nothing of ``paddle_tpu``. The layout mirrors the reference
+so that each module sits where its counterpart does:
+
+- ``models/gpt.py``            <- ``paddle_tpu/models/gpt.py``
+- ``inference/sampler.py``     <- ``paddle_tpu/inference/sampler.py``
+- ``inference/scheduler.py``   <- ``paddle_tpu/inference/scheduler.py``
+- ``inference/serving.py``     <- ``paddle_tpu/inference/serving.py``
+- ``kernels/paged_attention.py`` (+ ``kernels/csrc/paged_attention.cu``)
+  <- ``paddle_tpu/kernels/paged_attention_pallas.py``
+
+The slice ported so far is GPT-2 generation through the paged serving
+engine. Entry points run on CUDA unless the caller passes
+``device="cpu"`` (see ``device.py``).
+"""
+from . import device  # noqa: F401  (pins the TF32 switches off)
+from .device import resolve_device  # noqa: F401
+
+__all__ = ["resolve_device"]

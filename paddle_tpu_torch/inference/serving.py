@@ -1,0 +1,1027 @@
+"""Paged KV-cache continuous-batching serving engine — port of
+``paddle_tpu/inference/serving.py``.
+
+- :class:`PagedKVCache` — per-layer page pools ``[num_pages, page_size,
+  NH, HD]`` (K and V) plus the host-side allocator: trash page 0, a
+  LIFO free list, refcounts, and the content-addressed prefix cache
+  (chained blake2b page digests, LRU of cache-only pages), checked by
+  ``verify()``.
+- :func:`_build_serving_fns` — the serving programs: one chunked
+  prefill chunk, one decode step over every slot, a fused block of
+  ``K`` decode steps whose EOS and budget masks stay on the device, the
+  copy-on-write page copy and the first-token sample.
+- :class:`ServingEngine` — the continuous-batching loop: admission with
+  prefix-cache planning and a bounded lookahead, decode-priority
+  chunked prefill, and the adaptive decode-block policy, ported verbatim
+  so that the port dispatches the same sequence of programs as the
+  reference engine on the same traffic.
+
+Every attention — the decode step, each step of a fused block, and each
+prefill chunk (one slot with ``q_len = C`` and ``kv_len = base + C``,
+the row the reference's mixed-step dispatch hands its ragged kernel) —
+goes through ``kernels.paged_attention``: on a CUDA device that is the
+hand-written kernel. ``attention="torch"`` selects the plain PyTorch
+version instead; it exists to hold the kernel against it and nothing on
+the main path selects it.
+
+The pools are updated in place (``index_put_``/``copy_``) where the
+reference donated them to its jitted programs (``serving.py:1254``).
+Sampling uses one ``torch.Generator`` per sampled slot, seeded with the
+request's seed, one Gumbel draw of ``[V]`` per emitted token: a
+request's draws do not depend on when it was admitted or who shares its
+batch. The draws are not the reference's threefry bits, so sampled
+streams differ from the reference's; greedy streams are identical.
+
+Not ported in this slice (the constructor raises NotImplementedError):
+meshes, speculative decoding, the mixed-step executable, int8/fp8 KV
+pools, int8 weights, fault injection, the journal, tracing and the
+watchdog. Priorities, deadlines, cancellation and preemption are not
+ported either: every request has priority 0, so the reference engine
+could not preempt on the same traffic.
+"""
+from __future__ import annotations
+
+import hashlib
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.paged_attention import (paged_decode_attention,
+                                       ragged_paged_attention,
+                                       ragged_paged_attention_ref)
+from ..models.gpt import init_params, make_layer_core, tree_map
+from . import sampler as _sampler
+from .scheduler import SHED_POLICIES, QueueFullError, RequestQueue
+
+__all__ = ["PagedKVCache", "ServingEngine", "Request", "Completion",
+           "QueueFullError"]
+
+
+def _page_digests(tokens, page_size):
+    """Chained content digests for every FULL page of ``tokens``:
+    digest[i] covers the whole prefix through page i (blake2b over the
+    previous digest + the page's raw int32 bytes), so a table hit on
+    digest[i] certifies the entire prefix, not just one page."""
+    arr = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    out, h = [], b"\x00" * 16
+    for i in range(arr.size // page_size):
+        h = hashlib.blake2b(
+            h + arr[i * page_size:(i + 1) * page_size].tobytes(),
+            digest_size=16).digest()
+        out.append(h)
+    return tuple(out)
+
+
+@dataclass
+class Request:
+    """One generation request in the stream."""
+    uid: int
+    prompt: np.ndarray          # [L] int32 token ids
+    max_new_tokens: int
+    temperature: float = 0.0    # 0 = greedy
+    eos_id: int = -1            # -1 = never stop on a token
+    seed: int = 0
+    t_arrival: float = 0.0      # perf_counter at add_request (TTFT base)
+    digests: tuple = ()         # chained per-full-page prompt digests
+    priority: int = 0           # queue order; always 0 in this slice
+    seq: int = 0                # arrival order
+
+
+@dataclass
+class Completion:
+    uid: int
+    tokens: list                # generated ids (excludes the prompt)
+    finish_reason: str          # "eos" | "length" | "shed"
+    ttft_s: object = None       # time to first token (None: never got one)
+
+
+@dataclass
+class _SlotState:
+    uid: int
+    prompt_len: int
+    max_new: int
+    eos_id: int
+    pages: list                 # bt-order pages (shared + own), all ref-held
+    out: list = field(default_factory=list)
+    # deferred-prefill state: pf_base < pf_end => still prefilling; the
+    # slot activates (samples its first token) after the last chunk
+    temperature: float = 0.0
+    seed: int = 0
+    t_arrival: float = 0.0
+    toks: object = None         # [pf_end] padded prompt (np.int32)
+    pf_base: int = 0            # next chunk start
+    pf_end: int = 0             # padded prefill extent (exclusive)
+    bt_dev: object = None       # device copy of the slot's bt row (int32)
+    logits: object = None       # last-chunk logits (first-token sample)
+    cow_src: int = -1           # page to clone before the first chunk
+    cow_dst: int = -1
+    ttft_s: object = None
+
+
+class PagedKVCache:
+    """Paged K/V pools + host-side page allocator with an optional
+    content-addressed prefix cache (reference ``serving.py:453``).
+
+    Pools are ``[num_pages, page_size, NH, HD]`` per layer (K and V).
+    Page 0 is the trash page: decode writes for inactive slots land
+    there, keeping the decode step branch-free. The free list is LIFO.
+    With ``prefix_cache=True`` every live page carries a refcount and
+    may be registered under a chained content digest; a registered page
+    whose refcount hits zero becomes a cache-only resident (LRU) that
+    ``alloc`` evicts when the free list alone cannot cover a request.
+    A page is always exactly one of free, cache-only or in use, which
+    ``verify()`` checks.
+
+    ``kv_dtype``: ``None`` stores ``dtype``, ``"bf16"`` stores
+    bfloat16. The quantized pools (``"int8"``/``"fp8"``) are not ported
+    yet."""
+
+    def __init__(self, num_layers, num_pages, page_size, num_heads,
+                 head_dim, dtype, prefix_cache=False, kv_dtype=None,
+                 device=None):
+        if num_pages < 2:
+            raise ValueError("need >= 2 pages (page 0 is the trash page)")
+        if kv_dtype in ("int8", "fp8"):
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r}: quantized KV pools are not "
+                "ported to paddle_tpu_torch yet")
+        if kv_dtype not in (None, "bf16"):
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
+                             "(None or 'bf16')")
+        dev = resolve_device(device)
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.prefix_cache = bool(prefix_cache)
+        store = torch.bfloat16 if kv_dtype == "bf16" else dtype
+        shape = (num_pages, page_size, num_heads, head_dim)
+        self.k = [torch.zeros(shape, dtype=store, device=dev)
+                  for _ in range(num_layers)]
+        self.v = [torch.zeros(shape, dtype=store, device=dev)
+                  for _ in range(num_layers)]
+        self._free = list(range(num_pages - 1, 0, -1))
+        self._ref = {}             # page -> refcount (in-use pages)
+        self._hash_to_page = {}    # digest -> page
+        self._page_hash = {}       # page -> digest (registered pages)
+        self._lru = OrderedDict()  # cache-only pages, oldest first
+        self.evictions = 0
+
+    # -- accounting ----------------------------------------------------------
+    @property
+    def num_free(self):
+        return len(self._free)
+
+    @property
+    def num_cached(self):
+        """Cache-only pages (content registered, no live reference)."""
+        return len(self._lru)
+
+    @property
+    def num_available(self):
+        """Pages an alloc() could hand out right now: the free list
+        plus every cache-only page (evictable on demand)."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def num_in_use(self):
+        return len(self._ref)
+
+    @property
+    def num_shared(self):
+        """In-use pages referenced by more than one sequence."""
+        return sum(1 for r in self._ref.values() if r > 1)
+
+    # -- allocation ----------------------------------------------------------
+    def alloc(self, n):
+        """Pop ``n`` pages off the free list (evicting cache-only pages
+        LRU-first to refill it), or None if unavailable. Every handed-
+        out page starts with refcount 1."""
+        if n > self.num_available:
+            return None
+        if n <= 0:  # [-0:] would hand out the WHOLE free list
+            return []
+        while len(self._free) < n:
+            self._evict_one()
+        pages, self._free = self._free[-n:][::-1], self._free[:-n]
+        for p in pages:
+            self._ref[p] = 1
+        return pages
+
+    def _evict_one(self):
+        page, _ = self._lru.popitem(last=False)
+        del self._hash_to_page[self._page_hash.pop(page)]
+        self._free.append(page)
+        self.evictions += 1
+
+    def release(self, pages):
+        """Decref each page; refcount 0 sends a registered page to the
+        cache-only LRU (content kept) and an unregistered one back to
+        the free list (LIFO). Raises on a page that is not in use — the
+        double-free guard."""
+        freed = []
+        for p in pages:
+            r = self._ref.get(p)
+            if r is None:
+                raise RuntimeError(
+                    f"double free: page {p} is not in use")
+            if r > 1:
+                self._ref[p] = r - 1
+                continue
+            del self._ref[p]
+            if self.prefix_cache and p in self._page_hash:
+                self._lru[p] = None          # newest at the MRU end
+            else:
+                freed.append(p)
+        self._free.extend(reversed(freed))
+
+    def share(self, page):
+        """Take a reference on an in-use or cache-only page (a prefix-
+        cache hit): cache-only pages leave the LRU with their K/V
+        intact."""
+        if page in self._ref:
+            self._ref[page] += 1
+            return
+        if page not in self._lru:
+            raise RuntimeError(
+                f"share: page {page} is neither in use nor cached")
+        del self._lru[page]
+        self._ref[page] = 1
+
+    # -- the content-addressed table -----------------------------------------
+    def lookup(self, digest):
+        """The page registered under ``digest``, or None."""
+        return self._hash_to_page.get(digest)
+
+    def register(self, digest, page):
+        """Map ``digest`` to an in-use ``page`` (idempotent: an existing
+        entry for the digest, or a page already registered under
+        another digest, wins). Returns True if the mapping was
+        recorded."""
+        if (not self.prefix_cache or digest in self._hash_to_page
+                or page in self._page_hash):
+            return False
+        self._hash_to_page[digest] = page
+        self._page_hash[page] = digest
+        return True
+
+    def verify(self):
+        """Page-accounting invariant: {free} ∪ {cache-only} ∪ {in-use}
+        partitions the usable pool (page 0 excluded), refcounts are
+        positive, and the digest table is a bijection onto registered
+        pages with every cache-only page registered. Raises
+        RuntimeError on any violation; returns True."""
+        free, cached = set(self._free), set(self._lru)
+        used = set(self._ref)
+        problems = []
+        if len(free) != len(self._free):
+            problems.append("duplicate page in free list")
+        for name, both in (("free and cached", free & cached),
+                           ("free and in use", free & used),
+                           ("cached and in use", cached & used)):
+            if both:
+                problems.append(f"pages both {name}: {sorted(both)}")
+        if free | cached | used != set(range(1, self.num_pages)):
+            problems.append("free+cached+in-use do not partition the pool")
+        if not all(r > 0 for r in self._ref.values()):
+            problems.append("non-positive refcount")
+        if set(self._page_hash) != set(self._hash_to_page.values()) or \
+                len(self._page_hash) != len(self._hash_to_page):
+            problems.append("digest table is not a bijection")
+        if not cached <= set(self._page_hash):
+            problems.append("cache-only page without a registered digest")
+        if problems:
+            raise RuntimeError("page accounting broken: "
+                               + "; ".join(problems))
+        return True
+
+
+def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
+                       prefill_chunk, attention, device):
+    """The serving programs over a model's layer ``core``
+    (``models.gpt.make_layer_core``), as plain functions of (params,
+    pools, state tensors) — the port of the reference's
+    ``_build_serving_fns`` (``serving.py:690``). Weights are call
+    arguments. The pools are written in place (the reference donated
+    them); nothing else is mutated."""
+    NH, HD, H, scale = core.NH, core.HD, core.H, core.scale
+    S, PS, MP, C = num_slots, page_size, pages_per_slot, prefill_chunk
+    T = MP * PS  # per-slot attention extent
+    dev = device
+    rows = torch.arange(S, device=dev)
+    chunk_pos = torch.arange(C, device=dev)
+    chunk_qlen = torch.full((1,), C, dtype=torch.int32, device=dev)
+
+    if attention == "torch":
+        def decode_attn(q, kp, vp, bt, n_valid):
+            return ragged_paged_attention_ref(
+                q[:, None], kp, vp, bt, n_valid, torch.ones_like(n_valid),
+                scale)[:, 0]
+        ragged = ragged_paged_attention_ref
+    else:
+        def decode_attn(q, kp, vp, bt, n_valid):
+            return paged_decode_attention(q, kp, vp, bt, n_valid,
+                                          scale=scale)
+        ragged = ragged_paged_attention
+
+    def step_core(params, kpools, vpools, bt, lengths, tokens, active,
+                  temps, noise):
+        """One token for every slot (reference ``step_core``,
+        ``serving.py:875``). ``lengths[s]`` counts the tokens of slot s
+        INCLUDING ``tokens[s]`` (whose K/V is not yet written): the step
+        writes K/V at ``t = lengths - 1``, attends positions
+        ``< lengths``, and samples the next token. ``bt`` [S, MP] int32;
+        ``lengths`` [S] int64; ``tokens`` [S] int64; ``active`` [S]
+        bool; ``temps`` [S] f32; ``noise`` [S, V] Gumbel noise or None
+        (all-greedy). Returns (next tokens [S] int64, f32 logits)."""
+        wte, wpe = params["wte"], params["wpe"]
+        # the clamps of serving.py:888/:892: torch raises on an
+        # out-of-range index where JAX clamps
+        t = (lengths - 1).clamp(0, T - 1)
+        page = torch.where(active, bt[rows, t // PS].long(), 0)
+        off = torch.where(active, t % PS, 0)
+        x = wte[tokens] + wpe[t.clamp(max=wpe.shape[0] - 1)]
+        n_valid = torch.where(active, lengths.clamp(max=T), 0).to(
+            torch.int32)
+        for li, lay in enumerate(params["layers"]):
+            h = core.ln(x, *lay["ln1"])
+            q, k, v = core.qkv_proj(lay, h)               # [S, NH, HD]
+            kp, vp = kpools[li], vpools[li]
+            # in place where the reference donated the pools; inactive
+            # slots all write the trash page (duplicates are harmless)
+            kp[page, off] = k.to(kp.dtype)
+            vp[page, off] = v.to(vp.dtype)
+            o = decode_attn(q.contiguous(), kp, vp, bt, n_valid)
+            x = core.attn_out(lay, x, o.reshape(S, H))
+            x = core.mlp_tail(lay, x)
+        logits = core.ln(x, *params["lnf"]) @ wte.T       # [S, V]
+        lg32 = logits.float()
+        return _sampler.sample_token(lg32, temps, noise), lg32
+
+    def decode_block(K, params, kpools, vpools, bt, lengths, tokens,
+                     active, temps, eos_ids, remaining, noise=None,
+                     collect_logits=False):
+        """``K`` decode steps with the per-slot scheduler state on the
+        device (reference ``decode_block``, ``serving.py:943``, a
+        ``lax.scan`` there, a loop here): a slot that samples its EOS id
+        or exhausts ``remaining`` stops emitting and its later writes
+        fall to the trash page. No host synchronisation inside the
+        block. ``noise`` is ``[K, S, V]`` or None. Returns the ``(K, S)``
+        token block, the ``(K, S)`` emit mask, and the per-step f32
+        logits when ``collect_logits``."""
+        toks, emits, lgs = [], [], []
+        for i in range(K):
+            nxt, lg32 = step_core(params, kpools, vpools, bt, lengths,
+                                  tokens, active, temps,
+                                  None if noise is None else noise[i])
+            emit = active
+            hit_eos = emit & (nxt == eos_ids)
+            remaining = remaining - emit.to(remaining.dtype)
+            active = emit & ~hit_eos & (remaining > 0)
+            lengths = torch.where(emit, lengths + 1, lengths)
+            tokens = torch.where(emit, nxt, tokens)
+            toks.append(nxt)
+            emits.append(emit)
+            if collect_logits:
+                lgs.append(lg32)
+        return torch.stack(toks), torch.stack(emits), lgs
+
+    def prefill_chunk_fn(params, kpools, vpools, bt_row, base, tok_chunk,
+                         last_idx):
+        """One fixed-width prompt chunk for ONE slot (reference
+        ``prefill_chunk_fn``, ``serving.py:996``): writes K/V for
+        positions ``base .. base+C-1`` (padding rows land past the
+        prompt and are overwritten by decode before they are attended)
+        and returns the logits at chunk-local position ``last_idx``.
+        Attention is the ragged kernel's ``q_len = C`` row with
+        ``kv_len = base + C``: row j attends positions ``<= base + j``,
+        the causal limit of the reference's gather."""
+        wte, wpe = params["wte"], params["wpe"]
+        pos = base + chunk_pos
+        x = wte[tok_chunk] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
+        page = bt_row[(pos // PS).clamp(max=MP - 1)].long()
+        off = pos % PS
+        kv_len = torch.full((1,), base + C, dtype=torch.int32, device=dev)
+        bt1 = bt_row[None]
+        for li, lay in enumerate(params["layers"]):
+            h = core.ln(x, *lay["ln1"])
+            q, k, v = core.qkv_proj(lay, h)               # [C, NH, HD]
+            kp, vp = kpools[li], vpools[li]
+            kp[page, off] = k.to(kp.dtype)
+            vp[page, off] = v.to(vp.dtype)
+            o = ragged(q.contiguous()[None], kp, vp, bt1, kv_len,
+                       chunk_qlen, scale=scale)[0]
+            x = core.attn_out(lay, x, o.reshape(C, H))
+            x = core.mlp_tail(lay, x)
+        return core.ln(x[last_idx], *params["lnf"]) @ wte.T
+
+    def copy_page_fn(kpools, vpools, src, dst):
+        """Copy-on-write helper: clone page ``src`` into ``dst`` in
+        every layer's K/V pool."""
+        for pool in list(kpools) + list(vpools):
+            pool[dst].copy_(pool[src])
+
+    def sample_first(logits, temp, generator):
+        """The first generated token from the prefill logits; a sampled
+        slot's first draw from its generator."""
+        lg = logits.float()
+        noise = None
+        if temp > 0:
+            noise = _sampler.gumbel_noise(lg.shape, generator, lg.device)
+        return int(_sampler.sample_token(lg, float(temp), noise))
+
+    return SimpleNamespace(prefill=prefill_chunk_fn, decode_step=step_core,
+                           decode_block=decode_block, copy_page=copy_page_fn,
+                           sample_first=sample_first)
+
+
+class ServingEngine:
+    """Continuous-batching paged-KV serving engine for GPT-2 (port of
+    the reference ``ServingEngine``, ``serving.py:1263``).
+
+    >>> eng = ServingEngine(gpt2_small(), device="cuda")
+    >>> eng.add_request([1, 2, 3], max_new_tokens=16)
+    >>> done = eng.run()          # {uid: Completion}
+
+    ``cfg`` is a :class:`~paddle_tpu_torch.models.gpt.GPTConfig`;
+    ``params`` the port's parameter dict (``init_params`` /
+    ``params_from_numpy``), ``init_params(cfg, seed=0)`` when omitted.
+    Runs on CUDA unless ``device="cpu"``.
+
+    Levers ported: ``num_slots``, ``page_size``, ``num_pages``,
+    ``max_seq_len``, ``prefill_chunk``, ``prefix_cache``,
+    ``prefill_chunks_per_step``, ``admit_lookahead``,
+    ``decode_block``/``decode_block_buckets``, ``max_queue``/
+    ``shed_policy``, ``kv_dtype`` (None or "bf16"), ``weight_dtype``
+    (None or "bf16"). ``attention="auto"`` runs the ragged kernel (the
+    plain version for CPU tensors); ``"torch"`` the plain version.
+    ``record_logits=True`` keeps every emitted token's f32 logits in
+    ``logit_log[uid]`` (on the host), for parity checks."""
+
+    def __init__(self, cfg, params=None, *, device=None, num_slots=4,
+                 page_size=16, num_pages=None, max_seq_len=None,
+                 prefill_chunk=32, attention="auto", prefix_cache=True,
+                 prefill_chunks_per_step=None, admit_lookahead=4,
+                 decode_block="adaptive",
+                 decode_block_buckets=(1, 4, 8, 16), max_queue=None,
+                 shed_policy="reject", kv_dtype=None, weight_dtype=None,
+                 record_logits=False, mesh=None, speculative=None,
+                 mixed_step=False, fault_injector=None, journal=None,
+                 tracer=None, watchdog=None):
+        for name, val in (("mesh", mesh), ("speculative", speculative),
+                          ("mixed_step", mixed_step),
+                          ("fault_injector", fault_injector),
+                          ("journal", journal), ("tracer", tracer),
+                          ("watchdog", watchdog)):
+            if val is not None and val is not False:
+                raise NotImplementedError(
+                    f"{name}= is not ported to paddle_tpu_torch yet")
+        if weight_dtype == "int8":
+            raise NotImplementedError(
+                "weight_dtype='int8' is not ported to paddle_tpu_torch yet")
+        if weight_dtype not in (None, "bf16"):
+            raise ValueError(f"unknown weight_dtype {weight_dtype!r} "
+                             "(None or 'bf16')")
+        if attention not in ("auto", "torch"):
+            raise ValueError(f"unknown attention impl {attention!r} "
+                             "('auto' or 'torch')")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        maxpos = cfg.max_position_embeddings
+        max_seq_len = int(max_seq_len or maxpos)
+        if max_seq_len > maxpos:
+            raise ValueError(
+                f"max_seq_len({max_seq_len}) exceeds the position table "
+                f"({maxpos})")
+        if max_seq_len % page_size or max_seq_len % prefill_chunk:
+            raise ValueError(
+                f"max_seq_len({max_seq_len}) must be a multiple of "
+                f"page_size({page_size}) and prefill_chunk"
+                f"({prefill_chunk}) so padded prefill chunks stay inside "
+                "the slot's pages")
+        if prefill_chunks_per_step is None:
+            prefill_chunks_per_step = 1
+        if int(prefill_chunks_per_step) < 1:
+            raise ValueError("prefill_chunks_per_step must be >= 1")
+        if int(admit_lookahead) < 1:
+            raise ValueError("admit_lookahead must be >= 1")
+        if decode_block == "adaptive":
+            buckets = tuple(sorted({1, *(int(b) for b in
+                                         decode_block_buckets)}))
+            if any(b < 1 for b in buckets):
+                raise ValueError("decode_block_buckets must be >= 1")
+        else:
+            decode_block = int(decode_block)
+            if decode_block < 1:
+                raise ValueError("decode_block must be >= 1 or "
+                                 "'adaptive'")
+            buckets = tuple(sorted({1, decode_block}))
+        if shed_policy not in SHED_POLICIES:
+            raise ValueError(f"unknown shed policy {shed_policy!r} "
+                             f"(one of {SHED_POLICIES})")
+        if max_queue is not None and int(max_queue) < 1:
+            raise ValueError("max_queue must be >= 1 (or None)")
+        self.decode_block = decode_block
+        self.decode_block_buckets = buckets
+        self._k_ramp = 0
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.shed_policy = shed_policy
+        self.num_slots = int(num_slots)
+        self.page_size = int(page_size)
+        self.max_seq_len = max_seq_len
+        self.prefill_chunk = int(prefill_chunk)
+        self.prefill_chunks_per_step = int(prefill_chunks_per_step)
+        self.admit_lookahead = int(admit_lookahead)
+        self.pages_per_slot = max_seq_len // page_size
+        if num_pages is None:
+            # full occupancy never blocks on pages, +1 for the trash page
+            num_pages = self.num_slots * self.pages_per_slot + 1
+        self.attention = attention
+        self.weight_dtype = weight_dtype
+        self.kv_dtype = kv_dtype
+        if params is None:
+            params = init_params(cfg, seed=0, device=self.device)
+        # the pools store the raw params' dtype unless kv_dtype says
+        # otherwise (the reference reads it before any weight cast)
+        raw_dtype = params["wte"].dtype
+        cast = torch.bfloat16 if weight_dtype == "bf16" else raw_dtype
+        self.params = tree_map(
+            lambda t: t.to(device=self.device, dtype=cast), params)
+        core = make_layer_core(cfg)
+        self.kv = PagedKVCache(
+            cfg.num_layers, num_pages, page_size, cfg.num_heads,
+            cfg.hidden_size // cfg.num_heads, raw_dtype,
+            prefix_cache=prefix_cache, kv_dtype=kv_dtype,
+            device=self.device)
+        self._fns = _build_serving_fns(
+            core, num_slots=self.num_slots, page_size=self.page_size,
+            pages_per_slot=self.pages_per_slot,
+            prefill_chunk=self.prefill_chunk, attention=attention,
+            device=self.device)
+        self.record_logits = bool(record_logits)
+        self.logit_log = {}
+
+        S, MP = self.num_slots, self.pages_per_slot
+        self._bt = np.zeros((S, MP), np.int32)
+        self._lengths = np.zeros(S, np.int64)
+        self._tokens = np.zeros(S, np.int64)
+        self._active = np.zeros(S, bool)
+        self._temps = np.zeros(S, np.float32)
+        self._eos = np.full(S, -1, np.int64)
+        self._remaining = np.zeros(S, np.int64)
+        self._gens = [None] * S     # per-slot torch.Generator (sampled)
+        self._slots = {}
+        self._free_slots = list(range(S - 1, -1, -1))
+        self._prefilling = deque()  # slots with pending chunks, FIFO
+        self._pending = RequestQueue()
+        self._next_uid = 0
+        self._next_seq = 0
+        self._finished_now = []
+        self._early_done = []       # completions minted outside a step
+        self.stats = {"steps": 0, "prefill_chunks": 0,
+                      "tokens_emitted": 0, "admitted": 0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "cached_tokens": 0, "cow_copies": 0,
+                      "admission_skips": 0, "decode_blocks": 0,
+                      "decode_block_k": 0, "fused_blocks": 0,
+                      "sheds": 0,
+                      # model-forward dispatches: prefill chunks, decode
+                      # steps and fused blocks (as in the reference)
+                      "dispatches": 0,
+                      # decode forward passes: a fused block of K
+                      # counts K (port-only: the kernel-launch check)
+                      "decode_steps": 0}
+
+    # -- request intake ------------------------------------------------------
+    def _positions_needed(self, prompt_len, max_new):
+        """KV positions a request occupies: the larger of its total
+        sequence and its chunk-padded prefill extent."""
+        C = self.prefill_chunk
+        return max(prompt_len + max_new, -(-prompt_len // C) * C)
+
+    def add_request(self, prompt, max_new_tokens, temperature=0.0,
+                    eos_id=None, seed=0):
+        """Enqueue a request; returns its uid. At the ``max_queue``
+        bound the shed policy runs (``reject`` raises
+        :class:`QueueFullError`)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if int(max_new_tokens) < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        need = self._positions_needed(prompt.size, int(max_new_tokens))
+        if need > self.max_seq_len:
+            raise ValueError(
+                f"prompt({prompt.size}) + max_new({max_new_tokens}) "
+                f"(prefill-padded to {need} positions) exceeds the "
+                f"engine's max_seq_len({self.max_seq_len})")
+        pages = -(-need // self.page_size)
+        if pages > self.kv.num_pages - 1:  # page 0 is the trash page
+            raise ValueError(
+                f"request needs {pages} pages but the pool only has "
+                f"{self.kv.num_pages - 1} — it could never be admitted")
+        if self.max_queue is not None and \
+                len(self._pending) >= self.max_queue:
+            self._shed_for(0)  # raises unless a victim was shed
+        uid = self._next_uid
+        self._next_uid += 1
+        digests = _page_digests(prompt, self.page_size) \
+            if self.kv.prefix_cache else ()
+        seq = self._next_seq
+        self._next_seq += 1
+        self._pending.push(Request(
+            uid=uid, prompt=prompt, max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature),
+            eos_id=-1 if eos_id is None else int(eos_id),
+            seed=int(seed), t_arrival=time.perf_counter(),
+            digests=digests, seq=seq))
+        return uid
+
+    def _shed_for(self, incoming_priority):
+        victim = self._pending.pick_shed_victim(incoming_priority,
+                                                self.shed_policy)
+        self.stats["sheds"] += 1
+        if victim is None:
+            raise QueueFullError(
+                f"queue full (depth {len(self._pending)} >= max_queue "
+                f"{self.max_queue}, policy {self.shed_policy!r})",
+                depth=len(self._pending), policy=self.shed_policy)
+        self._pending.remove(victim)
+        self._early_done.append(Completion(victim.uid, [], "shed"))
+
+    # -- admission -----------------------------------------------------------
+    def _cached_prefix(self, digests, P):
+        """The longest usable cached prefix for a ``P``-token prompt,
+        capped so the chunk-padded uncached tail stays inside the
+        position space. Returns (k pages, cow, base0 — the first token
+        the tail prefill must compute)."""
+        kv, PS, C = self.kv, self.page_size, self.prefill_chunk
+        k = 0
+        while k < len(digests) and kv.lookup(digests[k]) is not None:
+            k += 1
+        cow = False
+        while k > 0:
+            cow = k * PS == P
+            base0 = P - 1 if cow else k * PS
+            if base0 + -(-(P - base0) // C) * C <= self.max_seq_len:
+                return k, cow, base0
+            k -= 1
+        return 0, False, 0
+
+    def _plan_admission(self, req):
+        """Reserve the pages for ``req``: pin the longest cached prefix
+        and allocate the rest. Returns the plan dict, or None — with
+        every pin undone — when the pool cannot cover the request."""
+        kv = self.kv
+        P = req.prompt.size
+        PS = self.page_size
+        digests = req.digests
+        k, cow, base0 = self._cached_prefix(digests, P)
+        rows_total = -(-self._positions_needed(P, req.max_new_tokens)
+                       // PS)
+        shared_n = (k - 1) if cow else k
+        shared = [kv.lookup(digests[i]) for i in range(shared_n)]
+        pins = list(shared)
+        cow_src = -1
+        if cow:
+            cow_src = kv.lookup(digests[k - 1])
+            pins.append(cow_src)
+        # pin BEFORE alloc: eviction must never reap a page this very
+        # admission is about to map
+        for p in pins:
+            kv.share(p)
+        own = kv.alloc(rows_total - shared_n)
+        if own is None:
+            kv.release(pins)
+            return None
+        return {"pages": shared + own, "shared": shared_n,
+                "base0": base0, "cow_src": cow_src,
+                "cow_dst": own[0] if cow else -1,
+                "hits": k, "misses": len(digests) - k}
+
+    def _try_admit(self):
+        """Admit queued requests into free slots, FIFO with the bounded
+        lookahead: when the head cannot get pages, up to
+        ``admit_lookahead`` requests are scanned and the first that fits
+        is admitted out of order (skips counted)."""
+        while self._pending and self._free_slots:
+            admitted = False
+            for i in range(min(len(self._pending), self.admit_lookahead)):
+                req = self._pending[i]
+                plan = self._plan_admission(req)
+                if plan is None:
+                    continue
+                self._pending.pop(i)
+                self.stats["admission_skips"] += i
+                self._admit(req, self._free_slots.pop(), plan)
+                admitted = True
+                break
+            if not admitted:
+                break
+
+    def _admit(self, req, slot, plan):
+        """Map the plan's pages into the slot's block table, register
+        the digests this request's prefill will populate, and queue the
+        prompt's chunks as deferred work."""
+        P = req.prompt.size
+        C = self.prefill_chunk
+        pages, base0 = plan["pages"], plan["base0"]
+        pf_end = base0 + -(-(P - base0) // C) * C
+        bt_row = np.zeros(self.pages_per_slot, np.int32)
+        bt_row[:len(pages)] = pages
+        self._bt[slot] = bt_row
+        # register at ADMISSION: strict-FIFO chunk draining means any
+        # later admission that maps these pages cannot read them before
+        # they are written
+        for i in range(plan["hits"], len(req.digests)):
+            self.kv.register(req.digests[i], pages[i])
+        toks = np.zeros(pf_end, np.int64)
+        toks[:P] = req.prompt
+        self._slots[slot] = _SlotState(
+            uid=req.uid, prompt_len=P, max_new=req.max_new_tokens,
+            eos_id=req.eos_id, pages=pages, temperature=req.temperature,
+            seed=req.seed, t_arrival=req.t_arrival, toks=toks,
+            pf_base=base0, pf_end=pf_end,
+            bt_dev=torch.tensor(bt_row, device=self.device),
+            cow_src=plan["cow_src"], cow_dst=plan["cow_dst"])
+        self._prefilling.append(slot)
+        self.stats["admitted"] += 1
+        self.stats["prefix_hits"] += plan["hits"]
+        self.stats["prefix_misses"] += plan["misses"]
+        self.stats["cached_tokens"] += base0
+
+    # -- prefill -------------------------------------------------------------
+    def _run_cow_copy(self, st):
+        """Clone the shared last page into the slot's private page
+        before its tail chunk recomputes the final token."""
+        self._fns.copy_page(self.kv.k, self.kv.v, st.cow_src, st.cow_dst)
+        self.kv.release([st.cow_src])
+        st.cow_src = -1
+        self.stats["cow_copies"] += 1
+
+    def _run_one_chunk(self, st):
+        base, C, P = st.pf_base, self.prefill_chunk, st.prompt_len
+        last = P - 1 - base if base <= P - 1 < base + C else 0
+        tok_chunk = torch.tensor(st.toks[base:base + C], device=self.device)
+        st.logits = self._fns.prefill(self.params, self.kv.k, self.kv.v,
+                                      st.bt_dev, base, tok_chunk, last)
+        st.pf_base = base + C
+        self.stats["prefill_chunks"] += 1
+        self.stats["dispatches"] += 1
+
+    def _run_prefill_chunks(self):
+        """Run at most ``prefill_chunks_per_step`` chunks, strictly FIFO
+        by admission order; a slot whose last chunk lands is
+        activated."""
+        budget = self.prefill_chunks_per_step
+        ran = 0
+        while budget > 0 and self._prefilling:
+            slot = self._prefilling[0]
+            st = self._slots[slot]
+            if st.cow_src >= 0:
+                self._run_cow_copy(st)
+            self._run_one_chunk(st)
+            ran += 1
+            budget -= 1
+            if st.pf_base >= st.pf_end:
+                self._prefilling.popleft()
+                self._activate(slot, st)
+        return ran
+
+    def _activate(self, slot, st):
+        """Prefill complete: sample the first token and make the slot
+        live for the next decode step. A sampled slot's generator is
+        seeded here with the request's seed."""
+        gen = None
+        if st.temperature > 0:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(st.seed)
+        tok = self._fns.sample_first(st.logits, st.temperature, gen)
+        if self.record_logits:
+            self.logit_log.setdefault(st.uid, []).append(
+                st.logits.float().cpu())
+        st.logits = None
+        st.ttft_s = time.perf_counter() - st.t_arrival
+        st.out = [tok]
+        self._gens[slot] = gen
+        self._lengths[slot] = st.prompt_len + 1
+        self._tokens[slot] = tok
+        self._temps[slot] = st.temperature
+        self._active[slot] = True
+        self._eos[slot] = st.eos_id
+        self._remaining[slot] = st.max_new - len(st.out)
+        self.stats["tokens_emitted"] += 1
+        if tok == st.eos_id:
+            self._finish(slot, "eos")
+        elif len(st.out) >= st.max_new:
+            self._finish(slot, "length")
+
+    # -- decode --------------------------------------------------------------
+    def _choose_block_k(self):
+        """The decode block size for this dispatch (reference
+        ``serving.py:3160``). Any pending admission or prefill work
+        forces K=1. Under steady pure-decode load the adaptive policy
+        runs one confirming per-token step, then jumps to the largest
+        bucket, clamped to the smallest bucket covering the largest
+        remaining budget; it fuses nothing when the runway is shorter
+        than ``2 * buckets[1]``. A fixed ``decode_block=K`` goes
+        straight to its bucket."""
+        if self._pending or self._prefilling:
+            self._k_ramp = 0
+            return 1
+        buckets = self.decode_block_buckets
+        max_rem = int(self._remaining[self._active].max())
+        if self.decode_block == "adaptive":
+            if len(buckets) == 1 or max_rem < 2 * buckets[1]:
+                self._k_ramp = 0
+                return 1
+            if self._k_ramp == 0:
+                self._k_ramp = 1
+                return 1
+            k = buckets[-1]
+        else:
+            k = self.decode_block
+        if k > max_rem:
+            k = min(b for b in buckets if b >= max_rem)
+        return k
+
+    def _device_state(self, with_budget=False):
+        """Upload the host scheduler mirrors for one dispatch."""
+        dev = self.device
+        d = {"bt": torch.tensor(self._bt, device=dev),
+             "lengths": torch.tensor(self._lengths, device=dev),
+             "tokens": torch.tensor(self._tokens, device=dev),
+             "active": torch.tensor(self._active, device=dev),
+             "temps": torch.tensor(self._temps, device=dev)}
+        if with_budget:
+            d["eos"] = torch.tensor(self._eos, device=dev)
+            d["remaining"] = torch.tensor(self._remaining, device=dev)
+        return d
+
+    def _noise(self, k):
+        """``[k, S, V]`` Gumbel noise for the active sampled slots (zero
+        rows elsewhere), or None when every active slot is greedy. Each
+        token draws its own ``[V]`` from its slot's generator, so a
+        request's draws do not depend on how steps group into blocks."""
+        sampled = [s for s in np.nonzero(self._active)[0]
+                   if self._temps[s] > 0]
+        if not sampled:
+            return None
+        V = self.cfg.vocab_size
+        noise = torch.zeros(k, self.num_slots, V, device=self.device)
+        for s in sampled:
+            noise[:, s] = torch.stack([
+                _sampler.gumbel_noise((V,), self._gens[s], self.device)
+                for _ in range(k)])
+        return noise
+
+    def _log_step_logits(self, lg32, emit):
+        """record_logits: keep each emitted token's logits per uid."""
+        for slot in np.nonzero(emit)[0]:
+            self.logit_log.setdefault(self._slots[slot].uid, []).append(
+                lg32[slot].cpu())
+
+    def _run_decode_step(self):
+        """One per-token decode dispatch (K=1)."""
+        d = self._device_state()
+        noise = self._noise(1)
+        nxt, lg32 = self._fns.decode_step(
+            self.params, self.kv.k, self.kv.v, d["bt"], d["lengths"],
+            d["tokens"], d["active"], d["temps"],
+            None if noise is None else noise[0])
+        self.stats["dispatches"] += 1
+        self.stats["decode_steps"] += 1
+        nxt = nxt.cpu().numpy()
+        if self.record_logits:
+            self._log_step_logits(lg32, self._active)
+        emitted = 0
+        finish_plan = []
+        for slot in np.nonzero(self._active)[0]:
+            st = self._slots[slot]
+            tok = int(nxt[slot])
+            st.out.append(tok)
+            self._lengths[slot] += 1
+            self._tokens[slot] = tok
+            self._remaining[slot] -= 1
+            self.stats["tokens_emitted"] += 1
+            emitted += 1
+            if tok == st.eos_id:
+                finish_plan.append((slot, "eos"))
+            elif len(st.out) >= st.max_new:
+                finish_plan.append((slot, "length"))
+        for slot, reason in finish_plan:
+            self._finish(slot, reason)
+        return emitted
+
+    def _run_decode_block(self, k):
+        """One fused K-step decode dispatch, then apply the ``(K,
+        slots)`` token block on the host."""
+        d = self._device_state(with_budget=True)
+        noise = self._noise(k)
+        tok_block, emit_block, lgs = self._fns.decode_block(
+            k, self.params, self.kv.k, self.kv.v, d["bt"], d["lengths"],
+            d["tokens"], d["active"], d["temps"], d["eos"],
+            d["remaining"], noise, collect_logits=self.record_logits)
+        tokb = tok_block.cpu().numpy()          # (K, S) sampled tokens
+        emitb = emit_block.cpu().numpy()        # (K, S) emit mask
+        if self.record_logits:
+            for i, lg32 in enumerate(lgs):
+                self._log_step_logits(lg32, emitb[i])
+        emitted = self._apply_token_block(tokb, emitb, k)
+        self.stats["fused_blocks"] += 1
+        self.stats["dispatches"] += 1
+        self.stats["decode_steps"] += k
+        return emitted
+
+    def _apply_token_block(self, tokb, emitb, k):
+        """Apply a ``(k, slots)`` device token block to the host
+        scheduler: append each slot's emitted tokens, finish
+        EOS/budget-exhausted slots, advance the host mirrors."""
+        plan = []
+        for slot in np.nonzero(self._active)[0]:
+            st = self._slots[slot]
+            toks, reason = [], None
+            for i in range(k):
+                if not emitb[i, slot]:
+                    break
+                tok = int(tokb[i, slot])
+                toks.append(tok)
+                if tok == st.eos_id:
+                    reason = "eos"
+                    break
+                if len(st.out) + len(toks) >= st.max_new:
+                    reason = "length"
+                    break
+            plan.append((slot, st, toks, reason))
+        emitted = 0
+        for slot, st, toks, reason in plan:
+            for tok in toks:
+                st.out.append(tok)
+                self._lengths[slot] += 1
+                self._tokens[slot] = tok
+                self._remaining[slot] -= 1
+            self.stats["tokens_emitted"] += len(toks)
+            emitted += len(toks)
+        for slot, st, toks, reason in plan:
+            if reason is not None:
+                self._finish(slot, reason)
+        return emitted
+
+    def _finish(self, slot, reason):
+        st = self._slots.pop(slot)
+        self.kv.release(st.pages)
+        self._bt[slot] = 0
+        self._lengths[slot] = 0
+        self._active[slot] = False
+        self._eos[slot] = -1
+        self._remaining[slot] = 0
+        self._gens[slot] = None
+        self._free_slots.append(slot)
+        self._finished_now.append(Completion(st.uid, st.out, reason,
+                                             ttft_s=st.ttft_s))
+
+    # -- the engine loop -----------------------------------------------------
+    @torch.no_grad()
+    def step(self):
+        """Admit what fits, run up to ``prefill_chunks_per_step``
+        deferred prefill chunks, run one decode dispatch (a step or a
+        fused block) over every active slot. Returns the Completions
+        finished now."""
+        self._finished_now = []
+        self._try_admit()
+        self._run_prefill_chunks()
+        if self._active.any():
+            k = self._choose_block_k()
+            if k > 1:
+                self._run_decode_block(k)
+            else:
+                self._run_decode_step()
+            self.stats["steps"] += 1
+            self.stats["decode_blocks"] += 1
+            self.stats["decode_block_k"] = k
+        finished = self._early_done + self._finished_now
+        self._early_done = []
+        self._finished_now = finished
+        return finished
+
+    @property
+    def has_work(self):
+        return (bool(self._pending) or bool(self._slots)
+                or bool(self._early_done))
+
+    def run(self, max_steps=None):
+        """Drive step() until the stream drains; returns
+        {uid: Completion}."""
+        done = {}
+        steps = 0
+        while self.has_work:
+            for c in self.step():
+                done[c.uid] = c
+            steps += 1
+            if max_steps is not None and steps > max_steps:
+                raise RuntimeError(
+                    f"serving loop exceeded max_steps={max_steps}")
+        return done

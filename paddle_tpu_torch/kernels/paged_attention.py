@@ -1,0 +1,184 @@
+"""Ragged paged attention — port of
+``paddle_tpu/kernels/paged_attention_pallas.py``.
+
+One function serves every attention shape the serving engine
+dispatches: each sequence slot contributes ``(kv_len, q_len)`` — decode
+is ``q_len = 1``, a chunked-prefill row is ``q_len = C`` — over a paged
+K/V pool addressed through per-slot block tables.
+
+- :func:`ragged_paged_attention_ref` — the plain PyTorch version (the
+  semantics of the Pallas docstring, ``paged_attention_pallas.py:114``).
+- :func:`ragged_paged_attention` — the dispatcher: a CPU tensor goes to
+  the plain version; a CUDA tensor launches the hand-written kernel
+  ``csrc/paged_attention.cu`` (replacing the TPU kernel ``_kernel`` at
+  ``paged_attention_pallas.py:37``) or raises. There is no fallback.
+- :func:`paged_decode_attention` — the ``q_len = 1`` entry
+  (``paged_attention_pallas.py:219``).
+
+The module attribute ``launches`` counts kernel launches (read it as
+``paged_attention.launches``; :func:`reset_launches` zeroes it), so a
+run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
+           "paged_decode_attention", "reset_launches"]
+
+launches = 0          # kernel launches since the last reset_launches()
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HD = 256         # the kernel's shared-memory plan covers HD <= 256
+# paged_attention_forward(q_dtype, kv_dtype, q, k_pool, v_pool,
+#   block_tables, kv_lens, q_lens, out, S, QB, NH, HD, PS, MP, scale,
+#   stream): every pointer and the stream as c_void_p, or ctypes would
+#   pass a 32-bit int and cut the address
+ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+_fn = None
+
+
+def reset_launches():
+    global launches
+    launches = 0
+
+
+def _limits(kv_lens, q_lens, QB, T):
+    """Per-row exclusive causal limit ``[S, QB]``: row ``j`` of a slot
+    with extent ``L`` and ``q_len`` ``n`` attends positions
+    ``< min(L, L - n + 1 + j)``; padding rows (``j >= n``) attend the
+    full extent."""
+    L = kv_lens.to(torch.int64).clamp(max=T)[:, None]
+    n = q_lens.to(torch.int64)[:, None]
+    j = torch.arange(QB, device=kv_lens.device)[None, :]
+    return torch.where(j < n, torch.minimum(L, L - n + 1 + j), L)
+
+
+def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
+                               q_lens, scale=None):
+    """Plain PyTorch ragged paged attention.
+
+    q ``[S, QB, NH, HD]``; pools ``[NP, PS, NH, HD]``; block_tables
+    ``[S, MP]`` int; kv_lens, q_lens ``[S]`` int. Row ``j`` of slot
+    ``s`` sits at position ``kv_lens[s] - q_lens[s] + j`` and attends
+    causally through itself; padding rows attend the full extent (finite
+    output, to be discarded); a row with nothing to attend (``kv_len``
+    0) gives zeros. Computes in float32, returns q's dtype."""
+    S, QB, NH, HD = q.shape
+    PS = k_pool.shape[1]
+    MP = block_tables.shape[1]
+    T = MP * PS
+    if scale is None:
+        scale = 1.0 / HD ** 0.5
+    bt = block_tables.to(torch.int64)
+    k = k_pool[bt].reshape(S, T, NH, HD).float()
+    v = v_pool[bt].reshape(S, T, NH, HD).float()
+    sc = torch.einsum("sqhd,sthd->shqt", q.float(), k) * scale
+    ok = torch.arange(T, device=q.device)[None, None, :] < \
+        _limits(kv_lens, q_lens, QB, T)[:, :, None]          # [S, QB, T]
+    sc = sc.masked_fill(~ok[:, None], float("-inf"))
+    live = ok.any(-1)                                          # [S, QB]
+    p = torch.softmax(sc, dim=-1)
+    p = torch.where(live[:, None, :, None], p,
+                    torch.zeros((), device=p.device))
+    out = torch.einsum("shqt,sthd->sqhd", p, v)
+    return out.to(q.dtype)
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        from ._build import load
+        fn = load("paged_attention").paged_attention_forward
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens):
+    dev = q.device
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("kv_lens", kv_lens),
+                    ("q_lens", q_lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtypes q={q.dtype} "
+                        f"pool={k_pool.dtype} (float32 or bfloat16)")
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError("k_pool and v_pool must share a dtype")
+    for name, t in (("block_tables", block_tables), ("kv_lens", kv_lens),
+                    ("q_lens", q_lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if q.dim() != 4 or k_pool.dim() != 4:
+        raise ValueError("q and the pools must be 4-D")
+    S, QB, NH, HD = q.shape
+    if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (NH, HD):
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != S:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} must "
+                         f"be [{S}, pages_per_slot]")
+    if kv_lens.shape != (S,) or q_lens.shape != (S,):
+        raise ValueError("kv_lens and q_lens must be [S]")
+    if HD > _MAX_HD:
+        raise ValueError(f"head_dim {HD} > {_MAX_HD}")
+
+
+def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale):
+    global launches
+    _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens)
+    S, QB, NH, HD = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _kernel_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), kv_lens.data_ptr(),
+                q_lens.data_ptr(), out.data_ptr(), S, QB, NH, HD,
+                k_pool.shape[1], block_tables.shape[1], float(scale),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return out
+
+
+def ragged_paged_attention(q, k_pool, v_pool, block_tables, kv_lens,
+                           q_lens, scale=None):
+    """Ragged paged attention (see :func:`ragged_paged_attention_ref`
+    for the semantics). A CPU ``q`` runs the plain version; a CUDA ``q``
+    launches the CUDA kernel, building it on first use, or raises."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    if q.device.type == "cpu":
+        return ragged_paged_attention_ref(q, k_pool, v_pool, block_tables,
+                                          kv_lens, q_lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                           scale=None):
+    """The ``q_len = 1`` row of the ragged kernel. q ``[S, NH, HD]``;
+    lengths ``[S]`` int32 (attend pool positions ``< lengths[s]``; 0 =
+    inactive slot, zeros). Returns ``[S, NH, HD]``."""
+    out = ragged_paged_attention(
+        q.unsqueeze(1), k_pool, v_pool, block_tables, lengths,
+        torch.ones_like(lengths), scale=scale)
+    return out[:, 0]

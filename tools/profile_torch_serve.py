@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's serving time goes on one NVIDIA GPU.
+
+    python3 tools/profile_torch_serve.py [--out PATH]
+
+Serves the same 16 requests as ``chip_smoke.py``'s serve phase (GPT-2
+small, bf16 weights and KV, random weights from seed 0) once to warm
+up, once timed, then again under ``torch.profiler`` (CPU and CUDA
+activities), and prints one JSON line:
+
+- ``wall_s`` — the profiled run on the host clock, and
+  ``wall_unprofiled_s`` the same run without the profiler;
+- ``device_busy_s`` / ``device_idle_frac`` — the union of the CUDA
+  kernel intervals over the run, and the share of the run with no
+  kernel executing (``device_idle_frac_unprofiled`` against the
+  unprofiled wall time, since the profiler slows the host);
+- ``by_class`` — device seconds and kernel counts for the ragged
+  paged-attention kernel, matrix products, and everything else;
+- ``kernels_per_forward`` — CUDA kernels launched per model forward
+  pass (prefill chunk or decode step);
+- the top kernels by device time (all 25 written to ``--out`` when
+  given).
+
+Needs a CUDA device; exits non-zero without one.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def kernel_class(name):
+    low = name.lower()
+    if "ragged_paged_attention" in low:
+        return "paged_attention"
+    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
+                              "nvjet", "sm90_", "matmul", "splitkreduce")):
+        return "matmul"
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the full kernel table here (JSON)")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import serve_traffic, smi
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models.gpt import gpt2_small, init_params
+
+    _build.build_all()
+    cfg = gpt2_small()
+    dev = torch.device("cuda")
+    params = init_params(cfg, seed=0, device=dev)
+    kw = dict(device=dev, num_slots=8, page_size=16, prefill_chunk=32,
+              max_seq_len=1024, weight_dtype="bf16", kv_dtype="bf16")
+
+    def serve():
+        eng = ServingEngine(cfg, params, **kw)
+        for r in serve_traffic(cfg.vocab_size):
+            eng.add_request(**r)
+        t0 = time.perf_counter()
+        eng.run(max_steps=20000)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    serve()                                   # warm-up
+    _, wall_plain = serve()                   # unprofiled reference
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng, wall = serve()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    by_class, by_name = {}, {}
+    for e in kern:
+        dur = (e.time_range.end - e.time_range.start) * 1e-6
+        c = by_class.setdefault(kernel_class(e.name), {"s": 0.0, "n": 0})
+        c["s"] += dur
+        c["n"] += 1
+        k = by_name.setdefault(e.name, {"s": 0.0, "n": 0})
+        k["s"] += dur
+        k["n"] += 1
+    st = eng.stats
+    forwards = st["prefill_chunks"] + st["decode_steps"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1]["s"])[:25]
+    res = {"tool": "profile_torch_serve", "gpu": smi(),
+           "wall_s": wall, "tokens": st["tokens_emitted"],
+           "forwards": forwards, "dispatches": st["dispatches"],
+           "device_kernels": len(kern),
+           "device_busy_s": busy_us * 1e-6,
+           "device_idle_frac": (1.0 - busy_us * 1e-6 / wall) if kern
+           else None,
+           # the profiler slows the host; against the unprofiled run
+           "wall_unprofiled_s": wall_plain,
+           "device_idle_frac_unprofiled": (
+               1.0 - busy_us * 1e-6 / wall_plain) if kern else None,
+           "kernels_per_forward": len(kern) / forwards,
+           "by_class": by_class,
+           "top": [{"name": n[:120], **v} for n, v in top[:8]]}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(res, top=[{"name": n, **v} for n, v in top]),
+                      f, indent=1)
+    print(json.dumps(res), flush=True)
+    if not kern:
+        print("profile_torch_serve: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
