@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,16 +12,25 @@ exits non-zero:
 2. ``build``   — compiles every CUDA source of the port with ``nvcc``
    (one process per source, all at once) and reports the seconds.
 3. ``kernels`` — each kernel against its plain PyTorch version on the
-   card at GPT-2 small's attention shapes (12 heads of 64, pages of 16,
-   8 slots, 64 pages a slot): a mixed case (decode row, a full prefill
-   row of 32, a k+1-like row, an idle slot, extents across page
-   boundaries), the decode shape and the prefill-chunk shape of the
-   serving engine. float32 within 1e-4 and bfloat16 within 2e-2 on live
-   rows. Times the kernel, the plain version and
-   ``F.scaled_dot_product_attention`` over the same K/V gathered
-   contiguous (a yardstick the port never calls), cycling through one
-   pool pair per layer as the engine does, beside the bound
-   max(bytes / 3.35 TB/s, FLOPs / peak).
+   card, float32 and bfloat16:
+   - ragged paged attention at GPT-2 small's serving shapes (12 heads of
+     64, pages of 16, 8 slots, 64 pages a slot): a mixed case (decode
+     row, a full prefill row of 32, a k+1-like row, an idle slot,
+     extents across page boundaries), the decode shape and the
+     prefill-chunk shape; float32 within 1e-4 and bfloat16 within 2e-2
+     on live rows;
+   - flash attention forward (out, lse), dq and dk/dv at the training
+     shape (B=16, H=12, L=1024, D=64, causal), L=1000 causal (ragged
+     tail), Lq=128/Lk=256 with and without causal (bottom-right), B=1
+     L=4096 with and without causal (the lengths the TPU's streamed
+     kernels served) and D=128; max-abs error over max-abs plain within
+     1e-4 (float32) and 2e-2 forward / 3e-2 gradients (bfloat16); and
+     the backward bit-identical across two launches.
+   Times each kernel (CUDA events), its plain version and one PyTorch
+   call computing the same function (a yardstick the port never calls:
+   ``F.scaled_dot_product_attention`` — over gathered K/V for the paged
+   kernel; forward, and forward+backward for the backward pair, for
+   flash) beside the bound max(bytes / 3.35 TB/s, FLOPs / peak).
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
@@ -32,10 +41,30 @@ exits non-zero:
    the kernel and with the plain version: per-step logits within 1e-3,
    tokens identical up to the first step whose plain top-2 margin is
    below that tolerance.
+6. ``train``   — the GPT-2 small pretraining step of
+   ``tools/bench_gpt_pretrain.py`` (``fused_ce=False``): AdamW(6e-4,
+   weight decay 0.1, global-norm clip 1.0), loss under O1 bf16 autocast,
+   MLP recompute, ``TrainStep.multi_step`` of K=8 over batch 16 x seq
+   1024, one fixed batch (numpy seed 0) repeated; two warm calls and
+   three timed ones, 40 steps. Every loss finite, the last at least 1
+   nat below the first, and each flash kernel launched 12 x 40 times.
+7. ``train_parity`` — float32, no autocast, batch 2 x 1024, 3 steps from
+   identical weights through the kernels and through the plain
+   versions: losses within 1e-4, step-1 gradients within 1e-3 of each
+   tensor's max-abs, and the parameters: every element within 2 x steps
+   x lr, and all but max(8, 1e-4 x numel) elements of each tensor (the
+   key bias aside) within 1e-4 of its max-abs. Adam normalises each
+   element's gradient, so an element whose gradient is no larger than
+   the rounding noise between the runs (the key bias's exact gradient is
+   zero) may step the other way, by up to 2 x lr a step.
+8. ``train_serve`` — the trained model through ``gen_params`` into the
+   serving engine: two greedy requests whose prompts are prefixes of
+   the training batch; reports how many of 16 tokens match the batch.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -43,6 +72,7 @@ import sys
 import time
 
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+BF16_GRAD_TOL = 3e-2
 PARITY_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,        # non-tensor-core float32
@@ -215,6 +245,155 @@ def run_kernel_phase():
     return results
 
 
+# -- flash attention ----------------------------------------------------------
+
+# name: (B, H, Lq, Lk, D, causal); "train" is GPT-2 small's training shape
+FLASH_CASES = {
+    "train": (16, 12, 1024, 1024, 64, True),
+    "ragged1000": (4, 12, 1000, 1000, 64, True),
+    "cross128x256": (4, 12, 128, 256, 64, False),
+    "causal128x256": (4, 12, 128, 256, 64, True),
+    "long4096": (1, 12, 4096, 4096, 64, False),
+    "long4096_causal": (1, 12, 4096, 4096, 64, True),
+    "d128": (4, 6, 1024, 1024, 128, True),
+}
+
+
+def flash_inputs(B, H, Lq, Lk, D, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(*shape, device="cuda", generator=g).to(dtype)
+            for shape in ((B, Lq, H, D), (B, Lk, H, D), (B, Lk, H, D),
+                          (B, Lq, H, D))]
+
+
+def live_pairs(Lq, Lk, causal):
+    """(query, key) pairs whose score the function needs: all of them,
+    or under causal bottom-right alignment each row's visible columns
+    (a row that sees none weighs all Lk)."""
+    if not causal:
+        return Lq * Lk
+    rows = [i + Lk - Lq + 1 for i in range(Lq)]
+    return sum(min(Lk, r) if r > 0 else Lk for r in rows)
+
+
+def flash_bounds(q, k, causal):
+    """Least time per kernel for these inputs: each input read once and
+    each output written once at 3.35 TB/s, against the products' FLOPs
+    at the dtype's peak (forward QK^T and PV: 4 D per live pair; dq
+    recomputes S and forms dP and dS K: 6 D; dk/dv S, dP, P^T dO and
+    dS^T Q: 8 D)."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    item = q.element_size()
+    tq, tk = B * Lq * H * D * item, B * Lk * H * D * item
+    rows32 = B * H * Lq * 4                         # lse / delta, f32
+    pairs = B * H * live_pairs(Lq, Lk, causal)
+    peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    work = {"fwd": (tq + 2 * tk + tq + rows32, 4 * D * pairs),
+            "dq": (2 * tq + 2 * tk + 2 * rows32 + tq, 6 * D * pairs),
+            "dkv": (2 * tq + 2 * tk + 2 * rows32 + 2 * tk, 8 * D * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = dict(bound_ms=max(tb, to),
+                         bound_by="bytes" if tb >= to else "operations",
+                         bytes=nbytes, flops=flops)
+    return out
+
+
+def rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def run_flash_phase():
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    results = {}
+    for ci, (name, (B, H, Lq, Lk, D, causal)) in enumerate(
+            FLASH_CASES.items()):
+        for dtype, ftol, gtol in ((torch.float32, F32_TOL, F32_TOL),
+                                  (torch.bfloat16, BF16_TOL,
+                                   BF16_GRAD_TOL)):
+            q, k, v, do = flash_inputs(B, H, Lq, Lk, D, dtype, 100 + ci)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal)
+            delta = fa.attention_delta(out, do)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal)
+            torch.cuda.synchronize()
+            rout, rlse = fa.flash_attention_fwd_ref(q, k, v, causal)
+            rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                causal)
+            rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                      delta, causal)
+            rec = {}
+            for key, a, b, tol in (("out", out, rout, ftol),
+                                   ("lse", lse, rlse, ftol),
+                                   ("dq", dq, rdq, gtol),
+                                   ("dk", dk, rdk, gtol),
+                                   ("dv", dv, rdv, gtol)):
+                err = rel_err(a, b)
+                if not (err <= tol and bool(torch.isfinite(a).all())):
+                    raise AssertionError(
+                        f"flash {key} kernel vs plain ({name}, {dtype}): "
+                        f"max-abs err / max-abs {err} > {tol} or "
+                        "non-finite")
+                rec[key] = {"rel_err": err, "max_abs_err": float(
+                    (a.float() - b.float()).abs().max())}
+            del rout, rlse, rdq, rdk, rdv
+            if name == "train" and dtype == torch.bfloat16:
+                rec["timing"] = time_flash(q, k, v, do, out, lse, delta,
+                                           causal, fa, F)
+                again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   causal),
+                         *fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                     delta, causal))
+                if not all(torch.equal(a, b) for a, b in
+                           zip((dq, dk, dv), again)):
+                    raise AssertionError("flash backward not bit-identical "
+                                         "across two launches")
+                rec["backward_bit_identical"] = True
+            results.setdefault(name, {})[str(dtype).replace(
+                "torch.", "")] = rec
+            del q, k, v, do, out, lse, delta, dq, dk, dv
+            torch.cuda.empty_cache()
+    return results
+
+
+def time_flash(q, k, v, do, out, lse, delta, causal, fa, F):
+    """Kernel, plain and library times at one shape, with the bounds."""
+    t = {"fwd": cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal),
+                        20),
+         "dq": cuda_ms(lambda i: fa.flash_attention_bwd_dq(
+             q, k, v, do, lse, delta, causal), 20),
+         "dkv": cuda_ms(lambda i: fa.flash_attention_bwd_dkv(
+             q, k, v, do, lse, delta, causal), 20)}
+    p = {"fwd": cuda_ms(lambda i: fa.flash_attention_fwd_ref(
+             q, k, v, causal), 5),
+         "dq": cuda_ms(lambda i: fa.flash_attention_bwd_dq_ref(
+             q, k, v, do, lse, delta, causal), 5),
+         "dkv": cuda_ms(lambda i: fa.flash_attention_bwd_dkv_ref(
+             q, k, v, do, lse, delta, causal), 5)}
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                       for x in (q, k, v, do))
+    lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), 20)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def lib_fb(i):
+        F.scaled_dot_product_attention(qg, kg, vg,
+                                       is_causal=causal).backward(dot)
+    lib_both = cuda_ms(lib_fb, 20)
+    b = flash_bounds(q, k, causal)
+    return {kn: dict(ms=t[kn], plain_ms=p[kn],
+                     library_ms=lib_fwd if kn == "fwd" else lib_both,
+                     **b[kn]) for kn in ("fwd", "dq", "dkv")}
+
+
 # -- the serving engine -------------------------------------------------------
 
 def serve_traffic(vocab):
@@ -346,6 +525,176 @@ def run_parity_phase():
                                     zip(runs["auto"], runs["torch"]))}
 
 
+# -- training ------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_K = 16, 1024, 8
+PEAK_BF16 = 989e12
+
+
+def model_flops_per_token(L, d, V, s):
+    """tools/bench_gpt_pretrain.py:33-35: 6 x matmul params + causal
+    attention, forward and backward."""
+    return 6 * (L * 12 * d * d + d * V) + 6 * L * s * d
+
+
+def train_batch(vocab, B, S):
+    import numpy as np
+    ids = np.random.default_rng(0).integers(0, vocab, (B, S))
+    return ids, np.roll(ids, -1, axis=-1)
+
+
+def bf16_loss(m, ids, labels):
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        return m.loss(ids, labels)
+
+
+def run_train_phase(kernel_ms):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+
+    cfg = gpt2_small(dropout=0.0, recompute=True)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    opt = AdamW(6e-4, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, bf16_loss, opt, device="cuda")
+    ids, labels = train_batch(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    dev = torch.device("cuda")
+    sids = torch.as_tensor(ids, device=dev).expand(TRAIN_K, -1, -1)
+    slab = torch.as_tensor(labels, device=dev).expand(TRAIN_K, -1, -1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    curve = []
+    for _ in range(2):                      # warm: allocator, cuBLAS
+        curve += step.multi_step(sids, slab).cpu().tolist()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        curve += step.multi_step(sids, slab).cpu().tolist()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches}
+    steps = 5 * TRAIN_K
+    if not all(np.isfinite(curve)) or len(curve) != steps:
+        raise AssertionError(f"non-finite or missing losses: {curve}")
+    if not curve[-1] <= curve[0] - 1.0:
+        raise AssertionError(f"loss fell {curve[0] - curve[-1]} < 1 nat")
+    for kn, n in launches.items():
+        if n != cfg.num_layers * steps:
+            raise AssertionError(f"flash {kn} launches {n} != "
+                                 f"{cfg.num_layers} x {steps}")
+    step_s = wall / (3 * TRAIN_K)
+    tok_s = TRAIN_B * TRAIN_S / step_s
+    fpt = model_flops_per_token(cfg.num_layers, cfg.hidden_size,
+                                cfg.vocab_size, TRAIN_S)
+    flash_ms = sum(launches[kn] * kernel_ms[kn] for kn in launches) / steps
+    return {"phase": "train", "model": "gpt2_small", "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+            "batch": TRAIN_B, "seq": TRAIN_S, "k": TRAIN_K,
+            "steps": steps, "timed_steps": 3 * TRAIN_K,
+            "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+            "model_flops_per_token": fpt,
+            "mfu_of_989_tflops": tok_s * fpt / PEAK_BF16,
+            "flash_ms_per_step": flash_ms,
+            "flash_share_of_step": flash_ms / (step_s * 1e3),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "loss_first": curve[0], "loss_last": curve[-1],
+            "loss_curve": curve, "flash_launches": launches,
+            "gpu": smi()}, model, launches, ids
+
+
+def run_train_parity_phase():
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+
+    cfg = gpt2_small(dropout=0.0, recompute=True, bf16_residual=False)
+    ids, labels = train_batch(cfg.vocab_size, 2, TRAIN_S)
+    steps, lr = 3, 6e-4
+    sids, slab = np.stack([ids] * steps), np.stack([labels] * steps)
+    runs = {}
+    for plain in (False, True):
+        model = GPTForCausalLM(cfg, device="cuda", seed=1)
+        step = TrainStep(model, lambda m, i, y: m.loss(i, y),
+                         AdamW(lr, weight_decay=0.1), device="cuda")
+        ctx = fa.use_plain() if plain else contextlib.nullcontext()
+        with ctx:
+            _, grads, _ = step.grad_step(ids, labels)
+            losses = step.multi_step(sids, slab)
+        runs[plain] = (losses.cpu(), [g.cpu() for g in grads],
+                       {n: p.detach().cpu()
+                        for n, p in model.named_parameters()})
+        del model, step, grads
+        torch.cuda.empty_cache()
+    (lk, gk, pk), (lp, gp, pp) = runs[False], runs[True]
+    loss_err = float((lk - lp).abs().max())
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"train parity: losses differ by {loss_err}")
+    grad_err = max(rel_err(a, b) for a, b in zip(gk, gp))
+    if not grad_err <= 1e-3:
+        raise AssertionError(f"train parity: step-1 grads {grad_err}")
+    # Adam normalises each element's gradient, so an element whose
+    # gradient is as small as the rounding noise between the two runs
+    # (the key bias, whose exact gradient is zero, and a few stray ones)
+    # can step the other way: by at most 2 x lr a step. The check: every
+    # element within that bound, and all but max(8, 1e-4 x numel)
+    # elements of each tensor within 1e-4 of the tensor's max-abs.
+    H = cfg.hidden_size
+    bound = 2 * steps * lr
+    worst, outliers, max_abs = [], 0, 0.0
+    for name, a in pk.items():
+        b = pp[name]
+        d = (a - b).abs()
+        max_abs = max(max_abs, float(d.max()))
+        if name.endswith("attn.qkv.bias"):       # [q | k | v]: drop k
+            d, b = torch.cat([d[:H], d[2 * H:]]), torch.cat([b[:H],
+                                                             b[2 * H:]])
+        n_out = int((d > 1e-4 * b.abs().max()).sum())
+        outliers += n_out
+        worst.append((float(d.max() / b.abs().max()), name, n_out,
+                      b.numel()))
+        if n_out > max(8, 1e-4 * b.numel()):
+            raise AssertionError(f"train parity: {name} has {n_out} "
+                                 "elements beyond 1e-4 of its max-abs")
+    if not max_abs <= bound:
+        raise AssertionError(f"train parity: a parameter moved {max_abs} "
+                             f"> {bound} apart")
+    worst.sort(reverse=True)
+    return {"phase": "train_parity", "dtype": "float32", "batch": 2,
+            "seq": TRAIN_S, "steps": steps,
+            "losses_kernel": lk.tolist(), "losses_plain": lp.tolist(),
+            "max_loss_abs_err": loss_err, "tol_loss": 1e-4,
+            "max_grad_err_of_maxabs": grad_err, "tol_grad": 1e-3,
+            "max_param_abs_err": max_abs, "tol_param_abs": bound,
+            "param_elements_beyond_1e-4_of_maxabs": outliers,
+            "param_elements": sum(p.numel() for p in pk.values()),
+            "worst_params": worst[:5]}
+
+
+def run_train_serve_phase(model, ids):
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.gpt import gen_params
+
+    cfg = model.gpt.cfg
+    eng = ServingEngine(cfg, gen_params(model), device="cuda", num_slots=2,
+                        page_size=PS, prefill_chunk=CHUNK, max_seq_len=1024)
+    plen, n = 64, 16
+    uids = [eng.add_request(ids[r, :plen], n) for r in (0, 1)]
+    done = eng.run(max_steps=1000)
+    match = [int(sum(int(a) == int(b) for a, b in
+                     zip(done[u].tokens, ids[r, plen:plen + n])))
+             for u, r in zip(uids, (0, 1))]
+    return {"phase": "train_serve", "requests": 2, "prompt_tokens": plen,
+            "new_tokens": n, "tokens_matching_batch": match}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -374,13 +723,25 @@ def main():
                                     if "registers" in ln]}
                       for n, v in log.items()}})
     kres = run_kernel_phase()
-    emit({"phase": "kernels", "kernels": ["ragged_paged_attention"],
-          "ragged_paged_attention": kres, "gpu": gpu})
+    fres = run_flash_phase()
+    emit({"phase": "kernels",
+          "kernels": ["ragged_paged_attention", "flash_attention_fwd",
+                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv"],
+          "ragged_paged_attention": kres, "flash_attention": fres,
+          "gpu": gpu})
     serve, launches = run_serve_phase()
     emit(serve)
     emit(run_parity_phase())
+    ft = fres["train"]["bfloat16"]["timing"]
+    train, model, flaunch, ids = run_train_phase(
+        {kn: ft[kn]["ms"] for kn in ("fwd", "dq", "dkv")})
+    emit(train)
+    emit(run_train_serve_phase(model, ids))
+    del model
+    torch.cuda.empty_cache()
+    emit(run_train_parity_phase())
     dec = kres["decode"]["bfloat16"]
-    emit({"kernels": [{
+    kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention_pallas.py:37",
@@ -391,7 +752,26 @@ def main():
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
         "shape": "decode: S=8 QB=1 NH=12 HD=64 PS=16 MP=64 bf16",
-        "cases": {n: kres[n]["bfloat16"] for n in ("mixed", "prefill")}}]})
+        "cases": {n: kres[n]["bfloat16"] for n in ("mixed", "prefill")}}]
+    outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for kn, line, also in (("fwd", 52, 166), ("dq", 93, 213),
+                           ("dkv", 126, 251)):
+        name = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                "dkv": "flash_attention_bwd_dkv"}[kn]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention_pallas.py:{line}",
+            "also_replaces":
+                f"paddle_tpu/kernels/flash_attention_pallas.py:{also}",
+            "launches": flaunch[kn],
+            "max_abs_err": max(r[o]["max_abs_err"] for case in fres.values()
+                               for r in case.values() for o in outputs[kn]),
+            "ms": ft[kn]["ms"], "plain_ms": ft[kn]["plain_ms"],
+            "bound_ms": ft[kn]["bound_ms"], "bound_by": ft[kn]["bound_by"],
+            "library_ms": ft[kn]["library_ms"],
+            "shape": "train: B=16 L=1024 H=12 D=64 causal bf16"})
+    emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,20 @@ so that each module sits where its counterpart does:
 - ``inference/serving.py``     <- ``paddle_tpu/inference/serving.py``
 - ``kernels/paged_attention.py`` (+ ``kernels/csrc/paged_attention.cu``)
   <- ``paddle_tpu/kernels/paged_attention_pallas.py``
+- ``kernels/flash_attention.py`` (+ ``kernels/csrc/flash_attention.cu``)
+  <- ``paddle_tpu/kernels/flash_attention_pallas.py``
+- ``amp/``                     <- ``paddle_tpu/amp/__init__.py``
+- ``nn/``                      <- ``paddle_tpu/nn`` (layers, functional
+  ops, ``clip.py``) and the one-device ``mp_layers``
+- ``distributed/utils_recompute.py`` <- its namesake
+- ``optimizer/``               <- ``paddle_tpu/optimizer`` (``AdamW``,
+  ``lr.py``)
+- ``parallel/api.py``          <- ``paddle_tpu/parallel/api.py``
+  (``TrainStep``)
 
-The slice ported so far is GPT-2 generation through the paged serving
-engine. Entry points run on CUDA unless the caller passes
-``device="cpu"`` (see ``device.py``).
+The slices ported so far are GPT-2 generation through the paged serving
+engine and the single-device GPT-2 training step. Entry points run on
+CUDA unless the caller passes ``device="cpu"`` (see ``device.py``).
 """
 from . import device  # noqa: F401  (pins the TF32 switches off)
 from .device import resolve_device  # noqa: F401

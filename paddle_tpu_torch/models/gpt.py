@@ -1,6 +1,6 @@
-"""GPT-2 for the serving path — port of ``paddle_tpu/models/gpt.py``.
+"""GPT-2 — port of ``paddle_tpu/models/gpt.py``.
 
-What the paged serving engine needs of the reference model:
+For the paged serving engine:
 
 - :class:`GPTConfig`, :func:`gpt2_small`, :func:`gpt2_tiny` — the
   configurations (dense models only: MoE layers are not ported yet).
@@ -12,6 +12,13 @@ What the paged serving engine needs of the reference model:
 - :func:`make_layer_core` — the per-layer math of ``_make_layer_core``
   (``gpt.py:328``): ``ln``, ``qkv_proj``, ``attn_out`` and the dense
   ``mlp_tail``.
+
+For training (``gpt.py:74-251``): :class:`GPTAttention`,
+:class:`GPTMLP`, :class:`GPTBlock`, :class:`GPTModel` and
+:class:`GPTForCausalLM` (``forward`` and ``loss``), with parameter names
+equal to the reference's; :meth:`GPTForCausalLM.load_reference_state`
+takes the reference's ``named_parameters()`` as numpy arrays, and
+:func:`gen_params` hands a (trained) model to the serving engine.
 
 Layout kept from the reference: weights are ``[in, out]`` and applied
 as ``h @ W``; the fused qkv projection splits ``[q|k|v]`` on the last
@@ -26,10 +33,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import nn
 from ..device import resolve_device
+from ..distributed.utils_recompute import recompute
+from ..nn import functional as PF
 
 __all__ = ["GPTConfig", "gpt2_small", "gpt2_tiny", "init_params",
-           "params_from_numpy", "make_layer_core", "tree_map"]
+           "params_from_numpy", "make_layer_core", "tree_map",
+           "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
+           "GPTForCausalLM", "gen_params"]
 
 
 @dataclass
@@ -40,8 +52,18 @@ class GPTConfig:
     num_heads: int = 12
     max_position_embeddings: int = 1024
     intermediate_size: int = None  # default 4*hidden
+    dropout: float = 0.1
     layer_norm_epsilon: float = 1e-5
     num_experts: int = 0           # MoE: not ported; must stay 0
+    # recompute the MLP half of each block in the backward (gpt.py:42)
+    recompute: bool = False
+    # sequence-chunked LM loss, tokens per chunk; 0 = off (gpt.py:45)
+    ce_chunk: int = 0
+    # one-kernel head + CE (gpt.py:50): the next slice of the port
+    fused_ce: bool = False
+    # residual stream and sub-layer outputs in bf16, AMP or not
+    # (gpt.py:55); on by default, as in the reference
+    bf16_residual: bool = True
 
     def __post_init__(self):
         if self.intermediate_size is None:
@@ -49,6 +71,14 @@ class GPTConfig:
         if self.num_experts:
             raise NotImplementedError(
                 "MoE layers are not ported to paddle_tpu_torch yet")
+        if self.fused_ce and self.ce_chunk:
+            raise ValueError(
+                "fused_ce and ce_chunk are mutually exclusive — the "
+                "fused kernel already avoids materializing the logits")
+        if self.fused_ce:
+            raise NotImplementedError(
+                "fused_ce (kernels/fused_ce_pallas.py) is not ported to "
+                "paddle_tpu_torch yet")
 
 
 def gpt2_small(**kw):
@@ -152,3 +182,183 @@ def make_layer_core(cfg, eps=None):
     return SimpleNamespace(H=H, NH=NH, HD=HD, scale=scale, ln=ln,
                            qkv_proj=qkv_proj, attn_out=attn_out,
                            mlp_tail=mlp_tail)
+
+
+# -- training (gpt.py:74-251) -------------------------------------------------
+
+class GPTAttention(torch.nn.Module):
+    def __init__(self, cfg, *, rng=None, generator=None, device=None):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, rng=rng,
+                             device=device)
+        self.proj = nn.RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
+                                         rng=rng, device=device)
+        self.dropout = nn.Dropout(cfg.dropout, generator)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv.unbind(2)
+        out = PF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.dropout(self.proj(out.reshape(b, s, h)))
+
+
+class GPTMLP(torch.nn.Module):
+    def __init__(self, cfg, *, rng=None, generator=None, device=None):
+        super().__init__()
+        self.fc_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
+                               rng=rng, device=device)
+        self.fc_out = nn.RowParallelLinear(cfg.intermediate_size,
+                                           cfg.hidden_size, rng=rng,
+                                           device=device)
+        self.dropout = nn.Dropout(cfg.dropout, generator)
+
+    def forward(self, x):
+        return self.dropout(self.fc_out(PF.gelu(self.fc_in(x),
+                                                approximate=True)))
+
+
+class GPTBlock(torch.nn.Module):
+    """Pre-LN block. Kept from the reference (``gpt.py:131-156``): with
+    ``bf16_residual`` the stream and each sub-layer output are cast to
+    bf16 even without AMP; recompute wraps the MLP half only."""
+
+    def __init__(self, cfg, *, rng=None, generator=None, device=None):
+        super().__init__()
+        self._recompute = cfg.recompute
+        self._bf16_res = cfg.bf16_residual
+        self._rng = generator
+        kw = dict(rng=rng, generator=generator, device=device)
+        self.ln1 = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
+                                device=device)
+        self.attn = GPTAttention(cfg, **kw)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
+                                device=device)
+        self.mlp = GPTMLP(cfg, **kw)
+
+    def _mlp_half(self, h):
+        return self.mlp(self.ln2(h))
+
+    def _mlp_out(self, x):
+        if self._recompute:
+            return recompute(self._mlp_half, x, rng=self._rng)
+        return self._mlp_half(x)
+
+    def forward(self, x):
+        if self._bf16_res:
+            bf = torch.bfloat16
+            x = x.to(bf) + self.attn(self.ln1(x)).to(bf)
+            return x + self._mlp_out(x).to(bf)
+        x = x + self.attn(self.ln1(x))
+        return x + self._mlp_out(x)
+
+
+class GPTModel(torch.nn.Module):
+    def __init__(self, cfg, *, rng=None, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, rng=rng,
+                                device=device)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings,
+                                cfg.hidden_size, rng=rng, device=device)
+        self.drop = nn.Dropout(cfg.dropout, generator)
+        self.blocks = torch.nn.ModuleList([
+            GPTBlock(cfg, rng=rng, generator=generator, device=device)
+            for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
+                                 device=device)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)
+        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+
+class GPTForCausalLM(torch.nn.Module):
+    """The causal LM with its tied head. Weights are made on the host
+    from numpy seed ``seed`` (XavierUniform matrices and embeddings, as
+    the reference initialises them); dropout masks come from one
+    ``torch.Generator`` on ``device`` seeded with ``seed``. Runs on CUDA
+    unless ``device="cpu"``."""
+
+    def __init__(self, cfg, device=None, seed=0):
+        super().__init__()
+        dev = resolve_device(device)
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        self.gpt = GPTModel(cfg, rng=rng, generator=gen, device=dev)
+
+    def forward(self, input_ids):
+        hidden = self.gpt(input_ids)
+        # tied lm head: logits = hidden @ wte^T (white-listed matmul_v2)
+        return PF.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
+
+    def _chunked_ce_loss(self, input_ids, labels, chunk):
+        """CE summed over ``chunk``-token slices, each recomputed in the
+        backward, divided by ``B * S`` (``gpt.py:197-221``)."""
+        hidden = self.gpt(input_ids)
+        b, s = input_ids.shape
+        wte = self.gpt.wte.weight
+
+        def chunk_ce(h_c, y_c):
+            logits = PF.matmul(h_c, wte, transpose_y=True)
+            return PF.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                    y_c.reshape(-1), reduction="sum")
+
+        total = None
+        for c0 in range(0, s, chunk):
+            part = recompute(chunk_ce, hidden[:, c0:c0 + chunk],
+                             labels[:, c0:c0 + chunk])
+            total = part if total is None else total + part
+        return total * (1.0 / (b * s))
+
+    def loss(self, input_ids, labels):
+        chunk = int(self.gpt.cfg.ce_chunk or 0)
+        if chunk > 0:
+            return self._chunked_ce_loss(input_ids, labels, chunk)
+        logits = self(input_ids)
+        return PF.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                labels.reshape(-1))
+
+    @torch.no_grad()
+    def load_reference_state(self, named):
+        """Copy ``{name: array}`` (the reference's ``named_parameters()``
+        through ``np.asarray``) into the parameters of the same names;
+        raises on a missing, extra or misshapen name."""
+        own = dict(self.named_parameters())
+        missing, extra = set(own) - set(named), set(named) - set(own)
+        if missing or extra:
+            raise KeyError(f"parameter names differ: missing "
+                           f"{sorted(missing)}, unexpected {sorted(extra)}")
+        for name, p in own.items():
+            a = np.asarray(named[name], np.float32)
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(a))
+
+
+def gen_params(model):
+    """The live parameters of ``model`` as the tree the port's
+    ``ServingEngine`` takes (the reference's ``_gen_params``,
+    ``gpt.py:283``), detached: a trained model can be served."""
+    g = model.gpt
+
+    def a(p):
+        return p.detach()
+
+    layers = [dict(ln1=(a(b.ln1.weight), a(b.ln1.bias)),
+                   ln2=(a(b.ln2.weight), a(b.ln2.bias)),
+                   qkv=(a(b.attn.qkv.weight), a(b.attn.qkv.bias)),
+                   proj=(a(b.attn.proj.weight), a(b.attn.proj.bias)),
+                   mlp=(a(b.mlp.fc_in.weight), a(b.mlp.fc_in.bias),
+                        a(b.mlp.fc_out.weight), a(b.mlp.fc_out.bias)))
+              for b in g.blocks]
+    return dict(wte=a(g.wte.weight), wpe=a(g.wpe.weight),
+                lnf=(a(g.ln_f.weight), a(g.ln_f.bias)), layers=layers)

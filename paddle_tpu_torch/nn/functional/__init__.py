@@ -1,0 +1,9 @@
+"""Functional ops of the port (``paddle_tpu/nn/functional``), as far as
+the GPT training step needs them."""
+from .attention import scaled_dot_product_attention  # noqa: F401
+from .common import (dropout, embedding, gelu, layer_norm,  # noqa: F401
+                     linear, matmul)
+from .loss import cross_entropy  # noqa: F401
+
+__all__ = ["scaled_dot_product_attention", "dropout", "embedding", "gelu",
+           "layer_norm", "linear", "matmul", "cross_entropy"]

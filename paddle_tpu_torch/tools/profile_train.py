@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's training-step time goes on one NVIDIA GPU.
+
+    python3 -m paddle_tpu_torch.tools.profile_train [--steps N] [--out PATH]
+
+Run from the repository root. Builds the training step of
+``chip_smoke.py``'s train phase (GPT-2
+small, random weights from seed 0, AdamW with the global-norm clip, O1
+bf16 autocast, MLP recompute, batch 16 x seq 1024, one fixed batch),
+runs ``TrainStep.multi_step`` of 8 steps to warm up, ``--steps`` steps
+timed without the profiler, and ``--steps`` steps under
+``torch.profiler`` (CPU and CUDA activities), then prints one JSON line:
+
+- ``step_ms`` — unprofiled, host clock ending in a synchronize;
+- ``device_busy_ms_per_step`` / ``device_idle_frac`` — the union of the
+  CUDA kernel intervals in the profiled window, and the share of the
+  window with no kernel executing (``device_idle_frac_unprofiled``
+  against the unprofiled step time, since the profiler slows the host);
+- ``by_class`` — device milliseconds per step and kernel counts for the
+  three flash-attention kernels, matrix products, the optimizer
+  (``multi_tensor_apply``), softmax/cross-entropy, and everything else;
+- ``kernels_per_step`` and the top kernels by device time (all 30
+  written to ``--out`` when given).
+
+Needs a CUDA device; exits non-zero without one.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+B, S = 16, 1024
+
+
+def kernel_class(name):
+    low = name.lower()
+    for part in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        if part in low:
+            return part
+    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
+                              "nvjet", "sm90_", "matmul", "splitkreduce")):
+        return "matmul"
+    if "multi_tensor_apply" in low:
+        return "optimizer"
+    if any(s in low for s in ("softmax", "nll_loss", "cross_entropy")):
+        return "softmax_ce"
+    return "other"
+
+
+def busy_us(kernels):
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=4,
+                    help="steps timed, and steps profiled")
+    ap.add_argument("--out", default=None,
+                    help="also write the full kernel table here (JSON)")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 2
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+
+    _build.build_all()
+    cfg = gpt2_small(dropout=0.0, recompute=True)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+
+    def bf16_loss(m, i, y):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.loss(i, y)
+
+    step = TrainStep(model, bf16_loss, AdamW(
+        6e-4, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0)),
+        device="cuda")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    labels = np.roll(ids, -1, axis=-1)
+    dev = torch.device("cuda")
+
+    def stacked(k):
+        return (torch.as_tensor(ids, device=dev).expand(k, -1, -1),
+                torch.as_tensor(labels, device=dev).expand(k, -1, -1))
+
+    step.multi_step(*stacked(8)).cpu()               # warm-up
+    t0 = time.perf_counter()
+    step.multi_step(*stacked(args.steps)).cpu()
+    step_s = (time.perf_counter() - t0) / args.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.multi_step(*stacked(args.steps)).cpu()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_us(kern) * 1e-6
+    by_class, by_name = {}, {}
+    for e in kern:
+        dur = (e.time_range.end - e.time_range.start) * 1e-3 / args.steps
+        c = by_class.setdefault(kernel_class(e.name), {"ms": 0.0, "n": 0})
+        c["ms"] += dur
+        c["n"] += 1
+        k = by_name.setdefault(e.name, {"ms": 0.0, "n": 0})
+        k["ms"] += dur
+        k["n"] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:30]
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    res = {"tool": "profile_train", "gpu": gpu,
+           "batch": B, "seq": S, "steps": args.steps,
+           "step_ms": step_s * 1e3,
+           "profiled_step_ms": wall * 1e3 / args.steps,
+           "device_kernels": len(kern),
+           "kernels_per_step": len(kern) / args.steps,
+           "device_busy_ms_per_step": busy * 1e3 / args.steps,
+           "device_idle_frac": (1.0 - busy / wall) if kern else None,
+           "device_idle_frac_unprofiled": (
+               1.0 - busy / (step_s * args.steps)) if kern else None,
+           "by_class": by_class,
+           "top": [{"name": n[:120], **v} for n, v in top[:10]]}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(res, top=[{"name": n, **v} for n, v in top]),
+                      f, indent=1)
+    print(json.dumps(res), flush=True)
+    if not kern:
+        print("profile_train: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,10 @@
 """Tests of the PyTorch port that need a CUDA device: the hand-written
-ragged paged-attention kernel against its plain PyTorch version, and
-the serving engine on the card against the same engine on the CPU.
+ragged paged-attention kernel and the flash-attention forward, dq and
+dk/dv kernels against their plain PyTorch versions, the serving engine
+on the card against the same engine on the CPU, and a training step
+through the kernels against the same step through the plain versions.
 
-Every test skips without a card (the kernel has no CPU mode). This file
+Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -102,3 +104,122 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
         assert eng.stats["fused_blocks"] > 0
         eng.kv.verify()
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# -- flash attention (paddle_tpu_torch/kernels/flash_attention.py) ------------
+
+FA_CASES = {            # B, H, Lq, Lk, D, causal
+    "causal1024": (2, 3, 1024, 1024, 64, True),
+    "ragged1000": (2, 3, 1000, 1000, 64, True),
+    "cross128x256": (2, 3, 128, 256, 64, False),
+    "causal128x256": (2, 3, 128, 256, 64, True),
+    "causal256x128": (2, 3, 256, 128, 64, True),
+    "streamed4096": (1, 2, 4096, 4096, 64, True),
+    "d128": (2, 3, 320, 320, 128, True),
+}
+FA_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}
+
+
+def _fa_inputs(dev, B, H, Lq, Lk, D, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*s, generator=g).to(device=dev, dtype=dtype)
+            for s in ((B, Lq, H, D), (B, Lk, H, D), (B, Lk, H, D),
+                      (B, Lq, H, D))]
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FA_CASES))
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    B, H, Lq, Lk, D, causal = FA_CASES[case]
+    q, k, v, do = _fa_inputs(cuda, B, H, Lq, Lk, D, dtype)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = fa.attention_delta(out, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == (1, 1, 1)
+    rout, rlse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal)
+    rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                              causal)
+    ftol, gtol = FA_TOL[dtype]
+    assert _rel(out, rout) <= ftol and _rel(lse, rlse) <= ftol
+    for name, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= gtol, name
+
+
+def test_flash_backward_is_bit_identical_across_launches(cuda):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do = _fa_inputs(cuda, 2, 3, 1024, 1024, 64, torch.bfloat16, 5)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = fa.attention_delta(out, do)
+    runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_tiny_training_step_with_the_kernels_equals_the_plain_step(cuda):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    rng = np.random.RandomState(6)
+    ids = rng.randint(0, 128, (3, 2, 40))
+    labels = np.roll(ids, -1, axis=-1)
+    runs = {}
+    for plain in (False, True):
+        m = GPTForCausalLM(gpt2_tiny(dropout=0.0, bf16_residual=False),
+                           device=cuda, seed=3)
+        step = TrainStep(m, lambda m_, i, y: m_.loss(i, y), AdamW(1e-3),
+                         device=cuda)
+        fa.reset_launches()
+        if plain:
+            with fa.use_plain():
+                losses = step.multi_step(ids, labels)
+        else:
+            losses = step.multi_step(ids, labels)
+        launches = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+        assert launches == ((0, 0, 0) if plain else (6, 6, 6))
+        runs[plain] = (losses.cpu(), {n: p.detach().cpu()
+                                      for n, p in m.named_parameters()})
+    torch.testing.assert_close(runs[False][0], runs[True][0], rtol=1e-5,
+                               atol=1e-5)
+    H = 64
+    for name, a in runs[False][1].items():
+        b = runs[True][1][name]
+        if name.endswith("attn.qkv.bias"):
+            # the key bias's exact gradient is zero (softmax ignores a
+            # constant per query); Adam scales the rounding noise on both
+            # sides to steps of about lr, 3 steps of 1e-3 at most
+            torch.testing.assert_close(a[H:2 * H], b[H:2 * H], rtol=0,
+                                       atol=2 * 3 * 1e-3)
+            a, b = torch.cat([a[:H], a[2 * H:]]), torch.cat([b[:H],
+                                                             b[2 * H:]])
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_flash_wrapper_raises_on_cuda_without_the_library(cuda, tmp_path,
+                                                          monkeypatch):
+    """No fallback: with the library unbuildable a CUDA tensor raises."""
+    import torch.utils.cpp_extension as ext
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(fa, "_fns", {})
+    q, k, v, _ = _fa_inputs(cuda, 1, 2, 64, 64, 64, torch.float32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa.flash_attention(q, k, v, causal=True)

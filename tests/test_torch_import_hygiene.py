@@ -32,10 +32,18 @@ if not torch.cuda.is_available():
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models.gpt import gpt2_tiny, init_params
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    cpu_model = GPTForCausalLM(gpt2_tiny(), device="cpu")
     for name, call in (("engine", lambda: ServingEngine(gpt2_tiny())),
                        ("init_params", lambda: init_params(gpt2_tiny())),
                        ("engine_cuda", lambda: ServingEngine(
-                           gpt2_tiny(), device="cuda"))):
+                           gpt2_tiny(), device="cuda")),
+                       ("model", lambda: GPTForCausalLM(gpt2_tiny())),
+                       ("train_step", lambda: TrainStep(
+                           cpu_model, lambda m, i, y: m.loss(i, y),
+                           AdamW()))):
         try:
             call()
             result["refused"][name] = False
@@ -58,10 +66,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert "paddle_tpu_torch.inference.serving" in out["modules"]
     assert "paddle_tpu_torch.kernels.paged_attention" in out["modules"]
+    assert "paddle_tpu_torch.kernels.flash_attention" in out["modules"]
+    assert "paddle_tpu_torch.parallel.api" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:
         assert out["refused"] == {"engine": True, "init_params": True,
-                                  "engine_cuda": True}
+                                  "engine_cuda": True, "model": True,
+                                  "train_step": True}
 
 
 def test_chip_smoke_fails_without_a_gpu_or_without_the_port(tmp_path):
