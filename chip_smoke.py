@@ -26,11 +26,26 @@ exits non-zero:
      kernels served) and D=128; max-abs error over max-abs plain within
      1e-4 (float32) and 2e-2 forward / 3e-2 gradients (bfloat16); and
      the backward bit-identical across two launches.
+   - fused head + CE forward (nll, lse), dh and dw at the training shape
+     (T=16384 tokens, d=768, V=50304, bf16), T=1000 with GPT-2's
+     unpadded V=50257 (float32 and bfloat16), and T=300, V=5000 with a
+     third of the labels -100 and their g = 0; in every case each 16th
+     label is past the vocabulary with its g kept (a softmax-only row).
+     nll/lse within 2e-6, dh/dw within 1e-4 (float32) and 1e-2
+     (bfloat16), as max-abs error over max-abs plain. The softmax term
+     is held on its own at the same limits: dh on the softmax-only rows
+     and dw on the vocab rows no label picks, each over its own max-abs
+     (elsewhere the one-hot term outweighs it some 250 times). Ignored
+     and softmax-only rows' nll equal to their lse, ignored rows' dh
+     exactly 0; the backward bit-identical across two launches.
    Times each kernel (CUDA events), its plain version and one PyTorch
    call computing the same function (a yardstick the port never calls:
    ``F.scaled_dot_product_attention`` — over gathered K/V for the paged
    kernel; forward, and forward+backward for the backward pair, for
-   flash) beside the bound max(bytes / 3.35 TB/s, FLOPs / peak).
+   flash; unfused ``torch.matmul`` + ``F.cross_entropy``, forward alone,
+   and forward+backward to h alone (dh) and to w alone (dw), for fused
+   CE) beside the bound max(bytes / 3.35 TB/s, FLOPs / peak); the fused
+   forward also with a single vocab split.
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
@@ -60,6 +75,19 @@ exits non-zero:
 8. ``train_serve`` — the trained model through ``gen_params`` into the
    serving engine: two greedy requests whose prompts are prefixes of
    the training batch; reports how many of 16 tokens match the batch.
+9. ``train_fused_ce`` — the ``train`` phase with ``fused_ce=True`` (the
+   reference's flagship, ``bench_gpt_pretrain.py --fused-ce``): same
+   model, seed, batch, clip and 40 steps; each fused-CE kernel launched
+   40 times and each flash kernel 480; the loss falls at least 1 nat,
+   step 1 within 2e-2 of ``train``'s step 1 and the last step within
+   0.25 nat of ``train``'s (the bf16 rounding of the logits differs
+   between the two paths); step ms, tokens/s, MFU and peak memory beside
+   ``train``'s.
+10. ``train_parity_fused_ce`` — as ``train_parity`` with ``fused_ce=True``:
+   through the kernels against the plain versions, and against
+   ``fused_ce=False``, at the same tolerances.
+11. ``bench`` — ``paddle_tpu_torch.tools.bench_gpt_pretrain.run`` with
+   ``fused_ce=True`` and ``reps=1``, printing that tool's JSON line.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +101,10 @@ import time
 
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 BF16_GRAD_TOL = 3e-2
+# fused CE: nll/lse are float32 sums of float32 logits on both sides (about
+# 3e-7 of max-abs measured); bf16 dh/dw differ by at most one bf16 rounding
+# step of the output (2^-7 of max-abs at worst, 5.5e-3 measured)
+FCE_LSE_TOL, FCE_BF16_GRAD_TOL = 2e-6, 1e-2
 PARITY_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,        # non-tensor-core float32
@@ -394,6 +426,171 @@ def time_flash(q, k, v, do, out, lse, delta, causal, fa, F):
                      **b[kn]) for kn in ("fwd", "dq", "dkv")}
 
 
+# -- fused head + cross entropy -----------------------------------------------
+
+# name: (T, V, d, ignored share); "train" is GPT-2 small's training shape
+FCE_CASES = {
+    "train": (16 * 1024, 50304, 768, 0),
+    "ragged1000": (1000, 50257, 768, 0),
+    "ignored300": (300, 5000, 768, 3),
+}
+
+
+def fce_inputs(T, V, d, ignored, dtype, seed):
+    """h ~ N(0, 1) (a LayerNorm output), w ~ N(0, 0.05), int32 labels
+    and g = 1/T (the mean's cotangent); every 16th label (from row 1) is
+    past the vocabulary with its g kept, so that row's gradient is the
+    softmax term alone; every ``ignored``-th label is -100 with g = 0."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(T, d, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(V, d, device="cuda", generator=gen) * 0.05).to(dtype)
+    lab = torch.randint(0, V, (T,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    g = torch.full((T,), 1.0 / T, device="cuda")
+    lab[1::16] = V + 7
+    if ignored:
+        lab[::ignored] = -100
+        g[::ignored] = 0.0
+    return h, w, lab, g
+
+
+def fce_softmax_parts(h, w, lab, g, *outs):
+    """The parts of ``(dh, dw)`` pairs where only the softmax term lives:
+    dh on rows whose label picks nothing and whose g is not 0, dw on the
+    vocab rows no label picks."""
+    import torch
+    V = w.shape[0]
+    picks = (lab >= 0) & (lab < V)
+    rows = ~picks & (g != 0)
+    free = torch.ones(V, dtype=torch.bool, device=w.device)
+    free[lab[picks].long()] = False
+    return [(dh[rows], dw[free]) for dh, dw in outs]
+
+
+def fce_bounds(h, w):
+    """Least time per kernel: h and w read once, outputs written once
+    (nll and lse, dh, dw; labels, lse and g read), against the products
+    at the dtype's peak: 2 T V d for the forward's logits, twice that for
+    dh and dw (the logits again, then dl @ w or dlᵀ @ h)."""
+    T, d = h.shape
+    V = w.shape[0]
+    item = h.element_size()
+    th, tw, rows = T * d * item, V * d * item, T * 4
+    f = 2 * T * V * d
+    peak = PEAK_FLOPS[str(h.dtype).replace("torch.", "")]
+    work = {"fwd": (th + tw + rows + 2 * rows, f),
+            "dh": (th + tw + 3 * rows + th, 2 * f),
+            "dw": (th + tw + 3 * rows + tw, 2 * f)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = dict(bound_ms=max(tb, to),
+                         bound_by="bytes" if tb >= to else "operations",
+                         bytes=nbytes, flops=flops)
+    return out
+
+
+def run_fused_ce_phase():
+    import torch
+    from paddle_tpu_torch.kernels import fused_ce as fc
+
+    results = {}
+    for ci, (name, (T, V, d, ignored)) in enumerate(FCE_CASES.items()):
+        dtypes = ((torch.bfloat16,) if name == "train"
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
+            gtol = (F32_TOL if dtype == torch.float32
+                    else FCE_BF16_GRAD_TOL)
+            h, w, lab, g = fce_inputs(T, V, d, ignored, dtype, 300 + ci)
+            nll, lse = fc.fused_ce_fwd(h, w, lab)
+            dh = fc.fused_ce_bwd_dh(h, w, lab, lse, g)
+            dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
+            torch.cuda.synchronize()
+            rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
+            rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
+            rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
+            (sdh, sdw), (srdh, srdw) = fce_softmax_parts(
+                h, w, lab, g, (dh, dw), (rdh, rdw))
+            rec = {}
+            for key, a, b, tol in (("nll", nll, rnll, FCE_LSE_TOL),
+                                   ("lse", lse, rlse, FCE_LSE_TOL),
+                                   ("dh", dh, rdh, gtol),
+                                   ("dw", dw, rdw, gtol),
+                                   ("dh_softmax", sdh, srdh, gtol),
+                                   ("dw_softmax", sdw, srdw, gtol)):
+                err = rel_err(a, b)
+                if not (err <= tol and bool(torch.isfinite(a).all())):
+                    raise AssertionError(
+                        f"fused CE {key} kernel vs plain ({name}, {dtype}): "
+                        f"max-abs err / max-abs {err} > {tol} or non-finite")
+                rec[key] = {"rel_err": err, "max_abs_err": float(
+                    (a.float() - b.float()).abs().max())}
+            none = (lab < 0) | (lab >= V)
+            if not torch.equal(nll[none], lse[none]):
+                raise AssertionError("fused CE: a row whose label picks "
+                                     "nothing has an nll other than its lse")
+            if ignored and not bool((dh[::ignored] == 0).all()):
+                raise AssertionError("fused CE: an ignored row's dh is not 0")
+            del rnll, rlse, rdh, rdw, sdh, sdw, srdh, srdw
+            torch.cuda.empty_cache()
+            if name == "train":
+                again = (fc.fused_ce_bwd_dh(h, w, lab, lse, g),
+                         fc.fused_ce_bwd_dw(h, w, lab, lse, g))
+                if not (torch.equal(dh, again[0])
+                        and torch.equal(dw, again[1])):
+                    raise AssertionError("fused CE backward not "
+                                         "bit-identical across two launches")
+                rec["backward_bit_identical"] = True
+                del again
+                rec["timing"] = time_fused_ce(h, w, lab, lse, g, fc)
+            results.setdefault(name, {})[str(dtype).replace(
+                "torch.", "")] = rec
+            del h, w, lab, g, nll, lse, dh, dw
+            torch.cuda.empty_cache()
+    return results
+
+
+def time_fused_ce(h, w, lab, lse, g, fc):
+    """Kernel, plain and library times at the training shape, with the
+    bounds. The library yardstick is the unfused head: ``torch.matmul``
+    of bf16 operands and ``F.cross_entropy`` over the float32 logits
+    (labels that pick nothing as its ignore_index), weighted by g:
+    forward alone (fwd), forward+backward to h alone (dh) and to w alone
+    (dw), so each backward kernel, which recomputes the logits, meets the
+    forward and the one product of its own. The forward kernel is also
+    timed with one vocab split (``fwd_one_split_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    t = {"fwd": cuda_ms(lambda i: fc.fused_ce_fwd(h, w, lab), 10),
+         "dh": cuda_ms(lambda i: fc.fused_ce_bwd_dh(h, w, lab, lse, g), 5),
+         "dw": cuda_ms(lambda i: fc.fused_ce_bwd_dw(h, w, lab, lse, g), 5)}
+    p = {"fwd": cuda_ms(lambda i: fc.fused_ce_fwd_ref(h, w, lab), 3),
+         "dh": cuda_ms(lambda i: fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g),
+                       3),
+         "dw": cuda_ms(lambda i: fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g),
+                       3)}
+    one_split = cuda_ms(lambda i: fc._launch_fwd(h, w, lab, nsplit=1), 10)
+    V = w.shape[0]
+    lab64 = torch.where((lab >= 0) & (lab < V), lab.long(), -100)
+
+    def lib_loss(a, b):
+        return (F.cross_entropy(torch.matmul(a, b.t()).float(), lab64,
+                                reduction="none") * g).sum()
+    lib = {"fwd": cuda_ms(lambda i: lib_loss(h, w), 10)}
+    hg, wg = h.detach().requires_grad_(), w.detach().requires_grad_()
+    lib["dh"] = cuda_ms(lambda i: torch.autograd.grad(lib_loss(hg, w), hg),
+                        5)
+    lib["dw"] = cuda_ms(lambda i: torch.autograd.grad(lib_loss(h, wg), wg),
+                        5)
+    torch.cuda.empty_cache()
+    b = fce_bounds(h, w)
+    out = {kn: dict(ms=t[kn], plain_ms=p[kn], library_ms=lib[kn], **b[kn])
+           for kn in ("fwd", "dh", "dw")}
+    out["fwd"]["fwd_one_split_ms"] = one_split
+    return out
+
+
 # -- the serving engine -------------------------------------------------------
 
 def serve_traffic(vocab):
@@ -549,16 +746,21 @@ def bf16_loss(m, ids, labels):
         return m.loss(ids, labels)
 
 
-def run_train_phase(kernel_ms):
+def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None):
+    """The ``train`` phase, or with ``fused_ce`` the ``train_fused_ce``
+    phase, whose losses are then held against ``base`` (``train``'s
+    record). ``kernel_ms`` / ``fce_ms``: each kernel's time alone, for the
+    kernels' ms a step by launches x time."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel.api import TrainStep
 
-    cfg = gpt2_small(dropout=0.0, recompute=True)
+    cfg = gpt2_small(dropout=0.0, recompute=True, fused_ce=fused_ce)
     model = GPTForCausalLM(cfg, device="cuda", seed=0)
     opt = AdamW(6e-4, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
     step = TrainStep(model, bf16_loss, opt, device="cuda")
@@ -569,6 +771,7 @@ def run_train_phase(kernel_ms):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    fc.reset_launches()
     curve = []
     for _ in range(2):                      # warm: allocator, cuBLAS
         curve += step.multi_step(sids, slab).cpu().tolist()
@@ -578,76 +781,109 @@ def run_train_phase(kernel_ms):
     wall = time.perf_counter() - t0
     launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
                 "dkv": fa.dkv_launches}
+    fce_launches = {"fwd": fc.fwd_launches, "dh": fc.dh_launches,
+                    "dw": fc.dw_launches}
+    phase = "train_fused_ce" if fused_ce else "train"
     steps = 5 * TRAIN_K
     if not all(np.isfinite(curve)) or len(curve) != steps:
-        raise AssertionError(f"non-finite or missing losses: {curve}")
+        raise AssertionError(f"{phase}: non-finite or missing losses: "
+                             f"{curve}")
     if not curve[-1] <= curve[0] - 1.0:
-        raise AssertionError(f"loss fell {curve[0] - curve[-1]} < 1 nat")
+        raise AssertionError(f"{phase}: loss fell {curve[0] - curve[-1]} "
+                             "< 1 nat")
     for kn, n in launches.items():
         if n != cfg.num_layers * steps:
-            raise AssertionError(f"flash {kn} launches {n} != "
+            raise AssertionError(f"{phase}: flash {kn} launches {n} != "
                                  f"{cfg.num_layers} x {steps}")
+    for kn, n in fce_launches.items():
+        if n != (steps if fused_ce else 0):
+            raise AssertionError(f"{phase}: fused CE {kn} launches {n}")
     step_s = wall / (3 * TRAIN_K)
     tok_s = TRAIN_B * TRAIN_S / step_s
     fpt = model_flops_per_token(cfg.num_layers, cfg.hidden_size,
                                 cfg.vocab_size, TRAIN_S)
     flash_ms = sum(launches[kn] * kernel_ms[kn] for kn in launches) / steps
-    return {"phase": "train", "model": "gpt2_small", "layers": cfg.num_layers,
-            "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
-            "batch": TRAIN_B, "seq": TRAIN_S, "k": TRAIN_K,
-            "steps": steps, "timed_steps": 3 * TRAIN_K,
-            "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
-            "model_flops_per_token": fpt,
-            "mfu_of_989_tflops": tok_s * fpt / PEAK_BF16,
-            "flash_ms_per_step": flash_ms,
-            "flash_share_of_step": flash_ms / (step_s * 1e3),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "loss_first": curve[0], "loss_last": curve[-1],
-            "loss_curve": curve, "flash_launches": launches,
-            "gpu": smi()}, model, launches, ids
+    rec = {"phase": phase, "model": "gpt2_small", "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+           "fused_ce": fused_ce,
+           "batch": TRAIN_B, "seq": TRAIN_S, "k": TRAIN_K,
+           "steps": steps, "timed_steps": 3 * TRAIN_K,
+           "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+           "model_flops_per_token": fpt,
+           "mfu_of_989_tflops": tok_s * fpt / PEAK_BF16,
+           "flash_ms_per_step": flash_ms,
+           "flash_share_of_step": flash_ms / (step_s * 1e3),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "loss_first": curve[0], "loss_last": curve[-1],
+           "loss_curve": curve, "flash_launches": launches,
+           "gpu": smi()}
+    if fused_ce:
+        fce = sum(fce_launches[kn] * fce_ms[kn] for kn in fce_ms) / steps
+        d1 = abs(curve[0] - base["loss_curve"][0])
+        dl = abs(curve[-1] - base["loss_curve"][-1])
+        if not d1 <= 2e-2:
+            raise AssertionError(f"train_fused_ce: step-1 loss {curve[0]} "
+                                 f"differs from train's by {d1} > 2e-2")
+        if not dl <= 0.25:
+            raise AssertionError(f"train_fused_ce: last loss {curve[-1]} "
+                                 f"differs from train's by {dl} > 0.25")
+        rec.update({"fused_ce_launches": fce_launches,
+                    "fused_ce_ms_per_step": fce,
+                    "fused_ce_share_of_step": fce / (step_s * 1e3),
+                    "step1_loss_vs_train": d1, "last_loss_vs_train": dl,
+                    "train_step_ms": base["step_ms"],
+                    "train_peak_mem_bytes": base["peak_mem_bytes"]})
+    return rec, model, {**{f"flash_{k}": v for k, v in launches.items()},
+                        **{f"fused_ce_{k}": v
+                           for k, v in fce_launches.items()}}, ids
 
 
-def run_train_parity_phase():
+PARITY_STEPS, PARITY_LR = 3, 6e-4
+
+
+def parity_run(cfg, ctx, ids, labels):
+    """One float32 model from seed 1 (batch 2 x 1024): step-1 gradients
+    by ``grad_step``, then ``PARITY_STEPS`` AdamW steps, all inside
+    ``ctx``. Returns (losses, grads, params) on the host."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel.api import TrainStep
 
-    cfg = gpt2_small(dropout=0.0, recompute=True, bf16_residual=False)
-    ids, labels = train_batch(cfg.vocab_size, 2, TRAIN_S)
-    steps, lr = 3, 6e-4
-    sids, slab = np.stack([ids] * steps), np.stack([labels] * steps)
-    runs = {}
-    for plain in (False, True):
-        model = GPTForCausalLM(cfg, device="cuda", seed=1)
-        step = TrainStep(model, lambda m, i, y: m.loss(i, y),
-                         AdamW(lr, weight_decay=0.1), device="cuda")
-        ctx = fa.use_plain() if plain else contextlib.nullcontext()
-        with ctx:
-            _, grads, _ = step.grad_step(ids, labels)
-            losses = step.multi_step(sids, slab)
-        runs[plain] = (losses.cpu(), [g.cpu() for g in grads],
-                       {n: p.detach().cpu()
-                        for n, p in model.named_parameters()})
-        del model, step, grads
-        torch.cuda.empty_cache()
-    (lk, gk, pk), (lp, gp, pp) = runs[False], runs[True]
+    sids = np.stack([ids] * PARITY_STEPS)
+    slab = np.stack([labels] * PARITY_STEPS)
+    model = GPTForCausalLM(cfg, device="cuda", seed=1)
+    step = TrainStep(model, lambda m, i, y: m.loss(i, y),
+                     AdamW(PARITY_LR, weight_decay=0.1), device="cuda")
+    with ctx:
+        _, grads, _ = step.grad_step(ids, labels)
+        losses = step.multi_step(sids, slab)
+    out = (losses.cpu(), [g.cpu() for g in grads],
+           {n: p.detach().cpu() for n, p in model.named_parameters()})
+    del model, step, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_compare(what, run_a, run_b, H):
+    """Losses within 1e-4, step-1 gradients within 1e-3 of each tensor's
+    max-abs, and the parameters: every element within 2 x steps x lr, and
+    all but max(8, 1e-4 x numel) elements of each tensor (the key bias
+    aside) within 1e-4 of its max-abs. Adam normalises each element's
+    gradient, so an element whose gradient is as small as the rounding
+    noise between the two runs (the key bias, whose exact gradient is
+    zero, and a few stray ones) can step the other way: by at most
+    2 x lr a step."""
+    import torch
+    (lk, gk, pk), (lp, gp, pp) = run_a, run_b
     loss_err = float((lk - lp).abs().max())
     if not loss_err <= 1e-4:
-        raise AssertionError(f"train parity: losses differ by {loss_err}")
+        raise AssertionError(f"{what}: losses differ by {loss_err}")
     grad_err = max(rel_err(a, b) for a, b in zip(gk, gp))
     if not grad_err <= 1e-3:
-        raise AssertionError(f"train parity: step-1 grads {grad_err}")
-    # Adam normalises each element's gradient, so an element whose
-    # gradient is as small as the rounding noise between the two runs
-    # (the key bias, whose exact gradient is zero, and a few stray ones)
-    # can step the other way: by at most 2 x lr a step. The check: every
-    # element within that bound, and all but max(8, 1e-4 x numel)
-    # elements of each tensor within 1e-4 of the tensor's max-abs.
-    H = cfg.hidden_size
-    bound = 2 * steps * lr
+        raise AssertionError(f"{what}: step-1 grads {grad_err}")
+    bound = 2 * PARITY_STEPS * PARITY_LR
     worst, outliers, max_abs = [], 0, 0.0
     for name, a in pk.items():
         b = pp[name]
@@ -661,21 +897,62 @@ def run_train_parity_phase():
         worst.append((float(d.max() / b.abs().max()), name, n_out,
                       b.numel()))
         if n_out > max(8, 1e-4 * b.numel()):
-            raise AssertionError(f"train parity: {name} has {n_out} "
-                                 "elements beyond 1e-4 of its max-abs")
+            raise AssertionError(f"{what}: {name} has {n_out} elements "
+                                 "beyond 1e-4 of its max-abs")
     if not max_abs <= bound:
-        raise AssertionError(f"train parity: a parameter moved {max_abs} "
-                             f"> {bound} apart")
+        raise AssertionError(f"{what}: a parameter moved {max_abs} > "
+                             f"{bound} apart")
     worst.sort(reverse=True)
-    return {"phase": "train_parity", "dtype": "float32", "batch": 2,
-            "seq": TRAIN_S, "steps": steps,
-            "losses_kernel": lk.tolist(), "losses_plain": lp.tolist(),
+    return {"losses_kernel": lk.tolist(), "losses_plain": lp.tolist(),
             "max_loss_abs_err": loss_err, "tol_loss": 1e-4,
             "max_grad_err_of_maxabs": grad_err, "tol_grad": 1e-3,
             "max_param_abs_err": max_abs, "tol_param_abs": bound,
             "param_elements_beyond_1e-4_of_maxabs": outliers,
             "param_elements": sum(p.numel() for p in pk.values()),
             "worst_params": worst[:5]}
+
+
+def run_train_parity_phase():
+    """The flash kernels against their plain versions (``fused_ce=False``,
+    float32, no autocast)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import gpt2_small
+
+    cfg = gpt2_small(dropout=0.0, recompute=True, bf16_residual=False)
+    ids, labels = train_batch(cfg.vocab_size, 2, TRAIN_S)
+    kern = parity_run(cfg, contextlib.nullcontext(), ids, labels)
+    plain = parity_run(cfg, fa.use_plain(), ids, labels)
+    return {"phase": "train_parity", "dtype": "float32", "batch": 2,
+            "seq": TRAIN_S, "steps": PARITY_STEPS,
+            **parity_compare("train parity", kern, plain, cfg.hidden_size)}
+
+
+def run_train_parity_fused_ce_phase():
+    """``fused_ce=True`` through the fused-CE kernels against the same
+    through their plain versions, and against ``fused_ce=False`` (float32,
+    no autocast; flash through its kernels in all three)."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.models.gpt import gpt2_small
+
+    kw = dict(dropout=0.0, recompute=True, bf16_residual=False)
+    cfg = gpt2_small(fused_ce=True, **kw)
+    ids, labels = train_batch(cfg.vocab_size, 2, TRAIN_S)
+    fc.reset_launches()
+    kern = parity_run(cfg, contextlib.nullcontext(), ids, labels)
+    launches = [fc.fwd_launches, fc.dh_launches, fc.dw_launches]
+    if launches != [PARITY_STEPS + 1] * 3:
+        raise AssertionError(f"train_parity_fused_ce: launches {launches}")
+    plain = parity_run(cfg, fc.use_plain(), ids, labels)
+    unfused = parity_run(gpt2_small(**kw), contextlib.nullcontext(), ids,
+                         labels)
+    H = cfg.hidden_size
+    return {"phase": "train_parity_fused_ce", "dtype": "float32",
+            "batch": 2, "seq": TRAIN_S, "steps": PARITY_STEPS,
+            "fused_ce_launches": launches,
+            "vs_plain": parity_compare("fused CE parity vs plain", kern,
+                                       plain, H),
+            "vs_unfused": parity_compare("fused CE parity vs fused_ce=False",
+                                         kern, unfused, H)}
 
 
 def run_train_serve_phase(model, ids):
@@ -693,6 +970,21 @@ def run_train_serve_phase(model, ids):
              for u, r in zip(uids, (0, 1))]
     return {"phase": "train_serve", "requests": 2, "prompt_tokens": plen,
             "new_tokens": n, "tokens_matching_batch": match}
+
+
+def run_bench_phase():
+    """The ported bench entry point, flagship configuration, one timed
+    call: its own JSON line."""
+    import math
+    from paddle_tpu_torch.tools import bench_gpt_pretrain as bgp
+
+    kw = dict(k=TRAIN_K, recompute=True, ce_chunk=0, fused_ce=True,
+              bf16_residual=True)
+    tok, mfu, loss = bgp.run(TRAIN_B, TRAIN_S, reps=1, **kw)
+    if not (tok > 0 and math.isfinite(loss)):
+        raise AssertionError(f"bench: {tok} tokens/s, loss {loss}")
+    return {"phase": "bench",
+            **bgp.record(TRAIN_B, TRAIN_S, tok, mfu, loss, **kw)}
 
 
 def main():
@@ -724,22 +1016,33 @@ def main():
                       for n, v in log.items()}})
     kres = run_kernel_phase()
     fres = run_flash_phase()
+    cres = run_fused_ce_phase()
     emit({"phase": "kernels",
           "kernels": ["ragged_paged_attention", "flash_attention_fwd",
-                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv"],
+                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                      "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"],
           "ragged_paged_attention": kres, "flash_attention": fres,
-          "gpu": gpu})
+          "fused_ce": cres, "gpu": gpu})
     serve, launches = run_serve_phase()
     emit(serve)
     emit(run_parity_phase())
     ft = fres["train"]["bfloat16"]["timing"]
-    train, model, flaunch, ids = run_train_phase(
-        {kn: ft[kn]["ms"] for kn in ("fwd", "dq", "dkv")})
+    ct = cres["train"]["bfloat16"]["timing"]
+    flash_ms = {kn: ft[kn]["ms"] for kn in ("fwd", "dq", "dkv")}
+    train, model, flaunch, ids = run_train_phase(flash_ms)
     emit(train)
     emit(run_train_serve_phase(model, ids))
     del model
     torch.cuda.empty_cache()
+    fused, model, claunch, _ = run_train_phase(
+        flash_ms, fused_ce=True,
+        fce_ms={kn: ct[kn]["ms"] for kn in ("fwd", "dh", "dw")}, base=train)
+    emit(fused)
+    del model
+    torch.cuda.empty_cache()
     emit(run_train_parity_phase())
+    emit(run_train_parity_fused_ce_phase())
+    emit(run_bench_phase())
     dec = kres["decode"]["bfloat16"]
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
@@ -764,13 +1067,27 @@ def main():
             "replaces": f"paddle_tpu/kernels/flash_attention_pallas.py:{line}",
             "also_replaces":
                 f"paddle_tpu/kernels/flash_attention_pallas.py:{also}",
-            "launches": flaunch[kn],
+            "launches": flaunch[f"flash_{kn}"],
             "max_abs_err": max(r[o]["max_abs_err"] for case in fres.values()
                                for r in case.values() for o in outputs[kn]),
             "ms": ft[kn]["ms"], "plain_ms": ft[kn]["plain_ms"],
             "bound_ms": ft[kn]["bound_ms"], "bound_by": ft[kn]["bound_by"],
             "library_ms": ft[kn]["library_ms"],
             "shape": "train: B=16 L=1024 H=12 D=64 causal bf16"})
+    outputs = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw",)}
+    for kn, line in (("fwd", 62), ("dh", 101), ("dw", 129)):
+        kernels.append({
+            "name": {"fwd": "fused_ce_fwd", "dh": "fused_ce_bwd_dh",
+                     "dw": "fused_ce_bwd_dw"}[kn], "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
+            "replaces": f"paddle_tpu/kernels/fused_ce_pallas.py:{line}",
+            "launches": claunch[f"fused_ce_{kn}"],
+            "max_abs_err": max(r[o]["max_abs_err"] for case in cres.values()
+                               for r in case.values() for o in outputs[kn]),
+            "ms": ct[kn]["ms"], "plain_ms": ct[kn]["plain_ms"],
+            "bound_ms": ct[kn]["bound_ms"], "bound_by": ct[kn]["bound_by"],
+            "library_ms": ct[kn]["library_ms"],
+            "shape": "train: T=16384 d=768 V=50304 bf16"})
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

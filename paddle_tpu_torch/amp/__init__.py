@@ -28,7 +28,7 @@ import contextlib
 import torch
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "cast_inputs",
-           "snapshot", "restored"]
+           "autocast_dtype", "snapshot", "restored"]
 
 # op white/black lists (the reference's, amp/__init__.py:22-34)
 WHITE_LIST = {
@@ -95,6 +95,16 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         snap = (level, dtype, frozenset(white), frozenset(black))
     with restored(snap):
         yield
+
+
+def autocast_dtype():
+    """The low dtype under ``O1``/``O2`` autocast, else ``None``: for an
+    op on neither list that casts its operands itself, as the reference's
+    ``fused_linear_cross_entropy`` reads the tracer's AMP level and dtype
+    (``nn/functional/loss.py:167-169``)."""
+    if _state.level in ("O1", "O2"):
+        return _DTYPES[_state.dtype]
+    return None
 
 
 def cast_inputs(op_name, *args):

@@ -1,4 +1,4 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch
-versions (``paged_attention.py`` <- ``paddle_tpu/kernels/
-paged_attention_pallas.py``). Sources live in ``csrc/``; ``_build.py``
+versions (``paged_attention.py``, ``flash_attention.py`` and
+``fused_ce.py``, each porting ``paddle_tpu/kernels/<name>_pallas.py``). Sources live in ``csrc/``; ``_build.py``
 compiles them at first use."""

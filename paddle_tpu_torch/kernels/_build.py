@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "find_nvcc", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_attention", "flash_attention")
+SOURCES = ("paged_attention", "flash_attention", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

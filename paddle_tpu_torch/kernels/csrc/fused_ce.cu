@@ -1,0 +1,783 @@
+// Fused LM head + softmax cross entropy for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernels of paddle_tpu/kernels/fused_ce_pallas.py:
+//   fused_ce_fwd_kernel  <- _fwd_kernel    (:62)  per-token (m, l, target)
+//                                                  of softmax(h @ w^T)
+//   fused_ce_dh_kernel   <- _bwd_dh_kernel (:101) dh = dl @ w
+//   fused_ce_dw_kernel   <- _bwd_dw_kernel (:129) dw = dl^T @ h
+// with dl = (softmax(h @ w^T) - onehot(label)) * g recomputed tile by tile,
+// so the [T, V] logits never reach device memory, forward or backward.
+//
+// Layout: h [T, d] and w [V, d] row-major (the tied head: logits = h @ w^T),
+// labels int32 [T], lse and g float32 [T]; dh [T, d] and dw [V, d] in the
+// inputs' type. Inputs float32 or bfloat16, the same type for h and w. Any
+// T and V: token rows >= T load as zeros and are never written, vocab
+// columns >= V count as -inf (probability 0, no gradient). A label outside
+// [0, V) picks no column: its nll is the lse and its one-hot is zero. d is
+// padded with zeros to a multiple of 16 inside shared memory; d <= 768.
+//
+// What bounds these kernels on this card: at GPT-2 small's training shape
+// (T = 16384, d = 768, V = 50304) each of the three does 1.3-2.5 TFLOP
+// against ~100 MB of operands, far above the ~295 operations per byte at
+// which the tensor cores become the limit: the bound is operations. The
+// design does this about it:
+// - bfloat16 goes through the tensor cores (nvcuda::wmma 16x16x16, bf16 in,
+//   f32 accumulation). float32, used by the parity runs, takes a plain FFMA
+//   path in the same templates (one Engine per type), so its products are
+//   full float32, summed 16 terms at a time before they join the total.
+// - Each block keeps one operand tile resident in shared memory for its
+//   whole life (the forward's and dh's token tile, dw's vocab tile) and
+//   streams the other through a ring of buffers with cp.async, so the next
+//   tiles load while this one computes. The backward's second product
+//   reuses the streamed tile: w (dh) or h (dw) is read once per tile for
+//   both products. The accumulators of dh ([32, d]) and dw ([32, d]) stay
+//   in registers, their columns split across the 8 warps; d is never split
+//   across the grid, so the logits product is computed once per tile.
+// - Each fragment loaded from shared memory feeds more than one product: a
+//   logits warp tile is 32 x 16 (one B fragment, two products) and a dh/dw
+//   warp owns both 16-row slices of its columns. A logits tile with fewer
+//   warp tiles than warps splits its d range across warps (partial tiles
+//   summed in a fixed order in the epilogue).
+// The forward splits the vocabulary across grid.y (fused_ce_forward_splits
+// picks enough blocks for every SM at any T) and writes per-split (m, l,
+// target); a small PyTorch reduction combines them (fused_ce.py).
+// chip_smoke.py times the split forward against a single split. No atomics
+// anywhere: every output
+// element is summed by one block in a fixed order, so two launches give
+// bit-identical results.
+// What holds this design ~10x above its bound: one block of 8 warps per SM
+// (its shared memory and register accumulators leave room for no second)
+// runs the phases of a tile (load, logits product, dl, second product) one
+// after another between barriers, so their latencies add up, and the
+// 32-row tiles stream all of w (or h) through L2 for every block. Overlapped
+// phases (warp specialisation), wgmma/TMA and larger tiles are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxD = 768;  // the dh/dw register accumulators cover d <= 768
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+
+// exp of the softmax: the intrinsic for bf16 (its error is far below bf16's
+// rounding), the accurate expf for the float32 parity path
+template <typename T>
+__device__ __forceinline__ float soft_exp(float x);
+template <>
+__device__ __forceinline__ float soft_exp<bf16>(float x) { return __expf(x); }
+template <>
+__device__ __forceinline__ float soft_exp<float>(float x) { return expf(x); }
+
+// Tile sizes and shared-memory row padding per input type. PAD keeps bf16
+// rows 16-byte aligned (cp.async, wmma's ldm rule); float rows get an odd
+// stride so the FFMA loops read shared memory without bank conflicts (and
+// load synchronously: cp.async needs 16-byte aligned rows).
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<bf16> {
+  static constexpr int PAD = 8, CPAD = 4, LPAD = 8;
+  static constexpr int FWD_BT = 64, FWD_BV = 32;  // resident tokens, streamed vocab
+  static constexpr int DH_BT = 32, DH_BV = 32;    // resident tokens, streamed vocab
+  static constexpr int DW_BV = 32, DW_BT = 32;    // resident vocab, streamed tokens
+  static constexpr int FWD_STAGES = 2, DH_STAGES = 3, DW_STAGES = 3;  // streamed buffers
+};
+template <>
+struct Cfg<float> {
+  static constexpr int PAD = 1, CPAD = 1, LPAD = 1;
+  static constexpr int FWD_BT = 32, FWD_BV = 16;
+  static constexpr int DH_BT = 32, DH_BV = 16;
+  static constexpr int DW_BV = 32, DW_BT = 16;
+  static constexpr int FWD_STAGES = 2, DH_STAGES = 2, DW_STAGES = 2;
+};
+
+// ---------------------------------------------------------------------------
+// Engines: acc[16 x 16] += A[16 x 16] . B[16 x 16] for one warp, A and B in
+// shared memory, row- or column-major. A(m, k) is a[m * lda + k] (row) or
+// a[k * lda + m] (col); B(k, n) is b[k * ldb + n] (row) or b[n * ldb + k].
+// ---------------------------------------------------------------------------
+template <bool ROW>
+struct WLayout {
+  using type = wmma::row_major;
+};
+template <>
+struct WLayout<false> {
+  using type = wmma::col_major;
+};
+
+template <typename T>
+struct Engine;
+
+template <>
+struct Engine<bf16> {  // tensor cores
+  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+  template <bool ROW>
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, typename WLayout<ROW>::type>;
+  template <bool ROW>
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, typename WLayout<ROW>::type>;
+  static __device__ __forceinline__ void zero(Acc& a) { wmma::fill_fragment(a, 0.f); }
+  static __device__ __forceinline__ void add(Acc& a, const Acc& b) {
+#pragma unroll
+    for (int e = 0; e < a.num_elements; ++e) a.x[e] += b.x[e];
+  }
+  template <bool ROW>
+  static __device__ __forceinline__ void load_a(FragA<ROW>& f, const bf16* p, int ld) {
+    wmma::load_matrix_sync(f, p, ld);
+  }
+  template <bool ROW>
+  static __device__ __forceinline__ void load_b(FragB<ROW>& f, const bf16* p, int ld) {
+    wmma::load_matrix_sync(f, p, ld);
+  }
+  template <bool AR, bool BR>
+  static __device__ __forceinline__ void mma(Acc& acc, const FragA<AR>& a, const FragB<BR>& b) {
+    wmma::mma_sync(acc, a, b, acc);
+  }
+  static __device__ __forceinline__ void store(float* c, int ldc, const Acc& a) {
+    wmma::store_matrix_sync(c, a, ldc, wmma::mem_row_major);
+  }
+};
+
+struct FmaAcc {
+  float x[8];
+};
+template <bool ROW>
+struct SmemRef {
+  const float* p;
+  int ld;
+};
+
+template <>
+struct Engine<float> {  // CUDA cores; lane owns row lane/2, 8 columns
+  using Acc = FmaAcc;
+  template <bool ROW>
+  using FragA = SmemRef<ROW>;
+  template <bool ROW>
+  using FragB = SmemRef<ROW>;
+  static __device__ __forceinline__ void zero(Acc& a) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a.x[j] = 0.f;
+  }
+  static __device__ __forceinline__ void add(Acc& a, const Acc& b) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a.x[j] += b.x[j];
+  }
+  template <bool ROW>
+  static __device__ __forceinline__ void load_a(FragA<ROW>& f, const float* p, int ld) {
+    f.p = p;
+    f.ld = ld;
+  }
+  template <bool ROW>
+  static __device__ __forceinline__ void load_b(FragB<ROW>& f, const float* p, int ld) {
+    f.p = p;
+    f.ld = ld;
+  }
+  template <bool AR, bool BR>
+  static __device__ __forceinline__ void mma(Acc& acc, const FragA<AR>& a, const FragB<BR>& b) {
+    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
+    float part[8];  // 16 terms summed apart, then added: a shorter error walk
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const float av = AR ? a.p[r * a.ld + k] : a.p[k * a.ld + r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float bv = BR ? b.p[k * b.ld + c0 + j] : b.p[(c0 + j) * b.ld + k];
+        part[j] = fmaf(av, bv, part[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc.x[j] += part[j];
+  }
+  static __device__ __forceinline__ void store(float* c, int ldc, const Acc& a) {
+    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[r * ldc + c0 + j] = a.x[j];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// building blocks
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + rows) of src [*, d] into dst [rows][ld] as T, columns
+// [d, dpad) and rows past nrows (the ragged tail) as zeros. bf16 rows with
+// 16-byte aligned sources go by cp.async (complete after the next commit
+// and wait); the rest load synchronously.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* __restrict__ src, int r0,
+                                          int nrows, int rows, int d, int dpad, bool vec) {
+  constexpr int VE = 16 / sizeof(T);
+  constexpr bool kAsync = (Cfg<T>::PAD * sizeof(T)) % 16 == 0;
+  if (vec) {  // d % VE == 0 and src 16-byte aligned
+    // chunk i = threadIdx.x + n * kThreads is chunk cc of row r (cpr chunks
+    // a row); both step without a division per chunk
+    const int cpr = dpad / VE, sr = kThreads / cpr, sc = kThreads - sr * cpr;
+    int r = threadIdx.x / cpr, cc = threadIdx.x - r * cpr;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < rows * cpr; i += kThreads) {
+      const int c = cc * VE;
+      const bool in = r < nrows && c < d;
+      const T* from = in ? src + (size_t)(r0 + r) * d + c : src;
+      if (kAsync) {
+        cp_async16(dst + r * ld + c, from, in);
+      } else {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (in) v = *reinterpret_cast<const uint4*>(from);
+        const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+        for (int j = 0; j < VE; ++j) dst[r * ld + c + j] = e[j];
+      }
+      r += sr;
+      cc += sc;
+      if (cc >= cpr) {
+        cc -= cpr;
+        ++r;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * dpad; i += kThreads) {
+      const int r = i / dpad, c = i - r * dpad;
+      dst[r * ld + c] = (r < nrows && c < d) ? src[(size_t)(r0 + r) * d + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// per-row label / lse / g of rows [r0, r0 + rows); rows >= T get a label
+// that matches nothing, lse 0 and g 0, so their dl is exactly 0
+__device__ __forceinline__ void load_row_stats(int* slab, float* slse, float* sg,
+                                               const int* __restrict__ lab,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ g, int r0, int rows,
+                                               int T) {
+  for (int i = threadIdx.x; i < rows; i += kThreads) {
+    const bool in = r0 + i < T;
+    slab[i] = in ? lab[r0 + i] : -1;
+    slse[i] = in ? lse[r0 + i] : 0.f;
+    sg[i] = in ? g[r0 + i] : 0.f;
+  }
+}
+
+// How a BT x BV logits tile is spread over the warps: a warp computes WI
+// 16-row slices of one 16-column slice (the B fragment loaded once for
+// WI products); with fewer such warp tiles than warps, each one's d range
+// is split in KSPLIT parts (partial tiles at ss + part * BT * lds, summed
+// in a fixed order by logit()).
+template <int BT, int BV>
+struct LogitsSplit {
+  static constexpr int NI = BT / 16, NJ = BV / 16, WI = NI < 2 ? NI : 2;
+  static constexpr int GROUPS = (NI / WI) * NJ;
+  static constexpr int KSPLIT = GROUPS >= kWarps ? 1 : kWarps / GROUPS;
+  static constexpr int TPW = GROUPS >= kWarps ? GROUPS / kWarps : 1;
+  static_assert(GROUPS % kWarps == 0 || kWarps % GROUPS == 0, "tiles and warps divide");
+};
+
+template <int BT, int BV>
+__device__ __forceinline__ float logit(const float* ss, int lds, int r, int c) {
+  float s = ss[r * lds + c];
+#pragma unroll
+  for (int p = 1; p < LogitsSplit<BT, BV>::KSPLIT; ++p) s += ss[p * BT * lds + r * lds + c];
+  return s;
+}
+
+// ss[BT x BV] = sa[BT x dpad] . sb[BV x dpad]^T (the logits tile), f32
+template <typename T, int BT, int BV>
+__device__ __forceinline__ void logits_tile(float* ss, int lds, const T* sa, const T* sb, int ld,
+                                            int dpad) {
+  using E = Engine<T>;
+  using S = LogitsSplit<BT, BV>;
+  constexpr int WI = S::WI, IB = S::NI / WI;
+  const int warp = threadIdx.x >> 5;
+  const int steps = dpad / 16, per = (steps + S::KSPLIT - 1) / S::KSPLIT;
+  const int part = S::KSPLIT > 1 ? warp / S::GROUPS : 0;
+  const int k_lo = part * per * 16, k_hi = min(dpad, (part + 1) * per * 16);
+#pragma unroll
+  for (int u = 0; u < S::TPW; ++u) {
+    const int grp = S::KSPLIT > 1 ? warp % S::GROUPS : warp + u * kWarps;
+    const int i0 = (grp % IB) * WI, j = grp / IB;
+    const T* b = sb + j * 16 * ld;
+    typename E::Acc acc[WI];
+#pragma unroll
+    for (int wi = 0; wi < WI; ++wi) E::zero(acc[wi]);
+    for (int k = k_lo; k < k_hi; k += 16) {
+      typename E::template FragB<false> fb;
+      E::template load_b<false>(fb, b + k, ld);
+#pragma unroll
+      for (int wi = 0; wi < WI; ++wi) {
+        typename E::template FragA<true> fa;
+        E::template load_a<true>(fa, sa + (i0 + wi) * 16 * ld + k, ld);
+        E::template mma<true, false>(acc[wi], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int wi = 0; wi < WI; ++wi)
+      E::store(ss + part * BT * lds + (i0 + wi) * 16 * lds + j * 16, lds, acc[wi]);
+  }
+}
+
+// dl[r][c] = (exp(s - lse_r) - [col == label_r]) * g_r for the tile whose
+// logits are in ss (rows r of the token side, columns c of the vocab side
+// starting at v0); columns >= V give 0
+template <typename T, int BT, int BV>
+__device__ __forceinline__ void dlogits_tile(T* sdl, int ldl, const float* ss, int lds,
+                                             const int* slab, const float* slse,
+                                             const float* sg, int v0, int V) {
+  for (int i = threadIdx.x; i < BT * BV; i += kThreads) {
+    const int r = i / BV, c = i - r * BV, col = v0 + c;
+    float val = 0.f;
+    if (col < V) {
+      const float p = soft_exp<T>(logit<BT, BV>(ss, lds, r, c) - slse[r]);
+      val = (p - (col == slab[r] ? 1.f : 0.f)) * sg[r];
+    }
+    sdl[r * ldl + c] = from_f32<T>(val);
+  }
+}
+
+template <typename T, int R>
+using AccArray = typename Engine<T>::Acc[(R / 16) * (kMaxD / 16 / kWarps)];
+
+// acc[R x dpad] += A[R x K] . B[K x dpad] with B row-major in shared memory
+// (ldb) and A row-major (AR) or column-major; each warp owns every 16-row
+// slice of every kWarps-th 16-column slice of d (warp, warp + 8, ...), so
+// each B fragment feeds R/16 products. acc[i * NJW + u] is row slice i of
+// column slice warp + u * kWarps.
+template <typename T, int R, int K, bool AR>
+__device__ __forceinline__ void acc_product(AccArray<T, R>& acc, const T* sa, int lda,
+                                            const T* sb, int ldb, int dpad) {
+  using E = Engine<T>;
+  constexpr int NI = R / 16, NJW = kMaxD / 16 / kWarps;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; k += 16) {
+    typename E::template FragA<AR> fa[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+      E::template load_a<AR>(fa[i], AR ? sa + i * 16 * lda + k : sa + k * lda + i * 16, lda);
+#pragma unroll
+    for (int u = 0; u < NJW; ++u) {
+      const int j = warp + u * kWarps;  // 16-column slice of d
+      if (j * 16 < dpad) {
+        typename E::template FragB<true> fb;
+        E::template load_b<true>(fb, sb + k * ldb + j * 16, ldb);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) E::template mma<AR, true>(acc[i * NJW + u], fa[i], fb);
+      }
+    }
+  }
+}
+
+// the accumulators to out rows [r0, r0 + min(R, nrows)) through shared
+// memory (sc, ldc), converted to T
+template <typename T, int R>
+__device__ __forceinline__ void store_acc(T* __restrict__ out, float* sc, int ldc,
+                                          const AccArray<T, R>& acc, int r0, int nrows, int d,
+                                          int dpad) {
+  using E = Engine<T>;
+  constexpr int NI = R / 16, NJW = kMaxD / 16 / kWarps;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();  // every warp is done reading the tiles sc overlays
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int u = 0; u < NJW; ++u) {
+      const int j = warp + u * kWarps;
+      if (j * 16 < dpad) E::store(sc + i * 16 * ldc + j * 16, ldc, acc[i * NJW + u]);
+    }
+  __syncthreads();
+  const int n = min(R, nrows);
+  for (int e = threadIdx.x; e < n * d; e += kThreads) {
+    const int r = e / d, c = e - r * d;
+    out[(size_t)(r0 + r) * d + c] = from_f32<T>(sc[r * ldc + c]);
+  }
+}
+
+__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
+
+// Shared memory of a kernel: the resident tile (RES rows), STAGES buffers
+// of the streamed tile (STR rows), KSPLIT partial logits tiles [BT x LDS],
+// the dl tile and the per-row stats. The f32 accumulator store at the end
+// overlays the start.
+template <typename T, int RES, int STR, int BT, int BV, int ACC_ROWS, int STAGES>
+struct Plan {
+  static constexpr int LDS = BV + 4, LDL = BV + Cfg<T>::LPAD;
+  int ld, ldc;
+  size_t str_off, str_bytes, ss_off, sdl_off, stat_off, bytes;
+  __host__ __device__ explicit Plan(int dpad) {
+    ld = dpad + Cfg<T>::PAD;
+    ldc = dpad + Cfg<T>::CPAD;
+    str_off = align128((size_t)RES * ld * sizeof(T));
+    str_bytes = align128((size_t)STR * ld * sizeof(T));
+    ss_off = str_off + STAGES * str_bytes;
+    sdl_off = ss_off + align128((size_t)LogitsSplit<BT, BV>::KSPLIT * BT * LDS * sizeof(float));
+    stat_off = sdl_off + align128((size_t)BT * LDL * sizeof(T));
+    const size_t end = stat_off + (size_t)3 * BT * 4;
+    const size_t acc = (size_t)ACC_ROWS * ldc * sizeof(float);
+    bytes = end > acc ? end : acc;
+  }
+};
+
+template <typename T>
+using FwdPlan = Plan<T, Cfg<T>::FWD_BT, Cfg<T>::FWD_BV, Cfg<T>::FWD_BT, Cfg<T>::FWD_BV, 0,
+                     Cfg<T>::FWD_STAGES>;
+template <typename T>
+using DhPlan = Plan<T, Cfg<T>::DH_BT, Cfg<T>::DH_BV, Cfg<T>::DH_BT, Cfg<T>::DH_BV, Cfg<T>::DH_BT,
+                    Cfg<T>::DH_STAGES>;
+template <typename T>
+using DwPlan = Plan<T, Cfg<T>::DW_BV, Cfg<T>::DW_BT, Cfg<T>::DW_BT, Cfg<T>::DW_BV, Cfg<T>::DW_BV,
+                    Cfg<T>::DW_STAGES>;
+
+// The streamed tiles go through a ring of S buffers: S - 1 tiles are in
+// flight before the loop; iteration i waits for tile i, passes a barrier
+// (after which no warp still reads buffer (i - 1) % S) and only then
+// issues tile i + S - 1 into that buffer, one copy group a tile.
+template <typename P>
+__device__ __forceinline__ unsigned char* stage(unsigned char* smem, const P& plan, int i,
+                                                int stages) {
+  return smem + plan.str_off + (size_t)(i % stages) * plan.str_bytes;
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (FWD_BT-token tile, vocab split); streams the
+// split's vocab tiles with an online (m, l) and picks the label's logit
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ lab,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    float* __restrict__ t_out, int T_, int V, int d, int dpad, int tiles_per_split,
+                    bool vec) {
+  using P = FwdPlan<T>;
+  constexpr int BT = Cfg<T>::FWD_BT, BV = Cfg<T>::FWD_BV;
+  constexpr int TPR = kThreads / BT, CPT = BV / TPR;  // threads a row, columns a thread
+  static_assert(TPR <= 32 && 32 % TPR == 0, "a row's threads share a warp");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const P plan(dpad);
+  T* sh = reinterpret_cast<T*>(smem);
+  float* ss = reinterpret_cast<float*>(smem + plan.ss_off);
+
+  const int t0 = blockIdx.x * BT;
+  const int nvt = (V + BV - 1) / BV;
+  const int vt_lo = blockIdx.y * tiles_per_split;
+  const int vt_hi = min(nvt, vt_lo + tiles_per_split);
+  constexpr int S = Cfg<T>::FWD_STAGES;
+  load_rows(sh, plan.ld, h, t0, T_ - t0, BT, d, dpad, vec);
+  for (int p = 0; p < S - 1; ++p) {
+    const int vt = vt_lo + p;
+    if (vt < vt_hi)
+      load_rows(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, w, vt * BV,
+                V - vt * BV, BV, d, dpad, vec);
+    cp_async_commit();
+  }
+
+  const int r = threadIdx.x / TPR, q = threadIdx.x % TPR;
+  // a label past V would otherwise match a masked column of the last tile
+  const int label = t0 + r < T_ && lab[t0 + r] < V ? lab[t0 + r] : -1;
+  float m = -INFINITY, l = 0.f, tgt = 0.f;
+  for (int vt = vt_lo; vt < vt_hi; ++vt) {
+    const int v0 = vt * BV, i = vt - vt_lo, nx = vt + S - 1;
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (nx < vt_hi)
+      load_rows(reinterpret_cast<T*>(stage(smem, plan, i + S - 1, S)), plan.ld, w, nx * BV,
+                V - nx * BV, BV, d, dpad, vec);
+    cp_async_commit();
+    logits_tile<T, BT, BV>(ss, P::LDS, sh, reinterpret_cast<const T*>(stage(smem, plan, i, S)),
+                           plan.ld, dpad);
+    __syncthreads();
+    float s[CPT], mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = q + j * TPR, col = v0 + c;
+      s[j] = col < V ? logit<BT, BV>(ss, P::LDS, r, c) : -INFINITY;
+      if (col == label) tgt += s[j];
+      mx = fmaxf(mx, s[j]);
+    }
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) sum += s[j] == -INFINITY ? 0.f : soft_exp<T>(s[j] - m_new);
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float alpha = m == -INFINITY ? 0.f : soft_exp<T>(m - m_new);
+    l = l * alpha + sum;
+    m = m_new;
+    // no trailing barrier: the next iteration's barrier comes before
+    // anything rewrites ss or this buffer
+  }
+  cp_async_wait<0>();  // an empty split leaves its resident tile's copy
+#pragma unroll
+  for (int o = TPR / 2; o > 0; o >>= 1) tgt += __shfl_xor_sync(0xffffffffu, tgt, o);
+  if (q == 0 && t0 + r < T_) {
+    const size_t at = (size_t)blockIdx.y * T_ + t0 + r;
+    m_out[at] = m;
+    l_out[at] = l;
+    t_out[at] = tgt;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward dh: one block per DH_BT-token tile; streams every vocab tile
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_ce_dh_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ lab,
+                   const float* __restrict__ lse, const float* __restrict__ g,
+                   T* __restrict__ dh, int T_, int V, int d, int dpad, bool vec) {
+  using P = DhPlan<T>;
+  constexpr int BT = Cfg<T>::DH_BT, BV = Cfg<T>::DH_BV;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const P plan(dpad);
+  T* sh = reinterpret_cast<T*>(smem);
+  float* ss = reinterpret_cast<float*>(smem + plan.ss_off);
+  T* sdl = reinterpret_cast<T*>(smem + plan.sdl_off);
+  int* slab = reinterpret_cast<int*>(smem + plan.stat_off);
+  float* slse = reinterpret_cast<float*>(slab + BT);
+  float* sg = slse + BT;
+
+  constexpr int S = Cfg<T>::DH_STAGES;
+  const int t0 = blockIdx.x * BT, ntiles = (V + BV - 1) / BV;
+  load_rows(sh, plan.ld, h, t0, T_ - t0, BT, d, dpad, vec);
+  for (int p = 0; p < S - 1; ++p) {
+    if (p < ntiles)
+      load_rows(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, w, p * BV, V - p * BV,
+                BV, d, dpad, vec);
+    cp_async_commit();
+  }
+  load_row_stats(slab, slse, sg, lab, lse, g, t0, BT, T_);
+  AccArray<T, BT> acc;
+#pragma unroll
+  for (int u = 0; u < (BT / 16) * (kMaxD / 16 / kWarps); ++u) Engine<T>::zero(acc[u]);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int v0 = it * BV, nx = it + S - 1;
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (nx < ntiles)
+      load_rows(reinterpret_cast<T*>(stage(smem, plan, nx, S)), plan.ld, w, nx * BV,
+                V - nx * BV, BV, d, dpad, vec);
+    cp_async_commit();
+    const T* sw = reinterpret_cast<const T*>(stage(smem, plan, it, S));
+    logits_tile<T, BT, BV>(ss, P::LDS, sh, sw, plan.ld, dpad);
+    __syncthreads();
+    dlogits_tile<T, BT, BV>(sdl, P::LDL, ss, P::LDS, slab, slse, sg, v0, V);
+    __syncthreads();
+    acc_product<T, BT, BV, true>(acc, sdl, P::LDL, sw, plan.ld, dpad);  // dl @ w
+  }
+  store_acc<T, BT>(dh, reinterpret_cast<float*>(smem), plan.ldc, acc, t0, T_ - t0, d, dpad);
+}
+
+// ---------------------------------------------------------------------------
+// backward dw: one block per DW_BV-row vocab tile; streams every token tile
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ lab,
+                   const float* __restrict__ lse, const float* __restrict__ g,
+                   T* __restrict__ dw, int T_, int V, int d, int dpad, bool vec) {
+  using P = DwPlan<T>;
+  constexpr int BV = Cfg<T>::DW_BV, BT = Cfg<T>::DW_BT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const P plan(dpad);
+  T* sw = reinterpret_cast<T*>(smem);
+  float* ss = reinterpret_cast<float*>(smem + plan.ss_off);
+  T* sdl = reinterpret_cast<T*>(smem + plan.sdl_off);
+  int* slab = reinterpret_cast<int*>(smem + plan.stat_off);
+  float* slse = reinterpret_cast<float*>(slab + BT);
+  float* sg = slse + BT;
+
+  constexpr int S = Cfg<T>::DW_STAGES;
+  const int v0 = blockIdx.x * BV, ntiles = (T_ + BT - 1) / BT;
+  load_rows(sw, plan.ld, w, v0, V - v0, BV, d, dpad, vec);
+  for (int p = 0; p < S - 1; ++p) {
+    if (p < ntiles)
+      load_rows(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, h, p * BT, T_ - p * BT,
+                BT, d, dpad, vec);
+    cp_async_commit();
+  }
+  AccArray<T, BV> acc;
+#pragma unroll
+  for (int u = 0; u < (BV / 16) * (kMaxD / 16 / kWarps); ++u) Engine<T>::zero(acc[u]);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = it * BT, nx = it + S - 1;
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (nx < ntiles)
+      load_rows(reinterpret_cast<T*>(stage(smem, plan, nx, S)), plan.ld, h, nx * BT,
+                T_ - nx * BT, BT, d, dpad, vec);
+    cp_async_commit();
+    // the last tile's dl pass, which read the stats, ended before a barrier
+    load_row_stats(slab, slse, sg, lab, lse, g, t0, BT, T_);
+    const T* sh = reinterpret_cast<const T*>(stage(smem, plan, it, S));
+    logits_tile<T, BT, BV>(ss, P::LDS, sh, sw, plan.ld, dpad);
+    __syncthreads();
+    dlogits_tile<T, BT, BV>(sdl, P::LDL, ss, P::LDS, slab, slse, sg, v0, V);
+    __syncthreads();
+    acc_product<T, BV, BT, false>(acc, sdl, P::LDL, sh, plan.ld, dpad);  // dl^T @ h
+  }
+  store_acc<T, BV>(dw, reinterpret_cast<float*>(smem), plan.ldc, acc, v0, V - v0, d, dpad);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+template <typename Kern>
+cudaError_t prepare(Kern kern, size_t smem) {
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return cudaSuccess;
+}
+
+int pad16(int d) { return (d + 15) / 16 * 16; }
+
+template <typename T>
+bool vec_ok(int d, const void* a, const void* b) {
+  constexpr int VE = 16 / sizeof(T);
+  return d % VE == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+constexpr int kVocabPerSplit = 1024;  // a forward vocab split keeps >= 1024 columns
+
+// Vocab splits of the forward grid: about two blocks an SM at this T, each
+// split at least kVocabPerSplit columns wide; 0 if the device is unknown.
+template <typename T>
+int fwd_splits(int T_, int V, int device) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  const int tiles = (T_ + Cfg<T>::FWD_BT - 1) / Cfg<T>::FWD_BT;
+  const int want = (2 * sms + tiles - 1) / tiles;
+  const int most = (V + kVocabPerSplit - 1) / kVocabPerSplit;
+  const int n = want < most ? want : most;
+  return n > 1 ? n : 1;
+}
+
+template <typename T>
+int fwd(const void* h, const void* w, const void* lab, void* m, void* l, void* t, int T_, int V,
+        int d, int nsplit, cudaStream_t st) {
+  constexpr int BT = Cfg<T>::FWD_BT, BV = Cfg<T>::FWD_BV;
+  const int dpad = pad16(d);
+  const FwdPlan<T> plan(dpad);
+  auto kern = fused_ce_fwd_kernel<T>;
+  cudaError_t e = prepare(kern, plan.bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int nvt = (V + BV - 1) / BV;
+  const int tps = (nvt + nsplit - 1) / nsplit;
+  dim3 grid((T_ + BT - 1) / BT, nsplit);
+  kern<<<grid, kThreads, plan.bytes, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(lab),
+      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(t), T_, V, d, dpad,
+      tps, vec_ok<T>(d, h, w));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_dh(const void* h, const void* w, const void* lab, const void* lse, const void* g,
+           void* dh, int T_, int V, int d, cudaStream_t st) {
+  constexpr int BT = Cfg<T>::DH_BT;
+  const int dpad = pad16(d);
+  const DhPlan<T> plan(dpad);
+  auto kern = fused_ce_dh_kernel<T>;
+  cudaError_t e = prepare(kern, plan.bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(T_ + BT - 1) / BT, kThreads, plan.bytes, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(lab),
+      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dh), T_, V,
+      d, dpad, vec_ok<T>(d, h, w));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_dw(const void* h, const void* w, const void* lab, const void* lse, const void* g,
+           void* dw, int T_, int V, int d, cudaStream_t st) {
+  constexpr int BV = Cfg<T>::DW_BV;
+  const int dpad = pad16(d);
+  const DwPlan<T> plan(dpad);
+  auto kern = fused_ce_dw_kernel<T>;
+  cudaError_t e = prepare(kern, plan.bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(V + BV - 1) / BV, kThreads, plan.bytes, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(lab),
+      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dw), T_, V,
+      d, dpad, vec_ok<T>(d, h, w));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16. Each entry returns
+// cudaGetLastError() after its launch (0 = launched), or
+// cudaErrorInvalidValue for a dtype, hidden size (1 <= d <= 768) or shape
+// it does not take. T = 0 launches nothing (the caller fills the outputs).
+#define FCE_CHECK()                                                                \
+  if ((dtype != 0 && dtype != 1) || d < 1 || d > kMaxD || T_ < 0 || V < 1)         \
+    return (int)cudaErrorInvalidValue;                                             \
+  if (T_ == 0) return 0
+
+// How many vocab splits fused_ce_forward should run with at this T and V on
+// CUDA device `device` (its m/l/t parts are [nsplit, T]); 0 for a dtype,
+// shape or device it does not take.
+extern "C" int fused_ce_forward_splits(int dtype, int T_, int V, int device) {
+  if ((dtype != 0 && dtype != 1) || T_ < 1 || V < 1) return 0;
+  return dtype == 0 ? fwd_splits<float>(T_, V, device) : fwd_splits<bf16>(T_, V, device);
+}
+
+extern "C" int fused_ce_forward(int dtype, const void* h, const void* w, const void* labels,
+                                void* m_part, void* l_part, void* t_part, int T_, int V, int d,
+                                int nsplit, void* stream) {
+  FCE_CHECK();
+  if (nsplit < 1 || nsplit > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return fwd<float>(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit, st);
+  return fwd<bf16>(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit, st);
+}
+
+extern "C" int fused_ce_backward_dh(int dtype, const void* h, const void* w, const void* labels,
+                                    const void* lse, const void* g, void* dh, int T_, int V,
+                                    int d, void* stream) {
+  FCE_CHECK();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd_dh<float>(h, w, labels, lse, g, dh, T_, V, d, st);
+  return bwd_dh<bf16>(h, w, labels, lse, g, dh, T_, V, d, st);
+}
+
+extern "C" int fused_ce_backward_dw(int dtype, const void* h, const void* w, const void* labels,
+                                    const void* lse, const void* g, void* dw, int T_, int V,
+                                    int d, void* stream) {
+  FCE_CHECK();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd_dw<float>(h, w, labels, lse, g, dw, T_, V, d, st);
+  return bwd_dw<bf16>(h, w, labels, lse, g, dw, T_, V, d, st);
+}

@@ -1,0 +1,312 @@
+"""Fused LM head + softmax cross entropy, forward and backward — port of
+``paddle_tpu/kernels/fused_ce_pallas.py`` (``_fwd_kernel`` ``:62``,
+``_bwd_dh_kernel`` ``:101``, ``_bwd_dw_kernel`` ``:129``).
+
+Per-token NLL of ``softmax(h @ wᵀ)`` against integer labels, for the tied
+head's layout: ``h [T, d]``, ``w [V, d]``, ``labels [T]``. The logits
+``s = h @ wᵀ`` are accumulated in float32 (the reference's
+``preferred_element_type``) and never stored whole on the card:
+
+- forward: ``lse = m + log l`` over the vocabulary, with ``l == 0 -> 1``
+  (``:94-98``), and ``nll = lse - s[label]``. A label outside ``[0, V)``
+  picks no column, so its ``nll`` is the ``lse``; the caller masks it;
+- backward, with ``dl = (softmax(s) - onehot(label)) * g`` recomputed:
+  ``dh = dl @ w`` in h's dtype and ``dw = dlᵀ @ h`` in w's dtype
+  (``:117-122``, ``:146-151``).
+
+Pieces:
+
+- plain PyTorch versions :func:`fused_ce_fwd_ref` -> ``(nll, lse)``,
+  :func:`fused_ce_bwd_dh_ref` and :func:`fused_ce_bwd_dw_ref`;
+- the wrappers :func:`fused_ce_fwd`, :func:`fused_ce_bwd_dh` and
+  :func:`fused_ce_bwd_dw`: a CPU tensor runs the plain version; a CUDA
+  tensor launches the hand-written kernel of ``csrc/fused_ce.cu`` or raises
+  (no fallback). Each kernel has its launch counter (``fwd_launches``,
+  ``dh_launches``, ``dw_launches``; :func:`reset_launches`);
+- :class:`FusedSoftmaxCE`, the ``torch.autograd.Function`` with the
+  reference's ``custom_vjp`` contract (``:361-380``): the forward saves
+  ``(h, w, labels, lse)``; the backward returns ``dh`` and ``dw`` and no
+  gradient for the labels; :func:`fused_softmax_ce` is its public entry
+  (``:383``);
+- :func:`use_plain`, a context manager that makes the wrappers take the
+  plain versions on CUDA too, for comparisons only.
+
+What is not ported: the reference's block-size knobs (``PD_CE_BT``,
+``PD_CE_BV``, ``PD_CE_BV_BWD``) and its padding of T and V to block
+multiples. The CUDA kernels take any T and V and mask their own tails.
+The forward kernel splits the vocabulary across the grid so that any T
+fills the card (the C side picks the split count from its tile height and
+the device's SM count); each split writes its running ``(m, l, target)``
+and :func:`_combine` merges them here, a reduction over a few ``[T]`` rows.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+
+import torch
+
+__all__ = ["fused_softmax_ce", "FusedSoftmaxCE", "fused_ce_fwd",
+           "fused_ce_bwd_dh", "fused_ce_bwd_dw", "fused_ce_fwd_ref",
+           "fused_ce_bwd_dh_ref", "fused_ce_bwd_dw_ref", "use_plain",
+           "reset_launches"]
+
+fwd_launches = 0      # kernel launches since the last reset_launches()
+dh_launches = 0
+dw_launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 768           # the kernels' register accumulators cover d <= 768
+_plain = False        # set only inside use_plain()
+
+# every pointer and the stream as c_void_p, or ctypes would pass a 32-bit
+# int and cut the address
+# fused_ce_forward(dtype, h, w, labels, m_part, l_part, t_part, T, V, d,
+#   nsplit, stream)
+FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
+# fused_ce_backward_dh / _dw(dtype, h, w, labels, lse, g, out, T, V, d,
+#   stream)
+BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+# fused_ce_forward_splits(dtype, T, V, device) -> the forward's split count
+SPLITS_ARGTYPES = [ctypes.c_int] * 4
+_fns = {}
+
+
+def reset_launches():
+    global fwd_launches, dh_launches, dw_launches
+    fwd_launches = dh_launches = dw_launches = 0
+
+
+@contextlib.contextmanager
+def use_plain():
+    """Inside, the wrappers run the plain versions on CUDA tensors too
+    (for kernel-vs-plain comparisons; no kernel launches, no counts)."""
+    global _plain
+    prev, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = prev
+
+
+# -- plain versions -------------------------------------------------------------
+
+def _logits(h, w):
+    return h.float() @ w.float().t()
+
+
+def _picks(labels, V, device):
+    """``[T, V]`` one-hot of the labels; a label outside ``[0, V)``
+    picks nothing."""
+    return labels.long()[:, None] == torch.arange(V, device=device)[None, :]
+
+
+def fused_ce_fwd_ref(h, w, labels):
+    """Plain forward: ``(nll, lse)``, each float32 ``[T]``."""
+    s = _logits(h, w)
+    lse = torch.logsumexp(s, dim=-1)
+    target = torch.where(_picks(labels, w.shape[0], s.device), s,
+                         torch.zeros((), device=s.device)).sum(-1)
+    return lse - target, lse
+
+
+def _dlogits(h, w, labels, lse, g):
+    s = _logits(h, w)
+    p = torch.exp(s - lse.float()[:, None])
+    return (p - _picks(labels, w.shape[0], s.device).float()) \
+        * g.float()[:, None]
+
+
+def fused_ce_bwd_dh_ref(h, w, labels, lse, g):
+    """Plain ``dh = dl @ w`` ``[T, d]`` in h's dtype."""
+    return (_dlogits(h, w, labels, lse, g) @ w.float()).to(h.dtype)
+
+
+def fused_ce_bwd_dw_ref(h, w, labels, lse, g):
+    """Plain ``dw = dlᵀ @ h`` ``[V, d]`` in w's dtype."""
+    return (_dlogits(h, w, labels, lse, g).t() @ h.float()).to(w.dtype)
+
+
+# -- the CUDA kernels -----------------------------------------------------------
+
+def _kernel_fn(name, argtypes):
+    fn = _fns.get(name)
+    if fn is None:
+        from ._build import load
+        fn = getattr(load("fused_ce"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _check(h, w, labels, **rows):
+    dev = h.device
+    named = dict(h=h, w=w, labels=labels, **rows)
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, h on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if h.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {h.dtype} (float32 or bfloat16)")
+    if w.dtype != h.dtype:
+        raise TypeError(f"w is {w.dtype}, h {h.dtype}")
+    if labels.dtype != torch.int32:
+        raise TypeError("labels must be int32 here (the wrappers convert)")
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError(f"h [T, d] and w [V, d] expected, got "
+                         f"{tuple(h.shape)} and {tuple(w.shape)}")
+    T, d = h.shape
+    if labels.shape != (T,):
+        raise ValueError(f"labels must be [T] = [{T}]")
+    for name, t in rows.items():
+        if t.dtype != torch.float32 or t.shape != (T,):
+            raise ValueError(f"{name} must be float32 [T] = [{T}]")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"hidden size {d} outside the kernels' 1..{MAX_D}")
+    if w.shape[0] < 1:
+        raise ValueError("empty vocabulary")
+    if max(T, w.shape[0]) * d >= 2 ** 31:
+        raise ValueError("too many rows for the kernels' int indices")
+
+
+def _labels32(labels):
+    return labels.to(torch.int32).contiguous()
+
+
+def _raise_if(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"fused_ce {what} kernel launch failed: "
+                           f"CUDA error {rc}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _combine(m, l, t):
+    """``(nll, lse)`` from per-split running max, sum and target logit,
+    each ``[splits, T]``; a split that saw no column holds ``(-inf, 0,
+    0)``."""
+    M = m.amax(0)
+    L = (l * torch.exp(m - M)).sum(0)
+    lse = M + torch.log(torch.where(L == 0, torch.ones_like(L), L))
+    return lse - t.sum(0), lse
+
+
+def _launch_fwd(h, w, labels, nsplit=None):
+    """The forward kernel; ``nsplit`` overrides the vocab split count the
+    C side picks (for timing the split against one split)."""
+    global fwd_launches
+    labels = _labels32(labels)
+    _check(h, w, labels)
+    T, d = h.shape
+    V = w.shape[0]
+    if T == 0:
+        e = torch.empty(0, dtype=torch.float32, device=h.device)
+        return e, e.clone()
+    ns = nsplit or _kernel_fn("fused_ce_forward_splits", SPLITS_ARGTYPES)(
+        _DTYPE_CODE[h.dtype], T, V, h.device.index)
+    if ns < 1:
+        raise RuntimeError("fused_ce forward: no split count for this device")
+    parts = torch.empty(3, ns, T, dtype=torch.float32, device=h.device)
+    fn = _kernel_fn("fused_ce_forward", FWD_ARGTYPES)
+    with torch.cuda.device(h.device):
+        rc = fn(_DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(),
+                labels.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+                parts[2].data_ptr(), T, V, d, ns, _stream(h))
+    _raise_if(rc, "forward")
+    fwd_launches += 1
+    return _combine(*parts)
+
+
+def _launch_bwd(which, h, w, labels, lse, g):
+    global dh_launches, dw_launches
+    labels = _labels32(labels)
+    g = g.float().contiguous()
+    _check(h, w, labels, lse=lse, g=g)
+    T, d = h.shape
+    out = torch.empty_like(h if which == "dh" else w)
+    if T == 0:
+        return out.zero_()
+    fn = _kernel_fn(f"fused_ce_backward_{which}", BWD_ARGTYPES)
+    with torch.cuda.device(h.device):
+        rc = fn(_DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(),
+                labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                out.data_ptr(), T, w.shape[0], d, _stream(h))
+    _raise_if(rc, f"backward {which}")
+    if which == "dh":
+        dh_launches += 1
+    else:
+        dw_launches += 1
+    return out
+
+
+def _on_kernel(h):
+    """True for a CUDA tensor outside use_plain(); False for a CPU one."""
+    if h.device.type == "cpu":
+        return False
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    return not _plain
+
+
+def fused_ce_fwd(h, w, labels):
+    """Forward ``(nll, lse)``; see :func:`fused_ce_fwd_ref`."""
+    if _on_kernel(h):
+        return _launch_fwd(h, w, labels)
+    return fused_ce_fwd_ref(h, w, labels)
+
+
+def fused_ce_bwd_dh(h, w, labels, lse, g):
+    """``dh``; see :func:`fused_ce_bwd_dh_ref`."""
+    if _on_kernel(h):
+        return _launch_bwd("dh", h, w, labels, lse, g)
+    return fused_ce_bwd_dh_ref(h, w, labels, lse, g)
+
+
+def fused_ce_bwd_dw(h, w, labels, lse, g):
+    """``dw``; see :func:`fused_ce_bwd_dw_ref`."""
+    if _on_kernel(h):
+        return _launch_bwd("dw", h, w, labels, lse, g)
+    return fused_ce_bwd_dw_ref(h, w, labels, lse, g)
+
+
+class FusedSoftmaxCE(torch.autograd.Function):
+    """Per-token NLL with the reference's custom VJP: the forward keeps
+    ``(h, w, labels, lse)``; the backward runs the dh and dw kernels (no
+    atomics, so it is deterministic) and gives the labels no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels):
+        h, w, labels = h.contiguous(), w.contiguous(), _labels32(labels)
+        nll, lse = fused_ce_fwd(h, w, labels)
+        ctx.save_for_backward(h, w, labels, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = fused_ce_bwd_dh(h, w, labels, lse, g)
+        if ctx.needs_input_grad[1]:
+            dw = fused_ce_bwd_dw(h, w, labels, lse, g)
+        return dh, dw, None
+
+
+def fused_softmax_ce(hidden, weight, labels):
+    """Per-token NLL of ``softmax(hidden @ weightᵀ)`` against ``labels``
+    (``fused_ce_pallas.py:383``): hidden ``[..., d]`` (leading dims are the
+    tokens), weight ``[V, d]``, labels int ``[...]``. Returns float32 NLL
+    with the labels' shape, differentiable in hidden and weight."""
+    lead = labels.shape
+    d = hidden.shape[-1]
+    nll = FusedSoftmaxCE.apply(hidden.reshape(-1, d), weight,
+                               labels.reshape(-1))
+    return nll.reshape(lead)
+

@@ -59,7 +59,8 @@ class GPTConfig:
     recompute: bool = False
     # sequence-chunked LM loss, tokens per chunk; 0 = off (gpt.py:45)
     ce_chunk: int = 0
-    # one-kernel head + CE (gpt.py:50): the next slice of the port
+    # one-kernel head + CE (gpt.py:50): the [tokens, vocab] logits never
+    # reach device memory (kernels/fused_ce.py)
     fused_ce: bool = False
     # residual stream and sub-layer outputs in bf16, AMP or not
     # (gpt.py:55); on by default, as in the reference
@@ -75,10 +76,6 @@ class GPTConfig:
             raise ValueError(
                 "fused_ce and ce_chunk are mutually exclusive — the "
                 "fused kernel already avoids materializing the logits")
-        if self.fused_ce:
-            raise NotImplementedError(
-                "fused_ce (kernels/fused_ce_pallas.py) is not ported to "
-                "paddle_tpu_torch yet")
 
 
 def gpt2_small(**kw):
@@ -319,9 +316,17 @@ class GPTForCausalLM(torch.nn.Module):
         return total * (1.0 / (b * s))
 
     def loss(self, input_ids, labels):
-        chunk = int(self.gpt.cfg.ce_chunk or 0)
+        cfg = self.gpt.cfg
+        chunk = int(cfg.ce_chunk or 0)
         if chunk > 0:
             return self._chunked_ce_loss(input_ids, labels, chunk)
+        if cfg.fused_ce:
+            # one-kernel head + CE (gpt.py:226-233): no [B*S, V] logits
+            hidden = self.gpt(input_ids)
+            d = hidden.shape[-1]
+            return PF.fused_linear_cross_entropy(
+                hidden.reshape(-1, d), self.gpt.wte.weight,
+                labels.reshape(-1))
         logits = self(input_ids)
         return PF.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                 labels.reshape(-1))

@@ -3,7 +3,8 @@ the GPT training step needs them."""
 from .attention import scaled_dot_product_attention  # noqa: F401
 from .common import (dropout, embedding, gelu, layer_norm,  # noqa: F401
                      linear, matmul)
-from .loss import cross_entropy  # noqa: F401
+from .loss import cross_entropy, fused_linear_cross_entropy  # noqa: F401
 
 __all__ = ["scaled_dot_product_attention", "dropout", "embedding", "gelu",
-           "layer_norm", "linear", "matmul", "cross_entropy"]
+           "layer_norm", "linear", "matmul", "cross_entropy",
+           "fused_linear_cross_entropy"]

@@ -2,11 +2,14 @@
 """Where the PyTorch port's training-step time goes on one NVIDIA GPU.
 
     python3 -m paddle_tpu_torch.tools.profile_train [--steps N] [--out PATH]
+        [--fused-ce]
 
 Run from the repository root. Builds the training step of
 ``chip_smoke.py``'s train phase (GPT-2
 small, random weights from seed 0, AdamW with the global-norm clip, O1
-bf16 autocast, MLP recompute, batch 16 x seq 1024, one fixed batch),
+bf16 autocast, MLP recompute, batch 16 x seq 1024, one fixed batch; with
+``--fused-ce`` its ``train_fused_ce`` phase, the head and CE in the
+fused-CE kernels),
 runs ``TrainStep.multi_step`` of 8 steps to warm up, ``--steps`` steps
 timed without the profiler, and ``--steps`` steps under
 ``torch.profiler`` (CPU and CUDA activities), then prints one JSON line:
@@ -17,7 +20,8 @@ timed without the profiler, and ``--steps`` steps under
   window with no kernel executing (``device_idle_frac_unprofiled``
   against the unprofiled step time, since the profiler slows the host);
 - ``by_class`` — device milliseconds per step and kernel counts for the
-  three flash-attention kernels, matrix products, the optimizer
+  three flash-attention kernels, the three fused-CE kernels, matrix
+  products, the optimizer
   (``multi_tensor_apply``), softmax/cross-entropy, and everything else;
 - ``kernels_per_step`` and the top kernels by device time (all 30
   written to ``--out`` when given).
@@ -37,7 +41,8 @@ B, S = 16, 1024
 def kernel_class(name):
     low = name.lower()
     for part in ("flash_attention_fwd", "flash_attention_dq",
-                 "flash_attention_dkv"):
+                 "flash_attention_dkv", "fused_ce_fwd", "fused_ce_dh",
+                 "fused_ce_dw"):
         if part in low:
             return part
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
@@ -71,6 +76,9 @@ def main():
                     help="steps timed, and steps profiled")
     ap.add_argument("--out", default=None,
                     help="also write the full kernel table here (JSON)")
+    ap.add_argument("--fused-ce", action="store_true",
+                    help="GPTConfig(fused_ce=True): the head and CE in "
+                         "the fused-CE kernels")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -88,7 +96,7 @@ def main():
     from paddle_tpu_torch.parallel.api import TrainStep
 
     _build.build_all()
-    cfg = gpt2_small(dropout=0.0, recompute=True)
+    cfg = gpt2_small(dropout=0.0, recompute=True, fused_ce=args.fused_ce)
     model = GPTForCausalLM(cfg, device="cuda", seed=0)
 
     def bf16_loss(m, i, y):
@@ -130,7 +138,7 @@ def main():
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    res = {"tool": "profile_train", "gpu": gpu,
+    res = {"tool": "profile_train", "gpu": gpu, "fused_ce": args.fused_ce,
            "batch": B, "seq": S, "steps": args.steps,
            "step_ms": step_s * 1e3,
            "profiled_step_ms": wall * 1e3 / args.steps,

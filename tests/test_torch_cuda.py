@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need a CUDA device: the hand-written
-ragged paged-attention kernel and the flash-attention forward, dq and
-dk/dv kernels against their plain PyTorch versions, the serving engine
-on the card against the same engine on the CPU, and a training step
-through the kernels against the same step through the plain versions.
+ragged paged-attention kernel, the flash-attention forward, dq and dk/dv
+kernels and the fused-CE forward, dh and dw kernels against their plain
+PyTorch versions, the serving engine on the card against the same engine
+on the CPU, and training steps through the kernels against the same
+steps through the plain versions.
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -11,6 +12,8 @@ imports no JAX, so it also runs on the GPU machine, which has none:
 
 (``--noconftest``: tests/conftest.py imports JAX for the reference's
 tests)."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -223,3 +226,163 @@ def test_flash_wrapper_raises_on_cuda_without_the_library(cuda, tmp_path,
     q, k, v, _ = _fa_inputs(cuda, 1, 2, 64, 64, 64, torch.float32)
     with pytest.raises(RuntimeError, match="nvcc"):
         fa.flash_attention(q, k, v, causal=True)
+
+
+# -- fused head + CE (paddle_tpu_torch/kernels/fused_ce.py) -------------------
+
+FCE_CASES = {           # T, V, d: ragged tails, d off the vector width
+    "ragged": (300, 500, 64),
+    "vocab50257": (1000, 50257, 64),
+    "d96": (257, 1000, 96),
+    "d50_scalar_loads": (130, 333, 50),
+}
+# (nll/lse, dh/dw): float32 sums of float32 logits on both sides for
+# nll/lse; bf16 gradients differ by at most one rounding step of the output
+FCE_TOL = {torch.float32: (2e-6, 1e-4), torch.bfloat16: (2e-6, 1e-2)}
+
+
+def _fce_inputs(dev, T, V, d, dtype, seed=0):
+    """h, w, int32 labels (a third -100, with g = 0; every 16th from row
+    1 past the vocabulary with its g kept: a softmax-only row) and g."""
+    rng = np.random.RandomState(seed)
+    h = torch.tensor(rng.randn(T, d), dtype=torch.float32)
+    w = torch.tensor(rng.randn(V, d) * 0.1, dtype=torch.float32)
+    lab = torch.tensor(rng.randint(0, V, T), dtype=torch.int32)
+    lab[1::16] = V + 7
+    lab[::3] = -100
+    g = torch.tensor(rng.rand(T) / T, dtype=torch.float32)
+    g[::3] = 0.0
+    return (h.to(dev, dtype), w.to(dev, dtype), lab.to(dev), g.to(dev))
+
+
+def _softmax_parts(lab, g, V, dh, dw):
+    """dh on rows whose label picks nothing (g not 0) and dw on the vocab
+    rows no label picks: there the softmax term is all of the gradient,
+    where elsewhere the one-hot term outweighs it many times over."""
+    picks = (lab >= 0) & (lab < V)
+    free = torch.ones(V, dtype=torch.bool, device=dw.device)
+    free[lab[picks].long()] = False
+    return dh[~picks & (g != 0)], dw[free]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FCE_CASES))
+def test_fused_ce_kernels_match_plain(cuda, case, dtype):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, lab, g = _fce_inputs(cuda, *FCE_CASES[case], dtype)
+    fc.reset_launches()
+    nll, lse = fc.fused_ce_fwd(h, w, lab)
+    dh = fc.fused_ce_bwd_dh(h, w, lab, lse, g)
+    dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
+    torch.cuda.synchronize()
+    assert (fc.fwd_launches, fc.dh_launches, fc.dw_launches) == (1, 1, 1)
+    rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
+    rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
+    rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
+    ftol, gtol = FCE_TOL[dtype]
+    assert _rel(nll, rnll) <= ftol and _rel(lse, rlse) <= ftol
+    none = (lab < 0) | (lab >= w.shape[0])
+    torch.testing.assert_close(nll[none], lse[none], rtol=0, atol=0)
+    sdh, sdw = _softmax_parts(lab, g, w.shape[0], dh, dw)
+    srdh, srdw = _softmax_parts(lab, g, w.shape[0], rdh, rdw)
+    assert sdh.shape[0] > 0 and sdw.shape[0] > 0
+    for name, a, b in (("dh", dh, rdh), ("dw", dw, rdw),
+                       ("dh_softmax", sdh, srdh), ("dw_softmax", sdw, srdw)):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= gtol, (name, _rel(a, b))
+    assert torch.all(dh[::3] == 0)      # g = 0 rows: exactly no gradient
+
+
+def test_forward_splits_fill_the_card(cuda):
+    """The C side's vocab split count: about two forward blocks an SM
+    (64-token bf16 tiles, 32-token float32 ones), each split at least
+    1024 columns wide; a forced single split gives the same answer."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    fn = fc._kernel_fn("fused_ce_forward_splits", fc.SPLITS_ARGTYPES)
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for code, bt in ((1, 64), (0, 32)):
+        for T, V in ((16384, 50304), (1000, 50257), (2048, 50304),
+                     (40, 300)):
+            want = max(1, min(-(-2 * sms // -(-T // bt)), -(-V // 1024)))
+            assert fn(code, T, V, dev) == want, (code, T, V)
+    assert fn(2, 10, 10, dev) == 0      # no such dtype
+    h, w, lab, _ = _fce_inputs(cuda, 1000, 50257, 64, torch.bfloat16, 2)
+    split = fc.fused_ce_fwd(h, w, lab)
+    whole = fc._launch_fwd(h, w, lab, nsplit=1)
+    for a, b in zip(split, whole):
+        assert _rel(a, b) <= 2e-6
+
+
+def test_fused_ce_backward_is_bit_identical_across_launches(cuda):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, lab, g = _fce_inputs(cuda, 700, 3000, 64, torch.bfloat16, 5)
+    _, lse = fc.fused_ce_fwd(h, w, lab)
+    runs = [(fc.fused_ce_bwd_dh(h, w, lab, lse, g),
+             fc.fused_ce_bwd_dw(h, w, lab, lse, g)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_tiny_fused_ce_training_step_with_the_kernels_equals_the_plain_step(
+        cuda):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    rng = np.random.RandomState(7)
+    ids = rng.randint(0, 128, (3, 2, 40))
+    labels = np.roll(ids, -1, axis=-1)
+    labels[:, :, -1] = -100
+    runs = {}
+    for plain in (False, True):
+        m = GPTForCausalLM(gpt2_tiny(dropout=0.0, bf16_residual=False,
+                                     fused_ce=True), device=cuda, seed=3)
+        step = TrainStep(m, lambda m_, i, y: m_.loss(i, y), AdamW(1e-3),
+                         device=cuda)
+        fc.reset_launches()
+        with fc.use_plain() if plain else contextlib.nullcontext():
+            _, grads, _ = step.grad_step(ids[0], labels[0])
+            losses = step.multi_step(ids, labels)
+        launches = (fc.fwd_launches, fc.dh_launches, fc.dw_launches)
+        assert launches == ((0, 0, 0) if plain else (4, 4, 4))
+        runs[plain] = (losses.cpu(), {n: p.detach().cpu()
+                                      for n, p in m.named_parameters()},
+                       [g_.cpu() for g_ in grads])
+    torch.testing.assert_close(runs[False][0], runs[True][0], rtol=1e-5,
+                               atol=1e-5)
+    for name, a, b in zip(step._param_names, runs[False][2], runs[True][2]):
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+    # Adam normalises each element's gradient: an element whose gradient
+    # is as small as the rounding noise between the runs may step the
+    # other way, by up to 2 lr a step. Every element within that; all but
+    # max(8, 1e-4 numel) of each tensor within rtol 1e-4 / atol 1e-5.
+    # The key bias's exact gradient is zero (softmax ignores a constant per
+    # query), so it is all noise and only held to the 2 lr bound.
+    H = 64
+    for name, a in runs[False][1].items():
+        b = runs[True][1][name]
+        d = (a - b).abs()
+        assert float(d.max()) <= 2 * 3 * 1e-3, name
+        if name.endswith("attn.qkv.bias"):
+            d, b = torch.cat([d[:H], d[2 * H:]]), torch.cat([b[:H],
+                                                             b[2 * H:]])
+        off = int((d > 1e-5 + 1e-4 * b.abs()).sum())
+        assert off <= max(8, 1e-4 * b.numel()), (name, off, float(d.max()))
+
+
+def test_fused_ce_wrapper_raises_on_cuda_without_the_library(cuda, tmp_path,
+                                                             monkeypatch):
+    """No fallback: with the library unbuildable a CUDA tensor raises."""
+    import torch.utils.cpp_extension as ext
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(fc, "_fns", {})
+    h, w, lab, _ = _fce_inputs(cuda, 16, 40, 32, torch.float32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fc.fused_softmax_ce(h, w, lab)

@@ -67,6 +67,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "paddle_tpu_torch.inference.serving" in out["modules"]
     assert "paddle_tpu_torch.kernels.paged_attention" in out["modules"]
     assert "paddle_tpu_torch.kernels.flash_attention" in out["modules"]
+    assert "paddle_tpu_torch.kernels.fused_ce" in out["modules"]
+    assert "paddle_tpu_torch.tools.bench_gpt_pretrain" in out["modules"]
     assert "paddle_tpu_torch.parallel.api" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:

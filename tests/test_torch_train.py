@@ -11,7 +11,9 @@ where the port's is the plain flash forward with the lse backward):
 logits rtol 1e-5 / atol 1e-5 (logits are O(1)); gradients rtol 1e-4 / atol 1e-6; per-step
 losses rtol 1e-5; parameters after K steps rtol 1e-4 / atol 1e-6. Under
 O1 bf16 the two round at different places, so losses agree within 2e-2
-and the dtypes at block, logits and loss boundaries must be equal."""
+and the dtypes at block, logits and loss boundaries must be equal. With
+``fused_ce=True`` the reference answers through its XLA composition on
+the CPU and the port through the plain fused-CE functions."""
 import jax
 import numpy as np
 import pytest
@@ -148,8 +150,8 @@ def _run_multi(ref, port, loss_fns=(_jax_loss, _port_loss)):
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(recompute=True),
-                                dict(ce_chunk=16)],
-                         ids=["plain", "recompute", "ce_chunk"])
+                                dict(ce_chunk=16), dict(fused_ce=True)],
+                         ids=["plain", "recompute", "ce_chunk", "fused_ce"])
 def test_multi_step_matches_losses_and_params(kw):
     ref, port = _models(**kw)
     (jl, jp), (pl, pp) = _run_multi(ref, port)
@@ -199,9 +201,12 @@ def _block_dtypes_port(m, ids):
     return out
 
 
-@pytest.mark.parametrize("bf16_residual", [True, False])
-def test_o1_bf16_dtypes_and_losses_match(bf16_residual):
-    ref, port = _models(bf16_residual=bf16_residual)
+@pytest.mark.parametrize("bf16_residual,fused_ce", [
+    pytest.param(True, False, id="True"),
+    pytest.param(False, False, id="False"),
+    pytest.param(True, True, id="fused_ce")])
+def test_o1_bf16_dtypes_and_losses_match(bf16_residual, fused_ce):
+    ref, port = _models(bf16_residual=bf16_residual, fused_ce=fused_ce)
     ids, _ = _batch()
     want = _block_dtypes_jax(ref, ids)
     assert _block_dtypes_port(port, ids) == want
@@ -287,8 +292,7 @@ def test_gen_params_serves_the_model_it_was_read_from():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        gpt2_tiny(fused_ce=True)
+    assert gpt2_tiny(fused_ce=True).fused_ce     # ported: no longer raises
     with pytest.raises(ValueError):
         gpt2_tiny(fused_ce=True, ce_chunk=16)
     with pytest.raises(NotImplementedError):
