@@ -23,9 +23,10 @@ exits non-zero:
      shape (B=16, H=12, L=1024, D=64, causal), L=1000 causal (ragged
      tail), Lq=128/Lk=256 with and without causal (bottom-right), B=1
      L=4096 with and without causal (the lengths the TPU's streamed
-     kernels served) and D=128; max-abs error over max-abs plain within
-     1e-4 (float32) and 2e-2 forward / 3e-2 gradients (bfloat16); and
-     the backward bit-identical across two launches.
+     kernels served), D=128 and BERT's unpacked shape (B=64, L=128,
+     non-causal); max-abs error over max-abs plain within 1e-4 (float32)
+     and 2e-2 forward / 3e-2 gradients (bfloat16); and the backward
+     bit-identical across two launches.
    - fused head + CE forward (nll, lse), dh and dw at the training shape
      (T=16384 tokens, d=768, V=50304, bf16), T=1000 with GPT-2's
      unpadded V=50257 (float32 and bfloat16), and T=300, V=5000 with a
@@ -38,14 +39,23 @@ exits non-zero:
      (elsewhere the one-hot term outweighs it some 250 times). Ignored
      and softmax-only rows' nll equal to their lse, ignored rows' dh
      exactly 0; the backward bit-identical across two launches.
+   - packed (segment-id) flash attention forward (out, lse), dq and dk/dv
+     at BERT-base's pack-4 shape (B=16, L=512, H=12, D=64, four segments
+     of 128), with uneven ids (``[5]*100 + [7]*300 + [9]*112``, one
+     segment, an id in two places), the same causal within segments,
+     L=300, L=2048, L=4096 (causal) and D=128; the limits of flash
+     attention, and the backward bit-identical across two launches in
+     every case.
    Times each kernel (CUDA events), its plain version and one PyTorch
    call computing the same function (a yardstick the port never calls:
    ``F.scaled_dot_product_attention`` — over gathered K/V for the paged
    kernel; forward, and forward+backward for the backward pair, for
+   flash, and with the dense boolean block-diagonal mask for packed
    flash; unfused ``torch.matmul`` + ``F.cross_entropy``, forward alone,
    and forward+backward to h alone (dh) and to w alone (dw), for fused
-   CE) beside the bound max(bytes / 3.35 TB/s, FLOPs / peak); the fused
-   forward also with a single vocab split.
+   CE) beside the bound max(bytes / 3.35 TB/s, FLOPs / peak), the FLOPs
+   of packed flash counting same-segment pairs only; the fused forward
+   also with a single vocab split.
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
@@ -88,6 +98,20 @@ exits non-zero:
    ``fused_ce=False``, at the same tolerances.
 11. ``bench`` — ``paddle_tpu_torch.tools.bench_gpt_pretrain.run`` with
    ``fused_ce=True`` and ``reps=1``, printing that tool's JSON line.
+12. ``bert`` — ``paddle_tpu_torch.tools.bench_bert.run(pack=0, reps=1)``:
+   the BERT-base fine-tune step (12 layers, d=768, 12 heads, FFN 3072,
+   vocab 30522, dropout 0.1, AdamW 3e-5, O1 bf16) on 64 x 128 tokens, 24
+   steps; every loss finite, each flash kernel launched 12 x 24 times and
+   no packed kernel; seq/s, step ms, MFU and peak memory.
+13. ``bert_packed`` — the same with ``pack=4`` (16 rows of four
+   sequences, ``SegmentIds`` with start positions): each packed kernel
+   launched 12 x 24 times and no flash kernel.
+14. ``bert_parity`` — float32, no autocast, dropout 0, full width, batch
+   8 packed four to a row: through the packed kernels against their plain
+   versions (logits within 1e-4 of max-abs, step-1 gradients within 1e-3;
+   the key bias, whose exact gradient is zero, against the query bias's),
+   against the same examples unpacked and against ``dense=True`` (logits
+   within 1e-4).
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -288,6 +312,8 @@ FLASH_CASES = {
     "long4096": (1, 12, 4096, 4096, 64, False),
     "long4096_causal": (1, 12, 4096, 4096, 64, True),
     "d128": (4, 6, 1024, 1024, 128, True),
+    # BERT-base unpacked (bench_bert --pack 0): 64 rows of 128, non-causal
+    "bert128": (64, 12, 128, 128, 64, False),
 }
 
 
@@ -377,7 +403,7 @@ def run_flash_phase():
                 rec[key] = {"rel_err": err, "max_abs_err": float(
                     (a.float() - b.float()).abs().max())}
             del rout, rlse, rdq, rdk, rdv
-            if name == "train" and dtype == torch.bfloat16:
+            if name in ("train", "bert128") and dtype == torch.bfloat16:
                 rec["timing"] = time_flash(q, k, v, do, out, lse, delta,
                                            causal, fa, F)
                 again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
@@ -589,6 +615,176 @@ def time_fused_ce(h, w, lab, lse, g, fc):
            for kn in ("fwd", "dh", "dw")}
     out["fwd"]["fwd_one_split_ms"] = one_split
     return out
+
+
+# -- packed (segment-id) flash attention --------------------------------------
+
+# name: (B, H, L, D, causal, segment layout); "bert" is BERT-base's pack-4
+# training shape (bench_bert --pack 4: 16 rows of four 128-token sequences)
+PACKED_CASES = {
+    "bert": (16, 12, 512, 64, False, "pack4"),
+    "uneven": (4, 12, 512, 64, False, "uneven"),
+    "uneven_causal": (4, 12, 512, 64, True, "uneven"),
+    "L300": (4, 12, 300, 64, False, "uneven"),
+    "L2048": (2, 12, 2048, 64, False, "uneven"),
+    "L4096": (1, 12, 4096, 64, True, "uneven"),
+    "d128": (4, 6, 512, 128, False, "pack4"),
+}
+
+
+def packed_ids(B, L, layout):
+    """int32 ``[B, L]`` segment ids on the card. ``pack4``: four equal
+    sequences a row. ``uneven``: rows in turn ``[5]*100 + [7]*300 +
+    [9]*112`` scaled to L (three segments), one segment, and ``[5] + [7] +
+    [5]`` (one id in two places: not contiguous)."""
+    import numpy as np
+    import torch
+    seg = np.zeros((B, L), np.int32)
+    for r in range(B):
+        if layout == "pack4":
+            seg[r] = np.repeat(np.arange(4), -(-L // 4))[:L]
+            continue
+        a, b = L * 100 // 512, L * 400 // 512
+        kind = r % 3
+        if kind == 0:
+            seg[r, :a], seg[r, a:b], seg[r, b:] = 5, 7, 9
+        elif kind == 1:
+            seg[r] = 3
+        else:
+            seg[r, :a], seg[r, a:b], seg[r, b:] = 5, 7, 5
+    return torch.tensor(seg, device="cuda")
+
+
+def packed_live_pairs(seg, causal):
+    """(query, key) pairs that share a segment (and, causal, lie on or
+    below the diagonal), summed over the rows of ``seg``."""
+    import torch
+    keep = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        keep = keep & torch.ones(seg.shape[1], seg.shape[1],
+                                 dtype=torch.bool, device=seg.device).tril()
+    return int(keep.sum())
+
+
+def packed_bounds(q, seg, causal):
+    """Least time per kernel: each input read once and each output written
+    once at 3.35 TB/s (the ids too), against the FLOPs of the live pairs
+    alone at the dtype's peak (forward 4 D a pair, dq 6 D, dk/dv 8 D)."""
+    B, L, H, D = q.shape
+    item = q.element_size()
+    t = B * L * H * D * item
+    rows32 = B * H * L * 4
+    ids = seg.numel() * 4
+    pairs = H * packed_live_pairs(seg, causal)
+    peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    work = {"fwd": (4 * t + rows32 + ids, 4 * D * pairs),
+            "dq": (5 * t + 2 * rows32 + ids, 6 * D * pairs),
+            "dkv": (6 * t + 2 * rows32 + ids, 8 * D * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = dict(bound_ms=max(tb, to),
+                         bound_by="bytes" if tb >= to else "operations",
+                         bytes=nbytes, flops=flops, live_pairs=pairs)
+    return out
+
+
+def run_packed_flash_phase():
+    import torch
+    from paddle_tpu_torch.kernels import packed_flash as pf
+
+    results = {}
+    for ci, (name, (B, H, L, D, causal, layout)) in enumerate(
+            PACKED_CASES.items()):
+        seg = packed_ids(B, L, layout)
+        for dtype, ftol, gtol in ((torch.float32, F32_TOL, F32_TOL),
+                                  (torch.bfloat16, BF16_TOL,
+                                   BF16_GRAD_TOL)):
+            q, k, v, do = flash_inputs(B, H, L, L, D, dtype, 500 + ci)
+            out, lse = pf.packed_flash_fwd(q, k, v, seg, causal)
+            delta = pf.attention_delta(out, do)
+            dq = pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, causal)
+            dk, dv = pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta,
+                                             causal)
+            torch.cuda.synchronize()
+            rout, rlse = pf.packed_flash_fwd_ref(q, k, v, seg, causal)
+            rdq = pf.packed_flash_bwd_dq_ref(q, k, v, seg, do, lse, delta,
+                                             causal)
+            rdk, rdv = pf.packed_flash_bwd_dkv_ref(q, k, v, seg, do, lse,
+                                                   delta, causal)
+            rec = {}
+            for key, a, b, tol in (("out", out, rout, ftol),
+                                   ("lse", lse, rlse, ftol),
+                                   ("dq", dq, rdq, gtol),
+                                   ("dk", dk, rdk, gtol),
+                                   ("dv", dv, rdv, gtol)):
+                err = rel_err(a, b)
+                if not (err <= tol and bool(torch.isfinite(a).all())):
+                    raise AssertionError(
+                        f"packed flash {key} kernel vs plain ({name}, "
+                        f"{dtype}): max-abs err / max-abs {err} > {tol} "
+                        "or non-finite")
+                rec[key] = {"rel_err": err, "max_abs_err": float(
+                    (a.float() - b.float()).abs().max())}
+            del rout, rlse, rdq, rdk, rdv
+            again = (pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta,
+                                            causal),
+                     *pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta,
+                                              causal))
+            if not all(torch.equal(a, b) for a, b in
+                       zip((dq, dk, dv), again)):
+                raise AssertionError(f"packed flash backward ({name}, "
+                                     f"{dtype}) not bit-identical across "
+                                     "two launches")
+            rec["backward_bit_identical"] = True
+            del again
+            if name == "bert" and dtype == torch.bfloat16:
+                rec["timing"] = time_packed(q, k, v, seg, do, lse, delta,
+                                            causal, pf)
+            results.setdefault(name, {})[str(dtype).replace(
+                "torch.", "")] = rec
+            del q, k, v, do, out, lse, delta, dq, dk, dv
+            torch.cuda.empty_cache()
+    return results
+
+
+def time_packed(q, k, v, seg, do, lse, delta, causal, pf):
+    """Kernel, plain and library times at one shape, with the bounds. The
+    library yardstick is ``F.scaled_dot_product_attention`` with the dense
+    boolean block-diagonal mask ``[B, 1, L, L]``: forward alone (fwd), and
+    forward+backward (dq, dk/dv)."""
+    import torch
+    import torch.nn.functional as F
+    t = {"fwd": cuda_ms(lambda i: pf.packed_flash_fwd(q, k, v, seg, causal),
+                        20),
+         "dq": cuda_ms(lambda i: pf.packed_flash_bwd_dq(
+             q, k, v, seg, do, lse, delta, causal), 20),
+         "dkv": cuda_ms(lambda i: pf.packed_flash_bwd_dkv(
+             q, k, v, seg, do, lse, delta, causal), 20)}
+    p = {"fwd": cuda_ms(lambda i: pf.packed_flash_fwd_ref(
+             q, k, v, seg, causal), 5),
+         "dq": cuda_ms(lambda i: pf.packed_flash_bwd_dq_ref(
+             q, k, v, seg, do, lse, delta, causal), 5),
+         "dkv": cuda_ms(lambda i: pf.packed_flash_bwd_dkv_ref(
+             q, k, v, seg, do, lse, delta, causal), 5)}
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+    if causal:
+        mask = mask & torch.ones(q.shape[1], q.shape[1], dtype=torch.bool,
+                                 device=q.device).tril()
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                       for x in (q, k, v, do))
+    lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 20)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def lib_fb(i):
+        F.scaled_dot_product_attention(qg, kg, vg,
+                                       attn_mask=mask).backward(dot)
+    lib_both = cuda_ms(lib_fb, 20)
+    b = packed_bounds(q, seg, causal)
+    return {kn: dict(ms=t[kn], plain_ms=p[kn],
+                     library_ms=lib_fwd if kn == "fwd" else lib_both,
+                     **b[kn]) for kn in ("fwd", "dq", "dkv")}
 
 
 # -- the serving engine -------------------------------------------------------
@@ -972,6 +1168,129 @@ def run_train_serve_phase(model, ids):
             "new_tokens": n, "tokens_matching_batch": match}
 
 
+# -- BERT fine-tune ------------------------------------------------------------
+
+BERT_STEPS = 3 * 8        # bench_bert.run: two warm calls and one timed, K=8
+
+
+def run_bert_phase(pack, packed_ms=None, flash_ms=None):
+    """``bench_bert.run(pack=...)`` at BERT-base's full width, batch 64,
+    24 steps (``reps=1``). Every loss finite; unpacked, each flash kernel
+    launched 12 x 24 times and no packed kernel; packed, the reverse."""
+    import math
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    from paddle_tpu_torch.tools import bench_bert
+
+    fa.reset_launches()
+    pf.reset_launches()
+    rec = bench_bert.run(batch=64, pack=pack, reps=1)
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkv": fa.dkv_launches}
+    packed = {"fwd": pf.fwd_launches, "dq": pf.dq_launches,
+              "dkv": pf.dkv_launches}
+    phase = "bert_packed" if pack else "bert"
+    losses = rec.pop("losses")
+    if len(losses) != BERT_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{phase}: non-finite or missing losses: "
+                             f"{losses}")
+    want = 12 * BERT_STEPS
+    on, off = (packed, flash) if pack else (flash, packed)
+    if set(on.values()) != {want} or set(off.values()) != {0}:
+        raise AssertionError(f"{phase}: launches flash {flash}, packed "
+                             f"{packed}; want {want} of each kernel of the "
+                             "path and none of the other")
+    ms = packed_ms if pack else flash_ms
+    attn = sum(on[kn] * ms[kn] for kn in on) / BERT_STEPS
+    return {"phase": phase, **rec, "steps": BERT_STEPS,
+            "loss_first": losses[0], "loss_curve": losses,
+            "flash_launches": flash, "packed_flash_launches": packed,
+            "attention_ms_per_step": attn,
+            "attention_share_of_step": attn / rec["step_ms"]}, packed
+
+
+def bert_logits(model, ids, mask=None):
+    import torch
+    with torch.no_grad():
+        return model(ids) if mask is None else model(ids,
+                                                     attention_mask=mask)
+
+
+def run_bert_parity_phase():
+    """float32, no autocast, dropout 0, BERT-base at full width, batch 8
+    (two rows of four 128-token sequences). Packed through the kernels
+    against the plain versions: logits within 1e-4 of max-abs, step-1
+    gradients within 1e-3 of each tensor's max-abs. Packed against the
+    same examples unpacked (through the flash kernels) and against
+    ``dense=True``: logits within 1e-4 of max-abs."""
+    import torch
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    from paddle_tpu_torch.models.bert import (
+        BertForSequenceClassification, bert_base)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.tools import bench_bert
+
+    dev = torch.device("cuda")
+    model = BertForSequenceClassification(bert_base(dropout=0.0),
+                                          device=dev, seed=1)
+    ids, y, seg, starts = bench_bert.make_data(8, 4, k=1)
+    ids = torch.as_tensor(ids[0], device=dev)
+    y = torch.as_tensor(y[0], device=dev)
+
+    def mask(dense=False):
+        return pf.SegmentIds(torch.as_tensor(seg, device=dev),
+                             start_positions=torch.as_tensor(starts,
+                                                             device=dev),
+                             dense=dense)
+
+    def grads():
+        step = TrainStep(model, bench_bert.make_loss_fn(mask(),
+                                                        amp_level=None),
+                         AdamW(3e-5, weight_decay=0.01), device=dev)
+        loss, g, _ = step.grad_step(ids, y)
+        return loss, dict(zip(step._param_names, g))
+
+    pf.reset_launches()
+    kern = bert_logits(model, ids, mask())
+    kloss, kgrads = grads()
+    launches = [pf.fwd_launches, pf.dq_launches, pf.dkv_launches]
+    if launches != [24, 12, 12]:
+        raise AssertionError(f"bert_parity: packed launches {launches}")
+    with pf.use_plain():
+        plain = bert_logits(model, ids, mask())
+        ploss, pgrads = grads()
+    unpacked = bert_logits(model, ids.reshape(8, 128)).reshape(2, 4, -1)
+    dense = bert_logits(model, ids, mask(dense=True))
+    rec = {"phase": "bert_parity", "dtype": "float32", "batch": 8,
+           "rows": 2, "pack": 4, "packed_launches": launches,
+           "loss_kernel": float(kloss), "loss_plain": float(ploss)}
+    for key, other in (("vs_plain", plain), ("vs_unpacked", unpacked),
+                       ("vs_dense", dense)):
+        err = rel_err(kern, other)
+        if not err <= 1e-4:
+            raise AssertionError(f"bert_parity: logits {key} {err} > 1e-4")
+        rec[f"logits_{key}"] = err
+    worst = sorted(((rel_err(kgrads[n], pgrads[n]), n) for n in kgrads
+                    if not n.endswith("k_proj.bias")), reverse=True)
+    grad_err = worst[0][0]
+    # the key bias's exact gradient is zero (softmax ignores a constant
+    # per query): both sides hold rounding noise, held against the query
+    # bias's gradient of the same layer
+    key_err = max(float((kgrads[n] - pgrads[n]).abs().max()
+                        / pgrads[n.replace("k_proj", "q_proj")].abs().max())
+                  for n in kgrads if n.endswith("k_proj.bias"))
+    if not (grad_err <= PARITY_TOL and key_err <= PARITY_TOL):
+        raise AssertionError(f"bert_parity: step-1 grads {grad_err}, key "
+                             f"bias {key_err}")
+    rec["max_grad_err_of_maxabs"] = grad_err
+    rec["worst_grads"] = worst[:4]
+    rec["key_bias_grad_err_of_query_bias_maxabs"] = key_err
+    del model, kgrads, pgrads
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_bench_phase():
     """The ported bench entry point, flagship configuration, one timed
     call: its own JSON line."""
@@ -1017,12 +1336,15 @@ def main():
     kres = run_kernel_phase()
     fres = run_flash_phase()
     cres = run_fused_ce_phase()
+    pres = run_packed_flash_phase()
     emit({"phase": "kernels",
           "kernels": ["ragged_paged_attention", "flash_attention_fwd",
                       "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                      "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"],
+                      "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
+                      "packed_flash_fwd", "packed_flash_bwd_dq",
+                      "packed_flash_bwd_dkv"],
           "ragged_paged_attention": kres, "flash_attention": fres,
-          "fused_ce": cres, "gpu": gpu})
+          "fused_ce": cres, "packed_flash": pres, "gpu": gpu})
     serve, launches = run_serve_phase()
     emit(serve)
     emit(run_parity_phase())
@@ -1043,6 +1365,14 @@ def main():
     emit(run_train_parity_phase())
     emit(run_train_parity_fused_ce_phase())
     emit(run_bench_phase())
+    bt = fres["bert128"]["bfloat16"]["timing"]
+    pt = pres["bert"]["bfloat16"]["timing"]
+    bert, _ = run_bert_phase(0, flash_ms={kn: bt[kn]["ms"] for kn in bt})
+    emit(bert)
+    bert_packed, plaunch = run_bert_phase(
+        4, packed_ms={kn: pt[kn]["ms"] for kn in pt})
+    emit(bert_packed)
+    emit(run_bert_parity_phase())
     dec = kres["decode"]["bfloat16"]
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
@@ -1088,6 +1418,21 @@ def main():
             "bound_ms": ct[kn]["bound_ms"], "bound_by": ct[kn]["bound_by"],
             "library_ms": ct[kn]["library_ms"],
             "shape": "train: T=16384 d=768 V=50304 bf16"})
+    outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for kn, line in (("fwd", 55), ("dq", 96), ("dkv", 132)):
+        kernels.append({
+            "name": {"fwd": "packed_flash_fwd", "dq": "packed_flash_bwd_dq",
+                     "dkv": "packed_flash_bwd_dkv"}[kn], "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/packed_flash.cu",
+            "replaces": f"paddle_tpu/kernels/packed_flash_pallas.py:{line}",
+            "launches": plaunch[kn],
+            "max_abs_err": max(r[o]["max_abs_err"] for case in pres.values()
+                               for r in case.values() for o in outputs[kn]),
+            "ms": pt[kn]["ms"], "plain_ms": pt[kn]["plain_ms"],
+            "bound_ms": pt[kn]["bound_ms"], "bound_by": pt[kn]["bound_by"],
+            "library_ms": pt[kn]["library_ms"],
+            "shape": "BERT pack 4: B=16 L=512 H=12 D=64, four segments of "
+                     "128, bf16"})
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,11 +4,11 @@ Each ``kernels/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds. Libraries go
 to ``kernels/_build/`` (listed in ``.gitignore``) under a name keyed by
-a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is reused. Nothing is built when a module is imported:
-the first launch builds, or a caller (``chip_smoke.py``) builds every
-source at once with :func:`build_all`, one ``nvcc`` per source, all
-started together.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. Nothing is built when a module is imported: the first launch
+builds, or a caller (``chip_smoke.py``) builds every source at once with
+:func:`build_all`, one ``nvcc`` per source, all started together.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "find_nvcc", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_attention", "flash_attention", "fused_ce")
+SOURCES = ("paged_attention", "flash_attention", "fused_ce", "packed_flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,10 +50,14 @@ def find_nvcc():
 
 
 def _target(name):
+    """The source and its library path, keyed by the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES):

@@ -1,0 +1,562 @@
+// Packed (segment-id, block-diagonal) flash attention forward and backward
+// for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernels of paddle_tpu/kernels/packed_flash_pallas.py:
+//   packed_flash_fwd_kernel  <- _fwd_kernel (:55)
+//   packed_flash_dq_kernel   <- _bwd_dq_kernel (:96)
+//   packed_flash_dkv_kernel  <- _bwd_dkv_kernel (:132)
+//
+// Several sequences share one row of L tokens; a token attends only to
+// tokens of its own segment (seg[b, i] == seg[b, j]) and, with causal, to
+// columns j <= i. Layout: q, k, v, out, dout, dq, dk, dv [B, L, H, D]
+// (contiguous, the reference's public layout); seg int32 [B, L], read by
+// every head of its row (b = bh / H; the reference repeats it per head,
+// :314, the port does not copy it); lse and delta float32 [B*H, L].
+// Inputs float32 or bfloat16; every product and sum in float32; outputs
+// in the input type, lse in float32. Any L and any D <= 128 (the Pallas
+// wrapper takes only L <= 2048 and a multiple of 128, :302-307).
+//
+// The reference's arithmetic (_seg_causal_mask, :41-52): the forward
+// scales q in its own dtype before the product (:59); the backward takes
+// q in float32 and scales the product (:114-116); masked scores are
+// -1e30, which contribute exp(-1e30 - m) = 0 to every row, since each
+// row sees at least its own column. Here a masked entry is left out of
+// the sums outright, which gives the same numbers.
+//
+// Tile skipping, which the TPU kernel's docstring (:8-11) promises but its
+// loop does not do: before a (q tile, k tile) pair is computed, the block
+// asks whether any valid id of the streamed tile lies inside [min, max]
+// of the resident tile's valid ids (one __syncthreads_or). If none does,
+// no pair of the two tiles shares a segment, every entry would be masked,
+// and the pair is skipped without loading its K/V (or Q/dO) rows. That is
+// exact for any ids (contiguous or not, sorted or not), and at BERT's
+// pack 4 (four 128-token segments in a 512 row, 64-row tiles) it removes
+// 3/4 of the pairs. Causal also skips every tile wholly above the
+// diagonal.
+//
+// What bounds these kernels on this card: at BERT-base pack 4 (B=16,
+// H=12, L=512, D=64, bf16) the live pairs are 4 x 128^2 per head, ~3.2
+// GFLOP forward against ~50 MB of tensors: ~64 operations a byte, below
+// the ~295 at which the bf16 tensor cores become the limit, so the bound
+// is the bytes (~15 us). This first design, like flash_attention.cu (same
+// tiles and register blocking), runs the products on the CUDA cores in
+// float32 and is bound by their rate instead; it reads each live K/V
+// tile once per q tile through shared memory and never forms the [L, L]
+// scores. wgmma and TMA are later work.
+//
+// The backward uses no atomics (dq and dk/dv are separate kernels, as in
+// the Pallas split), so two runs give bit-identical gradients.
+#include <limits.h>
+
+#include "flash_tiles.cuh"
+
+namespace {
+
+struct Shape {
+  int H, L, D;
+  float scale;
+  int causal;
+};
+
+// the ids of rows [r0, r0+64) into sseg (threads 0..63); the caller syncs
+__device__ __forceinline__ void load_ids(int* sseg, const int* seg_row, int r0,
+                                         int L) {
+  if (threadIdx.x < kTile) {
+    const int row = r0 + threadIdx.x;
+    sseg[threadIdx.x] = row < L ? seg_row[row] : 0;
+  }
+}
+
+// [min, max] of the valid ids of a staged tile (every thread, after a sync)
+__device__ __forceinline__ void id_range(const int* sseg, int n, int& lo,
+                                         int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int r = 0; r < n; ++r) {
+    lo = min(lo, sseg[r]);
+    hi = max(hi, sseg[r]);
+  }
+}
+
+// Stage the streamed tile's ids (rows [r0, r0+64)) and return, to every
+// thread of the block, whether any valid one lies in [lo, hi]. This is
+// also the barrier after which the staged ids may be read.
+__device__ __forceinline__ bool stage_and_test(int* sseg, const int* seg_row,
+                                               int r0, int L, int lo, int hi) {
+  int hit = 0;
+  if (threadIdx.x < kTile) {
+    const int row = r0 + threadIdx.x;
+    const int id = row < L ? seg_row[row] : 0;
+    sseg[threadIdx.x] = id;
+    hit = row < L && id >= lo && id <= hi;
+  }
+  return __syncthreads_or(hit) != 0;
+}
+
+__device__ __forceinline__ bool live(const Shape& sh, int row, int col,
+                                     int seg_r, int seg_c) {
+  return row < sh.L && col < sh.L && seg_r == seg_c && (!sh.causal || col <= row);
+}
+
+template <int DMAX>
+size_t fwd_smem() {
+  return ((size_t)3 * kTile * ld_of<DMAX>() + (size_t)kTile * kLdp) * sizeof(float) +
+         2 * kTile * sizeof(int);
+}
+template <int DMAX>
+size_t dq_smem() {
+  return ((size_t)4 * kTile * ld_of<DMAX>() + (size_t)kTile * kLdp) * sizeof(float) +
+         2 * kTile * sizeof(int);
+}
+template <int DMAX>
+size_t dkv_smem() {
+  return ((size_t)4 * kTile * ld_of<DMAX>() + (size_t)2 * kTile * kLdp + 2 * kTile) *
+             sizeof(float) +
+         2 * kTile * sizeof(int);
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (b*h, 64-row q tile); loops over the k tiles
+// ---------------------------------------------------------------------------
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+packed_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ seg,
+                        T* __restrict__ out, float* __restrict__ lse, Shape sh) {
+  constexpr int ld = ld_of<DMAX>();
+  constexpr int kDc = DMAX / 16;  // d columns per thread
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sk = sq + kTile * ld;
+  float* sv = sk + kTile * ld;
+  float* sp = sv + kTile * ld;
+  int* sseg_q = reinterpret_cast<int*>(sp + kTile * kLdp);
+  int* sseg_k = sseg_q + kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / sh.H, h = bh - b * sh.H;
+  // causal: the late (heavy) q tiles first
+  const int q0 = (sh.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kTile;
+  const int D = sh.D, L = sh.L;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int* seg_row = seg + (size_t)b * L;
+
+  // q scaled in its own dtype, as the reference's forward does (:59)
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    const int row = q0 + r;
+    sq[r * ld + d] =
+        row < L ? to_f32(from_f32<T>(to_f32(q[row_base(b, row, h, L, sh.H, D) + d]) *
+                                     sh.scale))
+                : 0.f;
+  }
+  load_ids(sseg_q, seg_row, q0, L);
+  __syncthreads();
+  int lo, hi_id;
+  id_range(sseg_q, min(kTile, L - q0), lo, hi_id);
+
+  float m[kPer], l[kPer], acc[kPer][kDc];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kDc; ++j) acc[i][j] = 0.f;
+  }
+
+  const int k_end = sh.causal ? min(L, q0 + kTile) : L;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();  // the last tile's readers are done
+    if (!stage_and_test(sseg_k, seg_row, k0, L, lo, hi_id)) continue;
+    load_tile(sk, ld, k, b, h, k0, L, sh.H, D);
+    load_tile(sv, ld, v, b, h, k0, L, sh.H, D);
+    __syncthreads();
+
+    float s[kPer][kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qa[kPer], kb[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) qa[i] = sq[(ty + 16 * i) * ld + d];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) kb[j] = sk[(tx + 16 * j) * ld + d];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = ty + 16 * i, row = q0 + r;
+      const int sr = sseg_q[r];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int c = tx + 16 * j;
+        if (!live(sh, row, k0 + c, sr, sseg_k[c])) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = row_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float p = s[i][j] == -INFINITY ? 0.f : __expf(s[i][j] - m_new);
+        sp[r * kLdp + tx + 16 * j] = p;
+        sum += p;
+      }
+      sum = row_sum(sum);
+      const float alpha = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_new);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kDc; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+    const int tn = min(kTile, L - k0);
+    for (int c = 0; c < tn; ++c) {
+      float pa[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) pa[i] = sp[(ty + 16 * i) * kLdp + c];
+#pragma unroll
+      for (int j = 0; j < kDc; ++j) {
+        const float vb = sv[c * ld + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[i][j] = fmaf(pa[i], vb, acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= L) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];  // the reference's (:91)
+    const size_t base = row_base(b, row, h, L, sh.H, D);
+#pragma unroll
+    for (int j = 0; j < kDc; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) out[base + d] = from_f32<T>(acc[i][j] / l_safe);
+    }
+    if (tx == 0) lse[(size_t)bh * L + row] = m[i] + logf(l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward dq: one block per (b*h, 64-row q tile); loops over the k tiles
+// ---------------------------------------------------------------------------
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+packed_flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const int* __restrict__ seg,
+                       const T* __restrict__ dout, const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       Shape sh) {
+  constexpr int ld = ld_of<DMAX>();
+  constexpr int kDc = DMAX / 16;
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sdo = sq + kTile * ld;
+  float* sk = sdo + kTile * ld;
+  float* sv = sk + kTile * ld;
+  float* sds = sv + kTile * ld;
+  int* sseg_q = reinterpret_cast<int*>(sds + kTile * kLdp);
+  int* sseg_k = sseg_q + kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / sh.H, h = bh - b * sh.H;
+  const int q0 = (sh.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kTile;
+  const int D = sh.D, L = sh.L;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int* seg_row = seg + (size_t)b * L;
+
+  load_tile(sq, ld, q, b, h, q0, L, sh.H, D);
+  load_tile(sdo, ld, dout, b, h, q0, L, sh.H, D);
+  load_ids(sseg_q, seg_row, q0, L);
+  float lse_r[kPer], delta_r[kPer], acc[kPer][kDc];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lse_r[i] = row < L ? lse[(size_t)bh * L + row] : INFINITY;
+    delta_r[i] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kDc; ++j) acc[i][j] = 0.f;
+  }
+  __syncthreads();
+  int lo, hi_id;
+  id_range(sseg_q, min(kTile, L - q0), lo, hi_id);
+
+  const int k_end = sh.causal ? min(L, q0 + kTile) : L;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    if (!stage_and_test(sseg_k, seg_row, k0, L, lo, hi_id)) continue;
+    load_tile(sk, ld, k, b, h, k0, L, sh.H, D);
+    load_tile(sv, ld, v, b, h, k0, L, sh.H, D);
+    __syncthreads();
+
+    float s[kPer][kPer], dp[kPer][kPer];
+    two_products<DMAX>(sq, sk, sdo, sv, D, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = ty + 16 * i;
+      const int sr = sseg_q[r];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int c = tx + 16 * j;
+        float ds = 0.f;
+        if (live(sh, q0 + r, k0 + c, sr, sseg_k[c])) {
+          const float p = __expf(s[i][j] * sh.scale - lse_r[i]);
+          ds = p * (dp[i][j] - delta_r[i]) * sh.scale;
+        }
+        sds[r * kLdp + c] = ds;
+      }
+    }
+    __syncthreads();
+
+    const int tn = min(kTile, L - k0);
+    for (int c = 0; c < tn; ++c) {
+      float da[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) da[i] = sds[(ty + 16 * i) * kLdp + c];
+#pragma unroll
+      for (int j = 0; j < kDc; ++j) {
+        const float kb = sk[c * ld + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[i][j] = fmaf(da[i], kb, acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= L) continue;
+    const size_t base = row_base(b, row, h, L, sh.H, D);
+#pragma unroll
+    for (int j = 0; j < kDc; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) dq[base + d] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward dk/dv: one block per (b*h, 64-row k tile); loops over the q tiles
+// ---------------------------------------------------------------------------
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+packed_flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ seg,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, Shape sh) {
+  constexpr int ld = ld_of<DMAX>();
+  constexpr int kDc = DMAX / 16;
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* sv = sk + kTile * ld;
+  float* sq = sv + kTile * ld;
+  float* sdo = sq + kTile * ld;
+  float* sp = sdo + kTile * ld;
+  float* sds = sp + kTile * kLdp;
+  float* slse = sds + kTile * kLdp;
+  float* sdelta = slse + kTile;
+  int* sseg_k = reinterpret_cast<int*>(sdelta + kTile);
+  int* sseg_q = sseg_k + kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / sh.H, h = bh - b * sh.H;
+  const int k0 = blockIdx.y * kTile;  // causal: the light k tiles are the late ones
+  const int D = sh.D, L = sh.L;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int* seg_row = seg + (size_t)b * L;
+
+  load_tile(sk, ld, k, b, h, k0, L, sh.H, D);
+  load_tile(sv, ld, v, b, h, k0, L, sh.H, D);
+  load_ids(sseg_k, seg_row, k0, L);
+  float dka[kPer][kDc], dva[kPer][kDc];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < kDc; ++j) dka[i][j] = dva[i][j] = 0.f;
+  __syncthreads();
+  int lo, hi_id;
+  id_range(sseg_k, min(kTile, L - k0), lo, hi_id);
+
+  // causal: rows below k0 see no column of this tile
+  for (int q0 = sh.causal ? k0 : 0; q0 < L; q0 += kTile) {
+    __syncthreads();
+    if (threadIdx.x < kTile) {
+      const int row = q0 + threadIdx.x;
+      slse[threadIdx.x] = row < L ? lse[(size_t)bh * L + row] : INFINITY;
+      sdelta[threadIdx.x] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+    }
+    if (!stage_and_test(sseg_q, seg_row, q0, L, lo, hi_id)) continue;
+    load_tile(sq, ld, q, b, h, q0, L, sh.H, D);
+    load_tile(sdo, ld, dout, b, h, q0, L, sh.H, D);
+    __syncthreads();
+
+    // rows ty + 16 i of the q tile, columns tx + 16 j of the k tile
+    float s[kPer][kPer], dp[kPer][kPer];
+    two_products<DMAX>(sq, sk, sdo, sv, D, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = ty + 16 * i;
+      const float lr = slse[r], dr = sdelta[r];
+      const int sr = sseg_q[r];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int c = tx + 16 * j;
+        float p = 0.f, ds = 0.f;
+        if (live(sh, q0 + r, k0 + c, sr, sseg_k[c])) {
+          p = __expf(s[i][j] * sh.scale - lr);
+          ds = p * (dp[i][j] - dr) * sh.scale;
+        }
+        sp[r * kLdp + c] = p;
+        sds[r * kLdp + c] = ds;
+      }
+    }
+    __syncthreads();
+
+    // dv[c] += sum_r P[r][c] dO[r]; dk[c] += sum_r dS[r][c] q[r]
+    const int tn = min(kTile, L - q0);
+    for (int r = 0; r < tn; ++r) {
+      float pa[kPer], da[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        pa[i] = sp[r * kLdp + ty + 16 * i];
+        da[i] = sds[r * kLdp + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < kDc; ++j) {
+        const float ob = sdo[r * ld + tx + 16 * j];
+        const float qb = sq[r * ld + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          dva[i][j] = fmaf(pa[i], ob, dva[i][j]);
+          dka[i][j] = fmaf(da[i], qb, dka[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= L) continue;
+    const size_t base = row_base(b, row, h, L, sh.H, D);
+#pragma unroll
+    for (int j = 0; j < kDc; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) {
+        dk[base + d] = from_f32<T>(dka[i][j]);
+        dv[base + d] = from_f32<T>(dva[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T, int DMAX>
+int fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
+        void* lse, int B, Shape sh, cudaStream_t st) {
+  auto kern = packed_flash_fwd_kernel<T, DMAX>;
+  const size_t smem = fwd_smem<DMAX>();
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(B * sh.H, tiles(sh.L)), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(seg),
+      static_cast<T*>(out), static_cast<float*>(lse), sh);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+int bwd_dq(const void* q, const void* k, const void* v, const void* seg,
+           const void* dout, const void* lse, const void* delta, void* dq,
+           int B, Shape sh, cudaStream_t st) {
+  auto kern = packed_flash_dq_kernel<T, DMAX>;
+  const size_t smem = dq_smem<DMAX>();
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(B * sh.H, tiles(sh.L)), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(seg),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), sh);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, int B, Shape sh, cudaStream_t st) {
+  auto kern = packed_flash_dkv_kernel<T, DMAX>;
+  const size_t smem = dkv_smem<DMAX>();
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(B * sh.H, tiles(sh.L)), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(seg),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), sh);
+  return (int)cudaGetLastError();
+}
+
+Shape make_shape(int H, int L, int D, float scale, int causal) {
+  Shape sh;
+  sh.H = H;
+  sh.L = L;
+  sh.D = D;
+  sh.scale = scale;
+  sh.causal = causal;
+  return sh;
+}
+
+}  // namespace
+
+extern "C" int packed_flash_forward(int dtype, const void* q, const void* k,
+                                    const void* v, const void* seg, void* out,
+                                    void* lse, int B, int H, int L, int D,
+                                    float scale, int causal, void* stream) {
+  const Shape sh = make_shape(H, L, D, scale, causal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PF_FWD(T, DM) fwd<T, DM>(q, k, v, seg, out, lse, B, sh, st)
+  FLASH_TILES_DISPATCH(PF_FWD);
+#undef PF_FWD
+}
+
+extern "C" int packed_flash_backward_dq(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        const void* seg, const void* dout,
+                                        const void* lse, const void* delta,
+                                        void* dq, int B, int H, int L, int D,
+                                        float scale, int causal,
+                                        void* stream) {
+  const Shape sh = make_shape(H, L, D, scale, causal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PF_DQ(T, DM) \
+  bwd_dq<T, DM>(q, k, v, seg, dout, lse, delta, dq, B, sh, st)
+  FLASH_TILES_DISPATCH(PF_DQ);
+#undef PF_DQ
+}
+
+extern "C" int packed_flash_backward_dkv(int dtype, const void* q,
+                                         const void* k, const void* v,
+                                         const void* seg, const void* dout,
+                                         const void* lse, const void* delta,
+                                         void* dk, void* dv, int B, int H,
+                                         int L, int D, float scale,
+                                         int causal, void* stream) {
+  const Shape sh = make_shape(H, L, D, scale, causal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PF_DKV(T, DM) \
+  bwd_dkv<T, DM>(q, k, v, seg, dout, lse, delta, dk, dv, B, sh, st)
+  FLASH_TILES_DISPATCH(PF_DKV);
+#undef PF_DKV
+}

@@ -331,22 +331,11 @@ class GPTForCausalLM(torch.nn.Module):
         return PF.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                 labels.reshape(-1))
 
-    @torch.no_grad()
     def load_reference_state(self, named):
         """Copy ``{name: array}`` (the reference's ``named_parameters()``
         through ``np.asarray``) into the parameters of the same names;
         raises on a missing, extra or misshapen name."""
-        own = dict(self.named_parameters())
-        missing, extra = set(own) - set(named), set(named) - set(own)
-        if missing or extra:
-            raise KeyError(f"parameter names differ: missing "
-                           f"{sorted(missing)}, unexpected {sorted(extra)}")
-        for name, p in own.items():
-            a = np.asarray(named[name], np.float32)
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {a.shape} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.tensor(a))
+        nn.load_named_state(self, named)
 
 
 def gen_params(model):

@@ -1,6 +1,6 @@
-"""Functional ops the GPT training step needs — port of
+"""Functional ops the GPT and BERT training steps need — port of
 ``paddle_tpu/nn/functional/common.py`` (``linear``, ``dropout``,
-``embedding``), ``activation.py`` (``gelu``), ``norm.py``
+``embedding``), ``activation.py`` (``gelu``, ``relu``, ``tanh``), ``norm.py``
 (``layer_norm``) and ``ops/math.py`` (``matmul``).
 
 Each keeps the reference's autocast name (``linear_op`` and
@@ -14,8 +14,8 @@ import torch.nn.functional as F
 
 from ... import amp
 
-__all__ = ["linear", "matmul", "embedding", "dropout", "gelu",
-           "layer_norm"]
+__all__ = ["linear", "matmul", "embedding", "dropout", "gelu", "relu",
+           "tanh", "layer_norm"]
 
 
 def linear(x, weight, bias=None):
@@ -51,7 +51,16 @@ def dropout(x, p=0.5, training=True, generator=None):
 
 
 def gelu(x, approximate=False):
+    """The erf form by default, as the reference's (``activation.py:82``)."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
 
 
 def layer_norm(x, weight, bias, epsilon=1e-5):

@@ -13,6 +13,9 @@ reference's attribute names — port of ``paddle_tpu/nn/layer/common.py``
   added by a plain add, which under O1 promotes the low-precision
   product to float32.
 - :class:`Embedding`, :class:`LayerNorm`, :class:`Dropout`.
+- :func:`load_named_state`, which carries the reference's
+  ``named_parameters()`` (as numpy arrays) into a module by name; the
+  models' ``load_reference_state`` call it.
 
 Weights are made on the host from a numpy ``Generator`` (XavierUniform
 for matrices and embeddings, zero biases, unit LayerNorm gains, as the
@@ -28,7 +31,7 @@ from ..device import resolve_device
 from . import functional as F
 
 __all__ = ["Linear", "RowParallelLinear", "Embedding", "LayerNorm",
-           "Dropout"]
+           "Dropout", "load_named_state"]
 
 
 def _param(array, device):
@@ -96,3 +99,21 @@ class Dropout(torch.nn.Module):
 
     def forward(self, x):
         return F.dropout(x, self.p, self.training, self.generator)
+
+
+@torch.no_grad()
+def load_named_state(module, named):
+    """Copy ``{name: array}`` (the reference's ``named_parameters()``
+    through ``np.asarray``) into ``module``'s parameters of the same
+    names; raises on a missing, extra or misshapen name."""
+    own = dict(module.named_parameters())
+    missing, extra = set(own) - set(named), set(named) - set(own)
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(missing)}, unexpected {sorted(extra)}")
+    for name, p in own.items():
+        a = np.asarray(named[name], np.float32)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.tensor(a))

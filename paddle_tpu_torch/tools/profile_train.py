@@ -2,14 +2,16 @@
 """Where the PyTorch port's training-step time goes on one NVIDIA GPU.
 
     python3 -m paddle_tpu_torch.tools.profile_train [--steps N] [--out PATH]
-        [--fused-ce]
+        [--fused-ce | --bert [--pack P]]
 
 Run from the repository root. Builds the training step of
 ``chip_smoke.py``'s train phase (GPT-2
 small, random weights from seed 0, AdamW with the global-norm clip, O1
 bf16 autocast, MLP recompute, batch 16 x seq 1024, one fixed batch; with
 ``--fused-ce`` its ``train_fused_ce`` phase, the head and CE in the
-fused-CE kernels),
+fused-CE kernels; with ``--bert`` the BERT-base fine-tune step of
+``tools/bench_bert.py``, 64 sequences of 128, packed ``--pack`` to a row
+through the packed flash kernels when ``--pack`` is above 1),
 runs ``TrainStep.multi_step`` of 8 steps to warm up, ``--steps`` steps
 timed without the profiler, and ``--steps`` steps under
 ``torch.profiler`` (CPU and CUDA activities), then prints one JSON line:
@@ -20,8 +22,8 @@ timed without the profiler, and ``--steps`` steps under
   window with no kernel executing (``device_idle_frac_unprofiled``
   against the unprofiled step time, since the profiler slows the host);
 - ``by_class`` — device milliseconds per step and kernel counts for the
-  three flash-attention kernels, the three fused-CE kernels, matrix
-  products, the optimizer
+  three flash-attention kernels, the three fused-CE kernels, the three
+  packed flash kernels, matrix products, the optimizer
   (``multi_tensor_apply``), softmax/cross-entropy, and everything else;
 - ``kernels_per_step`` and the top kernels by device time (all 30
   written to ``--out`` when given).
@@ -42,7 +44,8 @@ def kernel_class(name):
     low = name.lower()
     for part in ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "fused_ce_fwd", "fused_ce_dh",
-                 "fused_ce_dw"):
+                 "fused_ce_dw", "packed_flash_fwd", "packed_flash_dq",
+                 "packed_flash_dkv"):
         if part in low:
             return part
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
@@ -70,6 +73,30 @@ def busy_us(kernels):
     return total
 
 
+def bert_step(pack, dev):
+    """bench_bert's step (BERT-base, dropout 0.1, AdamW 3e-5, O1 bf16) on
+    its K=8 batches of 64 sequences: ``(step, stacked, batch, seq)``,
+    ``stacked(k)`` the first k batches."""
+    import torch
+
+    from paddle_tpu_torch.kernels.packed_flash import SegmentIds
+    from paddle_tpu_torch.models.bert import (
+        BertForSequenceClassification, bert_base)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.tools import bench_bert
+
+    model = BertForSequenceClassification(bert_base(), device=dev, seed=0)
+    ids, y, seg, starts = bench_bert.make_data(64, pack)
+    mask = None if seg is None else SegmentIds(
+        torch.as_tensor(seg, device=dev),
+        start_positions=torch.as_tensor(starts, device=dev))
+    step = TrainStep(model, bench_bert.make_loss_fn(mask),
+                     AdamW(3e-5, weight_decay=0.01), device=dev)
+    idt, yt = torch.as_tensor(ids, device=dev), torch.as_tensor(y, device=dev)
+    return step, (lambda k: (idt[:k], yt[:k])), 64, bench_bert.SEQ
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4,
@@ -79,7 +106,14 @@ def main():
     ap.add_argument("--fused-ce", action="store_true",
                     help="GPTConfig(fused_ce=True): the head and CE in "
                          "the fused-CE kernels")
+    ap.add_argument("--bert", action="store_true",
+                    help="the BERT-base fine-tune step of bench_bert")
+    ap.add_argument("--pack", type=int, default=0,
+                    help="with --bert: sequences packed to a row")
     args = ap.parse_args()
+    if args.bert and (args.fused_ce or args.steps > 8):
+        ap.error("--bert takes no --fused-ce and at most 8 --steps (its "
+                 "8 batches)")
     import torch
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -96,23 +130,28 @@ def main():
     from paddle_tpu_torch.parallel.api import TrainStep
 
     _build.build_all()
-    cfg = gpt2_small(dropout=0.0, recompute=True, fused_ce=args.fused_ce)
-    model = GPTForCausalLM(cfg, device="cuda", seed=0)
-
-    def bf16_loss(m, i, y):
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
-            return m.loss(i, y)
-
-    step = TrainStep(model, bf16_loss, AdamW(
-        6e-4, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0)),
-        device="cuda")
-    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
-    labels = np.roll(ids, -1, axis=-1)
     dev = torch.device("cuda")
+    if args.bert:
+        step, stacked, batch, seq = bert_step(args.pack, dev)
+    else:
+        batch, seq = B, S
+        cfg = gpt2_small(dropout=0.0, recompute=True,
+                         fused_ce=args.fused_ce)
+        model = GPTForCausalLM(cfg, device="cuda", seed=0)
 
-    def stacked(k):
-        return (torch.as_tensor(ids, device=dev).expand(k, -1, -1),
-                torch.as_tensor(labels, device=dev).expand(k, -1, -1))
+        def bf16_loss(m, i, y):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                return m.loss(i, y)
+
+        step = TrainStep(model, bf16_loss, AdamW(
+            6e-4, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0)),
+            device="cuda")
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+        labels = np.roll(ids, -1, axis=-1)
+
+        def stacked(k):
+            return (torch.as_tensor(ids, device=dev).expand(k, -1, -1),
+                    torch.as_tensor(labels, device=dev).expand(k, -1, -1))
 
     step.multi_step(*stacked(8)).cpu()               # warm-up
     t0 = time.perf_counter()
@@ -138,8 +177,10 @@ def main():
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    res = {"tool": "profile_train", "gpu": gpu, "fused_ce": args.fused_ce,
-           "batch": B, "seq": S, "steps": args.steps,
+    res = {"tool": "profile_train", "gpu": gpu,
+           "model": "bert_base" if args.bert else "gpt2_small",
+           "fused_ce": args.fused_ce, "pack": args.pack if args.bert else None,
+           "batch": batch, "seq": seq, "steps": args.steps,
            "step_ms": step_s * 1e3,
            "profiled_step_ms": wall * 1e3 / args.steps,
            "device_kernels": len(kern),

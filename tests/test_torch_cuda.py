@@ -1,9 +1,10 @@
 """Tests of the PyTorch port that need a CUDA device: the hand-written
 ragged paged-attention kernel, the flash-attention forward, dq and dk/dv
-kernels and the fused-CE forward, dh and dw kernels against their plain
+kernels, the fused-CE forward, dh and dw kernels and the packed
+(segment-id) flash forward, dq and dk/dv kernels against their plain
 PyTorch versions, the serving engine on the card against the same engine
-on the CPU, and training steps through the kernels against the same
-steps through the plain versions.
+on the CPU, and GPT and packed-BERT training steps through the kernels
+against the same steps through the plain versions.
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -386,3 +387,136 @@ def test_fused_ce_wrapper_raises_on_cuda_without_the_library(cuda, tmp_path,
     h, w, lab, _ = _fce_inputs(cuda, 16, 40, 32, torch.float32)
     with pytest.raises(RuntimeError, match="nvcc"):
         fc.fused_softmax_ce(h, w, lab)
+
+
+# -- packed (segment-id) flash attention (kernels/packed_flash.py) ------------
+
+PF_CASES = {            # B, H, L, D, causal, layout
+    "pack4": (4, 3, 512, 64, False, "pack4"),
+    "uneven": (3, 3, 512, 64, False, "uneven"),
+    "uneven_causal": (3, 3, 512, 64, True, "uneven"),
+    "ragged300": (3, 2, 300, 64, False, "uneven"),
+    "d128": (2, 2, 320, 128, True, "pack4"),
+    "d40": (2, 2, 200, 40, False, "uneven"),
+}
+
+
+def _pf_ids(dev, B, L, layout):
+    """``pack4``: four equal segments a row; ``uneven``: rows in turn of
+    three segments (100/300/112 of 512), one segment, and one id in two
+    places (not contiguous)."""
+    seg = np.zeros((B, L), np.int32)
+    a, b = L * 100 // 512, L * 400 // 512
+    for r in range(B):
+        if layout == "pack4":
+            seg[r] = np.repeat(np.arange(4), -(-L // 4))[:L]
+        elif r % 3 == 0:
+            seg[r, :a], seg[r, a:b], seg[r, b:] = 5, 7, 9
+        elif r % 3 == 1:
+            seg[r] = 3
+        else:
+            seg[r, :a], seg[r, a:b], seg[r, b:] = 5, 7, 5
+    return torch.tensor(seg, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(PF_CASES))
+def test_packed_flash_kernels_match_plain(cuda, case, dtype):
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    B, H, L, D, causal, layout = PF_CASES[case]
+    q, k, v, do = _fa_inputs(cuda, B, H, L, L, D, dtype, seed=8)
+    seg = _pf_ids(cuda, B, L, layout)
+    pf.reset_launches()
+    out, lse = pf.packed_flash_fwd(q, k, v, seg, causal)
+    delta = pf.attention_delta(out, do)
+    dq = pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, causal)
+    dk, dv = pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (pf.fwd_launches, pf.dq_launches, pf.dkv_launches) == (1, 1, 1)
+    rout, rlse = pf.packed_flash_fwd_ref(q, k, v, seg, causal)
+    rdq = pf.packed_flash_bwd_dq_ref(q, k, v, seg, do, lse, delta, causal)
+    rdk, rdv = pf.packed_flash_bwd_dkv_ref(q, k, v, seg, do, lse, delta,
+                                           causal)
+    ftol, gtol = FA_TOL[dtype]
+    assert _rel(out, rout) <= ftol and _rel(lse, rlse) <= ftol
+    for name, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= gtol, (name, _rel(a, b))
+
+
+def test_packed_flash_backward_is_bit_identical_across_launches(cuda):
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    q, k, v, do = _fa_inputs(cuda, 3, 3, 512, 512, 64, torch.bfloat16, 9)
+    seg = _pf_ids(cuda, 3, 512, "uneven")
+    out, lse = pf.packed_flash_fwd(q, k, v, seg, True)
+    delta = pf.attention_delta(out, do)
+    runs = [(pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, True),
+             *pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta, True))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_tiny_bert_packed_step_with_the_kernels_equals_the_plain_step(cuda):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    from paddle_tpu_torch.models.bert import (BertForSequenceClassification,
+                                              bert_tiny)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.tools import bench_bert
+    ids, y, seg, starts = bench_bert.make_data(8, 4, k=3, vocab=256, seq=32)
+    mask = pf.SegmentIds(torch.tensor(seg, device=cuda),
+                         start_positions=torch.tensor(starts, device=cuda))
+    runs = {}
+    for plain in (False, True):
+        m = BertForSequenceClassification(bert_tiny(dropout=0.0),
+                                          device=cuda, seed=3)
+        step = TrainStep(m, bench_bert.make_loss_fn(mask, amp_level=None),
+                         AdamW(1e-3), device=cuda)
+        pf.reset_launches()
+        fa.reset_launches()
+        first = torch.tensor(ids[0], device=cuda)
+        with pf.use_plain() if plain else contextlib.nullcontext():
+            with torch.no_grad():
+                packed = m(first, attention_mask=mask)
+                unpacked = m(first.reshape(8, 32))
+            losses = step.multi_step(ids, y)
+        launches = (pf.fwd_launches, pf.dq_launches, pf.dkv_launches)
+        assert launches == ((0, 0, 0) if plain else (8, 6, 6))
+        assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == \
+            (2, 0, 0)                      # the unpacked forward, 2 layers
+        # the same examples packed four to a row and unpacked
+        torch.testing.assert_close(packed.reshape(8, -1), unpacked,
+                                   rtol=1e-5, atol=1e-5)
+        runs[plain] = (losses.cpu(), {n: p.detach().cpu()
+                                      for n, p in m.named_parameters()},
+                       packed.cpu())
+    torch.testing.assert_close(runs[False][0], runs[True][0], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(runs[False][2], runs[True][2], rtol=1e-5,
+                               atol=1e-5)
+    for name, a in runs[False][1].items():
+        b = runs[True][1][name]
+        if name.endswith("k_proj.bias"):
+            # exact gradient zero: Adam steps rounding noise, 3 x 1e-3 at most
+            torch.testing.assert_close(a, b, rtol=0, atol=2 * 3 * 1e-3)
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_packed_flash_wrapper_raises_on_cuda_without_the_library(
+        cuda, tmp_path, monkeypatch):
+    """No fallback: with the library unbuildable a CUDA tensor raises."""
+    import torch.utils.cpp_extension as ext
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(pf, "_fns", {})
+    q, k, v, _ = _fa_inputs(cuda, 1, 2, 64, 64, 64, torch.float32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pf.packed_flash_attention(q, k, v, _pf_ids(cuda, 1, 64, "pack4"))

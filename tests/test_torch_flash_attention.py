@@ -165,8 +165,14 @@ def test_sdpa_casts_as_the_white_listed_op_and_refuses_masks():
     assert out.dtype == torch.bfloat16
     want = port_sdpa_reference(q, k, v, causal=True, scale=1 / 8.0)
     torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
-    with pytest.raises(NotImplementedError):
-        scaled_dot_product_attention(q, k, v, attn_mask=torch.zeros(32, 32))
+    # masks are ported now (the BERT slice): a dense additive mask no
+    # longer raises; it goes to _sdpa_reference, as in the reference
+    mask = torch.zeros(32, 32)
+    mask[:, 5:9] = -1e30
+    got = scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    torch.testing.assert_close(
+        got, port_sdpa_reference(q, k, v, mask, causal=False, scale=1 / 8.0),
+        rtol=0, atol=0)
 
 
 def test_ctypes_bindings_match_the_c_prototypes():

@@ -35,6 +35,9 @@ if not torch.cuda.is_available():
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.models.bert import (
+        BertForSequenceClassification, bert_tiny)
+    from paddle_tpu_torch.tools import bench_bert
     cpu_model = GPTForCausalLM(gpt2_tiny(), device="cpu")
     for name, call in (("engine", lambda: ServingEngine(gpt2_tiny())),
                        ("init_params", lambda: init_params(gpt2_tiny())),
@@ -43,7 +46,10 @@ if not torch.cuda.is_available():
                        ("model", lambda: GPTForCausalLM(gpt2_tiny())),
                        ("train_step", lambda: TrainStep(
                            cpu_model, lambda m, i, y: m.loss(i, y),
-                           AdamW()))):
+                           AdamW())),
+                       ("bert", lambda: BertForSequenceClassification(
+                           bert_tiny())),
+                       ("bench_bert", lambda: bench_bert.run(8, pack=4))):
         try:
             call()
             result["refused"][name] = False
@@ -70,11 +76,15 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "paddle_tpu_torch.kernels.fused_ce" in out["modules"]
     assert "paddle_tpu_torch.tools.bench_gpt_pretrain" in out["modules"]
     assert "paddle_tpu_torch.parallel.api" in out["modules"]
+    for name in ("kernels.packed_flash", "nn.transformer", "models.bert",
+                 "tools.bench_bert"):
+        assert f"paddle_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:
         assert out["refused"] == {"engine": True, "init_params": True,
                                   "engine_cuda": True, "model": True,
-                                  "train_step": True}
+                                  "train_step": True, "bert": True,
+                                  "bench_bert": True}
 
 
 def test_chip_smoke_fails_without_a_gpu_or_without_the_port(tmp_path):
