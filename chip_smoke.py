@@ -19,6 +19,11 @@ exits non-zero:
      extents across page boundaries), the decode shape and the
      prefill-chunk shape; float32 within 1e-4 and bfloat16 within 2e-2
      on live rows;
+   - the same kernel over int8 and fp8 pools (the port's
+     ``quantize_per_page`` of random pages, each page and head scaled by
+     10^U(-2, 1) first) at the same three shapes, q in float32 and
+     bfloat16: live rows within 1e-4 / 2e-2 as max-abs error over
+     max-abs plain, idle slots exactly zero;
    - flash attention forward (out, lse), dq and dk/dv at the training
      shape (B=16, H=12, L=1024, D=64, causal), L=1000 causal (ragged
      tail), Lq=128/Lk=256 with and without causal (bottom-right), B=1
@@ -49,7 +54,8 @@ exits non-zero:
    Times each kernel (CUDA events), its plain version and one PyTorch
    call computing the same function (a yardstick the port never calls:
    ``F.scaled_dot_product_attention`` — over gathered K/V for the paged
-   kernel; forward, and forward+backward for the backward pair, for
+   kernel, dequantized beforehand and not timed for quantized pools;
+   forward, and forward+backward for the backward pair, for
    flash, and with the dense boolean block-diagonal mask for packed
    flash; unfused ``torch.matmul`` + ``F.cross_entropy``, forward alone,
    and forward+backward to h alone (dh) and to w alone (dw), for fused
@@ -62,10 +68,17 @@ exits non-zero:
    4 at temperature 0.8, two sharing a 64-token prefix). Every request
    must finish, the page pool must verify, and the kernel's launch
    count must equal layers x forward passes.
+   ``serve_int8``, ``serve_fp8`` — the same with int8 / fp8 KV pools
+   (bf16 weights), ``serve_w8`` with int8 weights and fp8 KV: the
+   quantized kernel launched layers x forward passes and the float one
+   never; the int8 pool under 0.56 of the bf16 pool's bytes and the fp8
+   pool equal to the int8 pool (scales included).
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version: per-step logits within 1e-3,
    tokens identical up to the first step whose plain top-2 margin is
-   below that tolerance.
+   below that tolerance. ``parity_quant`` — the same over int8 and fp8
+   pools, with each one's decode-logit abs-max beside the float32
+   pool's (reported, not held).
 6. ``train``   — the GPT-2 small pretraining step of
    ``tools/bench_gpt_pretrain.py`` (``fused_ce=False``): AdamW(6e-4,
    weight decay 0.1, global-norm clip 1.0), loss under O1 bf16 autocast,
@@ -188,16 +201,21 @@ def attention_case(kv_lens, q_lens, QB, dtype, rng, layers):
 
 def case_bound(c):
     """Least time for one call: each input read once (q, the K/V rows
-    below each slot's extent, tables, lengths), the output written once,
-    and the FLOPs the rows' causal limits need, at the card's peaks."""
+    below each slot's extent, and over a quantized pool the two scales of
+    each page and head those rows lie in, tables, lengths), the output
+    written once, and the FLOPs the rows' causal limits need, at the
+    card's peak for q's type."""
     import numpy as np
     q = c["q"]
     S, QB = q.shape[0], q.shape[1]
     item = q.element_size()
+    kv_item = c["pools"][0][0].element_size()
     kv_lens = np.minimum(c["kv_lens"].cpu().numpy(), MP * PS)
     q_lens = c["q_lens"].cpu().numpy()
     nbytes = 2 * q.numel() * item                       # q in, out
-    nbytes += 2 * int(kv_lens.sum()) * NH * HD * item   # K and V rows
+    nbytes += 2 * int(kv_lens.sum()) * NH * HD * kv_item  # K and V rows
+    if "scales" in c:                                   # f32, K and V
+        nbytes += 2 * int((-(-kv_lens // PS)).sum()) * NH * 4
     nbytes += c["bt"].numel() * 4 + 2 * S * 4
     j = np.arange(QB)[None, :]
     L, n = kv_lens[:, None], q_lens[:, None]
@@ -210,9 +228,10 @@ def case_bound(c):
             else "operations")
 
 
-def sdpa_inputs(c):
-    """The same K/V gathered contiguous per slot, with the rows' causal
-    limits as a boolean mask, for the library yardstick."""
+def sdpa_inputs(c, pools=None):
+    """The same K/V gathered contiguous per slot (from ``pools``, default
+    the case's), with the rows' causal limits as a boolean mask, for the
+    library yardstick."""
     import torch
     from paddle_tpu_torch.kernels.paged_attention import _limits
     q, bt = c["q"], c["bt"].long()
@@ -223,11 +242,24 @@ def sdpa_inputs(c):
     mask = (torch.arange(Tm, device=q.device)[None, None, :]
             < lim[:, :, None])[:, None]                 # [S, 1, QB, Tm]
     kvs = []
-    for kp, vp in c["pools"]:
+    for kp, vp in pools or c["pools"]:
         k = kp[bt].reshape(S, T, NH, HD)[:, :Tm].transpose(1, 2)
         v = vp[bt].reshape(S, T, NH, HD)[:, :Tm].transpose(1, 2)
         kvs.append((k.contiguous(), v.contiguous()))
     return q.transpose(1, 2).contiguous(), kvs, mask
+
+
+# name: (kv_lens, q_lens, QB) of one ragged call
+RAGGED_SHAPES = {
+    # decode row, full prefill row, k+1 row, idle slot, extents that
+    # cross page boundaries
+    "mixed": ([27, 32, 300, 0, 517, 1024, 49, 100],
+              [1, 32, 5, 1, 1, 32, 17, 1], CHUNK),
+    # the engine's decode step: 8 slots of one query each
+    "decode": ([47, 133, 260, 301, 388, 455, 512, 590], [1] * S_SLOTS, 1),
+    # the engine's prefill chunk: one slot, q_len = kv tail of 32
+    "prefill": ([288], [CHUNK], CHUNK),
+}
 
 
 def run_kernel_phase():
@@ -238,19 +270,8 @@ def run_kernel_phase():
 
     rng = np.random.default_rng(0)
     layers = 12
-    shapes = {
-        # decode row, full prefill row, k+1 row, idle slot, extents that
-        # cross page boundaries
-        "mixed": ([27, 32, 300, 0, 517, 1024, 49, 100],
-                  [1, 32, 5, 1, 1, 32, 17, 1], CHUNK),
-        # the engine's decode step: 8 slots of one query each
-        "decode": ([47, 133, 260, 301, 388, 455, 512, 590],
-                   [1] * S_SLOTS, 1),
-        # the engine's prefill chunk: one slot, q_len = kv tail of 32
-        "prefill": ([288], [CHUNK], CHUNK),
-    }
     results = {}
-    for name, (kv_lens, q_lens, QB) in shapes.items():
+    for name, (kv_lens, q_lens, QB) in RAGGED_SHAPES.items():
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             c = attention_case(kv_lens, q_lens, QB, dtype, rng, layers)
@@ -297,6 +318,105 @@ def run_kernel_phase():
             results.setdefault(name, {})[str(dtype).replace(
                 "torch.", "")] = rec
             del c, out, ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def quant_attention_case(kv_lens, q_lens, QB, dtype, fmt, rng, layers):
+    """``attention_case`` over pools quantized by the port's
+    ``quantize_per_page``: each (page, head) scaled by 10^U(-2, 1) first,
+    so pages and heads differ in magnitude and a wrong scale index
+    shows. ``pools`` holds (k codes, v codes) per layer, ``scales`` the
+    (k_scale, v_scale) pairs."""
+    import torch
+    from paddle_tpu_torch.quantization.kv import quantize_per_page
+    c = attention_case(kv_lens, q_lens, QB, torch.float32, rng, layers)
+    NP = c["pools"][0][0].shape[0]
+    pools, scales = [], []
+    for kp, vp in c["pools"]:
+        mag = torch.tensor(10.0 ** rng.uniform(-2, 1, (2, NP, 1, NH, 1)),
+                           dtype=torch.float32, device=kp.device)
+        kq, ks = quantize_per_page(kp * mag[0], dtype=fmt)
+        vq, vs = quantize_per_page(vp * mag[1], dtype=fmt)
+        pools.append((kq, vq))
+        scales.append((ks, vs))
+    c.update(q=c["q"].to(dtype), pools=pools, scales=scales)
+    return c
+
+
+def run_quant_kernel_phase():
+    """The ragged kernel over int8 and fp8 pools against its plain
+    version at the three shapes of the float phase, q in f32 and bf16;
+    timed at bf16 q with its plain version, SDPA over K/V gathered and
+    dequantized beforehand (not timed) and the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.quantization.kv import dequantize_per_page
+
+    rng = np.random.default_rng(5)
+    layers = 12
+    results = {}
+    for name, (kv_lens, q_lens, QB) in RAGGED_SHAPES.items():
+        for fmt in ("int8", "fp8"):
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                c = quant_attention_case(kv_lens, q_lens, QB, dtype, fmt,
+                                         rng, layers)
+                (kp, vp), (ks, vs) = c["pools"][0], c["scales"][0]
+                args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
+                out = pa.ragged_paged_attention(*args, k_scale=ks,
+                                                v_scale=vs)
+                torch.cuda.synchronize()
+                ref = pa.ragged_paged_attention_ref(*args, k_scale=ks,
+                                                    v_scale=vs)
+                live = (torch.arange(QB, device=out.device)[None]
+                        < c["q_lens"][:, None])[:, :, None, None]
+                err = float(((out.float() - ref.float()).abs() * live).max())
+                rel = err / max(float((ref.float() * live).abs().max()),
+                                1e-30)
+                if not (rel <= tol and bool(torch.isfinite(out).all())):
+                    raise AssertionError(
+                        f"quantized kernel vs plain ({name}, {fmt}, "
+                        f"{dtype}): max-abs err / max-abs {rel} > {tol} "
+                        "or non-finite output")
+                idle = c["kv_lens"] == 0
+                if bool(idle.any()) and bool(out[idle].abs().max() != 0):
+                    raise AssertionError(f"{name} {fmt}: idle slot not zero")
+                rec = {"max_abs_err": err, "rel_err": rel}
+                if dtype == torch.bfloat16:   # the serving dtype: timed
+                    P, Sc = c["pools"], c["scales"]
+
+                    def kern(i, c=c, P=P, Sc=Sc):
+                        (kp, vp), (ks, vs) = P[i % layers], Sc[i % layers]
+                        pa.ragged_paged_attention(
+                            c["q"], kp, vp, c["bt"], c["kv_lens"],
+                            c["q_lens"], k_scale=ks, v_scale=vs)
+
+                    def plain(i, c=c, P=P, Sc=Sc):
+                        (kp, vp), (ks, vs) = P[i % layers], Sc[i % layers]
+                        pa.ragged_paged_attention_ref(
+                            c["q"], kp, vp, c["bt"], c["kv_lens"],
+                            c["q_lens"], k_scale=ks, v_scale=vs)
+                    deq = [tuple(dequantize_per_page(p, s, dtype=dtype)
+                                 for p, s in zip(pp, ss))
+                           for pp, ss in zip(P, Sc)]
+                    qs, kvs, mask = sdpa_inputs(c, deq)
+                    del deq
+
+                    def lib(i, qs=qs, kvs=kvs, mask=mask):
+                        k, v = kvs[i % layers]
+                        F.scaled_dot_product_attention(qs, k, v,
+                                                       attn_mask=mask)
+                    rec["ms"] = cuda_ms(kern, 120)
+                    rec["plain_ms"] = cuda_ms(plain, 24)
+                    rec["library_ms"] = cuda_ms(lib, 120)
+                    rec["bound_ms"], rec["bound_by"] = case_bound(c)
+                    del qs, kvs, mask
+                results.setdefault(name, {}).setdefault(fmt, {})[str(
+                    dtype).replace("torch.", "")] = rec
+                del c, out, ref
     torch.cuda.empty_cache()
     return results
 
@@ -806,7 +926,11 @@ def serve_traffic(vocab):
     return reqs
 
 
-def run_serve_phase():
+def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
+    """The serving engine at GPT-2 small's widths on ``serve_traffic``.
+    Over a float pool every attention launches the float kernel, over an
+    int8/fp8 pool the quantized one: one a layer and forward pass, and
+    none of the other kind."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference.serving import ServingEngine
@@ -817,7 +941,8 @@ def run_serve_phase():
     dev = torch.device("cuda")
     params = init_params(cfg, seed=0, device=dev)
     kw = dict(device=dev, num_slots=8, page_size=PS, prefill_chunk=CHUNK,
-              max_seq_len=1024, weight_dtype="bf16", kv_dtype="bf16")
+              max_seq_len=1024, weight_dtype=weight_dtype,
+              kv_dtype=kv_dtype)
     # warm-up on a throwaway engine: cuBLAS handles, allocator pools
     warm = ServingEngine(cfg, params, **dict(kw, num_slots=1,
                                              max_seq_len=64))
@@ -827,6 +952,7 @@ def run_serve_phase():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(cfg, params, **kw)
+    del params
     reqs = serve_traffic(cfg.vocab_size)
     uids = [eng.add_request(**r) for r in reqs]
     pa.reset_launches()
@@ -834,7 +960,9 @@ def run_serve_phase():
     done = eng.run(max_steps=20000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa.launches
+    quant = eng.kv.quantized
+    launches, other = ((pa.quant_launches, pa.launches) if quant
+                       else (pa.launches, pa.quant_launches))
     if sorted(done) != sorted(uids):
         raise AssertionError("not every request completed")
     for u, r in zip(uids, reqs):
@@ -849,14 +977,17 @@ def run_serve_phase():
     eng.kv.verify()
     st = eng.stats
     forwards = st["prefill_chunks"] + st["decode_steps"]
-    if not (launches > 0 and launches == cfg.num_layers * forwards):
+    if not (launches > 0 and launches == cfg.num_layers * forwards
+            and other == 0):
         raise AssertionError(
-            f"kernel launches {launches} != {cfg.num_layers} layers x "
-            f"{forwards} forward passes")
+            f"{name}: kernel launches {launches} != {cfg.num_layers} "
+            f"layers x {forwards} forward passes, or {other} launches of "
+            "the other pool kind")
     if st["prefix_hits"] < 64 // PS:
         raise AssertionError("the shared prefix was not served from cache")
     ttft = np.array([done[u].ttft_s for u in uids])
-    return {"phase": "serve", "requests": len(uids),
+    return {"phase": name, "kv_dtype": eng.kv.kv_dtype,
+            "weight_dtype": weight_dtype, "requests": len(uids),
             "tokens_generated": st["tokens_emitted"],
             "wall_s": wall,
             "tokens_per_s": st["tokens_emitted"] / wall,
@@ -872,13 +1003,28 @@ def run_serve_phase():
             "kernel_launches": launches,
             "launches_per_forward": launches / forwards,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "pool_bytes": eng.kv.pool_bytes(),
             "kv_verify": True, "gpu": smi()}, launches
 
 
-def run_parity_phase():
+def check_quant_pools(serve, q8, f8):
+    """The reference's byte checks (tests/test_kv_quant.py:175-179,
+    tests/test_quant_decode.py:252): an int8 pool under 0.56 of the bf16
+    pool, scales included, and an fp8 pool of the int8 pool's bytes."""
+    if not (q8["pool_bytes"] < 0.56 * serve["pool_bytes"]
+            and f8["pool_bytes"] == q8["pool_bytes"]):
+        raise AssertionError(
+            f"pool bytes: int8 {q8['pool_bytes']}, fp8 {f8['pool_bytes']}, "
+            f"bf16 {serve['pool_bytes']}")
+
+
+def run_parity_phase(kv_dtype=None):
+    """Float32 weights, four greedy requests through the kernel and
+    through the plain version, over a ``kv_dtype`` pool."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.models.gpt import gpt2_small, init_params
 
     cfg = gpt2_small()
@@ -887,14 +1033,25 @@ def run_parity_phase():
     rng = np.random.default_rng(1)
     reqs = [(rng.integers(0, cfg.vocab_size, int(n)), 32)
             for n in rng.integers(40, 201, 4)]
-    runs = {}
+    runs, absmax = {}, {}
     for attention in ("auto", "torch"):
         eng = ServingEngine(cfg, params, device=dev, attention=attention,
                             num_slots=4, page_size=PS, prefill_chunk=CHUNK,
-                            max_seq_len=1024, record_logits=True)
+                            max_seq_len=1024, record_logits=True,
+                            kv_dtype=kv_dtype)
+        pa.reset_launches()
         uids = [eng.add_request(p, n) for p, n in reqs]
         done = eng.run(max_steps=5000)
+        forwards = eng.stats["prefill_chunks"] + eng.stats["decode_steps"]
+        want = cfg.num_layers * forwards if attention == "auto" else 0
+        got = pa.quant_launches if eng.kv.quantized else pa.launches
+        if got != want:
+            raise AssertionError(f"parity {kv_dtype} {attention}: {got} "
+                                 f"kernel launches, expected {want}")
         runs[attention] = [(done[u].tokens, eng.logit_log[u]) for u in uids]
+        # the decode steps' logits (the first entry is the prefill's)
+        absmax[attention] = max(float(lg.abs().max())
+                                for u in uids for lg in eng.logit_log[u][1:])
         del eng
         torch.cuda.empty_cache()
     max_err, first_tie, steps = 0.0, None, 0
@@ -911,11 +1068,28 @@ def run_parity_phase():
                                      f"{tk[i]} vs {tp[i]}")
     if not max_err <= PARITY_TOL:
         raise AssertionError(f"logits differ by {max_err} > {PARITY_TOL}")
-    return {"phase": "parity", "requests": len(reqs),
+    return {"phase": "parity", "kv_dtype": kv_dtype or "float32",
+            "requests": len(reqs),
             "steps_compared": steps, "max_logit_abs_err": max_err,
             "tol": PARITY_TOL, "first_step_top2_below_tol": first_tie,
             "tokens_identical": all(a[0] == b[0] for a, b in
-                                    zip(runs["auto"], runs["torch"]))}
+                                    zip(runs["auto"], runs["torch"])),
+            "decode_logit_absmax": absmax["auto"]}
+
+
+def run_parity_quant_phase(base):
+    """``parity`` over int8 and fp8 pools; beside each, the decode-logit
+    abs-max against the float32 pool's (``base``), reported and not
+    held: the reference pins rel 0.02 (int8) and 0.10 (fp8) at tiny size
+    (tests/test_kv_quant.py:197, tests/test_quant_decode.py:255)."""
+    out = {"phase": "parity_quant"}
+    for kd in ("int8", "fp8"):
+        r = run_parity_phase(kd)
+        r.pop("phase")
+        r["decode_logit_absmax_rel_to_f32"] = (
+            r["decode_logit_absmax"] / base["decode_logit_absmax"] - 1.0)
+        out[kd] = r
+    return out
 
 
 # -- training ------------------------------------------------------------------
@@ -1334,20 +1508,38 @@ def main():
                                     if "registers" in ln]}
                       for n, v in log.items()}})
     kres = run_kernel_phase()
+    qres = run_quant_kernel_phase()
     fres = run_flash_phase()
     cres = run_fused_ce_phase()
     pres = run_packed_flash_phase()
     emit({"phase": "kernels",
-          "kernels": ["ragged_paged_attention", "flash_attention_fwd",
+          "kernels": ["ragged_paged_attention",
+                      "ragged_paged_attention_quant", "flash_attention_fwd",
                       "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                       "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
                       "packed_flash_fwd", "packed_flash_bwd_dq",
                       "packed_flash_bwd_dkv"],
-          "ragged_paged_attention": kres, "flash_attention": fres,
+          "ragged_paged_attention": kres,
+          "ragged_paged_attention_quant": qres, "flash_attention": fres,
           "fused_ce": cres, "packed_flash": pres, "gpu": gpu})
     serve, launches = run_serve_phase()
     emit(serve)
-    emit(run_parity_phase())
+    quant_serve, qlaunches = {}, {}
+    for name, kd, wd in (("serve_int8", "int8", "bf16"),
+                         ("serve_fp8", "fp8", "bf16"),
+                         ("serve_w8", "fp8", "int8")):
+        r, qlaunches[name] = run_serve_phase(name, kd, wd)
+        r["pool_bytes_vs_bf16"] = r["pool_bytes"] / serve["pool_bytes"]
+        r["tokens_per_s_vs_serve"] = r["tokens_per_s"] / serve["tokens_per_s"]
+        quant_serve[name] = r
+        torch.cuda.empty_cache()
+    check_quant_pools(serve, quant_serve["serve_int8"],
+                      quant_serve["serve_fp8"])
+    for r in quant_serve.values():
+        emit(r)
+    parity = run_parity_phase()
+    emit(parity)
+    emit(run_parity_quant_phase(parity))
     ft = fres["train"]["bfloat16"]["timing"]
     ct = cres["train"]["bfloat16"]["timing"]
     flash_ms = {kn: ft[kn]["ms"] for kn in ("fwd", "dq", "dkv")}
@@ -1386,6 +1578,27 @@ def main():
         "library_ms": dec["library_ms"],
         "shape": "decode: S=8 QB=1 NH=12 HD=64 PS=16 MP=64 bf16",
         "cases": {n: kres[n]["bfloat16"] for n in ("mixed", "prefill")}}]
+    qdec = qres["decode"]["int8"]["bfloat16"]
+    kernels.append({
+        "name": "ragged_paged_attention_quant", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/kernels/paged_attention_pallas.py:102",
+        "launches": sum(qlaunches.values()),
+        "launches_by_phase": qlaunches,
+        "max_abs_err": max(r["max_abs_err"] for case in qres.values()
+                           for fmt in case.values() for r in fmt.values()),
+        "max_rel_err": max(r["rel_err"] for case in qres.values()
+                           for fmt in case.values() for r in fmt.values()),
+        "ms": qdec["ms"], "plain_ms": qdec["plain_ms"],
+        "bound_ms": qdec["bound_ms"], "bound_by": qdec["bound_by"],
+        "library_ms": qdec["library_ms"],
+        "library": "F.scaled_dot_product_attention over K/V gathered and "
+                   "dequantized beforehand (not timed)",
+        "shape": "decode: S=8 QB=1 NH=12 HD=64 PS=16 MP=64, int8 pools, "
+                 "bf16 q",
+        "cases": {f"{n}_{fmt}": qres[n][fmt]["bfloat16"]
+                  for n in qres for fmt in qres[n]
+                  if (n, fmt) != ("decode", "int8")}})
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     for kn, line, also in (("fwd", 52, 166), ("dq", 93, 213),
                            ("dkv", 126, 251)):

@@ -10,6 +10,8 @@ so that each module sits where its counterpart does:
 - ``inference/sampler.py``     <- ``paddle_tpu/inference/sampler.py``
 - ``inference/scheduler.py``   <- ``paddle_tpu/inference/scheduler.py``
 - ``inference/serving.py``     <- ``paddle_tpu/inference/serving.py``
+- ``quantization/kv.py``, ``quantization/weights.py`` <- their
+  namesakes in ``paddle_tpu/quantization``
 - ``kernels/paged_attention.py`` (+ ``kernels/csrc/paged_attention.cu``)
   <- ``paddle_tpu/kernels/paged_attention_pallas.py``
 - ``kernels/flash_attention.py`` (+ ``kernels/csrc/flash_attention.cu``)
@@ -31,8 +33,9 @@ so that each module sits where its counterpart does:
   ``tools/bench_bert.py``
 
 The slices ported so far are GPT-2 generation through the paged serving
-engine, the single-device GPT-2 training step (with and without the fused
-head + CE) and the BERT-base fine-tune, unpacked and sequence-packed.
+engine (over float, int8 or fp8 KV pools, with float or int8 weights),
+the single-device GPT-2 training step (with and without the fused head +
+CE) and the BERT-base fine-tune, unpacked and sequence-packed.
 Entry points run on CUDA unless the caller passes ``device="cpu"`` (see
 ``device.py``).
 """

@@ -2,14 +2,17 @@
 ``paddle_tpu/inference/serving.py``.
 
 - :class:`PagedKVCache` — per-layer page pools ``[num_pages, page_size,
-  NH, HD]`` (K and V) plus the host-side allocator: trash page 0, a
-  LIFO free list, refcounts, and the content-addressed prefix cache
-  (chained blake2b page digests, LRU of cache-only pages), checked by
-  ``verify()``.
+  NH, HD]`` (K and V; float, or int8/fp8 codes with per-page-per-head
+  scales) plus the host-side allocator: trash page 0, a LIFO free list,
+  refcounts, and the content-addressed prefix cache (chained blake2b
+  page digests, LRU of cache-only pages), checked by ``verify()``.
 - :func:`_build_serving_fns` — the serving programs: one chunked
   prefill chunk, one decode step over every slot, a fused block of
   ``K`` decode steps whose EOS and budget masks stay on the device, the
-  copy-on-write page copy and the first-token sample.
+  copy-on-write page copy and the first-token sample. Over a quantized
+  pool every write dequantizes the pages it touches, inserts the new
+  rows in float32 and requantizes them (the reference's
+  ``write_decode``/``write_prefill``).
 - :class:`ServingEngine` — the continuous-batching loop: admission with
   prefix-cache planning and a bounded lookahead, decode-priority
   chunked prefill, and the adaptive decode-block policy, ported verbatim
@@ -20,9 +23,12 @@ Every attention — the decode step, each step of a fused block, and each
 prefill chunk (one slot with ``q_len = C`` and ``kv_len = base + C``,
 the row the reference's mixed-step dispatch hands its ragged kernel) —
 goes through ``kernels.paged_attention``: on a CUDA device that is the
-hand-written kernel. ``attention="torch"`` selects the plain PyTorch
-version instead; it exists to hold the kernel against it and nothing on
-the main path selects it.
+hand-written kernel, which dequantizes int8/fp8 pages as it reads them.
+``attention="torch"`` selects the plain PyTorch version instead; it
+exists to hold the kernel against it and nothing on the main path
+selects it. The attention returns q's dtype, as the reference's Pallas
+route does; the reference's gather route returns float32 over a
+quantized pool (ROADMAP C10).
 
 The pools are updated in place (``index_put_``/``copy_``) where the
 reference donated them to its jitted programs (``serving.py:1254``).
@@ -32,10 +38,17 @@ request's draws do not depend on when it was admitted or who shares its
 batch. The draws are not the reference's threefry bits, so sampled
 streams differ from the reference's; greedy streams are identical.
 
-Not ported in this slice (the constructor raises NotImplementedError):
-meshes, speculative decoding, the mixed-step executable, int8/fp8 KV
-pools, int8 weights, fault injection, the journal, tracing and the
-watchdog. Priorities, deadlines, cancellation and preemption are not
+Quantized serving: ``kv_dtype="int8"|"fp8"`` stores the pools as
+one-byte codes with per-page-per-head float32 scales
+(``quantization/kv.py``); ``weight_dtype="int8"`` keeps the int8 weight
+artifact (``quantization/weights.py``) on the device and widens it to
+float32 at the entry of every dispatch — a prefill chunk, a decode step,
+or a fused decode block, once per block.
+
+Not ported yet (the constructor raises NotImplementedError): meshes,
+speculative decoding, the mixed-step executable, fault injection, the
+journal, tracing and the watchdog; nor the quantization gauges and the
+byte ledger. Priorities, deadlines, cancellation and preemption are not
 ported either: every request has priority 0, so the reference engine
 could not preempt on the same traffic.
 """
@@ -51,10 +64,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.paged_attention import (paged_decode_attention,
+from ..kernels.paged_attention import (byte_view, paged_decode_attention,
                                        ragged_paged_attention,
                                        ragged_paged_attention_ref)
 from ..models.gpt import init_params, make_layer_core, tree_map
+from ..quantization.kv import (KV_QUANT_DTYPES, STORAGE, dequantize_per_page,
+                               page_scale_shape, quantize_per_page)
+from ..quantization.weights import (cast_params, dequantize_params,
+                                    quantize_weights_int8)
 from . import sampler as _sampler
 from .scheduler import SHED_POLICIES, QueueFullError, RequestQueue
 
@@ -75,6 +92,29 @@ def _page_digests(tokens, page_size):
             digest_size=16).digest()
         out.append(h)
     return tuple(out)
+
+
+def _span_pages(n, page_size):
+    """Most distinct pages ``n`` contiguous positions can span (a run
+    shorter than a page can still straddle one boundary): the gather
+    width of the quantized prefill write."""
+    return (n - 2) // page_size + 2 if n >= 2 else 1
+
+
+def _requant_write(pool, scales, pages, rows, offs, new, quant):
+    """The quantized write (reference ``write_decode``/``write_prefill``,
+    ``serving.py:788-827``): dequantize ``pool[pages]`` to float32,
+    insert ``new`` ``[N, NH, HD]`` at (``rows``, ``offs``) — row indices
+    into ``pages`` and in-page offsets — requantize every gathered page
+    to its new abs-max, and write codes and scales back in place. A
+    duplicated page in ``pages`` is the trash page only, where any copy
+    may win."""
+    x = dequantize_per_page(byte_view(pool)[pages].view(pool.dtype),
+                            scales[pages])
+    x[rows, offs] = new.float()
+    q, s = quantize_per_page(x, dtype=quant)
+    byte_view(pool)[pages] = byte_view(q)
+    scales[pages] = s
 
 
 @dataclass
@@ -138,31 +178,43 @@ class PagedKVCache:
     ``verify()`` checks.
 
     ``kv_dtype``: ``None`` stores ``dtype``, ``"bf16"`` stores
-    bfloat16. The quantized pools (``"int8"``/``"fp8"``) are not ported
-    yet."""
+    bfloat16, ``"int8"``/``"fp8"`` store one-byte codes (int8 grid codes
+    or ``float8_e4m3fn``) with per-page-per-head float32 scales
+    ``k_scale``/``v_scale``, one ``[num_pages, NH]`` tensor per layer
+    (empty tuples for an unquantized pool). Allocation, refcounts, the
+    prefix cache and ``verify()`` do not depend on the dtype."""
 
     def __init__(self, num_layers, num_pages, page_size, num_heads,
                  head_dim, dtype, prefix_cache=False, kv_dtype=None,
                  device=None):
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the trash page)")
-        if kv_dtype in ("int8", "fp8"):
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: quantized KV pools are not "
-                "ported to paddle_tpu_torch yet")
-        if kv_dtype not in (None, "bf16"):
+        if kv_dtype not in (None, "bf16") + KV_QUANT_DTYPES:
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
-                             "(None or 'bf16')")
+                             "(None, 'bf16', 'int8' or 'fp8')")
         dev = resolve_device(device)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.prefix_cache = bool(prefix_cache)
-        store = torch.bfloat16 if kv_dtype == "bf16" else dtype
+        # the quantized-pool format ("int8"/"fp8") or None: what the write
+        # paths hand quantize_per_page
+        self.quant_dtype = kv_dtype if kv_dtype in KV_QUANT_DTYPES else None
+        self.quantized = self.quant_dtype is not None
+        store = {"bf16": torch.bfloat16, None: dtype,
+                 **STORAGE}[kv_dtype]
+        self.kv_dtype = kv_dtype or str(dtype).replace("torch.", "")
         shape = (num_pages, page_size, num_heads, head_dim)
         self.k = [torch.zeros(shape, dtype=store, device=dev)
                   for _ in range(num_layers)]
         self.v = [torch.zeros(shape, dtype=store, device=dev)
                   for _ in range(num_layers)]
+        self.k_scale, self.v_scale = (), ()
+        if self.quantized:
+            sshape = page_scale_shape(num_pages, num_heads)
+            self.k_scale = [torch.zeros(sshape, device=dev)
+                            for _ in range(num_layers)]
+            self.v_scale = [torch.zeros(sshape, device=dev)
+                            for _ in range(num_layers)]
         self._free = list(range(num_pages - 1, 0, -1))
         self._ref = {}             # page -> refcount (in-use pages)
         self._hash_to_page = {}    # digest -> page
@@ -171,6 +223,11 @@ class PagedKVCache:
         self.evictions = 0
 
     # -- accounting ----------------------------------------------------------
+    def pool_bytes(self):
+        """Resident bytes of the K/V pools, scale tensors included."""
+        return int(sum(t.numel() * t.element_size() for t in
+                       (*self.k, *self.v, *self.k_scale, *self.v_scale)))
+
     @property
     def num_free(self):
         return len(self._free)
@@ -300,13 +357,22 @@ class PagedKVCache:
 
 
 def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
-                       prefill_chunk, attention, device):
+                       prefill_chunk, attention, device, quant=None,
+                       weight_quant=False):
     """The serving programs over a model's layer ``core``
     (``models.gpt.make_layer_core``), as plain functions of (params,
-    pools, state tensors) — the port of the reference's
+    pools, scales, state tensors) — the port of the reference's
     ``_build_serving_fns`` (``serving.py:690``). Weights are call
-    arguments. The pools are written in place (the reference donated
-    them); nothing else is mutated."""
+    arguments. The pools and scales are written in place (the reference
+    donated them); nothing else is mutated.
+
+    ``quant`` is the quantized-pool format (``"int8"``/``"fp8"``, falsy
+    = off): every program takes the per-layer scale lists next to the
+    pools (empty tuples when off), the writes dequantize, insert and
+    requantize the pages they touch, and the attention reads the codes
+    with their scales. ``weight_quant``: the params arrive as the int8
+    artifact (``quantization/weights.py``) and each program widens them
+    to float32 at its entry."""
     NH, HD, H, scale = core.NH, core.HD, core.H, core.scale
     S, PS, MP, C = num_slots, page_size, pages_per_slot, prefill_chunk
     T = MP * PS  # per-slot attention extent
@@ -314,29 +380,66 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
     rows = torch.arange(S, device=dev)
     chunk_pos = torch.arange(C, device=dev)
     chunk_qlen = torch.full((1,), C, dtype=torch.int32, device=dev)
+    R = _span_pages(C, PS)      # pages a prefill chunk can touch
+    span = torch.arange(R, device=dev)
 
     if attention == "torch":
-        def decode_attn(q, kp, vp, bt, n_valid):
+        def decode_attn(q, kp, vp, ks, vs, bt, n_valid):
             return ragged_paged_attention_ref(
                 q[:, None], kp, vp, bt, n_valid, torch.ones_like(n_valid),
-                scale)[:, 0]
+                scale, ks, vs)[:, 0]
         ragged = ragged_paged_attention_ref
     else:
-        def decode_attn(q, kp, vp, bt, n_valid):
+        def decode_attn(q, kp, vp, ks, vs, bt, n_valid):
             return paged_decode_attention(q, kp, vp, bt, n_valid,
-                                          scale=scale)
+                                          scale=scale, k_scale=ks,
+                                          v_scale=vs)
         ragged = ragged_paged_attention
 
-    def step_core(params, kpools, vpools, bt, lengths, tokens, active,
-                  temps, noise):
+    def prep(params):
+        """Widen an int8 weight artifact at program entry; a no-op
+        otherwise (reference ``prep``, ``serving.py:763``)."""
+        return dequantize_params(params) if weight_quant else params
+
+    def layer_scales(kscales, vscales, li):
+        return (kscales[li], vscales[li]) if quant else (None, None)
+
+    def write_decode(kp, ks, page, off, knew):
+        """One token per slot into its current page: page/off [S], knew
+        [S, NH, HD]. Active slots own distinct pages; inactive slots all
+        write the trash page, where duplicates are harmless."""
+        if not quant:
+            kp[page, off] = knew.to(kp.dtype)
+            return
+        _requant_write(kp, ks, page, rows, off, knew, quant)
+
+    def write_prefill(kp, ks, bt_row, pos, page, off, knew):
+        """A contiguous C-position chunk into one slot's pages: pos [C]
+        ascending, knew [C, NH, HD]. The quantized write gathers the
+        ``_span_pages(C, PS)`` block-table rows from the chunk's first
+        page; rows past its last page point at the trash page, so the
+        gathered set holds no other duplicate."""
+        if not quant:
+            kp[page, off] = knew.to(kp.dtype)
+            return
+        row0 = pos[0] // PS
+        rr = row0 + span
+        pages_r = torch.where(rr <= pos[C - 1] // PS,
+                              bt_row[rr.clamp(max=MP - 1)].long(), 0)
+        rloc = (pos // PS - row0).clamp(0, R - 1)
+        _requant_write(kp, ks, pages_r, rloc, off, knew, quant)
+
+    def step_core(params, kpools, vpools, kscales, vscales, bt, lengths,
+                  tokens, active, temps, noise):
         """One token for every slot (reference ``step_core``,
-        ``serving.py:875``). ``lengths[s]`` counts the tokens of slot s
-        INCLUDING ``tokens[s]`` (whose K/V is not yet written): the step
-        writes K/V at ``t = lengths - 1``, attends positions
-        ``< lengths``, and samples the next token. ``bt`` [S, MP] int32;
-        ``lengths`` [S] int64; ``tokens`` [S] int64; ``active`` [S]
-        bool; ``temps`` [S] f32; ``noise`` [S, V] Gumbel noise or None
-        (all-greedy). Returns (next tokens [S] int64, f32 logits)."""
+        ``serving.py:875``) on already-widened ``params``. ``lengths[s]``
+        counts the tokens of slot s INCLUDING ``tokens[s]`` (whose K/V is
+        not yet written): the step writes K/V at ``t = lengths - 1``,
+        attends positions ``< lengths``, and samples the next token.
+        ``bt`` [S, MP] int32; ``lengths`` [S] int64; ``tokens`` [S]
+        int64; ``active`` [S] bool; ``temps`` [S] f32; ``noise`` [S, V]
+        Gumbel noise or None (all-greedy). Returns (next tokens [S]
+        int64, f32 logits)."""
         wte, wpe = params["wte"], params["wpe"]
         # the clamps of serving.py:888/:892: torch raises on an
         # out-of-range index where JAX clamps
@@ -350,32 +453,39 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             h = core.ln(x, *lay["ln1"])
             q, k, v = core.qkv_proj(lay, h)               # [S, NH, HD]
             kp, vp = kpools[li], vpools[li]
-            # in place where the reference donated the pools; inactive
-            # slots all write the trash page (duplicates are harmless)
-            kp[page, off] = k.to(kp.dtype)
-            vp[page, off] = v.to(vp.dtype)
-            o = decode_attn(q.contiguous(), kp, vp, bt, n_valid)
+            ks, vs = layer_scales(kscales, vscales, li)
+            # in place where the reference donated the pools
+            write_decode(kp, ks, page, off, k)
+            write_decode(vp, vs, page, off, v)
+            o = decode_attn(q.contiguous(), kp, vp, ks, vs, bt, n_valid)
             x = core.attn_out(lay, x, o.reshape(S, H))
             x = core.mlp_tail(lay, x)
         logits = core.ln(x, *params["lnf"]) @ wte.T       # [S, V]
         lg32 = logits.float()
         return _sampler.sample_token(lg32, temps, noise), lg32
 
-    def decode_block(K, params, kpools, vpools, bt, lengths, tokens,
-                     active, temps, eos_ids, remaining, noise=None,
-                     collect_logits=False):
+    def decode_step(params, *args):
+        """One decode dispatch: :func:`step_core` on the widened
+        params."""
+        return step_core(prep(params), *args)
+
+    def decode_block(K, params, kpools, vpools, kscales, vscales, bt,
+                     lengths, tokens, active, temps, eos_ids, remaining,
+                     noise=None, collect_logits=False):
         """``K`` decode steps with the per-slot scheduler state on the
         device (reference ``decode_block``, ``serving.py:943``, a
         ``lax.scan`` there, a loop here): a slot that samples its EOS id
         or exhausts ``remaining`` stops emitting and its later writes
         fall to the trash page. No host synchronisation inside the
-        block. ``noise`` is ``[K, S, V]`` or None. Returns the ``(K, S)``
-        token block, the ``(K, S)`` emit mask, and the per-step f32
-        logits when ``collect_logits``."""
+        block; the weights are widened once for the block. ``noise`` is
+        ``[K, S, V]`` or None. Returns the ``(K, S)`` token block, the
+        ``(K, S)`` emit mask, and the per-step f32 logits when
+        ``collect_logits``."""
+        params = prep(params)
         toks, emits, lgs = [], [], []
         for i in range(K):
-            nxt, lg32 = step_core(params, kpools, vpools, bt, lengths,
-                                  tokens, active, temps,
+            nxt, lg32 = step_core(params, kpools, vpools, kscales, vscales,
+                                  bt, lengths, tokens, active, temps,
                                   None if noise is None else noise[i])
             emit = active
             hit_eos = emit & (nxt == eos_ids)
@@ -389,16 +499,18 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
                 lgs.append(lg32)
         return torch.stack(toks), torch.stack(emits), lgs
 
-    def prefill_chunk_fn(params, kpools, vpools, bt_row, base, tok_chunk,
-                         last_idx):
+    def prefill_chunk_fn(params, kpools, vpools, kscales, vscales, bt_row,
+                         base, tok_chunk, last_idx):
         """One fixed-width prompt chunk for ONE slot (reference
         ``prefill_chunk_fn``, ``serving.py:996``): writes K/V for
         positions ``base .. base+C-1`` (padding rows land past the
-        prompt and are overwritten by decode before they are attended)
+        prompt and are overwritten by decode before they are attended;
+        in a quantized page they enter its abs-max, as in the reference)
         and returns the logits at chunk-local position ``last_idx``.
         Attention is the ragged kernel's ``q_len = C`` row with
         ``kv_len = base + C``: row j attends positions ``<= base + j``,
         the causal limit of the reference's gather."""
+        params = prep(params)
         wte, wpe = params["wte"], params["wpe"]
         pos = base + chunk_pos
         x = wte[tok_chunk] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
@@ -410,19 +522,21 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             h = core.ln(x, *lay["ln1"])
             q, k, v = core.qkv_proj(lay, h)               # [C, NH, HD]
             kp, vp = kpools[li], vpools[li]
-            kp[page, off] = k.to(kp.dtype)
-            vp[page, off] = v.to(vp.dtype)
+            ks, vs = layer_scales(kscales, vscales, li)
+            write_prefill(kp, ks, bt_row, pos, page, off, k)
+            write_prefill(vp, vs, bt_row, pos, page, off, v)
             o = ragged(q.contiguous()[None], kp, vp, bt1, kv_len,
-                       chunk_qlen, scale=scale)[0]
+                       chunk_qlen, scale=scale, k_scale=ks,
+                       v_scale=vs)[0]
             x = core.attn_out(lay, x, o.reshape(C, H))
             x = core.mlp_tail(lay, x)
         return core.ln(x[last_idx], *params["lnf"]) @ wte.T
 
-    def copy_page_fn(kpools, vpools, src, dst):
+    def copy_page_fn(kpools, vpools, kscales, vscales, src, dst):
         """Copy-on-write helper: clone page ``src`` into ``dst`` in
-        every layer's K/V pool."""
-        for pool in list(kpools) + list(vpools):
-            pool[dst].copy_(pool[src])
+        every layer's K/V pool, and its scale rows under quantization."""
+        for t in (*kpools, *vpools, *kscales, *vscales):
+            t[dst].copy_(t[src])
 
     def sample_first(logits, temp, generator):
         """The first generated token from the prefill logits; a sampled
@@ -433,7 +547,7 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             noise = _sampler.gumbel_noise(lg.shape, generator, lg.device)
         return int(_sampler.sample_token(lg, float(temp), noise))
 
-    return SimpleNamespace(prefill=prefill_chunk_fn, decode_step=step_core,
+    return SimpleNamespace(prefill=prefill_chunk_fn, decode_step=decode_step,
                            decode_block=decode_block, copy_page=copy_page_fn,
                            sample_first=sample_first)
 
@@ -455,9 +569,10 @@ class ServingEngine:
     ``max_seq_len``, ``prefill_chunk``, ``prefix_cache``,
     ``prefill_chunks_per_step``, ``admit_lookahead``,
     ``decode_block``/``decode_block_buckets``, ``max_queue``/
-    ``shed_policy``, ``kv_dtype`` (None or "bf16"), ``weight_dtype``
-    (None or "bf16"). ``attention="auto"`` runs the ragged kernel (the
-    plain version for CPU tensors); ``"torch"`` the plain version.
+    ``shed_policy``, ``kv_dtype`` (None, "bf16", "int8" or "fp8"),
+    ``weight_dtype`` (None, "bf16" or "int8"). ``attention="auto"`` runs
+    the ragged kernel (the plain version for CPU tensors); ``"torch"``
+    the plain version.
     ``record_logits=True`` keeps every emitted token's f32 logits in
     ``logit_log[uid]`` (on the host), for parity checks."""
 
@@ -479,12 +594,9 @@ class ServingEngine:
             if val is not None and val is not False:
                 raise NotImplementedError(
                     f"{name}= is not ported to paddle_tpu_torch yet")
-        if weight_dtype == "int8":
-            raise NotImplementedError(
-                "weight_dtype='int8' is not ported to paddle_tpu_torch yet")
-        if weight_dtype not in (None, "bf16"):
+        if weight_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"unknown weight_dtype {weight_dtype!r} "
-                             "(None or 'bf16')")
+                             "(None, 'bf16' or 'int8')")
         if attention not in ("auto", "torch"):
             raise ValueError(f"unknown attention impl {attention!r} "
                              "('auto' or 'torch')")
@@ -547,9 +659,16 @@ class ServingEngine:
         # the pools store the raw params' dtype unless kv_dtype says
         # otherwise (the reference reads it before any weight cast)
         raw_dtype = params["wte"].dtype
-        cast = torch.bfloat16 if weight_dtype == "bf16" else raw_dtype
-        self.params = tree_map(
-            lambda t: t.to(device=self.device, dtype=cast), params)
+        params = tree_map(
+            lambda t: t.to(device=self.device, dtype=raw_dtype), params)
+        # what the programs dispatch (reference ``_prep_weights``,
+        # ``serving.py:1673``): the raw dict, its bf16 cast, or the
+        # resident int8 artifact of int8 codes and f32 scales
+        if weight_dtype == "bf16":
+            params = cast_params(params)
+        elif weight_dtype == "int8":
+            params = quantize_weights_int8(params)
+        self.params = params
         core = make_layer_core(cfg)
         self.kv = PagedKVCache(
             cfg.num_layers, num_pages, page_size, cfg.num_heads,
@@ -560,7 +679,8 @@ class ServingEngine:
             core, num_slots=self.num_slots, page_size=self.page_size,
             pages_per_slot=self.pages_per_slot,
             prefill_chunk=self.prefill_chunk, attention=attention,
-            device=self.device)
+            device=self.device, quant=self.kv.quant_dtype,
+            weight_quant=weight_dtype == "int8")
         self.record_logits = bool(record_logits)
         self.logit_log = {}
 
@@ -757,7 +877,9 @@ class ServingEngine:
     def _run_cow_copy(self, st):
         """Clone the shared last page into the slot's private page
         before its tail chunk recomputes the final token."""
-        self._fns.copy_page(self.kv.k, self.kv.v, st.cow_src, st.cow_dst)
+        kv = self.kv
+        self._fns.copy_page(kv.k, kv.v, kv.k_scale, kv.v_scale, st.cow_src,
+                            st.cow_dst)
         self.kv.release([st.cow_src])
         st.cow_src = -1
         self.stats["cow_copies"] += 1
@@ -766,8 +888,10 @@ class ServingEngine:
         base, C, P = st.pf_base, self.prefill_chunk, st.prompt_len
         last = P - 1 - base if base <= P - 1 < base + C else 0
         tok_chunk = torch.tensor(st.toks[base:base + C], device=self.device)
-        st.logits = self._fns.prefill(self.params, self.kv.k, self.kv.v,
-                                      st.bt_dev, base, tok_chunk, last)
+        kv = self.kv
+        st.logits = self._fns.prefill(self.params, kv.k, kv.v, kv.k_scale,
+                                      kv.v_scale, st.bt_dev, base, tok_chunk,
+                                      last)
         st.pf_base = base + C
         self.stats["prefill_chunks"] += 1
         self.stats["dispatches"] += 1
@@ -888,9 +1012,10 @@ class ServingEngine:
         """One per-token decode dispatch (K=1)."""
         d = self._device_state()
         noise = self._noise(1)
+        kv = self.kv
         nxt, lg32 = self._fns.decode_step(
-            self.params, self.kv.k, self.kv.v, d["bt"], d["lengths"],
-            d["tokens"], d["active"], d["temps"],
+            self.params, kv.k, kv.v, kv.k_scale, kv.v_scale, d["bt"],
+            d["lengths"], d["tokens"], d["active"], d["temps"],
             None if noise is None else noise[0])
         self.stats["dispatches"] += 1
         self.stats["decode_steps"] += 1
@@ -921,9 +1046,10 @@ class ServingEngine:
         slots)`` token block on the host."""
         d = self._device_state(with_budget=True)
         noise = self._noise(k)
+        kv = self.kv
         tok_block, emit_block, lgs = self._fns.decode_block(
-            k, self.params, self.kv.k, self.kv.v, d["bt"], d["lengths"],
-            d["tokens"], d["active"], d["temps"], d["eos"],
+            k, self.params, kv.k, kv.v, kv.k_scale, kv.v_scale, d["bt"],
+            d["lengths"], d["tokens"], d["active"], d["temps"], d["eos"],
             d["remaining"], noise, collect_logits=self.record_logits)
         tokb = tok_block.cpu().numpy()          # (K, S) sampled tokens
         emitb = emit_block.cpu().numpy()        # (K, S) emit mask

@@ -1,10 +1,14 @@
 // Ragged paged attention for Hopper (sm_90a), CUDA C++.
 //
-// Replaces the TPU kernel paddle_tpu/kernels/paged_attention_pallas.py:37
-// (`_kernel`, launched by `_ragged_paged_attention_x32`). Same function:
+// Replaces the TPU kernels paddle_tpu/kernels/paged_attention_pallas.py:37
+// (`_kernel`, launched by `_ragged_paged_attention_x32`) and, over
+// quantized pools, :102 (`_kernel_quant`). Same function:
 //
 //   q [S, QB, NH, HD]; k_pool, v_pool [NP, PS, NH, HD];
 //   block_tables [S, MP] int32; kv_lens [S] int32; q_lens [S] int32.
+//   Quantized pools hold int8 or float8 e4m3 codes with per-page-per-head
+//   float32 scales k_scale, v_scale [NP, NH]: position p of page g, head
+//   h, reads as float(code) * scale[g * NH + h] (quantization/kv.py).
 //   Query row j of slot s sits at position kv_lens[s] - q_lens[s] + j and
 //   attends positions < min(L, L - q_len + 1 + j) (L = kv_lens[s]);
 //   padding rows (j >= q_len) attend the whole extent so they stay
@@ -28,7 +32,17 @@
 // tiles of kTile positions, and loads its own block-table row and lengths
 // (what scalar prefetch did on the TPU). A simple first design: no
 // wgmma, no TMA, no split over the KV extent.
+//
+// Over a quantized pool the bytes streamed halve against bf16 (one byte a
+// code, plus two floats a page and head). The codes never reach device
+// memory in float: the block reads the scales of a tile's pages once into
+// shared memory, then reads the codes four to a 32-bit word (a page row
+// of one head is HD contiguous bytes, so neighbouring threads read
+// neighbouring words) and widens each to float32 times its page's scale
+// as it stores the tile — the same single multiply the plain version
+// does, so the staged values are bit-identical to its dequantized pages.
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -57,6 +71,26 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// one code byte -> float32, exact for both formats
+template <typename KVT>
+__device__ __forceinline__ float code_f32(uint32_t byte);
+template <>
+__device__ __forceinline__ float code_f32<int8_t>(uint32_t byte) {
+  return (float)(int8_t)(uint8_t)byte;
+}
+template <>
+__device__ __forceinline__ float code_f32<__nv_fp8_e4m3>(uint32_t byte) {
+  __nv_fp8_e4m3 v;
+  v.__x = (__nv_fp8_storage_t)byte;
+  return (float)v;
+}
+
+// int8 and float8 codes: the pool types of one byte
+template <typename KVT>
+struct IsQuant {
+  static constexpr bool value = sizeof(KVT) == 1;
+};
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -71,13 +105,17 @@ __device__ __forceinline__ int row_limit(int j, int L, int qn) {
   return j < qn ? min(L, L - qn + 1 + j) : L;
 }
 
-size_t smem_bytes(int HD) {
+// a tile of kTile positions spans at most kTile + 1 pages (PS >= 1)
+constexpr int kTilePages = kTile + 1;
+
+size_t smem_bytes(int HD, bool quant) {
   const size_t floats = (size_t)kRows * HD          // q tile (pre-scaled)
                         + (size_t)kTile * (HD + 1)  // K tile, padded rows
                         + (size_t)kTile * HD        // V tile
                         + (size_t)kRows * kTile     // scores / probabilities
                         + (size_t)kRows * HD        // accumulator
-                        + 3 * kRows;                // running max, sum, alpha
+                        + 3 * kRows                 // running max, sum, alpha
+                        + (quant ? 2 * kTilePages : 0);  // page scales
   return floats * sizeof(float) + kRows * sizeof(int);
 }
 
@@ -86,11 +124,13 @@ __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const QT* __restrict__ q,
                               const KVT* __restrict__ k_pool,
                               const KVT* __restrict__ v_pool,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
                               const int* __restrict__ block_tables,
                               const int* __restrict__ kv_lens,
                               const int* __restrict__ q_lens,
                               QT* __restrict__ out, int QB, int NH, int HD,
-                              int PS, int MP, float scale) {
+                              int PS, int MP, float scale, int words) {
   extern __shared__ float smem[];
   const int row0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
@@ -108,6 +148,8 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
   float* sl = sm + kRows;
   float* salpha = sl + kRows;
   int* slimit = reinterpret_cast<int*>(salpha + kRows);
+  float* sks = reinterpret_cast<float*>(slimit + kRows);  // quantized only
+  float* svs = sks + kTilePages;
 
   const int tid = threadIdx.x;
   const int L = min(kv_lens[s], MP * PS);
@@ -144,14 +186,58 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
   for (int t0 = 0; t0 < blim; t0 += kTile) {
     const int tn = min(kTile, blim - t0);
     // stage the tile's K/V rows of head h, page by page via the table
-    for (int i = tid; i < tn * HD; i += kThreads) {
-      const int t = i / HD, d = i - t * HD;
-      const int pos = t0 + t;
-      const int page = bt[pos / PS];
-      const size_t off =
-          ((size_t)page * PS + (pos % PS)) * head_stride + (size_t)h * HD + d;
-      sk[t * kstride + d] = to_f32(k_pool[off]);
-      sv[t * HD + d] = to_f32(v_pool[off]);
+    if constexpr (IsQuant<KVT>::value) {
+      // the scales of the tile's pages, each read once
+      const int p0 = t0 / PS;
+      const int np = (t0 + tn - 1) / PS - p0 + 1;
+      for (int i = tid; i < np; i += kThreads) {
+        const size_t g = (size_t)bt[p0 + i] * NH + h;
+        sks[i] = k_scale[g];
+        svs[i] = v_scale[g];
+      }
+      __syncthreads();
+      const uint8_t* kb = reinterpret_cast<const uint8_t*>(k_pool);
+      const uint8_t* vb = reinterpret_cast<const uint8_t*>(v_pool);
+      if (words) {  // HD % 4 == 0 and 4-byte aligned pools: 4 codes a load
+        const int W = HD >> 2;
+        for (int i = tid; i < tn * W; i += kThreads) {
+          const int t = i / W, w = i - t * W;
+          const int pos = t0 + t;
+          const int page = bt[pos / PS];
+          const size_t off = ((size_t)page * PS + (pos % PS)) * head_stride +
+                             (size_t)h * HD + 4 * w;
+          const float ks = sks[pos / PS - p0], vs = svs[pos / PS - p0];
+          const uint32_t kw = *reinterpret_cast<const uint32_t*>(kb + off);
+          const uint32_t vw = *reinterpret_cast<const uint32_t*>(vb + off);
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            sk[t * kstride + 4 * w + b] =
+                code_f32<KVT>((kw >> (8 * b)) & 0xffu) * ks;
+            sv[t * HD + 4 * w + b] =
+                code_f32<KVT>((vw >> (8 * b)) & 0xffu) * vs;
+          }
+        }
+      } else {
+        for (int i = tid; i < tn * HD; i += kThreads) {
+          const int t = i / HD, d = i - t * HD;
+          const int pos = t0 + t;
+          const int page = bt[pos / PS];
+          const size_t off = ((size_t)page * PS + (pos % PS)) * head_stride +
+                             (size_t)h * HD + d;
+          sk[t * kstride + d] = code_f32<KVT>(kb[off]) * sks[pos / PS - p0];
+          sv[t * HD + d] = code_f32<KVT>(vb[off]) * svs[pos / PS - p0];
+        }
+      }
+    } else {
+      for (int i = tid; i < tn * HD; i += kThreads) {
+        const int t = i / HD, d = i - t * HD;
+        const int pos = t0 + t;
+        const int page = bt[pos / PS];
+        const size_t off =
+            ((size_t)page * PS + (pos % PS)) * head_stride + (size_t)h * HD + d;
+        sk[t * kstride + d] = to_f32(k_pool[off]);
+        sv[t * HD + d] = to_f32(v_pool[off]);
+      }
     }
     __syncthreads();
     // scores, masked per row at its causal limit
@@ -211,10 +297,17 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
 
 template <typename QT, typename KVT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
+           const float* k_scale, const float* v_scale,
            const void* block_tables, const void* kv_lens, const void* q_lens,
            void* out, int S, int QB, int NH, int HD, int PS, int MP,
            float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(HD);
+  const bool quant = IsQuant<KVT>::value;
+  if (quant != (k_scale != nullptr && v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;  // scales exactly for int8/fp8 pools
+  const int words = quant && HD % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(k_pool) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(v_pool) % 4 == 0;
+  const size_t smem = smem_bytes(HD, quant);
   auto kern = ragged_paged_attention_kernel<QT, KVT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -224,19 +317,24 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   const dim3 grid((QB + kRows - 1) / kRows, NH, S);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
-      static_cast<const KVT*>(v_pool), static_cast<const int*>(block_tables),
+      static_cast<const KVT*>(v_pool), k_scale, v_scale,
+      static_cast<const int*>(block_tables),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
-      static_cast<QT*>(out), QB, NH, HD, PS, MP, scale);
+      static_cast<QT*>(out), QB, NH, HD, PS, MP, scale, words);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after
-// the launch (0 = launched), or cudaErrorInvalidValue for a dtype pair it
-// does not take.
+// dtype codes: q 0 = float32, 1 = bfloat16; pools those, 2 = int8 codes,
+// 3 = float8 e4m3 codes. k_scale/v_scale [NP, NH] float32 for the int8
+// and fp8 pools, null otherwise. Returns cudaGetLastError() after the
+// launch (0 = launched), or cudaErrorInvalidValue for a dtype pair or
+// scale pointers it does not take.
 extern "C" int paged_attention_forward(int q_dtype, int kv_dtype, const void* q,
                                        const void* k_pool, const void* v_pool,
+                                       const float* k_scale,
+                                       const float* v_scale,
                                        const void* block_tables,
                                        const void* kv_lens, const void* q_lens,
                                        void* out, int S, int QB, int NH, int HD,
@@ -244,12 +342,17 @@ extern "C" int paged_attention_forward(int q_dtype, int kv_dtype, const void* q,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PA_LAUNCH(QT, KVT)                                                    \
-  return launch<QT, KVT>(q, k_pool, v_pool, block_tables, kv_lens, q_lens,   \
-                         out, S, QB, NH, HD, PS, MP, scale, st)
+  return launch<QT, KVT>(q, k_pool, v_pool, k_scale, v_scale, block_tables, \
+                         kv_lens, q_lens, out, S, QB, NH, HD, PS, MP, scale, \
+                         st)
   if (q_dtype == 0 && kv_dtype == 0) PA_LAUNCH(float, float);
   if (q_dtype == 1 && kv_dtype == 1) PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == 0 && kv_dtype == 1) PA_LAUNCH(float, __nv_bfloat16);
   if (q_dtype == 1 && kv_dtype == 0) PA_LAUNCH(__nv_bfloat16, float);
+  if (q_dtype == 0 && kv_dtype == 2) PA_LAUNCH(float, int8_t);
+  if (q_dtype == 1 && kv_dtype == 2) PA_LAUNCH(__nv_bfloat16, int8_t);
+  if (q_dtype == 0 && kv_dtype == 3) PA_LAUNCH(float, __nv_fp8_e4m3);
+  if (q_dtype == 1 && kv_dtype == 3) PA_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3);
 #undef PA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

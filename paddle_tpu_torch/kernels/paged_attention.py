@@ -6,17 +6,24 @@ dispatches: each sequence slot contributes ``(kv_len, q_len)`` — decode
 is ``q_len = 1``, a chunked-prefill row is ``q_len = C`` — over a paged
 K/V pool addressed through per-slot block tables.
 
+The pools are float32 or bfloat16, or quantized: int8 or
+``float8_e4m3fn`` codes with per-page-per-head float32 scales
+``k_scale``/``v_scale`` ``[num_pages, NH]`` (``quantization/kv.py``),
+dequantized as each page is read.
+
 - :func:`ragged_paged_attention_ref` — the plain PyTorch version (the
   semantics of the Pallas docstring, ``paged_attention_pallas.py:114``).
 - :func:`ragged_paged_attention` — the dispatcher: a CPU tensor goes to
   the plain version; a CUDA tensor launches the hand-written kernel
-  ``csrc/paged_attention.cu`` (replacing the TPU kernel ``_kernel`` at
-  ``paged_attention_pallas.py:37``) or raises. There is no fallback.
+  ``csrc/paged_attention.cu`` (replacing the TPU kernels ``_kernel`` at
+  ``paged_attention_pallas.py:37`` and, over quantized pools,
+  ``_kernel_quant`` at ``:102``) or raises. There is no fallback.
 - :func:`paged_decode_attention` — the ``q_len = 1`` entry
   (``paged_attention_pallas.py:219``).
 
-The module attribute ``launches`` counts kernel launches (read it as
-``paged_attention.launches``; :func:`reset_launches` zeroes it), so a
+The module attributes ``launches`` (float pools) and ``quant_launches``
+(quantized pools) count kernel launches (read them as
+``paged_attention.launches``; :func:`reset_launches` zeroes both), so a
 run can show that its main path went through the kernel.
 """
 from __future__ import annotations
@@ -26,24 +33,51 @@ import ctypes
 import torch
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
-           "paged_decode_attention", "reset_launches"]
+           "paged_decode_attention", "reset_launches", "byte_view"]
 
-launches = 0          # kernel launches since the last reset_launches()
+launches = 0          # launches over float pools since reset_launches()
+quant_launches = 0    # launches over int8/fp8 pools since reset_launches()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.float8_e4m3fn: 3}
+_QUANT_POOLS = (torch.int8, torch.float8_e4m3fn)
 _MAX_HD = 256         # the kernel's shared-memory plan covers HD <= 256
-# paged_attention_forward(q_dtype, kv_dtype, q, k_pool, v_pool,
-#   block_tables, kv_lens, q_lens, out, S, QB, NH, HD, PS, MP, scale,
-#   stream): every pointer and the stream as c_void_p, or ctypes would
-#   pass a 32-bit int and cut the address
-ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+# paged_attention_forward(q_dtype, kv_dtype, q, k_pool, v_pool, k_scale,
+#   v_scale, block_tables, kv_lens, q_lens, out, S, QB, NH, HD, PS, MP,
+#   scale, stream): every pointer and the stream as c_void_p, or ctypes
+#   would pass a 32-bit int and cut the address
+ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_void_p])
 _fn = None
 
 
 def reset_launches():
-    global launches
+    global launches, quant_launches
     launches = 0
+    quant_launches = 0
+
+
+def _check_scales(k_pool, k_scale, v_scale):
+    """Both scales or neither, and scales exactly when the pool is
+    quantized."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    quantized = k_pool.dtype in _QUANT_POOLS
+    if quantized and k_scale is None:
+        raise ValueError(f"a {k_pool.dtype} pool needs k_scale and v_scale")
+    if not quantized and k_scale is not None:
+        raise ValueError(f"scales given for an unquantized {k_pool.dtype} "
+                         "pool")
+
+
+def byte_view(pool):
+    """A ``uint8`` view of a float8 pool, the pool itself otherwise:
+    indexing is not implemented for every float8 kernel, so float8 pages
+    are gathered and scattered as bytes."""
+    if pool.dtype == torch.float8_e4m3fn:
+        return pool.view(torch.uint8)
+    return pool
 
 
 def _limits(kv_lens, q_lens, QB, T):
@@ -58,7 +92,8 @@ def _limits(kv_lens, q_lens, QB, T):
 
 
 def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
-                               q_lens, scale=None):
+                               q_lens, scale=None, k_scale=None,
+                               v_scale=None):
     """Plain PyTorch ragged paged attention.
 
     q ``[S, QB, NH, HD]``; pools ``[NP, PS, NH, HD]``; block_tables
@@ -66,7 +101,11 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
     ``s`` sits at position ``kv_lens[s] - q_lens[s] + j`` and attends
     causally through itself; padding rows attend the full extent (finite
     output, to be discarded); a row with nothing to attend (``kv_len``
-    0) gives zeros. Computes in float32, returns q's dtype."""
+    0) gives zeros. An int8 or float8 pool needs its scales
+    ``[NP, NH]`` f32 (both or neither): each gathered page is
+    dequantized as ``code.float() * scale[page, head]``. Computes in
+    float32, returns q's dtype."""
+    _check_scales(k_pool, k_scale, v_scale)
     S, QB, NH, HD = q.shape
     PS = k_pool.shape[1]
     MP = block_tables.shape[1]
@@ -74,8 +113,13 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
     if scale is None:
         scale = 1.0 / HD ** 0.5
     bt = block_tables.to(torch.int64)
-    k = k_pool[bt].reshape(S, T, NH, HD).float()
-    v = v_pool[bt].reshape(S, T, NH, HD).float()
+    k = byte_view(k_pool)[bt].view(k_pool.dtype).float()  # [S,MP,PS,NH,HD]
+    v = byte_view(v_pool)[bt].view(v_pool.dtype).float()
+    if k_scale is not None:
+        k = k * k_scale[bt][:, :, None, :, None]
+        v = v * v_scale[bt][:, :, None, :, None]
+    k = k.reshape(S, T, NH, HD)
+    v = v.reshape(S, T, NH, HD)
     sc = torch.einsum("sqhd,sthd->shqt", q.float(), k) * scale
     ok = torch.arange(T, device=q.device)[None, None, :] < \
         _limits(kv_lens, q_lens, QB, T)[:, :, None]          # [S, QB, T]
@@ -99,20 +143,25 @@ def _kernel_fn():
     return _fn
 
 
-def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens):
+def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale=None,
+           v_scale=None):
+    _check_scales(k_pool, k_scale, v_scale)
     dev = q.device
+    scales = () if k_scale is None else (("k_scale", k_scale),
+                                         ("v_scale", v_scale))
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("block_tables", block_tables), ("kv_lens", kv_lens),
-                    ("q_lens", q_lens)):
+                    ("q_lens", q_lens), *scales):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype not in _DTYPE_CODE:
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype not in _POOL_CODE:
         raise TypeError(f"unsupported dtypes q={q.dtype} "
-                        f"pool={k_pool.dtype} (float32 or bfloat16)")
+                        f"pool={k_pool.dtype} (q float32 or bfloat16; "
+                        "pools those, int8 or float8_e4m3fn)")
     if v_pool.dtype != k_pool.dtype:
         raise TypeError("k_pool and v_pool must share a dtype")
     for name, t in (("block_tables", block_tables), ("kv_lens", kv_lens),
@@ -131,13 +180,21 @@ def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens):
                          f"be [{S}, pages_per_slot]")
     if kv_lens.shape != (S,) or q_lens.shape != (S,):
         raise ValueError("kv_lens and q_lens must be [S]")
+    for name, t in scales:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.shape != (k_pool.shape[0], NH):
+            raise ValueError(f"{name} {tuple(t.shape)} must be "
+                             f"[{k_pool.shape[0]}, {NH}] (pages, heads)")
     if HD > _MAX_HD:
         raise ValueError(f"head_dim {HD} > {_MAX_HD}")
 
 
-def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale):
-    global launches
-    _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens)
+def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
+            k_scale, v_scale):
+    global launches, quant_launches
+    _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale,
+           v_scale)
     S, QB, NH, HD = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -145,8 +202,10 @@ def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale):
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
+        rc = fn(_DTYPE_CODE[q.dtype], _POOL_CODE[k_pool.dtype],
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                None if k_scale is None else k_scale.data_ptr(),
+                None if v_scale is None else v_scale.data_ptr(),
                 block_tables.data_ptr(), kv_lens.data_ptr(),
                 q_lens.data_ptr(), out.data_ptr(), S, QB, NH, HD,
                 k_pool.shape[1], block_tables.shape[1], float(scale),
@@ -154,12 +213,15 @@ def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale):
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
+    if k_scale is None:
+        launches += 1
+    else:
+        quant_launches += 1
     return out
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, kv_lens,
-                           q_lens, scale=None):
+                           q_lens, scale=None, k_scale=None, v_scale=None):
     """Ragged paged attention (see :func:`ragged_paged_attention_ref`
     for the semantics). A CPU ``q`` runs the plain version; a CUDA ``q``
     launches the CUDA kernel, building it on first use, or raises."""
@@ -167,18 +229,21 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, kv_lens,
         scale = 1.0 / q.shape[-1] ** 0.5
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                          kv_lens, q_lens, scale)
+                                          kv_lens, q_lens, scale, k_scale,
+                                          v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale)
+    return _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
+                   k_scale, v_scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """The ``q_len = 1`` row of the ragged kernel. q ``[S, NH, HD]``;
     lengths ``[S]`` int32 (attend pool positions ``< lengths[s]``; 0 =
     inactive slot, zeros). Returns ``[S, NH, HD]``."""
     out = ragged_paged_attention(
         q.unsqueeze(1), k_pool, v_pool, block_tables, lengths,
-        torch.ones_like(lengths), scale=scale)
+        torch.ones_like(lengths), scale=scale, k_scale=k_scale,
+        v_scale=v_scale)
     return out[:, 0]

@@ -1,10 +1,11 @@
 """Tests of the PyTorch port that need a CUDA device: the hand-written
-ragged paged-attention kernel, the flash-attention forward, dq and dk/dv
-kernels, the fused-CE forward, dh and dw kernels and the packed
-(segment-id) flash forward, dq and dk/dv kernels against their plain
-PyTorch versions, the serving engine on the card against the same engine
-on the CPU, and GPT and packed-BERT training steps through the kernels
-against the same steps through the plain versions.
+ragged paged-attention kernel (float pools, and int8/fp8 pools with page
+scales), the flash-attention forward, dq and dk/dv kernels, the fused-CE
+forward, dh and dw kernels and the packed (segment-id) flash forward, dq
+and dk/dv kernels against their plain PyTorch versions, the serving
+engine on the card against the same engine on the CPU (float and
+quantized pools, int8 weights), and GPT and packed-BERT training steps
+through the kernels against the same steps through the plain versions.
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -106,6 +107,128 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
         assert pa.launches == (0 if dev == "cpu"
                                else cfg.num_layers * forwards)
         assert eng.stats["fused_blocks"] > 0
+        eng.kv.verify()
+    assert outs["cpu"] == outs[str(cuda)]
+
+
+# -- the quantized ragged kernel (int8 / fp8 pools with page scales) ---------
+
+def _quant_case(dev, seed, fmt, q_dtype, HD, NH=4, PS=8, NP=17, MP=4,
+                QB=8, unaligned=False):
+    """The mixed case over pools quantized by the port's
+    ``quantize_per_page``, pages and heads of very different magnitude
+    (so a wrong scale index shows). ``unaligned`` offsets the pools by
+    one byte, off the kernel's 4-byte word loads."""
+    from paddle_tpu_torch.quantization.kv import quantize_per_page
+    q, k, v, bt, kl, ql = _case("cpu", seed, NP=NP, PS=PS, NH=NH, HD=HD,
+                                MP=MP, QB=QB)
+    rng = np.random.RandomState(seed + 100)
+    mag = torch.tensor(10.0 ** rng.uniform(-3, 2, (NP, 1, NH, 1)),
+                       dtype=torch.float32)
+    kq, ks = quantize_per_page((k * mag).to(dev), dtype=fmt)
+    vq, vs = quantize_per_page((v * mag.flip(0)).to(dev), dtype=fmt)
+    if unaligned:
+        def shift(t):
+            raw = torch.empty(t.numel() + 1, dtype=torch.uint8, device=dev)
+            out = raw[1:].view(t.dtype).view(t.shape)
+            out.copy_(t)
+            return out
+        kq, vq = shift(kq), shift(vq)
+    return [t.to(dev) for t in (q.to(q_dtype), bt, kl, ql)], kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("q_dtype,tol", [(torch.float32, 1e-4),
+                                         (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("HD,unaligned", [(64, False), (128, False),
+                                          (18, False), (64, True)],
+                         ids=["hd64", "hd128", "hd18_bytes",
+                              "hd64_unaligned"])
+def test_quant_kernel_matches_plain(cuda, fmt, q_dtype, tol, HD, unaligned):
+    (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(
+        cuda, 21, fmt, q_dtype, HD, unaligned=unaligned)
+    pa.reset_launches()
+    out = pa.ragged_paged_attention(q, kq, vq, bt, kl, ql, k_scale=ks,
+                                    v_scale=vs)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.quant_launches) == (0, 1)
+    assert out.dtype == q_dtype
+    ref = pa.ragged_paged_attention_ref(q, kq, vq, bt, kl, ql, k_scale=ks,
+                                        v_scale=vs)
+    # max-abs error over max-abs plain on the live rows
+    assert _live_err(out, ref, ql) <= tol * float(ref.float().abs().max())
+    assert torch.all(out[3] == 0)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("bad", ["scales_on_float_pool", "no_scales",
+                                 "one_scale", "scale_shape", "scale_f16",
+                                 "scale_on_cpu"])
+def test_quant_wrapper_rejects_bad_scales(cuda, bad):
+    (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(cuda, 22, "int8",
+                                                  torch.float32, 16)
+    if bad == "scales_on_float_pool":
+        kq, vq = kq.float(), vq.float()
+    elif bad == "no_scales":
+        ks = vs = None
+    elif bad == "one_scale":
+        vs = None
+    elif bad == "scale_shape":
+        ks, vs = ks[1:].contiguous(), vs[1:].contiguous()
+    elif bad == "scale_f16":
+        ks, vs = ks.half(), vs.half()
+    elif bad == "scale_on_cpu":
+        ks, vs = ks.cpu(), vs.cpu()
+    pa.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        pa.ragged_paged_attention(q, kq, vq, bt, kl, ql, k_scale=ks,
+                                  v_scale=vs)
+    assert pa.quant_launches == 0 and pa.launches == 0
+
+
+def test_quant_wrapper_raises_on_cuda_without_the_library(cuda, tmp_path,
+                                                          monkeypatch):
+    """No fallback: with the library unbuildable a CUDA q over a
+    quantized pool raises."""
+    import torch.utils.cpp_extension as ext
+    from paddle_tpu_torch.kernels import _build
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(pa, "_fn", None)
+    (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(cuda, 23, "fp8",
+                                                  torch.float32, 16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pa.ragged_paged_attention(q, kq, vq, bt, kl, ql, k_scale=ks,
+                                  v_scale=vs)
+
+
+@pytest.mark.parametrize("kv_dtype,weight_dtype", [("int8", None),
+                                                   ("fp8", "int8")])
+def test_quantized_engine_on_the_card_matches_the_cpu_engine(
+        cuda, kv_dtype, weight_dtype):
+    cfg = gpt2_tiny()
+    params = init_params(cfg, seed=1, device="cpu")
+    rng = np.random.RandomState(24)
+    reqs = [(rng.randint(0, 128, int(n)), int(m))
+            for n, m in ((5, 30), (19, 12), (40, 25), (11, 40))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, params, device=dev, num_slots=3,
+                            page_size=8, prefill_chunk=8, max_seq_len=128,
+                            kv_dtype=kv_dtype, weight_dtype=weight_dtype)
+        pa.reset_launches()
+        uids = [eng.add_request(p, n) for p, n in reqs]
+        done = eng.run(max_steps=2000)
+        outs[str(dev)] = [done[u].tokens for u in uids]
+        forwards = eng.stats["prefill_chunks"] + eng.stats["decode_steps"]
+        assert pa.launches == 0
+        assert pa.quant_launches == (0 if dev == "cpu"
+                                     else cfg.num_layers * forwards)
+        assert eng.kv.k[0].dtype == {"int8": torch.int8,
+                                     "fp8": torch.float8_e4m3fn}[kv_dtype]
         eng.kv.verify()
     assert outs["cpu"] == outs[str(cuda)]
 

@@ -132,7 +132,7 @@ def _prefill_both(ref, jprogs, progs, jpools, tpools, bt, prompts):
             (jpools[0], jpools[1], _, _, jl) = jprogs.prefill(
                 ref["jparams"], jpools[0], jpools[1], (), (),
                 jnp.asarray(bt[slot]), base, jnp.asarray(chunk), last)
-            tl = progs.prefill(ref["params"], tpools[0], tpools[1],
+            tl = progs.prefill(ref["params"], tpools[0], tpools[1], (), (),
                                torch.from_numpy(bt[slot].copy()), base,
                                torch.from_numpy(chunk.astype(np.int64)),
                                last)
@@ -178,7 +178,7 @@ def test_decode_step_matches_jax_dense_step_and_paged_step(ref):
         dense_logits.append(np.asarray(jcore.ln(x, *jp["lnf"])
                                        @ jp["wte"].T)[0])
     nxt, lg32 = progs.decode_step(
-        ref["params"], tpools[0], tpools[1], torch.from_numpy(bt),
+        ref["params"], tpools[0], tpools[1], (), (), torch.from_numpy(bt),
         torch.from_numpy(lengths), torch.from_numpy(tok0),
         torch.from_numpy(active), torch.from_numpy(temps), None)
     np.testing.assert_allclose(_np(lg32), np.stack(dense_logits),
@@ -201,7 +201,7 @@ def test_decode_step_matches_jax_dense_step_and_paged_step(ref):
 def test_inactive_slots_write_only_the_trash_page(ref):
     _, progs, _, tpools, bt = _both_programs(ref)
     lengths = torch.tensor([5, 9])
-    progs.decode_step(ref["params"], tpools[0], tpools[1],
+    progs.decode_step(ref["params"], tpools[0], tpools[1], (), (),
                       torch.from_numpy(bt), lengths, torch.tensor([3, 4]),
                       torch.tensor([False, False]), torch.zeros(S), None)
     for pools in tpools:

@@ -43,6 +43,9 @@ if not torch.cuda.is_available():
                        ("init_params", lambda: init_params(gpt2_tiny())),
                        ("engine_cuda", lambda: ServingEngine(
                            gpt2_tiny(), device="cuda")),
+                       ("engine_quant", lambda: ServingEngine(
+                           gpt2_tiny(), kv_dtype="int8",
+                           weight_dtype="int8")),
                        ("model", lambda: GPTForCausalLM(gpt2_tiny())),
                        ("train_step", lambda: TrainStep(
                            cpu_model, lambda m, i, y: m.loss(i, y),
@@ -77,12 +80,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "paddle_tpu_torch.tools.bench_gpt_pretrain" in out["modules"]
     assert "paddle_tpu_torch.parallel.api" in out["modules"]
     for name in ("kernels.packed_flash", "nn.transformer", "models.bert",
-                 "tools.bench_bert"):
+                 "tools.bench_bert", "quantization", "quantization.kv",
+                 "quantization.weights"):
         assert f"paddle_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:
         assert out["refused"] == {"engine": True, "init_params": True,
-                                  "engine_cuda": True, "model": True,
+                                  "engine_cuda": True, "engine_quant": True,
+                                  "model": True,
                                   "train_step": True, "bert": True,
                                   "bench_bert": True}
 

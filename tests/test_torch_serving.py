@@ -10,7 +10,9 @@ same weights (2 layers, hidden 64, 4 heads, vocab 128):
 - the page allocator and the prefix-cache digests against the
   reference's, operation by operation;
 - a sampled request emits the same tokens alone or in a busy batch;
-- the levers this slice does not port raise NotImplementedError."""
+- the levers not ported yet raise NotImplementedError, and unknown
+  quantization formats raise ValueError (the quantized levers
+  themselves: tests/test_torch_quant_serving.py)."""
 import jax
 import numpy as np
 import pytest
@@ -231,11 +233,23 @@ def test_queue_bound_sheds_or_rejects(ref):
 @pytest.mark.parametrize("lever", [
     dict(mesh=object()), dict(speculative=True), dict(mixed_step=True),
     dict(fault_injector=object()), dict(journal="j.jsonl"),
-    dict(tracer=object()), dict(watchdog=True), dict(kv_dtype="int8"),
-    dict(kv_dtype="fp8"), dict(weight_dtype="int8"),
+    dict(tracer=object()), dict(watchdog=True),
 ])
 def test_unported_levers_raise(ref, lever):
     _, params = ref
     with pytest.raises(NotImplementedError):
+        ServingEngine(gpt2_tiny(), params, device="cpu", num_slots=1,
+                      page_size=8, prefill_chunk=8, max_seq_len=64, **lever)
+
+
+@pytest.mark.parametrize("lever,match", [
+    (dict(kv_dtype="fp4"), "kv_dtype"),
+    (dict(weight_dtype="int4"), "weight_dtype"),
+])
+def test_unknown_quantization_levers_raise_value_error(ref, lever, match):
+    """The reference's lever validation (tests/test_quant_decode.py
+    ``test_lever_validation``): an unknown format is a ValueError."""
+    _, params = ref
+    with pytest.raises(ValueError, match=match):
         ServingEngine(gpt2_tiny(), params, device="cpu", num_slots=1,
                       page_size=8, prefill_chunk=8, max_seq_len=64, **lever)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's serving time goes on one NVIDIA GPU.
 
-    python3 tools/profile_torch_serve.py [--out PATH]
+    python3 tools/profile_torch_serve.py [--kv-dtype bf16|int8|fp8]
+        [--weight-dtype bf16|int8|none] [--out PATH]
 
 Serves the same 16 requests as ``chip_smoke.py``'s serve phase (GPT-2
-small, bf16 weights and KV, random weights from seed 0) once to warm
-up, once timed, then again under ``torch.profiler`` (CPU and CUDA
-activities), and prints one JSON line:
+small, random weights from seed 0; bf16 weights and KV unless the flags
+say otherwise, as in its ``serve_int8``/``serve_fp8``/``serve_w8``
+phases) once to warm up, once timed, then again under ``torch.profiler``
+(CPU and CUDA activities), and prints one JSON line:
 
 - ``wall_s`` — the profiled run on the host clock, and
   ``wall_unprofiled_s`` the same run without the profiler;
@@ -18,6 +20,14 @@ activities), and prints one JSON line:
   paged-attention kernel, matrix products, and everything else;
 - ``kernels_per_forward`` — CUDA kernels launched per model forward
   pass (prefill chunk or decode step);
+- ``spans`` — over a quantized pool, the device seconds and kernels of
+  the dequantize-insert-requantize writes (``kv_requant_write``, both
+  pools of every layer, prefill and decode) and, with int8 weights, of
+  the weight widening at each dispatch's entry (``weight_dequant``),
+  each with its share of the busy time and its kernels per forward.
+  The tool wraps ``serving._requant_write`` and
+  ``serving.dequantize_params`` in ``torch.profiler.record_function``
+  for the profiled run only;
 - the top kernels by device time (all 25 written to ``--out`` when
   given).
 
@@ -44,18 +54,24 @@ def kernel_class(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=("bf16", "int8", "fp8"))
+    ap.add_argument("--weight-dtype", default="bf16",
+                    choices=("bf16", "int8", "none"))
     ap.add_argument("--out", default=None,
                     help="also write the full kernel table here (JSON)")
     args = ap.parse_args()
+    weight_dtype = None if args.weight_dtype == "none" else args.weight_dtype
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import serve_traffic, smi
+    from paddle_tpu_torch.inference import serving
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models.gpt import gpt2_small, init_params
@@ -65,7 +81,8 @@ def main():
     dev = torch.device("cuda")
     params = init_params(cfg, seed=0, device=dev)
     kw = dict(device=dev, num_slots=8, page_size=16, prefill_chunk=32,
-              max_seq_len=1024, weight_dtype="bf16", kv_dtype="bf16")
+              max_seq_len=1024, weight_dtype=weight_dtype,
+              kv_dtype=args.kv_dtype)
 
     def serve():
         eng = ServingEngine(cfg, params, **kw)
@@ -76,15 +93,32 @@ def main():
         torch.cuda.synchronize()
         return eng, time.perf_counter() - t0
 
+    def spanned(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
     serve()                                   # warm-up
     _, wall_plain = serve()                   # unprofiled reference
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng, wall = serve()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    span_attrs = {"kv_requant_write": "_requant_write",
+                  "weight_dequant": "dequantize_params"}
+    plain = {attr: getattr(serving, attr) for attr in span_attrs.values()}
+    for name, attr in span_attrs.items():
+        setattr(serving, attr, spanned(name, plain[attr]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng, wall = serve()
+    finally:
+        for attr, fn in plain.items():
+            setattr(serving, attr, fn)
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name not in span_attrs]
+    ivals = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
+    for s, e in ivals:
         if cur_e is None or s > cur_e:
             if cur_e is not None:
                 busy_us += cur_e - cur_s
@@ -104,8 +138,24 @@ def main():
         k["n"] += 1
     st = eng.stats
     forwards = st["prefill_chunks"] + st["decode_steps"]
+
+    def n_kernels(e):
+        return len(e.kernels) + sum(n_kernels(c) for c in e.cpu_children)
+
+    span_res = {}
+    for e in events:
+        if e.name in span_attrs and e.device_type == DeviceType.CPU:
+            r = span_res.setdefault(e.name, {"s": 0.0, "calls": 0,
+                                             "kernels": 0})
+            r["s"] += e.device_time_total * 1e-6
+            r["calls"] += 1
+            r["kernels"] += n_kernels(e)
+    for r in span_res.values():
+        r["share_of_busy"] = r["s"] / (busy_us * 1e-6) if kern else None
+        r["kernels_per_forward"] = r["kernels"] / forwards
     top = sorted(by_name.items(), key=lambda kv: -kv[1]["s"])[:25]
     res = {"tool": "profile_torch_serve", "gpu": smi(),
+           "kv_dtype": args.kv_dtype, "weight_dtype": args.weight_dtype,
            "wall_s": wall, "tokens": st["tokens_emitted"],
            "forwards": forwards, "dispatches": st["dispatches"],
            "device_kernels": len(kern),
@@ -117,7 +167,7 @@ def main():
            "device_idle_frac_unprofiled": (
                1.0 - busy_us * 1e-6 / wall_plain) if kern else None,
            "kernels_per_forward": len(kern) / forwards,
-           "by_class": by_class,
+           "by_class": by_class, "spans": span_res,
            "top": [{"name": n[:120], **v} for n, v in top[:8]]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
