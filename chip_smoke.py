@@ -43,7 +43,16 @@ exits non-zero:
      and dw on the vocab rows no label picks, each over its own max-abs
      (elsewhere the one-hot term outweighs it some 250 times). Ignored
      and softmax-only rows' nll equal to their lse, ignored rows' dh
-     exactly 0; the backward bit-identical across two launches.
+     exactly 0; the backward bit-identical across two launches. The
+     shared-dl pair (``_SHARE_P``) on the same cases: dh_sharep's dh and
+     dw_sharep's dw (from the stored dl) against their plain versions,
+     with their softmax-only parts, at the same limits; the stored bf16
+     dl within one bf16 step of the plain dl (how many elements differ
+     reported), zero in its padding columns and on g = 0 rows; the
+     pair's dw apart from the plain pair's by no more than those dl steps
+     move it plus the limit; both kernels bit-identical across two
+     launches, and whether dh and dw equal the recomputing kernels' bit
+     for bit.
    - packed (segment-id) flash attention forward (out, lse), dq and dk/dv
      at BERT-base's pack-4 shape (B=16, L=512, H=12, D=64, four segments
      of 128), with uneven ids (``[5]*100 + [7]*300 + [9]*112``, one
@@ -51,7 +60,9 @@ exits non-zero:
      L=300, L=2048, L=4096 (causal) and D=128; the limits of flash
      attention, and the backward bit-identical across two launches in
      every case.
-   Times each kernel (CUDA events), its plain version and one PyTorch
+   Times each kernel (CUDA events: the median of 5 repeats of a timed
+   loop, printed with the min-max spread as ``<key>_spread``), its plain
+   version and one PyTorch
    call computing the same function (a yardstick the port never calls:
    ``F.scaled_dot_product_attention`` — over gathered K/V for the paged
    kernel, dequantized beforehand and not timed for quantized pools;
@@ -59,9 +70,12 @@ exits non-zero:
    flash, and with the dense boolean block-diagonal mask for packed
    flash; unfused ``torch.matmul`` + ``F.cross_entropy``, forward alone,
    and forward+backward to h alone (dh) and to w alone (dw), for fused
-   CE) beside the bound max(bytes / 3.35 TB/s, FLOPs / peak), the FLOPs
-   of packed flash counting same-segment pairs only; the fused forward
-   also with a single vocab split.
+   CE; the latter also to the bf16 logits for dh_sharep, and
+   ``torch.matmul(dl.t(), h)`` on the stored dl for dw_sharep) beside the
+   bound max(bytes / 3.35 TB/s, FLOPs / peak), the FLOPs of packed flash
+   counting same-segment pairs only; the fused forward also with a single
+   vocab split; flash also at B=1, L=4096, causal (the shape of the
+   streamed bodies its kernels serve).
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
@@ -106,9 +120,18 @@ exits non-zero:
    0.25 nat of ``train``'s (the bf16 rounding of the logits differs
    between the two paths); step ms, tokens/s, MFU and peak memory beside
    ``train``'s.
+   ``train_fused_ce_sharep`` — the same with the port's ``_SHARE_P``
+   set (restored after): fused-CE forward, dh_sharep and dw_sharep
+   launched 40 times each and the recomputing dh/dw never, each flash
+   kernel 480; the step-1 loss equal to ``train_fused_ce``'s bit for bit
+   (the forward is the same), the loss falls at least 1 nat and the last
+   step within 0.25 nat of ``train_fused_ce``'s; step ms, tokens/s, MFU
+   and peak memory beside ``train_fused_ce``'s.
 10. ``train_parity_fused_ce`` — as ``train_parity`` with ``fused_ce=True``:
    through the kernels against the plain versions, and against
    ``fused_ce=False``, at the same tolerances.
+   ``train_parity_fused_ce_sharep`` — the same with ``_SHARE_P`` set:
+   the pair's kernels against its plain versions.
 11. ``bench`` — ``paddle_tpu_torch.tools.bench_gpt_pretrain.run`` with
    ``fused_ce=True`` and ``reps=1``, printing that tool's JSON line.
 12. ``bert`` — ``paddle_tpu_torch.tools.bench_bert.run(pack=0, reps=1)``:
@@ -124,10 +147,15 @@ exits non-zero:
    versions (logits within 1e-4 of max-abs, step-1 gradients within 1e-3;
    the key bias, whose exact gradient is zero, against the query bias's),
    against the same examples unpacked and against ``dense=True`` (logits
-   within 1e-4).
+   within 1e-4). ROADMAP C11: each run's last-layer q_proj / k_proj weight
+   gradients against a float64 referee at that run's own inputs (the
+   captured layer input and attention q, k, v, dO; attention and its
+   gradient as float64 einsums), packed through the kernels and the plain
+   versions, and the same examples unpacked through the flash kernels and
+   theirs; the kernel's error at most 4x the plain f32 version's.
 
-Then the kernel summary line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+Then the script's seconds, the kernel summary line, the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -160,19 +188,55 @@ def smi():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+TIMING_REPS = 5
+
+
+class Ms(float):
+    """A time in ms: the median of ``TIMING_REPS`` repeats, with the
+    ``(min, max)`` of the repeats as ``spread``."""
+
+    def __new__(cls, times):
+        times = sorted(times)
+        x = float.__new__(cls, times[len(times) // 2])
+        x.spread = (times[0], times[-1])
+        return x
+
+
 def cuda_ms(fn, iters):
+    """Mean ms a call (CUDA events) of a loop of ceil(iters / 2) calls
+    (at least 2), after three warm calls; the loop is timed
+    ``TIMING_REPS`` times and the median returned with its spread."""
     import torch
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for i in range(iters):
-        fn(i)
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    n = max(2, -(-iters // 2))
+    times = []
+    for _ in range(TIMING_REPS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for i in range(n):
+            fn(i)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / n)
+    return Ms(times)
+
+
+def with_spreads(obj):
+    """``obj`` with a ``<key>_spread: [min, max]`` beside every timed
+    entry (an ``Ms``), at any depth."""
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            out[k] = with_spreads(v)
+            if isinstance(v, Ms):
+                out[f"{k}_spread"] = list(v.spread)
+        return out
+    if isinstance(obj, list):
+        return [with_spreads(v) for v in obj]
+    return obj
 
 
 # -- kernels ------------------------------------------------------------------
@@ -523,7 +587,8 @@ def run_flash_phase():
                 rec[key] = {"rel_err": err, "max_abs_err": float(
                     (a.float() - b.float()).abs().max())}
             del rout, rlse, rdq, rdk, rdv
-            if name in ("train", "bert128") and dtype == torch.bfloat16:
+            if name in ("train", "bert128", "long4096_causal") and \
+                    dtype == torch.bfloat16:
                 rec["timing"] = time_flash(q, k, v, do, out, lse, delta,
                                            causal, fa, F)
                 again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
@@ -618,16 +683,20 @@ def fce_bounds(h, w):
     """Least time per kernel: h and w read once, outputs written once
     (nll and lse, dh, dw; labels, lse and g read), against the products
     at the dtype's peak: 2 T V d for the forward's logits, twice that for
-    dh and dw (the logits again, then dl @ w or dlᵀ @ h)."""
+    dh and dw (the logits again, then dl @ w or dlᵀ @ h). The shared-dl
+    pair: dh_sharep as dh and the bf16 dl [T, V] written; dw_sharep reads
+    h and that dl and writes dw, one product (2 T V d)."""
     T, d = h.shape
     V = w.shape[0]
     item = h.element_size()
-    th, tw, rows = T * d * item, V * d * item, T * 4
+    th, tw, rows, tdl = T * d * item, V * d * item, T * 4, T * V * 2
     f = 2 * T * V * d
     peak = PEAK_FLOPS[str(h.dtype).replace("torch.", "")]
     work = {"fwd": (th + tw + rows + 2 * rows, f),
             "dh": (th + tw + 3 * rows + th, 2 * f),
-            "dw": (th + tw + 3 * rows + tw, 2 * f)}
+            "dw": (th + tw + 3 * rows + tw, 2 * f),
+            "dh_sharep": (th + tw + 3 * rows + th + tdl, 2 * f),
+            "dw_sharep": (th + tdl + tw, f)}
     out = {}
     for name, (nbytes, flops) in work.items():
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
@@ -680,6 +749,9 @@ def run_fused_ce_phase():
                 raise AssertionError("fused CE: an ignored row's dh is not 0")
             del rnll, rlse, rdh, rdw, sdh, sdw, srdh, srdw
             torch.cuda.empty_cache()
+            rec["sharep"] = check_fused_ce_sharep(h, w, lab, lse, g, dh, dw,
+                                                  gtol, ignored, fc)
+            torch.cuda.empty_cache()
             if name == "train":
                 again = (fc.fused_ce_bwd_dh(h, w, lab, lse, g),
                          fc.fused_ce_bwd_dw(h, w, lab, lse, g))
@@ -697,6 +769,89 @@ def run_fused_ce_phase():
     return results
 
 
+def bf16_steps(a, b):
+    """How many bf16 rounding steps apart each pair of bf16 elements lies
+    (int32; the bit patterns ordered as the values are)."""
+    import torch
+
+    def key(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def check_fused_ce_sharep(h, w, lab, lse, g, dh10, dw11, gtol, ignored,
+                          fc):
+    """The shared-dl pair on one case against its plain versions, each
+    kernel on its own inputs: dh_sharep's dh against the plain dh, and
+    dw_sharep's dw against the plain dw of the same stored dl, with their
+    softmax-only parts, within ``gtol`` of max-abs; the stored dl within
+    one bf16 step of the plain bf16 dl everywhere (how many elements
+    differ is reported), zero in the columns its rows are padded to and
+    on rows whose g is 0. The pair against the plain pair: dw apart by no
+    more than those dl steps can move it (``|Δdl|ᵀ |h|``) plus ``gtol`` of
+    max-abs (a dl element one bf16 step off moves a softmax-only dw row
+    by ~4e-3 / sqrt(T) of its max-abs, above 1e-4 at T = 1000). Both
+    kernels bit-identical across two launches; whether dh and dw equal
+    the recomputing kernels' (``dh10``, ``dw11``) bit for bit."""
+    import torch
+    T, V = h.shape[0], w.shape[0]
+    dh, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+    dw = fc.fused_ce_bwd_dw_sharep(h, dl)
+    torch.cuda.synchronize()
+    rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)
+    rdw = fc.fused_ce_bwd_dw_sharep_ref(h, dl)
+    (sdh, sdw), (srdh, srdw) = fce_softmax_parts(
+        h, w, lab, g, (dh, dw), (rdh, rdw))
+    rec = {}
+    for key, a, b in (("dh", dh, rdh), ("dw", dw, rdw),
+                      ("dh_softmax", sdh, srdh), ("dw_softmax", sdw, srdw)):
+        err = rel_err(a, b)
+        if not (err <= gtol and bool(torch.isfinite(a).all())):
+            raise AssertionError(
+                f"fused CE sharep {key} kernel vs plain (T={T}, V={V}, "
+                f"{h.dtype}): max-abs err / max-abs {err} > {gtol} or "
+                "non-finite")
+        rec[key] = {"rel_err": err, "max_abs_err": float(
+            (a.float() - b.float()).abs().max())}
+    del rdh, rdw, sdh, sdw, srdh, srdw
+    pdw = fc.fused_ce_bwd_dw_sharep_ref(h, rdl).float()
+    moved = (dl.float() - rdl.float()).abs().t() @ h.float().abs()
+    slack = moved + gtol * pdw.abs().max()
+    over = float(((dw.float() - pdw).abs() / slack).max())
+    rec["dw_pair"] = {"rel_err": rel_err(dw, pdw),
+                      "max_err_over_dl_bound": over}
+    del pdw, moved, slack
+    if not over <= 1:
+        raise AssertionError(f"fused CE sharep pair: dw differs from the "
+                             f"plain pair's by {over} x what the dl steps "
+                             "and the tolerance allow")
+    steps = bf16_steps(dl, rdl)
+    most = int(steps.max())
+    rec["dl"] = {"elements": dl.numel(), "differ": int((steps > 0).sum()),
+                 "max_bf16_steps": most, "max_abs_err": float(
+                     (dl.float() - rdl.float()).abs().max()),
+                 "row_stride": dl.stride(0)}
+    del steps, rdl
+    if most > 1:
+        raise AssertionError(f"fused CE sharep: a stored dl element is "
+                             f"{most} bf16 steps from the plain dl")
+    tail = torch.as_strided(dl, (T, dl.stride(0) - V), (dl.stride(0), 1),
+                            dl.storage_offset() + V)
+    if bool(tail.any()) or (ignored and bool(dl[::ignored].any())):
+        raise AssertionError("fused CE sharep: dl not zero in its padding "
+                             "columns or on a row whose g is 0")
+    rec["dh_bit_identical_to_row10"] = torch.equal(dh, dh10)
+    rec["dw_bit_identical_to_row11"] = torch.equal(dw, dw11)
+    dh2, dl2 = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+    if not (torch.equal(dh, dh2) and torch.equal(dl, dl2) and torch.equal(
+            dw, fc.fused_ce_bwd_dw_sharep(h, dl2))):
+        raise AssertionError("fused CE sharep pair not bit-identical "
+                             "across two launches")
+    rec["bit_identical"] = True
+    return rec
+
+
 def time_fused_ce(h, w, lab, lse, g, fc):
     """Kernel, plain and library times at the training shape, with the
     bounds. The library yardstick is the unfused head: ``torch.matmul``
@@ -705,7 +860,10 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     forward alone (fwd), forward+backward to h alone (dh) and to w alone
     (dw), so each backward kernel, which recomputes the logits, meets the
     forward and the one product of its own. The forward kernel is also
-    timed with one vocab split (``fwd_one_split_ms``)."""
+    timed with one vocab split (``fwd_one_split_ms``). The shared-dl pair:
+    dh_sharep against row 10's yardstick that also keeps the bf16 dl (the
+    gradient at the bf16 logits, taken with dh), dw_sharep against
+    ``torch.matmul(dl.t(), h)`` on the stored dl; ``pair`` sums them."""
     import torch
     import torch.nn.functional as F
     t = {"fwd": cuda_ms(lambda i: fc.fused_ce_fwd(h, w, lab), 10),
@@ -730,10 +888,30 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     lib["dw"] = cuda_ms(lambda i: torch.autograd.grad(lib_loss(h, wg), wg),
                         5)
     torch.cuda.empty_cache()
+    t["dh_sharep"] = cuda_ms(
+        lambda i: fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g), 5)
+    p["dh_sharep"] = cuda_ms(
+        lambda i: fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g), 3)
+
+    def lib_dh_sharep(i):
+        logits = torch.matmul(hg, w.t())
+        loss = (F.cross_entropy(logits.float(), lab64, reduction="none")
+                * g).sum()
+        torch.autograd.grad(loss, (hg, logits))
+    lib["dh_sharep"] = cuda_ms(lib_dh_sharep, 5)
+    _, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+    t["dw_sharep"] = cuda_ms(lambda i: fc.fused_ce_bwd_dw_sharep(h, dl), 5)
+    p["dw_sharep"] = cuda_ms(
+        lambda i: fc.fused_ce_bwd_dw_sharep_ref(h, dl), 3)
+    lib["dw_sharep"] = cuda_ms(lambda i: torch.matmul(dl.t(), h), 5)
+    del dl
+    torch.cuda.empty_cache()
     b = fce_bounds(h, w)
     out = {kn: dict(ms=t[kn], plain_ms=p[kn], library_ms=lib[kn], **b[kn])
-           for kn in ("fwd", "dh", "dw")}
+           for kn in t}
     out["fwd"]["fwd_one_split_ms"] = one_split
+    out["pair"] = {"sharep_ms": t["dh_sharep"] + t["dw_sharep"],
+                   "recompute_ms": t["dh"] + t["dw"]}
     return out
 
 
@@ -1116,11 +1294,28 @@ def bf16_loss(m, ids, labels):
         return m.loss(ids, labels)
 
 
-def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None):
+@contextlib.contextmanager
+def share_p(on=True):
+    """The port's ``_SHARE_P`` (the shared-dl fused-CE backward) set for
+    the block and restored after it, as a caller of the reference sets
+    its module flag."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    prev, fc._SHARE_P = fc._SHARE_P, on
+    try:
+        yield
+    finally:
+        fc._SHARE_P = prev
+
+
+def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
+                    sharep=False):
     """The ``train`` phase, or with ``fused_ce`` the ``train_fused_ce``
     phase, whose losses are then held against ``base`` (``train``'s
-    record). ``kernel_ms`` / ``fce_ms``: each kernel's time alone, for the
-    kernels' ms a step by launches x time."""
+    record); with ``sharep`` too, ``train_fused_ce_sharep``, held against
+    ``base`` = ``train_fused_ce``'s record: the same step-1 loss bit for
+    bit (the forward is the same), the last within 0.25 nat. ``kernel_ms``
+    / ``fce_ms``: each kernel's time alone, for the kernels' ms a step by
+    launches x time."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1143,17 +1338,23 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None):
     fa.reset_launches()
     fc.reset_launches()
     curve = []
-    for _ in range(2):                      # warm: allocator, cuBLAS
-        curve += step.multi_step(sids, slab).cpu().tolist()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        curve += step.multi_step(sids, slab).cpu().tolist()
-    wall = time.perf_counter() - t0
+    with share_p(sharep):
+        for _ in range(2):                  # warm: allocator, cuBLAS
+            curve += step.multi_step(sids, slab).cpu().tolist()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            curve += step.multi_step(sids, slab).cpu().tolist()
+        wall = time.perf_counter() - t0
     launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
                 "dkv": fa.dkv_launches}
     fce_launches = {"fwd": fc.fwd_launches, "dh": fc.dh_launches,
-                    "dw": fc.dw_launches}
-    phase = "train_fused_ce" if fused_ce else "train"
+                    "dw": fc.dw_launches,
+                    "dh_sharep": fc.dh_sharep_launches,
+                    "dw_sharep": fc.dw_sharep_launches}
+    phase = ("train_fused_ce_sharep" if sharep else
+             "train_fused_ce" if fused_ce else "train")
+    used = ({"fwd", "dh_sharep", "dw_sharep"} if sharep else
+            {"fwd", "dh", "dw"} if fused_ce else set())
     steps = 5 * TRAIN_K
     if not all(np.isfinite(curve)) or len(curve) != steps:
         raise AssertionError(f"{phase}: non-finite or missing losses: "
@@ -1166,7 +1367,7 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None):
             raise AssertionError(f"{phase}: flash {kn} launches {n} != "
                                  f"{cfg.num_layers} x {steps}")
     for kn, n in fce_launches.items():
-        if n != (steps if fused_ce else 0):
+        if n != (steps if kn in used else 0):
             raise AssertionError(f"{phase}: fused CE {kn} launches {n}")
     step_s = wall / (3 * TRAIN_K)
     tok_s = TRAIN_B * TRAIN_S / step_s
@@ -1191,18 +1392,23 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None):
         fce = sum(fce_launches[kn] * fce_ms[kn] for kn in fce_ms) / steps
         d1 = abs(curve[0] - base["loss_curve"][0])
         dl = abs(curve[-1] - base["loss_curve"][-1])
-        if not d1 <= 2e-2:
-            raise AssertionError(f"train_fused_ce: step-1 loss {curve[0]} "
-                                 f"differs from train's by {d1} > 2e-2")
+        against = base["phase"]
+        if not (d1 == 0 if sharep else d1 <= 2e-2):
+            raise AssertionError(f"{phase}: step-1 loss {curve[0]} differs "
+                                 f"from {against}'s by {d1}")
         if not dl <= 0.25:
-            raise AssertionError(f"train_fused_ce: last loss {curve[-1]} "
-                                 f"differs from train's by {dl} > 0.25")
+            raise AssertionError(f"{phase}: last loss {curve[-1]} differs "
+                                 f"from {against}'s by {dl} > 0.25")
         rec.update({"fused_ce_launches": fce_launches,
                     "fused_ce_ms_per_step": fce,
                     "fused_ce_share_of_step": fce / (step_s * 1e3),
-                    "step1_loss_vs_train": d1, "last_loss_vs_train": dl,
-                    "train_step_ms": base["step_ms"],
-                    "train_peak_mem_bytes": base["peak_mem_bytes"]})
+                    f"step1_loss_vs_{against}": d1,
+                    f"last_loss_vs_{against}": dl,
+                    f"{against}_step_ms": base["step_ms"],
+                    f"{against}_tokens_per_s": base["tokens_per_s"],
+                    f"{against}_mfu_of_989_tflops":
+                        base["mfu_of_989_tflops"],
+                    f"{against}_peak_mem_bytes": base["peak_mem_bytes"]})
     return rec, model, {**{f"flash_{k}": v for k, v in launches.items()},
                         **{f"fused_ce_{k}": v
                            for k, v in fce_launches.items()}}, ids
@@ -1297,26 +1503,42 @@ def run_train_parity_phase():
             **parity_compare("train parity", kern, plain, cfg.hidden_size)}
 
 
-def run_train_parity_fused_ce_phase():
+def run_train_parity_fused_ce_phase(sharep=False):
     """``fused_ce=True`` through the fused-CE kernels against the same
     through their plain versions, and against ``fused_ce=False`` (float32,
-    no autocast; flash through its kernels in all three)."""
+    no autocast; flash through its kernels in all three). With ``sharep``
+    (``train_parity_fused_ce_sharep``): the shared-dl pair's kernels
+    against its plain versions, both with the flag set."""
     from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models.gpt import gpt2_small
 
     kw = dict(dropout=0.0, recompute=True, bf16_residual=False)
     cfg = gpt2_small(fused_ce=True, **kw)
     ids, labels = train_batch(cfg.vocab_size, 2, TRAIN_S)
+    phase = ("train_parity_fused_ce_sharep" if sharep
+             else "train_parity_fused_ce")
     fc.reset_launches()
-    kern = parity_run(cfg, contextlib.nullcontext(), ids, labels)
-    launches = [fc.fwd_launches, fc.dh_launches, fc.dw_launches]
-    if launches != [PARITY_STEPS + 1] * 3:
-        raise AssertionError(f"train_parity_fused_ce: launches {launches}")
-    plain = parity_run(cfg, fc.use_plain(), ids, labels)
+    kern = parity_run(cfg, share_p(sharep), ids, labels)
+    launches = [fc.fwd_launches, fc.dh_launches, fc.dw_launches,
+                fc.dh_sharep_launches, fc.dw_sharep_launches]
+    n = PARITY_STEPS + 1
+    if launches != ([n, 0, 0, n, n] if sharep else [n, n, n, 0, 0]):
+        raise AssertionError(f"{phase}: launches {launches}")
+    @contextlib.contextmanager
+    def plain_ctx():
+        with share_p(sharep), fc.use_plain():
+            yield
+    plain = parity_run(cfg, plain_ctx(), ids, labels)
+    H = cfg.hidden_size
+    if sharep:
+        return {"phase": phase, "dtype": "float32", "batch": 2,
+                "seq": TRAIN_S, "steps": PARITY_STEPS,
+                "fused_ce_launches": launches,
+                "vs_plain": parity_compare("fused CE sharep parity vs plain",
+                                           kern, plain, H)}
     unfused = parity_run(gpt2_small(**kw), contextlib.nullcontext(), ids,
                          labels)
-    H = cfg.hidden_size
-    return {"phase": "train_parity_fused_ce", "dtype": "float32",
+    return {"phase": phase, "dtype": "float32",
             "batch": 2, "seq": TRAIN_S, "steps": PARITY_STEPS,
             "fused_ce_launches": launches,
             "vs_plain": parity_compare("fused CE parity vs plain", kern,
@@ -1390,6 +1612,72 @@ def bert_logits(model, ids, mask=None):
                                                      attention_mask=mask)
 
 
+@contextlib.contextmanager
+def last_attention_capture(model, kmod, dq_name):
+    """For one step run inside: the input ``x`` of the last encoder
+    layer's q/k projections (its forward), and the ``(q, k, v, do[,
+    segment ids])`` of the first dq call of the backward, which is the
+    last layer's (the backward runs from the top)."""
+    rec = {}
+    qp = [m for n, m in model.named_modules()
+          if n.endswith("self_attn.q_proj")][-1]
+    hook = qp.register_forward_hook(
+        lambda m, inp, out: rec.__setitem__("x", inp[0].detach()))
+    real = getattr(kmod, dq_name)
+
+    def spy(q, k, v, *rest):
+        if "q" not in rec:
+            packed = dq_name.startswith("packed")
+            rec.update(q=q.detach(), k=k.detach(), v=v.detach(),
+                       do=(rest[1] if packed else rest[0]).detach(),
+                       seg=rest[0] if packed else None)
+        return real(q, k, v, *rest)
+    setattr(kmod, dq_name, spy)
+    try:
+        yield rec
+    finally:
+        hook.remove()
+        setattr(kmod, dq_name, real)
+
+
+def last_layer_proj_grads64(cap):
+    """float64 referee for the last layer's q_proj / k_proj weight
+    gradients ``[in, out]`` at one run's own captured inputs: non-causal
+    softmax attention (within segments when there are ids) and its
+    gradient written out in float64 einsums, then ``xᵀ dq`` and ``xᵀ
+    dk``."""
+    import torch
+    q, k, v, do, x = (cap[n].double() for n in ("q", "k", "v", "do", "x"))
+    B, L, H, D = q.shape
+    scale = D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if cap["seg"] is not None:
+        seg = cap["seg"]
+        s = s.masked_fill(~(seg[:, None, :, None] == seg[:, None, None, :]),
+                          float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    delta = (do * out).sum(-1).transpose(1, 2)[..., None]   # [B, H, L, 1]
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k).reshape(B * L, H * D)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q).reshape(B * L, H * D)
+    x = x.reshape(B * L, -1)
+    return {"q_proj": x.t() @ dq, "k_proj": x.t() @ dk}
+
+
+def c11_errors(cap, grads):
+    """max |f32 gradient - float64 referee| / max |referee| for the last
+    layer's q_proj and k_proj weights of one run."""
+    ref = last_layer_proj_grads64(cap)
+    out = {}
+    for proj, r in ref.items():
+        name = [n for n in grads if n.endswith(f"self_attn.{proj}.weight")][-1]
+        out[proj] = float((grads[name].double() - r).abs().max()
+                          / r.abs().max())
+    return out
+
+
 def run_bert_parity_phase():
     """float32, no autocast, dropout 0, BERT-base at full width, batch 8
     (two rows of four 128-token sequences). Packed through the kernels
@@ -1398,6 +1686,7 @@ def run_bert_parity_phase():
     same examples unpacked (through the flash kernels) and against
     ``dense=True``: logits within 1e-4 of max-abs."""
     import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import packed_flash as pf
     from paddle_tpu_torch.models.bert import (
         BertForSequenceClassification, bert_base)
@@ -1425,20 +1714,49 @@ def run_bert_parity_phase():
         loss, g, _ = step.grad_step(ids, y)
         return loss, dict(zip(step._param_names, g))
 
+    def unpacked_grads():
+        step = TrainStep(model, bench_bert.make_loss_fn(None, amp_level=None),
+                         AdamW(3e-5, weight_decay=0.01), device=dev)
+        _, g, _ = step.grad_step(ids.reshape(8, 128), y.reshape(8))
+        return dict(zip(step._param_names, g))
+
     pf.reset_launches()
     kern = bert_logits(model, ids, mask())
-    kloss, kgrads = grads()
+    with last_attention_capture(model, pf, "packed_flash_bwd_dq") as kcap:
+        kloss, kgrads = grads()
     launches = [pf.fwd_launches, pf.dq_launches, pf.dkv_launches]
     if launches != [24, 12, 12]:
         raise AssertionError(f"bert_parity: packed launches {launches}")
     with pf.use_plain():
         plain = bert_logits(model, ids, mask())
-        ploss, pgrads = grads()
+        with last_attention_capture(model, pf, "packed_flash_bwd_dq") as pcap:
+            ploss, pgrads = grads()
+    # C11: each run's last-layer q/k projection gradients against a
+    # float64 referee at that run's own inputs, packed (packed kernels,
+    # plain) and the same examples unpacked (flash kernels, plain)
+    c11 = {"packed_kernel": c11_errors(kcap, kgrads),
+           "packed_plain_f32": c11_errors(pcap, pgrads)}
+    with last_attention_capture(model, fa, "flash_attention_bwd_dq") as cap:
+        c11["unpacked_flash_kernel"] = c11_errors(cap, unpacked_grads())
+    with fa.use_plain(), last_attention_capture(
+            model, fa, "flash_attention_bwd_dq") as cap:
+        c11["unpacked_flash_plain_f32"] = c11_errors(cap, unpacked_grads())
+    del kcap, pcap, cap
+    for route in ("packed", "unpacked_flash"):
+        kern_err = max(c11[f"{route}_kernel"].values())
+        plain_err = max(c11[f"{route}_plain_f32"].values())
+        c11[f"{route}_kernel_over_plain"] = kern_err / plain_err
+        if not kern_err <= 4 * plain_err:
+            raise AssertionError(
+                f"bert_parity C11: {route} kernel's last-layer q/k gradient "
+                f"error {kern_err} against float64 is over 4x the plain "
+                f"f32 version's {plain_err}")
     unpacked = bert_logits(model, ids.reshape(8, 128)).reshape(2, 4, -1)
     dense = bert_logits(model, ids, mask(dense=True))
     rec = {"phase": "bert_parity", "dtype": "float32", "batch": 8,
            "rows": 2, "pack": 4, "packed_launches": launches,
-           "loss_kernel": float(kloss), "loss_plain": float(ploss)}
+           "loss_kernel": float(kloss), "loss_plain": float(ploss),
+           "c11_last_layer_grad_err_vs_float64": c11}
     for key, other in (("vs_plain", plain), ("vs_unpacked", unpacked),
                        ("vs_dense", dense)):
         err = rel_err(kern, other)
@@ -1494,6 +1812,7 @@ def main():
     sys.path.insert(0, here)
     from paddle_tpu_torch.kernels import _build
 
+    t_start = time.perf_counter()
     gpu = smi()
     emit({"phase": "device", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
@@ -1512,16 +1831,19 @@ def main():
     fres = run_flash_phase()
     cres = run_fused_ce_phase()
     pres = run_packed_flash_phase()
-    emit({"phase": "kernels",
-          "kernels": ["ragged_paged_attention",
-                      "ragged_paged_attention_quant", "flash_attention_fwd",
-                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                      "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
-                      "packed_flash_fwd", "packed_flash_bwd_dq",
-                      "packed_flash_bwd_dkv"],
-          "ragged_paged_attention": kres,
-          "ragged_paged_attention_quant": qres, "flash_attention": fres,
-          "fused_ce": cres, "packed_flash": pres, "gpu": gpu})
+    emit(with_spreads({
+        "phase": "kernels",
+        "kernels": ["ragged_paged_attention", "ragged_paged_attention_quant",
+                    "flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", "fused_ce_fwd",
+                    "fused_ce_bwd_dh", "fused_ce_bwd_dw",
+                    "fused_ce_bwd_dh_sharep", "fused_ce_bwd_dw_sharep",
+                    "packed_flash_fwd", "packed_flash_bwd_dq",
+                    "packed_flash_bwd_dkv"],
+        "timing_reps": TIMING_REPS,
+        "ragged_paged_attention": kres,
+        "ragged_paged_attention_quant": qres, "flash_attention": fres,
+        "fused_ce": cres, "packed_flash": pres, "gpu": gpu}))
     serve, launches = run_serve_phase()
     emit(serve)
     quant_serve, qlaunches = {}, {}
@@ -1554,8 +1876,16 @@ def main():
     emit(fused)
     del model
     torch.cuda.empty_cache()
+    fused_sharep, model, slaunch, _ = run_train_phase(
+        flash_ms, fused_ce=True, sharep=True,
+        fce_ms={kn: ct[kn]["ms"] for kn in ("fwd", "dh_sharep", "dw_sharep")},
+        base=fused)
+    emit(fused_sharep)
+    del model
+    torch.cuda.empty_cache()
     emit(run_train_parity_phase())
     emit(run_train_parity_fused_ce_phase())
+    emit(run_train_parity_fused_ce_phase(sharep=True))
     emit(run_bench_phase())
     bt = fres["bert128"]["bfloat16"]["timing"]
     pt = pres["bert"]["bfloat16"]["timing"]
@@ -1600,6 +1930,7 @@ def main():
                   for n in qres for fmt in qres[n]
                   if (n, fmt) != ("decode", "int8")}})
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    lt = fres["long4096_causal"]["bfloat16"]["timing"]
     for kn, line, also in (("fwd", 52, 166), ("dq", 93, 213),
                            ("dkv", 126, 251)):
         name = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
@@ -1616,7 +1947,12 @@ def main():
             "ms": ft[kn]["ms"], "plain_ms": ft[kn]["plain_ms"],
             "bound_ms": ft[kn]["bound_ms"], "bound_by": ft[kn]["bound_by"],
             "library_ms": ft[kn]["library_ms"],
-            "shape": "train: B=16 L=1024 H=12 D=64 causal bf16"})
+            "shape": "train: B=16 L=1024 H=12 D=64 causal bf16",
+            "at_L4096": {  # rows 4, 7, 8: the streamed bodies' shape
+                "shape": "B=1 L=4096 H=12 D=64 causal bf16",
+                **{key: lt[kn][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}})
     outputs = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw",)}
     for kn, line in (("fwd", 62), ("dh", 101), ("dw", 129)):
         kernels.append({
@@ -1631,6 +1967,22 @@ def main():
             "bound_ms": ct[kn]["bound_ms"], "bound_by": ct[kn]["bound_by"],
             "library_ms": ct[kn]["library_ms"],
             "shape": "train: T=16384 d=768 V=50304 bf16"})
+    for kn, line, lib in (
+            ("dh_sharep", 158, "matmul + CE fwd, bwd to h and to the bf16 "
+                               "logits (dl kept)"),
+            ("dw_sharep", 189, "torch.matmul(dl.t(), h) on the stored dl")):
+        kernels.append({
+            "name": f"fused_ce_bwd_{kn}", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
+            "replaces": f"paddle_tpu/kernels/fused_ce_pallas.py:{line}",
+            "launches": slaunch[f"fused_ce_{kn}"],
+            "max_abs_err": max(r["sharep"][kn[:2]]["max_abs_err"]
+                               for case in cres.values()
+                               for r in case.values()),
+            "ms": ct[kn]["ms"], "plain_ms": ct[kn]["plain_ms"],
+            "bound_ms": ct[kn]["bound_ms"], "bound_by": ct[kn]["bound_by"],
+            "library_ms": ct[kn]["library_ms"], "library": lib,
+            "shape": "train: T=16384 d=768 V=50304 bf16, dl bf16"})
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     for kn, line in (("fwd", 55), ("dq", 96), ("dkv", 132)):
         kernels.append({
@@ -1646,7 +1998,8 @@ def main():
             "library_ms": pt[kn]["library_ms"],
             "shape": "BERT pack 4: B=16 L=512 H=12 D=64, four segments of "
                      "128, bf16"})
-    emit({"kernels": kernels})
+    emit({"phase": "seconds", "total": time.perf_counter() - t_start})
+    emit({"kernels": with_spreads(kernels)})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

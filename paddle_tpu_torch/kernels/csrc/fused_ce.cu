@@ -7,6 +7,12 @@
 //   fused_ce_dw_kernel   <- _bwd_dw_kernel (:129) dw = dl^T @ h
 // with dl = (softmax(h @ w^T) - onehot(label)) * g recomputed tile by tile,
 // so the [T, V] logits never reach device memory, forward or backward.
+// The shared-dl pair (the reference's _SHARE_P) trades dw's recompute for
+// one bf16 [T, V] buffer:
+//   fused_ce_dh_kernel<T, true>   <- _bwd_dh_kernel_sharep (:158) dh as
+//                                    above, and each dl tile stored as bf16
+//   fused_ce_dw_sharep_kernel     <- _bwd_dw_kernel_sharep (:189) dw = dl^T @ h
+//                                    over the stored dl: no logits, no exp
 //
 // Layout: h [T, d] and w [V, d] row-major (the tied head: logits = h @ w^T),
 // labels int32 [T], lse and g float32 [T]; dh [T, d] and dw [V, d] in the
@@ -45,6 +51,16 @@
 // anywhere: every output
 // element is summed by one block in a fixed order, so two launches give
 // bit-identical results.
+// The shared-dl pair: the dh kernel stores the dl tile it already holds in
+// shared memory (the same tile that feeds its dh product, so in bf16 dh is
+// the recomputing kernel's bit for bit; in float32 a bf16 rounding of the
+// float tile) with 16-byte stores into rows of V rounded up to 8 columns,
+// the columns past V as zeros. dw_sharep then halves dw's operations (one
+// product a tile); the dl buffer (1.65 GB at the training shape) is
+// written once and read once, ~0.5 ms each at 3.35 TB/s, against dw's
+// 1.28 ms of products at the bf16 peak: still bound by operations. Its tiles stream
+// (dl, h) pairs through the same cp.async ring, float32 widening dl in
+// shared memory; one block owns each dw tile, so no atomics here either.
 // What holds this design ~10x above its bound: one block of 8 warps per SM
 // (its shared memory and register accumulators leave room for no second)
 // runs the phases of a tile (load, logits product, dl, second product) one
@@ -56,6 +72,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -220,6 +238,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full
                "r"(full ? 16 : 0)
                : "memory");
 }
+// the first nbytes (0..16) of src, the rest of the 16 bytes zeros
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, int nbytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(nbytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -362,6 +386,57 @@ __device__ __forceinline__ void dlogits_tile(T* sdl, int ldl, const float* ss, i
   }
 }
 
+// the dl tile (BT x BV in sdl, T) to rows [t0, t0 + nrows) of dl (bf16, row
+// stride ldd), columns [v0, v0 + BV) below vend (V rounded up to 8; the
+// tile's columns >= V hold zeros), one 16-byte chunk of 8 columns a thread
+template <typename T, int BT, int BV>
+__device__ __forceinline__ void store_dl_tile(bf16* __restrict__ dl, int ldd, const T* sdl,
+                                              int ldl, int t0, int nrows, int v0, int vend) {
+  constexpr int CPR = BV / 8;
+  static_assert(BV % 8 == 0, "whole 16-byte chunks");
+  for (int i = threadIdx.x; i < BT * CPR; i += kThreads) {
+    const int r = i / CPR, c = (i - r * CPR) * 8;
+    if (r >= nrows || v0 + c >= vend) continue;
+    uint4 v;
+    if constexpr (std::is_same<T, bf16>::value) {
+      v = *reinterpret_cast<const uint4*>(sdl + r * ldl + c);  // ldl * 2 bytes: 16-byte rows
+    } else {
+      bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(sdl[r * ldl + c + j]);
+    }
+    *reinterpret_cast<uint4*>(dl + (size_t)(t0 + r) * ldd + v0 + c) = v;
+  }
+}
+
+// rows [t0, t0 + nrows) x columns [v0, v0 + BV) of dl (bf16, row stride
+// ldd, rows 16-byte aligned) into dst [BT][ldl] as T; columns >= V (never
+// read) and rows past nrows as zeros. bf16 goes by cp.async (complete after
+// the next commit and wait), float32 is widened synchronously.
+template <typename T, int BT, int BV>
+__device__ __forceinline__ void load_dl_tile(T* dst, int ldl, const bf16* __restrict__ dl, int ldd,
+                                             int t0, int nrows, int v0, int V) {
+  constexpr int CPR = BV / 8;
+  for (int i = threadIdx.x; i < BT * CPR; i += kThreads) {
+    const int r = i / CPR, c = (i - r * CPR) * 8, col = v0 + c;
+    const int n = r < nrows ? max(0, min(8, V - col)) : 0;  // live columns of the chunk
+    const bf16* src = n ? dl + (size_t)(t0 + r) * ldd + col : dl;
+    if constexpr (std::is_same<T, bf16>::value) {
+      cp_async_n(dst + r * ldl + c, src, 2 * n);
+    } else {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      bf16* e = reinterpret_cast<bf16*>(&v);
+      if (n == 8) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int j = 0; j < n; ++j) e[j] = src[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[r * ldl + c + j] = j < n ? __bfloat162float(e[j]) : 0.f;
+    }
+  }
+}
+
 template <typename T, int R>
 using AccArray = typename Engine<T>::Acc[(R / 16) * (kMaxD / 16 / kWarps)];
 
@@ -455,6 +530,25 @@ template <typename T>
 using DwPlan = Plan<T, Cfg<T>::DW_BV, Cfg<T>::DW_BT, Cfg<T>::DW_BT, Cfg<T>::DW_BV, Cfg<T>::DW_BV,
                     Cfg<T>::DW_STAGES>;
 
+// Shared memory of dw_sharep: STAGES buffers, each an h tile [DW_BT x ld]
+// and a dl tile [DW_BT x LDL]; the f32 accumulator store at the end
+// overlays the start.
+template <typename T>
+struct DwSharepPlan {
+  static constexpr int BV = Cfg<T>::DW_BV, BT = Cfg<T>::DW_BT, STAGES = Cfg<T>::DW_STAGES;
+  static constexpr int LDL = BV + Cfg<T>::LPAD;
+  int ld, ldc;
+  size_t dl_off, stage_bytes, bytes;
+  __host__ __device__ explicit DwSharepPlan(int dpad) {
+    ld = dpad + Cfg<T>::PAD;
+    ldc = dpad + Cfg<T>::CPAD;
+    dl_off = align128((size_t)BT * ld * sizeof(T));
+    stage_bytes = dl_off + align128((size_t)BT * LDL * sizeof(T));
+    const size_t end = STAGES * stage_bytes, acc = (size_t)BV * ldc * sizeof(float);
+    bytes = end > acc ? end : acc;
+  }
+};
+
 // The streamed tiles go through a ring of S buffers: S - 1 tiles are in
 // flight before the loop; iteration i waits for tile i, passes a barrier
 // (after which no warp still reads buffer (i - 1) % S) and only then
@@ -547,13 +641,15 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int*
 }
 
 // ---------------------------------------------------------------------------
-// backward dh: one block per DH_BT-token tile; streams every vocab tile
+// backward dh: one block per DH_BT-token tile; streams every vocab tile.
+// With kStoreDl (the shared-dl pair) each dl tile also goes to dl [T, ldd].
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kStoreDl>
 __global__ void __launch_bounds__(kThreads)
 fused_ce_dh_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ lab,
                    const float* __restrict__ lse, const float* __restrict__ g,
-                   T* __restrict__ dh, int T_, int V, int d, int dpad, bool vec) {
+                   T* __restrict__ dh, bf16* __restrict__ dl, int ldd, int T_, int V, int d,
+                   int dpad, bool vec) {
   using P = DhPlan<T>;
   constexpr int BT = Cfg<T>::DH_BT, BV = Cfg<T>::DH_BV;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -592,6 +688,8 @@ fused_ce_dh_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
     __syncthreads();
     dlogits_tile<T, BT, BV>(sdl, P::LDL, ss, P::LDS, slab, slse, sg, v0, V);
     __syncthreads();
+    // both only read sdl; the next iteration's barriers come before its rewrite
+    if (kStoreDl) store_dl_tile<T, BT, BV>(dl, ldd, sdl, P::LDL, t0, T_ - t0, v0, (V + 7) & ~7);
     acc_product<T, BT, BV, true>(acc, sdl, P::LDL, sw, plan.ld, dpad);  // dl @ w
   }
   store_acc<T, BT>(dh, reinterpret_cast<float*>(smem), plan.ldc, acc, t0, T_ - t0, d, dpad);
@@ -650,6 +748,54 @@ fused_ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
 }
 
 // ---------------------------------------------------------------------------
+// backward dw over a stored dl (the shared-dl pair): one block per DW_BV-row
+// vocab tile; streams every (dl, h) token tile; dw = dl^T @ h
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ void load_dw_sharep_stage(unsigned char* smem,
+                                                     const DwSharepPlan<T>& plan, int t,
+                                                     const T* __restrict__ h,
+                                                     const bf16* __restrict__ dl, int ldd, int T_,
+                                                     int v0, int V, int d, int dpad, bool vec) {
+  using P = DwSharepPlan<T>;
+  unsigned char* st = smem + (size_t)(t % P::STAGES) * plan.stage_bytes;
+  const int t0 = t * P::BT;
+  load_rows(reinterpret_cast<T*>(st), plan.ld, h, t0, T_ - t0, P::BT, d, dpad, vec);
+  load_dl_tile<T, P::BT, P::BV>(reinterpret_cast<T*>(st + plan.dl_off), P::LDL, dl, ldd, t0,
+                                T_ - t0, v0, V);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_ce_dw_sharep_kernel(const T* __restrict__ h, const bf16* __restrict__ dl,
+                          T* __restrict__ dw, int ldd, int T_, int V, int d, int dpad, bool vec) {
+  using P = DwSharepPlan<T>;
+  constexpr int BV = P::BV, BT = P::BT, S = P::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const P plan(dpad);
+  const int v0 = blockIdx.x * BV, ntiles = (T_ + BT - 1) / BT;
+  for (int p = 0; p < S - 1; ++p) {
+    if (p < ntiles) load_dw_sharep_stage<T>(smem, plan, p, h, dl, ldd, T_, v0, V, d, dpad, vec);
+    cp_async_commit();
+  }
+  AccArray<T, BV> acc;
+#pragma unroll
+  for (int u = 0; u < (BV / 16) * (kMaxD / 16 / kWarps); ++u) Engine<T>::zero(acc[u]);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int nx = it + S - 1;
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile it has landed; no warp still reads buffer (it - 1) % S
+    if (nx < ntiles) load_dw_sharep_stage<T>(smem, plan, nx, h, dl, ldd, T_, v0, V, d, dpad, vec);
+    cp_async_commit();
+    const unsigned char* st = smem + (size_t)(it % S) * plan.stage_bytes;
+    acc_product<T, BV, BT, false>(acc, reinterpret_cast<const T*>(st + plan.dl_off), P::LDL,
+                                  reinterpret_cast<const T*>(st), plan.ld, dpad);  // dl^T @ h
+  }
+  store_acc<T, BV>(dw, reinterpret_cast<float*>(smem), plan.ldc, acc, v0, V - v0, d, dpad);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <typename Kern>
@@ -703,19 +849,19 @@ int fwd(const void* h, const void* w, const void* lab, void* m, void* l, void* t
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kStoreDl>
 int bwd_dh(const void* h, const void* w, const void* lab, const void* lse, const void* g,
-           void* dh, int T_, int V, int d, cudaStream_t st) {
+           void* dh, void* dl, int ldd, int T_, int V, int d, cudaStream_t st) {
   constexpr int BT = Cfg<T>::DH_BT;
   const int dpad = pad16(d);
   const DhPlan<T> plan(dpad);
-  auto kern = fused_ce_dh_kernel<T>;
+  auto kern = fused_ce_dh_kernel<T, kStoreDl>;
   cudaError_t e = prepare(kern, plan.bytes);
   if (e != cudaSuccess) return (int)e;
   kern<<<(T_ + BT - 1) / BT, kThreads, plan.bytes, st>>>(
       static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(lab),
-      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dh), T_, V,
-      d, dpad, vec_ok<T>(d, h, w));
+      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dh),
+      static_cast<bf16*>(dl), ldd, T_, V, d, dpad, vec_ok<T>(d, h, w));
   return (int)cudaGetLastError();
 }
 
@@ -733,6 +879,27 @@ int bwd_dw(const void* h, const void* w, const void* lab, const void* lse, const
       static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dw), T_, V,
       d, dpad, vec_ok<T>(d, h, w));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_dw_sharep(const void* h, const void* dl, void* dw, int ldd, int T_, int V, int d,
+                  cudaStream_t st) {
+  constexpr int BV = Cfg<T>::DW_BV;
+  const int dpad = pad16(d);
+  const DwSharepPlan<T> plan(dpad);
+  auto kern = fused_ce_dw_sharep_kernel<T>;
+  cudaError_t e = prepare(kern, plan.bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(V + BV - 1) / BV, kThreads, plan.bytes, st>>>(
+      static_cast<const T*>(h), static_cast<const bf16*>(dl), static_cast<T*>(dw), ldd, T_, V, d,
+      dpad, vec_ok<T>(d, h, h));
+  return (int)cudaGetLastError();
+}
+
+// a dl buffer the kernels take: bf16 rows of ldd >= V elements, ldd a
+// multiple of 8 (so at least V rounded up to 8), the base 16-byte aligned
+bool dl_ok(const void* dl, int ldd, int V) {
+  return ldd % 8 == 0 && ldd >= V && reinterpret_cast<uintptr_t>(dl) % 16 == 0;
 }
 
 }  // namespace
@@ -769,8 +936,8 @@ extern "C" int fused_ce_backward_dh(int dtype, const void* h, const void* w, con
                                     int d, void* stream) {
   FCE_CHECK();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd_dh<float>(h, w, labels, lse, g, dh, T_, V, d, st);
-  return bwd_dh<bf16>(h, w, labels, lse, g, dh, T_, V, d, st);
+  if (dtype == 0) return bwd_dh<float, false>(h, w, labels, lse, g, dh, nullptr, 0, T_, V, d, st);
+  return bwd_dh<bf16, false>(h, w, labels, lse, g, dh, nullptr, 0, T_, V, d, st);
 }
 
 extern "C" int fused_ce_backward_dw(int dtype, const void* h, const void* w, const void* labels,
@@ -780,4 +947,29 @@ extern "C" int fused_ce_backward_dw(int dtype, const void* h, const void* w, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dw<float>(h, w, labels, lse, g, dw, T_, V, d, st);
   return bwd_dw<bf16>(h, w, labels, lse, g, dw, T_, V, d, st);
+}
+
+// The shared-dl pair. dh_sharep writes dh as fused_ce_backward_dh does and
+// dl = (softmax - onehot) * g as bf16 rows of ldd elements (columns V up to
+// V rounded up to 8 as zeros, the rest untouched); dw_sharep computes
+// dw [V, d] = dl^T @ h from such a buffer and reads no column >= V.
+// Both refuse a dl buffer dl_ok() does not take.
+extern "C" int fused_ce_backward_dh_sharep(int dtype, const void* h, const void* w,
+                                           const void* labels, const void* lse, const void* g,
+                                           void* dh, void* dl, int ldd, int T_, int V, int d,
+                                           void* stream) {
+  FCE_CHECK();
+  if (!dl_ok(dl, ldd, V)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd_dh<float, true>(h, w, labels, lse, g, dh, dl, ldd, T_, V, d, st);
+  return bwd_dh<bf16, true>(h, w, labels, lse, g, dh, dl, ldd, T_, V, d, st);
+}
+
+extern "C" int fused_ce_backward_dw_sharep(int dtype, const void* h, const void* dl, void* dw,
+                                           int ldd, int T_, int V, int d, void* stream) {
+  FCE_CHECK();
+  if (!dl_ok(dl, ldd, V)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd_dw_sharep<float>(h, dl, dw, ldd, T_, V, d, st);
+  return bwd_dw_sharep<bf16>(h, dl, dw, ldd, T_, V, d, st);
 }

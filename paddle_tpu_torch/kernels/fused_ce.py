@@ -12,22 +12,36 @@ head's layout: ``h [T, d]``, ``w [V, d]``, ``labels [T]``. The logits
   picks no column, so its ``nll`` is the ``lse``; the caller masks it;
 - backward, with ``dl = (softmax(s) - onehot(label)) * g`` recomputed:
   ``dh = dl @ w`` in h's dtype and ``dw = dlᵀ @ h`` in w's dtype
-  (``:117-122``, ``:146-151``).
+  (``:117-122``, ``:146-151``);
+- the shared-dl backward (``_bwd_dh_kernel_sharep`` ``:158``,
+  ``_bwd_dw_kernel_sharep`` ``:189``), taken when the module flag
+  :data:`_SHARE_P` is set, as the reference's ``_SHARE_P`` (``:264``): the
+  dh pass also stores dl as bfloat16 ``[T, V]`` (bf16 whatever h's dtype,
+  as the reference's ``:285``), and the dw pass computes ``dlᵀ @ h`` from
+  it, products of the bf16-rounded dl summed in float32 (``:203-205``),
+  without recomputing the logits.
 
 Pieces:
 
 - plain PyTorch versions :func:`fused_ce_fwd_ref` -> ``(nll, lse)``,
-  :func:`fused_ce_bwd_dh_ref` and :func:`fused_ce_bwd_dw_ref`;
-- the wrappers :func:`fused_ce_fwd`, :func:`fused_ce_bwd_dh` and
-  :func:`fused_ce_bwd_dw`: a CPU tensor runs the plain version; a CUDA
-  tensor launches the hand-written kernel of ``csrc/fused_ce.cu`` or raises
-  (no fallback). Each kernel has its launch counter (``fwd_launches``,
-  ``dh_launches``, ``dw_launches``; :func:`reset_launches`);
+  :func:`fused_ce_bwd_dh_ref`, :func:`fused_ce_bwd_dw_ref`,
+  :func:`fused_ce_bwd_dh_sharep_ref` -> ``(dh, dl)`` and
+  :func:`fused_ce_bwd_dw_sharep_ref`;
+- the wrappers :func:`fused_ce_fwd`, :func:`fused_ce_bwd_dh`,
+  :func:`fused_ce_bwd_dw`, :func:`fused_ce_bwd_dh_sharep` and
+  :func:`fused_ce_bwd_dw_sharep`: a CPU tensor runs the plain version; a
+  CUDA tensor launches the hand-written kernel of ``csrc/fused_ce.cu`` or
+  raises (no fallback). Each kernel has its launch counter
+  (``fwd_launches``, ``dh_launches``, ``dw_launches``,
+  ``dh_sharep_launches``, ``dw_sharep_launches``; :func:`reset_launches`);
 - :class:`FusedSoftmaxCE`, the ``torch.autograd.Function`` with the
   reference's ``custom_vjp`` contract (``:361-380``): the forward saves
   ``(h, w, labels, lse)``; the backward returns ``dh`` and ``dw`` and no
-  gradient for the labels; :func:`fused_softmax_ce` is its public entry
-  (``:383``);
+  gradient for the labels. With :data:`_SHARE_P` set and both gradients
+  needed it runs the shared-dl pair (dl lives only until dw is done); when
+  only one gradient is needed dl would have no reader, so it runs the
+  recomputing kernel of that one. :func:`fused_softmax_ce` is its public
+  entry (``:383``);
 - :func:`use_plain`, a context manager that makes the wrappers take the
   plain versions on CUDA too, for comparisons only.
 
@@ -47,13 +61,22 @@ import ctypes
 import torch
 
 __all__ = ["fused_softmax_ce", "FusedSoftmaxCE", "fused_ce_fwd",
-           "fused_ce_bwd_dh", "fused_ce_bwd_dw", "fused_ce_fwd_ref",
-           "fused_ce_bwd_dh_ref", "fused_ce_bwd_dw_ref", "use_plain",
-           "reset_launches"]
+           "fused_ce_bwd_dh", "fused_ce_bwd_dw", "fused_ce_bwd_dh_sharep",
+           "fused_ce_bwd_dw_sharep", "fused_ce_fwd_ref",
+           "fused_ce_bwd_dh_ref", "fused_ce_bwd_dw_ref",
+           "fused_ce_bwd_dh_sharep_ref", "fused_ce_bwd_dw_sharep_ref",
+           "use_plain", "reset_launches"]
 
 fwd_launches = 0      # kernel launches since the last reset_launches()
 dh_launches = 0
 dw_launches = 0
+dh_sharep_launches = 0
+dw_sharep_launches = 0
+
+# The reference's module flag (fused_ce_pallas.py:264): share the dl tiles
+# between the two backward kernels. No entry point sets it; a caller sets
+# it and restores it.
+_SHARE_P = False
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 768           # the kernels' register accumulators cover d <= 768
@@ -69,6 +92,13 @@ FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
 #   stream)
 BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p])
+# fused_ce_backward_dh_sharep(dtype, h, w, labels, lse, g, dh, dl, ldd, T,
+#   V, d, stream)
+DH_SHAREP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# fused_ce_backward_dw_sharep(dtype, h, dl, dw, ldd, T, V, d, stream)
+DW_SHAREP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # fused_ce_forward_splits(dtype, T, V, device) -> the forward's split count
 SPLITS_ARGTYPES = [ctypes.c_int] * 4
 _fns = {}
@@ -76,7 +106,9 @@ _fns = {}
 
 def reset_launches():
     global fwd_launches, dh_launches, dw_launches
+    global dh_sharep_launches, dw_sharep_launches
     fwd_launches = dh_launches = dw_launches = 0
+    dh_sharep_launches = dw_sharep_launches = 0
 
 
 @contextlib.contextmanager
@@ -127,6 +159,20 @@ def fused_ce_bwd_dh_ref(h, w, labels, lse, g):
 def fused_ce_bwd_dw_ref(h, w, labels, lse, g):
     """Plain ``dw = dlᵀ @ h`` ``[V, d]`` in w's dtype."""
     return (_dlogits(h, w, labels, lse, g).t() @ h.float()).to(w.dtype)
+
+
+def fused_ce_bwd_dh_sharep_ref(h, w, labels, lse, g):
+    """Plain shared-dl dh pass: ``(dh, dl)``, dh as
+    :func:`fused_ce_bwd_dh_ref` (from the float32 dl) and dl bfloat16
+    ``[T, V]``."""
+    dl = _dlogits(h, w, labels, lse, g)
+    return (dl @ w.float()).to(h.dtype), dl.to(torch.bfloat16)
+
+
+def fused_ce_bwd_dw_sharep_ref(h, dl):
+    """Plain shared-dl dw pass: ``dw = dlᵀ @ h`` ``[V, d]`` in h's dtype
+    (w's), the bf16 dl's products summed in float32."""
+    return (dl.float().t() @ h.float()).to(h.dtype)
 
 
 # -- the CUDA kernels -----------------------------------------------------------
@@ -223,6 +269,53 @@ def _launch_fwd(h, w, labels, nsplit=None):
     return _combine(*parts)
 
 
+def _check_dl(h, dl):
+    """What the dw_sharep kernel takes: h ``[T, d]`` as :func:`_check`
+    wants it, and dl bfloat16 ``[T, V]`` on h's device with contiguous
+    columns."""
+    if dl.device != h.device:
+        raise ValueError(f"dl is on {dl.device}, h on {h.device}")
+    if h.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {h.dtype} (float32 or bfloat16)")
+    if dl.dtype != torch.bfloat16:
+        raise TypeError(f"dl must be bfloat16, not {dl.dtype}")
+    if h.dim() != 2 or not h.is_contiguous():
+        raise ValueError("h must be a contiguous [T, d]")
+    if dl.dim() != 2 or dl.shape[0] != h.shape[0]:
+        raise ValueError(f"dl must be [T, V] with T = {h.shape[0]}, got "
+                         f"{tuple(dl.shape)}")
+    T, d = h.shape
+    V = dl.shape[1]
+    if V < 1:
+        raise ValueError("empty vocabulary")
+    if T > 1 and dl.stride(1) != 1:
+        raise ValueError("dl's columns must be contiguous")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"hidden size {d} outside the kernels' 1..{MAX_D}")
+    if max(T, V) * d >= 2 ** 31:
+        raise ValueError("too many rows for the kernels' int indices")
+
+
+def _dl_rows(T, V, device):
+    """A bf16 ``[T, ldd]`` buffer for dl, ``ldd`` = V rounded up to 8
+    (16-byte rows for the kernels' 16-byte stores and loads)."""
+    return torch.empty(T, -(-V // 8) * 8, dtype=torch.bfloat16,
+                       device=device)
+
+
+def _dl_for_kernel(dl):
+    """``(tensor, ldd)``: dl as it is when its rows are 16-byte aligned
+    (the view dh_sharep returns, or V a multiple of 8), else a copy into
+    such rows."""
+    T, V = dl.shape
+    ldd = dl.stride(0) if T > 1 else -(-V // 8) * 8
+    if ldd % 8 == 0 and ldd >= V and dl.data_ptr() % 16 == 0:
+        return dl, ldd
+    buf = _dl_rows(T, V, dl.device)
+    buf[:, :V] = dl
+    return buf, buf.stride(0)
+
+
 def _launch_bwd(which, h, w, labels, lse, g):
     global dh_launches, dw_launches
     labels = _labels32(labels)
@@ -243,6 +336,49 @@ def _launch_bwd(which, h, w, labels, lse, g):
     else:
         dw_launches += 1
     return out
+
+
+def _launch_dh_sharep(h, w, labels, lse, g):
+    """The shared-dl dh kernel: ``(dh, dl)``, dl the ``[:, :V]`` view of
+    a ``[T, V rounded up to 8]`` bf16 buffer whose tail columns the kernel
+    fills with zeros."""
+    global dh_sharep_launches
+    labels = _labels32(labels)
+    g = g.float().contiguous()
+    _check(h, w, labels, lse=lse, g=g)
+    T, d = h.shape
+    V = w.shape[0]
+    dh = torch.empty_like(h)
+    buf = _dl_rows(T, V, h.device)
+    if T == 0:
+        return dh, buf[:, :V]
+    fn = _kernel_fn("fused_ce_backward_dh_sharep", DH_SHAREP_ARGTYPES)
+    with torch.cuda.device(h.device):
+        rc = fn(_DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(),
+                labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                dh.data_ptr(), buf.data_ptr(), buf.stride(0), T, V, d,
+                _stream(h))
+    _raise_if(rc, "backward dh_sharep")
+    dh_sharep_launches += 1
+    return dh, buf[:, :V]
+
+
+def _launch_dw_sharep(h, dl):
+    global dw_sharep_launches
+    _check_dl(h, dl)
+    T, d = h.shape
+    V = dl.shape[1]
+    dw = torch.empty(V, d, dtype=h.dtype, device=h.device)
+    if T == 0:
+        return dw.zero_()
+    dl, ldd = _dl_for_kernel(dl)
+    fn = _kernel_fn("fused_ce_backward_dw_sharep", DW_SHAREP_ARGTYPES)
+    with torch.cuda.device(h.device):
+        rc = fn(_DTYPE_CODE[h.dtype], h.data_ptr(), dl.data_ptr(),
+                dw.data_ptr(), ldd, T, V, d, _stream(h))
+    _raise_if(rc, "backward dw_sharep")
+    dw_sharep_launches += 1
+    return dw
 
 
 def _on_kernel(h):
@@ -275,10 +411,25 @@ def fused_ce_bwd_dw(h, w, labels, lse, g):
     return fused_ce_bwd_dw_ref(h, w, labels, lse, g)
 
 
+def fused_ce_bwd_dh_sharep(h, w, labels, lse, g):
+    """``(dh, dl)``; see :func:`fused_ce_bwd_dh_sharep_ref`."""
+    if _on_kernel(h):
+        return _launch_dh_sharep(h, w, labels, lse, g)
+    return fused_ce_bwd_dh_sharep_ref(h, w, labels, lse, g)
+
+
+def fused_ce_bwd_dw_sharep(h, dl):
+    """``dw`` from a stored dl; see :func:`fused_ce_bwd_dw_sharep_ref`."""
+    if _on_kernel(h):
+        return _launch_dw_sharep(h, dl)
+    return fused_ce_bwd_dw_sharep_ref(h, dl)
+
+
 class FusedSoftmaxCE(torch.autograd.Function):
     """Per-token NLL with the reference's custom VJP: the forward keeps
-    ``(h, w, labels, lse)``; the backward runs the dh and dw kernels (no
-    atomics, so it is deterministic) and gives the labels no gradient."""
+    ``(h, w, labels, lse)``; the backward runs the dh and dw kernels, or
+    with :data:`_SHARE_P` the shared-dl pair (no atomics, so it is
+    deterministic), and gives the labels no gradient."""
 
     @staticmethod
     def forward(ctx, h, w, labels):
@@ -291,6 +442,9 @@ class FusedSoftmaxCE(torch.autograd.Function):
     def backward(ctx, g):
         h, w, labels, lse = ctx.saved_tensors
         g = g.float().contiguous()
+        if _SHARE_P and ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
+            dh, dl = fused_ce_bwd_dh_sharep(h, w, labels, lse, g)
+            return dh, fused_ce_bwd_dw_sharep(h, dl), None
         dh = dw = None
         if ctx.needs_input_grad[0]:
             dh = fused_ce_bwd_dh(h, w, labels, lse, g)

@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need a CUDA device: the hand-written
 ragged paged-attention kernel (float pools, and int8/fp8 pools with page
 scales), the flash-attention forward, dq and dk/dv kernels, the fused-CE
-forward, dh and dw kernels and the packed (segment-id) flash forward, dq
-and dk/dv kernels against their plain PyTorch versions, the serving
+forward, dh and dw kernels, the shared-dl dh/dw pair and the packed
+(segment-id) flash forward, dq and dk/dv kernels against their plain
+PyTorch versions, the serving
 engine on the card against the same engine on the CPU (float and
 quantized pools, int8 weights), and GPT and packed-BERT training steps
 through the kernels against the same steps through the plain versions.
@@ -494,6 +495,106 @@ def test_tiny_fused_ce_training_step_with_the_kernels_equals_the_plain_step(
                                                              b[2 * H:]])
         off = int((d > 1e-5 + 1e-4 * b.abs()).sum())
         assert off <= max(8, 1e-4 * b.numel()), (name, off, float(d.max()))
+
+
+def _bf16_steps(a, b):
+    """How many bf16 rounding steps apart each pair of bf16 elements
+    lies (the bit patterns ordered as the values are)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FCE_CASES))
+def test_fused_ce_sharep_kernels_match_plain(cuda, case, dtype):
+    """The shared-dl pair against its plain versions: dh bit-identical to
+    the recomputing dh kernel's (the same tile feeds it), dl within one
+    bf16 step of the plain bf16 dl and zero in the columns the buffer
+    pads V to, dw within the dw limit of the plain dw of the same dl,
+    and the pair's dw apart from the plain pair's by no more than the dl
+    steps move it."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    T, V, d = FCE_CASES[case]
+    h, w, lab, g = _fce_inputs(cuda, T, V, d, dtype, 1)
+    _, lse = fc.fused_ce_fwd(h, w, lab)
+    fc.reset_launches()
+    dh, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+    dw = fc.fused_ce_bwd_dw_sharep(h, dl)
+    torch.cuda.synchronize()
+    assert (fc.dh_sharep_launches, fc.dw_sharep_launches,
+            fc.dh_launches, fc.dw_launches) == (1, 1, 0, 0)
+    assert dl.dtype == torch.bfloat16 and dl.shape == (T, V)
+    assert dl.stride(0) == -(-V // 8) * 8
+    rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)
+    rdw = fc.fused_ce_bwd_dw_sharep_ref(h, rdl)
+    assert torch.equal(dh, fc.fused_ce_bwd_dh(h, w, lab, lse, g))
+    assert int(_bf16_steps(dl, rdl).max()) <= 1
+    tail = torch.as_strided(dl, (T, dl.stride(0) - V), (dl.stride(0), 1), V)
+    assert not tail.any()
+    assert not dl[::3].any()            # g = 0 rows: a zero dl row
+    _, gtol = FCE_TOL[dtype]
+    for name, a, b in (("dh", dh, rdh),
+                       ("dw", dw, fc.fused_ce_bwd_dw_sharep_ref(h, dl))):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= gtol, (name, _rel(a, b))
+    # the pair against the plain pair: apart by what the dl steps move
+    moved = (dl.float() - rdl.float()).abs().t() @ h.float().abs()
+    assert bool(((dw.float() - rdw.float()).abs()
+                 <= moved + gtol * rdw.float().abs().max()).all())
+    # a contiguous dl (V not a multiple of 8: copied into aligned rows)
+    assert torch.equal(fc.fused_ce_bwd_dw_sharep(h, dl.contiguous()), dw)
+
+
+def test_fused_ce_sharep_pair_is_bit_identical_across_launches(cuda):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, lab, g = _fce_inputs(cuda, 700, 3001, 64, torch.bfloat16, 5)
+    _, lse = fc.fused_ce_fwd(h, w, lab)
+    runs = []
+    for _ in range(2):
+        dh, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+        runs.append((dh, dl, fc.fused_ce_bwd_dw_sharep(h, dl)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_tiny_fused_ce_sharep_step_with_the_kernels_equals_the_plain_step(
+        cuda):
+    """``_SHARE_P`` set: the training step launches the pair and not the
+    recomputing dh/dw kernels, and its grads and losses match the same
+    step through the plain pair."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    rng = np.random.RandomState(7)
+    ids = rng.randint(0, 128, (3, 2, 40))
+    labels = np.roll(ids, -1, axis=-1)
+    labels[:, :, -1] = -100
+    runs = {}
+    prev, fc._SHARE_P = fc._SHARE_P, True
+    try:
+        for plain in (False, True):
+            m = GPTForCausalLM(gpt2_tiny(dropout=0.0, bf16_residual=False,
+                                         fused_ce=True), device=cuda, seed=3)
+            step = TrainStep(m, lambda m_, i, y: m_.loss(i, y), AdamW(1e-3),
+                             device=cuda)
+            fc.reset_launches()
+            with fc.use_plain() if plain else contextlib.nullcontext():
+                _, grads, _ = step.grad_step(ids[0], labels[0])
+                losses = step.multi_step(ids, labels)
+            launches = (fc.fwd_launches, fc.dh_launches, fc.dw_launches,
+                        fc.dh_sharep_launches, fc.dw_sharep_launches)
+            assert launches == ((0,) * 5 if plain else (4, 0, 0, 4, 4))
+            runs[plain] = (losses.cpu(), [g_.cpu() for g_ in grads])
+    finally:
+        fc._SHARE_P = prev
+    torch.testing.assert_close(runs[False][0], runs[True][0], rtol=1e-5,
+                               atol=1e-5)
+    for name, a, b in zip(step._param_names, runs[False][1], runs[True][1]):
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
 
 
 def test_fused_ce_wrapper_raises_on_cuda_without_the_library(cuda, tmp_path,
