@@ -30,8 +30,10 @@ exits non-zero:
      L=4096 with and without causal (the lengths the TPU's streamed
      kernels served), D=128 and BERT's unpacked shape (B=64, L=128,
      non-causal); max-abs error over max-abs plain within 1e-4 (float32)
-     and 2e-2 forward / 3e-2 gradients (bfloat16); and the backward
-     bit-identical across two launches.
+     and 2e-2 forward / 3e-2 gradients (bfloat16); the backward, and
+     the forward, bit-identical across two launches. Every bfloat16
+     forward must take the wgmma/TMA design and every float32 one the
+     CUDA-core design (``fwd_design`` of each case).
    - fused head + CE forward (nll, lse), dh and dw at the training shape
      (T=16384 tokens, d=768, V=50304, bf16), T=1000 with GPT-2's
      unpadded V=50257 (float32 and bfloat16), and T=300, V=5000 with a
@@ -52,7 +54,9 @@ exits non-zero:
      pair's dw apart from the plain pair's by no more than those dl steps
      move it plus the limit; both kernels bit-identical across two
      launches, and whether dh and dw equal the recomputing kernels' bit
-     for bit.
+     for bit (every bfloat16 case must take the wgmma/TMA dw_sharep,
+     ``dw_design``; its tensor cores sum the same k16 slices of the
+     same bf16 dl in the same token order as row 11's).
    - packed (segment-id) flash attention forward (out, lse), dq and dk/dv
      at BERT-base's pack-4 shape (B=16, L=512, H=12, D=64, four segments
      of 128), with uneven ids (``[5]*100 + [7]*300 + [9]*112``, one
@@ -72,10 +76,13 @@ exits non-zero:
    and forward+backward to h alone (dh) and to w alone (dw), for fused
    CE; the latter also to the bf16 logits for dh_sharep, and
    ``torch.matmul(dl.t(), h)`` on the stored dl for dw_sharep) beside the
-   bound max(bytes / 3.35 TB/s, FLOPs / peak), the FLOPs of packed flash
+   bound max(bytes / 3.35 TB/s, FLOPs / peak), the achieved TFLOP/s and
+   the factor over the library call, the FLOPs of packed flash
    counting same-segment pairs only; the fused forward also with a single
    vocab split; flash also at B=1, L=4096, causal (the shape of the
-   streamed bodies its kernels serve).
+   streamed bodies its kernels serve), and the flash forward wrapper's
+   host microseconds a call on each design (``flash_host_us``: the
+   wgmma/TMA one encodes three tensor maps a call).
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
@@ -99,7 +106,8 @@ exits non-zero:
    MLP recompute, ``TrainStep.multi_step`` of K=8 over batch 16 x seq
    1024, one fixed batch (numpy seed 0) repeated; two warm calls and
    three timed ones, 40 steps. Every loss finite, the last at least 1
-   nat below the first, and each flash kernel launched 12 x 40 times.
+   nat below the first, and each flash kernel launched 12 x 40 times,
+   every forward on the wgmma/TMA design (each train phase counts it).
 7. ``train_parity`` — float32, no autocast, batch 2 x 1024, 3 steps from
    identical weights through the kernels and through the plain
    versions: losses within 1e-4, step-1 gradients within 1e-3 of each
@@ -122,8 +130,9 @@ exits non-zero:
    ``train``'s.
    ``train_fused_ce_sharep`` — the same with the port's ``_SHARE_P``
    set (restored after): fused-CE forward, dh_sharep and dw_sharep
-   launched 40 times each and the recomputing dh/dw never, each flash
-   kernel 480; the step-1 loss equal to ``train_fused_ce``'s bit for bit
+   launched 40 times each (dw_sharep on the wgmma/TMA design) and the
+   recomputing dh/dw never, each flash kernel 480; the step-1 loss
+   equal to ``train_fused_ce``'s bit for bit
    (the forward is the same), the loss falls at least 1 nat and the last
    step within 0.25 nat of ``train_fused_ce``'s; step ms, tokens/s, MFU
    and peak memory beside ``train_fused_ce``'s.
@@ -137,8 +146,9 @@ exits non-zero:
 12. ``bert`` — ``paddle_tpu_torch.tools.bench_bert.run(pack=0, reps=1)``:
    the BERT-base fine-tune step (12 layers, d=768, 12 heads, FFN 3072,
    vocab 30522, dropout 0.1, AdamW 3e-5, O1 bf16) on 64 x 128 tokens, 24
-   steps; every loss finite, each flash kernel launched 12 x 24 times and
-   no packed kernel; seq/s, step ms, MFU and peak memory.
+   steps; every loss finite, each flash kernel launched 12 x 24 times
+   (the forward on the wgmma/TMA design) and no packed kernel; seq/s,
+   step ms, MFU and peak memory.
 13. ``bert_packed`` — the same with ``pack=4`` (16 rows of four
    sequences, ``SegmentIds`` with start positions): each packed kernel
    launched 12 x 24 times and no flash kernel.
@@ -549,6 +559,17 @@ def rel_err(a, b):
                  / b.float().abs().max().clamp(min=1e-30))
 
 
+def fwd_design(hopper):
+    return "wgmma_tma" if hopper else "cuda_cores"
+
+
+def with_rate(rec):
+    """A timed record with its achieved TFLOP/s and its factor over the
+    library call."""
+    return dict(rec, tflops=rec["flops"] / rec["ms"] / 1e9,
+                factor_over_library=rec["ms"] / rec["library_ms"])
+
+
 def run_flash_phase():
     import torch
     import torch.nn.functional as F
@@ -561,7 +582,12 @@ def run_flash_phase():
                                   (torch.bfloat16, BF16_TOL,
                                    BF16_GRAD_TOL)):
             q, k, v, do = flash_inputs(B, H, Lq, Lk, D, dtype, 100 + ci)
+            before = fa.fwd_hopper_launches
             out, lse = fa.flash_attention_fwd(q, k, v, causal)
+            hopper = fa.fwd_hopper_launches > before
+            if hopper != (dtype == torch.bfloat16):
+                raise AssertionError(f"flash forward ({name}, {dtype}) took "
+                                     f"the {fwd_design(hopper)} design")
             delta = fa.attention_delta(out, do)
             dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
             dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
@@ -572,7 +598,7 @@ def run_flash_phase():
                                                 causal)
             rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
                                                       delta, causal)
-            rec = {}
+            rec = {"fwd_design": fwd_design(hopper)}
             for key, a, b, tol in (("out", out, rout, ftol),
                                    ("lse", lse, rlse, ftol),
                                    ("dq", dq, rdq, gtol),
@@ -591,6 +617,11 @@ def run_flash_phase():
                     dtype == torch.bfloat16:
                 rec["timing"] = time_flash(q, k, v, do, out, lse, delta,
                                            causal, fa, F)
+                if not all(torch.equal(a, b) for a, b in zip(
+                        (out, lse), fa.flash_attention_fwd(q, k, v, causal))):
+                    raise AssertionError("flash forward not bit-identical "
+                                         "across two launches")
+                rec["forward_bit_identical"] = True
                 again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                                    causal),
                          *fa.flash_attention_bwd_dkv(q, k, v, do, lse,
@@ -605,6 +636,32 @@ def run_flash_phase():
             del q, k, v, do, out, lse, delta, dq, dk, dv
             torch.cuda.empty_cache()
     return results
+
+
+def flash_host_us():
+    """Host microseconds a call of the flash forward wrapper, enqueue only
+    (no synchronise inside a loop of 200 calls at B=1, L=128, H=1, D=64,
+    causal; the median of ``TIMING_REPS`` loops): the wgmma/TMA design
+    (bf16), which encodes its three tensor maps on every call, against
+    the CUDA-core one (float32)."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    out = {}
+    for name, dtype in (("wgmma_tma", torch.bfloat16),
+                        ("cuda_cores", torch.float32)):
+        q = torch.randn(1, 128, 1, 64, device="cuda").to(dtype)
+        for _ in range(5):
+            fa.flash_attention_fwd(q, q, q, True)
+        times = []
+        for _ in range(TIMING_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fa.flash_attention_fwd(q, q, q, True)
+            times.append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+        out[name] = Ms(times)
+    return out
 
 
 def time_flash(q, k, v, do, out, lse, delta, causal, fa, F):
@@ -632,9 +689,10 @@ def time_flash(q, k, v, do, out, lse, delta, causal, fa, F):
                                        is_causal=causal).backward(dot)
     lib_both = cuda_ms(lib_fb, 20)
     b = flash_bounds(q, k, causal)
-    return {kn: dict(ms=t[kn], plain_ms=p[kn],
-                     library_ms=lib_fwd if kn == "fwd" else lib_both,
-                     **b[kn]) for kn in ("fwd", "dq", "dkv")}
+    return {kn: with_rate(dict(
+        ms=t[kn], plain_ms=p[kn],
+        library_ms=lib_fwd if kn == "fwd" else lib_both, **b[kn]))
+        for kn in ("fwd", "dq", "dkv")}
 
 
 # -- fused head + cross entropy -----------------------------------------------
@@ -797,13 +855,18 @@ def check_fused_ce_sharep(h, w, lab, lse, g, dh10, dw11, gtol, ignored,
     import torch
     T, V = h.shape[0], w.shape[0]
     dh, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+    before = fc.dw_sharep_hopper_launches
     dw = fc.fused_ce_bwd_dw_sharep(h, dl)
+    hopper = fc.dw_sharep_hopper_launches > before
+    if hopper != (h.dtype == torch.bfloat16):
+        raise AssertionError(f"dw_sharep (T={T}, {h.dtype}) took the "
+                             f"{'wgmma' if hopper else 'other'} design")
     torch.cuda.synchronize()
     rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)
     rdw = fc.fused_ce_bwd_dw_sharep_ref(h, dl)
     (sdh, sdw), (srdh, srdw) = fce_softmax_parts(
         h, w, lab, g, (dh, dw), (rdh, rdw))
-    rec = {}
+    rec = {"dw_design": "wgmma_tma" if hopper else "wmma_or_cuda_cores"}
     for key, a, b in (("dh", dh, rdh), ("dw", dw, rdw),
                       ("dh_softmax", sdh, srdh), ("dw_softmax", sdw, srdw)):
         err = rel_err(a, b)
@@ -907,8 +970,8 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     del dl
     torch.cuda.empty_cache()
     b = fce_bounds(h, w)
-    out = {kn: dict(ms=t[kn], plain_ms=p[kn], library_ms=lib[kn], **b[kn])
-           for kn in t}
+    out = {kn: with_rate(dict(ms=t[kn], plain_ms=p[kn], library_ms=lib[kn],
+                              **b[kn])) for kn in t}
     out["fwd"]["fwd_one_split_ms"] = one_split
     out["pair"] = {"sharep_ms": t["dh_sharep"] + t["dw_sharep"],
                    "recompute_ms": t["dh"] + t["dw"]}
@@ -1351,6 +1414,9 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
                     "dw": fc.dw_launches,
                     "dh_sharep": fc.dh_sharep_launches,
                     "dw_sharep": fc.dw_sharep_launches}
+    # the launches of the wgmma/TMA designs among those
+    hopper = {"flash_fwd": fa.fwd_hopper_launches,
+              "fused_ce_dw_sharep": fc.dw_sharep_hopper_launches}
     phase = ("train_fused_ce_sharep" if sharep else
              "train_fused_ce" if fused_ce else "train")
     used = ({"fwd", "dh_sharep", "dw_sharep"} if sharep else
@@ -1369,6 +1435,9 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
     for kn, n in fce_launches.items():
         if n != (steps if kn in used else 0):
             raise AssertionError(f"{phase}: fused CE {kn} launches {n}")
+    if hopper != {"flash_fwd": cfg.num_layers * steps,
+                  "fused_ce_dw_sharep": steps if sharep else 0}:
+        raise AssertionError(f"{phase}: wgmma/TMA launches {hopper}")
     step_s = wall / (3 * TRAIN_K)
     tok_s = TRAIN_B * TRAIN_S / step_s
     fpt = model_flops_per_token(cfg.num_layers, cfg.hidden_size,
@@ -1387,7 +1456,7 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "loss_first": curve[0], "loss_last": curve[-1],
            "loss_curve": curve, "flash_launches": launches,
-           "gpu": smi()}
+           "wgmma_tma_launches": hopper, "gpu": smi()}
     if fused_ce:
         fce = sum(fce_launches[kn] * fce_ms[kn] for kn in fce_ms) / steps
         d1 = abs(curve[0] - base["loss_curve"][0])
@@ -1411,7 +1480,9 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
                     f"{against}_peak_mem_bytes": base["peak_mem_bytes"]})
     return rec, model, {**{f"flash_{k}": v for k, v in launches.items()},
                         **{f"fused_ce_{k}": v
-                           for k, v in fce_launches.items()}}, ids
+                           for k, v in fce_launches.items()},
+                        **{f"{k}_wgmma_tma": v for k, v in hopper.items()}}, \
+        ids
 
 
 PARITY_STEPS, PARITY_LR = 3, 6e-4
@@ -1583,6 +1654,7 @@ def run_bert_phase(pack, packed_ms=None, flash_ms=None):
     rec = bench_bert.run(batch=64, pack=pack, reps=1)
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
+    fwd_wgmma = fa.fwd_hopper_launches
     packed = {"fwd": pf.fwd_launches, "dq": pf.dq_launches,
               "dkv": pf.dkv_launches}
     phase = "bert_packed" if pack else "bert"
@@ -1596,11 +1668,15 @@ def run_bert_phase(pack, packed_ms=None, flash_ms=None):
         raise AssertionError(f"{phase}: launches flash {flash}, packed "
                              f"{packed}; want {want} of each kernel of the "
                              "path and none of the other")
+    if fwd_wgmma != flash["fwd"]:   # every bf16 forward on wgmma/TMA
+        raise AssertionError(f"{phase}: {fwd_wgmma} of {flash['fwd']} flash "
+                             "forwards on the wgmma/TMA design")
     ms = packed_ms if pack else flash_ms
     attn = sum(on[kn] * ms[kn] for kn in on) / BERT_STEPS
     return {"phase": phase, **rec, "steps": BERT_STEPS,
             "loss_first": losses[0], "loss_curve": losses,
             "flash_launches": flash, "packed_flash_launches": packed,
+            "flash_fwd_wgmma_tma_launches": fwd_wgmma,
             "attention_ms_per_step": attn,
             "attention_share_of_step": attn / rec["step_ms"]}, packed
 
@@ -1829,6 +1905,7 @@ def main():
     kres = run_kernel_phase()
     qres = run_quant_kernel_phase()
     fres = run_flash_phase()
+    fhost = flash_host_us()
     cres = run_fused_ce_phase()
     pres = run_packed_flash_phase()
     emit(with_spreads({
@@ -1843,6 +1920,7 @@ def main():
         "timing_reps": TIMING_REPS,
         "ragged_paged_attention": kres,
         "ragged_paged_attention_quant": qres, "flash_attention": fres,
+        "flash_attention_fwd_host_us": fhost,
         "fused_ce": cres, "packed_flash": pres, "gpu": gpu}))
     serve, launches = run_serve_phase()
     emit(serve)
@@ -1947,12 +2025,23 @@ def main():
             "ms": ft[kn]["ms"], "plain_ms": ft[kn]["plain_ms"],
             "bound_ms": ft[kn]["bound_ms"], "bound_by": ft[kn]["bound_by"],
             "library_ms": ft[kn]["library_ms"],
+            "tflops": ft[kn]["tflops"],
+            "factor_over_library": ft[kn]["factor_over_library"],
             "shape": "train: B=16 L=1024 H=12 D=64 causal bf16",
+            **({"source_kernel": "flash_attention_fwd_hopper_kernel",
+                "design": "wgmma_tma (bf16, D 64/128; float32 and other D "
+                          "on flash_attention_fwd_kernel)",
+                "launches_wgmma_tma": flaunch["flash_fwd_wgmma_tma"],
+                "host_us_per_call": fhost,
+                "design_by_case": {n: {dt: r["fwd_design"]
+                                       for dt, r in case.items()}
+                                   for n, case in fres.items()}}
+               if kn == "fwd" else {}),
             "at_L4096": {  # rows 4, 7, 8: the streamed bodies' shape
                 "shape": "B=1 L=4096 H=12 D=64 causal bf16",
                 **{key: lt[kn][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}})
+                    "library_ms", "tflops", "factor_over_library")}}})
     outputs = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw",)}
     for kn, line in (("fwd", 62), ("dh", 101), ("dw", 129)):
         kernels.append({
@@ -1982,7 +2071,18 @@ def main():
             "ms": ct[kn]["ms"], "plain_ms": ct[kn]["plain_ms"],
             "bound_ms": ct[kn]["bound_ms"], "bound_by": ct[kn]["bound_by"],
             "library_ms": ct[kn]["library_ms"], "library": lib,
-            "shape": "train: T=16384 d=768 V=50304 bf16, dl bf16"})
+            "tflops": ct[kn]["tflops"],
+            "factor_over_library": ct[kn]["factor_over_library"],
+            "shape": "train: T=16384 d=768 V=50304 bf16, dl bf16",
+            **({"source_kernel": "fused_ce_dw_sharep_hopper_kernel",
+                "design": "wgmma_tma (bf16, d % 8 == 0; float32 and other "
+                          "d on fused_ce_dw_sharep_kernel)",
+                "launches_wgmma_tma":
+                    slaunch["fused_ce_dw_sharep_wgmma_tma"],
+                "design_by_case": {n: {dt: r["sharep"]["dw_design"]
+                                       for dt, r in case.items()}
+                                   for n, case in cres.items()}}
+               if kn == "dw_sharep" else {})})
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     for kn, line in (("fwd", 55), ("dq", 96), ("dkv", 132)):
         kernels.append({

@@ -9,6 +9,8 @@ flags, so an edited source or header is rebuilt and an unchanged one is
 reused. Nothing is built when a module is imported: the first launch
 builds, or a caller (``chip_smoke.py``) builds every source at once with
 :func:`build_all`, one ``nvcc`` per source, all started together.
+``defines`` (``-D`` flags, for a source's test hooks) build a variant
+beside the plain library, under its own name.
 """
 from __future__ import annotations
 
@@ -49,33 +51,38 @@ def find_nvcc():
                        "the CUDA kernels cannot be built")
 
 
-def _target(name):
+def _key(name, defines):
+    return " ".join((name, *defines))
+
+
+def _target(name, defines=()):
     """The source and its library path, keyed by the source, the shared
-    headers (``csrc/*.cuh``) and the flags."""
+    headers (``csrc/*.cuh``), the flags and the defines."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES):
+def build_all(names=SOURCES, defines=()):
     """Compile every named source that is not built yet, one ``nvcc``
-    process each, all running at once. Returns ``build_log``; raises
-    with the compiler's output if any build fails."""
+    process each, all running at once. Returns ``build_log`` (keyed by
+    the name, followed by the defines if any); raises with the
+    compiler's output if any build fails."""
     nvcc = None
     procs = {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for name in names:
-        src, out = _target(name)
+        src, out = _target(name, defines)
         if out.exists():
-            build_log.setdefault(name, {"seconds": 0.0, "ptxas": "",
+            build_log.setdefault(_key(name, defines), {"seconds": 0.0, "ptxas": "",
                                         "path": str(out)})
             continue
         nvcc = nvcc or find_nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, out, time.perf_counter())
@@ -86,20 +93,21 @@ def build_all(names=SOURCES):
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{err}")
             continue
         os.replace(tmp, out)
-        build_log[name] = {"seconds": time.perf_counter() - t0,
+        build_log[_key(name, defines)] = {"seconds": time.perf_counter() - t0,
                            "ptxas": err, "path": str(out)}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return build_log
 
 
-def load(name):
-    """The ``ctypes`` handle of kernel library ``name``, built on first
-    use."""
+def load(name, defines=()):
+    """The ``ctypes`` handle of kernel library ``name`` (built with
+    ``defines``), built on first use."""
+    key = _key(name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build_all((name,))
-            lib = ctypes.CDLL(build_log[name]["path"])
-            _libs[name] = lib
+            build_all((name,), tuple(defines))
+            lib = ctypes.CDLL(build_log[key]["path"])
+            _libs[key] = lib
         return lib

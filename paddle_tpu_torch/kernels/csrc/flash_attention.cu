@@ -28,19 +28,54 @@
 // shape (B=16, H=12, L=1024, D=64, causal, bf16) the attention products
 // are ~26 GFLOP forward and ~39 / ~52 GFLOP for dq and dk/dv against
 // ~100-150 MB of tensors: far above the ~295 operations per byte at
-// which the tensor cores become the limit, so the bound is operations.
-// This first design does not reach the tensor cores: it runs the
-// products on the CUDA cores in float32, with each thread holding a 4x4
-// register tile of the 64x64 score tile and shared-memory tiles padded
-// to an odd row stride, so the inner loops read shared memory without
-// bank conflicts. What it does about the bound: it never forms the
-// [L, L] scores in device memory, skips every tile wholly above the
-// causal diagonal, and issues the heavy (late) causal q tiles first.
-// wgmma and TMA are later work.
+// which the tensor cores become the limit, so the bound is operations
+// (the forward's 0.026 ms of products sit just under its 0.030 ms of
+// bytes at this shape; either way only the tensor cores come near it).
+//
+// The forward has two designs, chosen in kernels/flash_attention.py by
+// dtype, head size and alignment alone (hopper_fwd):
+// - flash_attention_fwd_hopper_kernel, bf16 at D = 64 or 128 (every GPT-2
+//   and BERT shape): the products on the tensor cores by wgmma, the tiles
+//   in by TMA. One CTA per (b*h, 128-row q tile), heavy causal tiles
+//   first: two consumer warpgroups of 64 q rows and one producer warp
+//   that loads Q once and keeps a 3-stage ring of 64-key K and V tiles in
+//   flight through 4-D tensor maps over [B, L, H, D] (a box past L
+//   zero-fills inside its own batch), each a stack of 64-column boxes
+//   under 128-byte swizzle. Under causality the lower warpgroup reads
+//   fewer key tiles than the upper, so each warpgroup releases the
+//   stages it read on empty barriers of its own, and the producer reuses
+//   a stage once every warpgroup that reads its tile has released it
+//   (the build flag FLASH_FWD_STALL_WG=w makes warpgroup w lag, for the
+//   card test of that). S = Q K^T by wgmma from shared memory (both
+//   K-major); the online softmax in float32 on the accumulator fragments
+//   (a row lives in one quad: two shuffles), base 2 with scale * log2(e)
+//   applied to the float32 scores, masks only on tiles that cross Lk, the
+//   diagonal or dead rows, tiles wholly above a warpgroup's diagonal
+//   skipped; O += P V with P as wgmma's register operand (the bf16 pairs
+//   of the accumulator fragment are the A fragment of a k16 slice, so P
+//   never touches shared memory) and V MN-major. Tile j's S is issued
+//   with tile j-1's P V, and its softmax runs while that product does.
+//   The epilogue writes O / l in bf16 over the warpgroup's own Q rows
+//   (swizzled, no bank conflicts) and stores 16-byte rows. Its one
+//   rounding that the plain version lacks is P in bf16 before P V.
+//   At D = 64 two CTAs share an SM (65 KB of shared memory each, and
+//   registers capped at 112 a thread, a few of them spilled), so one
+//   CTA's softmax and loads hide behind the other's products. 128-key
+//   tiles with one CTA an SM, three consumer warpgroups and 2-5 stages
+//   were tried; PERF.md (Findings) says what that did and did not show.
+// - flash_attention_fwd_kernel, the rest: float32 (the parity runs hold
+//   it to 1e-4, which TF32 tensor cores would break) and other head
+//   sizes. It and the backward kernels run the products on the CUDA
+//   cores in float32, each thread holding a 4x4 register tile of the
+//   64x64 score tile, shared-memory tiles padded to an odd row stride (no
+//   bank conflicts); they never form the [L, L] scores in device memory,
+//   skip every tile wholly above the causal diagonal and issue the heavy
+//   causal tiles first. The backward on wgmma is later work.
 //
 // The backward uses no atomics (dq and dk/dv are separate kernels, as in
 // the Pallas split), so two runs give bit-identical gradients.
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -404,6 +439,268 @@ flash_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward on wgmma and TMA (bf16, D = 64 or 128): one CTA per (b*h, 128-row
+// q tile); two consumer warpgroups of 64 q rows each and one producer warp
+// ---------------------------------------------------------------------------
+template <int D>
+struct HopperFwd {
+  static constexpr int BM = 128;                 // q rows a CTA
+  static constexpr int BN = 64;                  // keys a stage
+  // at D = 64 registers and shared memory leave room for two CTAs an SM
+  static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;
+  static constexpr int STAGES = 3;
+  static constexpr int BOXES = D / 64;           // 64-column boxes of a row
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;    // one K (or V) tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // q_full, k_full[S], v_full[S], empty[2][S]; 1024 bytes of alignment slack
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
+  static constexpr int THREADS = 2 * 128 + 32;
+};
+
+// S = Q K^T of one key tile (both K-major), issued, not waited for: Q's
+// 64 rows at sq, the tile's BN keys at sk, D / 64 boxes of 64 columns each
+template <int D, int BM, int BN>
+__device__ __forceinline__ void fwd_issue_qk(float (&sc)[BN / 2], uint32_t sq, uint32_t sk) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t ko = (kk % 4) * 32;  // 16 columns in a box
+    wgmma_ss<0, 0>(sc, sw128_desc(sq + (kk / 4) * BM * 128 + ko, 16, 1024),
+                   sw128_desc(sk + (kk / 4) * BN * 128 + ko, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one key tile (V MN-major at sv, P from registers), issued
+template <int D, int BN>
+__device__ __forceinline__ void fwd_issue_pv(float (&o)[D / 2], const uint32_t (&pa)[BN / 16][4],
+                                             uint32_t sv) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<1>(o, pa[kk], sw128_desc(sv + kk * 16 * 128, BN * 128, 1024), 1);
+  wgmma_commit();
+}
+
+// The online softmax of one key tile's scores (this thread's rows ra and
+// ra + 8, columns from k0): sc becomes P (f32), alpha the rescale of what
+// O holds, l and m updated. Masks only where the tile crosses Lk, the
+// diagonal or dead rows (rows [qw, qw + 64) are the warpgroup's).
+template <int BN>
+__device__ __forceinline__ void fwd_softmax(float (&sc)[BN / 2], float (&m)[2], float (&l)[2],
+                                            float (&alpha)[2], const Shape& sh, int ra, int k0,
+                                            int lane, float scale_log2, bool dead_rows, int qw) {
+  const bool mask =
+      dead_rows || k0 + BN > sh.Lk || (sh.causal && k0 + BN - 1 > qw + sh.off());
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int e = i & 3;
+    float x = sc[i] * scale_log2;
+    if (mask) {
+      const int row = ra + 8 * (e >> 1);
+      const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (e & 1);
+      const int md = sh.mode(row, col);
+      x = md == kLive ? x : (md == kDead ? 0.f : -INFINITY);
+    }
+    sc[i] = x;
+    mx[e >> 1] = fmaxf(mx[e >> 1], x);
+  }
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    mu[r] = mn == -INFINITY ? 0.f : mn;
+    alpha[r] = ex2(m[r] - mu[r]);
+    m[r] = mn;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int r = (i & 3) >> 1;
+    sc[i] = ex2(sc[i] - mu[r]);
+    l[r] += sc[i];
+  }
+}
+
+// The key tiles that q rows [qw, qw + 64) read, of the CTA's nkt: the
+// rest lie wholly above their diagonal. Dead rows see every column.
+template <int BN>
+__device__ __forceinline__ int fwd_row_tiles(const Shape& sh, int qw, int nkt) {
+  const bool dead_rows = sh.causal && qw + sh.off() < 0;
+  return sh.causal && !dead_rows ? min(nkt, (qw + 63 + sh.off()) / BN + 1) : nkt;
+}
+
+template <int BN>
+__device__ __forceinline__ void fwd_to_pa(uint32_t (&pa)[BN / 16][4], const float (&sc)[BN / 2]) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) pa[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(HopperFwd<D>::THREADS, HopperFwd<D>::MIN_BLOCKS)
+flash_attention_fwd_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                                  const __grid_constant__ CUtensorMap kmap,
+                                  const __grid_constant__ CUtensorMap vmap,
+                                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                  Shape sh, float scale_log2) {
+  using C = HopperFwd<D>;
+  constexpr int S = C::STAGES, BM = C::BM, BN = C::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled boxes start on 1024 bytes
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t q_full = base + C::BAR_OFF;
+  auto k_full = [=](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [=](int s) { return q_full + 8 * (1 + S + s); };
+  // empty(w, s): warpgroup w is done with stage s. Each warpgroup has its
+  // own, since the two read different numbers of tiles under causality.
+  auto empty = [=](int w, int s) { return q_full + 8 * (1 + (2 + w) * S + s); };
+
+  const int bh = blockIdx.x;
+  const int b = bh / sh.H, h = bh - b * sh.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heavy tiles first
+  const int off = sh.off();
+  // key tiles that can hold a live column for rows [q0, q0 + BM); with dead
+  // rows in the tile every column counts
+  int hi = sh.Lk;
+  if (sh.causal && q0 + off >= 0) hi = min(sh.Lk, q0 + BM + off);
+  const int nkt = (hi + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(0, s), 128);  // every thread of the warpgroup releases
+      mbar_init(empty(1, s), 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < C::BOXES; ++c)
+        tma_load_4d(base + c * BM * 128, &qmap, q_full, c * 64, h, q0, b);
+      const int nw0 = fwd_row_tiles<BN>(sh, q0, nkt), nw1 = fwd_row_tiles<BN>(sh, q0 + 64, nkt);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % S, round = kt / S;
+        if (round > 0) {  // tile kt - S leaves the stage once each reader of it is done
+          if (kt - S < nw0) mbar_wait(empty(0, s), (round - 1) & 1);
+          if (kt - S < nw1) mbar_wait(empty(1, s), (round - 1) & 1);
+        }
+        const uint32_t sk = base + C::K_OFF + s * C::KV_BYTES;
+        const uint32_t sv = base + C::V_OFF + s * C::KV_BYTES;
+        mbar_expect_tx(k_full(s), C::KV_BYTES);
+        for (int c = 0; c < C::BOXES; ++c)
+          tma_load_4d(sk + c * BN * 128, &kmap, k_full(s), c * 64, h, kt * BN, b);
+        mbar_expect_tx(v_full(s), C::KV_BYTES);
+        for (int c = 0; c < C::BOXES; ++c)
+          tma_load_4d(sv + c * BN * 128, &vmap, v_full(s), c * 64, h, kt * BN, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows [qw, qw + 64); this thread rows
+  // ra and ra + 8. It reads key tiles [0, nw) and releases each of them,
+  // and only them, on its own empty barriers.
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int qw = q0 + 64 * wg;
+  const int ra = qw + 16 * (t / 32) + lane / 4;
+  const uint32_t sq = base + wg * 64 * 128;
+  const bool dead_rows = sh.causal && qw + off < 0;
+  const int nw = fwd_row_tiles<BN>(sh, qw, nkt);
+  float o[D / 2], sc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pa[BN / 16][4];  // P in bf16: the A fragments of its k16 slices
+  const uint32_t sk0 = base + C::K_OFF, sv0 = base + C::V_OFF;
+
+  // Tile kt's scores are computed while tile kt - 1's P V runs, and its
+  // softmax overlaps that product; O is rescaled once the product is done
+  mbar_wait(q_full, 0);
+  mbar_wait(k_full(0), 0);
+  fwd_issue_qk<D, BM, BN>(sc, sq, sk0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fwd_softmax<BN>(sc, m, l, alpha, sh, ra, 0, lane, scale_log2, dead_rows, qw);
+  fwd_to_pa<BN>(pa, sc);
+  for (int kt = 1; kt < nw; ++kt) {
+    const int s = kt % S, sp = (kt - 1) % S;
+#ifdef FLASH_FWD_STALL_WG
+    // test hook: this warpgroup lags the other by a while on every tile
+    if (wg == FLASH_FWD_STALL_WG) __nanosleep(2000);
+#endif
+    mbar_wait(k_full(s), (kt / S) & 1);
+    fwd_issue_qk<D, BM, BN>(sc, sq, sk0 + s * C::KV_BYTES);
+    mbar_wait(v_full(sp), ((kt - 1) / S) & 1);
+    fwd_issue_pv<D, BN>(o, pa, sv0 + sp * C::KV_BYTES);
+    wgmma_wait<1>();  // S of tile kt is done; P V of kt - 1 may run on
+    fence_regs(sc);
+    fwd_softmax<BN>(sc, m, l, alpha, sh, ra, kt * BN, lane, scale_log2, dead_rows, qw);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);  // the product has read P: pa may be rewritten
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i & 3) >> 1];
+    fwd_to_pa<BN>(pa, sc);
+    mbar_arrive(empty(wg, sp));
+  }
+  const int sl = (nw - 1) % S;
+  mbar_wait(v_full(sl), ((nw - 1) / S) & 1);
+  fwd_issue_pv<D, BN>(o, pa, sv0 + sl * C::KV_BYTES);
+  wgmma_wait<0>();
+  fence_regs(o);
+  mbar_arrive(empty(wg, sl));
+
+  // epilogue: O / l in bf16 into this warpgroup's own q rows (swizzled as
+  // TMA wrote q, so the writes meet no bank conflicts), then 16-byte rows out
+  float inv[2], lsafe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lsafe[r] = l[r] == 0.f ? 1.f : l[r];  // the reference's (:88)
+    inv[r] = 1.f / lsafe[r];
+  }
+  unsigned char* so = gbase + wg * 64 * 128;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = (i & 3) >> 1;
+    const int rl = 16 * (t / 32) + lane / 4 + 8 * r, col = 8 * (i >> 2) + 2 * (lane & 3);
+    const int box = col / 64, chunk = (col % 64) / 8;
+    *reinterpret_cast<uint32_t*>(so + box * BM * 128 + rl * 128 + ((chunk ^ (rl % 8)) * 16) +
+                                 (col % 8) * 2) = pack_bf16(o[i] * inv[r], o[i + 1] * inv[r]);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + 8 * r;
+      if (row < sh.Lq)
+        lse[(size_t)bh * sh.Lq + row] = (m[r] + log2f(lsafe[r])) * 0.69314718055994531f;
+    }
+  }
+  named_sync(1 + wg, 128);
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  for (int idx = t; idx < 64 * CPR; idx += 128) {
+    const int rl = idx / CPR, c = idx % CPR, row = qw + rl;
+    if (row >= sh.Lq) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(so + (c / 8) * BM * 128 + rl * 128 +
+                                                    (((c % 8) ^ (rl % 8)) * 16));
+    *reinterpret_cast<uint4*>(out + row_base(b, row, h, sh.Lq, sh.H, D) + c * 8) = v;
+  }
+}
+
 template <typename T, int DMAX>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int B, Shape sh, cudaStream_t st) {
@@ -449,6 +746,31 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// the wgmma/TMA forward: one 4-D tensor map (D, H, L, B) per input, so a
+// box past L zero-fills inside its own batch
+template <int D>
+int fwd_hopper(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+               Shape sh, cudaStream_t st) {
+  using C = HopperFwd<D>;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t L = i == 0 ? sh.Lq : sh.Lk, H = sh.H;
+    const uint64_t dims[4] = {(uint64_t)D, H, L, (uint64_t)B};
+    const uint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * L};
+    const uint32_t box[4] = {64, 1, (uint32_t)(i == 0 ? C::BM : C::BN), 1};
+    const int e = encode_bf16_map(&maps[i], src[i], 4, dims, strides, box);
+    if (e) return e;
+  }
+  auto kern = flash_attention_fwd_hopper_kernel<D>;
+  cudaError_t e = allow_smem(kern, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(B * sh.H, (sh.Lq + C::BM - 1) / C::BM), C::THREADS, C::SMEM, st>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh,
+      sh.scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 Shape make_shape(int H, int Lq, int Lk, int D, float scale, int causal) {
   Shape sh;
   sh.H = H;
@@ -471,6 +793,23 @@ extern "C" int flash_attention_forward(int dtype, const void* q, const void* k,
 #define FA_FWD(T, DM) fwd<T, DM>(q, k, v, out, lse, B, sh, st)
   FLASH_TILES_DISPATCH(FA_FWD);
 #undef FA_FWD
+}
+
+// The wgmma/TMA forward: as flash_attention_forward, for bfloat16 (dtype 1)
+// at D = 64 or 128 with 16-byte aligned q, k, v and out; anything else
+// returns cudaErrorInvalidValue (the caller routes it to the entry above).
+extern "C" int flash_attention_forward_hopper(int dtype, const void* q, const void* k,
+                                              const void* v, void* out, void* lse, int B,
+                                              int H, int Lq, int Lk, int D, float scale,
+                                              int causal, void* stream) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (dtype != 1 || (D != 64 && D != 128) || any % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Shape sh = make_shape(H, Lq, Lk, D, scale, causal);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return fwd_hopper<64>(q, k, v, out, lse, B, sh, st);
+  return fwd_hopper<128>(q, k, v, out, lse, B, sh, st);
 }
 
 extern "C" int flash_attention_backward_dq(int dtype, const void* q,

@@ -55,18 +55,38 @@
 // shared memory (the same tile that feeds its dh product, so in bf16 dh is
 // the recomputing kernel's bit for bit; in float32 a bf16 rounding of the
 // float tile) with 16-byte stores into rows of V rounded up to 8 columns,
-// the columns past V as zeros. dw_sharep then halves dw's operations (one
-// product a tile); the dl buffer (1.65 GB at the training shape) is
-// written once and read once, ~0.5 ms each at 3.35 TB/s, against dw's
-// 1.28 ms of products at the bf16 peak: still bound by operations. Its tiles stream
-// (dl, h) pairs through the same cp.async ring, float32 widening dl in
-// shared memory; one block owns each dw tile, so no atomics here either.
-// What holds this design ~10x above its bound: one block of 8 warps per SM
-// (its shared memory and register accumulators leave room for no second)
-// runs the phases of a tile (load, logits product, dl, second product) one
-// after another between barriers, so their latencies add up, and the
-// 32-row tiles stream all of w (or h) through L2 for every block. Overlapped
-// phases (warp specialisation), wgmma/TMA and larger tiles are later work.
+// the columns past V as zeros. dw_sharep is then one plain product, dw =
+// dl^T @ h: 1.27 TFLOP at the training shape (1.28 ms at the bf16 peak)
+// against a 1.65 GB dl read once (0.49 ms at 3.35 TB/s): bound by
+// operations, if dl is read from memory about once.
+// Two designs, chosen in kernels/fused_ce.py by dtype and d alone
+// (hopper_dw_sharep):
+// - fused_ce_dw_sharep_hopper_kernel, bf16 h with d a multiple of 8: a
+//   GEMM with M = V, N = d, K = T on wgmma and TMA. One CTA per 128 x 256
+//   tile of dw (d = 768: three column tiles); two consumer warpgroups each
+//   hold a 64 x 256 float32 accumulator in registers (m64n256k16, both
+//   operands MN-major: dl^T from dl's [token, vocab] rows, h as it lies);
+//   one producer warp keeps a 4-stage TMA ring of (dl [64 tokens x 128
+//   vocab], h [64 tokens x 256]) tiles, 48 KB a stage; a stage is
+//   released once the next tile's products are issued and its own are
+//   done. The three column tiles of a vocab block are neighbours in
+//   launch order, so they run together and can share its dl tiles
+//   through L2; h (25 MB) fits in L2. Edges (V, T, d) zero-fill by TMA;
+//   rows >= V and columns >= d are never stored. No split over T: each
+//   dw element is summed by one CTA in a fixed order, so two launches are
+//   bit-identical; and equal to the recomputing dw kernel's in bf16, whose
+//   tensor cores sum the same k16 slices of the same bf16 dl in the same
+//   token order (chip_smoke.py reports dw_bit_identical_to_row11).
+// - fused_ce_dw_sharep_kernel, float32 and d % 8 != 0: the first design,
+//   (h, dl) tile pairs through the three-stage cp.async ring, float32
+//   widening dl in shared memory; one block owns each 32-row dw tile.
+// What holds the recomputing kernels ~10x above their bound: one block of
+// 8 warps per SM (its shared memory and register accumulators leave room
+// for no second) runs the phases of a tile (load, logits product, dl,
+// second product) one after another between barriers, so their latencies
+// add up, and the 32-row tiles stream all of w (or h) through L2 for
+// every block. Overlapped phases (warp specialisation), wgmma/TMA and
+// larger tiles are later work for them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,6 +94,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -796,6 +818,97 @@ fused_ce_dw_sharep_kernel(const T* __restrict__ h, const bf16* __restrict__ dl,
 }
 
 // ---------------------------------------------------------------------------
+// dw_sharep on wgmma and TMA (bf16 h, d % 8 == 0): dw = dl^T @ h as a GEMM
+// with M = V, N = d, K = T. One CTA per 128 x 256 tile of dw; two consumer
+// warpgroups (64 vocab rows each, a 64 x 256 f32 accumulator in registers)
+// and one producer warp that keeps a ring of (dl, h) token tiles in flight
+// ---------------------------------------------------------------------------
+struct DwHopper {
+  static constexpr int BM = 128, BN = 256, BK = 64;  // vocab rows, columns of d, tokens
+  static constexpr int STAGES = 4;
+  static constexpr int A_BYTES = BK * BM * 2;        // dl: two [BK][64] boxes
+  static constexpr int B_BYTES = BK * BN * 2;        // h: four [BK][64] boxes
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * 2 * STAGES + 1024;  // + alignment slack
+  static constexpr int THREADS = 2 * 128 + 32;
+};
+
+__global__ void __launch_bounds__(DwHopper::THREADS, 1)
+fused_ce_dw_sharep_hopper_kernel(const __grid_constant__ CUtensorMap dlmap,
+                                 const __grid_constant__ CUtensorMap hmap, bf16* __restrict__ dw,
+                                 int T_, int V, int d, int col_tiles) {
+  using C = DwHopper;
+  constexpr int S = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled boxes start on 1024 bytes
+  auto full = [=](int s) { return base + C::BAR_OFF + 8 * s; };
+  auto empty = [=](int s) { return base + C::BAR_OFF + 8 * (S + s); };
+  // the column tiles of one vocab block are neighbours in the launch order,
+  // so they run together and read its dl tiles from L2 rather than memory
+  const int vb = blockIdx.x / col_tiles, ct = blockIdx.x - vb * col_tiles;
+  const int v0 = vb * C::BM, c0 = ct * C::BN;
+  const int nk = (T_ + C::BK - 1) / C::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);  // every consumer thread releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == 2 * 128) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S, round = kt / S;
+        if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+        const uint32_t st = base + s * C::STAGE_BYTES;
+        mbar_expect_tx(full(s), C::STAGE_BYTES);
+        for (int a = 0; a < C::BM / 64; ++a)
+          tma_load_2d(st + a * C::BK * 128, &dlmap, full(s), v0 + 64 * a, kt * C::BK);
+        for (int c = 0; c < C::BN / 64; ++c)
+          tma_load_2d(st + C::A_BYTES + c * C::BK * 128, &hmap, full(s), c0 + 64 * c,
+                      kt * C::BK);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  float acc[C::BN / 2];
+#pragma unroll
+  for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S;
+    const uint32_t st = base + s * C::STAGE_BYTES;
+    mbar_wait(full(s), (kt / S) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk)  // both operands MN-major
+      wgmma_ss<1, 1>(acc, sw128_desc(st + wg * C::BK * 128 + kk * 2048, C::BK * 128, 1024),
+                     sw128_desc(st + C::A_BYTES + kk * 2048, C::BK * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's products are done: release its stage
+    fence_regs(acc);
+    if (kt > 0) mbar_arrive(empty((kt - 1) % S));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int r0 = v0 + 64 * wg + 16 * (t / 32) + lane / 4;
+#pragma unroll
+  for (int i = 0; i < C::BN / 2; i += 2) {
+    const int row = r0 + 8 * ((i & 3) >> 1), col = c0 + 8 * (i >> 2) + 2 * (lane & 3);
+    if (row < V && col < d)
+      *reinterpret_cast<uint32_t*>(dw + (size_t)row * d + col) = pack_bf16(acc[i], acc[i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <typename Kern>
@@ -896,6 +1009,27 @@ int bwd_dw_sharep(const void* h, const void* dl, void* dw, int ldd, int T_, int 
   return (int)cudaGetLastError();
 }
 
+// dw_sharep on wgmma/TMA: tensor maps over dl [T, V] (rows ldd apart; no
+// column >= V is read) and h [T, d]; boxes past T, V or d load as zeros
+int bwd_dw_sharep_hopper(const void* h, const void* dl, void* dw, int ldd, int T_, int V, int d,
+                         cudaStream_t st) {
+  using C = DwHopper;
+  CUtensorMap dlmap, hmap;
+  const uint64_t dl_dims[2] = {(uint64_t)V, (uint64_t)T_}, dl_stride[1] = {2ull * ldd};
+  const uint64_t h_dims[2] = {(uint64_t)d, (uint64_t)T_}, h_stride[1] = {2ull * d};
+  const uint32_t box[2] = {64, C::BK};
+  int e = encode_bf16_map(&dlmap, dl, 2, dl_dims, dl_stride, box);
+  if (!e) e = encode_bf16_map(&hmap, h, 2, h_dims, h_stride, box);
+  if (e) return e;
+  auto kern = fused_ce_dw_sharep_hopper_kernel;
+  cudaError_t ce = prepare(kern, C::SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  const int col_tiles = (d + C::BN - 1) / C::BN, vocab_blocks = (V + C::BM - 1) / C::BM;
+  kern<<<vocab_blocks * col_tiles, C::THREADS, C::SMEM, st>>>(
+      dlmap, hmap, static_cast<bf16*>(dw), T_, V, d, col_tiles);
+  return (int)cudaGetLastError();
+}
+
 // a dl buffer the kernels take: bf16 rows of ldd >= V elements, ldd a
 // multiple of 8 (so at least V rounded up to 8), the base 16-byte aligned
 bool dl_ok(const void* dl, int ldd, int V) {
@@ -972,4 +1106,17 @@ extern "C" int fused_ce_backward_dw_sharep(int dtype, const void* h, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dw_sharep<float>(h, dl, dw, ldd, T_, V, d, st);
   return bwd_dw_sharep<bf16>(h, dl, dw, ldd, T_, V, d, st);
+}
+
+// dw_sharep on wgmma/TMA: as fused_ce_backward_dw_sharep, for bfloat16 h
+// (dtype 1) with d a multiple of 8 and h 16-byte aligned; anything else
+// returns cudaErrorInvalidValue (the caller routes it to the entry above).
+extern "C" int fused_ce_backward_dw_sharep_hopper(int dtype, const void* h, const void* dl,
+                                                  void* dw, int ldd, int T_, int V, int d,
+                                                  void* stream) {
+  FCE_CHECK();
+  if (dtype != 1 || d % 8 != 0 || reinterpret_cast<uintptr_t>(h) % 16 != 0 ||
+      !dl_ok(dl, ldd, V))
+    return (int)cudaErrorInvalidValue;
+  return bwd_dw_sharep_hopper(h, dl, dw, ldd, T_, V, d, static_cast<cudaStream_t>(stream));
 }

@@ -35,6 +35,13 @@ Pieces:
   ``csrc/flash_attention.cu`` or raises (no fallback). Each kernel has
   its launch counter (``fwd_launches``, ``dq_launches``,
   ``dkv_launches``; :func:`reset_launches`);
+- two designs of the forward kernel: the wgmma/TMA one for bfloat16 at
+  ``D`` = 64 or 128 with 16-byte aligned tensors (every GPT-2 and BERT
+  shape), and the CUDA-core one for the rest (float32, whose 1e-4 parity
+  TF32 tensor cores would break, and other head sizes).
+  :func:`hopper_fwd` is the one predicate that picks, by dtype, shape and
+  alignment alone; ``fwd_launches`` counts both and
+  ``fwd_hopper_launches`` the wgmma/TMA one;
 - :func:`flash_attention`, the differentiable entry, through the
   ``torch.autograd.Function`` :class:`FlashAttention`;
 - :func:`use_plain`, a context manager that makes the wrappers take the
@@ -53,9 +60,10 @@ __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_fwd_ref", "flash_attention_bwd_dq_ref",
            "flash_attention_bwd_dkv_ref", "flash_attention_bwd_ref",
-           "attention_delta", "use_plain", "reset_launches"]
+           "attention_delta", "use_plain", "reset_launches", "hopper_fwd"]
 
 fwd_launches = 0      # kernel launches since the last reset_launches()
+fwd_hopper_launches = 0   # of those, the wgmma/TMA forward's
 dq_launches = 0
 dkv_launches = 0
 
@@ -68,19 +76,28 @@ _plain = False        # set only inside use_plain()
 # 32-bit int and cut the address; the ints are B, H, Lq, Lk, D
 _DIMS = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # flash_attention_forward(dtype, q, k, v, out, lse, B, H, Lq, Lk, D,
-#   scale, causal, stream)
+#   scale, causal, stream), and flash_attention_forward_hopper alike
 FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + _DIMS
 # flash_attention_backward_dq(dtype, q, k, v, dout, lse, delta, dq, ...)
 DQ_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + _DIMS
 # flash_attention_backward_dkv(dtype, q, k, v, dout, lse, delta, dk, dv,
 #   ...)
 DKV_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + _DIMS
+_HOPPER_D = (64, 128)  # the wgmma forward's 64-column, 128-byte boxes
 _fns = {}
 
 
 def reset_launches():
-    global fwd_launches, dq_launches, dkv_launches
-    fwd_launches = dq_launches = dkv_launches = 0
+    global fwd_launches, fwd_hopper_launches, dq_launches, dkv_launches
+    fwd_launches = fwd_hopper_launches = dq_launches = dkv_launches = 0
+
+
+def hopper_fwd(q, k, v):
+    """True when the forward of these tensors takes the wgmma/TMA kernel:
+    bfloat16, head size 64 or 128, and q, k, v 16-byte aligned (so is the
+    output, a fresh tensor). Everything else takes the CUDA-core kernel."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in _HOPPER_D
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 @contextlib.contextmanager
@@ -241,20 +258,23 @@ def _raise_if(rc, what):
 
 
 def _launch_fwd(q, k, v, causal, scale):
-    global fwd_launches
+    global fwd_launches, fwd_hopper_launches
     _check(q, k, v)
     B, Lq, H, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B * H, Lq, dtype=torch.float32, device=q.device)
     if out.numel() == 0 or k.shape[1] == 0:
         return out.zero_(), lse.fill_(-math.inf)
-    fn = _kernel_fn("flash_attention_forward", FWD_ARGTYPES)
+    hopper = hopper_fwd(q, k, v)
+    fn = _kernel_fn("flash_attention_forward_hopper" if hopper
+                    else "flash_attention_forward", FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 *_dims(q, k, scale, causal))
-    _raise_if(rc, "forward")
+    _raise_if(rc, "wgmma forward" if hopper else "forward")
     fwd_launches += 1
+    fwd_hopper_launches += hopper
     return out, lse
 
 

@@ -34,6 +34,12 @@ Pieces:
   raises (no fallback). Each kernel has its launch counter
   (``fwd_launches``, ``dh_launches``, ``dw_launches``,
   ``dh_sharep_launches``, ``dw_sharep_launches``; :func:`reset_launches`);
+- two designs of the dw_sharep kernel: the wgmma/TMA GEMM for bfloat16 h
+  with ``d`` a multiple of 8 and h 16-byte aligned, and the ``wmma`` /
+  CUDA-core one for the rest (float32 and other widths).
+  :func:`hopper_dw_sharep` is the one predicate that picks;
+  ``dw_sharep_launches`` counts both and ``dw_sharep_hopper_launches`` the
+  wgmma/TMA one;
 - :class:`FusedSoftmaxCE`, the ``torch.autograd.Function`` with the
   reference's ``custom_vjp`` contract (``:361-380``): the forward saves
   ``(h, w, labels, lse)``; the backward returns ``dh`` and ``dw`` and no
@@ -65,13 +71,14 @@ __all__ = ["fused_softmax_ce", "FusedSoftmaxCE", "fused_ce_fwd",
            "fused_ce_bwd_dw_sharep", "fused_ce_fwd_ref",
            "fused_ce_bwd_dh_ref", "fused_ce_bwd_dw_ref",
            "fused_ce_bwd_dh_sharep_ref", "fused_ce_bwd_dw_sharep_ref",
-           "use_plain", "reset_launches"]
+           "use_plain", "reset_launches", "hopper_dw_sharep"]
 
 fwd_launches = 0      # kernel launches since the last reset_launches()
 dh_launches = 0
 dw_launches = 0
 dh_sharep_launches = 0
 dw_sharep_launches = 0
+dw_sharep_hopper_launches = 0   # of those, the wgmma/TMA kernel's
 
 # The reference's module flag (fused_ce_pallas.py:264): share the dl tiles
 # between the two backward kernels. No entry point sets it; a caller sets
@@ -96,7 +103,8 @@ BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
 #   V, d, stream)
 DH_SHAREP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# fused_ce_backward_dw_sharep(dtype, h, dl, dw, ldd, T, V, d, stream)
+# fused_ce_backward_dw_sharep(dtype, h, dl, dw, ldd, T, V, d, stream), and
+# fused_ce_backward_dw_sharep_hopper with the same arguments
 DW_SHAREP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # fused_ce_forward_splits(dtype, T, V, device) -> the forward's split count
@@ -106,9 +114,18 @@ _fns = {}
 
 def reset_launches():
     global fwd_launches, dh_launches, dw_launches
-    global dh_sharep_launches, dw_sharep_launches
+    global dh_sharep_launches, dw_sharep_launches, dw_sharep_hopper_launches
     fwd_launches = dh_launches = dw_launches = 0
-    dh_sharep_launches = dw_sharep_launches = 0
+    dh_sharep_launches = dw_sharep_launches = dw_sharep_hopper_launches = 0
+
+
+def hopper_dw_sharep(h):
+    """True when dw_sharep over this h takes the wgmma/TMA kernel:
+    bfloat16, ``d`` a multiple of 8 (16-byte rows for TMA) and h 16-byte
+    aligned; the dl buffer is aligned by construction (:func:`_dl_rows`).
+    Everything else takes the ``wmma`` / CUDA-core kernel."""
+    return (h.dtype == torch.bfloat16 and h.shape[-1] % 8 == 0
+            and h.data_ptr() % 16 == 0)
 
 
 @contextlib.contextmanager
@@ -364,7 +381,7 @@ def _launch_dh_sharep(h, w, labels, lse, g):
 
 
 def _launch_dw_sharep(h, dl):
-    global dw_sharep_launches
+    global dw_sharep_launches, dw_sharep_hopper_launches
     _check_dl(h, dl)
     T, d = h.shape
     V = dl.shape[1]
@@ -372,12 +389,16 @@ def _launch_dw_sharep(h, dl):
     if T == 0:
         return dw.zero_()
     dl, ldd = _dl_for_kernel(dl)
-    fn = _kernel_fn("fused_ce_backward_dw_sharep", DW_SHAREP_ARGTYPES)
+    hopper = hopper_dw_sharep(h)
+    fn = _kernel_fn("fused_ce_backward_dw_sharep_hopper" if hopper
+                    else "fused_ce_backward_dw_sharep", DW_SHAREP_ARGTYPES)
     with torch.cuda.device(h.device):
         rc = fn(_DTYPE_CODE[h.dtype], h.data_ptr(), dl.data_ptr(),
                 dw.data_ptr(), ldd, T, V, d, _stream(h))
-    _raise_if(rc, "backward dw_sharep")
+    _raise_if(rc, "backward dw_sharep (wgmma)" if hopper
+              else "backward dw_sharep")
     dw_sharep_launches += 1
+    dw_sharep_hopper_launches += hopper
     return dw
 
 

@@ -3,7 +3,8 @@ ragged paged-attention kernel (float pools, and int8/fp8 pools with page
 scales), the flash-attention forward, dq and dk/dv kernels, the fused-CE
 forward, dh and dw kernels, the shared-dl dh/dw pair and the packed
 (segment-id) flash forward, dq and dk/dv kernels against their plain
-PyTorch versions, the serving
+PyTorch versions (the bf16 flash forward and dw_sharep on their
+wgmma/TMA designs, float32 on the others), the serving
 engine on the card against the same engine on the CPU (float and
 quantized pools, int8 weights), and GPT and packed-BERT training steps
 through the kernels against the same steps through the plain versions.
@@ -16,6 +17,7 @@ imports no JAX, so it also runs on the GPU machine, which has none:
 (``--noconftest``: tests/conftest.py imports JAX for the reference's
 tests)."""
 import contextlib
+import ctypes
 
 import numpy as np
 import pytest
@@ -244,6 +246,9 @@ FA_CASES = {            # B, H, Lq, Lk, D, causal
     "causal256x128": (2, 3, 256, 128, 64, True),
     "streamed4096": (1, 2, 4096, 4096, 64, True),
     "d128": (2, 3, 320, 320, 128, True),
+    # a head size the wgmma forward does not serve: bf16 takes the
+    # CUDA-core forward here
+    "d32": (2, 3, 200, 200, 32, True),
 }
 FA_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}
 
@@ -274,6 +279,9 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == (1, 1, 1)
+    # bf16 at D = 64 / 128 takes the wgmma/TMA forward, the rest the other
+    assert fa.fwd_hopper_launches == (dtype == torch.bfloat16
+                                      and D in (64, 128))
     rout, rlse = fa.flash_attention_fwd_ref(q, k, v, causal)
     rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal)
     rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -295,6 +303,49 @@ def test_flash_backward_is_bit_identical_across_launches(cuda):
             for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["causal1024", "ragged1000",
+                                  "causal256x128", "d128"])
+def test_flash_forward_is_bit_identical_across_launches(cuda, case):
+    """The wgmma/TMA forward sums every row in one fixed order (no
+    atomics, no split of the keys): two launches agree bit for bit."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    B, H, Lq, Lk, D, causal = FA_CASES[case]
+    q, k, v, _ = _fa_inputs(cuda, B, H, Lq, Lk, D, torch.bfloat16, 6)
+    fa.reset_launches()
+    runs = [fa.flash_attention_fwd(q, k, v, causal) for _ in range(2)]
+    assert fa.fwd_hopper_launches == 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stalled", [0, 1], ids=["wg0_lags", "wg1_lags"])
+def test_flash_forward_holds_when_one_warpgroup_lags(cuda, stalled):
+    """The wgmma forward built with its test hook FLASH_FWD_STALL_WG,
+    which sleeps one consumer warpgroup on every key tile so the other
+    runs ahead (under causality the two read different numbers of
+    tiles): the producer must still reload no stage that the lagging
+    warpgroup reads, so the output equals the plain build's bit for
+    bit."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    lib = _build.load("flash_attention", (f"-DFLASH_FWD_STALL_WG={stalled}",))
+    fn = lib.flash_attention_forward_hopper
+    fn.argtypes, fn.restype = fa.FWD_ARGTYPES, ctypes.c_int
+    for case in ("causal1024", "ragged1000", "causal256x128",
+                 "causal128x256", "d128"):
+        B, H, Lq, Lk, D, causal = FA_CASES[case]
+        q, k, v, _ = _fa_inputs(cuda, B, H, Lq, Lk, D, torch.bfloat16, 7)
+        want = fa.flash_attention_fwd(q, k, v, causal)
+        out = torch.empty_like(q)
+        lse = torch.empty(B * H, Lq, dtype=torch.float32, device=cuda)
+        scale = fa._default_scale(q, None)
+        rc = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *fa._dims(q, k, scale, causal))
+        assert rc == 0, case
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[0]) and torch.equal(lse, want[1]), case
 
 
 def test_tiny_training_step_with_the_kernels_equals_the_plain_step(cuda):
@@ -360,6 +411,9 @@ FCE_CASES = {           # T, V, d: ragged tails, d off the vector width
     "vocab50257": (1000, 50257, 64),
     "d96": (257, 1000, 96),
     "d50_scalar_loads": (130, 333, 50),
+    # GPT-2's width: three 256-column tiles of the wgmma dw_sharep, and
+    # 1000 vocab rows past its last 128-row block edge
+    "gpt_width": (257, 1000, 768),
 }
 # (nll/lse, dh/dw): float32 sums of float32 logits on both sides for
 # nll/lse; bf16 gradients differ by at most one rounding step of the output
@@ -526,6 +580,9 @@ def test_fused_ce_sharep_kernels_match_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert (fc.dh_sharep_launches, fc.dw_sharep_launches,
             fc.dh_launches, fc.dw_launches) == (1, 1, 0, 0)
+    # bf16 with d a multiple of 8 takes the wgmma/TMA dw_sharep
+    assert fc.dw_sharep_hopper_launches == (dtype == torch.bfloat16
+                                            and d % 8 == 0)
     assert dl.dtype == torch.bfloat16 and dl.shape == (T, V)
     assert dl.stride(0) == -(-V // 8) * 8
     rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)
