@@ -26,14 +26,17 @@ exits non-zero:
      max-abs plain, idle slots exactly zero;
    - flash attention forward (out, lse), dq and dk/dv at the training
      shape (B=16, H=12, L=1024, D=64, causal), L=1000 causal (ragged
-     tail), Lq=128/Lk=256 with and without causal (bottom-right), B=1
-     L=4096 with and without causal (the lengths the TPU's streamed
-     kernels served), D=128 and BERT's unpacked shape (B=64, L=128,
-     non-causal); max-abs error over max-abs plain within 1e-4 (float32)
-     and 2e-2 forward / 3e-2 gradients (bfloat16); the backward, and
-     the forward, bit-identical across two launches. Every bfloat16
-     forward must take the wgmma/TMA design and every float32 one the
-     CUDA-core design (``fwd_design`` of each case).
+     tail), Lq=128/Lk=256 with and without causal (bottom-right),
+     Lq=256/Lk=128 causal (dead rows), B=1 L=4096 with and without
+     causal (the lengths the TPU's streamed kernels served), D=128 and
+     BERT's unpacked shape (B=64, L=128, non-causal); max-abs error over
+     max-abs plain within 1e-4 (float32) and 2e-2 forward / 3e-2
+     gradients (bfloat16); the backward, and the forward, bit-identical
+     across two launches. Every bfloat16 forward must take the wgmma/TMA
+     design and every float32 one the CUDA-core design (``fwd_design``
+     of each case); dq and dk/dv the wgmma/TMA design exactly where
+     ``hopper_bwd`` admits the case (bfloat16 at D=64), else the
+     CUDA-core one (``bwd_design``).
    - fused head + CE forward (nll, lse), dh and dw at the training shape
      (T=16384 tokens, d=768, V=50304, bf16), T=1000 with GPT-2's
      unpadded V=50257 (float32 and bfloat16), and T=300, V=5000 with a
@@ -71,7 +74,9 @@ exits non-zero:
    ``F.scaled_dot_product_attention`` — over gathered K/V for the paged
    kernel, dequantized beforehand and not timed for quantized pools;
    forward, and forward+backward for the backward pair, for
-   flash, and with the dense boolean block-diagonal mask for packed
+   flash (with ``library_bwd_ms``, forward+backward minus forward: the
+   library's backward alone, beside dq + dk/dv), and with the dense
+   boolean block-diagonal mask for packed
    flash; unfused ``torch.matmul`` + ``F.cross_entropy``, forward alone,
    and forward+backward to h alone (dh) and to w alone (dw), for fused
    CE; the latter also to the bf16 logits for dh_sharep, and
@@ -107,7 +112,8 @@ exits non-zero:
    1024, one fixed batch (numpy seed 0) repeated; two warm calls and
    three timed ones, 40 steps. Every loss finite, the last at least 1
    nat below the first, and each flash kernel launched 12 x 40 times,
-   every forward on the wgmma/TMA design (each train phase counts it).
+   every forward, dq and dk/dv on the wgmma/TMA designs (each train
+   phase counts them).
 7. ``train_parity`` — float32, no autocast, batch 2 x 1024, 3 steps from
    identical weights through the kernels and through the plain
    versions: losses within 1e-4, step-1 gradients within 1e-3 of each
@@ -116,7 +122,8 @@ exits non-zero:
    key bias aside) within 1e-4 of its max-abs. Adam normalises each
    element's gradient, so an element whose gradient is no larger than
    the rounding noise between the runs (the key bias's exact gradient is
-   zero) may step the other way, by up to 2 x lr a step.
+   zero) may step the other way, by up to 2 x lr a step. Every flash
+   launch of the float32 runs on the CUDA-core designs.
 8. ``train_serve`` — the trained model through ``gen_params`` into the
    serving engine: two greedy requests whose prompts are prefixes of
    the training batch; reports how many of 16 tokens match the batch.
@@ -147,7 +154,7 @@ exits non-zero:
    the BERT-base fine-tune step (12 layers, d=768, 12 heads, FFN 3072,
    vocab 30522, dropout 0.1, AdamW 3e-5, O1 bf16) on 64 x 128 tokens, 24
    steps; every loss finite, each flash kernel launched 12 x 24 times
-   (the forward on the wgmma/TMA design) and no packed kernel; seq/s,
+   (all on the wgmma/TMA designs) and no packed kernel; seq/s,
    step ms, MFU and peak memory.
 13. ``bert_packed`` — the same with ``pack=4`` (16 rows of four
    sequences, ``SegmentIds`` with start positions): each packed kernel
@@ -503,6 +510,8 @@ FLASH_CASES = {
     "ragged1000": (4, 12, 1000, 1000, 64, True),
     "cross128x256": (4, 12, 128, 256, 64, False),
     "causal128x256": (4, 12, 128, 256, 64, True),
+    # causal Lq > Lk: the first 128 rows see no key (dead rows)
+    "causal256x128": (4, 12, 256, 128, 64, True),
     "long4096": (1, 12, 4096, 4096, 64, False),
     "long4096_causal": (1, 12, 4096, 4096, 64, True),
     "d128": (4, 6, 1024, 1024, 128, True),
@@ -559,7 +568,7 @@ def rel_err(a, b):
                  / b.float().abs().max().clamp(min=1e-30))
 
 
-def fwd_design(hopper):
+def design(hopper):
     return "wgmma_tma" if hopper else "cuda_cores"
 
 
@@ -587,18 +596,31 @@ def run_flash_phase():
             hopper = fa.fwd_hopper_launches > before
             if hopper != (dtype == torch.bfloat16):
                 raise AssertionError(f"flash forward ({name}, {dtype}) took "
-                                     f"the {fwd_design(hopper)} design")
+                                     f"the {design(hopper)} design")
             delta = fa.attention_delta(out, do)
+            before = (fa.dq_hopper_launches, fa.dkv_hopper_launches)
             dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
             dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                 causal)
             torch.cuda.synchronize()
+            bwd = (fa.dq_hopper_launches > before[0],
+                   fa.dkv_hopper_launches > before[1])
+            # bf16 that hopper_bwd admits on the new design, every other
+            # case (float32, head size 128) on the CUDA-core one
+            want = fa.hopper_bwd(q, k, v, do)
+            if want and dtype != torch.bfloat16:
+                raise AssertionError(f"hopper_bwd admits {dtype} ({name})")
+            if bwd != (want, want):
+                raise AssertionError(
+                    f"flash backward ({name}, {dtype}) took dq on the "
+                    f"{design(bwd[0])} and dk/dv on the "
+                    f"{design(bwd[1])} design")
             rout, rlse = fa.flash_attention_fwd_ref(q, k, v, causal)
             rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
                                                 causal)
             rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
                                                       delta, causal)
-            rec = {"fwd_design": fwd_design(hopper)}
+            rec = {"fwd_design": design(hopper), "bwd_design": design(want)}
             for key, a, b, tol in (("out", out, rout, ftol),
                                    ("lse", lse, rlse, ftol),
                                    ("dq", dq, rdq, gtol),
@@ -665,7 +687,10 @@ def flash_host_us():
 
 
 def time_flash(q, k, v, do, out, lse, delta, causal, fa, F):
-    """Kernel, plain and library times at one shape, with the bounds."""
+    """Kernel, plain and library times at one shape, with the bounds.
+    dq and dk/dv also carry ``library_bwd_ms``: SDPA forward+backward
+    minus SDPA forward, the library's backward alone, and ``bwd_pair``
+    holds dq + dk/dv against it."""
     t = {"fwd": cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal),
                         20),
          "dq": cuda_ms(lambda i: fa.flash_attention_bwd_dq(
@@ -688,11 +713,19 @@ def time_flash(q, k, v, do, out, lse, delta, causal, fa, F):
         F.scaled_dot_product_attention(qg, kg, vg,
                                        is_causal=causal).backward(dot)
     lib_both = cuda_ms(lib_fb, 20)
+    lib_bwd = float(lib_both) - float(lib_fwd)
     b = flash_bounds(q, k, causal)
-    return {kn: with_rate(dict(
+    rec = {kn: with_rate(dict(
         ms=t[kn], plain_ms=p[kn],
         library_ms=lib_fwd if kn == "fwd" else lib_both, **b[kn]))
         for kn in ("fwd", "dq", "dkv")}
+    for kn in ("dq", "dkv"):
+        rec[kn]["library_bwd_ms"] = lib_bwd
+    pair = float(t["dq"]) + float(t["dkv"])
+    rec["bwd_pair"] = {"ms": pair, "library_bwd_ms": lib_bwd,
+                       "factor_over_library_bwd": pair / lib_bwd,
+                       "bound_ms": b["dq"]["bound_ms"] + b["dkv"]["bound_ms"]}
+    return rec
 
 
 # -- fused head + cross entropy -----------------------------------------------
@@ -1416,6 +1449,8 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
                     "dw_sharep": fc.dw_sharep_launches}
     # the launches of the wgmma/TMA designs among those
     hopper = {"flash_fwd": fa.fwd_hopper_launches,
+              "flash_dq": fa.dq_hopper_launches,
+              "flash_dkv": fa.dkv_hopper_launches,
               "fused_ce_dw_sharep": fc.dw_sharep_hopper_launches}
     phase = ("train_fused_ce_sharep" if sharep else
              "train_fused_ce" if fused_ce else "train")
@@ -1435,7 +1470,9 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
     for kn, n in fce_launches.items():
         if n != (steps if kn in used else 0):
             raise AssertionError(f"{phase}: fused CE {kn} launches {n}")
-    if hopper != {"flash_fwd": cfg.num_layers * steps,
+    flash_all = cfg.num_layers * steps
+    if hopper != {"flash_fwd": flash_all, "flash_dq": flash_all,
+                  "flash_dkv": flash_all,
                   "fused_ce_dw_sharep": steps if sharep else 0}:
         raise AssertionError(f"{phase}: wgmma/TMA launches {hopper}")
     step_s = wall / (3 * TRAIN_K)
@@ -1491,9 +1528,11 @@ PARITY_STEPS, PARITY_LR = 3, 6e-4
 def parity_run(cfg, ctx, ids, labels):
     """One float32 model from seed 1 (batch 2 x 1024): step-1 gradients
     by ``grad_step``, then ``PARITY_STEPS`` AdamW steps, all inside
-    ``ctx``. Returns (losses, grads, params) on the host."""
+    ``ctx``; every flash launch on the CUDA-core designs. Returns (losses,
+    grads, params) on the host."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel.api import TrainStep
@@ -1503,9 +1542,15 @@ def parity_run(cfg, ctx, ids, labels):
     model = GPTForCausalLM(cfg, device="cuda", seed=1)
     step = TrainStep(model, lambda m, i, y: m.loss(i, y),
                      AdamW(PARITY_LR, weight_decay=0.1), device="cuda")
+    fa.reset_launches()
     with ctx:
         _, grads, _ = step.grad_step(ids, labels)
         losses = step.multi_step(sids, slab)
+    wgmma = (fa.fwd_hopper_launches, fa.dq_hopper_launches,
+             fa.dkv_hopper_launches)
+    if any(wgmma):
+        raise AssertionError("float32 flash launches on the wgmma/TMA "
+                             f"designs (fwd, dq, dkv): {wgmma}")
     out = (losses.cpu(), [g.cpu() for g in grads],
            {n: p.detach().cpu() for n, p in model.named_parameters()})
     del model, step, grads
@@ -1654,7 +1699,8 @@ def run_bert_phase(pack, packed_ms=None, flash_ms=None):
     rec = bench_bert.run(batch=64, pack=pack, reps=1)
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    fwd_wgmma = fa.fwd_hopper_launches
+    wgmma = {"fwd": fa.fwd_hopper_launches, "dq": fa.dq_hopper_launches,
+             "dkv": fa.dkv_hopper_launches}
     packed = {"fwd": pf.fwd_launches, "dq": pf.dq_launches,
               "dkv": pf.dkv_launches}
     phase = "bert_packed" if pack else "bert"
@@ -1668,15 +1714,15 @@ def run_bert_phase(pack, packed_ms=None, flash_ms=None):
         raise AssertionError(f"{phase}: launches flash {flash}, packed "
                              f"{packed}; want {want} of each kernel of the "
                              "path and none of the other")
-    if fwd_wgmma != flash["fwd"]:   # every bf16 forward on wgmma/TMA
-        raise AssertionError(f"{phase}: {fwd_wgmma} of {flash['fwd']} flash "
-                             "forwards on the wgmma/TMA design")
+    if wgmma != flash:   # every bf16 flash launch on wgmma/TMA
+        raise AssertionError(f"{phase}: flash launches on the wgmma/TMA "
+                             f"designs {wgmma} of {flash}")
     ms = packed_ms if pack else flash_ms
     attn = sum(on[kn] * ms[kn] for kn in on) / BERT_STEPS
     return {"phase": phase, **rec, "steps": BERT_STEPS,
             "loss_first": losses[0], "loss_curve": losses,
             "flash_launches": flash, "packed_flash_launches": packed,
-            "flash_fwd_wgmma_tma_launches": fwd_wgmma,
+            "flash_wgmma_tma_launches": wgmma,
             "attention_ms_per_step": attn,
             "attention_share_of_step": attn / rec["step_ms"]}, packed
 
@@ -1967,7 +2013,8 @@ def main():
     emit(run_bench_phase())
     bt = fres["bert128"]["bfloat16"]["timing"]
     pt = pres["bert"]["bfloat16"]["timing"]
-    bert, _ = run_bert_phase(0, flash_ms={kn: bt[kn]["ms"] for kn in bt})
+    bert, _ = run_bert_phase(0, flash_ms={kn: bt[kn]["ms"]
+                                          for kn in ("fwd", "dq", "dkv")})
     emit(bert)
     bert_packed, plaunch = run_bert_phase(
         4, packed_ms={kn: pt[kn]["ms"] for kn in pt})
@@ -2028,20 +2075,27 @@ def main():
             "tflops": ft[kn]["tflops"],
             "factor_over_library": ft[kn]["factor_over_library"],
             "shape": "train: B=16 L=1024 H=12 D=64 causal bf16",
-            **({"source_kernel": "flash_attention_fwd_hopper_kernel",
-                "design": "wgmma_tma (bf16, D 64/128; float32 and other D "
+            "source_kernel": f"flash_attention_{kn}_hopper_kernel",
+            "launches_wgmma_tma": flaunch[f"flash_{kn}_wgmma_tma"],
+            "design_by_case": {n: {dt: r["fwd_design" if kn == "fwd"
+                                         else "bwd_design"]
+                                   for dt, r in case.items()}
+                               for n, case in fres.items()},
+            **({"design": "wgmma_tma (bf16, D 64/128; float32 and other D "
                           "on flash_attention_fwd_kernel)",
-                "launches_wgmma_tma": flaunch["flash_fwd_wgmma_tma"],
-                "host_us_per_call": fhost,
-                "design_by_case": {n: {dt: r["fwd_design"]
-                                       for dt, r in case.items()}
-                                   for n, case in fres.items()}}
-               if kn == "fwd" else {}),
+                "host_us_per_call": fhost}
+               if kn == "fwd" else
+               {"design": f"wgmma_tma (bf16, D 64; float32 and other D on "
+                          f"flash_attention_{kn}_kernel)",
+                "library_bwd_ms": ft[kn]["library_bwd_ms"],
+                "bwd_pair": ft["bwd_pair"]}),
             "at_L4096": {  # rows 4, 7, 8: the streamed bodies' shape
                 "shape": "B=1 L=4096 H=12 D=64 causal bf16",
                 **{key: lt[kn][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "tflops", "factor_over_library")}}})
+                    "library_ms", "tflops", "factor_over_library")},
+                **({"library_bwd_ms": lt[kn]["library_bwd_ms"],
+                    "bwd_pair": lt["bwd_pair"]} if kn != "fwd" else {})}})
     outputs = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw",)}
     for kn, line in (("fwd", 62), ("dh", 101), ("dw", 129)):
         kernels.append({

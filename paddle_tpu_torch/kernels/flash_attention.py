@@ -35,13 +35,17 @@ Pieces:
   ``csrc/flash_attention.cu`` or raises (no fallback). Each kernel has
   its launch counter (``fwd_launches``, ``dq_launches``,
   ``dkv_launches``; :func:`reset_launches`);
-- two designs of the forward kernel: the wgmma/TMA one for bfloat16 at
-  ``D`` = 64 or 128 with 16-byte aligned tensors (every GPT-2 and BERT
-  shape), and the CUDA-core one for the rest (float32, whose 1e-4 parity
-  TF32 tensor cores would break, and other head sizes).
-  :func:`hopper_fwd` is the one predicate that picks, by dtype, shape and
-  alignment alone; ``fwd_launches`` counts both and
-  ``fwd_hopper_launches`` the wgmma/TMA one;
+- two designs of each kernel: the wgmma/TMA one for bfloat16 with
+  16-byte aligned tensors at ``D`` = 64 or 128 (forward) and ``D`` = 64
+  (dq and dk/dv; at 128 dk/dv's accumulators overflow the registers) —
+  every GPT-2 and BERT-base shape — and the CUDA-core one for the rest
+  (float32, whose 1e-4 parity TF32 tensor cores would break, and other
+  head sizes). :func:`hopper_fwd` (forward) and :func:`hopper_bwd` (dq
+  and dk/dv) are the predicates that pick, by dtype, shape and alignment
+  alone; ``fwd_launches``,
+  ``dq_launches`` and ``dkv_launches`` count both designs and
+  ``fwd_hopper_launches``, ``dq_hopper_launches`` and
+  ``dkv_hopper_launches`` the wgmma/TMA ones;
 - :func:`flash_attention`, the differentiable entry, through the
   ``torch.autograd.Function`` :class:`FlashAttention`;
 - :func:`use_plain`, a context manager that makes the wrappers take the
@@ -60,12 +64,15 @@ __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_fwd_ref", "flash_attention_bwd_dq_ref",
            "flash_attention_bwd_dkv_ref", "flash_attention_bwd_ref",
-           "attention_delta", "use_plain", "reset_launches", "hopper_fwd"]
+           "attention_delta", "use_plain", "reset_launches", "hopper_fwd",
+           "hopper_bwd"]
 
 fwd_launches = 0      # kernel launches since the last reset_launches()
 fwd_hopper_launches = 0   # of those, the wgmma/TMA forward's
 dq_launches = 0
+dq_hopper_launches = 0    # of those, the wgmma/TMA dq's
 dkv_launches = 0
+dkv_hopper_launches = 0   # of those, the wgmma/TMA dk/dv's
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128          # the kernels' shared-memory plans cover D <= 128
@@ -78,18 +85,22 @@ _DIMS = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # flash_attention_forward(dtype, q, k, v, out, lse, B, H, Lq, Lk, D,
 #   scale, causal, stream), and flash_attention_forward_hopper alike
 FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + _DIMS
-# flash_attention_backward_dq(dtype, q, k, v, dout, lse, delta, dq, ...)
+# flash_attention_backward_dq(dtype, q, k, v, dout, lse, delta, dq, ...),
+# and flash_attention_backward_dq_hopper alike
 DQ_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + _DIMS
 # flash_attention_backward_dkv(dtype, q, k, v, dout, lse, delta, dk, dv,
-#   ...)
+#   ...), and flash_attention_backward_dkv_hopper alike
 DKV_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + _DIMS
 _HOPPER_D = (64, 128)  # the wgmma forward's 64-column, 128-byte boxes
+_HOPPER_BWD_D = 64     # the wgmma backward's (dk/dv at 128 would spill)
 _fns = {}
 
 
 def reset_launches():
-    global fwd_launches, fwd_hopper_launches, dq_launches, dkv_launches
+    global fwd_launches, fwd_hopper_launches, dq_launches, dkv_launches, \
+        dq_hopper_launches, dkv_hopper_launches
     fwd_launches = fwd_hopper_launches = dq_launches = dkv_launches = 0
+    dq_hopper_launches = dkv_hopper_launches = 0
 
 
 def hopper_fwd(q, k, v):
@@ -98,6 +109,15 @@ def hopper_fwd(q, k, v):
     output, a fresh tensor). Everything else takes the CUDA-core kernel."""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in _HOPPER_D
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def hopper_bwd(q, k, v, do):
+    """True when dq and dk/dv of these tensors take the wgmma/TMA kernels:
+    bfloat16, head size 64, and q, k, v, do 16-byte aligned (so are the
+    outputs, fresh tensors). Everything else, head size 128 included,
+    takes the CUDA-core kernels."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] == _HOPPER_BWD_D
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, do)))
 
 
 @contextlib.contextmanager
@@ -279,35 +299,41 @@ def _launch_fwd(q, k, v, causal, scale):
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale):
-    global dq_launches
+    global dq_launches, dq_hopper_launches
     _check(q, k, v, do=do, lse=lse, delta=delta)
     dq = torch.empty_like(q)
     if dq.numel() == 0 or k.shape[1] == 0:
         return dq.zero_()
-    fn = _kernel_fn("flash_attention_backward_dq", DQ_ARGTYPES)
+    hopper = hopper_bwd(q, k, v, do)
+    fn = _kernel_fn("flash_attention_backward_dq_hopper" if hopper
+                    else "flash_attention_backward_dq", DQ_ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), *_dims(q, k, scale, causal))
-    _raise_if(rc, "backward dq")
+    _raise_if(rc, "wgmma backward dq" if hopper else "backward dq")
     dq_launches += 1
+    dq_hopper_launches += hopper
     return dq
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
-    global dkv_launches
+    global dkv_launches, dkv_hopper_launches
     _check(q, k, v, do=do, lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0 or q.shape[1] == 0:
         return dk.zero_(), dv.zero_()
-    fn = _kernel_fn("flash_attention_backward_dkv", DKV_ARGTYPES)
+    hopper = hopper_bwd(q, k, v, do)
+    fn = _kernel_fn("flash_attention_backward_dkv_hopper" if hopper
+                    else "flash_attention_backward_dkv", DKV_ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 *_dims(q, k, scale, causal))
-    _raise_if(rc, "backward dk/dv")
+    _raise_if(rc, "wgmma backward dk/dv" if hopper else "backward dk/dv")
     dkv_launches += 1
+    dkv_hopper_launches += hopper
     return dk, dv
 
 

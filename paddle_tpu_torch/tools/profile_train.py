@@ -2,14 +2,16 @@
 """Where the PyTorch port's training-step time goes on one NVIDIA GPU.
 
     python3 -m paddle_tpu_torch.tools.profile_train [--steps N] [--out PATH]
-        [--fused-ce | --bert [--pack P]]
+        [--fused-ce [--share-p] | --bert [--pack P]]
 
 Run from the repository root. Builds the training step of
 ``chip_smoke.py``'s train phase (GPT-2
 small, random weights from seed 0, AdamW with the global-norm clip, O1
 bf16 autocast, MLP recompute, batch 16 x seq 1024, one fixed batch; with
 ``--fused-ce`` its ``train_fused_ce`` phase, the head and CE in the
-fused-CE kernels; with ``--bert`` the BERT-base fine-tune step of
+fused-CE kernels, and with ``--share-p`` too its ``train_fused_ce_sharep``
+phase (``kernels.fused_ce._SHARE_P`` set: the shared-dl dh/dw pair); with
+``--bert`` the BERT-base fine-tune step of
 ``tools/bench_bert.py``, 64 sequences of 128, packed ``--pack`` to a row
 through the packed flash kernels when ``--pack`` is above 1),
 runs ``TrainStep.multi_step`` of 8 steps to warm up, ``--steps`` steps
@@ -106,6 +108,9 @@ def main():
     ap.add_argument("--fused-ce", action="store_true",
                     help="GPTConfig(fused_ce=True): the head and CE in "
                          "the fused-CE kernels")
+    ap.add_argument("--share-p", action="store_true",
+                    help="with --fused-ce: the shared-dl backward pair "
+                         "(kernels.fused_ce._SHARE_P)")
     ap.add_argument("--bert", action="store_true",
                     help="the BERT-base fine-tune step of bench_bert")
     ap.add_argument("--pack", type=int, default=0,
@@ -114,6 +119,8 @@ def main():
     if args.bert and (args.fused_ce or args.steps > 8):
         ap.error("--bert takes no --fused-ce and at most 8 --steps (its "
                  "8 batches)")
+    if args.share_p and not args.fused_ce:
+        ap.error("--share-p needs --fused-ce")
     import torch
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -124,12 +131,14 @@ def main():
 
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel.api import TrainStep
 
     _build.build_all()
+    fc._SHARE_P = args.share_p
     dev = torch.device("cuda")
     if args.bert:
         step, stacked, batch, seq = bert_step(args.pack, dev)
@@ -179,7 +188,7 @@ def main():
                          text=True, check=True).stdout.strip()
     res = {"tool": "profile_train", "gpu": gpu,
            "model": "bert_base" if args.bert else "gpt2_small",
-           "fused_ce": args.fused_ce, "pack": args.pack if args.bert else None,
+           "fused_ce": args.fused_ce, "share_p": args.share_p, "pack": args.pack if args.bert else None,
            "batch": batch, "seq": seq, "steps": args.steps,
            "step_ms": step_s * 1e3,
            "profiled_step_ms": wall * 1e3 / args.steps,

@@ -3,8 +3,8 @@ ragged paged-attention kernel (float pools, and int8/fp8 pools with page
 scales), the flash-attention forward, dq and dk/dv kernels, the fused-CE
 forward, dh and dw kernels, the shared-dl dh/dw pair and the packed
 (segment-id) flash forward, dq and dk/dv kernels against their plain
-PyTorch versions (the bf16 flash forward and dw_sharep on their
-wgmma/TMA designs, float32 on the others), the serving
+PyTorch versions (the bf16 flash forward, dq, dk/dv and dw_sharep on
+their wgmma/TMA designs, float32 on the others), the serving
 engine on the card against the same engine on the CPU (float and
 quantized pools, int8 weights), and GPT and packed-BERT training steps
 through the kernels against the same steps through the plain versions.
@@ -279,9 +279,12 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == (1, 1, 1)
-    # bf16 at D = 64 / 128 takes the wgmma/TMA forward, the rest the other
-    assert fa.fwd_hopper_launches == (dtype == torch.bfloat16
-                                      and D in (64, 128))
+    # bf16 takes the wgmma/TMA kernels (forward at D = 64 / 128, backward
+    # at D = 64), the rest the others
+    bf16 = dtype == torch.bfloat16
+    assert fa.fwd_hopper_launches == (bf16 and D in (64, 128))
+    assert (fa.dq_hopper_launches, fa.dkv_hopper_launches) == (
+        bf16 and D == 64, bf16 and D == 64)
     rout, rlse = fa.flash_attention_fwd_ref(q, k, v, causal)
     rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal)
     rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -298,9 +301,11 @@ def test_flash_backward_is_bit_identical_across_launches(cuda):
     q, k, v, do = _fa_inputs(cuda, 2, 3, 1024, 1024, 64, torch.bfloat16, 5)
     out, lse = fa.flash_attention_fwd(q, k, v, True)
     delta = fa.attention_delta(out, do)
+    fa.reset_launches()
     runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
              *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
             for _ in range(2)]
+    assert (fa.dq_hopper_launches, fa.dkv_hopper_launches) == (2, 2)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
@@ -346,6 +351,40 @@ def test_flash_forward_holds_when_one_warpgroup_lags(cuda, stalled):
         assert rc == 0, case
         torch.cuda.synchronize()
         assert torch.equal(out, want[0]) and torch.equal(lse, want[1]), case
+
+
+@pytest.mark.parametrize("stalled", [0, 1], ids=["wg0_lags", "wg1_lags"])
+def test_flash_backward_holds_when_one_warpgroup_lags(cuda, stalled):
+    """The wgmma dq and dk/dv built with their test hook
+    FLASH_BWD_STALL_WG, which sleeps one consumer warpgroup on every tile
+    of both kernels so the other runs ahead (under causality the two read
+    different numbers of tiles, and in dk/dv the lower keys' warpgroup
+    reads a q tile the upper one skips): the producer must still reload
+    no stage that the lagging warpgroup reads, so the gradients equal the
+    plain build's bit for bit."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    lib = _build.load("flash_attention", (f"-DFLASH_BWD_STALL_WG={stalled}",))
+    fdq = lib.flash_attention_backward_dq_hopper
+    fdkv = lib.flash_attention_backward_dkv_hopper
+    fdq.argtypes, fdq.restype = fa.DQ_ARGTYPES, ctypes.c_int
+    fdkv.argtypes, fdkv.restype = fa.DKV_ARGTYPES, ctypes.c_int
+    for case in ("causal1024", "ragged1000", "causal256x128",
+                 "causal128x256", "cross128x256", "streamed4096"):
+        B, H, Lq, Lk, D, causal = FA_CASES[case]
+        q, k, v, do = _fa_inputs(cuda, B, H, Lq, Lk, D, torch.bfloat16, 8)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = fa.attention_delta(out, do)
+        want = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+                *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+        dims = fa._dims(q, k, fa._default_scale(q, None), causal)
+        assert fdq(1, *ptrs, dq.data_ptr(), *dims) == 0, case
+        assert fdkv(1, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims) == 0, case
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert torch.equal(a, b), (case, name)
 
 
 def test_tiny_training_step_with_the_kernels_equals_the_plain_step(cuda):
