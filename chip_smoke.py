@@ -18,12 +18,15 @@ exits non-zero:
      row, a full prefill row of 32, a k+1-like row, an idle slot,
      extents across page boundaries), the decode shape and the
      prefill-chunk shape; float32 within 1e-4 and bfloat16 within 2e-2
-     on live rows;
+     on live rows, idle slots exactly zero, bit-identical across two
+     launches, every case on the split-KV design (``split_kv``: the
+     counter ``split_launches``, ``design`` of each case);
    - the same kernel over int8 and fp8 pools (the port's
      ``quantize_per_page`` of random pages, each page and head scaled by
      10^U(-2, 1) first) at the same three shapes, q in float32 and
      bfloat16: live rows within 1e-4 / 2e-2 as max-abs error over
-     max-abs plain, idle slots exactly zero;
+     max-abs plain, idle slots exactly zero, every case on the first
+     design (``quant_launches``, no split-KV launch);
    - flash attention forward (out, lse), dq and dk/dv at the training
      shape (B=16, H=12, L=1024, D=64, causal), L=1000 causal (ragged
      tail), Lq=128/Lk=256 with and without causal (bottom-right),
@@ -65,8 +68,10 @@ exits non-zero:
      of 128), with uneven ids (``[5]*100 + [7]*300 + [9]*112``, one
      segment, an id in two places), the same causal within segments,
      L=300, L=2048, L=4096 (causal) and D=128; the limits of flash
-     attention, and the backward bit-identical across two launches in
-     every case.
+     attention, and the forward and the backward bit-identical across
+     two launches in every case. Every bfloat16 forward must take the
+     wgmma/TMA design and every float32 one the CUDA-core design
+     (``fwd_design``).
    Times each kernel (CUDA events: the median of 5 repeats of a timed
    loop, printed with the min-max spread as ``<key>_spread``), its plain
    version and one PyTorch
@@ -74,10 +79,10 @@ exits non-zero:
    ``F.scaled_dot_product_attention`` — over gathered K/V for the paged
    kernel, dequantized beforehand and not timed for quantized pools;
    forward, and forward+backward for the backward pair, for
-   flash (with ``library_bwd_ms``, forward+backward minus forward: the
-   library's backward alone, beside dq + dk/dv), and with the dense
-   boolean block-diagonal mask for packed
-   flash; unfused ``torch.matmul`` + ``F.cross_entropy``, forward alone,
+   flash and, with the dense boolean block-diagonal mask, for packed
+   flash (both with ``library_bwd_ms``, forward+backward minus forward:
+   the library's backward alone, beside dq + dk/dv in ``bwd_pair``);
+   unfused ``torch.matmul`` + ``F.cross_entropy``, forward alone,
    and forward+backward to h alone (dh) and to w alone (dw), for fused
    CE; the latter also to the bf16 logits for dh_sharep, and
    ``torch.matmul(dl.t(), h)`` on the stored dl for dw_sharep) beside the
@@ -87,22 +92,29 @@ exits non-zero:
    vocab split; flash also at B=1, L=4096, causal (the shape of the
    streamed bodies its kernels serve), and the flash forward wrapper's
    host microseconds a call on each design (``flash_host_us``: the
-   wgmma/TMA one encodes three tensor maps a call).
+   wgmma/TMA one encodes three tensor maps a call). Each timed loop
+   runs behind a GPU sleep twice its host time, so it reads the card's
+   time even where a wrapper's host work outlasts its kernel; the ragged
+   kernel (bfloat16) and the packed forward also carry ``host_us``, the
+   wrapper's host microseconds a call.
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
    4 at temperature 0.8, two sharing a 64-token prefix). Every request
    must finish, the page pool must verify, and the kernel's launch
-   count must equal layers x forward passes.
+   count must equal layers x forward passes, every one on the split-KV
+   design.
    ``serve_int8``, ``serve_fp8`` — the same with int8 / fp8 KV pools
    (bf16 weights), ``serve_w8`` with int8 weights and fp8 KV: the
    quantized kernel launched layers x forward passes and the float one
-   never; the int8 pool under 0.56 of the bf16 pool's bytes and the fp8
+   (and so the split-KV design) never; the int8 pool under 0.56 of the
+   bf16 pool's bytes and the fp8
    pool equal to the int8 pool (scales included).
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version: per-step logits within 1e-3,
    tokens identical up to the first step whose plain top-2 margin is
-   below that tolerance. ``parity_quant`` — the same over int8 and fp8
+   below that tolerance; every kernel launch on the split-KV design.
+   ``parity_quant`` — the same over int8 and fp8
    pools, with each one's decode-logit abs-max beside the float32
    pool's (reported, not held).
 6. ``train``   — the GPT-2 small pretraining step of
@@ -158,7 +170,8 @@ exits non-zero:
    step ms, MFU and peak memory.
 13. ``bert_packed`` — the same with ``pack=4`` (16 rows of four
    sequences, ``SegmentIds`` with start positions): each packed kernel
-   launched 12 x 24 times and no flash kernel.
+   launched 12 x 24 times, every forward on the wgmma/TMA design, and
+   no flash kernel.
 14. ``bert_parity`` — float32, no autocast, dropout 0, full width, batch
    8 packed four to a row: through the packed kernels against their plain
    versions (logits within 1e-4 of max-abs, step-1 gradients within 1e-3;
@@ -222,14 +235,24 @@ class Ms(float):
 def cuda_ms(fn, iters):
     """Mean ms a call (CUDA events) of a loop of ceil(iters / 2) calls
     (at least 2), after three warm calls; the loop is timed
-    ``TIMING_REPS`` times and the median returned with its spread."""
+    ``TIMING_REPS`` times and the median returned with its spread. Each
+    timed loop is enqueued behind a GPU sleep twice as long as the loop's
+    host time (an untimed pass measures it), so the card runs the calls
+    back to back: the time is the device's also where a wrapper's host
+    work per call outlasts its kernel (``host_us`` measures that)."""
     import torch
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
     n = max(2, -(-iters // 2))
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     times = []
     for _ in range(TIMING_REPS):
+        torch.cuda._sleep(int(host_s * 2 * 2e9))   # cycles at 2 GHz
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -238,6 +261,24 @@ def cuda_ms(fn, iters):
         t1.record()
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1) / n)
+    return Ms(times)
+
+
+def host_us(fn, iters):
+    """Host microseconds a call of ``fn`` (the wrapper's enqueue cost: no
+    synchronise inside a loop of ceil(iters / 2) calls), the median of
+    ``TIMING_REPS`` loops."""
+    import torch
+    fn(0)
+    n = max(2, -(-iters // 2))
+    times = []
+    for _ in range(TIMING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
     return Ms(times)
 
 
@@ -358,8 +399,15 @@ def run_kernel_phase():
             c = attention_case(kv_lens, q_lens, QB, dtype, rng, layers)
             kp, vp = c["pools"][0]
             args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
+            before = pa.split_launches
             out = pa.ragged_paged_attention(*args)
             torch.cuda.synchronize()
+            if pa.split_launches != before + 1:
+                raise AssertionError(f"ragged ({name}, {dtype}) did not take "
+                                     "the split-KV design")
+            if not torch.equal(out, pa.ragged_paged_attention(*args)):
+                raise AssertionError(f"ragged ({name}, {dtype}) not "
+                                     "bit-identical across two launches")
             ref = pa.ragged_paged_attention_ref(*args)
             live = (torch.arange(QB, device=out.device)[None]
                     < c["q_lens"][:, None])[:, :, None, None]
@@ -371,7 +419,10 @@ def run_kernel_phase():
             idle = c["kv_lens"] == 0
             if bool(idle.any()) and bool(out[idle].abs().max() != 0):
                 raise AssertionError(f"{name}: idle slot not zero")
-            rec = {"max_abs_err": err}
+            rec = {"max_abs_err": err, "design": "split_kv",
+                   "bit_identical": True,
+                   "split": dict(zip(("positions", "splits"), pa.split_plan(
+                       len(kv_lens), QB, NH, PS, MP)))}
             if dtype == torch.bfloat16:   # the serving dtype: timed
                 P = c["pools"]
 
@@ -392,6 +443,7 @@ def run_kernel_phase():
                     F.scaled_dot_product_attention(qs, k, v,
                                                    attn_mask=mask)
                 rec["ms"] = cuda_ms(kern, 120)
+                rec["host_us"] = host_us(kern, 120)
                 rec["plain_ms"] = cuda_ms(plain, 24)
                 rec["library_ms"] = cuda_ms(lib, 120)
                 rec["bound_ms"], rec["bound_by"] = case_bound(c)
@@ -447,9 +499,15 @@ def run_quant_kernel_phase():
                                          rng, layers)
                 (kp, vp), (ks, vs) = c["pools"][0], c["scales"][0]
                 args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
+                before = (pa.quant_launches, pa.split_launches)
                 out = pa.ragged_paged_attention(*args, k_scale=ks,
                                                 v_scale=vs)
                 torch.cuda.synchronize()
+                if (pa.quant_launches, pa.split_launches) != \
+                        (before[0] + 1, before[1]):
+                    raise AssertionError(f"quantized ({name}, {fmt}, "
+                                         f"{dtype}) did not take the first "
+                                         "design")
                 ref = pa.ragged_paged_attention_ref(*args, k_scale=ks,
                                                     v_scale=vs)
                 live = (torch.arange(QB, device=out.device)[None]
@@ -465,7 +523,8 @@ def run_quant_kernel_phase():
                 idle = c["kv_lens"] == 0
                 if bool(idle.any()) and bool(out[idle].abs().max() != 0):
                     raise AssertionError(f"{name} {fmt}: idle slot not zero")
-                rec = {"max_abs_err": err, "rel_err": rel}
+                rec = {"max_abs_err": err, "rel_err": rel,
+                       "design": "first (int8/fp8 pools)"}
                 if dtype == torch.bfloat16:   # the serving dtype: timed
                     P, Sc = c["pools"], c["scales"]
 
@@ -1095,7 +1154,16 @@ def run_packed_flash_phase():
                                   (torch.bfloat16, BF16_TOL,
                                    BF16_GRAD_TOL)):
             q, k, v, do = flash_inputs(B, H, L, L, D, dtype, 500 + ci)
+            before = pf.fwd_hopper_launches
             out, lse = pf.packed_flash_fwd(q, k, v, seg, causal)
+            hopper = pf.fwd_hopper_launches > before
+            if hopper != (dtype == torch.bfloat16):
+                raise AssertionError(f"packed forward ({name}, {dtype}) took "
+                                     f"the {design(hopper)} design")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    (out, lse), pf.packed_flash_fwd(q, k, v, seg, causal))):
+                raise AssertionError(f"packed forward ({name}, {dtype}) not "
+                                     "bit-identical across two launches")
             delta = pf.attention_delta(out, do)
             dq = pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, causal)
             dk, dv = pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta,
@@ -1106,7 +1174,8 @@ def run_packed_flash_phase():
                                              causal)
             rdk, rdv = pf.packed_flash_bwd_dkv_ref(q, k, v, seg, do, lse,
                                                    delta, causal)
-            rec = {}
+            rec = {"fwd_design": design(hopper),
+                   "forward_bit_identical": True}
             for key, a, b, tol in (("out", out, rout, ftol),
                                    ("lse", lse, rlse, ftol),
                                    ("dq", dq, rdq, gtol),
@@ -1146,7 +1215,10 @@ def time_packed(q, k, v, seg, do, lse, delta, causal, pf):
     """Kernel, plain and library times at one shape, with the bounds. The
     library yardstick is ``F.scaled_dot_product_attention`` with the dense
     boolean block-diagonal mask ``[B, 1, L, L]``: forward alone (fwd), and
-    forward+backward (dq, dk/dv)."""
+    forward+backward (dq, dk/dv). dq and dk/dv also carry
+    ``library_bwd_ms``, SDPA forward+backward minus SDPA forward (the
+    library's backward alone), and ``bwd_pair`` holds dq + dk/dv against
+    it, as ``time_flash`` does."""
     import torch
     import torch.nn.functional as F
     t = {"fwd": cuda_ms(lambda i: pf.packed_flash_fwd(q, k, v, seg, causal),
@@ -1175,10 +1247,23 @@ def time_packed(q, k, v, seg, do, lse, delta, causal, pf):
         F.scaled_dot_product_attention(qg, kg, vg,
                                        attn_mask=mask).backward(dot)
     lib_both = cuda_ms(lib_fb, 20)
+    lib_bwd = float(lib_both) - float(lib_fwd)
+    fwd_host = host_us(lambda i: pf.packed_flash_fwd(q, k, v, seg, causal),
+                       20)
     b = packed_bounds(q, seg, causal)
-    return {kn: dict(ms=t[kn], plain_ms=p[kn],
-                     library_ms=lib_fwd if kn == "fwd" else lib_both,
-                     **b[kn]) for kn in ("fwd", "dq", "dkv")}
+    rec = {kn: dict(ms=t[kn], plain_ms=p[kn],
+                    library_ms=lib_fwd if kn == "fwd" else lib_both,
+                    factor_over_library=t[kn] / (lib_fwd if kn == "fwd"
+                                                 else lib_both),
+                    **b[kn]) for kn in ("fwd", "dq", "dkv")}
+    rec["fwd"]["host_us"] = fwd_host
+    for kn in ("dq", "dkv"):
+        rec[kn]["library_bwd_ms"] = lib_bwd
+    pair = float(t["dq"]) + float(t["dkv"])
+    rec["bwd_pair"] = {"ms": pair, "library_bwd_ms": lib_bwd,
+                       "factor_over_library_bwd": pair / lib_bwd,
+                       "bound_ms": b["dq"]["bound_ms"] + b["dkv"]["bound_ms"]}
+    return rec
 
 
 # -- the serving engine -------------------------------------------------------
@@ -1237,6 +1322,7 @@ def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
     quant = eng.kv.quantized
     launches, other = ((pa.quant_launches, pa.launches) if quant
                        else (pa.launches, pa.quant_launches))
+    split = pa.split_launches
     if sorted(done) != sorted(uids):
         raise AssertionError("not every request completed")
     for u, r in zip(uids, reqs):
@@ -1257,6 +1343,10 @@ def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
             f"{name}: kernel launches {launches} != {cfg.num_layers} "
             f"layers x {forwards} forward passes, or {other} launches of "
             "the other pool kind")
+    # float pools: every launch on the split-KV design; quantized: none
+    if split != (0 if quant else launches):
+        raise AssertionError(f"{name}: {split} split-KV launches of "
+                             f"{launches}")
     if st["prefix_hits"] < 64 // PS:
         raise AssertionError("the shared prefix was not served from cache")
     ttft = np.array([done[u].ttft_s for u in uids])
@@ -1275,6 +1365,7 @@ def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
             "prefix_hits": st["prefix_hits"],
             "cow_copies": st["cow_copies"],
             "kernel_launches": launches,
+            "split_kv_launches": split,
             "launches_per_forward": launches / forwards,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "pool_bytes": eng.kv.pool_bytes(),
@@ -1322,6 +1413,10 @@ def run_parity_phase(kv_dtype=None):
         if got != want:
             raise AssertionError(f"parity {kv_dtype} {attention}: {got} "
                                  f"kernel launches, expected {want}")
+        # float pools: every launch on the split-KV design; quantized: none
+        if pa.split_launches != (0 if eng.kv.quantized else want):
+            raise AssertionError(f"parity {kv_dtype} {attention}: "
+                                 f"{pa.split_launches} split-KV launches")
         runs[attention] = [(done[u].tokens, eng.logit_log[u]) for u in uids]
         # the decode steps' logits (the first entry is the prefill's)
         absmax[attention] = max(float(lg.abs().max())
@@ -1717,12 +1812,17 @@ def run_bert_phase(pack, packed_ms=None, flash_ms=None):
     if wgmma != flash:   # every bf16 flash launch on wgmma/TMA
         raise AssertionError(f"{phase}: flash launches on the wgmma/TMA "
                              f"designs {wgmma} of {flash}")
+    if pf.fwd_hopper_launches != packed["fwd"]:   # and every packed forward
+        raise AssertionError(f"{phase}: packed forwards on the wgmma/TMA "
+                             f"design {pf.fwd_hopper_launches} of "
+                             f"{packed['fwd']}")
     ms = packed_ms if pack else flash_ms
     attn = sum(on[kn] * ms[kn] for kn in on) / BERT_STEPS
     return {"phase": phase, **rec, "steps": BERT_STEPS,
             "loss_first": losses[0], "loss_curve": losses,
             "flash_launches": flash, "packed_flash_launches": packed,
             "flash_wgmma_tma_launches": wgmma,
+            "packed_fwd_wgmma_tma_launches": pf.fwd_hopper_launches,
             "attention_ms_per_step": attn,
             "attention_share_of_step": attn / rec["step_ms"]}, packed
 
@@ -1970,6 +2070,7 @@ def main():
         "fused_ce": cres, "packed_flash": pres, "gpu": gpu}))
     serve, launches = run_serve_phase()
     emit(serve)
+    split_launches = serve["split_kv_launches"]
     quant_serve, qlaunches = {}, {}
     for name, kd, wd in (("serve_int8", "int8", "bf16"),
                          ("serve_fp8", "fp8", "bf16"),
@@ -2017,7 +2118,7 @@ def main():
                                           for kn in ("fwd", "dq", "dkv")})
     emit(bert)
     bert_packed, plaunch = run_bert_phase(
-        4, packed_ms={kn: pt[kn]["ms"] for kn in pt})
+        4, packed_ms={kn: pt[kn]["ms"] for kn in ("fwd", "dq", "dkv")})
     emit(bert_packed)
     emit(run_bert_parity_phase())
     dec = kres["decode"]["bfloat16"]
@@ -2028,10 +2129,16 @@ def main():
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for case in kres.values()
                            for r in case.values()),
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "ms": dec["ms"], "host_us": dec["host_us"],
+        "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
         "shape": "decode: S=8 QB=1 NH=12 HD=64 PS=16 MP=64 bf16",
+        "source_kernel": "ragged_paged_attention_split_kernel + "
+                         "ragged_paged_attention_merge_kernel",
+        "design": "split_kv (float32/bfloat16 pools, HD % 8 == 0, 16-byte "
+                  "aligned; int8/fp8 pools on ragged_paged_attention_kernel)",
+        "launches_split_kv": split_launches,
         "cases": {n: kres[n]["bfloat16"] for n in ("mixed", "prefill")}}]
     qdec = qres["decode"]["int8"]["bfloat16"]
     kernels.append({
@@ -2150,8 +2257,21 @@ def main():
             "ms": pt[kn]["ms"], "plain_ms": pt[kn]["plain_ms"],
             "bound_ms": pt[kn]["bound_ms"], "bound_by": pt[kn]["bound_by"],
             "library_ms": pt[kn]["library_ms"],
+            "factor_over_library": pt[kn]["factor_over_library"],
             "shape": "BERT pack 4: B=16 L=512 H=12 D=64, four segments of "
-                     "128, bf16"})
+                     "128, bf16",
+            **({"source_kernel": "packed_flash_fwd_hopper_kernel",
+                "host_us": pt["fwd"]["host_us"],
+                "design": "wgmma_tma (bf16, D 64/128, L <= 16384; float32 "
+                          "and the rest on packed_flash_fwd_kernel)",
+                "launches_wgmma_tma":
+                    bert_packed["packed_fwd_wgmma_tma_launches"],
+                "design_by_case": {n: {dt: r["fwd_design"]
+                                       for dt, r in case.items()}
+                                   for n, case in pres.items()}}
+               if kn == "fwd" else
+               {"library_bwd_ms": pt[kn]["library_bwd_ms"],
+                "bwd_pair": pt["bwd_pair"]})})
     emit({"phase": "seconds", "total": time.perf_counter() - t_start})
     emit({"kernels": with_spreads(kernels)})
     print(gpu, flush=True)

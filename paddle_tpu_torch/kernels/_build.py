@@ -10,10 +10,12 @@ reused. Nothing is built when a module is imported: the first launch
 builds, or a caller (``chip_smoke.py``) builds every source at once with
 :func:`build_all`, one ``nvcc`` per source, all started together.
 ``defines`` (``-D`` flags, for a source's test hooks) build a variant
-beside the plain library, under its own name.
+beside the plain library, under its own name. :func:`launch_context` is
+the device context the wrappers launch in.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +25,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "find_nvcc", "build_all", "load"]
+__all__ = ["SOURCES", "find_nvcc", "build_all", "load", "launch_context"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -111,3 +113,13 @@ def load(name, defines=()):
             lib = ctypes.CDLL(build_log[key]["path"])
             _libs[key] = lib
         return lib
+
+
+def launch_context(dev):
+    """The CUDA device context for a launch on ``dev``: none when ``dev``
+    is the current device already (entering one costs microseconds a
+    call, in a serving loop that waits on the host)."""
+    import torch
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -2,9 +2,10 @@
 // for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/packed_flash_pallas.py:
-//   packed_flash_fwd_kernel  <- _fwd_kernel (:55)
-//   packed_flash_dq_kernel   <- _bwd_dq_kernel (:96)
-//   packed_flash_dkv_kernel  <- _bwd_dkv_kernel (:132)
+//   packed_flash_fwd_kernel,        <- _fwd_kernel (:55)
+//   packed_flash_fwd_hopper_kernel
+//   packed_flash_dq_kernel          <- _bwd_dq_kernel (:96)
+//   packed_flash_dkv_kernel         <- _bwd_dkv_kernel (:132)
 //
 // Several sequences share one row of L tokens; a token attends only to
 // tokens of its own segment (seg[b, i] == seg[b, j]) and, with causal, to
@@ -42,17 +43,51 @@
 // tiles and register blocking), runs the products on the CUDA cores in
 // float32 and is bound by their rate instead; it reads each live K/V
 // tile once per q tile through shared memory and never forms the [L, L]
-// scores. wgmma and TMA are later work.
+// scores.
+//
+// The forward has two designs, chosen in kernels/packed_flash.py by dtype,
+// head size, alignment and L alone (hopper_fwd):
+// - packed_flash_fwd_hopper_kernel, bf16 at D = 64 or 128 and L <= 16384
+//   (every BERT shape): the wgmma/TMA flash forward (flash_attention.cu's
+//   note describes it) with segment ids, from the one body both kernels
+//   share (csrc/flash_fwd_hopper.cuh, its SEG = true instantiation). At
+//   pack 4 the CUDA-core kernel spent its time on float32 products, not
+//   bytes; here the products run on the tensor cores and the segments
+//   cut the work to the unpacked forward's. Before its loop a CTA (128 q
+//   rows) lists, in shared memory, the 64-key tiles that can hold a live
+//   pair for one of its two warpgroups: the test above over the
+//   warpgroup's 64 rows (exact for any ids, an id in two places
+//   included) and, causal, a column at or below one of its rows. At most
+//   256 tiles, so L <= 16384; a longer L takes the CUDA-core kernel. At
+//   pack 4 a CTA lists 2 of the 8 tiles. The producer warp loads only
+//   listed tiles and its lanes write each tile's 64 ids into the stage;
+//   each warpgroup computes the tiles live for its rows, waits for and
+//   releases the others, so the ring's release accounting is the flash
+//   forward's with every tile read by both. The per-element test
+//   (seg_q == seg_k, and col <= row with causal) runs only on tiles whose
+//   keys and the warpgroup's rows do not all carry one id, on causal
+//   diagonal tiles and past L; masked entries stay out of the sums. The
+//   build flag PACKED_FWD_STALL_WG=w makes warpgroup w lag on every tile,
+//   for the card test of the ring. Rounding: the reference scales q in
+//   bf16 before the product (:59); here scale * log2(e) multiplies the
+//   float32 scores, as in the flash forward. At D = 64 the scale 1/8 is
+//   exact in bf16, so the two agree; at D = 128 they differ by one bf16
+//   rounding of q. P is rounded to bf16 before P V, as in the reference
+//   (:83-85). lse keeps its definition (natural log, float32, [B*H, L]):
+//   the backward kernels read it unchanged.
+// - packed_flash_fwd_kernel, the rest: float32 (bert_parity holds it to
+//   1e-4, which TF32 tensor cores would break), other head sizes, longer
+//   L.
 //
 // The backward uses no atomics (dq and dk/dv are separate kernels, as in
 // the Pallas split), so two runs give bit-identical gradients.
 #include <limits.h>
 
-#include "flash_tiles.cuh"
+#include "flash_fwd_hopper.cuh"
 
 namespace {
 
-struct Shape {
+struct SegShape {
   int H, L, D;
   float scale;
   int causal;
@@ -93,7 +128,7 @@ __device__ __forceinline__ bool stage_and_test(int* sseg, const int* seg_row,
   return __syncthreads_or(hit) != 0;
 }
 
-__device__ __forceinline__ bool live(const Shape& sh, int row, int col,
+__device__ __forceinline__ bool live(const SegShape& sh, int row, int col,
                                      int seg_r, int seg_c) {
   return row < sh.L && col < sh.L && seg_r == seg_c && (!sh.causal || col <= row);
 }
@@ -122,7 +157,7 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 packed_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ seg,
-                        T* __restrict__ out, float* __restrict__ lse, Shape sh) {
+                        T* __restrict__ out, float* __restrict__ lse, SegShape sh) {
   constexpr int ld = ld_of<DMAX>();
   constexpr int kDc = DMAX / 16;  // d columns per thread
   extern __shared__ float smem[];
@@ -256,7 +291,7 @@ packed_flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ seg,
                        const T* __restrict__ dout, const float* __restrict__ lse,
                        const float* __restrict__ delta, T* __restrict__ dq,
-                       Shape sh) {
+                       SegShape sh) {
   constexpr int ld = ld_of<DMAX>();
   constexpr int kDc = DMAX / 16;
   extern __shared__ float smem[];
@@ -354,7 +389,7 @@ packed_flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ seg,
                         const T* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, Shape sh) {
+                        T* __restrict__ dv, SegShape sh) {
   constexpr int ld = ld_of<DMAX>();
   constexpr int kDc = DMAX / 16;
   extern __shared__ float smem[];
@@ -463,7 +498,7 @@ packed_flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DMAX>
 int fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
-        void* lse, int B, Shape sh, cudaStream_t st) {
+        void* lse, int B, SegShape sh, cudaStream_t st) {
   auto kern = packed_flash_fwd_kernel<T, DMAX>;
   const size_t smem = fwd_smem<DMAX>();
   cudaError_t e = allow_smem(kern, smem);
@@ -478,7 +513,7 @@ int fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
 template <typename T, int DMAX>
 int bwd_dq(const void* q, const void* k, const void* v, const void* seg,
            const void* dout, const void* lse, const void* delta, void* dq,
-           int B, Shape sh, cudaStream_t st) {
+           int B, SegShape sh, cudaStream_t st) {
   auto kern = packed_flash_dq_kernel<T, DMAX>;
   const size_t smem = dq_smem<DMAX>();
   cudaError_t e = allow_smem(kern, smem);
@@ -494,7 +529,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* seg,
 template <typename T, int DMAX>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
             const void* dout, const void* lse, const void* delta, void* dk,
-            void* dv, int B, Shape sh, cudaStream_t st) {
+            void* dv, int B, SegShape sh, cudaStream_t st) {
   auto kern = packed_flash_dkv_kernel<T, DMAX>;
   const size_t smem = dkv_smem<DMAX>();
   cudaError_t e = allow_smem(kern, smem);
@@ -508,8 +543,35 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
   return (int)cudaGetLastError();
 }
 
-Shape make_shape(int H, int L, int D, float scale, int causal) {
+// ---------------------------------------------------------------------------
+// forward on wgmma and TMA (bf16, D = 64 or 128, L <= 64 * kMaxKeyTiles):
+// the flash forward's body (csrc/flash_fwd_hopper.cuh) with segment ids
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(HopperFwd<D>::THREADS, HopperFwd<D>::MIN_BLOCKS)
+packed_flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                               Shape sh, float scale_log2, const int* __restrict__ seg) {
+  fwd_hopper_body<D, true>(qmap, kmap, vmap, out, lse, sh, scale_log2, seg);
+}
+
+template <int D>
+int fwd_hopper(const void* q, const void* k, const void* v, const void* seg, void* out,
+               void* lse, int B, int H, int L, float scale, int causal, cudaStream_t st) {
   Shape sh;
+  sh.H = H;
+  sh.Lq = sh.Lk = L;
+  sh.D = D;
+  sh.scale = scale;
+  sh.causal = causal;
+  return launch_fwd_hopper<D, true>(packed_flash_fwd_hopper_kernel<D>, q, k, v,
+                                    static_cast<const int*>(seg), out, lse, B, sh, st);
+}
+
+SegShape make_shape(int H, int L, int D, float scale, int causal) {
+  SegShape sh;
   sh.H = H;
   sh.L = L;
   sh.D = D;
@@ -524,11 +586,29 @@ extern "C" int packed_flash_forward(int dtype, const void* q, const void* k,
                                     const void* v, const void* seg, void* out,
                                     void* lse, int B, int H, int L, int D,
                                     float scale, int causal, void* stream) {
-  const Shape sh = make_shape(H, L, D, scale, causal);
+  const SegShape sh = make_shape(H, L, D, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PF_FWD(T, DM) fwd<T, DM>(q, k, v, seg, out, lse, B, sh, st)
   FLASH_TILES_DISPATCH(PF_FWD);
 #undef PF_FWD
+}
+
+// The wgmma/TMA forward: as packed_flash_forward, for bfloat16 (dtype 1) at
+// D = 64 or 128 and L <= 64 * kMaxKeyTiles (16384), with 16-byte aligned q,
+// k, v and out; anything else returns cudaErrorInvalidValue (the caller
+// routes it to the entry above).
+extern "C" int packed_flash_forward_hopper(int dtype, const void* q, const void* k,
+                                           const void* v, const void* seg, void* out, void* lse,
+                                           int B, int H, int L, int D, float scale, int causal,
+                                           void* stream) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (dtype != 1 || (D != 64 && D != 128) || any % 16 != 0 || L < 1 ||
+      L > 64 * kMaxKeyTiles)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return fwd_hopper<64>(q, k, v, seg, out, lse, B, H, L, scale, causal, st);
+  return fwd_hopper<128>(q, k, v, seg, out, lse, B, H, L, scale, causal, st);
 }
 
 extern "C" int packed_flash_backward_dq(int dtype, const void* q,
@@ -538,7 +618,7 @@ extern "C" int packed_flash_backward_dq(int dtype, const void* q,
                                         void* dq, int B, int H, int L, int D,
                                         float scale, int causal,
                                         void* stream) {
-  const Shape sh = make_shape(H, L, D, scale, causal);
+  const SegShape sh = make_shape(H, L, D, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PF_DQ(T, DM) \
   bwd_dq<T, DM>(q, k, v, seg, dout, lse, delta, dq, B, sh, st)
@@ -553,7 +633,7 @@ extern "C" int packed_flash_backward_dkv(int dtype, const void* q,
                                          void* dk, void* dv, int B, int H,
                                          int L, int D, float scale,
                                          int causal, void* stream) {
-  const Shape sh = make_shape(H, L, D, scale, causal);
+  const SegShape sh = make_shape(H, L, D, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PF_DKV(T, DM) \
   bwd_dkv<T, DM>(q, k, v, seg, dout, lse, delta, dk, dv, B, sh, st)

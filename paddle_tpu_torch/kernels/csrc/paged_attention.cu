@@ -1,8 +1,10 @@
 // Ragged paged attention for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernels paddle_tpu/kernels/paged_attention_pallas.py:37
-// (`_kernel`, launched by `_ragged_paged_attention_x32`) and, over
-// quantized pools, :102 (`_kernel_quant`). Same function:
+// (`_kernel`, launched by `_ragged_paged_attention_x32`; here
+// ragged_paged_attention_split_kernel and its merge) and, over quantized
+// pools, :102 (`_kernel_quant`; here ragged_paged_attention_kernel). Same
+// function:
 //
 //   q [S, QB, NH, HD]; k_pool, v_pool [NP, PS, NH, HD];
 //   block_tables [S, MP] int32; kv_lens [S] int32; q_lens [S] int32.
@@ -17,21 +19,60 @@
 //
 // What bounds it on this card: bytes. Each layer's K and V stream once,
 // sum(kv_len) x NH x HD elements each, against 2 x HD multiply-adds per
-// element and query row — a few operations per byte at decode (q_len 1),
-// far below the ~295 operations per byte at which the H100's tensor cores
-// would become the limit. What the design does about it: every K/V
-// element is read from device memory exactly once per (slot, head, row
-// tile), only for pages below the block's largest causal limit, by
-// neighbouring threads on neighbouring addresses (a page row of one head
-// is HD contiguous values), and nothing but the output is written — the
-// scores, the running max/sum and the accumulator live in shared memory.
+// element and query row: about 1 operation a byte at decode (q_len 1), ~30
+// at a 32-row prefill chunk, far below the ~295 operations per byte at
+// which the H100's tensor cores would become the limit. At GPT-2 small's
+// decode shape (8 slots, 12 heads of 64, bf16, extents 47-590) the bytes
+// are 8.3 MB: 2.5 us at 3.35 TB/s.
 //
-// The TPU kernel's grid walked (slot, page) in order and carried its
-// running softmax across grid steps in VMEM scratch; here one block owns
-// one (row tile, head, slot) and walks the slot's pages in a loop, in
-// tiles of kTile positions, and loads its own block-table row and lengths
-// (what scalar prefetch did on the TPU). A simple first design: no
-// wgmma, no TMA, no split over the KV extent.
+// Two designs, chosen in kernels/paged_attention.py (split_kv):
+// - ragged_paged_attention_split_kernel + ragged_paged_attention_merge_kernel,
+//   for float32 and bfloat16 pools (HD % 8 == 0, 16-byte aligned): spend
+//   everything on moving K/V once, 16 bytes a thread, with many loads in
+//   flight and the grid filling the card.
+//   * Split over the KV extent. The first design (below) gave each
+//     (slot, head, row tile) one block that walked the slot's extent
+//     alone: 96 blocks on 132 SMs at decode, the longest slot setting the
+//     time. Here the grid is (KV split x row tile, head, slot): the
+//     wrapper cuts the extent MP x PS into splits of whole pages (128
+//     positions at the decode shape: 26 live (slot, split) pairs x 12
+//     heads = 312 blocks); a block past its rows' causal limits exits at
+//     once. Each split writes its partial (m, l, acc[HD]) in float32 to a
+//     workspace the wrapper allocates; the merge kernel combines a row's
+//     live splits in split order, so two launches give the same bits (no
+//     atomics). It is launched as a programmatic dependent of the split
+//     kernel (griddepcontrol), so its launch overlaps the split kernel's
+//     tail. With one split the block writes the output itself.
+//   * Loads. The block reads its split's block-table entries once into
+//     shared memory, then moves 16-position tiles of K and V (a head's
+//     page row is HD contiguous values: 128 bytes at HD 64 bf16, 8 lanes
+//     of 16 bytes) with 16-byte cp.async.cg into a 4-stage ring, 3 tiles
+//     in flight while one computes, one __syncthreads a tile. The copies
+//     move bytes, not values: a one-byte code pool (the quantized kernel
+//     below) can take the same ring with 16 codes a copy and widen them
+//     when it reads the stage.
+//   * Arithmetic, all in float32: q pre-scaled in registers. A group of 8
+//     lanes owns one position of the tile: a partial dot over its values,
+//     3 shuffles, then an online softmax of its own, P V in registers. At
+//     decode (QB = 1) the tile's 16 positions go to the block's 16 groups;
+//     for QB > 1 each warp takes 4 (or, at larger HD, fewer) rows and its
+//     4 groups walk the tile in 4 steps, so one staged tile serves 16
+//     rows. The groups merge by shuffles, the warps of a decode block
+//     through shared memory once at the end.
+//   * Tried (PERF.md Findings): the first design's loads (one 2-byte
+//     element a thread, widened into shared memory, no copy in flight)
+//     and its serial 64-long dot products; a ring of 6 or 8 stages (no
+//     faster than 4 at these extents); 32-, 64- and 256-position splits
+//     at decode (128 was the fastest; the prefill chunk, one slot, is
+//     fastest at 32, which the wrapper's rule picks).
+// - ragged_paged_attention_kernel, over int8 / float8 pools (and float
+//   pools the split design does not take): the first design. One block
+//   per (row tile of 16, head, slot) walks the slot's pages in tiles of
+//   kTile positions, loads its own block-table row and lengths (what
+//   scalar prefetch did on the TPU), and keeps scores, running max/sum
+//   and accumulator in shared memory. It stays for the quantized pools
+//   until their own redesign: the split design's ring and merge carry
+//   over, the widening with the page scales does not yet.
 //
 // Over a quantized pool the bytes streamed halve against bf16 (one byte a
 // code, plus two floats a page and head). The codes never reach device
@@ -324,6 +365,408 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The split-KV design over float32 / bfloat16 pools (the note above says
+// why): ragged_paged_attention_split_kernel writes each split's partial
+// (m, l, acc) and ragged_paged_attention_merge_kernel merges them.
+// ---------------------------------------------------------------------------
+constexpr int kSplitThreads = 128;  // 4 warps of 4 groups of 8 lanes
+constexpr int kStagePos = 16;       // positions a ring stage holds
+constexpr int kRing = 4;            // ring stages: 3 tiles in flight
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 16-byte unit of a page row, widened to float32: E values
+template <typename KVT>
+struct Unit;
+template <>
+struct Unit<float> {
+  static constexpr int E = 4;
+  __device__ __forceinline__ static void load(float* f, const unsigned char* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+};
+template <>
+struct Unit<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ __forceinline__ static void load(float* f, const unsigned char* p) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // the low half is the first value
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// NU units of a row per lane (lane g of its group holds units g, g + 8,
+// ...); DECODE: one query row a CTA, its positions spread over all 16
+// groups; else RW rows a warp, each warp's 4 groups over all positions
+template <typename KVT, int NU, bool DECODE>
+struct SplitPlan {
+  static constexpr int E = Unit<KVT>::E;
+  static constexpr int EPL = NU * E;  // values a lane holds of a row
+  static constexpr int RW = DECODE ? 1 : (32 / EPL >= 4 ? 4 : (EPL >= 32 ? 1 : 32 / EPL));
+  static constexpr int ROWS = DECODE ? 1 : 4 * RW;  // query rows a CTA
+};
+
+// (m, l, acc) of two online softmaxes over disjoint positions, merged
+template <int N>
+__device__ __forceinline__ void merge_state(float& m, float& l, float (&acc)[N], float mo,
+                                            float lo, const float* acco) {
+  const float mn = fmaxf(m, mo);
+  const float a = m == -INFINITY ? 0.f : __expf(m - mn);
+  const float b = mo == -INFINITY ? 0.f : __expf(mo - mn);
+  l = l * a + lo * b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = acc[i] * a + acco[i] * b;
+  m = mn;
+}
+
+size_t split_smem(int HD, int kv_bytes, int SL, int PS, bool decode) {
+  const size_t bt = ((size_t)(SL / PS) * 4 + 15) / 16 * 16;
+  return bt + (size_t)kRing * 2 * kStagePos * HD * kv_bytes +
+         (decode ? (size_t)4 * (HD + 2) * 4 : 0);
+}
+
+template <typename QT, typename KVT, int NU, bool DECODE>
+__global__ void __launch_bounds__(kSplitThreads)
+ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
+                                    const KVT* __restrict__ v_pool,
+                                    const int* __restrict__ block_tables,
+                                    const int* __restrict__ kv_lens,
+                                    const int* __restrict__ q_lens, QT* __restrict__ out,
+                                    float* __restrict__ ws, int QB, int NH, int HD, int PS,
+                                    int MP, int SL, int nsplit, float scale) {
+  using P = SplitPlan<KVT, NU, DECODE>;
+  constexpr int E = P::E, EPL = P::EPL, RW = P::RW;
+  extern __shared__ __align__(16) unsigned char psm[];
+  // the merge kernel may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int split = blockIdx.x % nsplit, rt = blockIdx.x / nsplit;
+  const int h = blockIdx.y, s = blockIdx.z, S = gridDim.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 3, g8 = lane & 7;
+  const int row0 = rt * P::ROWS;
+  const int L = min(kv_lens[s], MP * PS), qn = q_lens[s];
+  const size_t head_stride = (size_t)NH * HD;  // one position of one slot
+  const bool direct = ws == nullptr;           // one split: out, not partials
+
+  // positions [p0, p1) of this split that some row of the CTA attends
+  int blim = 0;
+  if (L > 0)
+    for (int r = 0; r < P::ROWS; ++r)
+      if (row0 + r < QB) blim = max(blim, row_limit(row0 + r, L, qn));
+  const int p0 = split * SL, p1 = min(p0 + SL, blim);
+  if (p0 >= p1) {  // past every row's extent: nothing to read
+    if (direct)    // (one split: p0 = 0, every row's limit is 0) zeros
+      for (int i = tid; i < P::ROWS * HD; i += kSplitThreads) {
+        const int r = i / HD, j = row0 + r;
+        if (j < QB) out[((size_t)s * QB + j) * head_stride + (size_t)h * HD + i % HD] =
+            from_f32<QT>(0.f);
+      }
+    return;
+  }
+
+  // the split's pages of the block table, read once
+  int* sbt = reinterpret_cast<int*>(psm);
+  const int pg0 = p0 / PS, npg = (p1 - 1) / PS - pg0 + 1;
+  for (int i = tid; i < npg; i += kSplitThreads) sbt[i] = block_tables[(size_t)s * MP + pg0 + i];
+  const int RB = HD * (int)sizeof(KVT);  // bytes of one head's page row
+  const int U = RB / 16;                 // 16-byte units of a row
+  unsigned char* ring = psm + ((SL / PS) * 4 + 15) / 16 * 16;
+  const int stage_bytes = 2 * kStagePos * RB;  // K rows, then V rows
+  __syncthreads();
+
+  // this thread's share of a tile's copies: K and V rows of positions
+  // p0 + kStagePos t + [0, 16), 16 bytes a copy, neighbouring threads on
+  // neighbouring addresses of a row
+  auto load = [&](int t) {
+    unsigned char* st = ring + (t % kRing) * stage_bytes;
+    const int base = p0 + t * kStagePos;
+    for (int i = tid; i < kStagePos * U; i += kSplitThreads) {
+      const int pi = i / U, u = i - pi * U;
+      const int pos = base + pi;
+      if (pos >= p1) break;
+      const size_t off = ((size_t)sbt[pos / PS - pg0] * PS + pos % PS) * head_stride +
+                         (size_t)h * HD + (size_t)u * E;
+      cp_async16(smem_u32(st + pi * RB + u * 16), k_pool + off);
+      cp_async16(smem_u32(st + (kStagePos + pi) * RB + u * 16), v_pool + off);
+    }
+  };
+  const int ntiles = (p1 - p0 + kStagePos - 1) / kStagePos;
+#pragma unroll
+  for (int t = 0; t < kRing - 1; ++t) {
+    if (t < ntiles) load(t);
+    cp_async_commit();
+  }
+
+  // this warp's rows: q pre-scaled in float32, the causal limits
+  float qv[RW][EPL], m[RW], l[RW], acc[RW][EPL];
+  int lim[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int j = DECODE ? row0 : row0 + warp * RW + r;
+    lim[r] = j < QB ? row_limit(j, L, qn) : 0;
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NU; ++c) {
+      const int u = g8 + 8 * c;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc[r][c * E + e] = 0.f;
+        qv[r][c * E + e] =
+            j < QB && u < U
+                ? to_f32(q[((size_t)s * QB + j) * head_stride + (size_t)h * HD + u * E + e]) * scale
+                : 0.f;
+      }
+    }
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();  // tile t landed; every reader of tile t - 1 is done
+    if (t + kRing - 1 < ntiles) load(t + kRing - 1);
+    cp_async_commit();
+    const unsigned char* sk = ring + (t % kRing) * stage_bytes;
+    const unsigned char* sv = sk + kStagePos * RB;
+#pragma unroll
+    for (int step = 0; step < (DECODE ? 1 : 4); ++step) {
+      // the group's position: decode spreads the tile over all 16 groups,
+      // else each warp's 4 groups walk it in 4 steps
+      const int pi = DECODE ? warp * 4 + grp : step * 4 + grp;
+      const int pos = p0 + t * kStagePos + pi;
+      const bool inside = pos < p1;
+      float kf[EPL], vf[EPL];
+#pragma unroll
+      for (int c = 0; c < NU; ++c) {
+        const int u = g8 + 8 * c;
+        if (inside && u < U) {
+          Unit<KVT>::load(kf + c * E, sk + pi * RB + u * 16);
+          Unit<KVT>::load(vf + c * E, sv + pi * RB + u * 16);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[c * E + e] = vf[c * E + e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        float a = 0.f;
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) a = fmaf(qv[r][i], kf[i], a);
+        a += __shfl_xor_sync(0xffffffffu, a, 1);  // the group's 8 lanes
+        a += __shfl_xor_sync(0xffffffffu, a, 2);
+        a += __shfl_xor_sync(0xffffffffu, a, 4);
+        if (inside && pos < lim[r]) {  // online softmax, one position
+          if (a > m[r]) {
+            const float al = __expf(m[r] - a);
+            l[r] *= al;
+#pragma unroll
+            for (int i = 0; i < EPL; ++i) acc[r][i] *= al;
+            m[r] = a;
+          }
+          const float p = __expf(a - m[r]);
+          l[r] += p;
+#pragma unroll
+          for (int i = 0; i < EPL; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the warp's 4 groups hold disjoint positions of its rows: merge them
+#pragma unroll
+  for (int o = 8; o <= 16; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      float acco[EPL];
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) acco[i] = __shfl_xor_sync(0xffffffffu, acc[r][i], o);
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+      merge_state(m[r], l[r], acc[r], mo, lo, acco);
+    }
+  if constexpr (DECODE) {  // the 4 warps share the row: merge through smem
+    float* sw = reinterpret_cast<float*>(ring + kRing * stage_bytes);
+    __syncthreads();
+    if (grp == 0) {
+#pragma unroll
+      for (int c = 0; c < NU; ++c) {
+        const int u = g8 + 8 * c;
+        if (u < U)
+#pragma unroll
+          for (int e = 0; e < E; ++e) sw[warp * (HD + 2) + u * E + e] = acc[0][c * E + e];
+      }
+      if (g8 == 0) {
+        sw[warp * (HD + 2) + HD] = m[0];
+        sw[warp * (HD + 2) + HD + 1] = l[0];
+      }
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    for (int w = 1; w < 4; ++w) {  // in fixed order
+      float acco[EPL];
+#pragma unroll
+      for (int c = 0; c < NU; ++c) {
+        const int u = g8 + 8 * c;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acco[c * E + e] = u < U ? sw[w * (HD + 2) + u * E + e] : 0.f;
+      }
+      merge_state(m[0], l[0], acc[0], sw[w * (HD + 2) + HD], sw[w * (HD + 2) + HD + 1], acco);
+    }
+  }
+  if (grp != 0) return;  // lanes 0-7 write
+
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int j = DECODE ? row0 : row0 + warp * RW + r;
+    if (j >= QB) continue;
+    const size_t row = ((size_t)s * QB + j) * NH + h;  // (s, j, h)
+    const size_t wrow = row * nsplit + split;
+    const size_t R = (size_t)S * QB * NH;
+#pragma unroll
+    for (int c = 0; c < NU; ++c) {
+      const int u = g8 + 8 * c;
+      if (u >= U) continue;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int d = u * E + e;
+        if (direct)
+          out[row * HD + d] = from_f32<QT>(l[r] > 0.f ? acc[r][c * E + e] / l[r] : 0.f);
+        else
+          ws[wrow * HD + d] = acc[r][c * E + e];
+      }
+    }
+    if (!direct && g8 == 0) {
+      ws[R * nsplit * HD + wrow] = m[r];
+      ws[R * nsplit * (HD + 1) + wrow] = l[r];
+    }
+  }
+}
+
+// one warp per (slot, row, head): the live splits' partials merged in
+// split order (so two launches give the same bits), out = acc / l
+template <typename QT>
+__global__ void __launch_bounds__(128)
+ragged_paged_attention_merge_kernel(const float* __restrict__ ws,
+                                    const int* __restrict__ kv_lens,
+                                    const int* __restrict__ q_lens, QT* __restrict__ out, int S,
+                                    int QB, int NH, int HD, int PS, int MP, int SL, int nsplit) {
+  const size_t R = (size_t)S * QB * NH;
+  const size_t row = (size_t)blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  // launched early (programmatic stream serialization): wait until the
+  // split kernel has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (row >= R) return;
+  const int sj = (int)(row / NH), j = sj % QB, s = sj / QB;
+  const int L = min(kv_lens[s], MP * PS);
+  const int lim = L > 0 ? max(0, row_limit(j, L, q_lens[s])) : 0;
+  const int n = (lim + SL - 1) / SL;  // the splits holding its positions
+  const float* wacc = ws + row * nsplit * HD;
+  const float* wm = ws + R * nsplit * HD + row * nsplit;
+  const float* wl = ws + R * nsplit * (HD + 1) + row * nsplit;
+  float M = -INFINITY;
+  for (int i = 0; i < n; ++i) M = fmaxf(M, wm[i]);
+  float lt = 0.f;
+  for (int i = 0; i < n; ++i) lt += wl[i] * __expf(wm[i] - M);
+  for (int d = lane; d < HD; d += 32) {
+    float a = 0.f;
+    for (int i = 0; i < n; ++i) a += wacc[(size_t)i * HD + d] * __expf(wm[i] - M);
+    out[row * HD + d] = from_f32<QT>(lt > 0.f ? a / lt : 0.f);
+  }
+}
+
+template <typename QT, typename KVT, int NU, bool DECODE>
+int launch_split_t(const void* q, const void* k_pool, const void* v_pool,
+                   const void* block_tables, const void* kv_lens, const void* q_lens, void* out,
+                   float* ws, int S, int QB, int NH, int HD, int PS, int MP, int SL, int nsplit,
+                   float scale, cudaStream_t stream) {
+  using P = SplitPlan<KVT, NU, DECODE>;
+  auto kern = ragged_paged_attention_split_kernel<QT, KVT, NU, DECODE>;
+  const size_t smem = split_smem(HD, sizeof(KVT), SL, PS, DECODE);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int rt = (QB + P::ROWS - 1) / P::ROWS;
+  kern<<<dim3(nsplit * rt, NH, S), kSplitThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
+      static_cast<const KVT*>(v_pool), static_cast<const int*>(block_tables),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens), static_cast<QT*>(out),
+      nsplit > 1 ? ws : nullptr, QB, NH, HD, PS, MP, SL, nsplit, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  // the merge launches while the split kernel runs (programmatic dependent
+  // launch), so its launch latency hides behind the split kernel's tail
+  const size_t rows = (size_t)S * QB * NH;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((rows + 3) / 4));
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ragged_paged_attention_merge_kernel<QT>, (const float*)ws,
+                         static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
+                         static_cast<QT*>(out), S, QB, NH, HD, PS, MP, SL, nsplit);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// NU from the row's 16-byte units (lanes of a group hold 8 units each
+// pass), DECODE from QB
+template <typename QT, typename KVT>
+int launch_split(const void* q, const void* k_pool, const void* v_pool,
+                 const void* block_tables, const void* kv_lens, const void* q_lens, void* out,
+                 float* ws, int S, int QB, int NH, int HD, int PS, int MP, int SL, int nsplit,
+                 float scale, cudaStream_t st) {
+  const int U = HD * (int)sizeof(KVT) / 16;
+#define PA_SPLIT(NU, DEC)                                                                   \
+  return launch_split_t<QT, KVT, NU, DEC>(q, k_pool, v_pool, block_tables, kv_lens, q_lens, \
+                                          out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, scale, \
+                                          st)
+#define PA_SPLIT_NU(DEC)             \
+  if (U <= 8) PA_SPLIT(1, DEC);      \
+  if (U <= 16) PA_SPLIT(2, DEC);     \
+  if (U <= 32) PA_SPLIT(4, DEC);     \
+  if constexpr (sizeof(KVT) == 4) {  \
+    if (U <= 64) PA_SPLIT(8, DEC);   \
+  }
+  if (QB == 1) {
+    PA_SPLIT_NU(true)
+  } else {
+    PA_SPLIT_NU(false)
+  }
+#undef PA_SPLIT_NU
+#undef PA_SPLIT
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype codes: q 0 = float32, 1 = bfloat16; pools those, 2 = int8 codes,
@@ -354,5 +797,36 @@ extern "C" int paged_attention_forward(int q_dtype, int kv_dtype, const void* q,
   if (q_dtype == 0 && kv_dtype == 3) PA_LAUNCH(float, __nv_fp8_e4m3);
   if (q_dtype == 1 && kv_dtype == 3) PA_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3);
 #undef PA_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split-KV design: as paged_attention_forward, for float32 / bfloat16
+// pools (kv_dtype 0 or 1) with HD % 8 == 0, HD <= 256 and 16-byte aligned
+// pools. The extent [0, MP * PS) is cut into nsplit splits of SL
+// positions (SL a multiple of PS); with nsplit > 1, ws holds S * QB * NH *
+// nsplit * (HD + 2) floats for the partials (acc, then m, then l) and a
+// second kernel merges them. Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for what it does not take.
+extern "C" int paged_attention_forward_split(int q_dtype, int kv_dtype, const void* q,
+                                             const void* k_pool, const void* v_pool,
+                                             const void* block_tables, const void* kv_lens,
+                                             const void* q_lens, void* out, float* ws, int S,
+                                             int QB, int NH, int HD, int PS, int MP, int SL,
+                                             int nsplit, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t pools =
+      reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
+  if (HD % 8 != 0 || HD < 8 || HD > 256 || pools % 16 != 0 || PS < 1 || SL < PS ||
+      SL % PS != 0 || nsplit < 1 || (long long)nsplit * SL < (long long)MP * PS ||
+      (nsplit > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define PA_SPLIT_LAUNCH(QT, KVT)                                                             \
+  return launch_split<QT, KVT>(q, k_pool, v_pool, block_tables, kv_lens, q_lens, out, ws, S, \
+                               QB, NH, HD, PS, MP, SL, nsplit, scale, st)
+  if (q_dtype == 0 && kv_dtype == 0) PA_SPLIT_LAUNCH(float, float);
+  if (q_dtype == 1 && kv_dtype == 1) PA_SPLIT_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == 0 && kv_dtype == 1) PA_SPLIT_LAUNCH(float, __nv_bfloat16);
+  if (q_dtype == 1 && kv_dtype == 0) PA_SPLIT_LAUNCH(__nv_bfloat16, float);
+#undef PA_SPLIT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

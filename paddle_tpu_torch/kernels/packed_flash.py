@@ -36,6 +36,15 @@ Pieces:
   CUDA tensor launches the hand-written kernel of ``csrc/packed_flash.cu``
   or raises. Each kernel has its launch counter (``fwd_launches``,
   ``dq_launches``, ``dkv_launches``; :func:`reset_launches`);
+- two designs of the forward: the wgmma/TMA one
+  (``packed_flash_fwd_hopper_kernel``, the flash forward's body with
+  segment ids) for bfloat16 at ``D`` = 64 or 128, 16-byte aligned q, k,
+  v and ``L <= 16384`` — every BERT shape — and the CUDA-core one for the
+  rest (float32, whose 1e-4 parity TF32 tensor cores would break, other
+  head sizes, longer rows). :func:`hopper_fwd` is the predicate that
+  picks, by dtype, shape and alignment alone; ``fwd_launches`` counts
+  both designs and ``fwd_hopper_launches`` the wgmma/TMA one. dq and
+  dk/dv have one design each;
 - :func:`packed_flash_attention`, the differentiable entry, through the
   ``torch.autograd.Function`` :class:`PackedFlashAttention`;
 - :func:`use_plain`, a context manager that makes the wrappers take the
@@ -49,29 +58,34 @@ import math
 
 import torch
 
+from ._build import launch_context
 from .flash_attention import attention_delta
 
 __all__ = ["SegmentIds", "segment_relative_positions",
            "packed_flash_attention", "PackedFlashAttention",
            "packed_flash_fwd", "packed_flash_bwd_dq", "packed_flash_bwd_dkv",
            "packed_flash_fwd_ref", "packed_flash_bwd_dq_ref",
-           "packed_flash_bwd_dkv_ref", "use_plain", "reset_launches"]
+           "packed_flash_bwd_dkv_ref", "use_plain", "reset_launches",
+           "hopper_fwd"]
 
 NEG_INF = -1e30       # the reference's mask value (:34)
 fwd_launches = 0      # kernel launches since the last reset_launches()
+fwd_hopper_launches = 0   # of those, the wgmma/TMA forward's
 dq_launches = 0
 dkv_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128          # the kernels' shared-memory plans cover D <= 128
 _MAX_GRID_Y = 65535   # q (or k) tiles of 64 rows ride on grid.y
+_HOPPER_D = (64, 128)  # the wgmma forward's 64-column, 128-byte boxes
+_HOPPER_MAX_L = 64 * 256  # its list of live key tiles holds 256 tiles
 _plain = False        # set only inside use_plain()
 
 # every pointer and the stream as c_void_p, or ctypes would pass a 32-bit
 # int and cut the address; the ints are B, H, L, D
 _DIMS = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # packed_flash_forward(dtype, q, k, v, seg, out, lse, B, H, L, D, scale,
-#   causal, stream)
+#   causal, stream), and packed_flash_forward_hopper alike
 FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + _DIMS
 # packed_flash_backward_dq(dtype, q, k, v, seg, dout, lse, delta, dq, ...)
 DQ_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + _DIMS
@@ -113,8 +127,19 @@ def segment_relative_positions(segment_ids):
 
 
 def reset_launches():
-    global fwd_launches, dq_launches, dkv_launches
-    fwd_launches = dq_launches = dkv_launches = 0
+    global fwd_launches, fwd_hopper_launches, dq_launches, dkv_launches
+    fwd_launches = fwd_hopper_launches = dq_launches = dkv_launches = 0
+
+
+def hopper_fwd(q, k, v, segment_ids):
+    """True when the forward of these tensors takes the wgmma/TMA kernel:
+    bfloat16, head size 64 or 128, ``L <= 16384`` (the kernel's list of
+    live key tiles), and q, k, v 16-byte aligned (so is the output, a
+    fresh tensor). Everything else takes the CUDA-core kernel. The ids
+    are read with plain loads: any int32 ``[B, L]``."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in _HOPPER_D
+            and q.shape[1] <= _HOPPER_MAX_L
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 @contextlib.contextmanager
@@ -258,20 +283,23 @@ def _raise_if(rc, what):
 
 
 def _launch_fwd(q, k, v, seg, causal, scale):
-    global fwd_launches
+    global fwd_launches, fwd_hopper_launches
     _check(q, k, v, seg)
-    fn = _kernel_fn("packed_flash_forward", FWD_ARGTYPES)
+    hopper = hopper_fwd(q, k, v, seg)
+    fn = _kernel_fn("packed_flash_forward_hopper" if hopper
+                    else "packed_flash_forward", FWD_ARGTYPES)
     B, L, H, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B * H, L, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    with torch.cuda.device(q.device):
+    with launch_context(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), seg.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), *_dims(q, scale, causal))
-    _raise_if(rc, "forward")
+    _raise_if(rc, "wgmma forward" if hopper else "forward")
     fwd_launches += 1
+    fwd_hopper_launches += hopper
     return out, lse
 
 

@@ -18,12 +18,19 @@ dequantized as each page is read.
   ``csrc/paged_attention.cu`` (replacing the TPU kernels ``_kernel`` at
   ``paged_attention_pallas.py:37`` and, over quantized pools,
   ``_kernel_quant`` at ``:102``) or raises. There is no fallback.
+  Two designs: over float32 / bfloat16 pools that :func:`split_kv`
+  admits (head size a multiple of 8, 16-byte aligned pools), the
+  split-KV kernels (the extent cut into splits of whole pages, each
+  split's partial softmax in a workspace this wrapper allocates, merged
+  in split order by a second kernel); over int8 / float8 pools, and
+  float pools it does not admit, the first design.
 - :func:`paged_decode_attention` — the ``q_len = 1`` entry
   (``paged_attention_pallas.py:219``).
 
-The module attributes ``launches`` (float pools) and ``quant_launches``
-(quantized pools) count kernel launches (read them as
-``paged_attention.launches``; :func:`reset_launches` zeroes both), so a
+The module attributes ``launches`` (float pools, both designs),
+``split_launches`` (of those, the split-KV design's) and
+``quant_launches`` (quantized pools) count kernel launches (read them as
+``paged_attention.launches``; :func:`reset_launches` zeroes them), so a
 run can show that its main path went through the kernel.
 """
 from __future__ import annotations
@@ -32,10 +39,14 @@ import ctypes
 
 import torch
 
+from ._build import launch_context
+
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
-           "paged_decode_attention", "reset_launches", "byte_view"]
+           "paged_decode_attention", "reset_launches", "byte_view",
+           "split_kv", "split_plan"]
 
 launches = 0          # launches over float pools since reset_launches()
+split_launches = 0    # of those, the split-KV design's
 quant_launches = 0    # launches over int8/fp8 pools since reset_launches()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,13 +60,53 @@ _MAX_HD = 256         # the kernel's shared-memory plan covers HD <= 256
 #   would pass a 32-bit int and cut the address
 ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_void_p])
-_fn = None
+# paged_attention_forward_split(q_dtype, kv_dtype, q, k_pool, v_pool,
+#   block_tables, kv_lens, q_lens, out, ws, S, QB, NH, HD, PS, MP, SL,
+#   nsplit, scale, stream)
+SPLIT_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                  + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+_SPLIT_POOLS = (torch.float32, torch.bfloat16)
+_SMS = 132            # the H100's SMs: the split aims at 4 blocks of each
+_SPLIT_POS = 128      # positions a split, before the grid asks for more
+_MIN_SPLIT_POS = 32   # splits shrink to fill the card, no further
+_MAX_SPLITS = 64      # the workspace's bound: longer splits past this
+_fns = {}
 
 
 def reset_launches():
-    global launches, quant_launches
-    launches = 0
-    quant_launches = 0
+    global launches, split_launches, quant_launches
+    launches = split_launches = quant_launches = 0
+
+
+def split_kv(q, k_pool, v_pool=None):
+    """True when these tensors take the split-KV kernels: float32 or
+    bfloat16 pools, a head size that is a multiple of 8 (a head's page row
+    is whole 16-byte units) up to 256, and 16-byte aligned pools. q may be
+    either float type, at any alignment. Everything else (int8 / float8
+    pools among it) takes the first design."""
+    pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
+    HD = q.shape[-1]
+    return (k_pool.dtype in _SPLIT_POOLS and HD % 8 == 0 and 8 <= HD <= _MAX_HD
+            and all(t.data_ptr() % 16 == 0 for t in pools))
+
+
+def split_plan(S, QB, NH, PS, MP):
+    """``(SL, nsplit)``: the split length in positions (whole pages) and
+    the number of splits over the extent ``MP * PS``. From the extent, not
+    the live lengths (reading those would wait for the card): 128
+    positions, halved while the grid (splits x row tiles of 16 x heads x
+    slots) holds fewer than 4 blocks an SM, down to 32 (or one page), and
+    lengthened while there are more than 64 splits (the workspace)."""
+    T = MP * PS
+    pages = max(1, _SPLIT_POS // PS)
+    blocks = S * NH * -(-QB // 16)
+    while (pages > 1 and pages * PS > _MIN_SPLIT_POS
+           and blocks * -(-T // (pages * PS)) < 4 * _SMS):
+        pages //= 2
+    while -(-T // (pages * PS)) > _MAX_SPLITS:
+        pages *= 2
+    SL = pages * PS
+    return SL, max(1, -(-T // SL))
 
 
 def _check_scales(k_pool, k_scale, v_scale):
@@ -132,15 +183,15 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
     return out.to(q.dtype)
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def _kernel_fn(name="paged_attention_forward", argtypes=ARGTYPES):
+    fn = _fns.get(name)
+    if fn is None:
         from ._build import load
-        fn = load("paged_attention").paged_attention_forward
-        fn.argtypes = ARGTYPES
+        fn = getattr(load("paged_attention"), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale=None,
@@ -190,17 +241,49 @@ def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale=None,
         raise ValueError(f"head_dim {HD} > {_MAX_HD}")
 
 
+def _launch_split(q, k_pool, v_pool, block_tables, kv_lens, q_lens,
+                  scale):
+    global launches, split_launches
+    S, QB, NH, HD = q.shape
+    PS, MP = k_pool.shape[1], block_tables.shape[1]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _kernel_fn("paged_attention_forward_split", SPLIT_ARGTYPES)
+    SL, nsplit = split_plan(S, QB, NH, PS, MP)
+    # the splits' partials: acc [S*QB*NH*nsplit, HD], then m and l
+    ws = (torch.empty(S * QB * NH * nsplit * (HD + 2), dtype=torch.float32,
+                      device=q.device) if nsplit > 1 else None)
+    with launch_context(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODE[q.dtype], _POOL_CODE[k_pool.dtype],
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), kv_lens.data_ptr(),
+                q_lens.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), S, QB, NH, HD, PS, MP,
+                SL, nsplit, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention split-KV kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches += 1
+    split_launches += 1
+    return out
+
+
 def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
             k_scale, v_scale):
     global launches, quant_launches
     _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale,
            v_scale)
+    if split_kv(q, k_pool, v_pool):
+        return _launch_split(q, k_pool, v_pool, block_tables, kv_lens,
+                             q_lens, scale)
     S, QB, NH, HD = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     fn = _kernel_fn()
-    with torch.cuda.device(q.device):
+    with launch_context(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODE[q.dtype], _POOL_CODE[k_pool.dtype],
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

@@ -1,13 +1,14 @@
 """Tests of the PyTorch port that need a CUDA device: the hand-written
-ragged paged-attention kernel (float pools, and int8/fp8 pools with page
-scales), the flash-attention forward, dq and dk/dv kernels, the fused-CE
-forward, dh and dw kernels, the shared-dl dh/dw pair and the packed
-(segment-id) flash forward, dq and dk/dv kernels against their plain
-PyTorch versions (the bf16 flash forward, dq, dk/dv and dw_sharep on
-their wgmma/TMA designs, float32 on the others), the serving
-engine on the card against the same engine on the CPU (float and
-quantized pools, int8 weights), and GPT and packed-BERT training steps
-through the kernels against the same steps through the plain versions.
+ragged paged-attention kernel (float pools on the split-KV design, and
+int8/fp8 pools with page scales on the first one), the flash-attention
+forward, dq and dk/dv kernels, the fused-CE forward, dh and dw kernels,
+the shared-dl dh/dw pair and the packed (segment-id) flash forward, dq
+and dk/dv kernels against their plain PyTorch versions (the bf16 flash
+forward, dq, dk/dv, dw_sharep and packed forward on their wgmma/TMA
+designs, float32 on the others), the serving engine on the card against
+the same engine on the CPU (float and quantized pools, int8 weights), and
+GPT and packed-BERT training steps through the kernels against the same
+steps through the plain versions.
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -200,7 +201,7 @@ def test_quant_wrapper_raises_on_cuda_without_the_library(cuda, tmp_path,
     monkeypatch.setenv("PATH", "")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(pa, "_fn", None)
+    monkeypatch.setattr(pa, "_fns", {})
     (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(cuda, 23, "fp8",
                                                   torch.float32, 16)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -234,6 +235,69 @@ def test_quantized_engine_on_the_card_matches_the_cpu_engine(
                                      "fp8": torch.float8_e4m3fn}[kv_dtype]
         eng.kv.verify()
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# -- the split-KV design of the float-pool kernel ------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ["mixed", "decode", "prefill"])
+def test_split_kv_kernel_matches_plain_at_the_smoke_shapes(cuda, shape, dtype,
+                                                           tol):
+    """GPT-2 small's serving shapes (chip_smoke.RAGGED_SHAPES): every call
+    on the split-KV design, live rows within the limit, idle slots exactly
+    zero, two launches bit-identical."""
+    import chip_smoke
+    kv_lens, q_lens, QB = chip_smoke.RAGGED_SHAPES[shape]
+    c = chip_smoke.attention_case(kv_lens, q_lens, QB, dtype,
+                                  np.random.default_rng(3), 1)
+    kp, vp = c["pools"][0]
+    args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
+    assert pa.split_kv(c["q"], kp, vp)
+    pa.reset_launches()
+    runs = [pa.ragged_paged_attention(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.split_launches, pa.quant_launches) == (2, 2, 0)
+    assert torch.equal(runs[0], runs[1])
+    ref = pa.ragged_paged_attention_ref(*args)
+    assert _live_err(runs[0], ref, c["q_lens"]) <= tol
+    idle = c["kv_lens"] == 0
+    assert torch.all(runs[0][idle] == 0)
+
+
+@pytest.mark.parametrize("split_len", [8, 16, 24, 32])
+def test_split_kv_kernel_at_forced_split_lengths(cuda, split_len):
+    """The C entry at split lengths the wrapper would not pick: splits that
+    cut a slot's extent inside its run of pages, a slot shorter than one
+    split, and one split (the block writes the output itself)."""
+    q, k, v, bt, kl, ql = _case(cuda, 13)
+    fn = pa._kernel_fn("paged_attention_forward_split", pa.SPLIT_ARGTYPES)
+    S, QB, NH, HD = q.shape
+    PS, MP = k.shape[1], bt.shape[1]
+    nsplit = -(-MP * PS // split_len)
+    out = torch.empty_like(q)
+    ws = torch.empty(S * QB * NH * nsplit * (HD + 2), dtype=torch.float32,
+                     device=cuda)
+    rc = fn(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
+            kl.data_ptr(), ql.data_ptr(), out.data_ptr(), ws.data_ptr(), S, QB,
+            NH, HD, PS, MP, split_len, nsplit, HD ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    ref = pa.ragged_paged_attention_ref(q, k, v, bt, kl, ql)
+    assert _live_err(out, ref, ql) <= 1e-4
+    assert torch.all(out[3] == 0)
+
+
+def test_quantized_pools_keep_the_first_design(cuda):
+    (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(cuda, 24, "int8",
+                                                  torch.bfloat16, 64)
+    assert not pa.split_kv(q, kq, vq)
+    pa.reset_launches()
+    pa.ragged_paged_attention(q, kq, vq, bt, kl, ql, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.split_launches, pa.quant_launches) == (0, 0, 1)
 
 
 # -- flash attention (paddle_tpu_torch/kernels/flash_attention.py) ------------
@@ -824,6 +888,61 @@ def test_tiny_bert_packed_step_with_the_kernels_equals_the_plain_step(cuda):
             torch.testing.assert_close(a, b, rtol=0, atol=2 * 3 * 1e-3)
             continue
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["bert", "uneven", "uneven_causal", "L300",
+                                  "L2048", "L4096", "d128"])
+def test_packed_forward_designs_at_the_smoke_shapes(cuda, case, dtype):
+    """chip_smoke.PACKED_CASES: bfloat16 on the wgmma/TMA forward, float32
+    on the CUDA-core one, within the forward limits, and two launches
+    bit-identical."""
+    import chip_smoke
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    B, H, L, D, causal, layout = chip_smoke.PACKED_CASES[case]
+    q, k, v, _ = _fa_inputs(cuda, B, H, L, L, D, dtype, 14)
+    seg = chip_smoke.packed_ids(B, L, layout)
+    pf.reset_launches()
+    runs = [pf.packed_flash_fwd(q, k, v, seg, causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    hopper = dtype == torch.bfloat16
+    assert (pf.fwd_launches, pf.fwd_hopper_launches) == (2, 2 * hopper)
+    assert pf.hopper_fwd(q, k, v, seg) is hopper
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    rout, rlse = pf.packed_flash_fwd_ref(q, k, v, seg, causal)
+    ftol = FA_TOL[dtype][0]
+    assert _rel(runs[0][0], rout) <= ftol and _rel(runs[0][1], rlse) <= ftol
+
+
+@pytest.mark.parametrize("stalled", [0, 1], ids=["wg0_lags", "wg1_lags"])
+def test_packed_forward_holds_when_one_warpgroup_lags(cuda, stalled):
+    """The wgmma packed forward built with its test hook
+    PACKED_FWD_STALL_WG, which sleeps one consumer warpgroup on every tile
+    it computes: the other runs ahead (and releases the tiles it skips at
+    once), so the producer must reload no stage the lagging warpgroup
+    still reads; the output equals the plain build's bit for bit."""
+    import chip_smoke
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    lib = _build.load("packed_flash", (f"-DPACKED_FWD_STALL_WG={stalled}",))
+    fn = lib.packed_flash_forward_hopper
+    fn.argtypes, fn.restype = pf.FWD_ARGTYPES, ctypes.c_int
+    for case in ("bert", "uneven", "uneven_causal", "L300", "d128"):
+        B, H, L, D, causal, layout = chip_smoke.PACKED_CASES[case]
+        B = min(B, 4)
+        q, k, v, _ = _fa_inputs(cuda, B, H, L, L, D, torch.bfloat16, 15)
+        seg = chip_smoke.packed_ids(B, L, layout)
+        want = pf.packed_flash_fwd(q, k, v, seg, causal)
+        out = torch.empty_like(q)
+        lse = torch.empty(B * H, L, dtype=torch.float32, device=cuda)
+        rc = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                out.data_ptr(), lse.data_ptr(),
+                *pf._dims(q, pf._default_scale(q, None), causal))
+        assert rc == 0, case
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[0]) and torch.equal(lse, want[1]), case
 
 
 def test_packed_flash_wrapper_raises_on_cuda_without_the_library(
