@@ -71,7 +71,9 @@ exits non-zero:
      attention, and the forward and the backward bit-identical across
      two launches in every case. Every bfloat16 forward must take the
      wgmma/TMA design and every float32 one the CUDA-core design
-     (``fwd_design``).
+     (``fwd_design``); dq and dk/dv the wgmma/TMA design in every bfloat16
+     case at D=64 (``hopper_bwd``) and the CUDA-core one at D=128 and in
+     float32 (``bwd_design``).
    Times each kernel (CUDA events: the median of 5 repeats of a timed
    loop, printed with the min-max spread as ``<key>_spread``), its plain
    version and one PyTorch
@@ -95,8 +97,8 @@ exits non-zero:
    wgmma/TMA one encodes three tensor maps a call). Each timed loop
    runs behind a GPU sleep twice its host time, so it reads the card's
    time even where a wrapper's host work outlasts its kernel; the ragged
-   kernel (bfloat16) and the packed forward also carry ``host_us``, the
-   wrapper's host microseconds a call.
+   kernel (bfloat16) and the packed forward, dq and dk/dv also carry
+   ``host_us``, the wrapper's host microseconds a call.
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
@@ -170,8 +172,8 @@ exits non-zero:
    step ms, MFU and peak memory.
 13. ``bert_packed`` — the same with ``pack=4`` (16 rows of four
    sequences, ``SegmentIds`` with start positions): each packed kernel
-   launched 12 x 24 times, every forward on the wgmma/TMA design, and
-   no flash kernel.
+   launched 12 x 24 times, every forward, dq and dk/dv on the wgmma/TMA
+   designs, and no flash kernel.
 14. ``bert_parity`` — float32, no autocast, dropout 0, full width, batch
    8 packed four to a row: through the packed kernels against their plain
    versions (logits within 1e-4 of max-abs, step-1 gradients within 1e-3;
@@ -1165,16 +1167,27 @@ def run_packed_flash_phase():
                 raise AssertionError(f"packed forward ({name}, {dtype}) not "
                                      "bit-identical across two launches")
             delta = pf.attention_delta(out, do)
+            before = (pf.dq_hopper_launches, pf.dkv_hopper_launches)
             dq = pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, causal)
             dk, dv = pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta,
                                              causal)
             torch.cuda.synchronize()
+            bwd = (pf.dq_hopper_launches > before[0],
+                   pf.dkv_hopper_launches > before[1])
+            # every bf16 case at D = 64 on the new design, float32 and
+            # D = 128 on the CUDA-core one
+            want = dtype == torch.bfloat16 and D == 64
+            if pf.hopper_bwd(q, k, v, do, seg) != want or bwd != (want, want):
+                raise AssertionError(
+                    f"packed backward ({name}, {dtype}) took dq on the "
+                    f"{design(bwd[0])} and dk/dv on the {design(bwd[1])} "
+                    f"design; want {design(want)}")
             rout, rlse = pf.packed_flash_fwd_ref(q, k, v, seg, causal)
             rdq = pf.packed_flash_bwd_dq_ref(q, k, v, seg, do, lse, delta,
                                              causal)
             rdk, rdv = pf.packed_flash_bwd_dkv_ref(q, k, v, seg, do, lse,
                                                    delta, causal)
-            rec = {"fwd_design": design(hopper),
+            rec = {"fwd_design": design(hopper), "bwd_design": design(want),
                    "forward_bit_identical": True}
             for key, a, b, tol in (("out", out, rout, ftol),
                                    ("lse", lse, rlse, ftol),
@@ -1218,7 +1231,8 @@ def time_packed(q, k, v, seg, do, lse, delta, causal, pf):
     forward+backward (dq, dk/dv). dq and dk/dv also carry
     ``library_bwd_ms``, SDPA forward+backward minus SDPA forward (the
     library's backward alone), and ``bwd_pair`` holds dq + dk/dv against
-    it, as ``time_flash`` does."""
+    it, as ``time_flash`` does. Each kernel also carries ``host_us``, its
+    wrapper's host microseconds a call."""
     import torch
     import torch.nn.functional as F
     t = {"fwd": cuda_ms(lambda i: pf.packed_flash_fwd(q, k, v, seg, causal),
@@ -1248,15 +1262,18 @@ def time_packed(q, k, v, seg, do, lse, delta, causal, pf):
                                        attn_mask=mask).backward(dot)
     lib_both = cuda_ms(lib_fb, 20)
     lib_bwd = float(lib_both) - float(lib_fwd)
-    fwd_host = host_us(lambda i: pf.packed_flash_fwd(q, k, v, seg, causal),
-                       20)
+    host = {"fwd": host_us(lambda i: pf.packed_flash_fwd(q, k, v, seg,
+                                                         causal), 20),
+            "dq": host_us(lambda i: pf.packed_flash_bwd_dq(
+                q, k, v, seg, do, lse, delta, causal), 20),
+            "dkv": host_us(lambda i: pf.packed_flash_bwd_dkv(
+                q, k, v, seg, do, lse, delta, causal), 20)}
     b = packed_bounds(q, seg, causal)
     rec = {kn: dict(ms=t[kn], plain_ms=p[kn],
                     library_ms=lib_fwd if kn == "fwd" else lib_both,
                     factor_over_library=t[kn] / (lib_fwd if kn == "fwd"
                                                  else lib_both),
-                    **b[kn]) for kn in ("fwd", "dq", "dkv")}
-    rec["fwd"]["host_us"] = fwd_host
+                    host_us=host[kn], **b[kn]) for kn in ("fwd", "dq", "dkv")}
     for kn in ("dq", "dkv"):
         rec[kn]["library_bwd_ms"] = lib_bwd
     pair = float(t["dq"]) + float(t["dkv"])
@@ -1812,10 +1829,12 @@ def run_bert_phase(pack, packed_ms=None, flash_ms=None):
     if wgmma != flash:   # every bf16 flash launch on wgmma/TMA
         raise AssertionError(f"{phase}: flash launches on the wgmma/TMA "
                              f"designs {wgmma} of {flash}")
-    if pf.fwd_hopper_launches != packed["fwd"]:   # and every packed forward
-        raise AssertionError(f"{phase}: packed forwards on the wgmma/TMA "
-                             f"design {pf.fwd_hopper_launches} of "
-                             f"{packed['fwd']}")
+    packed_wgmma = {"fwd": pf.fwd_hopper_launches,
+                    "dq": pf.dq_hopper_launches,
+                    "dkv": pf.dkv_hopper_launches}
+    if packed_wgmma != packed:   # and every packed launch
+        raise AssertionError(f"{phase}: packed launches on the wgmma/TMA "
+                             f"designs {packed_wgmma} of {packed}")
     ms = packed_ms if pack else flash_ms
     attn = sum(on[kn] * ms[kn] for kn in on) / BERT_STEPS
     return {"phase": phase, **rec, "steps": BERT_STEPS,
@@ -1823,6 +1842,8 @@ def run_bert_phase(pack, packed_ms=None, flash_ms=None):
             "flash_launches": flash, "packed_flash_launches": packed,
             "flash_wgmma_tma_launches": wgmma,
             "packed_fwd_wgmma_tma_launches": pf.fwd_hopper_launches,
+            "packed_dq_wgmma_tma_launches": pf.dq_hopper_launches,
+            "packed_dkv_wgmma_tma_launches": pf.dkv_hopper_launches,
             "attention_ms_per_step": attn,
             "attention_share_of_step": attn / rec["step_ms"]}, packed
 
@@ -2270,7 +2291,16 @@ def main():
                                        for dt, r in case.items()}
                                    for n, case in pres.items()}}
                if kn == "fwd" else
-               {"library_bwd_ms": pt[kn]["library_bwd_ms"],
+               {"source_kernel": f"packed_flash_{kn}_hopper_kernel",
+                "host_us": pt[kn]["host_us"],
+                "design": f"wgmma_tma (bf16, D 64, L <= 16384; float32, D "
+                          f"128 and the rest on packed_flash_{kn}_kernel)",
+                "launches_wgmma_tma":
+                    bert_packed[f"packed_{kn}_wgmma_tma_launches"],
+                "design_by_case": {n: {dt: r["bwd_design"]
+                                       for dt, r in case.items()}
+                                   for n, case in pres.items()},
+                "library_bwd_ms": pt[kn]["library_bwd_ms"],
                 "bwd_pair": pt["bwd_pair"]})})
     emit({"phase": "seconds", "total": time.perf_counter() - t_start})
     emit({"kernels": with_spreads(kernels)})

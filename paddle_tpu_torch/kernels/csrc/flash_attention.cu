@@ -92,6 +92,9 @@
 //   warpgroup w lag in both kernels, for the card test). Masks only on
 //   tiles that cross Lk, the diagonal or dead rows; in dk/dv keys past Lk
 //   compute harmlessly on zero-filled K and V rows and are never stored.
+//   Both bodies are csrc/flash_bwd_hopper.cuh's, which packed_flash.cu's
+//   packed_flash_dq_hopper_kernel and packed_flash_dkv_hopper_kernel run
+//   with segment ids.
 //   Rounding points the plain version lacks: P (for dV) and dS in bf16
 //   before their products. Both kernels take one CTA an SM (288 threads
 //   need a 9-warp share of the register file: 168 a thread at most). dq
@@ -113,6 +116,7 @@
 //
 // The backward uses no atomics (dq and dk/dv are separate kernels, as in
 // the Pallas split), so two runs give bit-identical gradients.
+#include "flash_bwd_hopper.cuh"
 #include "flash_fwd_hopper.cuh"
 
 namespace {
@@ -469,143 +473,9 @@ flash_attention_fwd_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// backward on wgmma and TMA (bf16, D = 64): dq and dk/dv, two kernels as in
-// the Pallas split, no atomics. A CTA owns BM = 128 rows (q rows for dq,
-// keys for dk/dv), two consumer warpgroups of 64 each, and streams BN =
-// 64-row tiles of the other side through a ring. Written for any D that
-// is a multiple of 64, built for 64 alone (the file's note says why).
+// backward on wgmma and TMA (bf16, D = 64): the bodies are
+// csrc/flash_bwd_hopper.cuh's, shared with the packed backward (seg unused)
 // ---------------------------------------------------------------------------
-template <int D>
-struct HopperBwd {
-  static constexpr int BM = 128;                 // rows a CTA owns
-  static constexpr int BN = 64;                  // rows a stage streams
-  static constexpr int STAGES = 3;
-  static constexpr int BOXES = D / 64;           // 64-column boxes of a row
-  static constexpr int BIG_BYTES = BM * D * 2;   // Q or dO (dq); K or V (dk/dv)
-  static constexpr int TILE_BYTES = BN * D * 2;  // one streamed tile
-  static constexpr int A_OFF = 0;                // Q (dq); K (dk/dv)
-  static constexpr int B_OFF = BIG_BYTES;        // dO (dq); V (dk/dv)
-  static constexpr int R0_OFF = 2 * BIG_BYTES;   // ring: K tiles (dq); Q tiles (dk/dv)
-  static constexpr int R1_OFF = R0_OFF + STAGES * TILE_BYTES;    // V tiles; dO tiles
-  static constexpr int ROWS_OFF = R1_OFF + STAGES * TILE_BYTES;  // dk/dv: lse, delta a stage
-  static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * BN * 4;
-  // big_full, r0_full[S], r1_full[S], empty[2][S]; 1024 bytes of alignment slack
-  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
-  static constexpr int THREADS = 2 * 128 + 32;
-};
-
-// The producer's wait before it reloads ring stage s with tile u: every
-// consumer warpgroup that read tile u - S must have released it. A
-// warpgroup reads a contiguous run of tiles from f (its first) and
-// arrives once on empty(w, s) for each tile it reads in stage s: u - S,
-// u - 2S, ... back to f, so its release of u - S completes phase
-// (u - S - f) / S of that barrier.
-__device__ __forceinline__ uint32_t release_parity(int u_prev, int f, int stages) {
-  return ((u_prev - f) / stages) & 1;
-}
-
-// key tiles [0, n) that q rows [qw, qw + 64) read in the backward: none
-// for rows past Lq or dead rows (they pass no gradient to q), else up to
-// the diagonal of the tile's last row
-template <int BN>
-__device__ __forceinline__ int dq_row_tiles(const Shape& sh, int qw, int nkt) {
-  if (qw >= sh.Lq) return 0;
-  if (!sh.causal) return nkt;
-  const int last = qw + 63 + sh.off();  // the last column row qw + 63 sees
-  return last < 0 ? 0 : min(nkt, last / BN + 1);
-}
-
-// the first q tile that reaches keys [kw, kw + 64), of nqt: rows from
-// kw - off on see them under causality (dead rows, when Lq > Lk, see
-// every key); keys past Lk read none
-template <int BN>
-__device__ __forceinline__ int dkv_first_tile(const Shape& sh, int kw, int nqt) {
-  if (kw >= sh.Lk) return nqt;
-  if (!sh.causal || sh.off() < 0) return 0;
-  return min(nqt, max(0, kw - sh.off()) / BN);
-}
-
-// A warpgroup's 64 x D float32 accumulator out as bf16 rows [r0, r0 + 64)
-// of a [B, L, H, D] tensor: through the warpgroup's own rows of a tile at
-// so, swizzled as TMA wrote it (boxes BR rows apart, so the writes meet no
-// bank conflicts), then 16-byte stores of the rows below L
-template <int D, int BR>
-__device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 2], unsigned char* so,
-                                                int wg, int t, __nv_bfloat16* __restrict__ out,
-                                                int r0, int L, int b, int h, int H) {
-  const int lane = t % 32;
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int rl = 16 * (t / 32) + lane / 4 + 8 * ((i & 3) >> 1);
-    const int col = 8 * (i >> 2) + 2 * (lane & 3);
-    const int box = col / 64, chunk = (col % 64) / 8;
-    *reinterpret_cast<uint32_t*>(so + box * BR * 128 + rl * 128 + ((chunk ^ (rl % 8)) * 16) +
-                                 (col % 8) * 2) = pack_bf16(acc[i], acc[i + 1]);
-  }
-  named_sync(1 + wg, 128);
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
-  for (int idx = t; idx < 64 * CPR; idx += 128) {
-    const int rl = idx / CPR, c = idx % CPR, row = r0 + rl;
-    if (row >= L) continue;
-    const uint4 v = *reinterpret_cast<const uint4*>(so + (c / 8) * BR * 128 + rl * 128 +
-                                                    (((c % 8) ^ (rl % 8)) * 16));
-    *reinterpret_cast<uint4*>(out + row_base(b, row, h, L, H, D) + c * 8) = v;
-  }
-}
-
-// dS = P (dP - delta) scale with P = 2^(S scale log2(e) - lse log2(e)), on
-// the fragments of one 64 x BN tile of dq (rows ra, ra + 8 of this thread,
-// columns from k0), into sc; with `mask` (the tile crosses Lk, the
-// diagonal or dead rows) every entry that is not live gets 0
-template <int BN>
-__device__ __forceinline__ void dq_ds(float (&sc)[BN / 2], const float (&dp)[BN / 2],
-                                      const float (&lse2)[2], const float (&dlt)[2],
-                                      const Shape& sh, int ra, int k0, int lane,
-                                      float scale_log2, bool mask) {
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    const int r = (i & 3) >> 1;
-    float ds = ex2(fmaf(sc[i], scale_log2, -lse2[r])) * (dp[i] - dlt[r]) * sh.scale;
-    if (mask) {
-      const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-      ds = sh.mode(ra + 8 * r, col) == kLive ? ds : 0.f;
-    }
-    sc[i] = ds;
-  }
-}
-
-// P^T and dS^T on the fragments of one 64-key x BN-row tile of dk/dv (keys
-// ka, ka + 8 of this thread, q rows from q0), lse log2(e) and delta per
-// column from the stage: sc becomes P^T, dp dS^T. With `mask` (the tile
-// crosses the diagonal or holds dead rows) dead rows weigh every key by
-// exp(-lse) and pass no dS, and entries above the diagonal get 0. Keys
-// past Lk compute harmlessly: their rows are never stored.
-template <int BN>
-__device__ __forceinline__ void dkv_p_ds(float (&sc)[BN / 2], float (&dp)[BN / 2],
-                                         const float* lse2, const float* dlt, const Shape& sh,
-                                         int ka, int q0, int lane, float scale_log2, bool mask) {
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = 8 * j + 2 * (lane & 3);
-    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
-    const float2 d2 = *reinterpret_cast<const float2*>(dlt + c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * j + e;
-      const float lc = (e & 1) ? l2.y : l2.x, dc = (e & 1) ? d2.y : d2.x;
-      float p = ex2(fmaf(sc[i], scale_log2, -lc));
-      float ds = p * (dp[i] - dc) * sh.scale;
-      if (mask) {
-        const int md = sh.mode(q0 + c + (e & 1), ka + 8 * (e >> 1));
-        p = md == kLive ? p : (md == kDead ? ex2(-lc) : 0.f);
-        ds = md == kLive ? ds : 0.f;
-      }
-      sc[i] = p;
-      dp[i] = ds;
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(HopperBwd<D>::THREADS, 1)
 flash_attention_dq_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -613,116 +483,9 @@ flash_attention_dq_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap vmap,
                                  const __grid_constant__ CUtensorMap domap,
                                  const float* __restrict__ lse, const float* __restrict__ delta,
-                                 __nv_bfloat16* __restrict__ dq, Shape sh, float scale_log2) {
-  using C = HopperBwd<D>;
-  constexpr int S = C::STAGES, BM = C::BM, BN = C::BN;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled boxes start on 1024 bytes
-  unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t qd_full = base + C::BAR_OFF;   // Q and dO
-  auto k_full = [=](int s) { return qd_full + 8 * (1 + s); };
-  auto v_full = [=](int s) { return qd_full + 8 * (1 + S + s); };
-  auto empty = [=](int w, int s) { return qd_full + 8 * (1 + (2 + w) * S + s); };
-
-  const int bh = blockIdx.x;
-  const int b = bh / sh.H, h = bh - b * sh.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heavy tiles first
-  const int off = sh.off();
-  const int nkt = (sh.Lk + BN - 1) / BN;
-  // warpgroup w reads key tiles [0, n_w); the lower one fewer under causality
-  const int n0 = dq_row_tiles<BN>(sh, q0, nkt), n1 = dq_row_tiles<BN>(sh, q0 + 64, nkt);
-
-  if (threadIdx.x == 0) {
-    mbar_init(qd_full, 1);
-    for (int s = 0; s < S; ++s) {
-      mbar_init(k_full(s), 1);
-      mbar_init(v_full(s), 1);
-      mbar_init(empty(0, s), 128);
-      mbar_init(empty(1, s), 128);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= 2 * 128) {  // the producer warp: one thread issues every copy
-    if (threadIdx.x == 2 * 128) {
-      mbar_expect_tx(qd_full, 2 * C::BIG_BYTES);
-      for (int c = 0; c < C::BOXES; ++c) {
-        tma_load_4d(base + C::A_OFF + c * BM * 128, &qmap, qd_full, c * 64, h, q0, b);
-        tma_load_4d(base + C::B_OFF + c * BM * 128, &domap, qd_full, c * 64, h, q0, b);
-      }
-      const int nt = max(n0, n1);
-      for (int kt = 0; kt < nt; ++kt) {
-        const int s = kt % S;
-        if (kt >= S) {  // tile kt - S leaves the stage once each reader of it is done
-          if (kt - S < n0) mbar_wait(empty(0, s), release_parity(kt - S, 0, S));
-          if (kt - S < n1) mbar_wait(empty(1, s), release_parity(kt - S, 0, S));
-        }
-        const uint32_t sk = base + C::R0_OFF + s * C::TILE_BYTES;
-        const uint32_t sv = base + C::R1_OFF + s * C::TILE_BYTES;
-        mbar_expect_tx(k_full(s), C::TILE_BYTES);
-        for (int c = 0; c < C::BOXES; ++c)
-          tma_load_4d(sk + c * BN * 128, &kmap, k_full(s), c * 64, h, kt * BN, b);
-        mbar_expect_tx(v_full(s), C::TILE_BYTES);
-        for (int c = 0; c < C::BOXES; ++c)
-          tma_load_4d(sv + c * BN * 128, &vmap, v_full(s), c * 64, h, kt * BN, b);
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns q rows [qw, qw + 64); this thread rows ra
-  // and ra + 8, whose lse (times log2 e) and delta it holds. Rows past Lq
-  // read lse = +inf, so their P is 0.
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
-  const int qw = q0 + 64 * wg;
-  const int ra = qw + 16 * (t / 32) + lane / 4;
-  const int nw = wg ? n1 : n0;
-  const bool dead_rows = sh.causal && qw + off < 0;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = ra + 8 * r;
-    lse2[r] = row < sh.Lq ? lse[(size_t)bh * sh.Lq + row] * 1.4426950408889634f : INFINITY;
-    dlt[r] = row < sh.Lq ? delta[(size_t)bh * sh.Lq + row] : 0.f;
-  }
-  float acc[D / 2], sc[BN / 2], dp[BN / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  uint32_t pa[BN / 16][4];  // dS in bf16: the A fragments of its k16 slices
-  const uint32_t sq = base + C::A_OFF + wg * 64 * 128, sdo = base + C::B_OFF + wg * 64 * 128;
-
-  mbar_wait(qd_full, 0);  // also before the epilogue reuses the Q rows
-  for (int kt = 0; kt < nw; ++kt) {
-    const int s = kt % S;
-    const uint32_t par = (kt / S) & 1;
-#ifdef FLASH_BWD_STALL_WG
-    // test hook: this warpgroup lags the other by a while on every tile
-    if (wg == FLASH_BWD_STALL_WG) __nanosleep(2000);
-#endif
-    const uint32_t sk = base + C::R0_OFF + s * C::TILE_BYTES;
-    const uint32_t sv = base + C::R1_OFF + s * C::TILE_BYTES;
-    mbar_wait(k_full(s), par);
-    mma_abt<D, BM, BN>(sc, sq, sk);   // S = Q K^T
-    mbar_wait(v_full(s), par);
-    mma_abt<D, BM, BN>(dp, sdo, sv);  // dP = dO V^T
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-    const int k0 = kt * BN;
-    const bool mask =
-        dead_rows || k0 + BN > sh.Lk || (sh.causal && k0 + BN - 1 > qw + off);
-    dq_ds<BN>(sc, dp, lse2, dlt, sh, ra, k0, lane, scale_log2, mask);
-    to_pa<BN>(pa, sc);
-    mma_rs_mn<D, BN>(acc, pa, sk);    // dq += dS K, K read MN-major
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(pa);
-    mbar_arrive(empty(wg, s));
-  }
-  store_rows_bf16<D, BM>(acc, gbase + C::A_OFF + wg * 64 * 128, wg, t, dq, qw, sh.Lq, b, h,
-                         sh.H);
+                                 __nv_bfloat16* __restrict__ dq, Shape sh, float scale_log2,
+                                 const int* __restrict__ seg) {
+  dq_hopper_body<D, false>(qmap, kmap, vmap, domap, lse, delta, dq, sh, scale_log2, seg);
 }
 
 template <int D>
@@ -733,123 +496,9 @@ flash_attention_dkv_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
                                   const __grid_constant__ CUtensorMap domap,
                                   const float* __restrict__ lse,
                                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                                  __nv_bfloat16* __restrict__ dv, Shape sh, float scale_log2) {
-  using C = HopperBwd<D>;
-  constexpr int S = C::STAGES, BM = C::BM, BN = C::BN;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - raw);
-  float* rows = reinterpret_cast<float*>(gbase + C::ROWS_OFF);  // [S][lse2 | delta][BN]
-  const uint32_t kv_full = base + C::BAR_OFF;  // K and V
-  // full(s): the stage's Q, dO (TMA) and its lse and delta (the producer
-  // warp's 32 lanes each write two rows and arrive)
-  auto full = [=](int s) { return kv_full + 8 * (1 + s); };
-  auto empty = [=](int w, int s) { return kv_full + 8 * (1 + (2 + w) * S + s); };
-
-  const int bh = blockIdx.x;
-  const int b = bh / sh.H, h = bh - b * sh.H;
-  const int k0 = blockIdx.y * BM;  // light causal key tiles are the late ones
-  const int off = sh.off();
-  const int nqt = (sh.Lq + BN - 1) / BN;
-  // warpgroup w reads q tiles [f_w, nqt); under causality the upper keys'
-  // warpgroup starts a tile later: the lower one reads tiles it skips
-  const int f0 = dkv_first_tile<BN>(sh, k0, nqt), f1 = dkv_first_tile<BN>(sh, k0 + 64, nqt);
-  const int lo = min(f0, f1);
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full(s), 32);
-      mbar_init(empty(0, s), 128);
-      mbar_init(empty(1, s), 128);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= 2 * 128) {  // the producer warp
-    const int lane = threadIdx.x - 2 * 128;
-    if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * C::BIG_BYTES);
-      for (int c = 0; c < C::BOXES; ++c) {
-        tma_load_4d(base + C::A_OFF + c * BM * 128, &kmap, kv_full, c * 64, h, k0, b);
-        tma_load_4d(base + C::B_OFF + c * BM * 128, &vmap, kv_full, c * 64, h, k0, b);
-      }
-    }
-    for (int u = lo; u < nqt; ++u) {
-      const int s = (u - lo) % S;
-      if (u - lo >= S) {  // tile u - S leaves the stage once each reader of it is done
-        if (u - S >= f0) mbar_wait(empty(0, s), release_parity(u - S, f0, S));
-        if (u - S >= f1) mbar_wait(empty(1, s), release_parity(u - S, f1, S));
-      }
-      float* sr = rows + s * 2 * BN;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int rl = 2 * lane + j, row = u * BN + rl;
-        sr[rl] = row < sh.Lq ? lse[(size_t)bh * sh.Lq + row] * 1.4426950408889634f : INFINITY;
-        sr[BN + rl] = row < sh.Lq ? delta[(size_t)bh * sh.Lq + row] : 0.f;
-      }
-      if (lane == 0) {
-        const uint32_t sq = base + C::R0_OFF + s * C::TILE_BYTES;
-        const uint32_t sdo = base + C::R1_OFF + s * C::TILE_BYTES;
-        mbar_expect_tx(full(s), 2 * C::TILE_BYTES);
-        for (int c = 0; c < C::BOXES; ++c) {
-          tma_load_4d(sq + c * BN * 128, &qmap, full(s), c * 64, h, u * BN, b);
-          tma_load_4d(sdo + c * BN * 128, &domap, full(s), c * 64, h, u * BN, b);
-        }
-      } else {
-        mbar_arrive(full(s));
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns keys [kw, kw + 64); this thread keys ka
-  // and ka + 8 (its accumulator rows: S^T puts each key in a row)
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
-  const int kw = k0 + 64 * wg;
-  const int ka = kw + 16 * (t / 32) + lane / 4;
-  const int fw = wg ? f1 : f0;
-  float dka[D / 2], dva[D / 2], sc[BN / 2], dp[BN / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
-  uint32_t pp[BN / 16][4], pd[BN / 16][4];  // P^T and dS^T in bf16: A fragments
-  const uint32_t sk = base + C::A_OFF + wg * 64 * 128, sv = base + C::B_OFF + wg * 64 * 128;
-
-  mbar_wait(kv_full, 0);  // also before the epilogue reuses the K and V rows
-  for (int u = fw; u < nqt; ++u) {
-    const int s = (u - lo) % S;
-#ifdef FLASH_BWD_STALL_WG
-    if (wg == FLASH_BWD_STALL_WG) __nanosleep(2000);
-#endif
-    const uint32_t sq = base + C::R0_OFF + s * C::TILE_BYTES;
-    const uint32_t sdo = base + C::R1_OFF + s * C::TILE_BYTES;
-    mbar_wait(full(s), ((u - lo) / S) & 1);
-    mma_abt<D, BM, BN>(sc, sk, sq);   // S^T = K Q^T
-    mma_abt<D, BM, BN>(dp, sv, sdo);  // dP^T = V dO^T
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-    const int q0 = u * BN;
-    const bool mask = sh.causal && q0 + off < kw + 63;
-    const float* sr = rows + s * 2 * BN;
-    dkv_p_ds<BN>(sc, dp, sr, sr + BN, sh, ka, q0, lane, scale_log2, mask);
-    to_pa<BN>(pp, sc);
-    to_pa<BN>(pd, dp);
-    mma_rs_mn<D, BN>(dva, pp, sdo);   // dV += P^T dO
-    mma_rs_mn<D, BN>(dka, pd, sq);    // dK += dS^T Q
-    wgmma_wait<0>();
-    fence_regs(dka);
-    fence_regs(dva);
-    fence_regs(pp);
-    fence_regs(pd);
-    mbar_arrive(empty(wg, s));
-  }
-  store_rows_bf16<D, BM>(dka, gbase + C::A_OFF + wg * 64 * 128, wg, t, dk, kw, sh.Lk, b, h,
-                         sh.H);
-  store_rows_bf16<D, BM>(dva, gbase + C::B_OFF + wg * 64 * 128, wg, t, dv, kw, sh.Lk, b, h,
-                         sh.H);
+                                  __nv_bfloat16* __restrict__ dv, Shape sh, float scale_log2,
+                                  const int* __restrict__ seg) {
+  dkv_hopper_body<D, false>(qmap, kmap, vmap, domap, lse, delta, dk, dv, sh, scale_log2, seg);
 }
 
 template <typename T, int DMAX>
@@ -903,53 +552,6 @@ int fwd_hopper(const void* q, const void* k, const void* v, void* out, void* lse
                Shape sh, cudaStream_t st) {
   return launch_fwd_hopper<D, false>(flash_attention_fwd_hopper_kernel<D>, q, k, v, nullptr,
                                      out, lse, B, sh, st);
-}
-
-// the wgmma/TMA backward: dq over 128-row q tiles (Q and dO in boxes of
-// 128 rows, K and V streamed in 64), dk/dv over 128-key tiles (the reverse)
-template <int D>
-int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
-             int B, Shape sh, int q_rows, int kv_rows) {
-  int e = map_bld<D>(&m[0], q, B, sh.H, sh.Lq, q_rows);
-  if (!e) e = map_bld<D>(&m[1], k, B, sh.H, sh.Lk, kv_rows);
-  if (!e) e = map_bld<D>(&m[2], v, B, sh.H, sh.Lk, kv_rows);
-  if (!e) e = map_bld<D>(&m[3], dout, B, sh.H, sh.Lq, q_rows);
-  return e;
-}
-
-template <int D>
-int bwd_dq_hopper(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dq, int B, Shape sh,
-                  cudaStream_t st) {
-  using C = HopperBwd<D>;
-  CUtensorMap m[4];
-  const int e = bwd_maps<D>(m, q, k, v, dout, B, sh, C::BM, C::BN);
-  if (e) return e;
-  auto kern = flash_attention_dq_hopper_kernel<D>;
-  cudaError_t ce = allow_smem(kern, C::SMEM);
-  if (ce != cudaSuccess) return (int)ce;
-  kern<<<dim3(B * sh.H, (sh.Lq + C::BM - 1) / C::BM), C::THREADS, C::SMEM, st>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), sh, sh.scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int bwd_dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dk, void* dv, int B, Shape sh,
-                   cudaStream_t st) {
-  using C = HopperBwd<D>;
-  CUtensorMap m[4];
-  const int e = bwd_maps<D>(m, q, k, v, dout, B, sh, C::BN, C::BM);
-  if (e) return e;
-  auto kern = flash_attention_dkv_hopper_kernel<D>;
-  cudaError_t ce = allow_smem(kern, C::SMEM);
-  if (ce != cudaSuccess) return (int)ce;
-  kern<<<dim3(B * sh.H, (sh.Lk + C::BM - 1) / C::BM), C::THREADS, C::SMEM, st>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sh,
-      sh.scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
 }
 
 Shape make_shape(int H, int Lq, int Lk, int D, float scale, int causal) {
@@ -1041,7 +643,8 @@ extern "C" int flash_attention_backward_dq_hopper(int dtype, const void* q, cons
   if (!bwd_hopper_ok(dtype, D, any)) return (int)cudaErrorInvalidValue;
   const Shape sh = make_shape(H, Lq, Lk, D, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bwd_dq_hopper<64>(q, k, v, dout, lse, delta, dq, B, sh, st);
+  return launch_dq_hopper<64, false>(flash_attention_dq_hopper_kernel<64>, q, k, v, dout, nullptr,
+                                     lse, delta, dq, B, sh, st);
 }
 
 extern "C" int flash_attention_backward_dkv_hopper(int dtype, const void* q, const void* k,
@@ -1055,5 +658,6 @@ extern "C" int flash_attention_backward_dkv_hopper(int dtype, const void* q, con
   if (!bwd_hopper_ok(dtype, D, any)) return (int)cudaErrorInvalidValue;
   const Shape sh = make_shape(H, Lq, Lk, D, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bwd_dkv_hopper<64>(q, k, v, dout, lse, delta, dk, dv, B, sh, st);
+  return launch_dkv_hopper<64, false>(flash_attention_dkv_hopper_kernel<64>, q, k, v, dout,
+                                      nullptr, lse, delta, dk, dv, B, sh, st);
 }

@@ -2,8 +2,9 @@
 //   flash_attention_fwd_hopper_kernel (flash_attention.cu), SEG = false
 //   packed_flash_fwd_hopper_kernel    (packed_flash.cu),    SEG = true
 // flash_attention.cu's source note describes the design; this header also
-// holds the pieces its wgmma backward shares (Shape, mma_abt, mma_rs_mn,
-// map_bld). What segment ids add (packed_flash.cu's note says why):
+// holds the pieces the wgmma backward (csrc/flash_bwd_hopper.cuh) shares
+// (Shape, mma_abt, mma_rs_mn, to_pa, map_bld, the packed kernels' tile
+// lists). What segment ids add (packed_flash.cu's note says why):
 // - before the loop the CTA lists the key tiles that can hold a live pair
 //   for one of its warpgroups (some valid key id inside [min, max] of the
 //   warpgroup's valid row ids and, causal, a column at or below one of its
@@ -51,7 +52,7 @@ struct Shape {
   }
 };
 
-// the packed forward's list holds at most this many 64-key tiles: L <= 16384
+// the packed kernels' lists hold at most this many 64-row tiles: L <= 16384
 constexpr int kMaxKeyTiles = 256;
 
 // ---------------------------------------------------------------------------
@@ -179,16 +180,43 @@ __device__ __forceinline__ void to_pa(uint32_t (&pa)[BN / 16][4], const float (&
   for (int i = 0; i < BN / 2; i += 2) pa[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
 }
 
-// The packed forward's list of key tiles (all THREADS threads; ends with
-// a __syncthreads). seg_row: the ids of this CTA's row b; rows [q0, q0 +
-// BM). list[i] = tile << 4 | flags: bit w (1 << w) live for warpgroup w,
-// bit 2 + w "one id" for it. stat[12] = the list's length.
-template <int BM, int BN>
-__device__ __forceinline__ void list_key_tiles(const Shape& sh, const int* __restrict__ seg_row,
-                                               int q0, int* list, int* tflag, int* stat) {
+// The packed kernels' lists of streamed tiles (all THREADS threads; ends
+// with a __syncthreads): the key tiles of a CTA of q rows (the packed
+// forward and dq, OWN_KEYS false) or the q tiles of a CTA of keys (dk/dv,
+// OWN_KEYS true, the same test transposed). seg_row: the ids of this CTA's row b. The CTA owns
+// rows [r0, r0 + BM) of it (q rows in the forward and dq, keys in dk/dv),
+// 64 for each warpgroup, and streams BN-row tiles of the other side. A
+// tile is live for warpgroup w when some valid id of the tile lies in
+// [min, max] of w's valid ids and, causal, the two can meet: with keys
+// streamed (OWN_KEYS false) the tile's first key lies at or below w's last
+// row; with q rows streamed (OWN_KEYS true) the tile's last row lies at or
+// after w's first key. list[i] = tile << 4 | flags: bit w (1 << w) live
+// for warpgroup w, bit 2 + w "one id" for it (the tile is whole, and its
+// ids and all 64 of w's are one value). stat[12] = the list's length.
+template <int BM, int BN, bool OWN_KEYS>
+__device__ __forceinline__ void list_tiles(const Shape& sh, const int* __restrict__ seg_row,
+                                           int r0, int* list, int* tflag, int* stat) {
   const int L = sh.Lk, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nwarps = blockDim.x / 32;
+  // tiles [first, nt) can meet a row of the CTA: causal, streamed keys end
+  // at its last row and streamed q rows start at its first key
+  int first = 0, last = L;
+  if (sh.causal) {
+    if (OWN_KEYS)
+      first = r0 / BN;
+    else
+      last = min(L, r0 + BM);
+  }
+  const int nt = (last + BN - 1) / BN;
+  // each warp's first tile's ids load with the CTA's own, in one round trip
+  int kt = first + warp, i0 = 0, i1 = 0;
+  if (kt < nt) {
+    const int c0 = kt * BN + lane, c1 = c0 + 32;
+    i0 = c0 < L ? seg_row[c0] : 0;
+    i1 = c1 < L ? seg_row[c1] : 0;
+  }
   if (threadIdx.x < BM) {  // warps 0-1 hold warpgroup 0's rows, 2-3 warpgroup 1's
-    const int row = q0 + threadIdx.x;
+    const int row = r0 + threadIdx.x;
     const bool ok = row < L;
     const int id = ok ? seg_row[row] : 0;
     const int lo = __reduce_min_sync(0xffffffffu, ok ? id : INT_MAX);
@@ -209,13 +237,13 @@ __device__ __forceinline__ void list_key_tiles(const Shape& sh, const int* __res
     hi[w] = max(stat[4 + 2 * w], stat[5 + 2 * w]);
     one[w] = lo[w] == hi[w] && stat[8 + 2 * w] + stat[9 + 2 * w] == 64;
   }
-  // keys [0, last) can meet a row of the CTA: causal ends at its last row
-  const int last = sh.causal ? min(L, q0 + BM) : L;
-  const int nkt = (last + BN - 1) / BN;
-  for (int kt = warp; kt < nkt; kt += blockDim.x / 32) {
+  for (; kt < nt; kt += nwarps) {
     const int c0 = kt * BN + lane, c1 = c0 + 32;
     const bool v0 = c0 < L, v1 = c1 < L;
-    const int i0 = v0 ? seg_row[c0] : 0, i1 = v1 ? seg_row[c1] : 0;
+    if (kt >= first + nwarps) {  // later rounds load their ids here
+      i0 = v0 ? seg_row[c0] : 0;
+      i1 = v1 ? seg_row[c1] : 0;
+    }
     const int kmin = __reduce_min_sync(0xffffffffu, min(v0 ? i0 : INT_MAX, v1 ? i1 : INT_MAX));
     const int kmax = __reduce_max_sync(0xffffffffu, max(v0 ? i0 : INT_MIN, v1 ? i1 : INT_MIN));
     const bool full = kt * BN + BN <= L;
@@ -224,18 +252,19 @@ __device__ __forceinline__ void list_key_tiles(const Shape& sh, const int* __res
     for (int w = 0; w < 2; ++w) {
       const bool hit = __any_sync(0xffffffffu, (v0 && i0 >= lo[w] && i0 <= hi[w]) ||
                                                    (v1 && i1 >= lo[w] && i1 <= hi[w]));
-      const bool below = !sh.causal || kt * BN <= q0 + 64 * w + 63;
-      if (hit && below) f |= 1 << w;
+      const bool meet = !sh.causal || (OWN_KEYS ? kt * BN + BN - 1 >= r0 + 64 * w
+                                                : kt * BN <= r0 + 64 * w + 63);
+      if (hit && meet) f |= 1 << w;
       if (full && kmin == kmax && one[w] && kmin == lo[w]) f |= 4 << w;
     }
     if (lane == 0) tflag[kt] = f;
   }
   __syncthreads();
-  if (warp == 0) {  // compact the live tiles, in key order
+  if (warp == 0) {  // compact the live tiles, in order
     int n = 0;
-    for (int base = 0; base < nkt; base += 32) {
+    for (int base = first; base < nt; base += 32) {
       const int kt = base + lane;
-      const int f = kt < nkt ? tflag[kt] : 0;
+      const int f = kt < nt ? tflag[kt] : 0;
       const unsigned live = __ballot_sync(0xffffffffu, (f & 3) != 0);
       if (f & 3) list[n + __popc(live & ((1u << lane) - 1))] = kt << 4 | f;
       n += __popc(live);
@@ -293,8 +322,8 @@ __device__ __forceinline__ void fwd_hopper_body(const CUtensorMap& qmap, const C
     mbar_fence_init();
   }
   if constexpr (SEG)
-    list_key_tiles<BM, BN>(sh, seg_row, q0, list,
-                           reinterpret_cast<int*>(gbase + C::TFLAG_OFF), stat);
+    list_tiles<BM, BN, false>(sh, seg_row, q0, list,
+                              reinterpret_cast<int*>(gbase + C::TFLAG_OFF), stat);
   __syncthreads();
 
   // the producer warp: one thread issues every copy (with segment ids, the

@@ -4,8 +4,10 @@
 // Replaces the TPU kernels of paddle_tpu/kernels/packed_flash_pallas.py:
 //   packed_flash_fwd_kernel,        <- _fwd_kernel (:55)
 //   packed_flash_fwd_hopper_kernel
-//   packed_flash_dq_kernel          <- _bwd_dq_kernel (:96)
-//   packed_flash_dkv_kernel         <- _bwd_dkv_kernel (:132)
+//   packed_flash_dq_kernel,         <- _bwd_dq_kernel (:96)
+//   packed_flash_dq_hopper_kernel
+//   packed_flash_dkv_kernel,        <- _bwd_dkv_kernel (:132)
+//   packed_flash_dkv_hopper_kernel
 //
 // Several sequences share one row of L tokens; a token attends only to
 // tokens of its own segment (seg[b, i] == seg[b, j]) and, with causal, to
@@ -79,10 +81,60 @@
 //   1e-4, which TF32 tensor cores would break), other head sizes, longer
 //   L.
 //
+// dq and dk/dv have two designs each, chosen by dtype, head size,
+// alignment and L alone (hopper_bwd):
+// - packed_flash_dq_hopper_kernel and packed_flash_dkv_hopper_kernel, bf16
+//   at D = 64 and L <= 16384 (every BERT shape): the wgmma/TMA flash
+//   backward (flash_attention.cu's note) with segment ids, from the bodies
+//   both backwards share (csrc/flash_bwd_hopper.cuh, SEG = true). What
+//   bounds the pair at pack 4 is bytes: 5 and 6 tensors of [16, 512, 12,
+//   64] bf16 with the float32 rows and the ids, 0.019 ms for dq and 0.023
+//   ms for dk/dv, against 4.8 / 6.4 GFLOP of live pairs (0.005 / 0.0065 ms
+//   on the tensor cores). The CUDA-core kernels sat some 21x above that:
+//   float32 products on the CUDA cores, 64-row CTAs, every tile staged and
+//   widened to float32 by the threads that then computed on it, and a
+//   block-wide vote on each streamed tile's ids. Here a CTA owns 128 rows
+//   (q rows in dq, keys in dk/dv), TMA keeps a 3-stage ring of 64-row tiles
+//   of the other side in flight, and the products run on the tensor cores.
+//   Before its loop the CTA lists, in shared memory, the streamed tiles
+//   that can hold a live pair for one of its two warpgroups: dq the key
+//   tiles, with the packed forward's test; dk/dv the q tiles, with its
+//   transpose (some valid id of the q tile inside [min, max] of the
+//   warpgroup's key ids and, causal, a row of the tile at or after one of
+//   its keys), exact for any ids. At pack 4 every CTA (aligned on 128)
+//   covers one segment: dq lists 2 of 8 key tiles and dk/dv 2 of 8 q
+//   tiles, all flagged "one id", so the work is the unpacked backward's
+//   on 128-token rows and no per-element segment test runs. The producer's
+//   lanes write each stage's 64 ids beside it; both warpgroups walk the
+//   list, computing the tiles live for their rows and releasing the
+//   others. Masked entries get P = 0 and dS = 0 (the reference's exp(-1e30
+//   - lse) = 0). Rounding: the reference takes q in float32 and scales the
+//   product (:114-116); here the bf16 products are exact and summed in
+//   float32, so the only roundings the plain version lacks are P (for dV)
+//   and dS in bf16 before their products, as in the flash backward. Keys
+//   and rows past L compute harmlessly on TMA's zero fill and are never
+//   stored. The CTA's own tiles (Q and dO, or K and V) are in flight
+//   while it lists, and each stage's copies are issued before the producer
+//   lanes load its ids: both kept, each read faster on the card. Two CTAs
+//   an SM for dq (96 registers, spills) read slower without causality and
+//   was not kept. dq still reads some 25% above the unpacked flash dq at
+//   the same tokens; the list's prologue (global loads and three block
+//   barriers before the first key tile is copied) is the likely cause,
+//   not measured apart. The build flag PACKED_BWD_STALL_WG=w makes
+//   warpgroup w lag on every tile it computes in both kernels, for the
+//   card test of the ring.
+// - packed_flash_dq_kernel and packed_flash_dkv_kernel, the rest: float32
+//   (bert_parity's 1e-4 would not survive bf16 tensor-core products), D =
+//   128 (dk/dv's two 64 x 128 float32 accumulators beside S^T and dP^T
+//   would pass the 168 registers a thread that one 288-thread CTA an SM
+//   allows, and spill, as the flash backward found), other head sizes and
+//   longer L (the tile lists hold 256 tiles).
+//
 // The backward uses no atomics (dq and dk/dv are separate kernels, as in
 // the Pallas split), so two runs give bit-identical gradients.
 #include <limits.h>
 
+#include "flash_bwd_hopper.cuh"
 #include "flash_fwd_hopper.cuh"
 
 namespace {
@@ -557,17 +609,51 @@ packed_flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
   fwd_hopper_body<D, true>(qmap, kmap, vmap, out, lse, sh, scale_log2, seg);
 }
 
+// ---------------------------------------------------------------------------
+// backward on wgmma and TMA (bf16, D = 64, L <= 64 * kMaxKeyTiles): the
+// flash backward's bodies (csrc/flash_bwd_hopper.cuh) with segment ids
+// ---------------------------------------------------------------------------
 template <int D>
-int fwd_hopper(const void* q, const void* k, const void* v, const void* seg, void* out,
-               void* lse, int B, int H, int L, float scale, int causal, cudaStream_t st) {
+__global__ void __launch_bounds__(HopperBwd<D>::THREADS, 1)
+packed_flash_dq_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap domap,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, Shape sh, float scale_log2,
+                              const int* __restrict__ seg) {
+  dq_hopper_body<D, true>(qmap, kmap, vmap, domap, lse, delta, dq, sh, scale_log2, seg);
+}
+
+template <int D>
+__global__ void __launch_bounds__(HopperBwd<D>::THREADS, 1)
+packed_flash_dkv_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap domap,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               Shape sh, float scale_log2, const int* __restrict__ seg) {
+  dkv_hopper_body<D, true>(qmap, kmap, vmap, domap, lse, delta, dk, dv, sh, scale_log2, seg);
+}
+
+// the wgmma kernels' Shape of a packed call: Lq = Lk = L
+Shape hopper_shape(int H, int L, int D, float scale, int causal) {
   Shape sh;
   sh.H = H;
   sh.Lq = sh.Lk = L;
   sh.D = D;
   sh.scale = scale;
   sh.causal = causal;
+  return sh;
+}
+
+template <int D>
+int fwd_hopper(const void* q, const void* k, const void* v, const void* seg, void* out,
+               void* lse, int B, int H, int L, float scale, int causal, cudaStream_t st) {
   return launch_fwd_hopper<D, true>(packed_flash_fwd_hopper_kernel<D>, q, k, v,
-                                    static_cast<const int*>(seg), out, lse, B, sh, st);
+                                    static_cast<const int*>(seg), out, lse, B,
+                                    hopper_shape(H, L, D, scale, causal), st);
 }
 
 SegShape make_shape(int H, int L, int D, float scale, int causal) {
@@ -639,4 +725,43 @@ extern "C" int packed_flash_backward_dkv(int dtype, const void* q,
   bwd_dkv<T, DM>(q, k, v, seg, dout, lse, delta, dk, dv, B, sh, st)
   FLASH_TILES_DISPATCH(PF_DKV);
 #undef PF_DKV
+}
+
+// The wgmma/TMA backward: as packed_flash_backward_dq and
+// packed_flash_backward_dkv, for bfloat16 (dtype 1) at D = 64 and L <= 64 *
+// kMaxKeyTiles (16384), with 16-byte aligned q, k, v, dout and outputs;
+// anything else returns cudaErrorInvalidValue (the caller routes it to the
+// entries above).
+static bool bwd_hopper_ok(int dtype, int D, int L, uintptr_t any) {
+  return dtype == 1 && D == 64 && any % 16 == 0 && L >= 1 && L <= 64 * kMaxKeyTiles;
+}
+
+extern "C" int packed_flash_backward_dq_hopper(int dtype, const void* q, const void* k,
+                                               const void* v, const void* seg, const void* dout,
+                                               const void* lse, const void* delta, void* dq,
+                                               int B, int H, int L, int D, float scale,
+                                               int causal, void* stream) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                        reinterpret_cast<uintptr_t>(dq);
+  if (!bwd_hopper_ok(dtype, D, L, any)) return (int)cudaErrorInvalidValue;
+  return launch_dq_hopper<64, true>(packed_flash_dq_hopper_kernel<64>, q, k, v, dout,
+                                    static_cast<const int*>(seg), lse, delta, dq, B,
+                                    hopper_shape(H, L, D, scale, causal),
+                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int packed_flash_backward_dkv_hopper(int dtype, const void* q, const void* k,
+                                                const void* v, const void* seg, const void* dout,
+                                                const void* lse, const void* delta, void* dk,
+                                                void* dv, int B, int H, int L, int D, float scale,
+                                                int causal, void* stream) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                        reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (!bwd_hopper_ok(dtype, D, L, any)) return (int)cudaErrorInvalidValue;
+  return launch_dkv_hopper<64, true>(packed_flash_dkv_hopper_kernel<64>, q, k, v, dout,
+                                     static_cast<const int*>(seg), lse, delta, dk, dv, B,
+                                     hopper_shape(H, L, D, scale, causal),
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -60,6 +60,8 @@ import math
 
 import torch
 
+from ._build import launch_context
+
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_fwd_ref", "flash_attention_bwd_dq_ref",
@@ -288,7 +290,7 @@ def _launch_fwd(q, k, v, causal, scale):
     hopper = hopper_fwd(q, k, v)
     fn = _kernel_fn("flash_attention_forward_hopper" if hopper
                     else "flash_attention_forward", FWD_ARGTYPES)
-    with torch.cuda.device(q.device):
+    with launch_context(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 *_dims(q, k, scale, causal))
@@ -307,7 +309,7 @@ def _launch_dq(q, k, v, do, lse, delta, causal, scale):
     hopper = hopper_bwd(q, k, v, do)
     fn = _kernel_fn("flash_attention_backward_dq_hopper" if hopper
                     else "flash_attention_backward_dq", DQ_ARGTYPES)
-    with torch.cuda.device(q.device):
+    with launch_context(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), *_dims(q, k, scale, causal))
@@ -326,7 +328,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
     hopper = hopper_bwd(q, k, v, do)
     fn = _kernel_fn("flash_attention_backward_dkv_hopper" if hopper
                     else "flash_attention_backward_dkv", DKV_ARGTYPES)
-    with torch.cuda.device(q.device):
+    with launch_context(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -43,8 +43,16 @@ Pieces:
   rest (float32, whose 1e-4 parity TF32 tensor cores would break, other
   head sizes, longer rows). :func:`hopper_fwd` is the predicate that
   picks, by dtype, shape and alignment alone; ``fwd_launches`` counts
-  both designs and ``fwd_hopper_launches`` the wgmma/TMA one. dq and
-  dk/dv have one design each;
+  both designs and ``fwd_hopper_launches`` the wgmma/TMA one;
+- two designs of dq and of dk/dv: the wgmma/TMA ones
+  (``packed_flash_dq_hopper_kernel`` and ``packed_flash_dkv_hopper_kernel``,
+  the flash backward's bodies with segment ids) for bfloat16 at ``D`` =
+  64, ``L <= 16384`` and 16-byte aligned q, k, v, do — every BERT shape —
+  and the CUDA-core ones for the rest (float32, ``D`` = 128, whose dk/dv
+  accumulators would spill, other head sizes, longer rows).
+  :func:`hopper_bwd` picks; ``dq_launches`` and ``dkv_launches`` count
+  both designs and ``dq_hopper_launches`` and ``dkv_hopper_launches`` the
+  wgmma/TMA ones;
 - :func:`packed_flash_attention`, the differentiable entry, through the
   ``torch.autograd.Function`` :class:`PackedFlashAttention`;
 - :func:`use_plain`, a context manager that makes the wrappers take the
@@ -60,25 +68,28 @@ import torch
 
 from ._build import launch_context
 from .flash_attention import attention_delta
+from .flash_attention import hopper_bwd as _flash_hopper_bwd
 
 __all__ = ["SegmentIds", "segment_relative_positions",
            "packed_flash_attention", "PackedFlashAttention",
            "packed_flash_fwd", "packed_flash_bwd_dq", "packed_flash_bwd_dkv",
            "packed_flash_fwd_ref", "packed_flash_bwd_dq_ref",
            "packed_flash_bwd_dkv_ref", "use_plain", "reset_launches",
-           "hopper_fwd"]
+           "hopper_fwd", "hopper_bwd"]
 
 NEG_INF = -1e30       # the reference's mask value (:34)
 fwd_launches = 0      # kernel launches since the last reset_launches()
 fwd_hopper_launches = 0   # of those, the wgmma/TMA forward's
 dq_launches = 0
+dq_hopper_launches = 0    # of those, the wgmma/TMA dq's
 dkv_launches = 0
+dkv_hopper_launches = 0   # of those, the wgmma/TMA dk/dv's
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128          # the kernels' shared-memory plans cover D <= 128
 _MAX_GRID_Y = 65535   # q (or k) tiles of 64 rows ride on grid.y
 _HOPPER_D = (64, 128)  # the wgmma forward's 64-column, 128-byte boxes
-_HOPPER_MAX_L = 64 * 256  # its list of live key tiles holds 256 tiles
+_HOPPER_MAX_L = 64 * 256  # their lists of live tiles hold 256 tiles
 _plain = False        # set only inside use_plain()
 
 # every pointer and the stream as c_void_p, or ctypes would pass a 32-bit
@@ -87,10 +98,11 @@ _DIMS = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # packed_flash_forward(dtype, q, k, v, seg, out, lse, B, H, L, D, scale,
 #   causal, stream), and packed_flash_forward_hopper alike
 FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + _DIMS
-# packed_flash_backward_dq(dtype, q, k, v, seg, dout, lse, delta, dq, ...)
+# packed_flash_backward_dq(dtype, q, k, v, seg, dout, lse, delta, dq, ...),
+# and packed_flash_backward_dq_hopper alike
 DQ_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + _DIMS
 # packed_flash_backward_dkv(dtype, q, k, v, seg, dout, lse, delta, dk, dv,
-#   ...)
+#   ...), and packed_flash_backward_dkv_hopper alike
 DKV_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + _DIMS
 _fns = {}
 
@@ -127,8 +139,10 @@ def segment_relative_positions(segment_ids):
 
 
 def reset_launches():
-    global fwd_launches, fwd_hopper_launches, dq_launches, dkv_launches
+    global fwd_launches, fwd_hopper_launches, dq_launches, dkv_launches, \
+        dq_hopper_launches, dkv_hopper_launches
     fwd_launches = fwd_hopper_launches = dq_launches = dkv_launches = 0
+    dq_hopper_launches = dkv_hopper_launches = 0
 
 
 def hopper_fwd(q, k, v, segment_ids):
@@ -140,6 +154,15 @@ def hopper_fwd(q, k, v, segment_ids):
     return (q.dtype == torch.bfloat16 and q.shape[-1] in _HOPPER_D
             and q.shape[1] <= _HOPPER_MAX_L
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def hopper_bwd(q, k, v, do, segment_ids):
+    """True when dq and dk/dv of these tensors take the wgmma/TMA kernels:
+    bfloat16, head size 64, ``L <= 16384`` (the kernels' lists of live
+    tiles), and q, k, v, do 16-byte aligned (so are the outputs, fresh
+    tensors). Everything else, head size 128 included, takes the CUDA-core
+    kernels. The ids are read with plain loads: any int32 ``[B, L]``."""
+    return q.shape[1] <= _HOPPER_MAX_L and _flash_hopper_bwd(q, k, v, do)
 
 
 @contextlib.contextmanager
@@ -304,35 +327,41 @@ def _launch_fwd(q, k, v, seg, causal, scale):
 
 
 def _launch_dq(q, k, v, seg, do, lse, delta, causal, scale):
-    global dq_launches
+    global dq_launches, dq_hopper_launches
     _check(q, k, v, seg, do=do, lse=lse, delta=delta)
-    fn = _kernel_fn("packed_flash_backward_dq", DQ_ARGTYPES)
+    hopper = hopper_bwd(q, k, v, do, seg)
+    fn = _kernel_fn("packed_flash_backward_dq_hopper" if hopper
+                    else "packed_flash_backward_dq", DQ_ARGTYPES)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    with torch.cuda.device(q.device):
+    with launch_context(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), seg.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), *_dims(q, scale, causal))
-    _raise_if(rc, "backward dq")
+    _raise_if(rc, "wgmma backward dq" if hopper else "backward dq")
     dq_launches += 1
+    dq_hopper_launches += hopper
     return dq
 
 
 def _launch_dkv(q, k, v, seg, do, lse, delta, causal, scale):
-    global dkv_launches
+    global dkv_launches, dkv_hopper_launches
     _check(q, k, v, seg, do=do, lse=lse, delta=delta)
-    fn = _kernel_fn("packed_flash_backward_dkv", DKV_ARGTYPES)
+    hopper = hopper_bwd(q, k, v, do, seg)
+    fn = _kernel_fn("packed_flash_backward_dkv_hopper" if hopper
+                    else "packed_flash_backward_dkv", DKV_ARGTYPES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    with torch.cuda.device(q.device):
+    with launch_context(q.device):
         rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), seg.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 *_dims(q, scale, causal))
-    _raise_if(rc, "backward dk/dv")
+    _raise_if(rc, "wgmma backward dk/dv" if hopper else "backward dk/dv")
     dkv_launches += 1
+    dkv_hopper_launches += hopper
     return dk, dv
 
 

@@ -4,8 +4,8 @@ int8/fp8 pools with page scales on the first one), the flash-attention
 forward, dq and dk/dv kernels, the fused-CE forward, dh and dw kernels,
 the shared-dl dh/dw pair and the packed (segment-id) flash forward, dq
 and dk/dv kernels against their plain PyTorch versions (the bf16 flash
-forward, dq, dk/dv, dw_sharep and packed forward on their wgmma/TMA
-designs, float32 on the others), the serving engine on the card against
+forward, dq, dk/dv, dw_sharep and packed forward, dq and dk/dv on their
+wgmma/TMA designs, float32 on the others), the serving engine on the card against
 the same engine on the CPU (float and quantized pools, int8 weights), and
 GPT and packed-BERT training steps through the kernels against the same
 steps through the plain versions.
@@ -959,3 +959,76 @@ def test_packed_flash_wrapper_raises_on_cuda_without_the_library(
     q, k, v, _ = _fa_inputs(cuda, 1, 2, 64, 64, 64, torch.float32)
     with pytest.raises(RuntimeError, match="nvcc"):
         pf.packed_flash_attention(q, k, v, _pf_ids(cuda, 1, 64, "pack4"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["bert", "uneven", "uneven_causal", "L300",
+                                  "L2048", "L4096", "d128"])
+def test_packed_backward_designs_at_the_smoke_shapes(cuda, case, dtype):
+    """chip_smoke.PACKED_CASES: bfloat16 at D = 64 on the wgmma/TMA dq and
+    dk/dv, float32 and D = 128 on the CUDA-core ones (the counters say
+    which), within the gradient limits of the plain versions, finite, and
+    two launches bit-identical."""
+    import chip_smoke
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    B, H, L, D, causal, layout = chip_smoke.PACKED_CASES[case]
+    q, k, v, do = _fa_inputs(cuda, B, H, L, L, D, dtype, 16)
+    seg = chip_smoke.packed_ids(B, L, layout)
+    out, lse = pf.packed_flash_fwd(q, k, v, seg, causal)
+    delta = pf.attention_delta(out, do)
+    pf.reset_launches()
+    runs = [(pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, causal),
+             *pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta, causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    hopper = dtype == torch.bfloat16 and D == 64
+    assert pf.hopper_bwd(q, k, v, do, seg) is hopper
+    assert (pf.dq_launches, pf.dkv_launches) == (2, 2)
+    assert (pf.dq_hopper_launches, pf.dkv_hopper_launches) == (
+        2 * hopper, 2 * hopper)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    want = (pf.packed_flash_bwd_dq_ref(q, k, v, seg, do, lse, delta, causal),
+            *pf.packed_flash_bwd_dkv_ref(q, k, v, seg, do, lse, delta,
+                                         causal))
+    gtol = FA_TOL[dtype][1]
+    for name, a, b in zip(("dq", "dk", "dv"), runs[0], want):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= gtol, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("stalled", [0, 1], ids=["wg0_lags", "wg1_lags"])
+def test_packed_backward_holds_when_one_warpgroup_lags(cuda, stalled):
+    """The wgmma packed dq and dk/dv built with their test hook
+    PACKED_BWD_STALL_WG, which sleeps one consumer warpgroup on every tile
+    it computes in both kernels: the other runs ahead (and releases the
+    tiles it skips at once), so the producer must reload no stage the
+    lagging warpgroup still reads; the gradients equal the plain build's
+    bit for bit."""
+    import chip_smoke
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    lib = _build.load("packed_flash", (f"-DPACKED_BWD_STALL_WG={stalled}",))
+    fdq = lib.packed_flash_backward_dq_hopper
+    fdkv = lib.packed_flash_backward_dkv_hopper
+    fdq.argtypes, fdq.restype = pf.DQ_ARGTYPES, ctypes.c_int
+    fdkv.argtypes, fdkv.restype = pf.DKV_ARGTYPES, ctypes.c_int
+    for case in ("bert", "uneven", "uneven_causal", "L300", "L4096"):
+        B, H, L, D, causal, layout = chip_smoke.PACKED_CASES[case]
+        B = min(B, 4)
+        q, k, v, do = _fa_inputs(cuda, B, H, L, L, D, torch.bfloat16, 17)
+        seg = chip_smoke.packed_ids(B, L, layout)
+        out, lse = pf.packed_flash_fwd(q, k, v, seg, causal)
+        delta = pf.attention_delta(out, do)
+        want = (pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, causal),
+                *pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta,
+                                         causal))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        ptrs = [t.data_ptr() for t in (q, k, v, seg, do, lse, delta)]
+        dims = pf._dims(q, pf._default_scale(q, None), causal)
+        assert fdq(1, *ptrs, dq.data_ptr(), *dims) == 0, case
+        assert fdkv(1, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims) == 0, case
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert torch.equal(a, b), (case, name)

@@ -454,7 +454,7 @@ BM, BN = 128, 64   # HopperFwd: q rows a CTA, keys a tile
 
 
 def cta_tile_list(ids, q0, L, causal):
-    """``list_key_tiles`` of one CTA (rows [q0, q0 + 128)): the 64-key
+    """``list_tiles`` of one CTA of q rows [q0, q0 + 128): the 64-key
     tiles that can hold a live pair for one of its two warpgroups, each
     with the set of warpgroups it is live for."""
     lo, hi = [], []
