@@ -25,8 +25,14 @@ exits non-zero:
      ``quantize_per_page`` of random pages, each page and head scaled by
      10^U(-2, 1) first) at the same three shapes, q in float32 and
      bfloat16: live rows within 1e-4 / 2e-2 as max-abs error over
-     max-abs plain, idle slots exactly zero, every case on the first
-     design (``quant_launches``, no split-KV launch);
+     max-abs plain, idle slots exactly zero, bit-identical across two
+     launches, every int8 case on the split-KV design over codes and
+     every fp8 case on the first design as the wrapper routes them
+     (``quant_split_launches``, ``design`` of each case; no float-pool
+     launch), each fp8 case also held and timed on the split-KV design
+     forced (``split_kv``), each bfloat16 case also timed on the first
+     design
+     (``first_design_ms``, its C entry called directly);
    - flash attention forward (out, lse), dq and dk/dv at the training
      shape (B=16, H=12, L=1024, D=64, causal), L=1000 causal (ragged
      tail), Lq=128/Lk=256 with and without causal (bottom-right),
@@ -60,9 +66,14 @@ exits non-zero:
      pair's dw apart from the plain pair's by no more than those dl steps
      move it plus the limit; both kernels bit-identical across two
      launches, and whether dh and dw equal the recomputing kernels' bit
-     for bit (every bfloat16 case must take the wgmma/TMA dw_sharep,
-     ``dw_design``; its tensor cores sum the same k16 slices of the
-     same bf16 dl in the same token order as row 11's).
+     for bit, reported and not held (every bfloat16 case must take the
+     wgmma/TMA dw_sharep, ``dw_design``; the recomputing dw forms its
+     bf16 dl from logits summed in another order, so a dl element one
+     bf16 step apart can end the identity).
+     Every bfloat16 recomputing dw with d a multiple of 8 must take the
+     wgmma/TMA design (``dw_design`` of each case; ``hopper_dw``), and the
+     training shape's dw is also timed on the first design
+     (``first_design_ms``, its C entry called directly).
    - packed (segment-id) flash attention forward (out, lse), dq and dk/dv
      at BERT-base's pack-4 shape (B=16, L=512, H=12, D=64, four segments
      of 128), with uneven ids (``[5]*100 + [7]*300 + [9]*112``, one
@@ -108,17 +119,20 @@ exits non-zero:
    design.
    ``serve_int8``, ``serve_fp8`` — the same with int8 / fp8 KV pools
    (bf16 weights), ``serve_w8`` with int8 weights and fp8 KV: the
-   quantized kernel launched layers x forward passes and the float one
-   (and so the split-KV design) never; the int8 pool under 0.56 of the
-   bf16 pool's bytes and the fp8
+   quantized kernel launched layers x forward passes, every one on the
+   split-KV design over int8 codes and on the first design over fp8
+   codes, and the float one never; the int8 pool
+   under 0.56 of the bf16 pool's bytes and the fp8
    pool equal to the int8 pool (scales included).
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version: per-step logits within 1e-3,
    tokens identical up to the first step whose plain top-2 margin is
    below that tolerance; every kernel launch on the split-KV design.
    ``parity_quant`` — the same over int8 and fp8
-   pools, with each one's decode-logit abs-max beside the float32
-   pool's (reported, not held).
+   pools (every launch on the design the wrapper routes the pool to),
+   with each
+   one's decode-logit abs-max beside the float32 pool's (reported, not
+   held).
 6. ``train``   — the GPT-2 small pretraining step of
    ``tools/bench_gpt_pretrain.py`` (``fused_ce=False``): AdamW(6e-4,
    weight decay 0.1, global-norm clip 1.0), loss under O1 bf16 autocast,
@@ -144,7 +158,8 @@ exits non-zero:
 9. ``train_fused_ce`` — the ``train`` phase with ``fused_ce=True`` (the
    reference's flagship, ``bench_gpt_pretrain.py --fused-ce``): same
    model, seed, batch, clip and 40 steps; each fused-CE kernel launched
-   40 times and each flash kernel 480; the loss falls at least 1 nat,
+   40 times (dw on the wgmma/TMA design) and each flash kernel 480; the
+   loss falls at least 1 nat,
    step 1 within 2e-2 of ``train``'s step 1 and the last step within
    0.25 nat of ``train``'s (the bf16 rounding of the logits differs
    between the two paths); step ms, tokens/s, MFU and peak memory beside
@@ -188,6 +203,12 @@ exits non-zero:
 
 Then the script's seconds, the kernel summary line, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --parity-seeds 1,2,3,4,5,6
+
+runs, after the build, only ``parity`` over int8 and fp8 pools for each
+request seed on both designs of the quantized kernel, one
+``parity_seed`` line each, recorded and not held.
 """
 import contextlib
 import json
@@ -197,6 +218,10 @@ import sys
 import time
 
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+# the code formats the wrapper routes to the split-KV design (whole
+# 16-code units); fp8 pools stay on the first design: over them the split
+# design fails ``parity_quant`` at its request seed (PERF.md, Findings)
+SPLIT_CODES = ("int8",)
 BF16_GRAD_TOL = 3e-2
 # fused CE: nll/lse are float32 sums of float32 logits on both sides (about
 # 3e-7 of max-abs measured); bf16 dh/dw differ by at most one bf16 rounding
@@ -479,11 +504,77 @@ def quant_attention_case(kv_lens, q_lens, QB, dtype, fmt, rng, layers):
     return c
 
 
+def quant_first_design(c, pa, layers):
+    """A call of the first design's C entry (``paged_attention_forward``)
+    on case ``c``'s layer ``i % layers``, which the wrapper no longer
+    routes these pools to: the yardstick the split design replaced."""
+    import torch
+    fn = pa._kernel_fn()
+    q = c["q"]
+    out = torch.empty_like(q)
+    S, QB, NH_, HD_ = q.shape
+
+    def call(i):
+        (kp, vp), (ks, vs) = c["pools"][i % layers], c["scales"][i % layers]
+        rc = fn(pa._DTYPE_CODE[q.dtype], pa._POOL_CODE[kp.dtype],
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+                vs.data_ptr(), c["bt"].data_ptr(), c["kv_lens"].data_ptr(),
+                c["q_lens"].data_ptr(), out.data_ptr(), S, QB, NH_, HD_, PS,
+                c["bt"].shape[1], HD_ ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"first-design paged kernel: CUDA error {rc}")
+    return call
+
+
+def held_quant_call(c, pa, design, tol, label):
+    """One call of the ragged kernel over case ``c``'s first layer, with
+    code pools on ``design`` (None: as the wrapper routes them), held
+    against the plain version: the launch on the expected design, the
+    same bits from a second launch, live rows within ``tol`` of max-abs,
+    idle slots exactly zero. Returns the record."""
+    import torch
+    (kp, vp), (ks, vs) = c["pools"][0], c["scales"][0]
+    args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
+    fmt = "int8" if kp.dtype == torch.int8 else "fp8"
+    split = design == "split_kv" or (design is None and fmt in SPLIT_CODES)
+    before = (pa.quant_launches, pa.quant_split_launches, pa.launches)
+    with codes_design(pa, design):
+        out = pa.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
+        again = pa.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    if (pa.quant_launches, pa.quant_split_launches, pa.launches) != (
+            before[0] + 2, before[1] + 2 * split, before[2]):
+        raise AssertionError(f"quantized {label} did not take the "
+                             f"{'split-KV' if split else 'first'} design")
+    if not torch.equal(out, again):
+        raise AssertionError(f"quantized {label} not bit-identical across "
+                             "two launches")
+    ref = pa.ragged_paged_attention_ref(*args, k_scale=ks, v_scale=vs)
+    QB = c["q"].shape[1]
+    live = (torch.arange(QB, device=out.device)[None]
+            < c["q_lens"][:, None])[:, :, None, None]
+    err = float(((out.float() - ref.float()).abs() * live).max())
+    rel = err / max(float((ref.float() * live).abs().max()), 1e-30)
+    if not (rel <= tol and bool(torch.isfinite(out).all())):
+        raise AssertionError(
+            f"quantized kernel vs plain ({label}): max-abs err / max-abs "
+            f"{rel} > {tol} or non-finite output")
+    idle = c["kv_lens"] == 0
+    if bool(idle.any()) and bool(out[idle].abs().max() != 0):
+        raise AssertionError(f"{label}: idle slot not zero")
+    return {"max_abs_err": err, "rel_err": rel,
+            "design": "split_kv" if split else "first",
+            "bit_identical": True}
+
+
 def run_quant_kernel_phase():
     """The ragged kernel over int8 and fp8 pools against its plain
-    version at the three shapes of the float phase, q in f32 and bf16;
-    timed at bf16 q with its plain version, SDPA over K/V gathered and
-    dequantized beforehand (not timed) and the bound."""
+    version at the three shapes of the float phase, q in f32 and bf16:
+    int8 cases on the split-KV design, fp8 cases on the first design as
+    routed and on the split-KV design forced (``split_kv``); timed at
+    bf16 q with the first design, its plain version, SDPA over K/V
+    gathered and dequantized beforehand (not timed) and the bound."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -499,34 +590,11 @@ def run_quant_kernel_phase():
                                (torch.bfloat16, BF16_TOL)):
                 c = quant_attention_case(kv_lens, q_lens, QB, dtype, fmt,
                                          rng, layers)
-                (kp, vp), (ks, vs) = c["pools"][0], c["scales"][0]
-                args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
-                before = (pa.quant_launches, pa.split_launches)
-                out = pa.ragged_paged_attention(*args, k_scale=ks,
-                                                v_scale=vs)
-                torch.cuda.synchronize()
-                if (pa.quant_launches, pa.split_launches) != \
-                        (before[0] + 1, before[1]):
-                    raise AssertionError(f"quantized ({name}, {fmt}, "
-                                         f"{dtype}) did not take the first "
-                                         "design")
-                ref = pa.ragged_paged_attention_ref(*args, k_scale=ks,
-                                                    v_scale=vs)
-                live = (torch.arange(QB, device=out.device)[None]
-                        < c["q_lens"][:, None])[:, :, None, None]
-                err = float(((out.float() - ref.float()).abs() * live).max())
-                rel = err / max(float((ref.float() * live).abs().max()),
-                                1e-30)
-                if not (rel <= tol and bool(torch.isfinite(out).all())):
-                    raise AssertionError(
-                        f"quantized kernel vs plain ({name}, {fmt}, "
-                        f"{dtype}): max-abs err / max-abs {rel} > {tol} "
-                        "or non-finite output")
-                idle = c["kv_lens"] == 0
-                if bool(idle.any()) and bool(out[idle].abs().max() != 0):
-                    raise AssertionError(f"{name} {fmt}: idle slot not zero")
-                rec = {"max_abs_err": err, "rel_err": rel,
-                       "design": "first (int8/fp8 pools)"}
+                label = f"({name}, {fmt}, {dtype})"
+                rec = held_quant_call(c, pa, None, tol, label)
+                if fmt not in SPLIT_CODES:
+                    rec["split_kv"] = held_quant_call(
+                        c, pa, "split_kv", tol, label + " forced split")
                 if dtype == torch.bfloat16:   # the serving dtype: timed
                     P, Sc = c["pools"], c["scales"]
 
@@ -551,14 +619,20 @@ def run_quant_kernel_phase():
                         k, v = kvs[i % layers]
                         F.scaled_dot_product_attention(qs, k, v,
                                                        attn_mask=mask)
+                    first = quant_first_design(c, pa, layers)
+                    if fmt not in SPLIT_CODES:
+                        with codes_design(pa, "split_kv"):
+                            rec["split_kv"]["ms"] = cuda_ms(kern, 120)
                     rec["ms"] = cuda_ms(kern, 120)
+                    rec["host_us"] = host_us(kern, 120)
+                    rec["first_design_ms"] = cuda_ms(first, 120)
                     rec["plain_ms"] = cuda_ms(plain, 24)
                     rec["library_ms"] = cuda_ms(lib, 120)
                     rec["bound_ms"], rec["bound_by"] = case_bound(c)
                     del qs, kvs, mask
                 results.setdefault(name, {}).setdefault(fmt, {})[str(
                     dtype).replace("torch.", "")] = rec
-                del c, out, ref
+                del c
     torch.cuda.empty_cache()
     return results
 
@@ -872,14 +946,21 @@ def run_fused_ce_phase():
             h, w, lab, g = fce_inputs(T, V, d, ignored, dtype, 300 + ci)
             nll, lse = fc.fused_ce_fwd(h, w, lab)
             dh = fc.fused_ce_bwd_dh(h, w, lab, lse, g)
+            before = fc.dw_hopper_launches
             dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
             torch.cuda.synchronize()
+            hopper = fc.dw_hopper_launches > before
+            if hopper != (dtype == torch.bfloat16 and d % 8 == 0):
+                raise AssertionError(f"fused CE dw ({name}, {dtype}) took "
+                                     f"the {'wgmma' if hopper else 'other'} "
+                                     "design")
             rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
             rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
             rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
             (sdh, sdw), (srdh, srdw) = fce_softmax_parts(
                 h, w, lab, g, (dh, dw), (rdh, rdw))
-            rec = {}
+            rec = {"dw_design": "wgmma_tma" if hopper
+                   else "wmma_or_cuda_cores"}
             for key, a, b, tol in (("nll", nll, rnll, FCE_LSE_TOL),
                                    ("lse", lse, rlse, FCE_LSE_TOL),
                                    ("dh", dh, rdh, gtol),
@@ -1009,6 +1090,24 @@ def check_fused_ce_sharep(h, w, lab, lse, g, dh10, dw11, gtol, ignored,
     return rec
 
 
+def fce_dw_first_design(h, w, lab, lse, g, fc):
+    """A call of the first recomputing dw's C entry
+    (``fused_ce_backward_dw``), which the wrapper no longer routes bf16
+    to: the yardstick the wgmma/TMA design replaced."""
+    import torch
+    fn = fc._kernel_fn("fused_ce_backward_dw", fc.BWD_ARGTYPES)
+    out = torch.empty_like(w)
+    T, d = h.shape
+
+    def call(i):
+        rc = fn(fc._DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(),
+                lab.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr(),
+                T, w.shape[0], d, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"first-design dw kernel: CUDA error {rc}")
+    return call
+
+
 def time_fused_ce(h, w, lab, lse, g, fc):
     """Kernel, plain and library times at the training shape, with the
     bounds. The library yardstick is the unfused head: ``torch.matmul``
@@ -1017,7 +1116,8 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     forward alone (fwd), forward+backward to h alone (dh) and to w alone
     (dw), so each backward kernel, which recomputes the logits, meets the
     forward and the one product of its own. The forward kernel is also
-    timed with one vocab split (``fwd_one_split_ms``). The shared-dl pair:
+    timed with one vocab split (``fwd_one_split_ms``), the dw kernel on
+    its first design (``first_design_ms``). The shared-dl pair:
     dh_sharep against row 10's yardstick that also keeps the bf16 dl (the
     gradient at the bf16 logits, taken with dh), dw_sharep against
     ``torch.matmul(dl.t(), h)`` on the stored dl; ``pair`` sums them."""
@@ -1032,6 +1132,7 @@ def time_fused_ce(h, w, lab, lse, g, fc):
          "dw": cuda_ms(lambda i: fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g),
                        3)}
     one_split = cuda_ms(lambda i: fc._launch_fwd(h, w, lab, nsplit=1), 10)
+    dw_first = cuda_ms(fce_dw_first_design(h, w, lab, lse, g, fc), 5)
     V = w.shape[0]
     lab64 = torch.where((lab >= 0) & (lab < V), lab.long(), -100)
 
@@ -1067,6 +1168,7 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     out = {kn: with_rate(dict(ms=t[kn], plain_ms=p[kn], library_ms=lib[kn],
                               **b[kn])) for kn in t}
     out["fwd"]["fwd_one_split_ms"] = one_split
+    out["dw"]["first_design_ms"] = dw_first
     out["pair"] = {"sharep_ms": t["dh_sharep"] + t["dw_sharep"],
                    "recompute_ms": t["dh"] + t["dw"]}
     return out
@@ -1305,8 +1407,9 @@ def serve_traffic(vocab):
 def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
     """The serving engine at GPT-2 small's widths on ``serve_traffic``.
     Over a float pool every attention launches the float kernel, over an
-    int8/fp8 pool the quantized one: one a layer and forward pass, and
-    none of the other kind."""
+    int8/fp8 pool the quantized one: one a layer and forward pass, each
+    on the split-KV design of its pool kind (fp8 pools on the first
+    design), and none of the other kind."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference.serving import ServingEngine
@@ -1339,7 +1442,7 @@ def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
     quant = eng.kv.quantized
     launches, other = ((pa.quant_launches, pa.launches) if quant
                        else (pa.launches, pa.quant_launches))
-    split = pa.split_launches
+    split, qsplit = pa.split_launches, pa.quant_split_launches
     if sorted(done) != sorted(uids):
         raise AssertionError("not every request completed")
     for u, r in zip(uids, reqs):
@@ -1360,10 +1463,13 @@ def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
             f"{name}: kernel launches {launches} != {cfg.num_layers} "
             f"layers x {forwards} forward passes, or {other} launches of "
             "the other pool kind")
-    # float pools: every launch on the split-KV design; quantized: none
-    if split != (0 if quant else launches):
-        raise AssertionError(f"{name}: {split} split-KV launches of "
-                             f"{launches}")
+    # every launch on the split-KV design of its pool kind where it is
+    # routed there (fp8 pools on the first design)
+    want = (0, launches * (kv_dtype in SPLIT_CODES)) if quant else \
+        (launches, 0)
+    if (split, qsplit) != want:
+        raise AssertionError(f"{name}: {split} float and {qsplit} "
+                             f"quantized split-KV launches of {launches}")
     if st["prefix_hits"] < 64 // PS:
         raise AssertionError("the shared prefix was not served from cache")
     ttft = np.array([done[u].ttft_s for u in uids])
@@ -1383,6 +1489,7 @@ def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
             "cow_copies": st["cow_copies"],
             "kernel_launches": launches,
             "split_kv_launches": split,
+            "quant_split_kv_launches": qsplit,
             "launches_per_forward": launches / forwards,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "pool_bytes": eng.kv.pool_bytes(),
@@ -1400,9 +1507,12 @@ def check_quant_pools(serve, q8, f8):
             f"bf16 {serve['pool_bytes']}")
 
 
-def run_parity_phase(kv_dtype=None):
-    """Float32 weights, four greedy requests through the kernel and
-    through the plain version, over a ``kv_dtype`` pool."""
+def run_parity_phase(kv_dtype=None, seed=1, design=None, check=True):
+    """Float32 weights, four greedy requests (lengths and tokens from
+    ``seed``) through the kernel and through the plain version, over a
+    ``kv_dtype`` pool. ``design``: code pools on that design of the
+    kernel (``codes_design``; ``--parity-seeds``); ``check=False``
+    records the comparison without raising on it."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference.serving import ServingEngine
@@ -1412,7 +1522,7 @@ def run_parity_phase(kv_dtype=None):
     cfg = gpt2_small()
     dev = torch.device("cuda")
     params = init_params(cfg, seed=0, device=dev)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     reqs = [(rng.integers(0, cfg.vocab_size, int(n)), 32)
             for n in rng.integers(40, 201, 4)]
     runs, absmax = {}, {}
@@ -1423,24 +1533,31 @@ def run_parity_phase(kv_dtype=None):
                             kv_dtype=kv_dtype)
         pa.reset_launches()
         uids = [eng.add_request(p, n) for p, n in reqs]
-        done = eng.run(max_steps=5000)
+        with codes_design(pa, design):
+            done = eng.run(max_steps=5000)
         forwards = eng.stats["prefill_chunks"] + eng.stats["decode_steps"]
         want = cfg.num_layers * forwards if attention == "auto" else 0
         got = pa.quant_launches if eng.kv.quantized else pa.launches
         if got != want:
             raise AssertionError(f"parity {kv_dtype} {attention}: {got} "
                                  f"kernel launches, expected {want}")
-        # float pools: every launch on the split-KV design; quantized: none
-        if pa.split_launches != (0 if eng.kv.quantized else want):
+        # every launch on the split-KV design of its pool kind where it
+        # is routed there (or asked for)
+        split = (design == "split_kv" if design else
+                 not eng.kv.quantized or kv_dtype in SPLIT_CODES)
+        splits = (pa.split_launches, pa.quant_split_launches)
+        if splits != ((0, want * split) if eng.kv.quantized
+                      else (want, 0)):
             raise AssertionError(f"parity {kv_dtype} {attention}: "
-                                 f"{pa.split_launches} split-KV launches")
+                                 f"{splits} split-KV launches (float, "
+                                 "quantized)")
         runs[attention] = [(done[u].tokens, eng.logit_log[u]) for u in uids]
         # the decode steps' logits (the first entry is the prefill's)
         absmax[attention] = max(float(lg.abs().max())
                                 for u in uids for lg in eng.logit_log[u][1:])
         del eng
         torch.cuda.empty_cache()
-    max_err, first_tie, steps = 0.0, None, 0
+    max_err, first_tie, steps, differs = 0.0, None, 0, None
     for (tk, lk), (tp, lp) in zip(runs["auto"], runs["torch"]):
         for i, (a, b) in enumerate(zip(lk, lp)):
             steps += 1
@@ -1450,17 +1567,52 @@ def run_parity_phase(kv_dtype=None):
                 first_tie = i if first_tie is None else min(first_tie, i)
                 break                  # later steps may diverge legally
             if tk[i] != tp[i]:
-                raise AssertionError(f"greedy token {i} differs: "
-                                     f"{tk[i]} vs {tp[i]}")
-    if not max_err <= PARITY_TOL:
+                differs = (f"greedy token {i} differs: {tk[i]} vs {tp[i]}")
+                if check:
+                    raise AssertionError(differs)
+                break
+    if check and not max_err <= PARITY_TOL:
         raise AssertionError(f"logits differ by {max_err} > {PARITY_TOL}")
     return {"phase": "parity", "kv_dtype": kv_dtype or "float32",
+            "design": "split_kv" if split else "first", "seed": seed,
+            "passed": max_err <= PARITY_TOL and not differs,
+            "token_differs": differs,
             "requests": len(reqs),
             "steps_compared": steps, "max_logit_abs_err": max_err,
             "tol": PARITY_TOL, "first_step_top2_below_tol": first_tie,
             "tokens_identical": all(a[0] == b[0] for a, b in
                                     zip(runs["auto"], runs["torch"])),
             "decode_logit_absmax": absmax["auto"]}
+
+
+@contextlib.contextmanager
+def codes_design(pa, design):
+    """Code pools on ``design`` for the block: ``"first"`` (the wrapper's
+    ``split_kv`` refuses them), ``"split_kv"`` (it admits them, at the
+    whole 16-code head sizes every caller here runs) or None (as the
+    wrapper routes them); float pools as routed. Restored after."""
+    prev = pa.split_kv
+    if design is not None:
+        pa.split_kv = lambda q, k, v=None, ks=None, vs=None: (
+            prev(q, k, v) if ks is None else design == "split_kv")
+    try:
+        yield
+    finally:
+        pa.split_kv = prev
+
+
+def run_parity_seeds(seeds):
+    """``--parity-seeds``: ``parity`` over int8 and fp8 pools for each
+    request seed, on the split-KV design and on the first design, each
+    comparison recorded (``passed``, ``max_logit_abs_err``) and not
+    held: how far the check's outcome rests on the seed."""
+    for seed in seeds:
+        for design in ("split_kv", "first"):
+            for kd in ("int8", "fp8"):
+                r = run_parity_phase(kd, seed=seed, design=design,
+                                     check=False)
+                r["phase"] = "parity_seed"
+                emit(r)
 
 
 def run_parity_quant_phase(base):
@@ -1563,6 +1715,7 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
     hopper = {"flash_fwd": fa.fwd_hopper_launches,
               "flash_dq": fa.dq_hopper_launches,
               "flash_dkv": fa.dkv_hopper_launches,
+              "fused_ce_dw": fc.dw_hopper_launches,
               "fused_ce_dw_sharep": fc.dw_sharep_hopper_launches}
     phase = ("train_fused_ce_sharep" if sharep else
              "train_fused_ce" if fused_ce else "train")
@@ -1585,6 +1738,7 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
     flash_all = cfg.num_layers * steps
     if hopper != {"flash_fwd": flash_all, "flash_dq": flash_all,
                   "flash_dkv": flash_all,
+                  "fused_ce_dw": steps if "dw" in used else 0,
                   "fused_ce_dw_sharep": steps if sharep else 0}:
         raise AssertionError(f"{phase}: wgmma/TMA launches {hopper}")
     step_s = wall / (3 * TRAIN_K)
@@ -2054,6 +2208,13 @@ def main():
         return 2
     sys.path.insert(0, here)
     from paddle_tpu_torch.kernels import _build
+    seeds = None
+    if sys.argv[1:2] == ["--parity-seeds"] and len(sys.argv) == 3:
+        seeds = [int(x) for x in sys.argv[2].split(",")]
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--parity-seeds 1,2,...]",
+              file=sys.stderr)
+        return 2
 
     t_start = time.perf_counter()
     gpu = smi()
@@ -2069,6 +2230,9 @@ def main():
                                     v["ptxas"].splitlines()
                                     if "registers" in ln]}
                       for n, v in log.items()}})
+    if seeds is not None:
+        run_parity_seeds(seeds)
+        return 0
     kres = run_kernel_phase()
     qres = run_quant_kernel_phase()
     fres = run_flash_phase()
@@ -2092,6 +2256,7 @@ def main():
     serve, launches = run_serve_phase()
     emit(serve)
     split_launches = serve["split_kv_launches"]
+    quant_split = 0
     quant_serve, qlaunches = {}, {}
     for name, kd, wd in (("serve_int8", "int8", "bf16"),
                          ("serve_fp8", "fp8", "bf16"),
@@ -2099,6 +2264,7 @@ def main():
         r, qlaunches[name] = run_serve_phase(name, kd, wd)
         r["pool_bytes_vs_bf16"] = r["pool_bytes"] / serve["pool_bytes"]
         r["tokens_per_s_vs_serve"] = r["tokens_per_s"] / serve["tokens_per_s"]
+        quant_split += r["quant_split_kv_launches"]
         quant_serve[name] = r
         torch.cuda.empty_cache()
     check_quant_pools(serve, quant_serve["serve_int8"],
@@ -2172,13 +2338,23 @@ def main():
                            for fmt in case.values() for r in fmt.values()),
         "max_rel_err": max(r["rel_err"] for case in qres.values()
                            for fmt in case.values() for r in fmt.values()),
-        "ms": qdec["ms"], "plain_ms": qdec["plain_ms"],
+        "ms": qdec["ms"], "host_us": qdec["host_us"],
+        "first_design_ms": qdec["first_design_ms"],
+        "plain_ms": qdec["plain_ms"],
         "bound_ms": qdec["bound_ms"], "bound_by": qdec["bound_by"],
         "library_ms": qdec["library_ms"],
         "library": "F.scaled_dot_product_attention over K/V gathered and "
                    "dequantized beforehand (not timed)",
         "shape": "decode: S=8 QB=1 NH=12 HD=64 PS=16 MP=64, int8 pools, "
                  "bf16 q",
+        "source_kernel": "ragged_paged_attention_split_kernel + "
+                         "ragged_paged_attention_merge_kernel (int8_t, "
+                         "__nv_fp8_e4m3 codes)",
+        "design": "split_kv (int8 pools, HD % 16 == 0, 16-byte aligned "
+                  "pools; else, fp8 pools among it, "
+                  "ragged_paged_attention_kernel, timed as "
+                  "first_design_ms; fp8 cases also on split_kv forced)",
+        "launches_split_kv": quant_split,
         "cases": {f"{n}_{fmt}": qres[n][fmt]["bfloat16"]
                   for n in qres for fmt in qres[n]
                   if (n, fmt) != ("decode", "int8")}})
@@ -2237,7 +2413,19 @@ def main():
             "ms": ct[kn]["ms"], "plain_ms": ct[kn]["plain_ms"],
             "bound_ms": ct[kn]["bound_ms"], "bound_by": ct[kn]["bound_by"],
             "library_ms": ct[kn]["library_ms"],
-            "shape": "train: T=16384 d=768 V=50304 bf16"})
+            "tflops": ct[kn]["tflops"],
+            "factor_over_library": ct[kn]["factor_over_library"],
+            "shape": "train: T=16384 d=768 V=50304 bf16",
+            **({"source_kernel": "fused_ce_dw_hopper_kernel",
+                "design": "wgmma_tma (bf16 h and w, d % 8 == 0, 16-byte "
+                          "aligned; float32 and other d on "
+                          "fused_ce_dw_kernel, timed as first_design_ms)",
+                "first_design_ms": ct["dw"]["first_design_ms"],
+                "launches_wgmma_tma": claunch["fused_ce_dw_wgmma_tma"],
+                "design_by_case": {n: {dt: r["dw_design"]
+                                       for dt, r in case.items()}
+                                   for n, case in cres.items()}}
+               if kn == "dw" else {})})
     for kn, line, lib in (
             ("dh_sharep", 158, "matmul + CE fwd, bwd to h and to the bf16 "
                                "logits (dl kept)"),

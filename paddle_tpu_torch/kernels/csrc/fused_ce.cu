@@ -4,7 +4,8 @@
 //   fused_ce_fwd_kernel  <- _fwd_kernel    (:62)  per-token (m, l, target)
 //                                                  of softmax(h @ w^T)
 //   fused_ce_dh_kernel   <- _bwd_dh_kernel (:101) dh = dl @ w
-//   fused_ce_dw_kernel   <- _bwd_dw_kernel (:129) dw = dl^T @ h
+//   fused_ce_dw_hopper_kernel, fused_ce_dw_kernel
+//                        <- _bwd_dw_kernel (:129) dw = dl^T @ h
 // with dl = (softmax(h @ w^T) - onehot(label)) * g recomputed tile by tile,
 // so the [T, V] logits never reach device memory, forward or backward.
 // The shared-dl pair (the reference's _SHARE_P) trades dw's recompute for
@@ -74,19 +75,45 @@
 //   through L2; h (25 MB) fits in L2. Edges (V, T, d) zero-fill by TMA;
 //   rows >= V and columns >= d are never stored. No split over T: each
 //   dw element is summed by one CTA in a fixed order, so two launches are
-//   bit-identical; and equal to the recomputing dw kernel's in bf16, whose
-//   tensor cores sum the same k16 slices of the same bf16 dl in the same
-//   token order (chip_smoke.py reports dw_bit_identical_to_row11).
+//   bit-identical. It equals the first recomputing dw design in bf16 (the
+//   same k16 slices of the same bf16 dl in the same token order), not the
+//   wgmma one, whose logits add two halves of d, so a dl element can round
+//   one bf16 step apart (chip_smoke.py reports dw_bit_identical_to_row11).
 // - fused_ce_dw_sharep_kernel, float32 and d % 8 != 0: the first design,
 //   (h, dl) tile pairs through the three-stage cp.async ring, float32
 //   widening dl in shared memory; one block owns each 32-row dw tile.
-// What holds the recomputing kernels ~10x above their bound: one block of
-// 8 warps per SM (its shared memory and register accumulators leave room
-// for no second) runs the phases of a tile (load, logits product, dl,
-// second product) one after another between barriers, so their latencies
-// add up, and the 32-row tiles stream all of w (or h) through L2 for
-// every block. Overlapped phases (warp specialisation), wgmma/TMA and
-// larger tiles are later work for them.
+// Two designs of the recomputing dw, chosen in kernels/fused_ce.py by dtype,
+// d and alignment alone (hopper_dw):
+// - fused_ce_dw_hopper_kernel, bf16 h and w with d a multiple of 8: wgmma
+//   and TMA. The dw row block [64 x d] of one CTA lives in the registers of
+//   two consumer warpgroups, 384 columns each (192 float32 a thread at
+//   d = 768; a 128-row block would need twice that), so d is split inside
+//   the CTA and no logits are recomputed: 2.56 TFLOP at the training
+//   shape. w's 64-row block stays in shared memory (96 KB); h streams in
+//   32-token tiles (48 KB, all of d) through a 2-stage TMA ring; each
+//   warpgroup forms the logits' partial over its half of d (m64n32k16),
+//   the two partials meet in a double-buffered exchange in shared memory
+//   and are added in one order, dl^T goes to bf16 A fragments in
+//   registers and dw += dl^T h (m64n128k16, h MN-major from the same
+//   stage). One named barrier a tile; thread 0 issues the next tile once
+//   it has passed it (both warpgroups' products on the stage it reuses are
+//   then done); no producer warp, so 255 registers a thread are there for
+//   the accumulators (242 used, no spill). Neither dw's accumulators nor
+//   the logits' are written by any instruction but a wgmma inside the
+//   loop (the first tile's products ignore them): a zeroing move between
+//   the products made the compiler serialise every wgmma (8.4 against
+//   10.2 ms). Below d = 641 the CTA loads and multiplies only the
+//   128-column chunks that hold d (at d = 64 two of the twelve boxes),
+//   on a second build whose products are predicated on the warpgroup's
+//   chunk count; ptxas serialises that build's wgmma (C7520), so the
+//   training shape keeps the build with every chunk live.
+// - fused_ce_dw_kernel, float32 and other d: the first design below.
+// What holds the first designs (the forward, dh and dw in float32) ~10x
+// above their bound: one block of 8 warps per SM (its shared memory and
+// register accumulators leave room for no second) runs the phases of a
+// tile (load, logits product, dl, second product) one after another
+// between barriers, so their latencies add up, and the 32-row tiles
+// stream all of w (or h) through L2 for every block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -909,6 +936,207 @@ fused_ce_dw_sharep_hopper_kernel(const __grid_constant__ CUtensorMap dlmap,
 }
 
 // ---------------------------------------------------------------------------
+// the recomputing dw on wgmma and TMA (bf16 h and w, d % 8 == 0): one CTA
+// per 64-row vocab block, its whole dw row [64 x d] in the registers of two
+// consumer warpgroups (warpgroup c owns columns [384 c, 384 c + 384) of d),
+// w's block resident in shared memory, h streamed in 32-token tiles
+// through a 2-stage TMA ring; per tile:
+//   1. each warpgroup: the logits' partial over its own columns of d,
+//      S^T_c [64 vocab x 32 tokens] = w[:, c] h[:, c]^T (m64n32k16, both
+//      K-major, 24 k16 steps);
+//   2. the two partials meet in shared memory and each warpgroup sums
+//      them in the fixed order S^T_0 + S^T_1, so both hold the same bits;
+//   3. dl^T = (exp(S^T - lse) - onehot) g in float32, rounded to bf16 as
+//      A fragments in registers (the accumulator layout's k16 slices);
+//   4. dw[:, c] += dl^T h[:, c] (m64n128k16 three times a k16 step, h read
+//      MN-major from the stage the logits read).
+// ---------------------------------------------------------------------------
+struct DwRecompute {
+  static constexpr int BM = 64;               // vocab rows a CTA
+  static constexpr int BK = 32;               // tokens a ring stage
+  static constexpr int NB = kMaxD / 64;       // 64-column boxes of d, at most
+  static constexpr int WG_BOXES = NB / 2;     // of them a warpgroup's
+  static constexpr int WG_CHUNKS = WG_BOXES / 2;  // its 128-column chunks
+  static constexpr int W_BOX = BM * 128;      // bytes of a [64 x 64] box of w
+  static constexpr int H_BOX = BK * 128;      // bytes of a [32 x 64] box of h
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = NB * H_BOX;
+  static constexpr int H_OFF = NB * W_BOX;    // w's block first
+  // the partial logits, double-buffered: [tile parity][warpgroup][16][128]
+  static constexpr int X_OFF = H_OFF + STAGES * STAGE_BYTES;
+  static constexpr int X_FLOATS = 2 * 16 * 128;  // one tile's two partials
+  // each stage's token statistics: label, lse, g
+  static constexpr int ST_OFF = X_OFF + 2 * X_FLOATS * 4;
+  static constexpr int BAR_OFF = ST_OFF + STAGES * 3 * BK * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + STAGES) + 1024;  // + alignment slack
+  static constexpr int THREADS = 2 * 128;
+};
+
+// kFull: d > 640, every chunk of both warpgroups live (the training
+// shape); else the CTA loads and multiplies the ceil(d / 128) chunks that
+// hold d, and a warpgroup skips the products of its chunks past them
+template <bool kFull>
+__global__ void __launch_bounds__(DwRecompute::THREADS, 1)
+fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
+                          const __grid_constant__ CUtensorMap hmap, const int* __restrict__ lab,
+                          const float* __restrict__ lse, const float* __restrict__ g,
+                          bf16* __restrict__ dw, int T_, int V, int d) {
+  using C = DwRecompute;
+  constexpr int BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled boxes start on 1024 bytes
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t w_full = base + C::BAR_OFF;
+  auto h_full = [=](int s) { return w_full + 8 * (1 + s); };
+  float* xs = reinterpret_cast<float*>(gbase + C::X_OFF);
+  float* stats = reinterpret_cast<float*>(gbase + C::ST_OFF);
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128, lane = t % 32;
+  const int v0 = blockIdx.x * C::BM;
+  const int nt = (T_ + BK - 1) / BK;
+  // the boxes of d loaded (whole 128-column chunks; a box past d loads as
+  // zeros) and this warpgroup's live chunks of them
+  const int nb = kFull ? C::NB : 2 * ((d + 127) / 128);
+  const int ncw = kFull ? C::WG_CHUNKS : min(max(nb / 2 - C::WG_CHUNKS * wg, 0), C::WG_CHUNKS);
+
+  // tile kt's h boxes into its stage (one thread), and its labels, lse
+  // and g beside them (warp 0; rows >= T pick nothing and weigh 0)
+  auto load_h = [&](int kt) {
+    const int s = kt % C::STAGES;
+    mbar_expect_tx(h_full(s), nb * C::H_BOX);
+    for (int c = 0; c < nb; ++c)
+      tma_load_2d(base + C::H_OFF + s * C::STAGE_BYTES + c * C::H_BOX, &hmap, h_full(s), 64 * c,
+                  kt * BK);
+  };
+  auto load_stats = [&](int kt) {
+    float* st = stats + (kt % C::STAGES) * 3 * BK;
+    const int row = kt * BK + lane;  // BK == 32: a row a lane
+    const bool in = row < T_;
+    reinterpret_cast<int*>(st)[lane] = in ? lab[row] : -1;
+    st[BK + lane] = in ? lse[row] : 0.f;
+    st[2 * BK + lane] = in ? g[row] : 0.f;
+  };
+  if (tid == 0) {
+    mbar_init(w_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(h_full(s), 1);
+    mbar_fence_init();
+    mbar_expect_tx(w_full, nb * C::W_BOX);
+    for (int c = 0; c < nb; ++c)
+      tma_load_2d(base + c * C::W_BOX, &wmap, w_full, 64 * c, v0);
+    for (int kt = 0; kt < C::STAGES && kt < nt; ++kt) load_h(kt);
+  }
+  if (tid < 32)
+    for (int kt = 0; kt < C::STAGES && kt < nt; ++kt) load_stats(kt);
+  __syncthreads();
+
+  // this thread's rows of S^T and dw: vocab rows ra and ra + 8
+  const int ra = v0 + 16 * (t / 32) + lane / 4;
+  // this warpgroup's boxes of d: the logits' depth and dw's columns
+  const uint32_t wbase = base + C::WG_BOXES * wg * C::W_BOX;
+  const int c0 = 64 * C::WG_BOXES * wg;
+  // dw's accumulators: the first tile's products ignore what they hold, so
+  // no instruction but a wgmma ever writes them (a zeroing move between
+  // the products would make the compiler serialise every wgmma)
+  float acc[3][64];
+  float sc[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) sc[j] = 0.f;
+  uint32_t pa[BK / 16][4];  // dl^T in bf16: the A fragments of its k16 slices
+#pragma unroll
+  for (int i = 0; i < BK / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[i][j] = 0u;
+
+  mbar_wait(w_full, 0);
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % C::STAGES;
+    const uint32_t sh = base + C::H_OFF + s * C::STAGE_BYTES;
+    // test hook: this warpgroup lags the other by a while on every tile
+#ifdef FUSED_CE_DW_STALL_WG
+    if (wg == FUSED_CE_DW_STALL_WG) __nanosleep(2000);
+#endif
+    mbar_wait(h_full(s), (i / C::STAGES) & 1);
+    // 1. the partial logits over this warpgroup's columns of d (the first
+    // step ignores what sc holds)
+    // (w's addresses go through an empty asm each tile, so the compiler
+    // builds their 24 descriptors here rather than holding them in
+    // registers across the loop)
+    uint32_t wb = wbase;
+    asm volatile("" : "+r"(wb));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * C::WG_BOXES; ++kk) {
+      const uint32_t ko = (kk % 4) * 32;  // 16 columns in a box
+      if (kk < 8 * ncw)
+        wgmma_ss<0, 0>(sc, sw128_desc(wb + (kk / 4) * C::W_BOX + ko, 16, 1024),
+                       sw128_desc(sh + (C::WG_BOXES * wg + kk / 4) * C::H_BOX + ko, 16, 1024),
+                       kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // also the previous tile's dw products
+    fence_regs(sc);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    fence_regs(acc[2]);
+    fence_regs(pa);
+    // 2. the partials meet: both warpgroups sum S^T_0 + S^T_1
+    float* xb = xs + (i % 2) * C::X_FLOATS;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) xb[(wg * 16 + j) * 128 + t] = sc[j];
+    named_sync(1, C::THREADS);  // both partials written; stage i - 1 read by all
+    if (i >= 1 && i + 1 < nt) {  // stage (i + 1) % 2 held tile i - 1, whose products are done
+      if (tid == 0) load_h(i + 1);
+      if (tid < 32) load_stats(i + 1);
+    }
+    // (addition commutes, so both warpgroups form the same bits)
+    const float* other = xb + (1 - wg) * 16 * 128 + t;
+    // 3. dl^T = (softmax - onehot) g for this thread's (vocab, token)
+    // pairs, straight into bf16 A fragments (sc stays the logits' own:
+    // only wgmma writes it inside the loop)
+    const float* st = stats + s * 3 * BK;
+    const int* slab = reinterpret_cast<const int*>(st);
+    auto dl = [&](int j) {
+      const int v = ra + 8 * ((j & 3) >> 1);
+      const int tk = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      if (v >= V) return 0.f;
+      const float p = __expf(sc[j] + other[j * 128] - st[BK + tk]);
+      return (p - (v == slab[tk] ? 1.f : 0.f)) * st[2 * BK + tk];
+    };
+#pragma unroll
+    for (int j = 0; j < 16; j += 2) pa[j / 8][(j % 8) / 2] = pack_bf16(dl(j), dl(j + 1));
+    // 4. dw[:, c] += dl^T h[:, c], h MN-major in the stage
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < C::WG_CHUNKS; ++c)
+        if (c < ncw)
+          wgmma_rs<1>(acc[c], pa[kk],
+                      sw128_desc(sh + (C::WG_BOXES * wg + 2 * c) * C::H_BOX + kk * 2048,
+                                 C::H_BOX, 1024),
+                      i > 0 || kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  fence_regs(acc[2]);
+  fence_regs(pa);
+
+  // vocab rows >= V and columns >= d (every chunk past ncw) are never stored
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int row = ra + 8 * ((i & 3) >> 1);
+      const int col = c0 + 128 * c + 8 * (i >> 2) + 2 * (lane & 3);
+      if (row < V && col < d)
+        *reinterpret_cast<uint32_t*>(dw + (size_t)row * d + col) =
+            pack_bf16(acc[c][i], acc[c][i + 1]);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <typename Kern>
@@ -1030,6 +1258,28 @@ int bwd_dw_sharep_hopper(const void* h, const void* dl, void* dw, int ldd, int T
   return (int)cudaGetLastError();
 }
 
+// the recomputing dw on wgmma/TMA: tensor maps over w [V, d] in boxes of
+// 64 vocab rows and h [T, d] in boxes of 32 tokens (64 columns each);
+// boxes past V, T or d load as zeros
+int bwd_dw_hopper(const void* h, const void* w, const void* lab, const void* lse, const void* g,
+                  void* dw, int T_, int V, int d, cudaStream_t st) {
+  using C = DwRecompute;
+  CUtensorMap wmap, hmap;
+  const uint64_t w_dims[2] = {(uint64_t)d, (uint64_t)V}, h_dims[2] = {(uint64_t)d, (uint64_t)T_};
+  const uint64_t stride[1] = {2ull * d};
+  const uint32_t w_box[2] = {64, C::BM}, h_box[2] = {64, C::BK};
+  int e = encode_bf16_map(&wmap, w, 2, w_dims, stride, w_box);
+  if (!e) e = encode_bf16_map(&hmap, h, 2, h_dims, stride, h_box);
+  if (e) return e;
+  auto kern = d > kMaxD - 128 ? fused_ce_dw_hopper_kernel<true> : fused_ce_dw_hopper_kernel<false>;
+  cudaError_t ce = prepare(kern, C::SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  kern<<<(V + C::BM - 1) / C::BM, C::THREADS, C::SMEM, st>>>(
+      wmap, hmap, static_cast<const int*>(lab), static_cast<const float*>(lse),
+      static_cast<const float*>(g), static_cast<bf16*>(dw), T_, V, d);
+  return (int)cudaGetLastError();
+}
+
 // a dl buffer the kernels take: bf16 rows of ldd >= V elements, ldd a
 // multiple of 8 (so at least V rounded up to 8), the base 16-byte aligned
 bool dl_ok(const void* dl, int ldd, int V) {
@@ -1081,6 +1331,20 @@ extern "C" int fused_ce_backward_dw(int dtype, const void* h, const void* w, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dw<float>(h, w, labels, lse, g, dw, T_, V, d, st);
   return bwd_dw<bf16>(h, w, labels, lse, g, dw, T_, V, d, st);
+}
+
+// The recomputing dw on wgmma/TMA: as fused_ce_backward_dw, for bfloat16
+// h and w (dtype 1) with d a multiple of 8 and h, w 16-byte aligned;
+// anything else returns cudaErrorInvalidValue (the caller routes it to the
+// entry above).
+extern "C" int fused_ce_backward_dw_hopper(int dtype, const void* h, const void* w,
+                                           const void* labels, const void* lse, const void* g,
+                                           void* dw, int T_, int V, int d, void* stream) {
+  FCE_CHECK();
+  if (dtype != 1 || d % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return bwd_dw_hopper(h, w, labels, lse, g, dw, T_, V, d, static_cast<cudaStream_t>(stream));
 }
 
 // The shared-dl pair. dh_sharep writes dh as fused_ce_backward_dh does and

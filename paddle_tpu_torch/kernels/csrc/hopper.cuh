@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the wgmma/TMA kernels of
-// flash_attention.cu and fused_ce.cu: mbarriers, TMA tile loads, shared
-// memory matrix descriptors for 128-byte swizzled tiles, wgmma (bf16 in,
-// f32 accumulation; A from shared memory or from registers) and the host
-// side's tensor-map encoding. sm_90a only.
+// flash_attention.cu, packed_flash.cu and fused_ce.cu: mbarriers, TMA tile
+// loads, shared memory matrix descriptors for 128-byte swizzled tiles,
+// wgmma (bf16 in, f32 accumulation; m64n{32,64,256}k16 with A from shared
+// memory, m64n{64,128}k16 with A from registers) and the host side's
+// tensor-map encoding. sm_90a only.
 //
 // Tiles: every operand tile in shared memory is a stack of 64-column
 // (128-byte) boxes that TMA writes under CU_TENSOR_MAP_SWIZZLE_128B: row r
@@ -126,6 +127,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // accumulator: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
 // (+ 8 for d[4j + 2], d[4j + 3]) and columns 8 j + 2 (t % 4) (+ 1 for the odd
 // elements). scale_d = 0 ignores d's prior value.
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {

@@ -1,10 +1,10 @@
 // Ragged paged attention for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernels paddle_tpu/kernels/paged_attention_pallas.py:37
-// (`_kernel`, launched by `_ragged_paged_attention_x32`; here
-// ragged_paged_attention_split_kernel and its merge) and, over quantized
-// pools, :102 (`_kernel_quant`; here ragged_paged_attention_kernel). Same
-// function:
+// (`_kernel`, launched by `_ragged_paged_attention_x32`) and, over quantized
+// pools, :102 (`_kernel_quant`); both are ragged_paged_attention_split_kernel
+// and its merge, with ragged_paged_attention_kernel for what the wrapper
+// does not route to them. Same function:
 //
 //   q [S, QB, NH, HD]; k_pool, v_pool [NP, PS, NH, HD];
 //   block_tables [S, MP] int32; kv_lens [S] int32; q_lens [S] int32.
@@ -27,7 +27,13 @@
 //
 // Two designs, chosen in kernels/paged_attention.py (split_kv):
 // - ragged_paged_attention_split_kernel + ragged_paged_attention_merge_kernel,
-//   for float32 and bfloat16 pools (HD % 8 == 0, 16-byte aligned): spend
+//   for float32 and bfloat16 pools (HD % 8 == 0, 16-byte aligned) and for
+//   int8 code pools (HD % 16 == 0, 16-byte aligned). Its code-pool entry
+//   takes float8 codes as well, which the wrapper keeps on the first
+//   design: the engine requantizes the pages it writes, and over fp8
+//   codes this design's float32 rounding moves its logits past the
+//   card's parity check at the check's request seed, a check the first
+//   design fails at 3 of 6 seeds (PERF.md Findings). Spend
 //   everything on moving K/V once, 16 bytes a thread, with many loads in
 //   flight and the grid filling the card.
 //   * Split over the KV extent. The first design (below) gave each
@@ -44,45 +50,57 @@
 //     kernel (griddepcontrol), so its launch overlaps the split kernel's
 //     tail. With one split the block writes the output itself.
 //   * Loads. The block reads its split's block-table entries once into
-//     shared memory, then moves 16-position tiles of K and V (a head's
-//     page row is HD contiguous values: 128 bytes at HD 64 bf16, 8 lanes
-//     of 16 bytes) with 16-byte cp.async.cg into a 4-stage ring, 3 tiles
-//     in flight while one computes, one __syncthreads a tile. The copies
-//     move bytes, not values: a one-byte code pool (the quantized kernel
-//     below) can take the same ring with 16 codes a copy and widen them
-//     when it reads the stage.
-//   * Arithmetic, all in float32: q pre-scaled in registers. A group of 8
-//     lanes owns one position of the tile: a partial dot over its values,
-//     3 shuffles, then an online softmax of its own, P V in registers. At
-//     decode (QB = 1) the tile's 16 positions go to the block's 16 groups;
-//     for QB > 1 each warp takes 4 (or, at larger HD, fewer) rows and its
-//     4 groups walk the tile in 4 steps, so one staged tile serves 16
-//     rows. The groups merge by shuffles, the warps of a decode block
-//     through shared memory once at the end.
+//     shared memory (over a code pool with its pages' K and V scales for
+//     the head), then moves tiles of K and V (a head's page row is HD
+//     contiguous values: 128 bytes at HD 64 bf16, 64 at HD 64 int8) with
+//     16-byte cp.async.cg into a 4-stage ring, 3 tiles in flight while one
+//     computes, one __syncthreads a tile. The copies move bytes, not
+//     values: over a code pool each copy carries 16 codes, widened to
+//     float32 times the page's scale as the stage is read (int8: one I2F
+//     a code; fp8: cvt of two codes to a half2, then to floats, both
+//     exact), the single multiply of the plain version (__fmul_rn, never
+//     fused), so the values are bit-identical to its dequantized pages.
+//   * Arithmetic, all in float32 and the same over float and code pools:
+//     q pre-scaled in registers, the correctly rounded expf (as the first
+//     design and the TPU kernel's jnp.exp; the __expf intrinsic, up to ~2
+//     ulp and more at large arguments, put this design further from the
+//     plain version than the first design at all six request seeds of the
+//     int8 parity check, PERF.md Findings). A group of G lanes owns one position of
+//     the tile: a partial dot over its values, log2(G) shuffles, then an
+//     online softmax of its own, P V in registers. G = 8 for float pools;
+//     a code row of at most 4 units (HD <= 64: 64 bytes) would leave half
+//     of 8 lanes idle, so code pools there take G = 4: 8 groups a warp,
+//     32-position stages. At decode (QB = 1) the stage's positions go to the block's groups; for QB > 1
+//     each warp takes 4 (or, with more values a lane, fewer) rows and its
+//     groups walk the stage in 4 steps, so one staged tile serves all the
+//     CTA's rows. The groups merge by shuffles, the warps of a decode
+//     block through shared memory once at the end.
 //   * Tried (PERF.md Findings): the first design's loads (one 2-byte
 //     element a thread, widened into shared memory, no copy in flight)
 //     and its serial 64-long dot products; a ring of 6 or 8 stages (no
 //     faster than 4 at these extents); 32-, 64- and 256-position splits
 //     at decode (128 was the fastest; the prefill chunk, one slot, is
-//     fastest at 32, which the wrapper's rule picks).
-// - ragged_paged_attention_kernel, over int8 / float8 pools (and float
-//   pools the split design does not take): the first design. One block
-//   per (row tile of 16, head, slot) walks the slot's pages in tiles of
-//   kTile positions, loads its own block-table row and lengths (what
-//   scalar prefetch did on the TPU), and keeps scores, running max/sum
-//   and accumulator in shared memory. It stays for the quantized pools
-//   until their own redesign: the split design's ring and merge carry
-//   over, the widening with the page scales does not yet.
+//     fastest at 32, which the wrapper's rule picks). For code pools at
+//     HD 64 the alternative to groups of 4 lanes is 8-byte units over
+//     groups of 8; groups of 4 keep every copy and every shared-memory
+//     read at 16 bytes.
+// - ragged_paged_attention_kernel, the first design, for the pools the
+//   wrapper does not route to the split design (HD off whole 16-byte
+//   units, pools not 16-byte aligned, float8 codes). One block per (row tile of 16, head, slot) walks the
+//   slot's pages in tiles of kTile positions, loads its own block-table
+//   row and lengths (what scalar prefetch did on the TPU), and keeps
+//   scores, running max/sum and accumulator in shared memory. Over a code
+//   pool it reads the scales of a tile's pages once into shared memory,
+//   then the codes four to a 32-bit word (a page row of one head is HD
+//   contiguous bytes, so neighbouring threads read neighbouring words),
+//   widening each to float32 times its page's scale as it stores the
+//   tile, the same single multiply.
 //
 // Over a quantized pool the bytes streamed halve against bf16 (one byte a
 // code, plus two floats a page and head). The codes never reach device
-// memory in float: the block reads the scales of a tile's pages once into
-// shared memory, then reads the codes four to a 32-bit word (a page row
-// of one head is HD contiguous bytes, so neighbouring threads read
-// neighbouring words) and widens each to float32 times its page's scale
-// as it stores the tile — the same single multiply the plain version
-// does, so the staged values are bit-identical to its dequantized pages.
+// memory in float.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -370,9 +388,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // why): ragged_paged_attention_split_kernel writes each split's partial
 // (m, l, acc) and ragged_paged_attention_merge_kernel merges them.
 // ---------------------------------------------------------------------------
-constexpr int kSplitThreads = 128;  // 4 warps of 4 groups of 8 lanes
-constexpr int kStagePos = 16;       // positions a ring stage holds
+constexpr int kSplitThreads = 128;  // 4 warps of groups of 8 (or 4) lanes
 constexpr int kRing = 4;            // ring stages: 3 tiles in flight
+constexpr int kMaxSplits = 64;      // splits of the extent the merge takes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -416,13 +434,65 @@ struct Unit<__nv_bfloat16> {
   }
 };
 
-// NU units of a row per lane (lane g of its group holds units g, g + 8,
-// ...); DECODE: one query row a CTA, its positions spread over all 16
-// groups; else RW rows a warp, each warp's 4 groups over all positions
-template <typename KVT, int NU, bool DECODE>
+// 16 one-byte codes, widened to float32 and times the page's scale: the
+// single multiply of the plain version (code.float() * scale), never
+// contracted into a neighbouring add, so each value is bit-identical to
+// the plain version's dequantized page
+template <>
+struct Unit<int8_t> {
+  static constexpr int E = 16;
+  __device__ __forceinline__ static void load(float* f, const unsigned char* p, float s) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)  // the lowest byte is the first code
+        f[4 * i + b] = __fmul_rn((float)(int8_t)(uint8_t)(w[i] >> (8 * b)), s);
+  }
+};
+template <>
+struct Unit<__nv_fp8_e4m3> {
+  static constexpr int E = 16;
+  __device__ __forceinline__ static void load(float* f, const unsigned char* p, float s) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // two codes to two halves, then floats: both exact
+        const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
+            (__nv_fp8x2_storage_t)((w[i] >> (16 * j)) & 0xffffu), __NV_E4M3);
+        const float2 x = __half22float2(__half2(hr));
+        f[4 * i + 2 * j] = __fmul_rn(x.x, s);
+        f[4 * i + 2 * j + 1] = __fmul_rn(x.y, s);
+      }
+  }
+};
+
+// a stage's unit as float32 values: float pools as they are, code pools
+// times the page's scale s
+template <typename KVT>
+__device__ __forceinline__ void stage_unit(float* f, const unsigned char* p, float s) {
+  if constexpr (IsQuant<KVT>::value)
+    Unit<KVT>::load(f, p, s);
+  else
+    Unit<KVT>::load(f, p);
+}
+
+// A group of G lanes owns one position; a lane holds NU units of a row
+// (lane g of its group units g, g + G, ...). G = 8 for every float pool;
+// a code pool whose row is at most 4 units (HD <= 64) takes G = 4, so no
+// lane of a group idles. A ring stage holds SP positions, one for each
+// group of the CTA's 4 warps. DECODE: one query row a CTA, the stage's
+// positions spread over all groups; else RW rows a warp, each warp's
+// groups walking the stage in 4 steps
+template <typename KVT, int NU, int G, bool DECODE>
 struct SplitPlan {
   static constexpr int E = Unit<KVT>::E;
   static constexpr int EPL = NU * E;  // values a lane holds of a row
+  static constexpr int GPW = 32 / G;  // groups a warp
+  static constexpr int SP = 4 * GPW;  // positions a ring stage holds
   static constexpr int RW = DECODE ? 1 : (32 / EPL >= 4 ? 4 : (EPL >= 32 ? 1 : 32 / EPL));
   static constexpr int ROWS = DECODE ? 1 : 4 * RW;  // query rows a CTA
 };
@@ -431,39 +501,48 @@ struct SplitPlan {
 template <int N>
 __device__ __forceinline__ void merge_state(float& m, float& l, float (&acc)[N], float mo,
                                             float lo, const float* acco) {
-  const float mn = fmaxf(m, mo);
-  const float a = m == -INFINITY ? 0.f : __expf(m - mn);
-  const float b = mo == -INFINITY ? 0.f : __expf(mo - mn);
+  const float mn = m > mo ? m : mo;
+  const float a = m == -INFINITY ? 0.f : expf(m - mn);
+  const float b = mo == -INFINITY ? 0.f : expf(mo - mn);
   l = l * a + lo * b;
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = acc[i] * a + acco[i] * b;
   m = mn;
 }
 
-size_t split_smem(int HD, int kv_bytes, int SL, int PS, bool decode) {
-  const size_t bt = ((size_t)(SL / PS) * 4 + 15) / 16 * 16;
-  return bt + (size_t)kRing * 2 * kStagePos * HD * kv_bytes +
+// the split's block-table entries (and, over a code pool, its pages' K
+// and V scales for the head), rounded up to 16 bytes
+__host__ __device__ inline int split_header(int pages, bool quant) {
+  return (pages * (quant ? 12 : 4) + 15) / 16 * 16;
+}
+
+// the decode block's warps merge (acc, m, l) through shared memory
+size_t split_smem(int HD, int kv_bytes, int SL, int PS, int stage_pos, bool decode) {
+  return split_header(SL / PS, kv_bytes == 1) + (size_t)kRing * 2 * stage_pos * HD * kv_bytes +
          (decode ? (size_t)4 * (HD + 2) * 4 : 0);
 }
 
-template <typename QT, typename KVT, int NU, bool DECODE>
+template <typename QT, typename KVT, int NU, int G, bool DECODE>
 __global__ void __launch_bounds__(kSplitThreads)
 ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k_pool,
                                     const KVT* __restrict__ v_pool,
+                                    const float* __restrict__ k_scale,
+                                    const float* __restrict__ v_scale,
                                     const int* __restrict__ block_tables,
                                     const int* __restrict__ kv_lens,
                                     const int* __restrict__ q_lens, QT* __restrict__ out,
                                     float* __restrict__ ws, int QB, int NH, int HD, int PS,
                                     int MP, int SL, int nsplit, float scale) {
-  using P = SplitPlan<KVT, NU, DECODE>;
-  constexpr int E = P::E, EPL = P::EPL, RW = P::RW;
+  using P = SplitPlan<KVT, NU, G, DECODE>;
+  constexpr int E = P::E, EPL = P::EPL, RW = P::RW, GPW = P::GPW, SP = P::SP;
+  constexpr bool kQuant = IsQuant<KVT>::value;
   extern __shared__ __align__(16) unsigned char psm[];
   // the merge kernel may be scheduled now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int split = blockIdx.x % nsplit, rt = blockIdx.x / nsplit;
   const int h = blockIdx.y, s = blockIdx.z, S = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 3, g8 = lane & 7;
+  const int grp = lane / G, gl = lane % G;  // the lane's group and place in it
   const int row0 = rt * P::ROWS;
   const int L = min(kv_lens[s], MP * PS), qn = q_lens[s];
   const size_t head_stride = (size_t)NH * HD;  // one position of one slot
@@ -485,40 +564,50 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
     return;
   }
 
-  // the split's pages of the block table, read once
+  // the split's pages of the block table, read once (and over a code pool
+  // the K and V scales of those pages for head h)
   int* sbt = reinterpret_cast<int*>(psm);
+  float* sks = reinterpret_cast<float*>(sbt + SL / PS);
+  float* svs = sks + SL / PS;
   const int pg0 = p0 / PS, npg = (p1 - 1) / PS - pg0 + 1;
-  for (int i = tid; i < npg; i += kSplitThreads) sbt[i] = block_tables[(size_t)s * MP + pg0 + i];
+  for (int i = tid; i < npg; i += kSplitThreads) {
+    const int page = block_tables[(size_t)s * MP + pg0 + i];
+    sbt[i] = page;
+    if constexpr (kQuant) {
+      sks[i] = k_scale[(size_t)page * NH + h];
+      svs[i] = v_scale[(size_t)page * NH + h];
+    }
+  }
   const int RB = HD * (int)sizeof(KVT);  // bytes of one head's page row
   const int U = RB / 16;                 // 16-byte units of a row
-  unsigned char* ring = psm + ((SL / PS) * 4 + 15) / 16 * 16;
-  const int stage_bytes = 2 * kStagePos * RB;  // K rows, then V rows
+  unsigned char* ring = psm + split_header(SL / PS, kQuant);
+  const int stage_bytes = 2 * SP * RB;   // K rows, then V rows
   __syncthreads();
 
   // this thread's share of a tile's copies: K and V rows of positions
-  // p0 + kStagePos t + [0, 16), 16 bytes a copy, neighbouring threads on
-  // neighbouring addresses of a row
+  // p0 + SP t + [0, SP), 16 bytes a copy (8 bf16 values, 16 codes),
+  // neighbouring threads on neighbouring addresses of a row
   auto load = [&](int t) {
     unsigned char* st = ring + (t % kRing) * stage_bytes;
-    const int base = p0 + t * kStagePos;
-    for (int i = tid; i < kStagePos * U; i += kSplitThreads) {
+    const int base = p0 + t * SP;
+    for (int i = tid; i < SP * U; i += kSplitThreads) {
       const int pi = i / U, u = i - pi * U;
       const int pos = base + pi;
       if (pos >= p1) break;
       const size_t off = ((size_t)sbt[pos / PS - pg0] * PS + pos % PS) * head_stride +
                          (size_t)h * HD + (size_t)u * E;
       cp_async16(smem_u32(st + pi * RB + u * 16), k_pool + off);
-      cp_async16(smem_u32(st + (kStagePos + pi) * RB + u * 16), v_pool + off);
+      cp_async16(smem_u32(st + (SP + pi) * RB + u * 16), v_pool + off);
     }
   };
-  const int ntiles = (p1 - p0 + kStagePos - 1) / kStagePos;
+  const int ntiles = (p1 - p0 + SP - 1) / SP;
 #pragma unroll
   for (int t = 0; t < kRing - 1; ++t) {
     if (t < ntiles) load(t);
     cp_async_commit();
   }
 
-  // this warp's rows: q pre-scaled in float32, the causal limits
+  // this warp's rows: q in float32, pre-scaled; the causal limits
   float qv[RW][EPL], m[RW], l[RW], acc[RW][EPL];
   int lim[RW];
 #pragma unroll
@@ -529,7 +618,7 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
     l[r] = 0.f;
 #pragma unroll
     for (int c = 0; c < NU; ++c) {
-      const int u = g8 + 8 * c;
+      const int u = gl + G * c;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         acc[r][c * E + e] = 0.f;
@@ -547,21 +636,26 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
     if (t + kRing - 1 < ntiles) load(t + kRing - 1);
     cp_async_commit();
     const unsigned char* sk = ring + (t % kRing) * stage_bytes;
-    const unsigned char* sv = sk + kStagePos * RB;
+    const unsigned char* sv = sk + SP * RB;
 #pragma unroll
     for (int step = 0; step < (DECODE ? 1 : 4); ++step) {
-      // the group's position: decode spreads the tile over all 16 groups,
-      // else each warp's 4 groups walk it in 4 steps
-      const int pi = DECODE ? warp * 4 + grp : step * 4 + grp;
-      const int pos = p0 + t * kStagePos + pi;
+      // the group's position: decode spreads the tile over all groups,
+      // else each warp's groups walk it in 4 steps
+      const int pi = DECODE ? warp * GPW + grp : step * GPW + grp;
+      const int pos = p0 + t * SP + pi;
       const bool inside = pos < p1;
+      float ks = 1.f, vs = 1.f;  // the position's page scales (code pools)
+      if (kQuant && inside) {
+        ks = sks[pos / PS - pg0];
+        vs = svs[pos / PS - pg0];
+      }
       float kf[EPL], vf[EPL];
 #pragma unroll
       for (int c = 0; c < NU; ++c) {
-        const int u = g8 + 8 * c;
+        const int u = gl + G * c;
         if (inside && u < U) {
-          Unit<KVT>::load(kf + c * E, sk + pi * RB + u * 16);
-          Unit<KVT>::load(vf + c * E, sv + pi * RB + u * 16);
+          stage_unit<KVT>(kf + c * E, sk + pi * RB + u * 16, ks);
+          stage_unit<KVT>(vf + c * E, sv + pi * RB + u * 16, vs);
         } else {
 #pragma unroll
           for (int e = 0; e < E; ++e) kf[c * E + e] = vf[c * E + e] = 0.f;
@@ -569,21 +663,22 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
       }
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
-        float a = 0.f;
+        // the position's score: a partial dot over the lane's values, then
+        // the group's G lanes
+        float x = 0.f;
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) a = fmaf(qv[r][i], kf[i], a);
-        a += __shfl_xor_sync(0xffffffffu, a, 1);  // the group's 8 lanes
-        a += __shfl_xor_sync(0xffffffffu, a, 2);
-        a += __shfl_xor_sync(0xffffffffu, a, 4);
+        for (int i = 0; i < EPL; ++i) x = fmaf(qv[r][i], kf[i], x);
+#pragma unroll
+        for (int o = 1; o < G; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
         if (inside && pos < lim[r]) {  // online softmax, one position
-          if (a > m[r]) {
-            const float al = __expf(m[r] - a);
+          if (x > m[r]) {
+            const float al = expf(m[r] - x);
             l[r] *= al;
 #pragma unroll
             for (int i = 0; i < EPL; ++i) acc[r][i] *= al;
-            m[r] = a;
+            m[r] = x;
           }
-          const float p = __expf(a - m[r]);
+          const float p = expf(x - m[r]);
           l[r] += p;
 #pragma unroll
           for (int i = 0; i < EPL; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i]);
@@ -593,9 +688,9 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
   }
   cp_async_wait<0>();
 
-  // the warp's 4 groups hold disjoint positions of its rows: merge them
+  // the warp's groups hold disjoint positions of its rows: merge them
 #pragma unroll
-  for (int o = 8; o <= 16; o <<= 1)
+  for (int o = G; o <= 16; o <<= 1)
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       float acco[EPL];
@@ -611,12 +706,12 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
     if (grp == 0) {
 #pragma unroll
       for (int c = 0; c < NU; ++c) {
-        const int u = g8 + 8 * c;
+        const int u = gl + G * c;
         if (u < U)
 #pragma unroll
           for (int e = 0; e < E; ++e) sw[warp * (HD + 2) + u * E + e] = acc[0][c * E + e];
       }
-      if (g8 == 0) {
+      if (gl == 0) {
         sw[warp * (HD + 2) + HD] = m[0];
         sw[warp * (HD + 2) + HD + 1] = l[0];
       }
@@ -627,7 +722,7 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
       float acco[EPL];
 #pragma unroll
       for (int c = 0; c < NU; ++c) {
-        const int u = g8 + 8 * c;
+        const int u = gl + G * c;
 #pragma unroll
         for (int e = 0; e < E; ++e)
           acco[c * E + e] = u < U ? sw[w * (HD + 2) + u * E + e] : 0.f;
@@ -635,7 +730,7 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
       merge_state(m[0], l[0], acc[0], sw[w * (HD + 2) + HD], sw[w * (HD + 2) + HD + 1], acco);
     }
   }
-  if (grp != 0) return;  // lanes 0-7 write
+  if (grp != 0) return;  // the first group's lanes write
 
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
@@ -646,7 +741,7 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
     const size_t R = (size_t)S * QB * NH;
 #pragma unroll
     for (int c = 0; c < NU; ++c) {
-      const int u = g8 + 8 * c;
+      const int u = gl + G * c;
       if (u >= U) continue;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
@@ -657,7 +752,7 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
           ws[wrow * HD + d] = acc[r][c * E + e];
       }
     }
-    if (!direct && g8 == 0) {
+    if (!direct && gl == 0) {
       ws[R * nsplit * HD + wrow] = m[r];
       ws[R * nsplit * (HD + 1) + wrow] = l[r];
     }
@@ -665,7 +760,8 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
 }
 
 // one warp per (slot, row, head): the live splits' partials merged in
-// split order (so two launches give the same bits), out = acc / l
+// split order (so two launches give the same bits), out = acc / l, each
+// split's weight formed once
 template <typename QT>
 __global__ void __launch_bounds__(128)
 ragged_paged_attention_merge_kernel(const float* __restrict__ ws,
@@ -687,24 +783,29 @@ ragged_paged_attention_merge_kernel(const float* __restrict__ ws,
   const float* wm = ws + R * nsplit * HD + row * nsplit;
   const float* wl = ws + R * nsplit * (HD + 1) + row * nsplit;
   float M = -INFINITY;
-  for (int i = 0; i < n; ++i) M = fmaxf(M, wm[i]);
+  for (int i = 0; i < n; ++i) M = wm[i] > M ? wm[i] : M;
+  // each split's weight exp(m_i - M), once (lane i holds splits i, i + 32)
+  __shared__ float wsm[4][kMaxSplits];
+  float* w = wsm[threadIdx.x >> 5];
+  for (int i = lane; i < n; i += 32) w[i] = expf(wm[i] - M);
+  __syncwarp();
   float lt = 0.f;
-  for (int i = 0; i < n; ++i) lt += wl[i] * __expf(wm[i] - M);
+  for (int i = 0; i < n; ++i) lt += wl[i] * w[i];
   for (int d = lane; d < HD; d += 32) {
     float a = 0.f;
-    for (int i = 0; i < n; ++i) a += wacc[(size_t)i * HD + d] * __expf(wm[i] - M);
+    for (int i = 0; i < n; ++i) a += wacc[(size_t)i * HD + d] * w[i];
     out[row * HD + d] = from_f32<QT>(lt > 0.f ? a / lt : 0.f);
   }
 }
 
-template <typename QT, typename KVT, int NU, bool DECODE>
-int launch_split_t(const void* q, const void* k_pool, const void* v_pool,
-                   const void* block_tables, const void* kv_lens, const void* q_lens, void* out,
-                   float* ws, int S, int QB, int NH, int HD, int PS, int MP, int SL, int nsplit,
-                   float scale, cudaStream_t stream) {
-  using P = SplitPlan<KVT, NU, DECODE>;
-  auto kern = ragged_paged_attention_split_kernel<QT, KVT, NU, DECODE>;
-  const size_t smem = split_smem(HD, sizeof(KVT), SL, PS, DECODE);
+template <typename QT, typename KVT, int NU, int G, bool DECODE>
+int launch_split_t(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
+                   const float* v_scale, const void* block_tables, const void* kv_lens,
+                   const void* q_lens, void* out, float* ws, int S, int QB, int NH, int HD, int PS,
+                   int MP, int SL, int nsplit, float scale, cudaStream_t stream) {
+  using P = SplitPlan<KVT, NU, G, DECODE>;
+  auto kern = ragged_paged_attention_split_kernel<QT, KVT, NU, G, DECODE>;
+  const size_t smem = split_smem(HD, sizeof(KVT), SL, PS, P::SP, DECODE);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -713,7 +814,7 @@ int launch_split_t(const void* q, const void* k_pool, const void* v_pool,
   const int rt = (QB + P::ROWS - 1) / P::ROWS;
   kern<<<dim3(nsplit * rt, NH, S), kSplitThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
-      static_cast<const KVT*>(v_pool), static_cast<const int*>(block_tables),
+      static_cast<const KVT*>(v_pool), k_scale, v_scale, static_cast<const int*>(block_tables),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens), static_cast<QT*>(out),
       nsplit > 1 ? ws : nullptr, QB, NH, HD, PS, MP, SL, nsplit, scale);
   cudaError_t e = cudaGetLastError();
@@ -738,24 +839,31 @@ int launch_split_t(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-// NU from the row's 16-byte units (lanes of a group hold 8 units each
-// pass), DECODE from QB
+// NU and G from the row's 16-byte units U, DECODE from QB: float pools
+// take groups of 8 lanes holding 1-8 units each; code pools groups of 4
+// lanes for rows of up to 4 units (HD <= 64), else of 8 with 1-2 units
 template <typename QT, typename KVT>
-int launch_split(const void* q, const void* k_pool, const void* v_pool,
-                 const void* block_tables, const void* kv_lens, const void* q_lens, void* out,
-                 float* ws, int S, int QB, int NH, int HD, int PS, int MP, int SL, int nsplit,
-                 float scale, cudaStream_t st) {
+int launch_split(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
+                 const float* v_scale, const void* block_tables, const void* kv_lens,
+                 const void* q_lens, void* out, float* ws, int S, int QB, int NH, int HD, int PS,
+                 int MP, int SL, int nsplit, float scale, cudaStream_t st) {
   const int U = HD * (int)sizeof(KVT) / 16;
-#define PA_SPLIT(NU, DEC)                                                                   \
-  return launch_split_t<QT, KVT, NU, DEC>(q, k_pool, v_pool, block_tables, kv_lens, q_lens, \
-                                          out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, scale, \
-                                          st)
-#define PA_SPLIT_NU(DEC)             \
-  if (U <= 8) PA_SPLIT(1, DEC);      \
-  if (U <= 16) PA_SPLIT(2, DEC);     \
-  if (U <= 32) PA_SPLIT(4, DEC);     \
-  if constexpr (sizeof(KVT) == 4) {  \
-    if (U <= 64) PA_SPLIT(8, DEC);   \
+#define PA_SPLIT(NU, G, DEC)                                                                 \
+  return launch_split_t<QT, KVT, NU, G, DEC>(q, k_pool, v_pool, k_scale, v_scale,            \
+                                             block_tables, kv_lens, q_lens, out, ws, S, QB, \
+                                             NH, HD, PS, MP, SL, nsplit, scale, st)
+#define PA_SPLIT_NU(DEC)                 \
+  if constexpr (IsQuant<KVT>::value) {   \
+    if (U <= 4) PA_SPLIT(1, 4, DEC);     \
+    if (U <= 8) PA_SPLIT(1, 8, DEC);     \
+    if (U <= 16) PA_SPLIT(2, 8, DEC);    \
+  } else {                               \
+    if (U <= 8) PA_SPLIT(1, 8, DEC);     \
+    if (U <= 16) PA_SPLIT(2, 8, DEC);    \
+    if (U <= 32) PA_SPLIT(4, 8, DEC);    \
+    if constexpr (sizeof(KVT) == 4) {    \
+      if (U <= 64) PA_SPLIT(8, 8, DEC);  \
+    }                                    \
   }
   if (QB == 1) {
     PA_SPLIT_NU(true)
@@ -765,6 +873,17 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool,
 #undef PA_SPLIT_NU
 #undef PA_SPLIT
   return (int)cudaErrorInvalidValue;
+}
+
+// what both split-KV entries check of the extent's cut and the pools
+bool split_args_ok(const void* k_pool, const void* v_pool, int HD, int unit, int PS, int MP,
+                   int SL, int nsplit, const float* ws) {
+  const uintptr_t pools =
+      reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
+  return HD % unit == 0 && HD >= unit && HD <= 256 && pools % 16 == 0 && PS >= 1 && SL >= PS &&
+         SL % PS == 0 && nsplit >= 1 && nsplit <= kMaxSplits &&
+         (long long)nsplit * SL >= (long long)MP * PS &&
+         (nsplit == 1 || ws != nullptr);
 }
 
 }  // namespace
@@ -802,7 +921,7 @@ extern "C" int paged_attention_forward(int q_dtype, int kv_dtype, const void* q,
 
 // The split-KV design: as paged_attention_forward, for float32 / bfloat16
 // pools (kv_dtype 0 or 1) with HD % 8 == 0, HD <= 256 and 16-byte aligned
-// pools. The extent [0, MP * PS) is cut into nsplit splits of SL
+// pools. The extent [0, MP * PS) is cut into nsplit <= 64 splits of SL
 // positions (SL a multiple of PS); with nsplit > 1, ws holds S * QB * NH *
 // nsplit * (HD + 2) floats for the partials (acc, then m, then l) and a
 // second kernel merges them. Returns cudaGetLastError() after the
@@ -814,19 +933,42 @@ extern "C" int paged_attention_forward_split(int q_dtype, int kv_dtype, const vo
                                              int QB, int NH, int HD, int PS, int MP, int SL,
                                              int nsplit, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uintptr_t pools =
-      reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
-  if (HD % 8 != 0 || HD < 8 || HD > 256 || pools % 16 != 0 || PS < 1 || SL < PS ||
-      SL % PS != 0 || nsplit < 1 || (long long)nsplit * SL < (long long)MP * PS ||
-      (nsplit > 1 && ws == nullptr))
+  if (!split_args_ok(k_pool, v_pool, HD, 8, PS, MP, SL, nsplit, ws))
     return (int)cudaErrorInvalidValue;
-#define PA_SPLIT_LAUNCH(QT, KVT)                                                             \
-  return launch_split<QT, KVT>(q, k_pool, v_pool, block_tables, kv_lens, q_lens, out, ws, S, \
-                               QB, NH, HD, PS, MP, SL, nsplit, scale, st)
+#define PA_SPLIT_LAUNCH(QT, KVT)                                                            \
+  return launch_split<QT, KVT>(q, k_pool, v_pool, nullptr, nullptr, block_tables, kv_lens, \
+                               q_lens, out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, scale, st)
   if (q_dtype == 0 && kv_dtype == 0) PA_SPLIT_LAUNCH(float, float);
   if (q_dtype == 1 && kv_dtype == 1) PA_SPLIT_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == 0 && kv_dtype == 1) PA_SPLIT_LAUNCH(float, __nv_bfloat16);
   if (q_dtype == 1 && kv_dtype == 0) PA_SPLIT_LAUNCH(__nv_bfloat16, float);
+#undef PA_SPLIT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split-KV design over int8 / float8 e4m3 code pools (kv_dtype 2 or
+// 3): as paged_attention_forward_split, with the per-page-per-head scales
+// k_scale / v_scale [NP, NH] (float32, 4-byte aligned) of
+// paged_attention_forward, HD % 16 == 0 (whole 16-code units), HD <= 256
+// and 16-byte aligned pools; ws as there.
+extern "C" int paged_attention_forward_split_quant(
+    int q_dtype, int kv_dtype, const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale, const void* block_tables, const void* kv_lens,
+    const void* q_lens, void* out, float* ws, int S, int QB, int NH, int HD, int PS, int MP,
+    int SL, int nsplit, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t scales =
+      reinterpret_cast<uintptr_t>(k_scale) | reinterpret_cast<uintptr_t>(v_scale);
+  if (!split_args_ok(k_pool, v_pool, HD, 16, PS, MP, SL, nsplit, ws) || k_scale == nullptr ||
+      v_scale == nullptr || scales % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+#define PA_SPLIT_LAUNCH(QT, KVT)                                                           \
+  return launch_split<QT, KVT>(q, k_pool, v_pool, k_scale, v_scale, block_tables, kv_lens, \
+                               q_lens, out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, scale, st)
+  if (q_dtype == 0 && kv_dtype == 2) PA_SPLIT_LAUNCH(float, int8_t);
+  if (q_dtype == 1 && kv_dtype == 2) PA_SPLIT_LAUNCH(__nv_bfloat16, int8_t);
+  if (q_dtype == 0 && kv_dtype == 3) PA_SPLIT_LAUNCH(float, __nv_fp8_e4m3);
+  if (q_dtype == 1 && kv_dtype == 3) PA_SPLIT_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3);
 #undef PA_SPLIT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

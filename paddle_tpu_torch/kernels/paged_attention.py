@@ -18,18 +18,21 @@ dequantized as each page is read.
   ``csrc/paged_attention.cu`` (replacing the TPU kernels ``_kernel`` at
   ``paged_attention_pallas.py:37`` and, over quantized pools,
   ``_kernel_quant`` at ``:102``) or raises. There is no fallback.
-  Two designs: over float32 / bfloat16 pools that :func:`split_kv`
-  admits (head size a multiple of 8, 16-byte aligned pools), the
-  split-KV kernels (the extent cut into splits of whole pages, each
-  split's partial softmax in a workspace this wrapper allocates, merged
-  in split order by a second kernel); over int8 / float8 pools, and
-  float pools it does not admit, the first design.
+  Two designs: over the pools that :func:`split_kv` admits (float32 /
+  bfloat16 with a head size a multiple of 8, int8 with one a multiple
+  of 16, 16-byte aligned pools), the split-KV kernels (the extent cut
+  into splits of whole pages, each split's partial softmax in a
+  workspace this wrapper allocates, merged in split order by a second
+  kernel; int8 codes widened with their page scales as each stage is
+  read); over the pools it does not admit, float8 among them, the first
+  design.
 - :func:`paged_decode_attention` — the ``q_len = 1`` entry
   (``paged_attention_pallas.py:219``).
 
 The module attributes ``launches`` (float pools, both designs),
-``split_launches`` (of those, the split-KV design's) and
-``quant_launches`` (quantized pools) count kernel launches (read them as
+``split_launches`` (of those, the split-KV design's), ``quant_launches``
+(quantized pools, both designs) and ``quant_split_launches`` (of those,
+the split-KV design's) count kernel launches (read them as
 ``paged_attention.launches``; :func:`reset_launches` zeroes them), so a
 run can show that its main path went through the kernel.
 """
@@ -48,6 +51,7 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
 launches = 0          # launches over float pools since reset_launches()
 split_launches = 0    # of those, the split-KV design's
 quant_launches = 0    # launches over int8/fp8 pools since reset_launches()
+quant_split_launches = 0   # of those, the split-KV design's
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -65,29 +69,46 @@ ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
 #   nsplit, scale, stream)
 SPLIT_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-_SPLIT_POOLS = (torch.float32, torch.bfloat16)
+# paged_attention_forward_split_quant(q_dtype, kv_dtype, q, k_pool, v_pool,
+#   k_scale, v_scale, block_tables, kv_lens, q_lens, out, ws, S, QB, NH,
+#   HD, PS, MP, SL, nsplit, scale, stream)
+SPLIT_QUANT_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                        + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_void_p])
+# the pools routed to the split design and the head sizes it takes: whole
+# 16-byte units of a head's page row (8 bf16 / 4 f32 values, 16 codes).
+# Its C entry takes float8 codes too, but float8 pools stay on the first
+# design: over them the split design fails the card's engine parity check
+# (logits within 1e-3 of the plain engine's) at its request seed, a check
+# the first design itself fails at 3 of 6 seeds (PERF.md, Findings)
+_SPLIT_UNIT = {torch.float32: 8, torch.bfloat16: 8, torch.int8: 16}
 _SMS = 132            # the H100's SMs: the split aims at 4 blocks of each
 _SPLIT_POS = 128      # positions a split, before the grid asks for more
 _MIN_SPLIT_POS = 32   # splits shrink to fill the card, no further
-_MAX_SPLITS = 64      # the workspace's bound: longer splits past this
+_MAX_SPLITS = 64      # the workspace's and the merge kernel's bound:
+                      # longer splits past this
 _fns = {}
 
 
 def reset_launches():
-    global launches, split_launches, quant_launches
-    launches = split_launches = quant_launches = 0
+    global launches, split_launches, quant_launches, quant_split_launches
+    launches = split_launches = quant_launches = quant_split_launches = 0
 
 
-def split_kv(q, k_pool, v_pool=None):
-    """True when these tensors take the split-KV kernels: float32 or
-    bfloat16 pools, a head size that is a multiple of 8 (a head's page row
-    is whole 16-byte units) up to 256, and 16-byte aligned pools. q may be
-    either float type, at any alignment. Everything else (int8 / float8
-    pools among it) takes the first design."""
+def split_kv(q, k_pool, v_pool=None, k_scale=None, v_scale=None):
+    """True when these tensors take the split-KV kernels: a head's page
+    row of whole 16-byte units (a head size that is a multiple of 8 over
+    float32 or bfloat16 pools, of 16 over int8 codes) up to 256, 16-byte
+    aligned pools and, over codes, 4-byte aligned scales (read a float at
+    a time). q may be either float type, at any alignment. Everything
+    else (float8 pools among it) takes the first design."""
     pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
+    scales = tuple(t for t in (k_scale, v_scale) if t is not None)
+    unit = _SPLIT_UNIT.get(k_pool.dtype)
     HD = q.shape[-1]
-    return (k_pool.dtype in _SPLIT_POOLS and HD % 8 == 0 and 8 <= HD <= _MAX_HD
-            and all(t.data_ptr() % 16 == 0 for t in pools))
+    return (unit is not None and HD % unit == 0 and unit <= HD <= _MAX_HD
+            and all(t.data_ptr() % 16 == 0 for t in pools)
+            and all(t.data_ptr() % 4 == 0 for t in scales))
 
 
 def split_plan(S, QB, NH, PS, MP):
@@ -242,22 +263,26 @@ def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale=None,
 
 
 def _launch_split(q, k_pool, v_pool, block_tables, kv_lens, q_lens,
-                  scale):
-    global launches, split_launches
+                  scale, k_scale=None, v_scale=None):
+    global launches, split_launches, quant_launches, quant_split_launches
     S, QB, NH, HD = q.shape
     PS, MP = k_pool.shape[1], block_tables.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _kernel_fn("paged_attention_forward_split", SPLIT_ARGTYPES)
+    quant = k_scale is not None
+    fn = (_kernel_fn("paged_attention_forward_split_quant",
+                     SPLIT_QUANT_ARGTYPES) if quant else
+          _kernel_fn("paged_attention_forward_split", SPLIT_ARGTYPES))
     SL, nsplit = split_plan(S, QB, NH, PS, MP)
     # the splits' partials: acc [S*QB*NH*nsplit, HD], then m and l
     ws = (torch.empty(S * QB * NH * nsplit * (HD + 2), dtype=torch.float32,
                       device=q.device) if nsplit > 1 else None)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
     with launch_context(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODE[q.dtype], _POOL_CODE[k_pool.dtype],
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
                 block_tables.data_ptr(), kv_lens.data_ptr(),
                 q_lens.data_ptr(), out.data_ptr(),
                 None if ws is None else ws.data_ptr(), S, QB, NH, HD, PS, MP,
@@ -265,8 +290,12 @@ def _launch_split(q, k_pool, v_pool, block_tables, kv_lens, q_lens,
     if rc != 0:
         raise RuntimeError(f"paged_attention split-KV kernel launch failed: "
                            f"CUDA error {rc}")
-    launches += 1
-    split_launches += 1
+    if quant:
+        quant_launches += 1
+        quant_split_launches += 1
+    else:
+        launches += 1
+        split_launches += 1
     return out
 
 
@@ -275,9 +304,9 @@ def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
     global launches, quant_launches
     _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale,
            v_scale)
-    if split_kv(q, k_pool, v_pool):
+    if split_kv(q, k_pool, v_pool, k_scale, v_scale):
         return _launch_split(q, k_pool, v_pool, block_tables, kv_lens,
-                             q_lens, scale)
+                             q_lens, scale, k_scale, v_scale)
     S, QB, NH, HD = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:

@@ -1,11 +1,13 @@
 """Tests of the PyTorch port that need a CUDA device: the hand-written
-ragged paged-attention kernel (float pools on the split-KV design, and
-int8/fp8 pools with page scales on the first one), the flash-attention
+ragged paged-attention kernel (float pools and int8/fp8 pools with page
+scales on the split-KV design where ``split_kv`` admits them, the first
+design elsewhere), the flash-attention
 forward, dq and dk/dv kernels, the fused-CE forward, dh and dw kernels,
 the shared-dl dh/dw pair and the packed (segment-id) flash forward, dq
 and dk/dv kernels against their plain PyTorch versions (the bf16 flash
-forward, dq, dk/dv, dw_sharep and packed forward, dq and dk/dv on their
-wgmma/TMA designs, float32 on the others), the serving engine on the card against
+forward, dq, dk/dv, recomputing dw, dw_sharep and packed forward, dq and
+dk/dv on their wgmma/TMA designs, float32 on the others), the serving
+engine on the card against
 the same engine on the CPU (float and quantized pools, int8 weights), and
 GPT and packed-BERT training steps through the kernels against the same
 steps through the plain versions.
@@ -157,6 +159,10 @@ def test_quant_kernel_matches_plain(cuda, fmt, q_dtype, tol, HD, unaligned):
                                     v_scale=vs)
     torch.cuda.synchronize()
     assert (pa.launches, pa.quant_launches) == (0, 1)
+    # int8 at HD 64 and 128 aligned: the split-KV design; fp8, HD 18 or
+    # unaligned: the first design
+    assert pa.quant_split_launches == int(fmt == "int8" and HD % 16 == 0
+                                          and not unaligned)
     assert out.dtype == q_dtype
     ref = pa.ragged_paged_attention_ref(q, kq, vq, bt, kl, ql, k_scale=ks,
                                         v_scale=vs)
@@ -291,13 +297,82 @@ def test_split_kv_kernel_at_forced_split_lengths(cuda, split_len):
 
 
 def test_quantized_pools_keep_the_first_design(cuda):
-    (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(cuda, 24, "int8",
-                                                  torch.bfloat16, 64)
-    assert not pa.split_kv(q, kq, vq)
+    """Where ``split_kv`` refuses a code pool (a head size off whole
+    16-code units, a pool not 16-byte aligned) the first design runs."""
+    for HD, unaligned in ((24, False), (64, True)):
+        (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(
+            cuda, 24, "int8", torch.bfloat16, HD, unaligned=unaligned)
+        assert not pa.split_kv(q, kq, vq, ks, vs)
+        pa.reset_launches()
+        pa.ragged_paged_attention(q, kq, vq, bt, kl, ql, k_scale=ks,
+                                  v_scale=vs)
+        torch.cuda.synchronize()
+        assert (pa.launches, pa.split_launches, pa.quant_launches,
+                pa.quant_split_launches) == (0, 0, 1, 0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", ["mixed", "decode", "prefill"])
+def test_quant_split_kv_kernel_matches_plain_at_the_smoke_shapes(
+        cuda, monkeypatch, shape, fmt, dtype, tol):
+    """GPT-2 small's serving shapes over int8 / fp8 pools
+    (chip_smoke.quant_attention_case: pages and heads of very different
+    magnitude): every call on the split-KV design over codes (int8 as
+    routed; fp8, which the wrapper keeps on the first design, with the
+    route forced), live rows within the limit of max-abs, idle slots
+    exactly zero, two launches bit-identical."""
+    import chip_smoke
+    kv_lens, q_lens, QB = chip_smoke.RAGGED_SHAPES[shape]
+    c = chip_smoke.quant_attention_case(kv_lens, q_lens, QB, dtype, fmt,
+                                        np.random.default_rng(4), 1)
+    (kp, vp), (ks, vs) = c["pools"][0], c["scales"][0]
+    args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
+    assert pa.split_kv(c["q"], kp, vp, ks, vs) is (fmt == "int8")
+    if fmt == "fp8":
+        monkeypatch.setattr(pa, "split_kv", lambda *a: True)
     pa.reset_launches()
-    pa.ragged_paged_attention(q, kq, vq, bt, kl, ql, k_scale=ks, v_scale=vs)
+    runs = [pa.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
+            for _ in range(2)]
     torch.cuda.synchronize()
-    assert (pa.launches, pa.split_launches, pa.quant_launches) == (0, 0, 1)
+    assert (pa.launches, pa.quant_launches, pa.quant_split_launches) == \
+        (0, 2, 2)
+    assert torch.equal(runs[0], runs[1])
+    ref = pa.ragged_paged_attention_ref(*args, k_scale=ks, v_scale=vs)
+    assert _live_err(runs[0], ref, c["q_lens"]) <= \
+        tol * float(ref.float().abs().max())
+    idle = c["kv_lens"] == 0
+    assert torch.all(runs[0][idle] == 0)
+
+
+@pytest.mark.parametrize("HD", [16, 64, 128])
+@pytest.mark.parametrize("split_len", [8, 16, 24, 32])
+def test_quant_split_kv_kernel_at_forced_split_lengths(cuda, split_len, HD):
+    """The code-pool C entry at split lengths the wrapper would not pick,
+    at head sizes of one, four (groups of 4 lanes) and eight 16-code
+    units (groups of 8)."""
+    (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(cuda, 25, "fp8",
+                                                  torch.float32, HD)
+    fn = pa._kernel_fn("paged_attention_forward_split_quant",
+                       pa.SPLIT_QUANT_ARGTYPES)
+    S, QB, NH, _ = q.shape
+    PS, MP = kq.shape[1], bt.shape[1]
+    nsplit = -(-MP * PS // split_len)
+    out = torch.empty_like(q)
+    ws = torch.empty(S * QB * NH * nsplit * (HD + 2), dtype=torch.float32,
+                     device=cuda)
+    rc = fn(0, 3, q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
+            vs.data_ptr(), bt.data_ptr(), kl.data_ptr(), ql.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), S, QB, NH, HD, PS, MP, split_len,
+            nsplit, HD ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    ref = pa.ragged_paged_attention_ref(q, kq, vq, bt, kl, ql, k_scale=ks,
+                                        v_scale=vs)
+    assert _live_err(out, ref, ql) <= 1e-4 * float(ref.abs().max())
+    assert torch.all(out[3] == 0)
 
 
 # -- flash attention (paddle_tpu_torch/kernels/flash_attention.py) ------------
@@ -559,6 +634,9 @@ def test_fused_ce_kernels_match_plain(cuda, case, dtype):
     dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
     torch.cuda.synchronize()
     assert (fc.fwd_launches, fc.dh_launches, fc.dw_launches) == (1, 1, 1)
+    # bf16 with d % 8 == 0 on the wgmma/TMA dw; float32 and d = 50 not
+    assert fc.dw_hopper_launches == int(dtype == torch.bfloat16
+                                        and h.shape[1] % 8 == 0)
     rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
     rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
     rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
@@ -605,6 +683,78 @@ def test_fused_ce_backward_is_bit_identical_across_launches(cuda):
              fc.fused_ce_bwd_dw(h, w, lab, lse, g)) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,V", [(1000, 50257), (257, 1000), (33, 300)],
+                         ids=["vocab50257", "v1000", "one_tile_and_a_row"])
+def test_fused_ce_dw_wgmma_matches_plain_at_gpt_width(cuda, T, V):
+    """The wgmma/TMA dw at GPT-2's d = 768 (both warpgroups' halves of d):
+    against the plain dw within 1e-2 of max-abs, its softmax-only rows
+    (vocab rows no label picks) within the same limit of their own
+    max-abs, rows with g = 0 contributing nothing, and two launches
+    bit-identical."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, lab, g = _fce_inputs(cuda, T, V, 768, torch.bfloat16, 9)
+    _, lse = fc.fused_ce_fwd(h, w, lab)
+    fc.reset_launches()
+    runs = [fc.fused_ce_bwd_dw(h, w, lab, lse, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fc.dw_launches, fc.dw_hopper_launches) == (2, 2)
+    assert torch.equal(runs[0], runs[1])
+    rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
+    _, sdw = _softmax_parts(lab, g, V, h, runs[0])
+    _, srdw = _softmax_parts(lab, g, V, h, rdw)
+    assert sdw.shape[0] > 0
+    assert _rel(runs[0], rdw) <= FCE_TOL[torch.bfloat16][1]
+    assert _rel(sdw, srdw) <= FCE_TOL[torch.bfloat16][1]
+    # the g = 0 rows (a third) weigh nothing: dropping them changes nothing
+    keep = g != 0
+    alone = fc.fused_ce_bwd_dw(h[keep].contiguous(), w, lab[keep].contiguous(),
+                               lse[keep].contiguous(), g[keep].contiguous())
+    assert _rel(alone, runs[0]) <= FCE_TOL[torch.bfloat16][1]
+
+
+@pytest.mark.parametrize("d", [136, 384, 392, 640, 648])
+def test_fused_ce_dw_wgmma_at_the_chunk_edges(cuda, d):
+    """The wgmma/TMA dw loads and multiplies only the 128-column chunks of
+    d that hold columns (warpgroup 0 owns chunks 0-2, warpgroup 1 chunks
+    3-5): at d = 136 and 384 the second warpgroup has none, at 392 and
+    640 some, at 648 all of them on the general build. Against the plain
+    dw within 1e-2 of max-abs."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, lab, g = _fce_inputs(cuda, 200, 700, d, torch.bfloat16, 11)
+    _, lse = fc.fused_ce_fwd(h, w, lab)
+    fc.reset_launches()
+    dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
+    torch.cuda.synchronize()
+    assert fc.dw_hopper_launches == 1
+    assert _rel(dw, fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)) <= \
+        FCE_TOL[torch.bfloat16][1]
+
+
+@pytest.mark.parametrize("stalled", [0, 1], ids=["wg0_lags", "wg1_lags"])
+def test_fused_ce_dw_holds_when_one_warpgroup_lags(cuda, stalled):
+    """The wgmma dw built with its test hook FUSED_CE_DW_STALL_WG, which
+    sleeps one consumer warpgroup on every token tile so the other runs
+    ahead to the shared partial logits: the exchange buffers, the stage
+    statistics and the ring must still hold each tile's values until both
+    have read them, so dw equals the plain build's bit for bit."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    lib = _build.load("fused_ce", (f"-DFUSED_CE_DW_STALL_WG={stalled}",))
+    fn = lib.fused_ce_backward_dw_hopper
+    fn.argtypes, fn.restype = fc.BWD_ARGTYPES, ctypes.c_int
+    for T, V, d in ((1000, 50257, 768), (257, 1000, 96)):
+        h, w, lab, g = _fce_inputs(cuda, T, V, d, torch.bfloat16, 10)
+        _, lse = fc.fused_ce_fwd(h, w, lab)
+        want = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
+        out = torch.empty_like(w)
+        rc = fn(1, h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+                g.data_ptr(), out.data_ptr(), T, V, d,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (T, V, d)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (T, V, d)
 
 
 def test_tiny_fused_ce_training_step_with_the_kernels_equals_the_plain_step(

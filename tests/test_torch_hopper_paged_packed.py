@@ -1,17 +1,19 @@
 """The Hopper redesigns of the ragged paged-attention kernel over float
-pools (``paddle_tpu_torch/kernels/csrc/paged_attention.cu``
+and int8 pools (``paddle_tpu_torch/kernels/csrc/paged_attention.cu``
 ``ragged_paged_attention_split_kernel`` and its merge kernel) and of the
 packed (segment-id) flash forward (``csrc/packed_flash.cu``
 ``packed_flash_fwd_hopper_kernel``, the body of ``csrc/flash_fwd_hopper.cuh``
 with segment ids), on the CPU.
 
-- Routing: ``paged_attention.split_kv`` (float32 / bfloat16 pools, head
-  size a multiple of 8 up to 256, 16-byte aligned pools) and
+- Routing: ``paged_attention.split_kv`` (float32 / bfloat16 pools with a
+  head size a multiple of 8, int8 pools with one a multiple of 16, up to
+  256, 16-byte aligned pools, 4-byte aligned scales; float8 pools stay on
+  the first design) and
   ``packed_flash.hopper_fwd`` (bfloat16, D 64 / 128, L <= 16384, 16-byte
   aligned q, k, v) on every shape ``chip_smoke.py`` and the card tests
   (``tests/test_torch_cuda.py``) run, and the alignment of every input;
   ``split_plan``'s split of the extent at the serving shapes.
-- The ctypes prototypes of the two new C entries.
+- The ctypes prototypes of the three new C entries.
 - A CUDA tensor without the library raises on every route, runs no plain
   version and counts no launch.
 - The profilers' classes for the new kernel names.
@@ -20,7 +22,11 @@ with segment ids), on the CPU.
   (the reference's Pallas ragged kernel is no oracle on this JAX, ROADMAP
   caveat 1) on the decode, prefill and mixed layouts, with splits that
   cut a slot's extent inside its run of pages and a slot shorter than one
-  split: float32, within 2e-5.
+  split: float32, within 2e-5. Over int8 and float8 pools quantized by
+  the JAX package's ``quantize_per_page``, the same model with each page
+  widened by its scale (one float32 multiply, bit-identical to the JAX
+  ``dequantize_per_page``) against the engine's quantized gather path,
+  within 2e-5 as well: both sides read the same dequantized values.
 - The packed forward's schedule (the CTA's list of live 64-key tiles, each
   warpgroup's online softmax in base 2 over the tiles live for its rows,
   P rounded to bfloat16 before P V), modelled in PyTorch, against the
@@ -98,17 +104,54 @@ def test_split_kv_route_for_every_shape_the_card_runs(case):
         q = _empty((S, QB, NH, HD), q_dtype)
         for pool_dtype, want in ((torch.float32, True),
                                  (torch.bfloat16, True),
-                                 (torch.int8, False),
+                                 (torch.int8, True),
                                  (torch.float8_e4m3fn, False)):
             pool = _empty((2, PS, NH, HD), pool_dtype)
-            assert pa.split_kv(q, pool, pool) is want, (case, pool_dtype)
+            sc = (_empty((2, NH), torch.float32),) * 2 \
+                if pool_dtype in (torch.int8, torch.float8_e4m3fn) else ()
+            assert pa.split_kv(q, pool, pool, *sc) is want, (case, pool_dtype)
 
 
 def test_the_card_runs_the_split_design_at_every_float_shape():
-    """Every float-pool shape above has a head size the design takes, so
-    no float-pool launch of the card's runs takes the first design."""
-    assert all(HD % 8 == 0 and HD <= 256
+    """Every shape above has a head size the design takes over float
+    pools and over int8 pools (whole 16-code units), so no launch of the
+    card's serving runs over those takes the first design."""
+    assert all(HD % 16 == 0 and HD <= 256
                for _, _, _, HD, _, _ in PAGED_SHAPES.values())
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("HD", [8, 24, 40, 272])
+def test_code_pools_off_whole_16_code_units_keep_the_first_design(pool_dtype,
+                                                                  HD):
+    """A code row of HD bytes is whole 16-byte units only when HD is a
+    multiple of 16 (HD 8 and 24 are whole units of bf16, not of codes)."""
+    q = _empty((2, 1, 2, HD), torch.bfloat16)
+    pool = _empty((3, 8, 2, HD), pool_dtype)
+    sc = _empty((3, 2), torch.float32)
+    assert not pa.split_kv(q, pool, pool, sc, sc)
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.float8_e4m3fn])
+def test_code_pools_and_scales_unaligned_keep_the_first_design(pool_dtype):
+    """A code pool one byte into its storage cannot take 16-byte copies;
+    a scale not on a 4-byte boundary cannot be read as a float."""
+    shape = (3, 8, 2, 64)
+    n = math.prod(shape)
+    raw = torch.empty(n + 16, dtype=torch.uint8)
+    off = raw[1:n + 1].view(pool_dtype).view(shape)
+    pool = _empty(shape, pool_dtype)
+    sc = _empty((3, 2), torch.float32)
+    odd_sc = torch.empty(3 * 2 * 4 + 4, dtype=torch.uint8)[2:26]
+    assert odd_sc.data_ptr() % 4 != 0
+    q = _empty((2, 1, 2, 64), torch.float32)
+    # aligned: int8 on the split design, float8 on the first at any
+    # alignment
+    assert pa.split_kv(q, pool, pool, sc, sc) is (pool_dtype == torch.int8)
+    assert not pa.split_kv(q, off, pool, sc, sc)
+    assert not pa.split_kv(q, pool, off, sc, sc)
+    assert not pa.split_kv(q, pool, pool, odd_sc, sc)
+    assert not pa.split_kv(q, pool, pool, sc, odd_sc)
 
 
 @pytest.mark.parametrize("HD", [4, 12, 20, 260])
@@ -211,6 +254,9 @@ def test_ctypes_bindings_match_the_c_prototypes_of_the_new_entries():
     assert _c_params("paged_attention.cu",
                      "paged_attention_forward_split") == pa.SPLIT_ARGTYPES
     assert _c_params("paged_attention.cu",
+                     "paged_attention_forward_split_quant") \
+        == pa.SPLIT_QUANT_ARGTYPES
+    assert _c_params("paged_attention.cu",
                      "paged_attention_forward") == pa.ARGTYPES
     for name in ("packed_flash_forward_hopper", "packed_flash_forward"):
         assert _c_params("packed_flash.cu", name) == pf.FWD_ARGTYPES
@@ -267,8 +313,10 @@ def no_library(tmp_path, monkeypatch):
     (torch.float32, 16, "paged_attention_forward_split"),
     (torch.bfloat16, 64, "paged_attention_forward_split"),
     (torch.float32, 12, "paged_attention_forward"),
-    (torch.int8, 16, "paged_attention_forward")],
-    ids=["f32", "bf16", "f32_hd12", "int8"])
+    (torch.int8, 16, "paged_attention_forward_split_quant"),
+    (torch.float8_e4m3fn, 64, "paged_attention_forward"),
+    (torch.int8, 24, "paged_attention_forward")],
+    ids=["f32", "bf16", "f32_hd12", "int8", "fp8", "int8_hd24"])
 def test_a_cuda_tensor_raises_on_every_paged_route(no_library, monkeypatch,
                                                    pool, HD, entry):
     monkeypatch.setattr(pa, "ragged_paged_attention_ref", None)
@@ -278,14 +326,15 @@ def test_a_cuda_tensor_raises_on_every_paged_route(no_library, monkeypatch,
     bt = _fake(torch.zeros(S, MP, dtype=torch.int32))
     lens = _fake(torch.ones(S, dtype=torch.int32))
     scales = {}
-    if pool == torch.int8:
+    if pool in (torch.int8, torch.float8_e4m3fn):
         sc = _fake(torch.ones(5, NH))
         scales = dict(k_scale=sc, v_scale=sc)
     pa.reset_launches()
     with pytest.raises(RuntimeError, match="nvcc"):
         pa.ragged_paged_attention(q, kp, kp, bt, lens, lens, **scales)
     assert no_library == [entry]
-    assert (pa.launches, pa.split_launches, pa.quant_launches) == (0, 0, 0)
+    assert (pa.launches, pa.split_launches, pa.quant_launches,
+            pa.quant_split_launches) == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("dtype,D,entry", [
@@ -322,7 +371,13 @@ def test_profilers_class_the_new_kernels():
             "_ZN51_GLOBAL__N__a82eed02_18_paged_attention_cu_0ecd5e0035ragged_"
             "paged_attention_split_kernelI13__nv_bfloat16S1_Li1ELb1EEEvPKT_",
             "void (anonymous namespace)::ragged_paged_attention_kernel"
-            "<__nv_bfloat16, signed char>(__nv_bfloat16 const*)"):
+            "<__nv_bfloat16, signed char>(__nv_bfloat16 const*)",
+            "void (anonymous namespace)::ragged_paged_attention_split_kernel"
+            "<__nv_bfloat16, signed char, 1, 4, true>(__nv_bfloat16 const*)",
+            "void (anonymous namespace)::ragged_paged_attention_split_kernel"
+            "<float, __nv_fp8_e4m3, 2, 8, false>(float const*)",
+            "_ZN51_GLOBAL__N__a82eed02_18_paged_attention_cu_0ecd5e0035ragged_"
+            "paged_attention_split_kernelI13__nv_bfloat16aLi1ELi4ELb1EEEv"):
         assert serve.kernel_class(name) == "paged_attention", name
     for name, cls in (
             ("void (anonymous namespace)::packed_flash_fwd_hopper_kernel<64>"
@@ -333,7 +388,13 @@ def test_profilers_class_the_new_kernels():
              "packed_flash_fwd"),
             ("void (anonymous namespace)::flash_attention_fwd_hopper_kernel"
              "<64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
-             "flash_attention_fwd")):
+             "flash_attention_fwd"),
+            ("void (anonymous namespace)::fused_ce_dw_hopper_kernel<true>"
+             "(CUtensorMap_st, CUtensorMap_st, int const*, float const*)",
+             "fused_ce_dw"),
+            ("_ZN44_GLOBAL__N__d87d6159_11_fused_ce_cu_d501686025fused_ce_dw_"
+             "hopper_kernelILb0EEEv14CUtensorMap_stS1_PKiPKfS5_P13__nv_"
+             "bfloat16iii", "fused_ce_dw")):
         assert kernel_class(name) == cls, name
 
 
@@ -341,11 +402,12 @@ def test_profilers_class_the_new_kernels():
 
 def split_kv_model(q, k_pool, v_pool, bt, kv_lens, q_lens, scale, SL):
     """What ``ragged_paged_attention_split_kernel`` and its merge compute,
-    in float32: the extent cut into splits of ``SL`` positions (whole
-    pages); each split's partial softmax (max m, sum l, acc = P V) over
-    the positions below each row's causal limit; then, for each row, its
-    live splits merged in split order: ``sum_i acc_i 2^.. / sum_i l_i ..``
-    with the common max, zeros for a row that attends nothing."""
+    in float32:
+    the extent cut into splits of ``SL`` positions (whole pages); each
+    split's partial softmax (max m, sum l, acc = P V) over the positions
+    below each row's causal limit; then, for each row, its live splits
+    merged in split order: ``sum_i acc_i 2^.. / sum_i l_i ..`` with the
+    common max, zeros for a row that attends nothing."""
     S, QB, NH, HD = q.shape
     PS, MP = k_pool.shape[1], bt.shape[1]
     T = MP * PS
@@ -384,19 +446,28 @@ def split_kv_model(q, k_pool, v_pool, bt, kv_lens, q_lens, scale, SL):
     return out.to(q.dtype)
 
 
-def jax_gather_attention(q, kf, vf, bt, kv_lens, q_lens):
+def jax_gather_attention(q, kf, vf, bt, kv_lens, q_lens, k_scale=None,
+                         v_scale=None):
     """The reference engine's off-TPU ragged attention
     (inference/serving.py ``mixed_attn``'s ``one`` under ``jax.vmap``; at
     q_len 1 it is ``ragged_attn_one``), rebuilt from its jnp ops: gather
-    the slot's pages, mask each row's positions at its limit to -1e30,
-    softmax."""
+    the slot's pages (over a quantized pool with their scales, dequantized
+    by ``dequantize_per_page`` as its ``gather_kv`` does), mask each row's
+    positions at its limit to -1e30, softmax."""
+    from paddle_tpu.quantization.kv import dequantize_per_page
     S, QB, NH, HD = q.shape
     T = bt.shape[1] * kf.shape[1]
     scale = 1.0 / HD ** 0.5
 
+    def gather(pool, scales, bt_row):
+        pages = jnp.asarray(pool)[bt_row]
+        if scales is not None:
+            pages = dequantize_per_page(pages, jnp.asarray(scales)[bt_row])
+        return pages.reshape(T, NH, HD)
+
     def one(qr, bt_row, kv_len, qn):
-        kk = jnp.asarray(kf)[bt_row].reshape(T, NH, HD)
-        vv = jnp.asarray(vf)[bt_row].reshape(T, NH, HD)
+        kk = gather(kf, k_scale, bt_row)
+        vv = gather(vf, v_scale, bt_row)
         s = jnp.einsum("qhd,thd->qht", qr, kk) * scale
         jj = jnp.arange(QB)
         limit = jnp.where(jj < qn, kv_len - qn + 1 + jj, kv_len)
@@ -446,6 +517,82 @@ def test_split_kv_model_matches_the_jax_engine_gather_path(layout, split):
     assert np.all(out[~live] == 0)
     plain = pa.ragged_paged_attention_ref(tq, tk, tv, tbt, tkv, tql).numpy()
     np.testing.assert_allclose(out, plain, rtol=2e-5, atol=2e-5)
+
+
+def _quantized(kf, vf, fmt):
+    """The pools quantized by the JAX package's ``quantize_per_page``
+    (each page and head first scaled by 10^U(-2, 1), so a wrong scale
+    index shows): the codes and scales for the port (fp8 codes carried as
+    bytes) and the same arrays for the JAX side."""
+    from paddle_tpu.quantization.kv import quantize_per_page
+    rng = np.random.RandomState(7)
+    out = []
+    for x in (kf, vf):
+        mag = 10.0 ** rng.uniform(-2, 1, (x.shape[0], 1, x.shape[2], 1))
+        codes, sc = quantize_per_page(jnp.asarray(x * mag.astype(np.float32)),
+                                      dtype=fmt)
+        raw = np.array(codes)
+        t = (torch.from_numpy(raw.view(np.uint8)).view(torch.float8_e4m3fn)
+             if fmt == "fp8" else torch.from_numpy(raw))
+        out.append((t, torch.from_numpy(np.array(sc)), codes, sc))
+    return out
+
+
+@pytest.mark.parametrize("split", ["one_page", "two_pages", "whole_extent",
+                                   "plan"])
+@pytest.mark.parametrize("layout", ["decode", "prefill", "mixed"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quant_split_kv_model_matches_the_jax_engine_gather_path(fmt, layout,
+                                                                 split):
+    """What the split kernel does over a code pool: the split's pages'
+    scales read once, each staged code widened to float32 times its page's
+    scale, then the float split-KV algorithm. The widened values are the
+    JAX ``dequantize_per_page``'s bit for bit, so the model meets the
+    engine's quantized gather path (``jax_gather_attention`` with scales)
+    at the float model's 2e-5."""
+    q, kf, vf, bt, kv, ql = _layout(layout, np.random.RandomState(23), HD=32)
+    (tk, tks, jk, jks), (tv, tvs, jv, jvs) = _quantized(kf, vf, fmt)
+    S, QB, NH, HD = q.shape
+    PS, MP = kf.shape[1], bt.shape[1]
+    SL = {"one_page": PS, "two_pages": 2 * PS, "whole_extent": MP * PS,
+          "plan": pa.split_plan(S, QB, NH, PS, MP)[0]}[split]
+    # the staged values: one float32 multiply a code, as dequantize_per_page
+    wk = pa.byte_view(tk).view(tk.dtype).float() * tks[:, None, :, None]
+    wv = pa.byte_view(tv).view(tv.dtype).float() * tvs[:, None, :, None]
+    from paddle_tpu.quantization.kv import dequantize_per_page
+    np.testing.assert_array_equal(wk.numpy(),
+                                  np.asarray(dequantize_per_page(jk, jks)))
+    tq, tbt, tkv, tql = (torch.from_numpy(a) for a in (q, bt, kv, ql))
+    out = split_kv_model(tq, wk, wv, tbt, tkv, tql, HD ** -0.5, SL).numpy()
+    ref = jax_gather_attention(q, jk, jv, bt, kv, ql, k_scale=jks,
+                               v_scale=jvs)
+    live = kv > 0
+    np.testing.assert_allclose(out[live], ref[live], rtol=2e-5, atol=2e-5)
+    assert np.all(out[~live] == 0)
+    plain = pa.ragged_paged_attention_ref(tq, tk, tv, tbt, tkv, tql,
+                                          k_scale=tks, v_scale=tvs).numpy()
+    np.testing.assert_allclose(out, plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("layout", ["decode", "prefill", "mixed"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quant_plain_version_is_the_float_plain_over_dequantized_pages(
+        fmt, layout):
+    """The plain version over code pools is one float32 computation, the
+    same as over float pools: each page dequantized with its scales
+    (one float32 multiply a code), then the float plain version, bit for
+    bit. Kernel and plain version over codes are held to the float
+    pools' limits, not to each other's bits."""
+    q, kf, vf, bt, kv, ql = _layout(layout, np.random.RandomState(29), HD=32)
+    (tk, tks, _, _), (tv, tvs, _, _) = _quantized(kf, vf, fmt)
+    wk = pa.byte_view(tk).view(tk.dtype).float() * tks[:, None, :, None]
+    wv = pa.byte_view(tv).view(tv.dtype).float() * tvs[:, None, :, None]
+    tq, tbt, tkv, tql = (torch.from_numpy(a) for a in (q, bt, kv, ql))
+    plain = pa.ragged_paged_attention_ref(tq, tk, tv, tbt, tkv, tql,
+                                          k_scale=tks, v_scale=tvs)
+    assert plain.dtype == torch.float32
+    assert torch.equal(plain, pa.ragged_paged_attention_ref(
+        tq, wk, wv, tbt, tkv, tql))
 
 
 # -- the packed forward's schedule, modelled ----------------------------------
