@@ -67,13 +67,16 @@ exits non-zero:
      move it plus the limit; both kernels bit-identical across two
      launches, and whether dh and dw equal the recomputing kernels' bit
      for bit, reported and not held (every bfloat16 case must take the
-     wgmma/TMA dw_sharep, ``dw_design``; the recomputing dw forms its
-     bf16 dl from logits summed in another order, so a dl element one
-     bf16 step apart can end the identity).
-     Every bfloat16 recomputing dw with d a multiple of 8 must take the
-     wgmma/TMA design (``dw_design`` of each case; ``hopper_dw``), and the
-     training shape's dw is also timed on the first design
-     (``first_design_ms``, its C entry called directly).
+     wgmma/TMA dw_sharep, ``dw_design``; where dh_sharep and the
+     recomputing dw run different designs, their bf16 dl come from
+     logits summed in different orders, so a dl element one bf16 step
+     apart can end the identity).
+     Every bfloat16 recomputing dw and dh, and dh_sharep, with d a
+     multiple of 8 must take the wgmma/TMA design (``dw_design`` and
+     ``dh_design`` of each case, ``sharep.dh_design``;
+     ``hopper_recompute``), and the training shape's dw, dh and dh_sharep
+     are also timed on their first designs (``first_design_ms``, their C
+     entries called directly).
    - packed (segment-id) flash attention forward (out, lse), dq and dk/dv
      at BERT-base's pack-4 shape (B=16, L=512, H=12, D=64, four segments
      of 128), with uneven ids (``[5]*100 + [7]*300 + [9]*112``, one
@@ -158,20 +161,19 @@ exits non-zero:
 9. ``train_fused_ce`` — the ``train`` phase with ``fused_ce=True`` (the
    reference's flagship, ``bench_gpt_pretrain.py --fused-ce``): same
    model, seed, batch, clip and 40 steps; each fused-CE kernel launched
-   40 times (dw on the wgmma/TMA design) and each flash kernel 480; the
-   loss falls at least 1 nat,
-   step 1 within 2e-2 of ``train``'s step 1 and the last step within
-   0.25 nat of ``train``'s (the bf16 rounding of the logits differs
-   between the two paths); step ms, tokens/s, MFU and peak memory beside
-   ``train``'s.
+   40 times (dh and dw on the wgmma/TMA designs) and each flash kernel
+   480; the loss falls at least 1 nat, step 1 within 2e-2 of ``train``'s
+   step 1 and the last step within 0.25 nat of ``train``'s (the bf16
+   rounding of the logits differs between the two paths); step ms,
+   tokens/s, MFU and peak memory beside ``train``'s.
    ``train_fused_ce_sharep`` — the same with the port's ``_SHARE_P``
    set (restored after): fused-CE forward, dh_sharep and dw_sharep
-   launched 40 times each (dw_sharep on the wgmma/TMA design) and the
-   recomputing dh/dw never, each flash kernel 480; the step-1 loss
-   equal to ``train_fused_ce``'s bit for bit
-   (the forward is the same), the loss falls at least 1 nat and the last
-   step within 0.25 nat of ``train_fused_ce``'s; step ms, tokens/s, MFU
-   and peak memory beside ``train_fused_ce``'s.
+   launched 40 times each (dh_sharep and dw_sharep on the wgmma/TMA
+   designs) and the recomputing dh/dw never, each flash kernel 480; the
+   step-1 loss equal to ``train_fused_ce``'s bit for bit (the forward is
+   the same), the loss falls at least 1 nat and the last step within
+   0.25 nat of ``train_fused_ce``'s; step ms, tokens/s, MFU and peak
+   memory beside ``train_fused_ce``'s.
 10. ``train_parity_fused_ce`` — as ``train_parity`` with ``fused_ce=True``:
    through the kernels against the plain versions, and against
    ``fused_ce=False``, at the same tolerances.
@@ -945,22 +947,23 @@ def run_fused_ce_phase():
                     else FCE_BF16_GRAD_TOL)
             h, w, lab, g = fce_inputs(T, V, d, ignored, dtype, 300 + ci)
             nll, lse = fc.fused_ce_fwd(h, w, lab)
+            before = (fc.dh_hopper_launches, fc.dw_hopper_launches)
             dh = fc.fused_ce_bwd_dh(h, w, lab, lse, g)
-            before = fc.dw_hopper_launches
             dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
             torch.cuda.synchronize()
-            hopper = fc.dw_hopper_launches > before
-            if hopper != (dtype == torch.bfloat16 and d % 8 == 0):
-                raise AssertionError(f"fused CE dw ({name}, {dtype}) took "
-                                     f"the {'wgmma' if hopper else 'other'} "
-                                     "design")
+            hopper = (fc.dh_hopper_launches > before[0],
+                      fc.dw_hopper_launches > before[1])
+            want = dtype == torch.bfloat16 and d % 8 == 0
+            if hopper != (want, want):
+                raise AssertionError(f"fused CE dh, dw ({name}, {dtype}) "
+                                     f"took the designs {hopper}")
             rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
             rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
             rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
             (sdh, sdw), (srdh, srdw) = fce_softmax_parts(
                 h, w, lab, g, (dh, dw), (rdh, rdw))
-            rec = {"dw_design": "wgmma_tma" if hopper
-                   else "wmma_or_cuda_cores"}
+            rec = {"dh_design": fce_design(hopper[0]),
+                   "dw_design": fce_design(hopper[1])}
             for key, a, b, tol in (("nll", nll, rnll, FCE_LSE_TOL),
                                    ("lse", lse, rlse, FCE_LSE_TOL),
                                    ("dh", dh, rdh, gtol),
@@ -1002,6 +1005,10 @@ def run_fused_ce_phase():
     return results
 
 
+def fce_design(hopper):
+    return "wgmma_tma" if hopper else "wmma_or_cuda_cores"
+
+
 def bf16_steps(a, b):
     """How many bf16 rounding steps apart each pair of bf16 elements lies
     (int32; the bit patterns ordered as the values are)."""
@@ -1029,19 +1036,22 @@ def check_fused_ce_sharep(h, w, lab, lse, g, dh10, dw11, gtol, ignored,
     the recomputing kernels' (``dh10``, ``dw11``) bit for bit."""
     import torch
     T, V = h.shape[0], w.shape[0]
+    before = (fc.dh_sharep_hopper_launches, fc.dw_sharep_hopper_launches)
     dh, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
-    before = fc.dw_sharep_hopper_launches
     dw = fc.fused_ce_bwd_dw_sharep(h, dl)
-    hopper = fc.dw_sharep_hopper_launches > before
-    if hopper != (h.dtype == torch.bfloat16):
-        raise AssertionError(f"dw_sharep (T={T}, {h.dtype}) took the "
-                             f"{'wgmma' if hopper else 'other'} design")
+    hopper = (fc.dh_sharep_hopper_launches > before[0],
+              fc.dw_sharep_hopper_launches > before[1])
+    bf16 = h.dtype == torch.bfloat16
+    if hopper != (bf16 and h.shape[1] % 8 == 0, bf16):
+        raise AssertionError(f"dh_sharep, dw_sharep (T={T}, {h.dtype}) "
+                             f"took the designs {hopper}")
     torch.cuda.synchronize()
     rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)
     rdw = fc.fused_ce_bwd_dw_sharep_ref(h, dl)
     (sdh, sdw), (srdh, srdw) = fce_softmax_parts(
         h, w, lab, g, (dh, dw), (rdh, rdw))
-    rec = {"dw_design": "wgmma_tma" if hopper else "wmma_or_cuda_cores"}
+    rec = {"dh_design": fce_design(hopper[0]),
+           "dw_design": fce_design(hopper[1])}
     for key, a, b in (("dh", dh, rdh), ("dw", dw, rdw),
                       ("dh_softmax", sdh, srdh), ("dw_softmax", sdw, srdw)):
         err = rel_err(a, b)
@@ -1090,21 +1100,27 @@ def check_fused_ce_sharep(h, w, lab, lse, g, dh10, dw11, gtol, ignored,
     return rec
 
 
-def fce_dw_first_design(h, w, lab, lse, g, fc):
-    """A call of the first recomputing dw's C entry
-    (``fused_ce_backward_dw``), which the wrapper no longer routes bf16
-    to: the yardstick the wgmma/TMA design replaced."""
+def fce_first_design(kind, h, w, lab, lse, g, fc):
+    """A call of the first design's C entry of a recomputing kernel
+    (``fused_ce_backward_<kind>``, kind dh, dw or dh_sharep), which the
+    wrapper no longer routes bf16 to: the yardstick the wgmma/TMA design
+    replaced."""
     import torch
-    fn = fc._kernel_fn("fused_ce_backward_dw", fc.BWD_ARGTYPES)
-    out = torch.empty_like(w)
     T, d = h.shape
+    V = w.shape[0]
+    out = torch.empty_like(w if kind == "dw" else h)
+    sharep = kind == "dh_sharep"
+    fn = fc._kernel_fn(f"fused_ce_backward_{kind}",
+                       fc.DH_SHAREP_ARGTYPES if sharep else fc.BWD_ARGTYPES)
+    dl = fc._dl_rows(T, V, h.device) if sharep else None
+    extra = (dl.data_ptr(), dl.stride(0)) if sharep else ()
 
     def call(i):
         rc = fn(fc._DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(),
                 lab.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr(),
-                T, w.shape[0], d, torch.cuda.current_stream().cuda_stream)
+                *extra, T, V, d, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"first-design dw kernel: CUDA error {rc}")
+            raise RuntimeError(f"first-design {kind} kernel: CUDA error {rc}")
     return call
 
 
@@ -1116,11 +1132,12 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     forward alone (fwd), forward+backward to h alone (dh) and to w alone
     (dw), so each backward kernel, which recomputes the logits, meets the
     forward and the one product of its own. The forward kernel is also
-    timed with one vocab split (``fwd_one_split_ms``), the dw kernel on
-    its first design (``first_design_ms``). The shared-dl pair:
-    dh_sharep against row 10's yardstick that also keeps the bf16 dl (the
-    gradient at the bf16 logits, taken with dh), dw_sharep against
-    ``torch.matmul(dl.t(), h)`` on the stored dl; ``pair`` sums them."""
+    timed with one vocab split (``fwd_one_split_ms``), the dh, dw and
+    dh_sharep kernels on their first designs (``first_design_ms``). The
+    shared-dl pair: dh_sharep against row 10's yardstick that also keeps
+    the bf16 dl (the gradient at the bf16 logits, taken with dh),
+    dw_sharep against ``torch.matmul(dl.t(), h)`` on the stored dl;
+    ``pair`` sums them."""
     import torch
     import torch.nn.functional as F
     t = {"fwd": cuda_ms(lambda i: fc.fused_ce_fwd(h, w, lab), 10),
@@ -1132,7 +1149,8 @@ def time_fused_ce(h, w, lab, lse, g, fc):
          "dw": cuda_ms(lambda i: fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g),
                        3)}
     one_split = cuda_ms(lambda i: fc._launch_fwd(h, w, lab, nsplit=1), 10)
-    dw_first = cuda_ms(fce_dw_first_design(h, w, lab, lse, g, fc), 5)
+    first = {kn: cuda_ms(fce_first_design(kn, h, w, lab, lse, g, fc), 5)
+             for kn in ("dh", "dw")}
     V = w.shape[0]
     lab64 = torch.where((lab >= 0) & (lab < V), lab.long(), -100)
 
@@ -1157,6 +1175,9 @@ def time_fused_ce(h, w, lab, lse, g, fc):
                 * g).sum()
         torch.autograd.grad(loss, (hg, logits))
     lib["dh_sharep"] = cuda_ms(lib_dh_sharep, 5)
+    first["dh_sharep"] = cuda_ms(
+        fce_first_design("dh_sharep", h, w, lab, lse, g, fc), 5)
+    torch.cuda.empty_cache()
     _, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
     t["dw_sharep"] = cuda_ms(lambda i: fc.fused_ce_bwd_dw_sharep(h, dl), 5)
     p["dw_sharep"] = cuda_ms(
@@ -1168,7 +1189,8 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     out = {kn: with_rate(dict(ms=t[kn], plain_ms=p[kn], library_ms=lib[kn],
                               **b[kn])) for kn in t}
     out["fwd"]["fwd_one_split_ms"] = one_split
-    out["dw"]["first_design_ms"] = dw_first
+    for kn, ms in first.items():
+        out[kn]["first_design_ms"] = ms
     out["pair"] = {"sharep_ms": t["dh_sharep"] + t["dw_sharep"],
                    "recompute_ms": t["dh"] + t["dw"]}
     return out
@@ -1715,7 +1737,9 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
     hopper = {"flash_fwd": fa.fwd_hopper_launches,
               "flash_dq": fa.dq_hopper_launches,
               "flash_dkv": fa.dkv_hopper_launches,
+              "fused_ce_dh": fc.dh_hopper_launches,
               "fused_ce_dw": fc.dw_hopper_launches,
+              "fused_ce_dh_sharep": fc.dh_sharep_hopper_launches,
               "fused_ce_dw_sharep": fc.dw_sharep_hopper_launches}
     phase = ("train_fused_ce_sharep" if sharep else
              "train_fused_ce" if fused_ce else "train")
@@ -1738,7 +1762,9 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
     flash_all = cfg.num_layers * steps
     if hopper != {"flash_fwd": flash_all, "flash_dq": flash_all,
                   "flash_dkv": flash_all,
+                  "fused_ce_dh": steps if "dh" in used else 0,
                   "fused_ce_dw": steps if "dw" in used else 0,
+                  "fused_ce_dh_sharep": steps if sharep else 0,
                   "fused_ce_dw_sharep": steps if sharep else 0}:
         raise AssertionError(f"{phase}: wgmma/TMA launches {hopper}")
     step_s = wall / (3 * TRAIN_K)
@@ -2416,16 +2442,16 @@ def main():
             "tflops": ct[kn]["tflops"],
             "factor_over_library": ct[kn]["factor_over_library"],
             "shape": "train: T=16384 d=768 V=50304 bf16",
-            **({"source_kernel": "fused_ce_dw_hopper_kernel",
-                "design": "wgmma_tma (bf16 h and w, d % 8 == 0, 16-byte "
-                          "aligned; float32 and other d on "
-                          "fused_ce_dw_kernel, timed as first_design_ms)",
-                "first_design_ms": ct["dw"]["first_design_ms"],
-                "launches_wgmma_tma": claunch["fused_ce_dw_wgmma_tma"],
-                "design_by_case": {n: {dt: r["dw_design"]
+            **({"source_kernel": f"fused_ce_{kn}_hopper_kernel",
+                "design": f"wgmma_tma (bf16 h and w, d % 8 == 0, 16-byte "
+                          f"aligned; float32 and other d on "
+                          f"fused_ce_{kn}_kernel, timed as first_design_ms)",
+                "first_design_ms": ct[kn]["first_design_ms"],
+                "launches_wgmma_tma": claunch[f"fused_ce_{kn}_wgmma_tma"],
+                "design_by_case": {n: {dt: r[f"{kn}_design"]
                                        for dt, r in case.items()}
                                    for n, case in cres.items()}}
-               if kn == "dw" else {})})
+               if kn != "fwd" else {})})
     for kn, line, lib in (
             ("dh_sharep", 158, "matmul + CE fwd, bwd to h and to the bf16 "
                                "logits (dl kept)"),
@@ -2444,15 +2470,26 @@ def main():
             "tflops": ct[kn]["tflops"],
             "factor_over_library": ct[kn]["factor_over_library"],
             "shape": "train: T=16384 d=768 V=50304 bf16, dl bf16",
-            **({"source_kernel": "fused_ce_dw_sharep_hopper_kernel",
+            **({"source_kernel": "fused_ce_dh_hopper_kernel<true, *>",
+                "design": "wgmma_tma (bf16 h and w, d % 8 == 0, 16-byte "
+                          "aligned; float32 and other d on "
+                          "fused_ce_dh_kernel<T, true>, timed as "
+                          "first_design_ms)",
+                "first_design_ms": ct["dh_sharep"]["first_design_ms"],
+                "launches_wgmma_tma":
+                    slaunch["fused_ce_dh_sharep_wgmma_tma"],
+                "design_by_case": {n: {dt: r["sharep"]["dh_design"]
+                                       for dt, r in case.items()}
+                                   for n, case in cres.items()}}
+               if kn == "dh_sharep" else
+               {"source_kernel": "fused_ce_dw_sharep_hopper_kernel",
                 "design": "wgmma_tma (bf16, d % 8 == 0; float32 and other "
                           "d on fused_ce_dw_sharep_kernel)",
                 "launches_wgmma_tma":
                     slaunch["fused_ce_dw_sharep_wgmma_tma"],
                 "design_by_case": {n: {dt: r["sharep"]["dw_design"]
                                        for dt, r in case.items()}
-                                   for n, case in cres.items()}}
-               if kn == "dw_sharep" else {})})
+                                   for n, case in cres.items()}})})
     outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     for kn, line in (("fwd", 55), ("dq", 96), ("dkv", 132)):
         kernels.append({

@@ -3,14 +3,16 @@
 // Replaces the TPU kernels of paddle_tpu/kernels/fused_ce_pallas.py:
 //   fused_ce_fwd_kernel  <- _fwd_kernel    (:62)  per-token (m, l, target)
 //                                                  of softmax(h @ w^T)
-//   fused_ce_dh_kernel   <- _bwd_dh_kernel (:101) dh = dl @ w
+//   fused_ce_dh_hopper_kernel<false, *>, fused_ce_dh_kernel<T, false>
+//                        <- _bwd_dh_kernel (:101) dh = dl @ w
 //   fused_ce_dw_hopper_kernel, fused_ce_dw_kernel
 //                        <- _bwd_dw_kernel (:129) dw = dl^T @ h
 // with dl = (softmax(h @ w^T) - onehot(label)) * g recomputed tile by tile,
 // so the [T, V] logits never reach device memory, forward or backward.
 // The shared-dl pair (the reference's _SHARE_P) trades dw's recompute for
 // one bf16 [T, V] buffer:
-//   fused_ce_dh_kernel<T, true>   <- _bwd_dh_kernel_sharep (:158) dh as
+//   fused_ce_dh_hopper_kernel<true, *>, fused_ce_dh_kernel<T, true>
+//                                 <- _bwd_dh_kernel_sharep (:158) dh as
 //                                    above, and each dl tile stored as bf16
 //   fused_ce_dw_sharep_kernel     <- _bwd_dw_kernel_sharep (:189) dw = dl^T @ h
 //                                    over the stored dl: no logits, no exp
@@ -75,15 +77,17 @@
 //   through L2; h (25 MB) fits in L2. Edges (V, T, d) zero-fill by TMA;
 //   rows >= V and columns >= d are never stored. No split over T: each
 //   dw element is summed by one CTA in a fixed order, so two launches are
-//   bit-identical. It equals the first recomputing dw design in bf16 (the
-//   same k16 slices of the same bf16 dl in the same token order), not the
-//   wgmma one, whose logits add two halves of d, so a dl element can round
-//   one bf16 step apart (chip_smoke.py reports dw_bit_identical_to_row11).
+//   bit-identical. Its dw equals the recomputing dw's in bf16 when both
+//   form dl alike (the same k16 slices of the same bf16 dl in the same
+//   token order): the wgmma dh_sharep and the wgmma dw both add the
+//   logits' two halves of d in one order (chip_smoke.py reports
+//   dw_bit_identical_to_row11); a dl formed another way can round one bf16
+//   step apart.
 // - fused_ce_dw_sharep_kernel, float32 and d % 8 != 0: the first design,
 //   (h, dl) tile pairs through the three-stage cp.async ring, float32
 //   widening dl in shared memory; one block owns each 32-row dw tile.
 // Two designs of the recomputing dw, chosen in kernels/fused_ce.py by dtype,
-// d and alignment alone (hopper_dw):
+// d and alignment alone (hopper_recompute):
 // - fused_ce_dw_hopper_kernel, bf16 h and w with d a multiple of 8: wgmma
 //   and TMA. The dw row block [64 x d] of one CTA lives in the registers of
 //   two consumer warpgroups, 384 columns each (192 float32 a thread at
@@ -108,6 +112,26 @@
 //   chunk count; ptxas serialises that build's wgmma (C7520), so the
 //   training shape keeps the build with every chunk live.
 // - fused_ce_dw_kernel, float32 and other d: the first design below.
+// Two designs of the recomputing dh and of the shared-dl pair's dh pass,
+// chosen by the same predicate (hopper_recompute):
+// - fused_ce_dh_hopper_kernel<kStoreDl, kFull>, bf16 h and w with d a
+//   multiple of 8: the dw design above with tokens and vocabulary
+//   swapped. One CTA per 64-token block, its dh rows [64 x d] in the two
+//   warpgroups' registers; h's block resident (96 KB), w streamed in
+//   32-vocab-row tiles through the 2-stage ring; the CTA's labels, lse and
+//   g loaded once into shared memory. Per tile the partial logits
+//   S_c [64 tokens x 32 vocab] = h[:, c] w[:, c]^T, summed S_0 + S_1 in
+//   shared memory, dl in float32 rounded to bf16 A fragments, and
+//   dh[:, c] += dl w[:, c] (w MN-major from the same stage). 2.53 TFLOP at
+//   the training shape, 256 CTAs; every CTA streams all of w (77 MB, more
+//   than L2), and the CTAs of a wave walk the vocabulary in step, so one
+//   read of each tile from memory serves the wave through L2. kStoreDl
+//   (the shared-dl pair) also writes the bf16 fragments that feed dh's
+//   product to dl: each warpgroup one of its two rows, a 4 x 4 transpose
+//   across each quad of lanes giving a lane 8 columns, one 16-byte store
+//   (evict-first, so 1.65 GB of dl does not push w's tiles out of L2).
+//   So its dh equals the recomputing dh bit for bit.
+// - fused_ce_dh_kernel<T, kStoreDl>, float32 and other d: the first design.
 // What holds the first designs (the forward, dh and dw in float32) ~10x
 // above their bound: one block of 8 warps per SM (its shared memory and
 // register accumulators leave room for no second) runs the phases of a
@@ -936,6 +960,34 @@ fused_ce_dw_sharep_hopper_kernel(const __grid_constant__ CUtensorMap dlmap,
 }
 
 // ---------------------------------------------------------------------------
+// The tile of both recomputing designs on wgmma and TMA (dw, then dh): the
+// resident operand (w's vocab block for dw, h's token block for dh) and the
+// streamed one (h's token tiles for dw, w's vocab tiles for dh)
+// ---------------------------------------------------------------------------
+struct RecomputeTile {
+  static constexpr int BM = 64;               // output rows a CTA: the resident block
+  static constexpr int BK = 32;               // streamed rows a ring stage
+  static constexpr int NB = kMaxD / 64;       // 64-column boxes of d, at most
+  static constexpr int WG_BOXES = NB / 2;     // of them a warpgroup's
+  static constexpr int WG_CHUNKS = WG_BOXES / 2;  // its 128-column chunks
+  static constexpr int RES_BOX = BM * 128;    // bytes of a [64 x 64] resident box
+  static constexpr int STR_BOX = BK * 128;    // bytes of a [32 x 64] streamed box
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = NB * STR_BOX;
+  static constexpr int STR_OFF = NB * RES_BOX;  // the resident block first
+  // the partial logits, double-buffered: [tile parity][warpgroup][16][128]
+  static constexpr int X_OFF = STR_OFF + STAGES * STAGE_BYTES;
+  static constexpr int X_FLOATS = 2 * 16 * 128;  // one tile's two partials
+  // token statistics (label, lse, g): dw's for each stage's 32 tokens, dh's
+  // for the CTA's 64
+  static constexpr int ST_OFF = X_OFF + 2 * X_FLOATS * 4;
+  static_assert(STAGES * BK == BM, "dw's stage statistics take dh's room");
+  static constexpr int BAR_OFF = ST_OFF + 3 * BM * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + STAGES) + 1024;  // + alignment slack
+  static constexpr int THREADS = 2 * 128;
+};
+
+// ---------------------------------------------------------------------------
 // the recomputing dw on wgmma and TMA (bf16 h and w, d % 8 == 0): one CTA
 // per 64-row vocab block, its whole dw row [64 x d] in the registers of two
 // consumer warpgroups (warpgroup c owns columns [384 c, 384 c + 384) of d),
@@ -951,37 +1003,16 @@ fused_ce_dw_sharep_hopper_kernel(const __grid_constant__ CUtensorMap dlmap,
 //   4. dw[:, c] += dl^T h[:, c] (m64n128k16 three times a k16 step, h read
 //      MN-major from the stage the logits read).
 // ---------------------------------------------------------------------------
-struct DwRecompute {
-  static constexpr int BM = 64;               // vocab rows a CTA
-  static constexpr int BK = 32;               // tokens a ring stage
-  static constexpr int NB = kMaxD / 64;       // 64-column boxes of d, at most
-  static constexpr int WG_BOXES = NB / 2;     // of them a warpgroup's
-  static constexpr int WG_CHUNKS = WG_BOXES / 2;  // its 128-column chunks
-  static constexpr int W_BOX = BM * 128;      // bytes of a [64 x 64] box of w
-  static constexpr int H_BOX = BK * 128;      // bytes of a [32 x 64] box of h
-  static constexpr int STAGES = 2;
-  static constexpr int STAGE_BYTES = NB * H_BOX;
-  static constexpr int H_OFF = NB * W_BOX;    // w's block first
-  // the partial logits, double-buffered: [tile parity][warpgroup][16][128]
-  static constexpr int X_OFF = H_OFF + STAGES * STAGE_BYTES;
-  static constexpr int X_FLOATS = 2 * 16 * 128;  // one tile's two partials
-  // each stage's token statistics: label, lse, g
-  static constexpr int ST_OFF = X_OFF + 2 * X_FLOATS * 4;
-  static constexpr int BAR_OFF = ST_OFF + STAGES * 3 * BK * 4;
-  static constexpr int SMEM = BAR_OFF + 8 * (1 + STAGES) + 1024;  // + alignment slack
-  static constexpr int THREADS = 2 * 128;
-};
-
 // kFull: d > 640, every chunk of both warpgroups live (the training
 // shape); else the CTA loads and multiplies the ceil(d / 128) chunks that
 // hold d, and a warpgroup skips the products of its chunks past them
 template <bool kFull>
-__global__ void __launch_bounds__(DwRecompute::THREADS, 1)
+__global__ void __launch_bounds__(RecomputeTile::THREADS, 1)
 fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
                           const __grid_constant__ CUtensorMap hmap, const int* __restrict__ lab,
                           const float* __restrict__ lse, const float* __restrict__ g,
                           bf16* __restrict__ dw, int T_, int V, int d) {
-  using C = DwRecompute;
+  using C = RecomputeTile;
   constexpr int BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -1003,10 +1034,10 @@ fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
   // and g beside them (warp 0; rows >= T pick nothing and weigh 0)
   auto load_h = [&](int kt) {
     const int s = kt % C::STAGES;
-    mbar_expect_tx(h_full(s), nb * C::H_BOX);
+    mbar_expect_tx(h_full(s), nb * C::STR_BOX);
     for (int c = 0; c < nb; ++c)
-      tma_load_2d(base + C::H_OFF + s * C::STAGE_BYTES + c * C::H_BOX, &hmap, h_full(s), 64 * c,
-                  kt * BK);
+      tma_load_2d(base + C::STR_OFF + s * C::STAGE_BYTES + c * C::STR_BOX, &hmap, h_full(s),
+                  64 * c, kt * BK);
   };
   auto load_stats = [&](int kt) {
     float* st = stats + (kt % C::STAGES) * 3 * BK;
@@ -1020,9 +1051,9 @@ fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
     mbar_init(w_full, 1);
     for (int s = 0; s < C::STAGES; ++s) mbar_init(h_full(s), 1);
     mbar_fence_init();
-    mbar_expect_tx(w_full, nb * C::W_BOX);
+    mbar_expect_tx(w_full, nb * C::RES_BOX);
     for (int c = 0; c < nb; ++c)
-      tma_load_2d(base + c * C::W_BOX, &wmap, w_full, 64 * c, v0);
+      tma_load_2d(base + c * C::RES_BOX, &wmap, w_full, 64 * c, v0);
     for (int kt = 0; kt < C::STAGES && kt < nt; ++kt) load_h(kt);
   }
   if (tid < 32)
@@ -1032,7 +1063,7 @@ fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
   // this thread's rows of S^T and dw: vocab rows ra and ra + 8
   const int ra = v0 + 16 * (t / 32) + lane / 4;
   // this warpgroup's boxes of d: the logits' depth and dw's columns
-  const uint32_t wbase = base + C::WG_BOXES * wg * C::W_BOX;
+  const uint32_t wbase = base + C::WG_BOXES * wg * C::RES_BOX;
   const int c0 = 64 * C::WG_BOXES * wg;
   // dw's accumulators: the first tile's products ignore what they hold, so
   // no instruction but a wgmma ever writes them (a zeroing move between
@@ -1050,7 +1081,7 @@ fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
   mbar_wait(w_full, 0);
   for (int i = 0; i < nt; ++i) {
     const int s = i % C::STAGES;
-    const uint32_t sh = base + C::H_OFF + s * C::STAGE_BYTES;
+    const uint32_t sh = base + C::STR_OFF + s * C::STAGE_BYTES;
     // test hook: this warpgroup lags the other by a while on every tile
 #ifdef FUSED_CE_DW_STALL_WG
     if (wg == FUSED_CE_DW_STALL_WG) __nanosleep(2000);
@@ -1068,8 +1099,8 @@ fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
     for (int kk = 0; kk < 4 * C::WG_BOXES; ++kk) {
       const uint32_t ko = (kk % 4) * 32;  // 16 columns in a box
       if (kk < 8 * ncw)
-        wgmma_ss<0, 0>(sc, sw128_desc(wb + (kk / 4) * C::W_BOX + ko, 16, 1024),
-                       sw128_desc(sh + (C::WG_BOXES * wg + kk / 4) * C::H_BOX + ko, 16, 1024),
+        wgmma_ss<0, 0>(sc, sw128_desc(wb + (kk / 4) * C::RES_BOX + ko, 16, 1024),
+                       sw128_desc(sh + (C::WG_BOXES * wg + kk / 4) * C::STR_BOX + ko, 16, 1024),
                        kk > 0);
     }
     wgmma_commit();
@@ -1112,8 +1143,8 @@ fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
       for (int c = 0; c < C::WG_CHUNKS; ++c)
         if (c < ncw)
           wgmma_rs<1>(acc[c], pa[kk],
-                      sw128_desc(sh + (C::WG_BOXES * wg + 2 * c) * C::H_BOX + kk * 2048,
-                                 C::H_BOX, 1024),
+                      sw128_desc(sh + (C::WG_BOXES * wg + 2 * c) * C::STR_BOX + kk * 2048,
+                                 C::STR_BOX, 1024),
                       i > 0 || kk > 0);
     wgmma_commit();
   }
@@ -1132,6 +1163,203 @@ fused_ce_dw_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
       const int col = c0 + 128 * c + 8 * (i >> 2) + 2 * (lane & 3);
       if (row < V && col < d)
         *reinterpret_cast<uint32_t*>(dw + (size_t)row * d + col) =
+            pack_bf16(acc[c][i], acc[c][i + 1]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// the recomputing dh on wgmma and TMA (bf16 h and w, d % 8 == 0): the dw
+// kernel above with tokens and vocabulary swapped. One CTA per 64-token
+// block, its dh rows [64 x d] in the registers of the two warpgroups
+// (warpgroup c owns columns [384 c, 384 c + 384) of d), h's block resident,
+// w streamed in 32-vocab-row tiles through the 2-stage ring, the CTA's
+// labels, lse and g in shared memory; per tile:
+//   1. each warpgroup: S_c [64 tokens x 32 vocab] = h[:, c] w[:, c]^T
+//      (m64n32k16, both K-major);
+//   2. both warpgroups sum the two partials S_0 + S_1 from shared memory;
+//   3. dl = (exp(S - lse) - onehot) g in float32 (0 at vocab columns >= V),
+//      rounded to bf16 A fragments;
+//   4. dh[:, c] += dl w[:, c] (m64n128k16 three times a k16 step, w read
+//      MN-major from the stage step 1 read).
+// kStoreDl (the shared-dl pair's dh pass) also writes those fragments to
+// dl [T, ldd], zeros in the columns from V to V rounded up to 8. kFull as
+// in the dw kernel.
+// ---------------------------------------------------------------------------
+template <bool kStoreDl, bool kFull>
+__global__ void __launch_bounds__(RecomputeTile::THREADS, 1)
+fused_ce_dh_hopper_kernel(const __grid_constant__ CUtensorMap hmap,
+                          const __grid_constant__ CUtensorMap wmap, const int* __restrict__ lab,
+                          const float* __restrict__ lse, const float* __restrict__ g,
+                          bf16* __restrict__ dh, bf16* __restrict__ dl, int ldd, int T_, int V,
+                          int d) {
+  using C = RecomputeTile;
+  constexpr int BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled boxes start on 1024 bytes
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t h_full = base + C::BAR_OFF;
+  auto w_full = [=](int s) { return h_full + 8 * (1 + s); };
+  float* xs = reinterpret_cast<float*>(gbase + C::X_OFF);
+  int* slab = reinterpret_cast<int*>(gbase + C::ST_OFF);  // the CTA's labels, lse, g
+  float* slse = reinterpret_cast<float*>(slab + C::BM);
+  float* sg = slse + C::BM;
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128, lane = t % 32;
+  const int t0 = blockIdx.x * C::BM;
+  const int nt = (V + BK - 1) / BK;
+  // the boxes of d loaded and this warpgroup's live chunks, as in dw
+  const int nb = kFull ? C::NB : 2 * ((d + 127) / 128);
+  const int ncw = kFull ? C::WG_CHUNKS : min(max(nb / 2 - C::WG_CHUNKS * wg, 0), C::WG_CHUNKS);
+
+  // vocab tile vt's w boxes into its stage (one thread)
+  auto load_w = [&](int vt) {
+    const int s = vt % C::STAGES;
+    mbar_expect_tx(w_full(s), nb * C::STR_BOX);
+    for (int c = 0; c < nb; ++c)
+      tma_load_2d(base + C::STR_OFF + s * C::STAGE_BYTES + c * C::STR_BOX, &wmap, w_full(s),
+                  64 * c, vt * BK);
+  };
+  if (tid == 0) {
+    mbar_init(h_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(w_full(s), 1);
+    mbar_fence_init();
+    mbar_expect_tx(h_full, nb * C::RES_BOX);
+    for (int c = 0; c < nb; ++c) tma_load_2d(base + c * C::RES_BOX, &hmap, h_full, 64 * c, t0);
+    for (int vt = 0; vt < C::STAGES && vt < nt; ++vt) load_w(vt);
+  }
+  if (tid < C::BM) {  // token rows >= T pick nothing and weigh 0
+    const int row = t0 + tid;
+    const bool in = row < T_;
+    slab[tid] = in ? lab[row] : -1;
+    slse[tid] = in ? lse[row] : 0.f;
+    sg[tid] = in ? g[row] : 0.f;
+  }
+  __syncthreads();
+
+  // this thread's rows of S and dh: tokens ra and ra + 8 of the block
+  const int ra = 16 * (t / 32) + lane / 4;
+  // this warpgroup's boxes of d: the logits' depth and dh's columns
+  const uint32_t hbase = base + C::WG_BOXES * wg * C::RES_BOX;
+  const int c0 = 64 * C::WG_BOXES * wg;
+  // dh's accumulators, written by no instruction but a wgmma (the first
+  // tile's products ignore what they hold), as dw's
+  float acc[3][64];
+  float sc[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) sc[j] = 0.f;
+  uint32_t pa[BK / 16][4];  // dl in bf16: the A fragments of its k16 slices
+#pragma unroll
+  for (int i = 0; i < BK / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[i][j] = 0u;
+
+  mbar_wait(h_full, 0);
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % C::STAGES, v0 = i * BK;
+    const uint32_t sw = base + C::STR_OFF + s * C::STAGE_BYTES;
+    // test hook: this warpgroup lags the other by a while on every tile
+#ifdef FUSED_CE_DH_STALL_WG
+    if (wg == FUSED_CE_DH_STALL_WG) __nanosleep(2000);
+#endif
+    mbar_wait(w_full(s), (i / C::STAGES) & 1);
+    // 1. the partial logits over this warpgroup's columns of d (h's
+    // addresses through an empty asm each tile, as dw's w)
+    uint32_t hb = hbase;
+    asm volatile("" : "+r"(hb));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * C::WG_BOXES; ++kk) {
+      const uint32_t ko = (kk % 4) * 32;  // 16 columns in a box
+      if (kk < 8 * ncw)
+        wgmma_ss<0, 0>(sc, sw128_desc(hb + (kk / 4) * C::RES_BOX + ko, 16, 1024),
+                       sw128_desc(sw + (C::WG_BOXES * wg + kk / 4) * C::STR_BOX + ko, 16, 1024),
+                       kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // also the previous tile's dh products
+    fence_regs(sc);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    fence_regs(acc[2]);
+    fence_regs(pa);
+    // 2. the partials meet: both warpgroups sum S_0 + S_1
+    float* xb = xs + (i % 2) * C::X_FLOATS;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) xb[(wg * 16 + j) * 128 + t] = sc[j];
+    named_sync(1, C::THREADS);  // both partials written; stage i - 1 read by all
+    // stage (i + 1) % 2 held tile i - 1, whose products are done
+    if (tid == 0 && i >= 1 && i + 1 < nt) load_w(i + 1);
+    const float* other = xb + (1 - wg) * 16 * 128 + t;
+    // 3. dl = (softmax - onehot) g for this thread's (token, vocab) pairs,
+    // straight into bf16 A fragments
+    auto dlv = [&](int j) {
+      const int r = ra + 8 * ((j & 3) >> 1);
+      const int v = v0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      if (v >= V) return 0.f;
+      const float p = __expf(sc[j] + other[j * 128] - slse[r]);
+      return (p - (v == slab[r] ? 1.f : 0.f)) * sg[r];
+    };
+#pragma unroll
+    for (int j = 0; j < 16; j += 2) pa[j / 8][(j % 8) / 2] = pack_bf16(dlv(j), dlv(j + 1));
+    if (kStoreDl) {
+      // warpgroup wg stores row ra + 8 wg of the tile: lane q of a quad
+      // holds its columns 8 k + 2 q, +1 (k = 0..3); a 4 x 4 transpose across
+      // the quad (lanes 2 apart, then neighbours) gives lane q columns
+      // 8 q .. 8 q + 7
+      uint32_t x[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[k] = wg ? pa[k >> 1][2 * (k & 1) + 1] : pa[k >> 1][2 * (k & 1)];
+      const int q = lane & 3;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, (q & 2) ? x[k] : x[2 + k], 2);
+        if (q & 2)
+          x[k] = got;
+        else
+          x[2 + k] = got;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; k += 2) {
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, (q & 1) ? x[k] : x[k + 1], 1);
+        if (q & 1)
+          x[k] = got;
+        else
+          x[k + 1] = got;
+      }
+      const int row = t0 + ra + 8 * wg, col = v0 + 8 * q;
+      if (row < T_ && col < ((V + 7) & ~7))  // st.global.cs: evict first from L2
+        asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(
+                         dl + (size_t)row * ldd + col),
+                     "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]));
+    }
+    // 4. dh[:, c] += dl w[:, c], w MN-major in the stage
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < C::WG_CHUNKS; ++c)
+        if (c < ncw)
+          wgmma_rs<1>(acc[c], pa[kk],
+                      sw128_desc(sw + (C::WG_BOXES * wg + 2 * c) * C::STR_BOX + kk * 2048,
+                                 C::STR_BOX, 1024),
+                      i > 0 || kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  fence_regs(acc[2]);
+  fence_regs(pa);
+
+  // token rows >= T and columns >= d (every chunk past ncw) are never stored
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int row = t0 + ra + 8 * ((i & 3) >> 1);
+      const int col = c0 + 128 * c + 8 * (i >> 2) + 2 * (lane & 3);
+      if (row < T_ && col < d)
+        *reinterpret_cast<uint32_t*>(dh + (size_t)row * d + col) =
             pack_bf16(acc[c][i], acc[c][i + 1]);
     }
 }
@@ -1258,18 +1486,26 @@ int bwd_dw_sharep_hopper(const void* h, const void* dl, void* dw, int ldd, int T
   return (int)cudaGetLastError();
 }
 
-// the recomputing dw on wgmma/TMA: tensor maps over w [V, d] in boxes of
-// 64 vocab rows and h [T, d] in boxes of 32 tokens (64 columns each);
-// boxes past V, T or d load as zeros
+// tensor maps of a recomputing design on wgmma/TMA: the resident operand
+// [rows_r, d] in boxes of 64 rows and the streamed one [rows_s, d] in boxes
+// of 32 (64 columns each); boxes past the rows or d load as zeros
+int recompute_maps(CUtensorMap* rmap, const void* r, int rows_r, CUtensorMap* smap, const void* s,
+                   int rows_s, int d) {
+  using C = RecomputeTile;
+  const uint64_t r_dims[2] = {(uint64_t)d, (uint64_t)rows_r};
+  const uint64_t s_dims[2] = {(uint64_t)d, (uint64_t)rows_s};
+  const uint64_t stride[1] = {2ull * d};
+  const uint32_t r_box[2] = {64, C::BM}, s_box[2] = {64, C::BK};
+  const int e = encode_bf16_map(rmap, r, 2, r_dims, stride, r_box);
+  return e ? e : encode_bf16_map(smap, s, 2, s_dims, stride, s_box);
+}
+
+// the recomputing dw on wgmma/TMA: w resident, h streamed
 int bwd_dw_hopper(const void* h, const void* w, const void* lab, const void* lse, const void* g,
                   void* dw, int T_, int V, int d, cudaStream_t st) {
-  using C = DwRecompute;
+  using C = RecomputeTile;
   CUtensorMap wmap, hmap;
-  const uint64_t w_dims[2] = {(uint64_t)d, (uint64_t)V}, h_dims[2] = {(uint64_t)d, (uint64_t)T_};
-  const uint64_t stride[1] = {2ull * d};
-  const uint32_t w_box[2] = {64, C::BM}, h_box[2] = {64, C::BK};
-  int e = encode_bf16_map(&wmap, w, 2, w_dims, stride, w_box);
-  if (!e) e = encode_bf16_map(&hmap, h, 2, h_dims, stride, h_box);
+  const int e = recompute_maps(&wmap, w, V, &hmap, h, T_, d);
   if (e) return e;
   auto kern = d > kMaxD - 128 ? fused_ce_dw_hopper_kernel<true> : fused_ce_dw_hopper_kernel<false>;
   cudaError_t ce = prepare(kern, C::SMEM);
@@ -1278,6 +1514,32 @@ int bwd_dw_hopper(const void* h, const void* w, const void* lab, const void* lse
       wmap, hmap, static_cast<const int*>(lab), static_cast<const float*>(lse),
       static_cast<const float*>(g), static_cast<bf16*>(dw), T_, V, d);
   return (int)cudaGetLastError();
+}
+
+// the recomputing dh on wgmma/TMA (kStoreDl: and dl): h resident, w streamed
+template <bool kStoreDl>
+int bwd_dh_hopper(const void* h, const void* w, const void* lab, const void* lse, const void* g,
+                  void* dh, void* dl, int ldd, int T_, int V, int d, cudaStream_t st) {
+  using C = RecomputeTile;
+  CUtensorMap hmap, wmap;
+  const int e = recompute_maps(&hmap, h, T_, &wmap, w, V, d);
+  if (e) return e;
+  auto kern = d > kMaxD - 128 ? fused_ce_dh_hopper_kernel<kStoreDl, true>
+                              : fused_ce_dh_hopper_kernel<kStoreDl, false>;
+  cudaError_t ce = prepare(kern, C::SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  kern<<<(T_ + C::BM - 1) / C::BM, C::THREADS, C::SMEM, st>>>(
+      hmap, wmap, static_cast<const int*>(lab), static_cast<const float*>(lse),
+      static_cast<const float*>(g), static_cast<bf16*>(dh), static_cast<bf16*>(dl), ldd, T_, V,
+      d);
+  return (int)cudaGetLastError();
+}
+
+// what the recomputing designs on wgmma/TMA take: bfloat16 (dtype 1), d a
+// multiple of 8 (16-byte rows for TMA), h and w 16-byte aligned
+bool recompute_ok(int dtype, int d, const void* h, const void* w) {
+  return dtype == 1 && d % 8 == 0 &&
+         (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) % 16 == 0;
 }
 
 // a dl buffer the kernels take: bf16 rows of ldd >= V elements, ldd a
@@ -1341,10 +1603,19 @@ extern "C" int fused_ce_backward_dw_hopper(int dtype, const void* h, const void*
                                            const void* labels, const void* lse, const void* g,
                                            void* dw, int T_, int V, int d, void* stream) {
   FCE_CHECK();
-  if (dtype != 1 || d % 8 != 0 ||
-      (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!recompute_ok(dtype, d, h, w)) return (int)cudaErrorInvalidValue;
   return bwd_dw_hopper(h, w, labels, lse, g, dw, T_, V, d, static_cast<cudaStream_t>(stream));
+}
+
+// The recomputing dh on wgmma/TMA: as fused_ce_backward_dh, for what the
+// dw entry above takes; anything else returns cudaErrorInvalidValue.
+extern "C" int fused_ce_backward_dh_hopper(int dtype, const void* h, const void* w,
+                                           const void* labels, const void* lse, const void* g,
+                                           void* dh, int T_, int V, int d, void* stream) {
+  FCE_CHECK();
+  if (!recompute_ok(dtype, d, h, w)) return (int)cudaErrorInvalidValue;
+  return bwd_dh_hopper<false>(h, w, labels, lse, g, dh, nullptr, 0, T_, V, d,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The shared-dl pair. dh_sharep writes dh as fused_ce_backward_dh does and
@@ -1383,4 +1654,17 @@ extern "C" int fused_ce_backward_dw_sharep_hopper(int dtype, const void* h, cons
       !dl_ok(dl, ldd, V))
     return (int)cudaErrorInvalidValue;
   return bwd_dw_sharep_hopper(h, dl, dw, ldd, T_, V, d, static_cast<cudaStream_t>(stream));
+}
+
+// dh_sharep on wgmma/TMA: as fused_ce_backward_dh_sharep, for what
+// fused_ce_backward_dh_hopper takes; anything else returns
+// cudaErrorInvalidValue. In bf16 its dh equals that entry's bit for bit.
+extern "C" int fused_ce_backward_dh_sharep_hopper(int dtype, const void* h, const void* w,
+                                                  const void* labels, const void* lse,
+                                                  const void* g, void* dh, void* dl, int ldd,
+                                                  int T_, int V, int d, void* stream) {
+  FCE_CHECK();
+  if (!recompute_ok(dtype, d, h, w) || !dl_ok(dl, ldd, V)) return (int)cudaErrorInvalidValue;
+  return bwd_dh_hopper<true>(h, w, labels, lse, g, dh, dl, ldd, T_, V, d,
+                             static_cast<cudaStream_t>(stream));
 }

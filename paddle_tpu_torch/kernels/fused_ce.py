@@ -40,13 +40,17 @@ Pieces:
   :func:`hopper_dw_sharep` is the one predicate that picks;
   ``dw_sharep_launches`` counts both and ``dw_sharep_hopper_launches`` the
   wgmma/TMA one;
-- two designs of the recomputing dw kernel: on wgmma/TMA for bfloat16 h
-  and w with ``d`` a multiple of 8, both 16-byte aligned (a CTA a 64-row
-  vocab block, the logits' two halves over d summed in a fixed order, dl
-  rounded to bf16 before dlᵀ @ h), and the ``wmma`` / CUDA-core one for
-  the rest. :func:`hopper_dw` is the one predicate that picks;
-  ``dw_launches`` counts both and ``dw_hopper_launches`` the wgmma/TMA
-  one;
+- two designs of each recomputing kernel, dw, dh and the shared-dl
+  pair's dh pass: on wgmma/TMA for bfloat16 h and w with ``d`` a multiple
+  of 8, both 16-byte aligned (a CTA a 64-row block of the output, vocab
+  rows for dw and tokens for dh, the logits' two halves over d summed in a
+  fixed order, dl rounded to bf16 before the second product; dh_sharep
+  stores those bf16 dl tiles, so its dh is dh's bit for bit), and the
+  ``wmma`` / CUDA-core one for the rest. :func:`hopper_recompute` is the
+  one predicate that picks for all three; ``dw_launches``, ``dh_launches``
+  and ``dh_sharep_launches`` count both designs and
+  ``dw_hopper_launches``, ``dh_hopper_launches`` and
+  ``dh_sharep_hopper_launches`` the wgmma/TMA one;
 - :class:`FusedSoftmaxCE`, the ``torch.autograd.Function`` with the
   reference's ``custom_vjp`` contract (``:361-380``): the forward saves
   ``(h, w, labels, lse)``; the backward returns ``dh`` and ``dw`` and no
@@ -78,13 +82,16 @@ __all__ = ["fused_softmax_ce", "FusedSoftmaxCE", "fused_ce_fwd",
            "fused_ce_bwd_dw_sharep", "fused_ce_fwd_ref",
            "fused_ce_bwd_dh_ref", "fused_ce_bwd_dw_ref",
            "fused_ce_bwd_dh_sharep_ref", "fused_ce_bwd_dw_sharep_ref",
-           "use_plain", "reset_launches", "hopper_dw_sharep", "hopper_dw"]
+           "use_plain", "reset_launches", "hopper_dw_sharep",
+           "hopper_recompute"]
 
 fwd_launches = 0      # kernel launches since the last reset_launches()
 dh_launches = 0
+dh_hopper_launches = 0          # of those, the wgmma/TMA kernel's
 dw_launches = 0
 dw_hopper_launches = 0          # of those, the wgmma/TMA kernel's
 dh_sharep_launches = 0
+dh_sharep_hopper_launches = 0   # of those, the wgmma/TMA kernel's
 dw_sharep_launches = 0
 dw_sharep_hopper_launches = 0   # of those, the wgmma/TMA kernel's
 
@@ -103,12 +110,12 @@ _plain = False        # set only inside use_plain()
 #   nsplit, stream)
 FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p])
-# fused_ce_backward_dh / _dw / _dw_hopper(dtype, h, w, labels, lse, g, out,
-#   T, V, d, stream)
+# fused_ce_backward_dh / _dh_hopper / _dw / _dw_hopper(dtype, h, w, labels,
+#   lse, g, out, T, V, d, stream)
 BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p])
-# fused_ce_backward_dh_sharep(dtype, h, w, labels, lse, g, dh, dl, ldd, T,
-#   V, d, stream)
+# fused_ce_backward_dh_sharep / _dh_sharep_hopper(dtype, h, w, labels, lse,
+#   g, dh, dl, ldd, T, V, d, stream)
 DH_SHAREP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # fused_ce_backward_dw_sharep(dtype, h, dl, dw, ldd, T, V, d, stream), and
@@ -121,17 +128,20 @@ _fns = {}
 
 
 def reset_launches():
-    global fwd_launches, dh_launches, dw_launches, dw_hopper_launches
-    global dh_sharep_launches, dw_sharep_launches, dw_sharep_hopper_launches
-    fwd_launches = dh_launches = dw_launches = dw_hopper_launches = 0
-    dh_sharep_launches = dw_sharep_launches = dw_sharep_hopper_launches = 0
+    global fwd_launches, dh_launches, dh_hopper_launches, dw_launches
+    global dw_hopper_launches, dh_sharep_launches, dh_sharep_hopper_launches
+    global dw_sharep_launches, dw_sharep_hopper_launches
+    fwd_launches = dh_launches = dh_hopper_launches = 0
+    dw_launches = dw_hopper_launches = 0
+    dh_sharep_launches = dh_sharep_hopper_launches = 0
+    dw_sharep_launches = dw_sharep_hopper_launches = 0
 
 
-def hopper_dw(h, w):
-    """True when the recomputing dw over these h and w takes the
-    wgmma/TMA kernel: both bfloat16, ``d`` a multiple of 8 (16-byte rows
-    for TMA) and both 16-byte aligned. Everything else takes the ``wmma``
-    / CUDA-core kernel."""
+def hopper_recompute(h, w):
+    """True when the recomputing dh and dw over these h and w, and the
+    shared-dl pair's dh pass, take their wgmma/TMA kernels: both bfloat16,
+    ``d`` a multiple of 8 (16-byte rows for TMA) and both 16-byte aligned.
+    Everything else takes the ``wmma`` / CUDA-core kernels."""
     return (h.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
             and h.shape[-1] % 8 == 0 and h.data_ptr() % 16 == 0
             and w.data_ptr() % 16 == 0)
@@ -352,7 +362,7 @@ def _dl_for_kernel(dl):
 
 
 def _launch_bwd(which, h, w, labels, lse, g):
-    global dh_launches, dw_launches, dw_hopper_launches
+    global dh_launches, dh_hopper_launches, dw_launches, dw_hopper_launches
     labels = _labels32(labels)
     g = g.float().contiguous()
     _check(h, w, labels, lse=lse, g=g)
@@ -360,7 +370,7 @@ def _launch_bwd(which, h, w, labels, lse, g):
     out = torch.empty_like(h if which == "dh" else w)
     if T == 0:
         return out.zero_()
-    hopper = which == "dw" and hopper_dw(h, w)
+    hopper = hopper_recompute(h, w)
     entry = f"fused_ce_backward_{which}" + ("_hopper" if hopper else "")
     fn = _kernel_fn(entry, BWD_ARGTYPES)
     with torch.cuda.device(h.device):
@@ -370,6 +380,7 @@ def _launch_bwd(which, h, w, labels, lse, g):
     _raise_if(rc, f"backward {which}" + (" (wgmma)" if hopper else ""))
     if which == "dh":
         dh_launches += 1
+        dh_hopper_launches += hopper
     else:
         dw_launches += 1
         dw_hopper_launches += hopper
@@ -380,7 +391,7 @@ def _launch_dh_sharep(h, w, labels, lse, g):
     """The shared-dl dh kernel: ``(dh, dl)``, dl the ``[:, :V]`` view of
     a ``[T, V rounded up to 8]`` bf16 buffer whose tail columns the kernel
     fills with zeros."""
-    global dh_sharep_launches
+    global dh_sharep_launches, dh_sharep_hopper_launches
     labels = _labels32(labels)
     g = g.float().contiguous()
     _check(h, w, labels, lse=lse, g=g)
@@ -390,14 +401,17 @@ def _launch_dh_sharep(h, w, labels, lse, g):
     buf = _dl_rows(T, V, h.device)
     if T == 0:
         return dh, buf[:, :V]
-    fn = _kernel_fn("fused_ce_backward_dh_sharep", DH_SHAREP_ARGTYPES)
+    hopper = hopper_recompute(h, w)
+    fn = _kernel_fn("fused_ce_backward_dh_sharep"
+                    + ("_hopper" if hopper else ""), DH_SHAREP_ARGTYPES)
     with torch.cuda.device(h.device):
         rc = fn(_DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(),
                 labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
                 dh.data_ptr(), buf.data_ptr(), buf.stride(0), T, V, d,
                 _stream(h))
-    _raise_if(rc, "backward dh_sharep")
+    _raise_if(rc, "backward dh_sharep" + (" (wgmma)" if hopper else ""))
     dh_sharep_launches += 1
+    dh_sharep_hopper_launches += hopper
     return dh, buf[:, :V]
 
 

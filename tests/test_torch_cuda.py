@@ -5,8 +5,9 @@ design elsewhere), the flash-attention
 forward, dq and dk/dv kernels, the fused-CE forward, dh and dw kernels,
 the shared-dl dh/dw pair and the packed (segment-id) flash forward, dq
 and dk/dv kernels against their plain PyTorch versions (the bf16 flash
-forward, dq, dk/dv, recomputing dw, dw_sharep and packed forward, dq and
-dk/dv on their wgmma/TMA designs, float32 on the others), the serving
+forward, dq, dk/dv, recomputing dh and dw, dh_sharep, dw_sharep and
+packed forward, dq and dk/dv on their wgmma/TMA designs, float32 on the
+others), the serving
 engine on the card against
 the same engine on the CPU (float and quantized pools, int8 weights), and
 GPT and packed-BERT training steps through the kernels against the same
@@ -634,9 +635,11 @@ def test_fused_ce_kernels_match_plain(cuda, case, dtype):
     dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
     torch.cuda.synchronize()
     assert (fc.fwd_launches, fc.dh_launches, fc.dw_launches) == (1, 1, 1)
-    # bf16 with d % 8 == 0 on the wgmma/TMA dw; float32 and d = 50 not
+    # bf16 with d % 8 == 0 on the wgmma/TMA dh and dw; float32 and d = 50
+    # not
     assert fc.dw_hopper_launches == int(dtype == torch.bfloat16
                                         and h.shape[1] % 8 == 0)
+    assert fc.dh_hopper_launches == fc.dw_hopper_launches
     rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
     rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
     rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
@@ -757,6 +760,92 @@ def test_fused_ce_dw_holds_when_one_warpgroup_lags(cuda, stalled):
         assert torch.equal(out, want), (T, V, d)
 
 
+# T, V, d of the wgmma/TMA dh and dh_sharep: ragged T and V at GPT-2's
+# width (the build with every 128-column chunk live) and at small d (the
+# build that loads and multiplies only the chunks that hold d)
+FCE_DH_CASES = {
+    "vocab50257": (1000, 50257, 768),
+    "v1000": (257, 1000, 768),
+    "one_tile_and_a_row": (65, 33, 768),
+    "d64": (300, 500, 64),
+    "d136": (130, 333, 136),
+    "d648": (200, 700, 648),
+}
+
+
+@pytest.mark.parametrize("case", list(FCE_DH_CASES))
+def test_fused_ce_dh_wgmma_matches_plain(cuda, case):
+    """The wgmma/TMA dh and dh_sharep: dh against the plain dh within
+    1e-2 of max-abs, its softmax-only rows (labels past the vocabulary)
+    within the same limit of their own max-abs, g = 0 rows exactly 0; two
+    launches of each bit-identical; dh_sharep's dh equal to dh bit for
+    bit (the stored dl is the tile that fed it), its dl within one bf16
+    step of the plain dl, zero in the columns the rows are padded to and
+    on g = 0 rows."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    T, V, d = FCE_DH_CASES[case]
+    h, w, lab, g = _fce_inputs(cuda, T, V, d, torch.bfloat16, 12)
+    _, lse = fc.fused_ce_fwd(h, w, lab)
+    fc.reset_launches()
+    runs = [fc.fused_ce_bwd_dh(h, w, lab, lse, g) for _ in range(2)]
+    pairs = [fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fc.dh_launches, fc.dh_hopper_launches) == (2, 2)
+    assert (fc.dh_sharep_launches, fc.dh_sharep_hopper_launches) == (2, 2)
+    dh, (sdh, dl) = runs[0], pairs[0]
+    assert torch.equal(dh, runs[1])
+    assert torch.equal(sdh, pairs[1][0]) and torch.equal(dl, pairs[1][1])
+    assert torch.equal(sdh, dh)
+    rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)
+    soft, _ = _softmax_parts(lab, g, V, dh, w)
+    rsoft, _ = _softmax_parts(lab, g, V, rdh, w)
+    assert soft.shape[0] > 0
+    gtol = FCE_TOL[torch.bfloat16][1]
+    assert bool(torch.isfinite(dh).all())
+    assert _rel(dh, rdh) <= gtol, _rel(dh, rdh)
+    assert _rel(soft, rsoft) <= gtol, _rel(soft, rsoft)
+    assert torch.all(dh[::3] == 0)
+    assert dl.shape == (T, V) and dl.stride(0) == -(-V // 8) * 8
+    assert int(_bf16_steps(dl, rdl).max()) <= 1
+    tail = torch.as_strided(dl, (T, dl.stride(0) - V), (dl.stride(0), 1), V)
+    assert not tail.any()
+    assert not dl[::3].any()
+
+
+@pytest.mark.parametrize("stalled", [0, 1], ids=["wg0_lags", "wg1_lags"])
+def test_fused_ce_dh_holds_when_one_warpgroup_lags(cuda, stalled):
+    """The wgmma dh and dh_sharep built with their test hook
+    FUSED_CE_DH_STALL_WG, which sleeps one consumer warpgroup on every
+    vocab tile so the other runs ahead to the shared partial logits: the
+    exchange buffers and the ring must still hold each tile's values
+    until both have read them, so dh and dl equal the plain build's bit
+    for bit."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    lib = _build.load("fused_ce", (f"-DFUSED_CE_DH_STALL_WG={stalled}",))
+    dh_fn = lib.fused_ce_backward_dh_hopper
+    dh_fn.argtypes, dh_fn.restype = fc.BWD_ARGTYPES, ctypes.c_int
+    sp_fn = lib.fused_ce_backward_dh_sharep_hopper
+    sp_fn.argtypes, sp_fn.restype = fc.DH_SHAREP_ARGTYPES, ctypes.c_int
+    for T, V, d in ((1000, 50257, 768), (257, 1000, 96)):
+        h, w, lab, g = _fce_inputs(cuda, T, V, d, torch.bfloat16, 10)
+        _, lse = fc.fused_ce_fwd(h, w, lab)
+        want = fc.fused_ce_bwd_dh(h, w, lab, lse, g)
+        _, want_dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+        args = (h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+                g.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        out, out_sp = torch.empty_like(h), torch.empty_like(h)
+        dl = fc._dl_rows(T, V, h.device)
+        assert dh_fn(1, *args, out.data_ptr(), T, V, d, stream) == 0
+        assert sp_fn(1, *args, out_sp.data_ptr(), dl.data_ptr(),
+                     dl.stride(0), T, V, d, stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (T, V, d)
+        assert torch.equal(out_sp, want), (T, V, d)
+        assert torch.equal(dl[:, :V], want_dl), (T, V, d)
+
+
 def test_tiny_fused_ce_training_step_with_the_kernels_equals_the_plain_step(
         cuda):
     from paddle_tpu_torch.kernels import fused_ce as fc
@@ -833,9 +922,11 @@ def test_fused_ce_sharep_kernels_match_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert (fc.dh_sharep_launches, fc.dw_sharep_launches,
             fc.dh_launches, fc.dw_launches) == (1, 1, 0, 0)
-    # bf16 with d a multiple of 8 takes the wgmma/TMA dw_sharep
+    # bf16 with d a multiple of 8 takes the wgmma/TMA dh_sharep and
+    # dw_sharep
     assert fc.dw_sharep_hopper_launches == (dtype == torch.bfloat16
                                             and d % 8 == 0)
+    assert fc.dh_sharep_hopper_launches == fc.dw_sharep_hopper_launches
     assert dl.dtype == torch.bfloat16 and dl.shape == (T, V)
     assert dl.stride(0) == -(-V // 8) * 8
     rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)

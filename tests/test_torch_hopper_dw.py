@@ -2,8 +2,8 @@
 (``paddle_tpu_torch/kernels/csrc/fused_ce.cu`` ``fused_ce_dw_hopper_kernel``),
 on the CPU.
 
-- Routing: ``fused_ce.hopper_dw`` (bfloat16 h and w, d a multiple of 8,
-  both 16-byte aligned) on every shape ``chip_smoke.py`` and the card
+- Routing: ``fused_ce.hopper_recompute`` (bfloat16 h and w, d a multiple
+  of 8, both 16-byte aligned) on every shape ``chip_smoke.py`` and the card
   tests (``tests/test_torch_cuda.py``) run, float32, mixed dtypes, d = 50
   and inputs that are not 16-byte aligned.
 - The ctypes prototype of the new C entry, and its stall hook's variant.
@@ -66,9 +66,10 @@ def _empty(shape, dtype):
 def test_dw_route_for_every_shape_the_card_runs(case):
     T, V, d = DW_SHAPES[case]
     h, w = _empty((T, d), torch.bfloat16), _empty((V, d), torch.bfloat16)
-    assert fc.hopper_dw(h, w) is (d % 8 == 0)
-    assert not fc.hopper_dw(h.float(), w.float())
-    assert not fc.hopper_dw(h, w.float()) and not fc.hopper_dw(h.float(), w)
+    assert fc.hopper_recompute(h, w) is (d % 8 == 0)
+    assert not fc.hopper_recompute(h.float(), w.float())
+    assert not fc.hopper_recompute(h, w.float())
+    assert not fc.hopper_recompute(h.float(), w)
 
 
 def test_the_card_runs_both_dw_routes_in_bf16():
@@ -83,8 +84,9 @@ def test_the_dw_route_sees_the_alignment_of_h_and_w():
     address it."""
     raw = torch.empty(65 * 64, dtype=torch.bfloat16)
     ok, off = raw[:64 * 64].view(64, 64), raw[1:64 * 64 + 1].view(64, 64)
-    assert fc.hopper_dw(ok, ok)
-    assert not fc.hopper_dw(off, ok) and not fc.hopper_dw(ok, off)
+    assert fc.hopper_recompute(ok, ok)
+    assert not fc.hopper_recompute(off, ok)
+    assert not fc.hopper_recompute(ok, off)
 
 
 # -- the C entry --------------------------------------------------------------
