@@ -1,7 +1,8 @@
 // Fused LM head + softmax cross entropy for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/fused_ce_pallas.py:
-//   fused_ce_fwd_kernel  <- _fwd_kernel    (:62)  per-token (m, l, target)
+//   fused_ce_fwd_hopper_kernel, fused_ce_fwd_kernel
+//                        <- _fwd_kernel    (:62)  per-token (m, l, target)
 //                                                  of softmax(h @ w^T)
 //   fused_ce_dh_hopper_kernel<false, *>, fused_ce_dh_kernel<T, false>
 //                        <- _bwd_dh_kernel (:101) dh = dl @ w
@@ -86,6 +87,51 @@
 // - fused_ce_dw_sharep_kernel, float32 and d % 8 != 0: the first design,
 //   (h, dl) tile pairs through the three-stage cp.async ring, float32
 //   widening dl in shared memory; one block owns each 32-row dw tile.
+// Two designs of the forward, chosen in kernels/fused_ce.py by dtype, d and
+// alignment alone (hopper_recompute, the predicate of the recomputing
+// backward below):
+// - fused_ce_fwd_hopper_kernel<kFull>, bf16 h and w with d a multiple of 8:
+//   wgmma and TMA. One CTA per (64-token block, vocab split): h's block
+//   resident in shared memory as twelve swizzled [64 x 64] boxes (96 KB,
+//   one TMA load); a producer warp streams w as [128 vocab x 64 d] boxes
+//   (16 KB) through an 8-stage ring (128 KB), tile after tile, each tile's
+//   boxes along d; two consumer warpgroups take alternate 128-vocab tiles,
+//   each forming S = h w^T [64 x 128] in 64 float32 registers a thread
+//   (m64n128k16, both operands K-major, 4 k16 steps a box, 48 at
+//   d = 768), releasing each box's stage once the next box's products are
+//   issued and its own are done. The logits never leave the registers:
+//   the row max and sum take two quad shuffles each, exp by ex2 with the
+//   log2(e) prescale folded into one FFMA, the label's logit picked by the
+//   lane that holds its column; each warpgroup keeps its own running
+//   (m, l, target) for the 64 rows, and at the end warpgroup 1's state
+//   goes through shared memory and warpgroup 0 merges it after its own,
+//   in that fixed order, into the split's parts. While one warpgroup runs
+//   its softmax the other's products keep the tensor cores busy: the
+//   ring's order (tile j's boxes before tile j + 1's) staggers them. Each
+//   warpgroup has its own full barrier a stage: it reads a stage only in
+//   alternate runs of rounds, and a parity wait on a barrier that also
+//   counts the other's rounds could be two phases ahead and pass on an
+//   old phase; the single empty barrier a stage counts the 128 arrivals
+//   of the box's one reader, and the producer waits on it every round.
+//   1.27 TFLOP at the training shape (1.28 ms at the bf16 peak); every
+//   CTA streams all of its split's w (77 MB at one split) through L2, 64
+//   FLOP a byte of it. The vocab split (grid.y) comes from T, V and the
+//   SM count (fwd_hopper_splits): one CTA an SM (its 226 KB of shared
+//   memory leave room for no second) in whole waves while the token
+//   blocks are fewer than the SMs, one split from there on; no atomics,
+//   so two launches give the same bits. kFull (d > 704) unrolls the box
+//   loop over all twelve boxes; below, the loop runs over the
+//   ceil(d / 64) boxes that hold d. FUSED_CE_FWD_STALL_WG=w makes
+//   warpgroup w lag on every tile (a card test holds that build to the
+//   plain one's bits).
+// - fused_ce_fwd_kernel<T>, float32 and other d: the first design below.
+//   Why it stood 9x above its bound: nvcuda::wmma 16x16x16 fragments,
+//   each 32-vocab tile's logits stored from the fragments to a float tile
+//   in shared memory and read back by every thread for the online max
+//   and sum (a barrier before and after, a shared-memory pass the size of
+//   the logits), the load, the product and the softmax in turn between
+//   __syncthreads(), and w streamed in 32-row tiles of all of d, so the
+//   ring held two tiles and the tensor cores idled through every softmax.
 // Two designs of the recomputing dw, chosen in kernels/fused_ce.py by dtype,
 // d and alignment alone (hopper_recompute):
 // - fused_ce_dw_hopper_kernel, bf16 h and w with d a multiple of 8: wgmma
@@ -1365,6 +1411,233 @@ fused_ce_dh_hopper_kernel(const __grid_constant__ CUtensorMap hmap,
 }
 
 // ---------------------------------------------------------------------------
+// The forward on wgmma and TMA (bf16 h and w, d % 8 == 0): one CTA per
+// (64-token block, vocab split), h's block resident, w streamed as
+// [128 vocab x 64 d] boxes through a ring, the two consumer warpgroups
+// taking alternate 128-vocab tiles
+// ---------------------------------------------------------------------------
+struct FwdHopper {
+  static constexpr int BM = 64;             // tokens a CTA: the resident block
+  static constexpr int BV = 128;            // vocab rows a tile (and a box)
+  static constexpr int NB = kMaxD / 64;     // 64-column boxes of d, at most
+  static constexpr int RES_BOX = BM * 128;  // bytes of a [64 x 64] resident box
+  static constexpr int STR_BOX = BV * 128;  // bytes of a [128 x 64] streamed box
+  // the deepest ring that fits beside h: on an H100 the forward at the
+  // training shape ran faster with each stage added from 4 to 8
+  static constexpr int STAGES = 8;
+  static constexpr int STR_OFF = NB * RES_BOX;  // the resident block first
+  // warpgroup 1's (m, l, target) of the 64 rows, for the merge
+  static constexpr int X_OFF = STR_OFF + STAGES * STR_BOX;
+  static constexpr int BAR_OFF = X_OFF + 3 * BM * 4;
+  // h_full, full[2][S] (a stage's full barrier for each warpgroup),
+  // empty[S]; 1024 bytes of alignment slack
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+  static constexpr int THREADS = 2 * 128 + 32;  // two consumer warpgroups, a producer warp
+  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One 128-column tile of logits in the m64n128 accumulator layout (this
+// thread: rows ra and ra + 8, columns 8 k + 2 (lane % 4) (+1) from v0) into
+// the rows' running max m, sum l = sum exp(s - m) and the label's logit;
+// kEdge: the tile crosses V, whose columns from V on count as -inf. The
+// logits are only read: they stay the wgmma's own registers.
+template <bool kEdge>
+__device__ __forceinline__ void fwd_tile_stats(const float (&sc)[64], float (&m)[2], float (&l)[2],
+                                               float (&tgt)[2], const int (&label)[2], int v0,
+                                               int V, int lane) {
+  auto logit = [&](int i) {
+    if (!kEdge) return sc[i];
+    return v0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1) < V ? sc[i] : -INFINITY;
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i & 3) >> 1] = fmaxf(mx[(i & 3) >> 1], logit(i));
+  float mul[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    const float mu = mn == -INFINITY ? 0.f : mn;
+    l[r] *= ex2((m[r] - mu) * kLog2e);  // m = -inf: 0
+    m[r] = mn;
+    mul[r] = mu * kLog2e;
+    const int c = label[r] - v0;  // the label's column in this tile
+    if (c >= 0 && c < FwdHopper::BV && ((c >> 1) & 3) == (lane & 3)) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (((i & 3) >> 1) == r && 8 * (i >> 2) + (i & 1) == (c & ~6)) tgt[r] += sc[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i & 3) >> 1;
+    sum[r] += ex2(fmaf(logit(i), kLog2e, -mul[r]));  // exp(s - m)
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] += sum[r];
+  }
+}
+
+// kFull: d > 704, every box of d live (the training shape); else the CTA
+// loads and multiplies the ceil(d / 64) boxes that hold d, in a loop of
+// run-time length
+template <bool kFull>
+__global__ void __launch_bounds__(FwdHopper::THREADS, 1)
+fused_ce_fwd_hopper_kernel(const __grid_constant__ CUtensorMap hmap,
+                           const __grid_constant__ CUtensorMap wmap, const int* __restrict__ lab,
+                           float* __restrict__ m_out, float* __restrict__ l_out,
+                           float* __restrict__ t_out, int T_, int V, int d, int tiles_per_split) {
+  using C = FwdHopper;
+  constexpr int S = C::STAGES, BV = C::BV;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled boxes start on 1024 bytes
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t h_full = base + C::BAR_OFF;
+  // full(w, s): stage s holds a box of warpgroup w's. Each warpgroup has its
+  // own: it reads a stage only in some of its rounds, and a wait on a
+  // barrier shared with the other's rounds could be two phases ahead of it
+  // and pass on the parity of an earlier one.
+  auto full = [=](int w, int s) { return h_full + 8 * (1 + w * S + s); };
+  auto empty = [=](int s) { return h_full + 8 * (1 + 2 * S + s); };
+  float* xs = reinterpret_cast<float*>(gbase + C::X_OFF);
+
+  const int t0 = blockIdx.x * C::BM;
+  const int nvt_all = (V + BV - 1) / BV;
+  const int vt_lo = blockIdx.y * tiles_per_split;
+  const int nvt = max(0, min(nvt_all, vt_lo + tiles_per_split) - vt_lo);  // this split's tiles
+  const int nb = kFull ? C::NB : (d + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(h_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(0, s), 1);
+      mbar_init(full(1, s), 1);
+      mbar_init(empty(s), 128);  // a box has one reader: every thread of its warpgroup releases
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the producer warp: one thread issues every copy, h's block, then the
+  // split's boxes in order (tile by tile, each tile's boxes along d)
+  if (threadIdx.x >= 2 * 128) {
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(h_full, nb * C::RES_BOX);
+      for (int c = 0; c < nb; ++c) tma_load_2d(base + c * C::RES_BOX, &hmap, h_full, 64 * c, t0);
+      int i = 0;
+      for (int j = 0; j < nvt; ++j)
+        for (int c = 0; c < nb; ++c, ++i) {
+          const int s = i % S, round = i / S;
+          if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+          mbar_expect_tx(full(j & 1, s), C::STR_BOX);
+          tma_load_2d(base + C::STR_OFF + s * C::STR_BOX, &wmap, full(j & 1, s), 64 * c,
+                      (vt_lo + j) * BV);
+        }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes the split's tiles wg, wg + 2, ...; this
+  // thread holds rows ra and ra + 8 of the block, columns 8 k + 2 (lane % 4)
+  // (+1) of a tile
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int ra = 16 * (t / 32) + lane / 4;
+  int label[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // a label outside [0, V) picks no column
+    const int row = t0 + ra + 8 * r;
+    const int lb = row < T_ ? lab[row] : -1;
+    label[r] = lb >= 0 && lb < V ? lb : -1;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, tgt[2] = {0.f, 0.f};
+  // the logits of a tile: written by no instruction but a wgmma (each
+  // tile's first product ignores what they hold)
+  float sc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+
+  uint32_t phase = 0;  // bit s: the parity of this warpgroup's next wait on full(wg, s)
+  mbar_wait(h_full, 0);
+  for (int j = wg; j < nvt; j += 2) {
+    // test hook: this warpgroup lags the other by a while on every tile
+#ifdef FUSED_CE_FWD_STALL_WG
+    if (wg == FUSED_CE_FWD_STALL_WG) __nanosleep(2000);
+#endif
+    const int v0 = (vt_lo + j) * BV;
+    // h's addresses through an empty asm each tile, as in dh
+    uint32_t hb = base;
+    asm volatile("" : "+r"(hb));
+    // 1. S = h w^T over d, box by box as each lands; a box's stage is
+    // released once the products of the next box are issued and its own
+    // are done
+    int prev = -1;
+#pragma unroll(kFull ? C::NB : 1)
+    for (int c = 0; c < nb; ++c) {
+      const int i = j * nb + c, s = i % S;
+      const uint32_t sw = base + C::STR_OFF + s * C::STR_BOX;
+      mbar_wait(full(wg, s), (phase >> s) & 1);
+      phase ^= 1u << s;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // 16 columns of the box a step
+        wgmma_ss<0, 0>(sc, sw128_desc(hb + c * C::RES_BOX + kk * 32, 16, 1024),
+                       sw128_desc(sw + kk * 32, 16, 1024), c > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      if (prev >= 0) mbar_arrive(empty(prev));
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(empty(prev));
+    // 2. the online (m, l) of each row over the tile's columns, and the
+    // label's logit where the tile holds it
+    if (v0 + BV > V)
+      fwd_tile_stats<true>(sc, m, l, tgt, label, v0, V, lane);
+    else
+      fwd_tile_stats<false>(sc, m, l, tgt, label, v0, V, lane);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // one lane of the quad holds the label's logit
+    tgt[r] += __shfl_xor_sync(0xffffffffu, tgt[r], 1);
+    tgt[r] += __shfl_xor_sync(0xffffffffu, tgt[r], 2);
+  }
+  // 3. the two warpgroups' states merge in one order, warpgroup 0's then
+  // warpgroup 1's, and the split's parts are stored
+  if (wg == 1 && (lane & 3) == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      xs[ra + 8 * r] = m[r];
+      xs[C::BM + ra + 8 * r] = l[r];
+      xs[2 * C::BM + ra + 8 * r] = tgt[r];
+    }
+  named_sync(1, 2 * 128);
+  if (wg == 0 && (lane & 3) == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + ra + 8 * r;
+      const float m1 = xs[ra + 8 * r], l1 = xs[C::BM + ra + 8 * r];
+      const float mn = fmaxf(m[r], m1);
+      const float mu = mn == -INFINITY ? 0.f : mn;
+      const float lm = l[r] * ex2((m[r] - mu) * kLog2e) + l1 * ex2((m1 - mu) * kLog2e);
+      if (row < T_) {
+        const size_t at = (size_t)blockIdx.y * T_ + row;
+        m_out[at] = mn;
+        l_out[at] = lm;
+        t_out[at] = tgt[r] + xs[2 * C::BM + ra + 8 * r];
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <typename Kern>
@@ -1535,6 +1808,45 @@ int bwd_dh_hopper(const void* h, const void* w, const void* lab, const void* lse
   return (int)cudaGetLastError();
 }
 
+// Vocab splits of the wgmma forward's grid: one CTA an SM (its shared
+// memory leaves room for no second) while the 64-token blocks are fewer
+// than the SMs, whole waves only, each split at least kVocabPerSplit
+// columns wide; 0 if the device is unknown
+int fwd_hopper_splits(int T_, int V, int device) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  const int blocks = (T_ + FwdHopper::BM - 1) / FwdHopper::BM;
+  const int want = blocks >= sms ? 1 : sms / blocks;
+  const int most = (V + kVocabPerSplit - 1) / kVocabPerSplit;
+  const int n = want < most ? want : most;
+  return n > 1 ? n : 1;
+}
+
+// the forward on wgmma/TMA: tensor maps over h [T, d] in [64 x 64] boxes
+// and w [V, d] in [128 x 64] boxes; boxes past T, V or d load as zeros
+int fwd_hopper(const void* h, const void* w, const void* lab, void* m, void* l, void* t, int T_,
+               int V, int d, int nsplit, cudaStream_t st) {
+  using C = FwdHopper;
+  CUtensorMap hmap, wmap;
+  const uint64_t h_dims[2] = {(uint64_t)d, (uint64_t)T_}, w_dims[2] = {(uint64_t)d, (uint64_t)V};
+  const uint64_t stride[1] = {2ull * d};
+  const uint32_t h_box[2] = {64, C::BM}, w_box[2] = {64, C::BV};
+  int e = encode_bf16_map(&hmap, h, 2, h_dims, stride, h_box);
+  if (!e) e = encode_bf16_map(&wmap, w, 2, w_dims, stride, w_box);
+  if (e) return e;
+  auto kern = d > kMaxD - 64 ? fused_ce_fwd_hopper_kernel<true> : fused_ce_fwd_hopper_kernel<false>;
+  cudaError_t ce = prepare(kern, C::SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  const int nvt = (V + C::BV - 1) / C::BV;
+  const int tps = (nvt + nsplit - 1) / nsplit;
+  dim3 grid((T_ + C::BM - 1) / C::BM, nsplit);
+  kern<<<grid, C::THREADS, C::SMEM, st>>>(hmap, wmap, static_cast<const int*>(lab),
+                                          static_cast<float*>(m), static_cast<float*>(l),
+                                          static_cast<float*>(t), T_, V, d, tps);
+  return (int)cudaGetLastError();
+}
+
 // what the recomputing designs on wgmma/TMA take: bfloat16 (dtype 1), d a
 // multiple of 8 (16-byte rows for TMA), h and w 16-byte aligned
 bool recompute_ok(int dtype, int d, const void* h, const void* w) {
@@ -1575,6 +1887,28 @@ extern "C" int fused_ce_forward(int dtype, const void* h, const void* w, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return fwd<float>(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit, st);
   return fwd<bf16>(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit, st);
+}
+
+// The split count of fused_ce_forward_hopper at this T and V on device
+// `device`; 0 for a dtype other than bfloat16, a shape or a device it does
+// not take.
+extern "C" int fused_ce_forward_hopper_splits(int dtype, int T_, int V, int device) {
+  if (dtype != 1 || T_ < 1 || V < 1) return 0;
+  return fwd_hopper_splits(T_, V, device);
+}
+
+// The forward on wgmma/TMA: as fused_ce_forward, for bfloat16 h and w
+// (dtype 1) with d a multiple of 8 and h, w 16-byte aligned; anything else
+// returns cudaErrorInvalidValue (the caller routes it to the entry above).
+extern "C" int fused_ce_forward_hopper(int dtype, const void* h, const void* w,
+                                       const void* labels, void* m_part, void* l_part,
+                                       void* t_part, int T_, int V, int d, int nsplit,
+                                       void* stream) {
+  FCE_CHECK();
+  if (!recompute_ok(dtype, d, h, w) || nsplit < 1 || nsplit > 65535)
+    return (int)cudaErrorInvalidValue;
+  return fwd_hopper(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit,
+                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_ce_backward_dh(int dtype, const void* h, const void* w, const void* labels,

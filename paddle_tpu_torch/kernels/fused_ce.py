@@ -46,9 +46,15 @@ Pieces:
   rows for dw and tokens for dh, the logits' two halves over d summed in a
   fixed order, dl rounded to bf16 before the second product; dh_sharep
   stores those bf16 dl tiles, so its dh is dh's bit for bit), and the
-  ``wmma`` / CUDA-core one for the rest. :func:`hopper_recompute` is the
-  one predicate that picks for all three; ``dw_launches``, ``dh_launches``
-  and ``dh_sharep_launches`` count both designs and
+  ``wmma`` / CUDA-core one for the rest;
+- two designs of the forward, by the same rule: on wgmma/TMA (a CTA's 64
+  tokens of h resident, w streamed in [128 vocab x 64 d] boxes through a
+  ring fed by a producer warp, two consumer warpgroups on alternate
+  128-vocab tiles, each keeping a running ``(m, l, target)`` in registers,
+  the two merged in one order), and the ``wmma`` / CUDA-core one for the
+  rest. :func:`hopper_recompute` is the one predicate that picks for all
+  four; ``fwd_launches``, ``dw_launches``, ``dh_launches`` and
+  ``dh_sharep_launches`` count both designs and ``fwd_hopper_launches``,
   ``dw_hopper_launches``, ``dh_hopper_launches`` and
   ``dh_sharep_hopper_launches`` the wgmma/TMA one;
 - :class:`FusedSoftmaxCE`, the ``torch.autograd.Function`` with the
@@ -65,10 +71,11 @@ Pieces:
 What is not ported: the reference's block-size knobs (``PD_CE_BT``,
 ``PD_CE_BV``, ``PD_CE_BV_BWD``) and its padding of T and V to block
 multiples. The CUDA kernels take any T and V and mask their own tails.
-The forward kernel splits the vocabulary across the grid so that any T
-fills the card (the C side picks the split count from its tile height and
-the device's SM count); each split writes its running ``(m, l, target)``
-and :func:`_combine` merges them here, a reduction over a few ``[T]`` rows.
+Both forward kernels split the vocabulary across the grid so that any T
+fills the card (the C side picks the split count from the design's tile
+height and the device's SM count); each split writes its running ``(m,
+l, target)`` and :func:`_combine` merges them here, a reduction over a
+few ``[T]`` rows.
 """
 from __future__ import annotations
 
@@ -86,6 +93,7 @@ __all__ = ["fused_softmax_ce", "FusedSoftmaxCE", "fused_ce_fwd",
            "hopper_recompute"]
 
 fwd_launches = 0      # kernel launches since the last reset_launches()
+fwd_hopper_launches = 0         # of those, the wgmma/TMA kernel's
 dh_launches = 0
 dh_hopper_launches = 0          # of those, the wgmma/TMA kernel's
 dw_launches = 0
@@ -106,8 +114,8 @@ _plain = False        # set only inside use_plain()
 
 # every pointer and the stream as c_void_p, or ctypes would pass a 32-bit
 # int and cut the address
-# fused_ce_forward(dtype, h, w, labels, m_part, l_part, t_part, T, V, d,
-#   nsplit, stream)
+# fused_ce_forward / _forward_hopper(dtype, h, w, labels, m_part, l_part,
+#   t_part, T, V, d, nsplit, stream)
 FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p])
 # fused_ce_backward_dh / _dh_hopper / _dw / _dw_hopper(dtype, h, w, labels,
@@ -122,24 +130,28 @@ DH_SHAREP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
 # fused_ce_backward_dw_sharep_hopper with the same arguments
 DW_SHAREP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# fused_ce_forward_splits(dtype, T, V, device) -> the forward's split count
+# fused_ce_forward_splits / _forward_hopper_splits(dtype, T, V, device) ->
+#   the forward's split count
 SPLITS_ARGTYPES = [ctypes.c_int] * 4
 _fns = {}
 
 
 def reset_launches():
-    global fwd_launches, dh_launches, dh_hopper_launches, dw_launches
-    global dw_hopper_launches, dh_sharep_launches, dh_sharep_hopper_launches
-    global dw_sharep_launches, dw_sharep_hopper_launches
-    fwd_launches = dh_launches = dh_hopper_launches = 0
+    global fwd_launches, fwd_hopper_launches, dh_launches, dh_hopper_launches
+    global dw_launches, dw_hopper_launches, dh_sharep_launches
+    global dh_sharep_hopper_launches, dw_sharep_launches
+    global dw_sharep_hopper_launches
+    fwd_launches = fwd_hopper_launches = 0
+    dh_launches = dh_hopper_launches = 0
     dw_launches = dw_hopper_launches = 0
     dh_sharep_launches = dh_sharep_hopper_launches = 0
     dw_sharep_launches = dw_sharep_hopper_launches = 0
 
 
 def hopper_recompute(h, w):
-    """True when the recomputing dh and dw over these h and w, and the
-    shared-dl pair's dh pass, take their wgmma/TMA kernels: both bfloat16,
+    """True when the forward, the recomputing dh and dw over these h and w,
+    and the shared-dl pair's dh pass take their wgmma/TMA kernels: both
+    bfloat16,
     ``d`` a multiple of 8 (16-byte rows for TMA) and both 16-byte aligned.
     Everything else takes the ``wmma`` / CUDA-core kernels."""
     return (h.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
@@ -289,9 +301,11 @@ def _combine(m, l, t):
 
 
 def _launch_fwd(h, w, labels, nsplit=None):
-    """The forward kernel; ``nsplit`` overrides the vocab split count the
-    C side picks (for timing the split against one split)."""
-    global fwd_launches
+    """The forward kernel (the wgmma/TMA design where
+    :func:`hopper_recompute` admits h and w); ``nsplit`` overrides the
+    vocab split count the C side picks (for timing the split against one
+    split)."""
+    global fwd_launches, fwd_hopper_launches
     labels = _labels32(labels)
     _check(h, w, labels)
     T, d = h.shape
@@ -299,18 +313,21 @@ def _launch_fwd(h, w, labels, nsplit=None):
     if T == 0:
         e = torch.empty(0, dtype=torch.float32, device=h.device)
         return e, e.clone()
-    ns = nsplit or _kernel_fn("fused_ce_forward_splits", SPLITS_ARGTYPES)(
+    hopper = hopper_recompute(h, w)
+    entry = "fused_ce_forward" + ("_hopper" if hopper else "")
+    ns = nsplit or _kernel_fn(f"{entry}_splits", SPLITS_ARGTYPES)(
         _DTYPE_CODE[h.dtype], T, V, h.device.index)
     if ns < 1:
         raise RuntimeError("fused_ce forward: no split count for this device")
     parts = torch.empty(3, ns, T, dtype=torch.float32, device=h.device)
-    fn = _kernel_fn("fused_ce_forward", FWD_ARGTYPES)
+    fn = _kernel_fn(entry, FWD_ARGTYPES)
     with torch.cuda.device(h.device):
         rc = fn(_DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(),
                 labels.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
                 parts[2].data_ptr(), T, V, d, ns, _stream(h))
-    _raise_if(rc, "forward")
+    _raise_if(rc, "forward" + (" (wgmma)" if hopper else ""))
     fwd_launches += 1
+    fwd_hopper_launches += hopper
     return _combine(*parts)
 
 

@@ -19,13 +19,12 @@ dequantized as each page is read.
   ``paged_attention_pallas.py:37`` and, over quantized pools,
   ``_kernel_quant`` at ``:102``) or raises. There is no fallback.
   Two designs: over the pools that :func:`split_kv` admits (float32 /
-  bfloat16 with a head size a multiple of 8, int8 with one a multiple
-  of 16, 16-byte aligned pools), the split-KV kernels (the extent cut
-  into splits of whole pages, each split's partial softmax in a
-  workspace this wrapper allocates, merged in split order by a second
-  kernel; int8 codes widened with their page scales as each stage is
-  read); over the pools it does not admit, float8 among them, the first
-  design.
+  bfloat16 with a head size a multiple of 8, int8 or float8 with one a
+  multiple of 16, 16-byte aligned pools), the split-KV kernels (the
+  extent cut into splits of whole pages, each split's partial softmax in
+  a workspace this wrapper allocates, merged in split order by a second
+  kernel; codes widened with their page scales as each stage is read);
+  over the pools it does not admit, the first design.
 - :func:`paged_decode_attention` — the ``q_len = 1`` entry
   (``paged_attention_pallas.py:219``).
 
@@ -76,12 +75,12 @@ SPLIT_QUANT_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                         + [ctypes.c_int] * 8
                         + [ctypes.c_float, ctypes.c_void_p])
 # the pools routed to the split design and the head sizes it takes: whole
-# 16-byte units of a head's page row (8 bf16 / 4 f32 values, 16 codes).
-# Its C entry takes float8 codes too, but float8 pools stay on the first
-# design: over them the split design fails the card's engine parity check
-# (logits within 1e-3 of the plain engine's) at its request seed, a check
-# the first design itself fails at 3 of 6 seeds (PERF.md, Findings)
-_SPLIT_UNIT = {torch.float32: 8, torch.bfloat16: 8, torch.int8: 16}
+# 16-byte units of a head's page row (8 bf16 / 4 f32 values, 16 int8 or
+# float8 codes). The card holds every launch over each pool kind to the
+# plain version on the same pages inside the serving engine's own steps
+# (chip_smoke.py ``run_parity_phase``)
+_SPLIT_UNIT = {torch.float32: 8, torch.bfloat16: 8, torch.int8: 16,
+               torch.float8_e4m3fn: 16}
 _SMS = 132            # the H100's SMs: the split aims at 4 blocks of each
 _SPLIT_POS = 128      # positions a split, before the grid asks for more
 _MIN_SPLIT_POS = 32   # splits shrink to fill the card, no further
@@ -98,10 +97,10 @@ def reset_launches():
 def split_kv(q, k_pool, v_pool=None, k_scale=None, v_scale=None):
     """True when these tensors take the split-KV kernels: a head's page
     row of whole 16-byte units (a head size that is a multiple of 8 over
-    float32 or bfloat16 pools, of 16 over int8 codes) up to 256, 16-byte
-    aligned pools and, over codes, 4-byte aligned scales (read a float at
-    a time). q may be either float type, at any alignment. Everything
-    else (float8 pools among it) takes the first design."""
+    float32 or bfloat16 pools, of 16 over int8 or float8 codes) up to 256,
+    16-byte aligned pools and, over codes, 4-byte aligned scales (read a
+    float at a time). q may be either float type, at any alignment.
+    Everything else takes the first design."""
     pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
     scales = tuple(t for t in (k_scale, v_scale) if t is not None)
     unit = _SPLIT_UNIT.get(k_pool.dtype)

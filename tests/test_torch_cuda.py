@@ -160,10 +160,9 @@ def test_quant_kernel_matches_plain(cuda, fmt, q_dtype, tol, HD, unaligned):
                                     v_scale=vs)
     torch.cuda.synchronize()
     assert (pa.launches, pa.quant_launches) == (0, 1)
-    # int8 at HD 64 and 128 aligned: the split-KV design; fp8, HD 18 or
+    # int8 and fp8 at HD 64 and 128 aligned: the split-KV design; HD 18 or
     # unaligned: the first design
-    assert pa.quant_split_launches == int(fmt == "int8" and HD % 16 == 0
-                                          and not unaligned)
+    assert pa.quant_split_launches == int(HD % 16 == 0 and not unaligned)
     assert out.dtype == q_dtype
     ref = pa.ragged_paged_attention_ref(q, kq, vq, bt, kl, ql, k_scale=ks,
                                         v_scale=vs)
@@ -299,10 +298,12 @@ def test_split_kv_kernel_at_forced_split_lengths(cuda, split_len):
 
 def test_quantized_pools_keep_the_first_design(cuda):
     """Where ``split_kv`` refuses a code pool (a head size off whole
-    16-code units, a pool not 16-byte aligned) the first design runs."""
-    for HD, unaligned in ((24, False), (64, True)):
+    16-code units, a pool not 16-byte aligned) the first design runs,
+    over int8 and fp8 codes alike."""
+    for fmt, HD, unaligned in ((f, hd, u) for f in ("int8", "fp8")
+                               for hd, u in ((24, False), (64, True))):
         (q, bt, kl, ql), kq, vq, ks, vs = _quant_case(
-            cuda, 24, "int8", torch.bfloat16, HD, unaligned=unaligned)
+            cuda, 24, fmt, torch.bfloat16, HD, unaligned=unaligned)
         assert not pa.split_kv(q, kq, vq, ks, vs)
         pa.reset_launches()
         pa.ragged_paged_attention(q, kq, vq, bt, kl, ql, k_scale=ks,
@@ -318,12 +319,11 @@ def test_quantized_pools_keep_the_first_design(cuda):
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 @pytest.mark.parametrize("shape", ["mixed", "decode", "prefill"])
 def test_quant_split_kv_kernel_matches_plain_at_the_smoke_shapes(
-        cuda, monkeypatch, shape, fmt, dtype, tol):
+        cuda, shape, fmt, dtype, tol):
     """GPT-2 small's serving shapes over int8 / fp8 pools
     (chip_smoke.quant_attention_case: pages and heads of very different
-    magnitude): every call on the split-KV design over codes (int8 as
-    routed; fp8, which the wrapper keeps on the first design, with the
-    route forced), live rows within the limit of max-abs, idle slots
+    magnitude): every call on the split-KV design over codes as the
+    wrapper routes it, live rows within the limit of max-abs, idle slots
     exactly zero, two launches bit-identical."""
     import chip_smoke
     kv_lens, q_lens, QB = chip_smoke.RAGGED_SHAPES[shape]
@@ -331,9 +331,7 @@ def test_quant_split_kv_kernel_matches_plain_at_the_smoke_shapes(
                                         np.random.default_rng(4), 1)
     (kp, vp), (ks, vs) = c["pools"][0], c["scales"][0]
     args = (c["q"], kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
-    assert pa.split_kv(c["q"], kp, vp, ks, vs) is (fmt == "int8")
-    if fmt == "fp8":
-        monkeypatch.setattr(pa, "split_kv", lambda *a: True)
+    assert pa.split_kv(c["q"], kp, vp, ks, vs)
     pa.reset_launches()
     runs = [pa.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
             for _ in range(2)]
@@ -635,11 +633,12 @@ def test_fused_ce_kernels_match_plain(cuda, case, dtype):
     dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
     torch.cuda.synchronize()
     assert (fc.fwd_launches, fc.dh_launches, fc.dw_launches) == (1, 1, 1)
-    # bf16 with d % 8 == 0 on the wgmma/TMA dh and dw; float32 and d = 50
-    # not
+    # bf16 with d % 8 == 0 on the wgmma/TMA forward, dh and dw; float32
+    # and d = 50 not
     assert fc.dw_hopper_launches == int(dtype == torch.bfloat16
                                         and h.shape[1] % 8 == 0)
     assert fc.dh_hopper_launches == fc.dw_hopper_launches
+    assert fc.fwd_hopper_launches == fc.dw_hopper_launches
     rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
     rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
     rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
@@ -658,19 +657,30 @@ def test_fused_ce_kernels_match_plain(cuda, case, dtype):
 
 
 def test_forward_splits_fill_the_card(cuda):
-    """The C side's vocab split count: about two forward blocks an SM
-    (64-token bf16 tiles, 32-token float32 ones), each split at least
-    1024 columns wide; a forced single split gives the same answer."""
+    """The C side's vocab split counts, each split at least 1024 columns
+    wide: the first design's about two forward blocks an SM (64-token
+    bf16 tiles, 32-token float32 ones); the wgmma design's one 64-token
+    block an SM in whole waves while the blocks are fewer than the SMs,
+    one split from there on, bf16 only. A forced single split gives the
+    same answer."""
     from paddle_tpu_torch.kernels import fused_ce as fc
     fn = fc._kernel_fn("fused_ce_forward_splits", fc.SPLITS_ARGTYPES)
+    hfn = fc._kernel_fn("fused_ce_forward_hopper_splits", fc.SPLITS_ARGTYPES)
     dev = torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = ((16384, 50304), (1000, 50257), (2048, 50304), (40, 300),
+              (300, 5000))
     for code, bt in ((1, 64), (0, 32)):
-        for T, V in ((16384, 50304), (1000, 50257), (2048, 50304),
-                     (40, 300)):
+        for T, V in shapes:
             want = max(1, min(-(-2 * sms // -(-T // bt)), -(-V // 1024)))
             assert fn(code, T, V, dev) == want, (code, T, V)
+    for T, V in shapes:
+        blocks = -(-T // 64)
+        want = 1 if blocks >= sms else max(1, min(sms // blocks,
+                                                  -(-V // 1024)))
+        assert hfn(1, T, V, dev) == want, (T, V)
     assert fn(2, 10, 10, dev) == 0      # no such dtype
+    assert hfn(0, 10, 10, dev) == 0     # float32 takes the first design
     h, w, lab, _ = _fce_inputs(cuda, 1000, 50257, 64, torch.bfloat16, 2)
     split = fc.fused_ce_fwd(h, w, lab)
     whole = fc._launch_fwd(h, w, lab, nsplit=1)
@@ -844,6 +854,78 @@ def test_fused_ce_dh_holds_when_one_warpgroup_lags(cuda, stalled):
         assert torch.equal(out, want), (T, V, d)
         assert torch.equal(out_sp, want), (T, V, d)
         assert torch.equal(dl[:, :V], want_dl), (T, V, d)
+
+
+# T, V, d of the wgmma/TMA forward: ragged T and V at GPT-2's width (the
+# build with every 64-column box of d live), d = 712 (the same build, its
+# last box part zeros) and small d (the build that loads and multiplies
+# only the boxes that hold d: 704 leaves the twelfth out)
+FCE_FWD_CASES = {
+    "vocab50257": (1000, 50257, 768),
+    "v1000": (257, 1000, 768),
+    "one_tile_and_a_row": (65, 129, 768),
+    "d712": (200, 700, 712),
+    "d704": (200, 700, 704),
+    "d64": (300, 500, 64),
+    "d136": (130, 333, 136),
+}
+
+
+@pytest.mark.parametrize("case", list(FCE_FWD_CASES))
+def test_fused_ce_fwd_wgmma_matches_plain(cuda, case):
+    """The wgmma/TMA forward: nll and lse against the plain forward within
+    2e-6 of max-abs, rows whose label picks nothing with their nll equal
+    to their lse, two launches bit-identical; at the split count the C
+    side picks and at a forced count that leaves a split with no column
+    (its parts -inf, 0, 0, which the combine ignores)."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    T, V, d = FCE_FWD_CASES[case]
+    h, w, lab, _ = _fce_inputs(cuda, T, V, d, torch.bfloat16, 13)
+    fc.reset_launches()
+    runs = [fc.fused_ce_fwd(h, w, lab) for _ in range(2)]
+    tiles = -(-V // 128)
+    forced = fc._launch_fwd(h, w, lab, nsplit=tiles + 1)
+    torch.cuda.synchronize()
+    assert (fc.fwd_launches, fc.fwd_hopper_launches) == (3, 3)
+    (nll, lse), again = runs
+    assert torch.equal(nll, again[0]) and torch.equal(lse, again[1])
+    rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
+    ftol = FCE_TOL[torch.bfloat16][0]
+    for a, b in ((nll, rnll), (lse, rlse), (forced[0], rnll),
+                 (forced[1], rlse)):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= ftol, _rel(a, b)
+    none = (lab < 0) | (lab >= V)
+    assert torch.equal(nll[none], lse[none])
+
+
+@pytest.mark.parametrize("stalled", [0, 1], ids=["wg0_lags", "wg1_lags"])
+def test_fused_ce_fwd_holds_when_one_warpgroup_lags(cuda, stalled):
+    """The wgmma forward built with its test hook FUSED_CE_FWD_STALL_WG,
+    which sleeps one consumer warpgroup on every vocab tile so the other
+    runs ahead through the ring: the producer must still wait for each
+    box's reader before reusing its stage, so nll and lse equal the plain
+    build's bit for bit."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    lib = _build.load("fused_ce", (f"-DFUSED_CE_FWD_STALL_WG={stalled}",))
+    fn = lib.fused_ce_forward_hopper
+    fn.argtypes, fn.restype = fc.FWD_ARGTYPES, ctypes.c_int
+    splits = fc._kernel_fn("fused_ce_forward_hopper_splits",
+                           fc.SPLITS_ARGTYPES)
+    for T, V, d in ((1000, 50257, 768), (257, 1000, 96)):
+        h, w, lab, _ = _fce_inputs(cuda, T, V, d, torch.bfloat16, 10)
+        want = fc.fused_ce_fwd(h, w, lab)
+        ns = splits(1, T, V, h.device.index)
+        parts = torch.empty(3, ns, T, dtype=torch.float32, device=cuda)
+        rc = fn(1, h.data_ptr(), w.data_ptr(), lab.data_ptr(),
+                parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
+                T, V, d, ns, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (T, V, d)
+        got = fc._combine(*parts)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), (T, V, d)
+        assert torch.equal(got[1], want[1]), (T, V, d)
 
 
 def test_tiny_fused_ce_training_step_with_the_kernels_equals_the_plain_step(

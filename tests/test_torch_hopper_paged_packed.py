@@ -6,9 +6,8 @@ packed (segment-id) flash forward (``csrc/packed_flash.cu``
 with segment ids), on the CPU.
 
 - Routing: ``paged_attention.split_kv`` (float32 / bfloat16 pools with a
-  head size a multiple of 8, int8 pools with one a multiple of 16, up to
-  256, 16-byte aligned pools, 4-byte aligned scales; float8 pools stay on
-  the first design) and
+  head size a multiple of 8, int8 and float8 pools with one a multiple of
+  16, up to 256, 16-byte aligned pools, 4-byte aligned scales) and
   ``packed_flash.hopper_fwd`` (bfloat16, D 64 / 128, L <= 16384, 16-byte
   aligned q, k, v) on every shape ``chip_smoke.py`` and the card tests
   (``tests/test_torch_cuda.py``) run, and the alignment of every input;
@@ -105,7 +104,7 @@ def test_split_kv_route_for_every_shape_the_card_runs(case):
         for pool_dtype, want in ((torch.float32, True),
                                  (torch.bfloat16, True),
                                  (torch.int8, True),
-                                 (torch.float8_e4m3fn, False)):
+                                 (torch.float8_e4m3fn, True)):
             pool = _empty((2, PS, NH, HD), pool_dtype)
             sc = (_empty((2, NH), torch.float32),) * 2 \
                 if pool_dtype in (torch.int8, torch.float8_e4m3fn) else ()
@@ -114,8 +113,8 @@ def test_split_kv_route_for_every_shape_the_card_runs(case):
 
 def test_the_card_runs_the_split_design_at_every_float_shape():
     """Every shape above has a head size the design takes over float
-    pools and over int8 pools (whole 16-code units), so no launch of the
-    card's serving runs over those takes the first design."""
+    pools and over int8 and float8 pools (whole 16-code units), so no
+    launch of the card's serving takes the first design."""
     assert all(HD % 16 == 0 and HD <= 256
                for _, _, _, HD, _, _ in PAGED_SHAPES.values())
 
@@ -145,9 +144,8 @@ def test_code_pools_and_scales_unaligned_keep_the_first_design(pool_dtype):
     odd_sc = torch.empty(3 * 2 * 4 + 4, dtype=torch.uint8)[2:26]
     assert odd_sc.data_ptr() % 4 != 0
     q = _empty((2, 1, 2, 64), torch.float32)
-    # aligned: int8 on the split design, float8 on the first at any
-    # alignment
-    assert pa.split_kv(q, pool, pool, sc, sc) is (pool_dtype == torch.int8)
+    # aligned: both code kinds on the split design
+    assert pa.split_kv(q, pool, pool, sc, sc)
     assert not pa.split_kv(q, off, pool, sc, sc)
     assert not pa.split_kv(q, pool, off, sc, sc)
     assert not pa.split_kv(q, pool, pool, odd_sc, sc)
@@ -314,9 +312,10 @@ def no_library(tmp_path, monkeypatch):
     (torch.bfloat16, 64, "paged_attention_forward_split"),
     (torch.float32, 12, "paged_attention_forward"),
     (torch.int8, 16, "paged_attention_forward_split_quant"),
-    (torch.float8_e4m3fn, 64, "paged_attention_forward"),
-    (torch.int8, 24, "paged_attention_forward")],
-    ids=["f32", "bf16", "f32_hd12", "int8", "fp8", "int8_hd24"])
+    (torch.float8_e4m3fn, 64, "paged_attention_forward_split_quant"),
+    (torch.int8, 24, "paged_attention_forward"),
+    (torch.float8_e4m3fn, 40, "paged_attention_forward")],
+    ids=["f32", "bf16", "f32_hd12", "int8", "fp8", "int8_hd24", "fp8_hd40"])
 def test_a_cuda_tensor_raises_on_every_paged_route(no_library, monkeypatch,
                                                    pool, HD, entry):
     monkeypatch.setattr(pa, "ragged_paged_attention_ref", None)
@@ -750,3 +749,97 @@ def test_the_tile_list_never_leaves_out_a_live_pair(seed, causal):
                 cols = cols[cols <= r]
             for kt in set((cols // BN).tolist()):
                 assert w in listed.get(kt, ()), (q0, r, kt)
+
+
+# -- chip_smoke's per-call parity hook (the engine's own launches held) ------
+
+def _launch_args(fmt, layout="mixed"):
+    """Positional arguments of ``pa._launch`` over the ``layout`` case,
+    its pools float32 or quantized to ``fmt`` by the port (float32 q, as
+    the parity engine's)."""
+    from paddle_tpu_torch.quantization.kv import quantize_per_page
+    q, kf, vf, bt, kv, ql = (torch.from_numpy(a) for a in
+                             _layout(layout, np.random.RandomState(31)))
+    scale = q.shape[-1] ** -0.5
+    if fmt == "float32":
+        return q, kf, vf, bt, kv, ql, scale, None, None
+    kq, ks = quantize_per_page(kf, dtype=fmt)
+    vq, vs = quantize_per_page(vf, dtype=fmt)
+    return q, kq, vq, bt, kv, ql, scale, ks, vs
+
+
+@pytest.fixture
+def plain_launch(monkeypatch):
+    """``pa._launch`` standing for the kernel on the CPU: the plain
+    version, counted, or the plain version plus ``planted`` on one element
+    of a live row."""
+    state = {"launches": 0, "planted": 0.0}
+
+    def launch(*args):
+        state["launches"] += 1
+        out = pa.ragged_paged_attention_ref(*args)
+        out[0, 0, 0, 0] += state["planted"]
+        return out
+    monkeypatch.setattr(pa, "_launch", launch)
+    return state
+
+
+@pytest.mark.parametrize("fmt", ["float32", "int8", "fp8"])
+def test_per_call_parity_wraps_counts_and_restores_the_launch(plain_launch,
+                                                              fmt):
+    """Inside the block ``pa._launch`` is the hook; each call runs the
+    launch and the plain version once and counts one check; after the
+    block the launch is the one it wrapped."""
+    fake = pa._launch
+    args = _launch_args(fmt)
+    with chip_smoke.per_call_parity(pa, chip_smoke.PER_CALL_TOL) as rec:
+        assert pa._launch is not fake
+        outs = [pa._launch(*args) for _ in range(3)]
+    assert pa._launch is fake
+    assert rec["calls"] == plain_launch["launches"] == 3
+    assert rec["max_rel_err"] == 0.0 and rec["plain_s"] > 0
+    assert torch.equal(outs[0], pa.ragged_paged_attention_ref(*args))
+
+
+def test_the_ragged_entry_points_reach_the_launch_the_hook_wraps(
+        monkeypatch):
+    """``ragged_paged_attention`` and ``paged_decode_attention`` (the two
+    names the engine binds) look ``_launch`` up in the module at each
+    call, so a hook set on ``pa._launch`` sees every launch beneath the
+    engine."""
+    calls = []
+
+    def launch(q, *rest):
+        calls.append(tuple(q.shape))
+        return torch.zeros(q.shape)
+    monkeypatch.setattr(pa, "_launch", launch)
+    q, kf, vf, bt, kv, ql = (torch.from_numpy(a) for a in
+                             _layout("decode", np.random.RandomState(33)))
+    pa.ragged_paged_attention(_fake(q), kf, vf, bt, kv, ql)
+    pa.paged_decode_attention(_fake(q[:, 0]), kf, vf, bt, kv)
+    assert calls == [tuple(q.shape), tuple(q.shape)]
+
+
+def test_per_call_parity_raises_on_a_planted_difference(plain_launch):
+    """A launch 1e-3 of max-abs off the plain version fails the hold
+    (``PER_CALL_TOL``), and the launch is restored all the same; with
+    ``hold=False`` the same difference is recorded, not raised."""
+    args = _launch_args("fp8")
+    fake = pa._launch
+    ref = pa.ragged_paged_attention_ref(*args)
+    plain_launch["planted"] = 1e-3 * float(ref.abs().max())
+    with pytest.raises(AssertionError, match="inside the engine"):
+        with chip_smoke.per_call_parity(pa, chip_smoke.PER_CALL_TOL):
+            pa._launch(*args)
+    assert pa._launch is fake
+    with chip_smoke.per_call_parity(pa, chip_smoke.PER_CALL_TOL,
+                                    hold=False) as rec:
+        pa._launch(*args)
+        pa._launch(*args)
+    assert rec["calls"] == 2 and not rec["held"]
+    assert 0.9e-3 < rec["max_rel_err"] < 1.1e-3
+    plain_launch["planted"] = float("nan")
+    with chip_smoke.per_call_parity(pa, chip_smoke.PER_CALL_TOL,
+                                    hold=False) as rec:
+        pa._launch(*args)
+    assert rec["max_rel_err"] != rec["max_rel_err"]     # NaN recorded
