@@ -115,19 +115,55 @@ exits non-zero:
 4. ``serve``   — ``ServingEngine(gpt2_small(), device="cuda")`` with
    bf16 weights and KV, random weights from seed 0, serving 16
    requests (prompts of 32-480 tokens, 32-128 new tokens, 12 greedy and
-   4 at temperature 0.8, two sharing a 64-token prefix). Every request
-   must finish, the page pool must verify, and the kernel's launch
-   count must equal layers x forward passes, every one on the split-KV
-   design.
+   4 at temperature 0.8, two sharing a 64-token prefix) on 3 fresh
+   engines, each capturing its programs as CUDA graphs in its
+   constructor before its clock starts: the median tokens/s, TTFT p50
+   and p99 and wall time with their [min, max] (``<key>_spread``),
+   ``capture_s``, ``graph_captures`` and ``graph_replays``. Every run:
+   every request must finish, the page pool must verify, the kernel's
+   launch count (each graph adds the launches it recorded at capture at
+   every replay) must equal layers x forward passes, every one on the
+   split-KV design; the three runs' tokens and counters equal.
    ``serve_int8``, ``serve_fp8`` — the same with int8 / fp8 KV pools
-   (bf16 weights), ``serve_w8`` with int8 weights and fp8 KV: the
+   (bf16 weights), ``serve_w8`` with int8 weights and fp8 KV (fp8 and w8
+   on 2 engines each, to keep the script within its time: the median is
+   the two readings' mean, the spread both readings): the
    quantized kernel launched layers x forward passes, every one on the
    split-KV design over int8 and fp8 codes, and the float one never; the
-   int8 pool
-   under 0.56 of the bf16 pool's bytes and the fp8
-   pool equal to the int8 pool (scales included).
+   int8 pool under 0.56 of the bf16 pool's bytes and the fp8 pool equal
+   to the int8 pool (scales included).
+   Each serve phase's first engine then replays each of its graphs once
+   under ``torch.profiler`` (``check_replay_kernels``): the ragged
+   kernels traced inside the replay — split and merge — must equal the
+   launches the graph recorded at its capture, the counts every replay
+   adds and the launch checks above read (a replay whose trace lost
+   records is traced again, up to 3 times).
+   ``serve_graphs`` — captured against eager (``_capture=False``)
+   engines on the same requests at serve's bf16 weights, per phase over
+   bf16, int8 and fp8 pools and ``mixed_step=True`` over bf16 and int8
+   pools, logging every token's logits: greedy and sampled tokens
+   identical and every launch counter equal (held), the logits' max-abs
+   difference recorded (0 expected: the same kernels in the same
+   order); then the requests again on the captured engine:
+   ``graph_captures`` unchanged.
+   ``serve_mixed`` — ``mixed_step=True`` at serve's configuration over
+   bf16 and int8 pools: exactly one mixed graph (beside the page
+   copy's), ragged launches = layers x mixed steps, all on the split-KV
+   design, its replays' kernels traced as above, ``mixed_steps`` > 0
+   and fewer dispatches than the per-phase engine; the median tokens/s
+   and TTFT over 3 fresh engines. Tokens held against the per-phase
+   captured engine up to the first step whose top-2 margin is below
+   1e-3 with float32 weights over the same pools (``parity``'s rule;
+   the mixed program multiplies other shapes, so logits move by float32
+   rounding); at bf16 weights, against ``serve_graphs``' logged
+   engines, the same comparison is recorded with the per-phase margin
+   at the first differing token in bf16 steps of the top logit (a bf16
+   logit moves by a bf16 step), not held: there the mixed program is
+   held to its eager run in ``serve_graphs``.
 5. ``parity``  — the same model in float32, four greedy requests, with
-   the kernel and with the plain version. Inside the kernel engine every
+   the kernel and with the plain version, both engines eager
+   (``_capture=False``: the per-call hold wraps ``pa._launch``, which a
+   graph's replay does not call). Inside the kernel engine every
    launch is also run through the plain version on its own inputs and
    held within 1e-5 of max-abs (as many checks as launches counted; the
    plain version's time inside the engine on a line of its own,
@@ -219,6 +255,7 @@ logits), recorded and not held.
 """
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -262,12 +299,16 @@ TIMING_REPS = 5
 
 
 class Ms(float):
-    """A time in ms: the median of ``TIMING_REPS`` repeats, with the
-    ``(min, max)`` of the repeats as ``spread``."""
+    """A reading over repeats (a kernel's ms over ``TIMING_REPS`` loops; a
+    serve phase's tokens/s, TTFT and seconds over its engines): the
+    median (the mean of the two middle ones of an even count, so of two
+    engines their mean), with the ``(min, max)`` of the repeats as
+    ``spread``."""
 
     def __new__(cls, times):
         times = sorted(times)
-        x = float.__new__(cls, times[len(times) // 2])
+        n = len(times)
+        x = float.__new__(cls, (times[(n - 1) // 2] + times[n // 2]) / 2)
         x.spread = (times[0], times[-1])
         return x
 
@@ -1460,82 +1501,205 @@ def serve_traffic(vocab):
     return reqs
 
 
-def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
-    """The serving engine at GPT-2 small's widths on ``serve_traffic``.
-    Over a float pool every attention launches the float kernel, over an
-    int8/fp8 pool the quantized one: one a layer and forward pass, each
-    on the split-KV design of its pool kind, and none of the other
-    kind."""
+SERVE_KW = dict(num_slots=8, page_size=PS, prefill_chunk=CHUNK,
+                max_seq_len=1024)
+SERVE_REPEATS = 3         # fresh engines a timed serve phase runs
+
+
+def serve_model():
+    """GPT-2 small with random weights from seed 0 on the card, after a
+    warm-up serve on a throwaway engine (cuBLAS handles, allocator
+    pools, the kernels' libraries)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference.serving import ServingEngine
-    from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.models.gpt import gpt2_small, init_params
 
     cfg = gpt2_small()
-    dev = torch.device("cuda")
-    params = init_params(cfg, seed=0, device=dev)
-    kw = dict(device=dev, num_slots=8, page_size=PS, prefill_chunk=CHUNK,
-              max_seq_len=1024, weight_dtype=weight_dtype,
-              kv_dtype=kv_dtype)
-    # warm-up on a throwaway engine: cuBLAS handles, allocator pools
-    warm = ServingEngine(cfg, params, **dict(kw, num_slots=1,
-                                             max_seq_len=64))
+    params = init_params(cfg, seed=0, device=torch.device("cuda"))
+    warm = ServingEngine(cfg, params, device="cuda",
+                         **dict(SERVE_KW, num_slots=1, max_seq_len=64))
     warm.add_request(np.arange(40) % cfg.vocab_size, 8)
     warm.run()
     del warm
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(cfg, params, **kw)
-    del params
-    reqs = serve_traffic(cfg.vocab_size)
+    return cfg, params
+
+
+def serve_run(cfg, params, reqs, name, **kw):
+    """One fresh engine (captured in its constructor, before the clock
+    starts) serving ``reqs``, the launch counters zeroed just before the
+    run. Checks that every request finished with its tokens in range and
+    that the page pool verifies. Returns (engine, uids, completions, wall
+    seconds, counters)."""
+    import torch
+    from paddle_tpu_torch.inference.graphs import COUNTERS
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    eng = ServingEngine(cfg, params, device="cuda", **dict(SERVE_KW, **kw))
     uids = [eng.add_request(**r) for r in reqs]
     pa.reset_launches()
     t0 = time.perf_counter()
     done = eng.run(max_steps=20000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    quant = eng.kv.quantized
-    launches, other = ((pa.quant_launches, pa.launches) if quant
-                       else (pa.launches, pa.quant_launches))
-    split, qsplit = pa.split_launches, pa.quant_split_launches
+    counts = {c: getattr(mod, c) for mod, names in COUNTERS for c in names}
     if sorted(done) != sorted(uids):
-        raise AssertionError("not every request completed")
+        raise AssertionError(f"{name}: not every request completed")
     for u, r in zip(uids, reqs):
         c = done[u]
         if c.finish_reason not in ("length", "eos"):
-            raise AssertionError(f"request {u} finished {c.finish_reason}")
+            raise AssertionError(f"{name}: request {u} finished "
+                                 f"{c.finish_reason}")
         if c.finish_reason == "length" and \
                 len(c.tokens) != r["max_new_tokens"]:
-            raise AssertionError(f"request {u}: {len(c.tokens)} tokens")
+            raise AssertionError(f"{name}: request {u}: {len(c.tokens)} "
+                                 "tokens")
         if not all(0 <= t < cfg.vocab_size for t in c.tokens):
-            raise AssertionError(f"request {u}: token out of range")
+            raise AssertionError(f"{name}: request {u}: token out of range")
     eng.kv.verify()
-    st = eng.stats
-    forwards = st["prefill_chunks"] + st["decode_steps"]
-    if not (launches > 0 and launches == cfg.num_layers * forwards
-            and other == 0):
+    return eng, uids, done, wall, counts
+
+
+def check_launches(name, eng, counts, forwards, layers, kv_dtype):
+    """One ragged launch a layer and forward pass, on the kernel of the
+    pool's kind, every one on its split-KV design where it is routed
+    there, and none of the other kind. Returns the launches."""
+    quant = eng.kv.quantized
+    launches, other = ((counts["quant_launches"], counts["launches"])
+                       if quant else
+                       (counts["launches"], counts["quant_launches"]))
+    if not (launches > 0 and launches == layers * forwards and other == 0):
         raise AssertionError(
-            f"{name}: kernel launches {launches} != {cfg.num_layers} "
-            f"layers x {forwards} forward passes, or {other} launches of "
-            "the other pool kind")
-    # every launch on the split-KV design of its pool kind where it is
-    # routed there
+            f"{name}: kernel launches {launches} != {layers} layers x "
+            f"{forwards} forward passes, or {other} launches of the other "
+            "pool kind")
     want = (0, launches * (kv_dtype in SPLIT_CODES)) if quant else \
         (launches, 0)
-    if (split, qsplit) != want:
-        raise AssertionError(f"{name}: {split} float and {qsplit} "
+    got = (counts["split_launches"], counts["quant_split_launches"])
+    if got != want:
+        raise AssertionError(f"{name}: {got[0]} float and {got[1]} "
                              f"quantized split-KV launches of {launches}")
-    if st["prefix_hits"] < 64 // PS:
-        raise AssertionError("the shared prefix was not served from cache")
-    ttft = np.array([done[u].ttft_s for u in uids])
-    return {"phase": name, "kv_dtype": eng.kv.kv_dtype,
-            "weight_dtype": weight_dtype, "requests": len(uids),
-            "tokens_generated": st["tokens_emitted"],
-            "wall_s": wall,
-            "tokens_per_s": st["tokens_emitted"] / wall,
-            "ttft_p50_s": float(np.percentile(ttft, 50)),
-            "ttft_p99_s": float(np.percentile(ttft, 99)),
+    return launches
+
+
+# the ragged kernels as the profiler names them: the first design, the
+# split-KV design's split and merge kernels
+RAGGED_KERNELS = {"first": "ragged_paged_attention_kernel",
+                  "split": "ragged_paged_attention_split_kernel",
+                  "merge": "ragged_paged_attention_merge_kernel"}
+REPLAY_TRACES = 3          # traces of one replay before a mismatch fails
+
+
+def check_replay_kernels(eng, name):
+    """One replay of each captured program of ``eng`` (done serving) at
+    its idle state (``eng._idle_host``) under ``torch.profiler``: the
+    ragged kernels the replay ran, as the profiler traced them, must
+    equal the launches the graph recorded at its capture (``GraphProgram.deltas``), which every
+    replay adds to the wrappers' counters and the launch checks read. A
+    split launch is one split kernel and, where ``split_plan`` cuts the
+    extent in more than one split, one merge kernel. The profiler can
+    lose kernel records (on an H100 one replay traced 6 of its 12 split
+    kernels, where 38 other traces of the same program in another run
+    traced all 12): a program whose trace differs is traced again, up to
+    ``REPLAY_TRACES`` times, and the last trace must match. Returns the
+    traced counts by program, with the traces it took and the readings
+    that differed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    S, C = eng.num_slots, eng.prefill_chunk
+    shape = (eng.cfg.num_heads, eng.page_size, eng.pages_per_slot)
+    out = {}
+    torch.cuda.synchronize()
+    for key, prog in eng._progs.items():
+        launches, split, qlaunches, qsplit = prog.deltas
+        rows = {"copy_page": None, "prefill": (1, C),
+                "mixed": (S, C)}.get(key, (S, 1))
+        nsplit = 1 if rows is None else pa.split_plan(*rows, *shape)[1]
+        want = {"first": launches + qlaunches - split - qsplit,
+                "split": split + qsplit,
+                "merge": (split + qsplit) * (nsplit > 1)}
+        short = []
+        for _ in range(REPLAY_TRACES):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prog.replay(*eng._idle_host(key))
+                torch.cuda.synchronize()
+            got = dict.fromkeys(want, 0)
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    for kind, kname in RAGGED_KERNELS.items():
+                        got[kind] += kname in e.name
+            if got == want:
+                break
+            short.append(got)
+        if got != want:
+            raise AssertionError(f"{name}: one replay of {key!r} traced "
+                                 f"ragged kernels {short}, its capture "
+                                 f"recorded {want}")
+        out[str(key)] = dict(got, traces=len(short) + 1, differed=short)
+    return out
+
+
+def run_serve_phase(model, name="serve", kv_dtype="bf16",
+                    weight_dtype="bf16", repeats=SERVE_REPEATS):
+    """The serving engine at GPT-2 small's widths on ``serve_traffic``,
+    on ``repeats`` fresh engines, each captured (CUDA graphs) before its
+    clock starts: the median tokens/s and TTFT with their [min, max].
+    Every run: launches = layers x forward passes, every launch on the
+    split-KV design of its pool kind, the shared prefix served from the
+    cache, the pool verified; the runs' counters equal (the schedule does
+    not depend on the clock). The first engine's graphs then replay
+    under the profiler (``check_replay_kernels``)."""
+    import numpy as np
+    import torch
+
+    cfg, params = model
+    reqs = serve_traffic(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    runs, tokens = [], None
+    for _ in range(repeats):
+        eng, uids, done, wall, counts = serve_run(
+            cfg, params, reqs, name, weight_dtype=weight_dtype,
+            kv_dtype=kv_dtype)
+        st = dict(eng.stats)
+        forwards = st["prefill_chunks"] + st["decode_steps"]
+        launches = check_launches(name, eng, counts, forwards,
+                                  cfg.num_layers, kv_dtype)
+        if st["prefix_hits"] < 64 // PS:
+            raise AssertionError("the shared prefix was not served from "
+                                 "cache")
+        if st["graph_captures"] != 1 + len(eng.decode_block_buckets) + 1:
+            raise AssertionError(f"{name}: {st['graph_captures']} graphs "
+                                 "captured")
+        toks = [done[u].tokens for u in uids]
+        if runs and (toks != tokens or st != runs[0]["stats"]
+                     or counts != runs[0]["counts"]):
+            raise AssertionError(f"{name}: the repeats served differently")
+        tokens = toks
+        ttft = np.array([done[u].ttft_s for u in uids])
+        runs.append({"wall_s": wall, "stats": st, "counts": counts,
+                     "tokens_per_s": st["tokens_emitted"] / wall,
+                     "ttft_p50_s": float(np.percentile(ttft, 50)),
+                     "ttft_p99_s": float(np.percentile(ttft, 99)),
+                     "capture_s": eng.capture_seconds,
+                     "pool_bytes": eng.kv.pool_bytes()})
+        if len(runs) == 1:
+            traced = check_replay_kernels(eng, name)
+        del eng
+    st = runs[0]["stats"]
+    med = {k: Ms([r[k] for r in runs]) for k in (
+        "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "wall_s", "capture_s")}
+    return {"phase": name, "kv_dtype": kv_dtype,
+            "weight_dtype": weight_dtype, "requests": len(reqs),
+            "repeats": repeats, "engine": "captured",
+            "tokens_generated": st["tokens_emitted"], **med,
+            "graph_captures": st["graph_captures"],
+            "graph_replays": st["graph_replays"],
             "dispatches": st["dispatches"],
             "prefill_chunks": st["prefill_chunks"],
             "decode_steps": st["decode_steps"],
@@ -1544,12 +1708,239 @@ def run_serve_phase(name="serve", kv_dtype="bf16", weight_dtype="bf16"):
             "prefix_hits": st["prefix_hits"],
             "cow_copies": st["cow_copies"],
             "kernel_launches": launches,
-            "split_kv_launches": split,
-            "quant_split_kv_launches": qsplit,
+            "replay_kernels_traced": traced,
+            "split_kv_launches": runs[0]["counts"]["split_launches"],
+            "quant_split_kv_launches":
+                runs[0]["counts"]["quant_split_launches"],
             "launches_per_forward": launches / forwards,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "pool_bytes": eng.kv.pool_bytes(),
-            "kv_verify": True, "gpu": smi()}, launches
+            "pool_bytes": runs[0]["pool_bytes"],
+            "kv_verify": True, "gpu": smi()}, launches, tokens
+
+
+def max_logit_err(a, b):
+    """Max-abs difference of two engines' logged logits, uid by uid."""
+    return max(float((x - y).abs().max()) for u in a
+               for x, y in zip(a[u], b[u]))
+
+
+def run_serve_graphs_phase(model):
+    """Captured against eager (``_capture=False``) engines on
+    ``serve_traffic`` at serve's configuration (bf16 weights), per phase
+    over bf16, int8 and fp8 pools and ``mixed_step=True`` over bf16 and
+    int8 pools, both logging every token's logits: greedy and sampled
+    tokens identical, every launch counter equal; the logits' max-abs
+    difference recorded (0 expected: the same kernels in the same
+    order). Then the traffic again on the captured engine:
+    ``graph_captures`` unchanged. Returns the record and the captured
+    bf16 and int8 engines' tokens, logits and stats, keyed by pool kind
+    (``mixed_<kind>`` for the mixed ones)."""
+    cfg, params = model
+    reqs = serve_traffic(cfg.vocab_size)
+    out, logged = {"phase": "serve_graphs"}, {}
+    for kd, mixed in (("bf16", False), ("int8", False), ("fp8", False),
+                      ("bf16", True), ("int8", True)):
+        key = f"mixed_{kd}" if mixed else kd
+        runs = {}
+        for capture in (True, False):
+            name = f"serve_graphs {key} {'captured' if capture else 'eager'}"
+            eng, uids, done, wall, counts = serve_run(
+                cfg, params, reqs, name, kv_dtype=kd, weight_dtype="bf16",
+                mixed_step=mixed, record_logits=True, _capture=capture)
+            st = dict(eng.stats)
+            runs[capture] = ([done[u].tokens for u in uids],
+                             {i: eng.logit_log[u]
+                              for i, u in enumerate(uids)},
+                             counts, st, wall)
+            if capture:
+                n = st["graph_captures"]
+                serve_run_again(eng, reqs, f"{name}, second run")
+                if eng.stats["graph_captures"] != n:
+                    raise AssertionError(f"{name}: {n} graphs captured, "
+                                         f"{eng.stats['graph_captures']} "
+                                         "after a second run")
+                second = eng.stats["graph_replays"] - st["graph_replays"]
+            del eng
+        (tc, lc, cc, sc, wc), (te, le, ce, se, we) = runs[True], runs[False]
+        if tc != te:
+            raise AssertionError(f"serve_graphs {key}: captured and eager "
+                                 "tokens differ")
+        if cc != ce:
+            raise AssertionError(f"serve_graphs {key}: launch counters "
+                                 f"{cc} captured, {ce} eager")
+        if mixed and not (sc["mixed_steps"] > 0 and sc["graph_captures"] == 2
+                          and se["mixed_steps"] == sc["mixed_steps"]):
+            raise AssertionError(f"serve_graphs {key}: {sc['mixed_steps']} "
+                                 f"mixed steps, {sc['graph_captures']} "
+                                 "graphs")
+        out[key] = {"tokens_identical": True, "requests": len(reqs),
+                    "sampled_requests": sum(r["temperature"] > 0
+                                            for r in reqs),
+                    "tokens": sc["tokens_emitted"],
+                    "max_logit_abs_diff": max_logit_err(lc, le),
+                    "counters_equal": True, "launches": cc,
+                    "dispatches": sc["dispatches"],
+                    "graph_captures": sc["graph_captures"],
+                    "graph_replays": sc["graph_replays"],
+                    "graph_replays_second_run": second,
+                    "captures_after_second_run": sc["graph_captures"],
+                    "wall_s_captured_logged": wc, "wall_s_eager_logged": we}
+        if kd != "fp8":
+            logged[key] = (tc, lc, sc)
+    return out, logged
+
+
+def serve_run_again(eng, reqs, name):
+    """``reqs`` once more on ``eng``: every request finishes, the pool
+    verifies."""
+    uids = [eng.add_request(**r) for r in reqs]
+    done = eng.run(max_steps=20000)
+    if sorted(done) != sorted(uids):
+        raise AssertionError(f"{name}: not every request completed")
+    eng.kv.verify()
+
+
+def tokens_until_tie(a_tokens, b_tokens, b_logits, tol):
+    """Per request, the tokens of ``a`` against ``b`` up to the first step
+    whose ``b`` top-2 margin is below ``tol`` (``run_parity_phase``'s
+    rule). Returns (steps compared, the first differing (request, step) or
+    None)."""
+    import torch
+    steps, differs = 0, None
+    for r, (ta, tb) in enumerate(zip(a_tokens, b_tokens)):
+        for i, lg in enumerate(b_logits[r]):
+            if i >= min(len(ta), len(tb)):
+                break
+            top2 = torch.topk(lg, 2).values
+            if float(top2[0] - top2[1]) < tol:
+                break
+            steps += 1
+            if ta[i] != tb[i]:
+                differs = differs or (r, i)
+                break
+    return steps, differs
+
+
+def bf16_step(x):
+    """The spacing of bfloat16 values at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def run_serve_mixed_phase(model, logged, serve_tokens):
+    """``mixed_step=True`` at serve's configuration on ``serve_traffic``,
+    over bf16 and int8 pools (bf16 weights), each on ``SERVE_REPEATS``
+    fresh captured engines: exactly one mixed graph (and the page copy's),
+    ragged launches = layers x mixed steps, all on the split-KV design,
+    the first engine's replays traced (``check_replay_kernels``),
+    ``mixed_steps`` > 0 and the dispatches strictly below the per-phase
+    engine's; median tokens/s and TTFT with [min, max]. Tokens: held
+    against the per-phase captured engine up to the first step whose top-2
+    margin is below ``PARITY_TOL`` with float32 weights over the same
+    pools (``parity``'s rule), where a GEMM's other shape moves a logit by
+    float32 rounding; at serve's bf16 weights the same comparison of
+    ``serve_graphs``' logged engines is recorded, with the per-phase
+    margin at the first differing token in bf16 steps of its top logit,
+    not held (a bf16 logit moves by a bf16 step; ``serve_graphs`` holds
+    the mixed program there to its eager run)."""
+    import numpy as np
+    import torch
+
+    cfg, params = model
+    reqs = serve_traffic(cfg.vocab_size)
+    out = {"phase": "serve_mixed"}
+    for kd in ("bf16", "int8"):
+        rec, runs = {}, []
+        # held: float32 weights over the same pools, per-phase and
+        # mixed, both captured
+        held = {}
+        for mixed in (False, True):
+            eng, uids, done, _, counts = serve_run(
+                cfg, params, reqs, f"serve_mixed {kd} f32", kv_dtype=kd,
+                weight_dtype=None, mixed_step=mixed, record_logits=True)
+            held[mixed] = ([done[u].tokens for u in uids],
+                           [eng.logit_log[u] for u in uids])
+            del eng
+        steps, differs = tokens_until_tie(held[True][0], held[False][0],
+                                          held[False][1], PARITY_TOL)
+        if differs:
+            raise AssertionError(f"serve_mixed {kd} f32: request "
+                                 f"{differs[0]} token {differs[1]} differs "
+                                 "from the per-phase engine's")
+        rec["f32_weights"] = {
+            "kv_dtype": kd, "steps_compared": steps,
+            "tokens_identical": held[True][0] == held[False][0],
+            "max_logit_abs_err": max(
+                float((x - y).abs().max()) for a, b in zip(held[True][1],
+                                                          held[False][1])
+                for x, y in zip(a, b)),
+            "tol": PARITY_TOL}
+        del held
+        # serve's configuration: the logged engines of serve_graphs
+        phase_tokens, phase_logits, phase_stats = logged[kd]
+        mixed_tokens, _, _ = logged[f"mixed_{kd}"]
+        n = len(phase_tokens)
+        steps, differs = tokens_until_tie(
+            mixed_tokens, phase_tokens,
+            [phase_logits[r] for r in range(n)], PARITY_TOL)
+        recorded = {"steps_compared": steps, "first_differs": differs,
+                    "tokens_identical": mixed_tokens == phase_tokens,
+                    "identical_to_serve": mixed_tokens == serve_tokens[kd]}
+        if differs:
+            top2 = torch.topk(phase_logits[differs[0]][differs[1]], 2).values
+            margin = float(top2[0] - top2[1])
+            recorded.update({"margin_at_first_differs": margin,
+                             "margin_in_bf16_steps":
+                                 margin / bf16_step(float(top2[0]))})
+        rec["bf16_weights_recorded"] = recorded
+        for i in range(SERVE_REPEATS):
+            eng, uids, done, wall, counts = serve_run(
+                cfg, params, reqs, f"serve_mixed {kd}", kv_dtype=kd,
+                weight_dtype="bf16", mixed_step=True)
+            st = dict(eng.stats)
+            if st["mixed_steps"] <= 0:
+                raise AssertionError(f"serve_mixed {kd}: no mixed step")
+            if list(eng._progs) != ["copy_page", "mixed"] or \
+                    st["graph_captures"] != 2:
+                raise AssertionError(f"serve_mixed {kd}: graphs "
+                                     f"{list(eng._progs)}")
+            launches = check_launches(f"serve_mixed {kd}", eng, counts,
+                                      st["mixed_steps"], cfg.num_layers, kd)
+            if not st["dispatches"] < phase_stats["dispatches"]:
+                raise AssertionError(
+                    f"serve_mixed {kd}: {st['dispatches']} dispatches, the "
+                    f"per-phase engine {phase_stats['dispatches']}")
+            if [done[u].tokens for u in uids] != mixed_tokens:
+                raise AssertionError(f"serve_mixed {kd}: the repeats served "
+                                     "differently")
+            if i == 0:
+                rec["replay_kernels_traced"] = check_replay_kernels(
+                    eng, f"serve_mixed {kd}")
+            ttft = np.array([done[u].ttft_s for u in uids])
+            runs.append({"wall_s": wall,
+                         "tokens_per_s": st["tokens_emitted"] / wall,
+                         "ttft_p50_s": float(np.percentile(ttft, 50)),
+                         "ttft_p99_s": float(np.percentile(ttft, 99)),
+                         "capture_s": eng.capture_seconds})
+            del eng
+        rec.update({k: Ms([r[k] for r in runs]) for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "wall_s",
+            "capture_s")})
+        rec.update({"timed_repeats": len(runs),
+                    "tokens_generated": st["tokens_emitted"],
+                    "mixed_steps": st["mixed_steps"],
+                    "dispatches": st["dispatches"],
+                    "per_phase_dispatches": phase_stats["dispatches"],
+                    "prefill_chunks": st["prefill_chunks"],
+                    "graph_captures": st["graph_captures"],
+                    "graph_replays": st["graph_replays"],
+                    "kernel_launches": launches,
+                    "split_kv_launches": counts["split_launches"],
+                    "quant_split_kv_launches":
+                        counts["quant_split_launches"]})
+        out[kd] = rec
+        torch.cuda.empty_cache()
+    out["gpu"] = smi()
+    return out
 
 
 def check_quant_pools(serve, q8, f8):
@@ -1593,10 +1984,12 @@ def run_parity_phase(kv_dtype=None, seed=1, design=None, check=True):
             for n in rng.integers(40, 201, 4)]
     runs, absmax = {}, {}
     for attention in ("auto", "torch"):
+        # eager dispatch: the per-call hold wraps ``pa._launch``, which a
+        # graph's replay never calls
         eng = ServingEngine(cfg, params, device=dev, attention=attention,
                             num_slots=4, page_size=PS, prefill_chunk=CHUNK,
                             max_seq_len=1024, record_logits=True,
-                            kv_dtype=kv_dtype)
+                            kv_dtype=kv_dtype, _capture=False)
         pa.reset_launches()
         uids = [eng.add_request(p, n) for p, n in reqs]
         hook = (per_call_parity(pa, PER_CALL_TOL, hold=check)
@@ -2404,15 +2797,20 @@ def main():
         "ragged_paged_attention_quant": qres, "flash_attention": fres,
         "flash_attention_fwd_host_us": fhost,
         "fused_ce": cres, "packed_flash": pres, "gpu": gpu}))
-    serve, launches = run_serve_phase()
-    emit(serve)
+    model = serve_model()
+    serve, launches, serve_tokens = run_serve_phase(model)
+    emit(with_spreads(serve))
     split_launches = serve["split_kv_launches"]
     quant_split = 0
     quant_serve, qlaunches = {}, {}
     for name, kd, wd in (("serve_int8", "int8", "bf16"),
                          ("serve_fp8", "fp8", "bf16"),
                          ("serve_w8", "fp8", "int8")):
-        r, qlaunches[name] = run_serve_phase(name, kd, wd)
+        # serve_fp8 and serve_w8 on 2 engines: the script's time limit
+        r, qlaunches[name], toks = run_serve_phase(
+            model, name, kd, wd, SERVE_REPEATS if kd == "int8" else 2)
+        if name == "serve_int8":
+            int8_tokens = toks
         r["pool_bytes_vs_bf16"] = r["pool_bytes"] / serve["pool_bytes"]
         r["tokens_per_s_vs_serve"] = r["tokens_per_s"] / serve["tokens_per_s"]
         quant_split += r["quant_split_kv_launches"]
@@ -2421,7 +2819,13 @@ def main():
     check_quant_pools(serve, quant_serve["serve_int8"],
                       quant_serve["serve_fp8"])
     for r in quant_serve.values():
-        emit(r)
+        emit(with_spreads(r))
+    graphs, logged = run_serve_graphs_phase(model)
+    emit(graphs)
+    emit(with_spreads(run_serve_mixed_phase(
+        model, logged, {"bf16": serve_tokens, "int8": int8_tokens})))
+    del model, logged
+    torch.cuda.empty_cache()
     parity = run_parity_phase()
     emit(parity)
     emit(run_parity_quant_phase(parity))

@@ -9,14 +9,16 @@
 - :func:`_build_serving_fns` — the serving programs: one chunked
   prefill chunk, one decode step over every slot, a fused block of
   ``K`` decode steps whose EOS and budget masks stay on the device, the
-  copy-on-write page copy and the first-token sample. Over a quantized
-  pool every write dequantizes the pages it touches, inserts the new
-  rows in float32 and requantizes them (the reference's
-  ``write_decode``/``write_prefill``).
+  mixed-step program (prefill chunks and decode rows of every slot in
+  one ragged dispatch), the copy-on-write page copy and the first-token
+  sample. Over a quantized pool every write dequantizes the pages it
+  touches, inserts the new rows in float32 and requantizes them (the
+  reference's ``write_decode``/``write_prefill``/``mixed_write``).
 - :class:`ServingEngine` — the continuous-batching loop: admission with
   prefix-cache planning and a bounded lookahead, decode-priority
-  chunked prefill, and the adaptive decode-block policy, ported verbatim
-  so that the port dispatches the same sequence of programs as the
+  chunked prefill and the adaptive decode-block policy, or with
+  ``mixed_step=True`` one mixed dispatch a step, ported verbatim so
+  that the port dispatches the same sequence of programs as the
   reference engine on the same traffic.
 
 Every attention — the decode step, each step of a fused block, and each
@@ -30,8 +32,14 @@ selects it. The attention returns q's dtype, as the reference's Pallas
 route does; the reference's gather route returns float32 over a
 quantized pool (ROADMAP C10).
 
-The pools are updated in place (``index_put_``/``copy_``) where the
-reference donated them to its jitted programs (``serving.py:1254``).
+The reference jits each program once, the pools donated
+(``serving.py:1250-1259``). On a CUDA device the engine captures each
+program it dispatches as a CUDA graph in its constructor
+(``inference/graphs.py``) and replays it at every dispatch; the pools,
+their scales and the weights keep their addresses for the engine's
+lifetime and are updated in place (``index_put_``/``copy_``). The
+first-token sample ends in a host read and stays eager. On the CPU,
+and with ``_capture=False``, every program runs eagerly.
 Sampling uses one ``torch.Generator`` per sampled slot, seeded with the
 request's seed, one Gumbel draw of ``[V]`` per emitted token: a
 request's draws do not depend on when it was admitted or who shares its
@@ -46,14 +54,15 @@ float32 at the entry of every dispatch — a prefill chunk, a decode step,
 or a fused decode block, once per block.
 
 Not ported yet (the constructor raises NotImplementedError): meshes,
-speculative decoding, the mixed-step executable, fault injection, the
-journal, tracing and the watchdog; nor the quantization gauges and the
-byte ledger. Priorities, deadlines, cancellation and preemption are not
+speculative decoding (so the mixed program has no verify rows), fault
+injection, the journal, tracing and the watchdog; nor the quantization
+gauges and the byte ledger. Priorities, deadlines, cancellation and preemption are not
 ported either: every request has priority 0, so the reference engine
 could not preempt on the same traffic.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import time
 from collections import OrderedDict, deque
@@ -73,6 +82,7 @@ from ..quantization.kv import (KV_QUANT_DTYPES, STORAGE, dequantize_per_page,
 from ..quantization.weights import (cast_params, dequantize_params,
                                     quantize_weights_int8)
 from . import sampler as _sampler
+from .graphs import EagerProgram, GraphProgram, GraphPool
 from .scheduler import SHED_POLICIES, QueueFullError, RequestQueue
 
 __all__ = ["PagedKVCache", "ServingEngine", "Request", "Completion",
@@ -101,20 +111,37 @@ def _span_pages(n, page_size):
     return (n - 2) // page_size + 2 if n >= 2 else 1
 
 
-def _requant_write(pool, scales, pages, rows, offs, new, quant):
+def _requant_write(pool, scales, pages, index, new, quant):
     """The quantized write (reference ``write_decode``/``write_prefill``,
     ``serving.py:788-827``): dequantize ``pool[pages]`` to float32,
-    insert ``new`` ``[N, NH, HD]`` at (``rows``, ``offs``) — row indices
-    into ``pages`` and in-page offsets — requantize every gathered page
-    to its new abs-max, and write codes and scales back in place. A
-    duplicated page in ``pages`` is the trash page only, where any copy
-    may win."""
+    insert ``new`` at ``index`` — a tuple of index tensors into the
+    gathered block's page axes and the in-page offset — requantize every
+    gathered page to its new abs-max, and write codes and scales back in
+    place. A duplicated page in ``pages`` is the trash page only, where
+    any copy may win."""
     x = dequantize_per_page(byte_view(pool)[pages].view(pool.dtype),
                             scales[pages])
-    x[rows, offs] = new.float()
+    x[index] = new.float()
     q, s = quantize_per_page(x, dtype=quant)
     byte_view(pool)[pages] = byte_view(q)
     scales[pages] = s
+
+
+def _emit_block(chain, n_emit, active, eos_ids, remaining):
+    """The mixed program's emit/EOS/budget scan (reference ``mask_body``,
+    ``serving.py:1226-1236``) in closed form: row ``j`` of slot ``s``
+    emits while the slot is active, ``j < n_emit[s]``, no earlier row
+    emitted its EOS id and the budget covers it. ``chain`` ``[S, QB]``
+    tokens; returns the ``(QB, S)`` token block and emit mask. A scan
+    of QB steps would launch QB times as many kernels for the same
+    values."""
+    j = torch.arange(chain.shape[1], device=chain.device)[None]
+    can = j < n_emit[:, None]
+    ok = can & (chain != eos_ids[:, None]) & (remaining[:, None] - j > 1)
+    # still active at row j: every earlier row emitted and stayed live
+    kept = torch.cat([torch.ones_like(ok[:, :1]), ok[:, :-1]], 1)
+    emit = active[:, None] & kept.to(torch.int32).cumprod(1).bool() & can
+    return chain.T, emit.T
 
 
 @dataclass
@@ -156,7 +183,6 @@ class _SlotState:
     toks: object = None         # [pf_end] padded prompt (np.int32)
     pf_base: int = 0            # next chunk start
     pf_end: int = 0             # padded prefill extent (exclusive)
-    bt_dev: object = None       # device copy of the slot's bt row (int32)
     logits: object = None       # last-chunk logits (first-token sample)
     cow_src: int = -1           # page to clone before the first chunk
     cow_dst: int = -1
@@ -364,7 +390,11 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
     pools, scales, state tensors) — the port of the reference's
     ``_build_serving_fns`` (``serving.py:690``). Weights are call
     arguments. The pools and scales are written in place (the reference
-    donated them); nothing else is mutated.
+    donated them); nothing else is mutated. Every program but
+    ``sample_first`` is a function of tensors only — no host read, no
+    shape that depends on the data — so a CUDA graph can capture it
+    (``inference/graphs.py``). The mixed-step program's query block is
+    the chunk width, ``QB = C`` (the reference's ``max(C, 1)``).
 
     ``quant`` is the quantized-pool format (``"int8"``/``"fp8"``, falsy
     = off): every program takes the per-layer scale lists next to the
@@ -411,7 +441,7 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         if not quant:
             kp[page, off] = knew.to(kp.dtype)
             return
-        _requant_write(kp, ks, page, rows, off, knew, quant)
+        _requant_write(kp, ks, page, (rows, off), knew, quant)
 
     def write_prefill(kp, ks, bt_row, pos, page, off, knew):
         """A contiguous C-position chunk into one slot's pages: pos [C]
@@ -427,7 +457,7 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         pages_r = torch.where(rr <= pos[C - 1] // PS,
                               bt_row[rr.clamp(max=MP - 1)].long(), 0)
         rloc = (pos // PS - row0).clamp(0, R - 1)
-        _requant_write(kp, ks, pages_r, rloc, off, knew, quant)
+        _requant_write(kp, ks, pages_r, (rloc, off), knew, quant)
 
     def step_core(params, kpools, vpools, kscales, vscales, bt, lengths,
                   tokens, active, temps, noise):
@@ -479,8 +509,8 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         fall to the trash page. No host synchronisation inside the
         block; the weights are widened once for the block. ``noise`` is
         ``[K, S, V]`` or None. Returns the ``(K, S)`` token block, the
-        ``(K, S)`` emit mask, and the per-step f32 logits when
-        ``collect_logits``."""
+        ``(K, S)`` emit mask, and the ``[K, S, V]`` f32 logits when
+        ``collect_logits`` (else None)."""
         params = prep(params)
         toks, emits, lgs = [], [], []
         for i in range(K):
@@ -497,7 +527,8 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             emits.append(emit)
             if collect_logits:
                 lgs.append(lg32)
-        return torch.stack(toks), torch.stack(emits), lgs
+        return (torch.stack(toks), torch.stack(emits),
+                torch.stack(lgs) if collect_logits else None)
 
     def prefill_chunk_fn(params, kpools, vpools, kscales, vscales, bt_row,
                          base, tok_chunk, last_idx):
@@ -509,14 +540,17 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         and returns the logits at chunk-local position ``last_idx``.
         Attention is the ragged kernel's ``q_len = C`` row with
         ``kv_len = base + C``: row j attends positions ``<= base + j``,
-        the causal limit of the reference's gather."""
+        the causal limit of the reference's gather. ``base`` and
+        ``last_idx`` are 0-d int64 tensors (or ints)."""
         params = prep(params)
         wte, wpe = params["wte"], params["wpe"]
+        base = torch.as_tensor(base, device=dev)
+        last_idx = torch.as_tensor(last_idx, device=dev)
         pos = base + chunk_pos
         x = wte[tok_chunk] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
         page = bt_row[(pos // PS).clamp(max=MP - 1)].long()
         off = pos % PS
-        kv_len = torch.full((1,), base + C, dtype=torch.int32, device=dev)
+        kv_len = (base + C).to(torch.int32).reshape(1)
         bt1 = bt_row[None]
         for li, lay in enumerate(params["layers"]):
             h = core.ln(x, *lay["ln1"])
@@ -530,13 +564,18 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
                        v_scale=vs)[0]
             x = core.attn_out(lay, x, o.reshape(C, H))
             x = core.mlp_tail(lay, x)
-        return core.ln(x[last_idx], *params["lnf"]) @ wte.T
+        last = x.index_select(0, last_idx.reshape(1))[0]
+        return core.ln(last, *params["lnf"]) @ wte.T
 
     def copy_page_fn(kpools, vpools, kscales, vscales, src, dst):
         """Copy-on-write helper: clone page ``src`` into ``dst`` in
-        every layer's K/V pool, and its scale rows under quantization."""
+        every layer's K/V pool, and its scale rows under quantization.
+        ``src``/``dst`` are 0-d int64 tensors (or ints)."""
+        src = torch.as_tensor(src, device=dev).reshape(1)
+        dst = torch.as_tensor(dst, device=dev).reshape(1)
         for t in (*kpools, *vpools, *kscales, *vscales):
-            t[dst].copy_(t[src])
+            b = byte_view(t)
+            b.index_copy_(0, dst, b.index_select(0, src))
 
     def sample_first(logits, temp, generator):
         """The first generated token from the prefill logits; a sampled
@@ -547,9 +586,92 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             noise = _sampler.gumbel_noise(lg.shape, generator, lg.device)
         return int(_sampler.sample_token(lg, float(temp), noise))
 
+    QB = C
+    RM = _span_pages(QB, PS)   # pages QB contiguous rows can span
+    qb_rows = torch.arange(QB, device=dev)
+    span_m = torch.arange(RM, device=dev)
+    trash = torch.zeros(S, 1, dtype=torch.int64, device=dev)
+
+    def mixed_write(kp, ks, page, off, pages_r, rloc, rowlive, knew):
+        """QB contiguous positions a slot (reference ``mixed_write``,
+        ``serving.py:1108``): page/off ``[S, QB]``, dead rows on the
+        trash page. The quantized write gathers each slot's spanned
+        pages once (rows past the span on the trash page, so the set
+        holds no other duplicate) and one more, the trash page: the
+        reference drops padding rows from the insert (their clipped
+        span row may alias a live page's), here they land in that
+        scratch row, so the write keeps one shape."""
+        if not quant:
+            kp[page, off] = knew.to(kp.dtype)
+            return
+        pages_x = torch.cat([pages_r, trash], 1)
+        rloc_x = torch.where(rowlive, rloc, RM)
+        _requant_write(kp, ks, pages_x, (rows[:, None], rloc_x, off),
+                       knew, quant)
+
+    def mixed_step_fn(params, kpools, vpools, kscales, vscales, bt,
+                      kind, q_lens, start, tokens_q, last_idx, active,
+                      temps, eos_ids, remaining, noise):
+        """ONE dispatch for whatever work exists (reference
+        ``mixed_step_fn``, ``serving.py:1130``, without verify rows):
+        per-slot rows of kind 0 = idle, 1 = decode (``q_len`` 1), 2 =
+        prefill chunk (``q_len`` C); ``start[s]`` is the pool
+        position of the slot's first query row. K/V of every live
+        row is span-written, one ragged launch a layer attends all
+        rows, decode rows sample one token (``noise`` ``[S, V]``
+        Gumbel noise, zero for greedy rows), prefill rows surface the
+        logits at ``last_idx``. ``bt`` [S, MP] int32, ``kind`` and
+        ``q_lens`` [S] int32, ``start``, ``last_idx``, ``eos_ids``,
+        ``remaining`` [S] int64, ``tokens_q`` [S, QB] int64,
+        ``active`` [S] bool, ``temps`` [S] f32. Returns the ``(QB,
+        S)`` token block and emit mask, the prefill rows' f32 logits
+        ``[S, V]`` and the decode rows' ``[S, V]``. Only rows 0 and
+        ``last_idx`` of a slot are read, so the head runs on those
+        two rows alone (the reference forms ``[S, QB, V]``)."""
+        params = prep(params)
+        wte, wpe = params["wte"], params["wpe"]
+        live = kind > 0
+        jj = qb_rows[None]
+        pos = (start[:, None] + jj).clamp(max=T - 1)        # [S, QB]
+        rowlive = live[:, None] & (jj < q_lens[:, None])
+        sidx = rows[:, None]
+        page = torch.where(rowlive, bt[sidx, pos // PS].long(), 0)
+        off = torch.where(rowlive, pos % PS, 0)
+        row0 = start // PS
+        rr = row0[:, None] + span_m[None]
+        last_row = (start + q_lens.clamp(min=1) - 1) // PS
+        pvalid = live[:, None] & (rr <= last_row[:, None])
+        pages_r = torch.where(pvalid, bt[sidx, rr.clamp(max=MP - 1)]
+                              .long(), 0)
+        rloc = (pos // PS - row0[:, None]).clamp(0, RM - 1)
+        x = wte[tokens_q] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
+        kv_lens = torch.where(live, (start + q_lens).clamp(max=T),
+                              0).to(torch.int32)
+        for li, lay in enumerate(params["layers"]):
+            h = core.ln(x, *lay["ln1"])
+            q, k, v = core.qkv_proj(lay, h)           # [S, QB, NH, HD]
+            kp, vp = kpools[li], vpools[li]
+            ks, vs = layer_scales(kscales, vscales, li)
+            mixed_write(kp, ks, page, off, pages_r, rloc, rowlive, k)
+            mixed_write(vp, vs, page, off, pages_r, rloc, rowlive, v)
+            o = ragged(q.contiguous(), kp, vp, bt, kv_lens, q_lens,
+                       scale=scale, k_scale=ks, v_scale=vs)
+            x = core.attn_out(lay, x, o.reshape(S, QB, H))
+            x = core.mlp_tail(lay, x)
+        ends = torch.stack([x[:, 0],
+                            x[rows, last_idx.clamp(max=QB - 1)]])
+        lg = (core.ln(ends, *params["lnf"]) @ wte.T).float()
+        lg32, pf_logits = lg[0], lg[1]
+        nxt = _sampler.sample_token(lg32, temps, noise)
+        chain = torch.cat([nxt[:, None], nxt.new_zeros(S, QB - 1)], 1)
+        tok_block, emit_block = _emit_block(
+            chain, (kind == 1).to(torch.int64), active, eos_ids,
+            remaining)
+        return tok_block, emit_block, pf_logits, lg32
+
     return SimpleNamespace(prefill=prefill_chunk_fn, decode_step=decode_step,
                            decode_block=decode_block, copy_page=copy_page_fn,
-                           sample_first=sample_first)
+                           sample_first=sample_first, mixed=mixed_step_fn)
 
 
 class ServingEngine:
@@ -570,11 +692,26 @@ class ServingEngine:
     ``prefill_chunks_per_step``, ``admit_lookahead``,
     ``decode_block``/``decode_block_buckets``, ``max_queue``/
     ``shed_policy``, ``kv_dtype`` (None, "bf16", "int8" or "fp8"),
-    ``weight_dtype`` (None, "bf16" or "int8"). ``attention="auto"`` runs
+    ``weight_dtype`` (None, "bf16" or "int8"), ``mixed_step`` (every
+    step ONE dispatch: each queued prefill slot's next chunk and every
+    decode slot's token as rows of one ragged program; the reference's
+    ``mixed_step=True`` without verify rows). ``attention="auto"`` runs
     the ragged kernel (the plain version for CPU tensors); ``"torch"``
     the plain version.
     ``record_logits=True`` keeps every emitted token's f32 logits in
-    ``logit_log[uid]`` (on the host), for parity checks."""
+    ``logit_log[uid]`` (on the host), for parity checks.
+
+    On a CUDA device the constructor captures every program the engine
+    dispatches as a CUDA graph (``inference/graphs.py``; the reference
+    jits them) before any request: the decode step, a fused block for
+    each bucket above 1 and the prefill chunk — or, with
+    ``mixed_step``, the mixed program — and the page copy. The capture
+    runs with every slot idle, so its writes land on the trash page
+    only. ``stats["graph_captures"]`` counts the graphs and
+    ``["graph_replays"]`` their replays; ``capture_seconds`` the
+    constructor's time in capture. ``_capture=False`` keeps eager
+    dispatch, for checks that must run Python at every kernel launch;
+    on the CPU the programs always run eagerly."""
 
     def __init__(self, cfg, params=None, *, device=None, num_slots=4,
                  page_size=16, num_pages=None, max_seq_len=None,
@@ -585,9 +722,8 @@ class ServingEngine:
                  shed_policy="reject", kv_dtype=None, weight_dtype=None,
                  record_logits=False, mesh=None, speculative=None,
                  mixed_step=False, fault_injector=None, journal=None,
-                 tracer=None, watchdog=None):
+                 tracer=None, watchdog=None, _capture=True):
         for name, val in (("mesh", mesh), ("speculative", speculative),
-                          ("mixed_step", mixed_step),
                           ("fault_injector", fault_injector),
                           ("journal", journal), ("tracer", tracer),
                           ("watchdog", watchdog)):
@@ -614,6 +750,13 @@ class ServingEngine:
                 f"page_size({page_size}) and prefill_chunk"
                 f"({prefill_chunk}) so padded prefill chunks stay inside "
                 "the slot's pages")
+        # the mixed-step engine has no interleaving policy: every queued
+        # prefill chunk rides each dispatch (reference serving.py:1397)
+        self.mixed_step = bool(mixed_step)
+        if self.mixed_step and prefill_chunks_per_step is not None:
+            raise ValueError(
+                "prefill_chunks_per_step does not exist on the mixed-step "
+                "engine: all queued prefill chunks ride every dispatch")
         if prefill_chunks_per_step is None:
             prefill_chunks_per_step = 1
         if int(prefill_chunks_per_step) < 1:
@@ -713,7 +856,72 @@ class ServingEngine:
                       "dispatches": 0,
                       # decode forward passes: a fused block of K
                       # counts K (port-only: the kernel-launch check)
-                      "decode_steps": 0}
+                      "decode_steps": 0, "mixed_steps": 0,
+                      # port-only: CUDA graphs captured / replayed (the
+                      # reference pins its jit cache sizes)
+                      "graph_captures": 0, "graph_replays": 0}
+        t0 = time.perf_counter()
+        self._progs = self._build_programs(_capture)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _idle_host(self, key):
+        """Host inputs of program ``key`` at the idle state — block tables
+        of zeros, no active slot — on which it writes the trash page 0
+        only: the state each graph is captured on."""
+        S, MP, C = self.num_slots, self.pages_per_slot, self.prefill_chunk
+        zero = np.zeros((), np.int64)
+        bt = np.zeros((S, MP), np.int32)
+        flags = (np.zeros(S, bool), np.zeros(S, np.float32))
+        budget = (np.full(S, -1, np.int64), np.zeros(S, np.int64))
+        if key == "copy_page":
+            return zero, zero
+        if key == "prefill":
+            return np.zeros(MP, np.int32), zero, np.zeros(C, np.int64), zero
+        if key == "mixed":      # QB = C rows a slot
+            return (bt, np.zeros(S, np.int32), np.ones(S, np.int32),
+                    np.zeros(S, np.int64), np.zeros((S, C), np.int64),
+                    np.zeros(S, np.int64), *flags, *budget)
+        return (bt, np.zeros(S, np.int64), np.zeros(S, np.int64), *flags,
+                *(budget if key > 1 else ()))
+
+    @torch.no_grad()
+    def _build_programs(self, capture):
+        """The programs this engine dispatches, keyed ``"copy_page"``,
+        ``"prefill"``, the decode bucket ``K`` (1 is the decode step) or
+        ``"mixed"``: CUDA graphs on a CUDA device unless ``capture`` is
+        false, else eager. Each graph is captured on
+        :meth:`_idle_host`'s state, so its warm-up and capture write the
+        trash page 0 only."""
+        S, V, kv, dev = (self.num_slots, self.cfg.vocab_size, self.kv,
+                         self.device)
+        fns = self._fns
+        pools = (kv.k, kv.v, kv.k_scale, kv.v_scale)
+        fixed = (self.params, *pools)
+        graphs = GraphPool(dev) if capture and dev.type == "cuda" else None
+        progs = {}
+
+        def make(key, get_fn, fix, buffers=()):
+            if graphs is None:
+                progs[key] = EagerProgram(get_fn, fix, dev, buffers)
+                return
+            self.stats["graph_captures"] += 1
+            progs[key] = GraphProgram(graphs, get_fn(), fix,
+                                      self._idle_host(key), buffers)
+
+        make("copy_page", lambda: fns.copy_page, pools)
+        if self.mixed_step:
+            make("mixed", lambda: fns.mixed, fixed,
+                 (torch.zeros(S, V, device=dev),))
+            return progs
+        make("prefill", lambda: fns.prefill, fixed)
+        make(1, lambda: fns.decode_step, fixed,
+             (torch.zeros(S, V, device=dev),))
+        for k in self.decode_block_buckets:
+            if k > 1:
+                make(k, lambda k=k: functools.partial(
+                    fns.decode_block, k, collect_logits=self.record_logits),
+                     fixed, (torch.zeros(k, S, V, device=dev),))
+        return progs
 
     # -- request intake ------------------------------------------------------
     def _positions_needed(self, prompt_len, max_new):
@@ -865,7 +1073,6 @@ class ServingEngine:
             eos_id=req.eos_id, pages=pages, temperature=req.temperature,
             seed=req.seed, t_arrival=req.t_arrival, toks=toks,
             pf_base=base0, pf_end=pf_end,
-            bt_dev=torch.tensor(bt_row, device=self.device),
             cow_src=plan["cow_src"], cow_dst=plan["cow_dst"])
         self._prefilling.append(slot)
         self.stats["admitted"] += 1
@@ -877,22 +1084,19 @@ class ServingEngine:
     def _run_cow_copy(self, st):
         """Clone the shared last page into the slot's private page
         before its tail chunk recomputes the final token."""
-        kv = self.kv
-        self._fns.copy_page(kv.k, kv.v, kv.k_scale, kv.v_scale, st.cow_src,
-                            st.cow_dst)
+        self._replay("copy_page", np.int64(st.cow_src), np.int64(st.cow_dst))
         self.kv.release([st.cow_src])
         st.cow_src = -1
         self.stats["cow_copies"] += 1
 
-    def _run_one_chunk(self, st):
+    def _run_one_chunk(self, slot, st):
         base, C, P = st.pf_base, self.prefill_chunk, st.prompt_len
         last = P - 1 - base if base <= P - 1 < base + C else 0
-        tok_chunk = torch.tensor(st.toks[base:base + C], device=self.device)
-        kv = self.kv
-        st.logits = self._fns.prefill(self.params, kv.k, kv.v, kv.k_scale,
-                                      kv.v_scale, st.bt_dev, base, tok_chunk,
-                                      last)
+        logits = self._replay("prefill", self._bt[slot], np.int64(base),
+                              st.toks[base:base + C], np.int64(last))
         st.pf_base = base + C
+        if st.pf_base >= st.pf_end:    # a graph's output: the next replay
+            st.logits = logits.clone()  # overwrites it
         self.stats["prefill_chunks"] += 1
         self.stats["dispatches"] += 1
 
@@ -907,7 +1111,7 @@ class ServingEngine:
             st = self._slots[slot]
             if st.cow_src >= 0:
                 self._run_cow_copy(st)
-            self._run_one_chunk(st)
+            self._run_one_chunk(slot, st)
             ran += 1
             budget -= 1
             if st.pf_base >= st.pf_end:
@@ -972,35 +1176,29 @@ class ServingEngine:
             k = min(b for b in buckets if b >= max_rem)
         return k
 
-    def _device_state(self, with_budget=False):
-        """Upload the host scheduler mirrors for one dispatch."""
-        dev = self.device
-        d = {"bt": torch.tensor(self._bt, device=dev),
-             "lengths": torch.tensor(self._lengths, device=dev),
-             "tokens": torch.tensor(self._tokens, device=dev),
-             "active": torch.tensor(self._active, device=dev),
-             "temps": torch.tensor(self._temps, device=dev)}
-        if with_budget:
-            d["eos"] = torch.tensor(self._eos, device=dev)
-            d["remaining"] = torch.tensor(self._remaining, device=dev)
-        return d
+    def _replay(self, key, *host):
+        """Dispatch program ``key`` on the host arrays ``host``: replay
+        its graph (or call it eagerly). Returns its outputs; a graph's
+        are overwritten by its next replay."""
+        if isinstance(self._progs[key], GraphProgram):
+            self.stats["graph_replays"] += 1
+        return self._progs[key].replay(*host)
 
-    def _noise(self, k):
-        """``[k, S, V]`` Gumbel noise for the active sampled slots (zero
-        rows elsewhere), or None when every active slot is greedy. Each
-        token draws its own ``[V]`` from its slot's generator, so a
-        request's draws do not depend on how steps group into blocks."""
-        sampled = [s for s in np.nonzero(self._active)[0]
-                   if self._temps[s] > 0]
-        if not sampled:
-            return None
+    def _fill_noise(self, key, k):
+        """Gumbel noise for the active sampled slots into program
+        ``key``'s noise buffer, viewed ``[k, S, V]``, zero rows elsewhere
+        (a greedy row's token ignores it). Each token draws its own
+        ``[V]`` from its slot's generator, so a request's draws do not
+        depend on how steps group into blocks; greedy slots draw
+        nothing."""
+        buf = self._progs[key].buffers[0].view(k, self.num_slots, -1)
+        buf.zero_()
         V = self.cfg.vocab_size
-        noise = torch.zeros(k, self.num_slots, V, device=self.device)
-        for s in sampled:
-            noise[:, s] = torch.stack([
-                _sampler.gumbel_noise((V,), self._gens[s], self.device)
-                for _ in range(k)])
-        return noise
+        for s in np.nonzero(self._active)[0]:
+            if self._temps[s] > 0:
+                buf[:, s] = torch.stack([
+                    _sampler.gumbel_noise((V,), self._gens[s], self.device)
+                    for _ in range(k)])
 
     def _log_step_logits(self, lg32, emit):
         """record_logits: keep each emitted token's logits per uid."""
@@ -1010,13 +1208,9 @@ class ServingEngine:
 
     def _run_decode_step(self):
         """One per-token decode dispatch (K=1)."""
-        d = self._device_state()
-        noise = self._noise(1)
-        kv = self.kv
-        nxt, lg32 = self._fns.decode_step(
-            self.params, kv.k, kv.v, kv.k_scale, kv.v_scale, d["bt"],
-            d["lengths"], d["tokens"], d["active"], d["temps"],
-            None if noise is None else noise[0])
+        self._fill_noise(1, 1)
+        nxt, lg32 = self._replay(1, self._bt, self._lengths, self._tokens,
+                                 self._active, self._temps)
         self.stats["dispatches"] += 1
         self.stats["decode_steps"] += 1
         nxt = nxt.cpu().numpy()
@@ -1044,13 +1238,10 @@ class ServingEngine:
     def _run_decode_block(self, k):
         """One fused K-step decode dispatch, then apply the ``(K,
         slots)`` token block on the host."""
-        d = self._device_state(with_budget=True)
-        noise = self._noise(k)
-        kv = self.kv
-        tok_block, emit_block, lgs = self._fns.decode_block(
-            k, self.params, kv.k, kv.v, kv.k_scale, kv.v_scale, d["bt"],
-            d["lengths"], d["tokens"], d["active"], d["temps"], d["eos"],
-            d["remaining"], noise, collect_logits=self.record_logits)
+        self._fill_noise(k, k)
+        tok_block, emit_block, lgs = self._replay(
+            k, self._bt, self._lengths, self._tokens, self._active,
+            self._temps, self._eos, self._remaining)
         tokb = tok_block.cpu().numpy()          # (K, S) sampled tokens
         emitb = emit_block.cpu().numpy()        # (K, S) emit mask
         if self.record_logits:
@@ -1060,6 +1251,58 @@ class ServingEngine:
         self.stats["fused_blocks"] += 1
         self.stats["dispatches"] += 1
         self.stats["decode_steps"] += k
+        return emitted
+
+    def _run_mixed_dispatch(self):
+        """ONE ragged dispatch for everything (reference
+        ``_run_mixed_dispatch``, ``serving.py:3510``, without verify
+        rows, faults, deadlines or telemetry): every queued prefill slot
+        contributes its next chunk as a ``q_len = C`` row, every active
+        slot a decode row. A prefill slot whose last chunk lands is
+        activated from the program's logits; decode rows apply as a
+        token block. Returns the tokens emitted."""
+        S, QB, C = self.num_slots, self.prefill_chunk, self.prefill_chunk
+        pf_rows = []   # (slot, st, base, last_idx)
+        for slot in list(self._prefilling):
+            st = self._slots[slot]
+            if st.cow_src >= 0:
+                self._run_cow_copy(st)
+            base, P = st.pf_base, st.prompt_len
+            last = P - 1 - base if base <= P - 1 < base + C else 0
+            pf_rows.append((slot, st, base, last))
+        kind = np.zeros(S, np.int32)
+        q_lens = np.ones(S, np.int32)
+        start = np.zeros(S, np.int64)
+        tokens_q = np.zeros((S, QB), np.int64)
+        last_idx = np.zeros(S, np.int64)
+        for s in np.nonzero(self._active)[0]:
+            kind[s] = 1
+            start[s] = self._lengths[s] - 1
+            tokens_q[s, 0] = self._tokens[s]
+        for slot, st, base, last in pf_rows:
+            kind[slot] = 2
+            q_lens[slot] = C
+            start[slot] = base
+            tokens_q[slot, :C] = st.toks[base:base + C]
+            last_idx[slot] = last
+        self._fill_noise("mixed", 1)
+        tok_block, emit_block, pf_logits, lg32 = self._replay(
+            "mixed", self._bt, kind, q_lens, start, tokens_q, last_idx,
+            self._active, self._temps, self._eos, self._remaining)
+        self.stats["dispatches"] += 1
+        self.stats["mixed_steps"] += 1
+        tokb = tok_block.cpu().numpy()          # (QB, S)
+        emitb = emit_block.cpu().numpy()
+        if self.record_logits:
+            self._log_step_logits(lg32, emitb[0])
+        emitted = self._apply_token_block(tokb, emitb, QB)
+        for slot, st, base, last in pf_rows:
+            st.pf_base = base + C
+            self.stats["prefill_chunks"] += 1
+            if st.pf_base >= st.pf_end:
+                st.logits = pf_logits[slot].clone()
+                self._prefilling.remove(slot)
+                self._activate(slot, st)
         return emitted
 
     def _apply_token_block(self, tokb, emitb, k):
@@ -1112,19 +1355,27 @@ class ServingEngine:
     # -- the engine loop -----------------------------------------------------
     @torch.no_grad()
     def step(self):
-        """Admit what fits, run up to ``prefill_chunks_per_step``
-        deferred prefill chunks, run one decode dispatch (a step or a
-        fused block) over every active slot. Returns the Completions
-        finished now."""
+        """Admit what fits, then either one mixed dispatch of every
+        queued prefill chunk and decode row (``mixed_step``), or up to
+        ``prefill_chunks_per_step`` deferred prefill chunks and one
+        decode dispatch (a step or a fused block) over every active
+        slot. Returns the Completions finished now."""
         self._finished_now = []
         self._try_admit()
-        self._run_prefill_chunks()
-        if self._active.any():
-            k = self._choose_block_k()
-            if k > 1:
-                self._run_decode_block(k)
-            else:
-                self._run_decode_step()
+        k = None
+        if self.mixed_step:
+            if self._active.any() or self._prefilling:
+                self._run_mixed_dispatch()
+                k = 1
+        else:
+            self._run_prefill_chunks()
+            if self._active.any():
+                k = self._choose_block_k()
+                if k > 1:
+                    self._run_decode_block(k)
+                else:
+                    self._run_decode_step()
+        if k is not None:
             self.stats["steps"] += 1
             self.stats["decode_blocks"] += 1
             self.stats["decode_block_k"] = k

@@ -9,7 +9,9 @@ forward, dq, dk/dv, recomputing dh and dw, dh_sharep, dw_sharep and
 packed forward, dq and dk/dv on their wgmma/TMA designs, float32 on the
 others), the serving
 engine on the card against
-the same engine on the CPU (float and quantized pools, int8 weights), and
+the same engine on the CPU (float and quantized pools, int8 weights), the
+captured engine (CUDA graphs of the serving programs) against the eager
+one, per phase and with ``mixed_step=True``, and
 GPT and packed-BERT training steps through the kernels against the same
 steps through the plain versions.
 
@@ -22,6 +24,9 @@ imports no JAX, so it also runs on the GPU machine, which has none:
 tests)."""
 import contextlib
 import ctypes
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -241,6 +246,178 @@ def test_quantized_engine_on_the_card_matches_the_cpu_engine(
                                      "fp8": torch.float8_e4m3fn}[kv_dtype]
         eng.kv.verify()
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# -- the captured engine (CUDA graphs of the serving programs) ---------------
+
+COUNTS = ("launches", "split_launches", "quant_launches",
+          "quant_split_launches")
+
+
+def _graph_reqs():
+    """Greedy and sampled requests, a shared prefix and a prompt of whole
+    pages served twice (copy-on-write)."""
+    rng = np.random.RandomState(31)
+    shared = rng.randint(0, 128, 16)
+    reqs = [(rng.randint(0, 128, int(n)), int(m), t, 40 + i)
+            for i, (n, m, t) in enumerate(((5, 30, 0.0), (19, 12, 0.9),
+                                           (40, 25, 0.0), (11, 40, 0.7)))]
+    reqs += [(shared, 9, 0.0, 0),
+             (np.concatenate([shared, rng.randint(0, 128, 7)]), 20, 0.8, 3),
+             (shared.copy(), 14, 0.0, 0)]
+    return reqs
+
+
+def _graph_engine(dev, capture, **kw):
+    cfg = gpt2_tiny()
+    return ServingEngine(cfg, init_params(cfg, seed=1, device="cpu"),
+                         device=dev, num_slots=3, page_size=8,
+                         prefill_chunk=8, max_seq_len=128,
+                         record_logits=True, _capture=capture, **kw)
+
+
+def _graph_serve(eng, reqs):
+    """Serve ``reqs``, draining after the fifth (the shared prompt's
+    pages turn cached); returns each request's tokens."""
+    uids, done = [], {}
+    for i, (p, n, t, seed) in enumerate(reqs):
+        uids.append(eng.add_request(p, n, temperature=t, seed=seed))
+        if i == 4:
+            done.update(eng.run(max_steps=2000))
+    done.update(eng.run(max_steps=2000))
+    eng.kv.verify()
+    return [done[u].tokens for u in uids]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_captured_engine_equals_the_eager_engine_bit_for_bit(cuda, kv_dtype,
+                                                             mixed):
+    """The same kernels in the same order: tokens, every logged logit and
+    every launch counter as the eager engine's."""
+    runs = []
+    for capture in (True, False):
+        eng = _graph_engine(cuda, capture, kv_dtype=kv_dtype,
+                            mixed_step=mixed)
+        pa.reset_launches()
+        toks = _graph_serve(eng, _graph_reqs())
+        torch.cuda.synchronize()
+        runs.append((toks, [eng.logit_log[u] for u in sorted(eng.logit_log)],
+                     [getattr(pa, c) for c in COUNTS], dict(eng.stats)))
+    (tc, lc, cc, sc), (te, le, ce, se) = runs
+    assert tc == te
+    for a, b in zip(lc, le):
+        assert len(a) == len(b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert cc == ce and sum(cc) > 0
+    layers = gpt2_tiny().num_layers
+    forwards = (sc["mixed_steps"] if mixed
+                else sc["prefill_chunks"] + sc["decode_steps"])
+    assert cc[0 if kv_dtype is None else 2] == layers * forwards
+    assert sc["graph_replays"] == sc["dispatches"] + sc["cow_copies"]
+    assert se["graph_captures"] == se["graph_replays"] == 0
+    for key in sc:
+        if not key.startswith("graph_"):
+            assert sc[key] == se[key], key
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_graph_captures_are_fixed_after_construction(cuda, mixed):
+    eng = _graph_engine(cuda, True, mixed_step=mixed)
+    # per phase: the decode step, blocks of 4, 8 and 16, the prefill chunk
+    # and the page copy; mixed: the mixed program and the page copy
+    n = eng.stats["graph_captures"]
+    assert n == (2 if mixed else 6)
+    assert eng.capture_seconds > 0
+    first = _graph_serve(eng, _graph_reqs())
+    replays = eng.stats["graph_replays"]
+    second = _graph_serve(eng, _graph_reqs())
+    assert eng.stats["graph_captures"] == n
+    assert eng.stats["graph_replays"] > replays > 0
+    assert first == second
+    assert eng.stats["cow_copies"] > 0 and eng.stats["prefix_hits"] > 0
+
+
+@pytest.mark.parametrize("kv_dtype,mixed", [(None, False), ("int8", False),
+                                            ("fp8", False), ("int8", True)])
+def test_capture_writes_only_the_trash_page(cuda, kv_dtype, mixed):
+    """Warm-up and capture run on the idle state: every page but the
+    trash page 0 keeps its bytes, scales too, and the allocator
+    verifies."""
+    eng = _graph_engine(cuda, False, kv_dtype=kv_dtype, mixed_step=mixed)
+    kv = eng.kv
+    g = torch.Generator(device=cuda).manual_seed(5)
+    tensors = (*kv.k, *kv.v, *kv.k_scale, *kv.v_scale)
+    for t in tensors:
+        b = pa.byte_view(t) if t.element_size() == 1 else t
+        if b.dtype == torch.float32:
+            b.copy_(torch.rand(b.shape, generator=g, device=cuda))
+        else:
+            b.copy_(torch.randint(-100, 100, b.shape, generator=g,
+                                  device=cuda).to(b.dtype))
+    before = [pa.byte_view(t).clone() for t in tensors]
+    eng._progs = eng._build_programs(True)
+    torch.cuda.synchronize()
+    assert eng.stats["graph_captures"] == (2 if mixed else 6)
+    changed0 = False
+    for t, b in zip(tensors, before):
+        now = pa.byte_view(t)
+        assert torch.equal(now[1:], b[1:])
+        changed0 |= not torch.equal(now[0], b[0])
+    assert changed0
+    kv.verify()
+    assert kv.num_free == kv.num_pages - 1
+    # and the engine serves from there
+    assert all(_graph_serve(eng, _graph_reqs()[:4]))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_each_graph_records_its_kernel_launches(cuda, kv_dtype):
+    """A graph's counter deltas are its program's launches: one a layer
+    and forward pass, on the counters of its pool kind."""
+    L = gpt2_tiny().num_layers
+    for mixed in (False, True):
+        pa.reset_launches()
+        eng = _graph_engine(cuda, True, kv_dtype=kv_dtype, mixed_step=mixed)
+        per = {"copy_page": 0, "prefill": L, "mixed": L,
+               **{k: L * k for k in eng.decode_block_buckets}}
+        for key, prog in eng._progs.items():
+            want = [per[key]] * 2 + [0, 0]
+            if kv_dtype:
+                want = want[2:] + want[:2]
+            assert prog.deltas == want, key
+        # the warm-up launched; the capture did not
+        warm = sum(getattr(pa, c) for c in COUNTS)
+        assert warm == 2 * 2 * sum(per[k] for k in eng._progs)
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """No eager fallback: a program that cannot be captured (here a host
+    read inside the ragged kernel's wrapper) fails the constructor. In a
+    process of its own: a failed capture may leave the allocator's state
+    behind."""
+    code = (
+        "import torch\n"
+        "from paddle_tpu_torch.inference.serving import ServingEngine\n"
+        "from paddle_tpu_torch.kernels import paged_attention as pa\n"
+        "from paddle_tpu_torch.models.gpt import gpt2_tiny\n"
+        "real = pa._launch\n"
+        "def reads_the_host(q, *args):\n"
+        "    out = real(q, *args)\n"
+        "    float(out.float().sum())\n"
+        "    return out\n"
+        "pa._launch = reads_the_host\n"
+        "try:\n"
+        "    ServingEngine(gpt2_tiny(), device='cuda', num_slots=2,\n"
+        "                  page_size=8, prefill_chunk=8, max_seq_len=64)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', str(e).splitlines()[0])\n"
+        "    raise SystemExit(3)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 3, res.stdout + res.stderr
+    assert "raised:" in res.stdout
 
 
 # -- the split-KV design of the float-pool kernel ------------------------------

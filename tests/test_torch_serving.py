@@ -12,7 +12,8 @@ same weights (2 layers, hidden 64, 4 heads, vocab 128):
 - a sampled request emits the same tokens alone or in a busy batch;
 - the levers not ported yet raise NotImplementedError, and unknown
   quantization formats raise ValueError (the quantized levers
-  themselves: tests/test_torch_quant_serving.py)."""
+  themselves: tests/test_torch_quant_serving.py; ``mixed_step``:
+  tests/test_torch_mixed_step.py)."""
 import jax
 import numpy as np
 import pytest
@@ -231,7 +232,7 @@ def test_queue_bound_sheds_or_rejects(ref):
 
 
 @pytest.mark.parametrize("lever", [
-    dict(mesh=object()), dict(speculative=True), dict(mixed_step=True),
+    dict(mesh=object()), dict(speculative=True),
     dict(fault_injector=object()), dict(journal="j.jsonl"),
     dict(tracer=object()), dict(watchdog=True),
 ])
