@@ -160,6 +160,35 @@ exits non-zero:
    at the first differing token in bf16 steps of the top logit (a bf16
    logit moves by a bf16 step), not held: there the mixed program is
    held to its eager run in ``serve_graphs``.
+   ``serve_resilience`` — serving resilience on captured engines at
+   serve's configuration (bf16 weights), per pool kind (bf16, int8) one
+   per-phase and one mixed engine, each with a ``FaultInjector``, a pool
+   of the first eight requests' pages and 4 more, and ``max_queue`` 4
+   under ``shed_lowest_priority``. The drill: six requests decoding
+   (priorities 1 and 0, two sampled); one arm of each per-request fault
+   kind (``decode_error``, ``nonfinite_logits`` on two of them,
+   ``prefill_error`` and ``page_exhaustion`` on two arrivals, a 0-second
+   ``stall``), each failing exactly its target; two long arrivals of
+   priority 5 that preempt (a sampled request among the victims, which
+   resume from the prefix cache and finish); a decoding request
+   cancelled, with the step that applies it traced under
+   ``torch.profiler`` (the ragged split and merge kernels of its replays
+   equal to what those graphs recorded at capture) and every page no live
+   slot holds kept bit for bit across it, page 0 aside; a ``deadline_s=0``
+   request, a queued cancel, a shed at the bound and a refusal; a cancel
+   mid-prefill; a decoding request ejected into the other engine of its
+   pool kind (``admit_migrated``), which finishes it with its emitted
+   tokens first; the drain, then ``close()`` with three requests in
+   flight (all aborted, ``num_in_use`` 0). Throughout: ``kv.verify()``
+   after every step and ``graph_captures`` unchanged. Then, on bf16
+   pools, per phase and mixed, ``preempt_traffic`` on a pool that makes
+   two arrivals of priority 5 preempt four requests (greedy and
+   sampled) against a full pool that preempts none: with float32 weights
+   every request's tokens held equal up to the first step whose top-2
+   margin is below 1e-3 (a sampled request's margin over its logits /
+   T plus its Gumbel draw, regenerated from a generator seeded as the
+   request's); at bf16 weights the same comparison recorded. The
+   counters and the phase's seconds.
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version, both engines eager
    (``_capture=False``: the per-call hold wraps ``pa._launch``, which a
@@ -1592,48 +1621,67 @@ RAGGED_KERNELS = {"first": "ragged_paged_attention_kernel",
 REPLAY_TRACES = 3          # traces of one replay before a mismatch fails
 
 
-def check_replay_kernels(eng, name):
-    """One replay of each captured program of ``eng`` (done serving) at
-    its idle state (``eng._idle_host``) under ``torch.profiler``: the
-    ragged kernels the replay ran, as the profiler traced them, must
-    equal the launches the graph recorded at its capture (``GraphProgram.deltas``), which every
-    replay adds to the wrappers' counters and the launch checks read. A
-    split launch is one split kernel and, where ``split_plan`` cuts the
-    extent in more than one split, one merge kernel. The profiler can
-    lose kernel records (on an H100 one replay traced 6 of its 12 split
-    kernels, where 38 other traces of the same program in another run
-    traced all 12): a program whose trace differs is traced again, up to
-    ``REPLAY_TRACES`` times, and the last trace must match. Returns the
-    traced counts by program, with the traces it took and the readings
-    that differed."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def ragged_want(eng, keys):
+    """The ragged kernels that one replay of each of ``keys`` (programs of
+    ``eng``) runs, from the launches each graph recorded at its capture
+    (``GraphProgram.deltas``): a split launch is one split kernel and,
+    where ``split_plan`` cuts the extent in more than one split, one merge
+    kernel."""
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     S, C = eng.num_slots, eng.prefill_chunk
     shape = (eng.cfg.num_heads, eng.page_size, eng.pages_per_slot)
-    out = {}
-    torch.cuda.synchronize()
-    for key, prog in eng._progs.items():
-        launches, split, qlaunches, qsplit = prog.deltas
+    want = dict.fromkeys(RAGGED_KERNELS, 0)
+    for key in keys:
+        launches, split, qlaunches, qsplit = eng._progs[key].deltas
         rows = {"copy_page": None, "prefill": (1, C),
                 "mixed": (S, C)}.get(key, (S, 1))
         nsplit = 1 if rows is None else pa.split_plan(*rows, *shape)[1]
-        want = {"first": launches + qlaunches - split - qsplit,
-                "split": split + qsplit,
-                "merge": (split + qsplit) * (nsplit > 1)}
+        want["first"] += launches + qlaunches - split - qsplit
+        want["split"] += split + qsplit
+        want["merge"] += (split + qsplit) * (nsplit > 1)
+    return want
+
+
+def ragged_traced(run):
+    """Run ``run()`` under ``torch.profiler``; the ragged kernels the
+    device ran, counted by kind (``RAGGED_KERNELS``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    got = dict.fromkeys(RAGGED_KERNELS, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for kind, kname in RAGGED_KERNELS.items():
+                got[kind] += kname in e.name
+    return got
+
+
+def check_replay_kernels(eng, name):
+    """One replay of each captured program of ``eng`` (done serving) at
+    its idle state (``eng._idle_host``) under ``torch.profiler``: the
+    ragged kernels the replay ran, as the profiler traced them, must
+    equal the launches the graph recorded at its capture
+    (``ragged_want``), which every replay adds to the wrappers' counters
+    and the launch checks read. The profiler can lose kernel records (on
+    an H100 one replay traced 6 of its 12 split kernels, where 38 other
+    traces of the same program in another run traced all 12): a program
+    whose trace differs is traced again, up to ``REPLAY_TRACES`` times,
+    and the last trace must match. Returns the traced counts by program,
+    with the traces it took and the readings that differed."""
+    out = {}
+    for key, prog in eng._progs.items():
+        want = ragged_want(eng, [key])
         short = []
         for _ in range(REPLAY_TRACES):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                prog.replay(*eng._idle_host(key))
-                torch.cuda.synchronize()
-            got = dict.fromkeys(want, 0)
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    for kind, kname in RAGGED_KERNELS.items():
-                        got[kind] += kname in e.name
+            got = ragged_traced(
+                lambda: prog.replay(*eng._idle_host(key)))
             if got == want:
                 break
             short.append(got)
@@ -1939,6 +1987,398 @@ def run_serve_mixed_phase(model, logged, serve_tokens):
                         counts["quant_split_launches"]})
         out[kd] = rec
         torch.cuda.empty_cache()
+    out["gpu"] = smi()
+    return out
+
+
+# -- serving resilience --------------------------------------------------------
+
+RES_SEED = 7              # the resilience drill's traffic
+RES_MAX_QUEUE = 4
+
+
+def pages_for(eng_kw, prompt_len, max_new):
+    """Pages a request holds: its sequence or its chunk-padded prompt,
+    whichever is longer (``ServingEngine._positions_needed``)."""
+    C, PS = eng_kw["prefill_chunk"], eng_kw["page_size"]
+    return -(-max(prompt_len + max_new, -(-prompt_len // C) * C) // PS)
+
+
+def resilience_traffic(vocab):
+    """The drill's requests, from ``RES_SEED``: six in flight at the start
+    (priorities 1, 1, 1, 0, 0, 0; the third and sixth sampled), a
+    prefill-fault target, a page-exhaustion target, two long
+    high-priority arrivals, and the prompts of the later cancel, shed,
+    migration and close() requests. Returns (requests by role, the pool's
+    pages: the first eight requests' pages and 4 more, so the arrivals of
+    priority 5 must preempt)."""
+    import numpy as np
+    rng = np.random.default_rng(RES_SEED)
+
+    def req(lo, hi, new, **kw):
+        return dict(prompt=rng.integers(0, vocab, int(rng.integers(lo, hi))),
+                    max_new_tokens=new, **kw)
+
+    t = {"lows": [req(160, 241, 96, priority=p, temperature=temp,
+                      seed=3000 + i)
+                  for i, (p, temp) in enumerate(((1, 0.0), (1, 0.0),
+                                                 (1, 0.8), (0, 0.0),
+                                                 (0, 0.0), (0, 0.8)))],
+         "prefill_error": req(96, 97, 16), "page_exhaustion": req(64, 65, 16),
+         "highs": [req(448, 481, 32, priority=5) for _ in range(2)],
+         "small": [req(48, 81, 8) for _ in range(6)],
+         "long": req(480, 481, 8), "close": [req(160, 241, 40)
+                                             for _ in range(3)]}
+    first = t["lows"] + [t["prefill_error"], t["page_exhaustion"]]
+    pool = 1 + 4 + sum(pages_for(SERVE_KW, r["prompt"].size,
+                                 r["max_new_tokens"]) for r in first)
+    return t, pool
+
+
+def res_step(eng, done, n=1):
+    """``n`` steps, completions into ``done``, the pool verified after
+    each."""
+    for _ in range(n):
+        for c in eng.step():
+            done[c.uid] = c
+        eng.kv.verify()
+
+
+def res_until(eng, done, cond, what, max_steps=2000):
+    for _ in range(max_steps):
+        if cond():
+            return
+        res_step(eng, done)
+    raise AssertionError(f"serve_resilience: never {what}")
+
+
+def slot_of(eng, uid):
+    return next((s for s, st in eng._slots.items() if st.uid == uid), None)
+
+
+def decoding(eng, uid, n=1):
+    s = slot_of(eng, uid)
+    return s is not None and bool(eng._active[s]) and \
+        len(eng._slots[s].out) >= n
+
+
+def abort_replay_check(eng, uid, done, name):
+    """Cancel the decoding request ``uid`` and run the step that applies
+    it under ``torch.profiler``. Every page that neither another slot
+    live before the step nor a slot live after it holds (page 0, the
+    trash page, aside) must keep its bytes, scales too, across the step:
+    the aborted slot's pages among them, where a stale row would write.
+    Returns the ragged kernels traced in the step's replays and those
+    the replayed graphs recorded at capture (``ragged_want``), with the
+    pages held."""
+    import torch
+
+    kv = eng.kv
+    tensors = (*kv.k, *kv.v, *kv.k_scale, *kv.v_scale)
+    before = [t.view(torch.uint8).clone() for t in tensors]
+    keep = {0} | {p for st in eng._slots.values() if st.uid != uid
+                  for p in st.pages}
+    mine = set(eng._slots[slot_of(eng, uid)].pages)
+    keys = []
+    replay = eng._replay
+
+    def recording(key, *host):
+        keys.append(key)
+        return replay(key, *host)
+
+    eng._replay = recording
+    try:
+        if not eng.cancel(uid):
+            raise AssertionError(f"{name}: {uid} not live")
+        got = ragged_traced(lambda: res_step(eng, done))
+    finally:
+        del eng._replay
+    keep |= {p for st in eng._slots.values() for p in st.pages}
+    held = torch.tensor(sorted(set(range(kv.num_pages)) - keep),
+                        device=eng.device)
+    for t, b in zip(tensors, before):
+        if not torch.equal(t.view(torch.uint8)[held], b[held]):
+            raise AssertionError(f"{name}: a page no live slot holds "
+                                 "changed across the replay after an "
+                                 "abort")
+    if not keys:
+        raise AssertionError(f"{name}: no replay after the abort")
+    return got, ragged_want(eng, keys), {
+        "programs": [str(k) for k in keys], "pages_held": int(held.numel()),
+        "aborted_pages_held": len(mine - keep)}
+
+
+def resilience_drill(eng, peer, traffic, name):
+    """The drill on one captured engine (bf16 weights; ``eng.faults`` a
+    FaultInjector), on ``resilience_traffic``: every finish reason as
+    planned, the pool verified after every step, ``graph_captures``
+    unchanged. Migrates one request into ``peer`` (another engine of the
+    same pool kind), which serves it to the end. Returns the record."""
+    from paddle_tpu_torch.inference import QueueFullError
+
+    t0 = time.perf_counter()
+    inj = eng.faults
+    caps = (eng.stats["graph_captures"], peer.stats["graph_captures"])
+    done, want = {}, {}
+
+    def add(r, reason="length"):
+        u = eng.add_request(**r)
+        want[u] = reason
+        return u
+
+    # six in flight, each decoding (four, a step, two: the queue's
+    # bound is RES_MAX_QUEUE)
+    lows = [add(r) for r in traffic["lows"][:RES_MAX_QUEUE]]
+    res_step(eng, done)
+    lows += [add(r) for r in traffic["lows"][RES_MAX_QUEUE:]]
+    res_until(eng, done, lambda: all(decoding(eng, u, 2) for u in lows),
+              "decoded the first six")
+    # one arm of each per-request kind: a decode error and nonfinite
+    # logits on two decoding requests, a prefill error and a page
+    # exhaustion on two arrivals, a 0-second stall
+    want[lows[0]], want[lows[1]] = "error", "nonfinite"
+    inj.inject("decode_error", uid=lows[0])
+    inj.inject("nonfinite_logits", uid=lows[1])
+    inj.inject("stall")
+    pf = add(traffic["prefill_error"], "error")
+    inj.inject("prefill_error", uid=pf)
+    inj.inject("page_exhaustion", uid=add(traffic["page_exhaustion"]))
+    res_until(eng, done, lambda: not inj.armed, "fired every arm")
+    fired = sorted((f.kind, int(f.uid) if f.uid is not None else None)
+                   for f in inj.fired())
+    # two long arrivals of priority 5 on a pool short of pages: preemption
+    highs = [add(r) for r in traffic["highs"]]
+    res_until(eng, done, lambda: all(decoding(eng, u) for u in highs),
+              "decoded the high-priority arrivals")
+    if eng.stats["preemptions"] < 1:
+        raise AssertionError(f"{name}: no preemption")
+    # a cancel while decoding: the kernels traced in the replays of the
+    # step that applies it, and the pages no live slot holds kept across
+    # it. The profiler can lose kernel records (check_replay_kernels):
+    # up to REPLAY_TRACES aborts, the last trace must match
+    short = []
+    for _ in range(REPLAY_TRACES):
+        victim = next(st.uid for s, st in eng._slots.items()
+                      if eng._active[s] and st.uid not in highs
+                      and not st.preemptions)
+        want[victim] = "cancelled"
+        got, traced, after_abort = abort_replay_check(eng, victim, done,
+                                                      name)
+        if got == traced:
+            break
+        short.append(got)
+    if got != traced:
+        raise AssertionError(f"{name}: the replays after an abort traced "
+                             f"{short}, their graphs recorded {traced}")
+    after_abort.update(traced=got, traces=len(short) + 1, differed=short)
+    # a deadline of 0, a queued cancel, and a shed at the queue bound,
+    # once the preempted requests are back in their slots
+    res_until(eng, done, lambda: not eng._pending, "re-admitted")
+    small = iter(traffic["small"])
+    add(dict(next(small), deadline_s=0.0), "deadline")
+    eng.cancel(add(next(small), "cancelled"))
+    add(next(small))
+    add(next(small), "shed")                # the newest of class 0, shed
+    add(dict(next(small), priority=2))      # by this arrival
+    try:
+        eng.add_request(**next(small))      # outranks nothing: refused
+        refused = False
+    except QueueFullError:
+        refused = True
+    # a cancel while prefilling (after a step: the deadline and the
+    # cancel leave the queue)
+    res_step(eng, done)
+    longp = add(traffic["long"], "cancelled")
+    res_until(eng, done, lambda: slot_of(eng, longp) is not None and
+              0 < eng._slots[slot_of(eng, longp)].pf_base
+              < eng._slots[slot_of(eng, longp)].pf_end, "prefilled")
+    eng.cancel(longp)
+    # eject a decoding request into the peer engine, which serves it
+    res_until(eng, done, lambda: any(eng._active), "decoding")
+    mig = next(st.uid for s, st in eng._slots.items() if eng._active[s])
+    want.pop(mig)
+    req = eng.eject(mig)
+    carried = list(req.resume_out)
+    pu = peer.admit_migrated(req)
+    got = peer.run(max_steps=2000)[pu]
+    peer.kv.verify()
+    if got.finish_reason != "length" or \
+            got.tokens[:len(carried)] != carried or \
+            len(got.tokens) != req.max_new_tokens + len(carried) or \
+            peer.kv.num_in_use:
+        raise AssertionError(f"{name}: the migrated request finished "
+                             f"{got.finish_reason} with "
+                             f"{len(got.tokens)} tokens")
+    res_until(eng, done, lambda: not eng.has_work, "drained")
+    wrong = {u: (done[u].finish_reason if u in done else None, r)
+             for u, r in want.items()
+             if u not in done or done[u].finish_reason != r}
+    if wrong or not refused or len(fired) != 5:
+        raise AssertionError(f"{name}: finish reasons (got, planned) "
+                             f"{wrong}, refused {refused}, fired {fired}")
+    resumed = [u for u, c in done.items() if c.preemptions]
+    if not resumed or any(done[u].finish_reason != "length"
+                          for u in resumed):
+        raise AssertionError(f"{name}: preempted requests {resumed}")
+    st = dict(eng.stats)
+    if (st["graph_captures"], peer.stats["graph_captures"]) != caps:
+        raise AssertionError(f"{name}: graphs captured during the drill")
+    if eng.kv.num_in_use:
+        raise AssertionError(f"{name}: {eng.kv.num_in_use} pages held "
+                             "after the drain")
+    return {"requests": len(want) + 1, "reasons": sorted(
+                {r: sum(c.finish_reason == r for c in done.values())
+                 for r in set(want.values())}.items()),
+            "faults_fired": fired, "refused_at_bound": refused,
+            "preempted_uids": resumed,
+            "preempted_sampled": [u for u, r in zip(lows, traffic["lows"])
+                                  if u in resumed and r["temperature"] > 0],
+            "after_abort": after_abort,
+            "migrated": {"tokens_carried": len(carried),
+                         "tokens": len(got.tokens),
+                         "preemptions": got.preemptions},
+            **{k: st[k] for k in (
+                "preemptions", "resumes", "collateral_requeues",
+                "cancelled", "deadline_expired", "faults", "sheds",
+                "admitted", "dispatches", "prefill_chunks",
+                "graph_captures", "graph_replays")},
+            "seconds": time.perf_counter() - t0}
+
+
+def close_drill(eng, traffic, name):
+    """close() with three requests in flight, the first decoding: each
+    aborted, every page released (``num_in_use`` 0, the pool verifies),
+    ``has_work`` False, a second close() empty, ``graph_captures``
+    unchanged."""
+    caps = eng.stats["graph_captures"]
+    uids = [eng.add_request(**r) for r in traffic["close"]]
+    done = {}
+    res_until(eng, done, lambda: decoding(eng, uids[0], 2), "decoding")
+    aborted = eng.close()
+    eng.kv.verify()
+    if sorted(aborted) != sorted(uids) or \
+            {c.finish_reason for c in aborted.values()} != {"aborted"} or \
+            eng.kv.num_in_use or eng.has_work or eng.close() != {} or \
+            eng.stats["graph_captures"] != caps:
+        raise AssertionError(f"{name}: close() left {eng.kv.num_in_use} "
+                             f"pages, aborted {sorted(aborted)}")
+    return {"aborted": len(aborted),
+            "in_flight_tokens": sum(len(c.tokens)
+                                    for c in aborted.values()),
+            "num_in_use_after": eng.kv.num_in_use}
+
+
+def preempt_traffic(vocab):
+    """Six requests in flight (priorities 1, 1, 1, 0, 0, 0; the third and
+    fifth sampled), then two long arrivals of priority 5."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    lows = [dict(prompt=rng.integers(0, vocab, int(rng.integers(128, 257))),
+                 max_new_tokens=96, priority=p, temperature=temp,
+                 seed=2000 + i)
+            for i, (p, temp) in enumerate(((1, 0.0), (1, 0.0), (1, 0.8),
+                                           (0, 0.0), (0, 0.8), (0, 0.0)))]
+    highs = [dict(prompt=rng.integers(0, vocab, 480), max_new_tokens=32,
+                  priority=5) for _ in range(2)]
+    pool = 1 + 8 + sum(pages_for(SERVE_KW, r["prompt"].size,
+                                 r["max_new_tokens"]) for r in lows)
+    return lows, highs, pool
+
+
+def preempt_compare(model, weight_dtype, mixed, hold):
+    """``preempt_traffic`` on a captured engine whose pool forces the
+    arrivals of priority 5 to preempt, and on one with the full pool,
+    which preempts nothing (bf16 pools): each request's tokens against
+    the unpreempted engine's up to the first step whose top-2 margin is
+    below ``PARITY_TOL`` (``tokens_until_tie``). A sampled request's
+    margin is that of its logits over its temperature plus its Gumbel
+    draw, regenerated from a generator seeded as the request's. Held
+    (``hold``) or recorded."""
+    import torch
+    from paddle_tpu_torch.inference import sampler
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg, params = model
+    lows, highs, pool = preempt_traffic(cfg.vocab_size)
+    runs = {}
+    for short in (True, False):
+        eng = ServingEngine(cfg, params, device="cuda", kv_dtype="bf16",
+                            weight_dtype=weight_dtype, mixed_step=mixed,
+                            record_logits=not short,
+                            num_pages=pool if short else None, **SERVE_KW)
+        done = {}
+        lo = [eng.add_request(**r) for r in lows]
+        res_until(eng, done, lambda: all(decoding(eng, u, 8) for u in lo),
+                  "decoded the six")
+        hi = [eng.add_request(**r) for r in highs]
+        res_until(eng, done, lambda: not eng.has_work, "drained")
+        runs[short] = ([done[u] for u in lo + hi],
+                       [eng.logit_log.get(u) for u in lo + hi],
+                       eng.stats["preemptions"])
+        dev = eng.device
+        del eng
+    (pre, _, npre), (ref, logits, nref) = runs[True], runs[False]
+    reqs = lows + highs
+    margins = []
+    for r, lg in zip(reqs, logits):
+        if r.get("temperature", 0) > 0:
+            gen = torch.Generator(device=dev).manual_seed(r["seed"])
+            lg = [x.to(dev) / r["temperature"] + sampler.gumbel_noise(
+                x.shape, gen, dev) for x in lg]
+        margins.append(lg)
+    steps, differs = tokens_until_tie([c.tokens for c in pre],
+                                      [c.tokens for c in ref], margins,
+                                      PARITY_TOL)
+    victims = [i for i, c in enumerate(pre) if c.preemptions]
+    kinds = {"greedy" if reqs[i].get("temperature", 0) == 0 else "sampled"
+             for i in victims}
+    rec = {"weight_dtype": weight_dtype or "float32", "kv_dtype": "bf16",
+           "mixed_step": mixed, "pool_pages": pool, "preemptions": npre,
+           "preempted": victims, "steps_compared": steps,
+           "first_differs": differs,
+           "tokens_identical": [c.tokens for c in pre]
+           == [c.tokens for c in ref], "held": hold}
+    if hold and (differs or nref or kinds != {"greedy", "sampled"}):
+        raise AssertionError(f"serve_resilience: preempted streams {rec}")
+    return rec
+
+
+def run_serve_resilience_phase(model):
+    """Serving resilience on captured engines at GPT-2 small's widths
+    (serve's configuration, bf16 weights): per pool kind (bf16, int8) one
+    per-phase and one mixed engine, each with a FaultInjector, a pool
+    short enough that the high-priority arrivals preempt, ``max_queue``
+    ``RES_MAX_QUEUE`` under ``shed_lowest_priority``; each runs
+    ``resilience_drill`` (migrating a request into the other), then
+    ``close_drill``. Then ``preempt_compare``: held with float32 weights,
+    recorded at bf16, per phase and mixed."""
+    import torch
+    from paddle_tpu_torch.inference import FaultInjector
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg, params = model
+    traffic, pool = resilience_traffic(cfg.vocab_size)
+    out = {"phase": "serve_resilience", "pool_pages": pool}
+    for kd in ("bf16", "int8"):
+        engs = [ServingEngine(cfg, params, device="cuda", kv_dtype=kd,
+                              weight_dtype="bf16", mixed_step=mixed,
+                              num_pages=pool, max_queue=RES_MAX_QUEUE,
+                              shed_policy="shed_lowest_priority",
+                              fault_injector=FaultInjector(), **SERVE_KW)
+                for mixed in (False, True)]
+        for i, key in enumerate((kd, f"mixed_{kd}")):
+            name = f"serve_resilience {key}"
+            out[key] = resilience_drill(engs[i], engs[1 - i], traffic, name)
+        for i, key in enumerate((kd, f"mixed_{kd}")):
+            out[key]["close"] = close_drill(engs[i], traffic,
+                                            f"serve_resilience {key}")
+        del engs
+        torch.cuda.empty_cache()
+    out["preempted_vs_unpreempted"] = [
+        preempt_compare(model, wd, mixed, hold=wd is None)
+        for wd in (None, "bf16") for mixed in (False, True)]
+    out["seconds"] = time.perf_counter() - t0
     out["gpu"] = smi()
     return out
 
@@ -2824,6 +3264,7 @@ def main():
     emit(graphs)
     emit(with_spreads(run_serve_mixed_phase(
         model, logged, {"bf16": serve_tokens, "int8": int8_tokens})))
+    emit(run_serve_resilience_phase(model))
     del model, logged
     torch.cuda.empty_cache()
     parity = run_parity_phase()

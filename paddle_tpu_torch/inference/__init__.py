@@ -1,3 +1,9 @@
-"""Serving stack of the port: ``sampler.py``, ``scheduler.py`` and
-``serving.py``, each the counterpart of the same file under
-``paddle_tpu/inference/``."""
+"""Serving stack of the port: ``sampler.py``, ``scheduler.py``,
+``faults.py`` and ``serving.py``, each the counterpart of the same file
+under ``paddle_tpu/inference/``."""
+from .faults import FAULT_KINDS, FaultInjector, InjectedFault, ReplicaDown
+from .scheduler import QueueFullError
+from .serving import Completion, Request, ServingEngine
+
+__all__ = ["FAULT_KINDS", "FaultInjector", "InjectedFault", "ReplicaDown",
+           "QueueFullError", "ServingEngine", "Request", "Completion"]

@@ -53,12 +53,40 @@ artifact (``quantization/weights.py``) on the device and widens it to
 float32 at the entry of every dispatch — a prefill chunk, a decode step,
 or a fused decode block, once per block.
 
+Serving resilience (reference ``serving.py:118-152``), all of it host
+scheduling around the same programs, so no graph is captured for it:
+
+- priorities and page-pool preemption: ``add_request(priority=N)``
+  orders the queue (``scheduler.RequestQueue``). When the queue's head
+  cannot get pages or a slot, the lowest-priority, latest-admitted
+  in-flight request is preempted: pages its prefill registered but never
+  wrote are unregistered (a later admission mapping one is requeued as
+  collateral), its fully written pages are registered under the resumed
+  sequence's digests, and it requeues at the front of its class with its
+  emitted tokens and its generator's state. Re-admission maps those
+  pages back from the prefix cache, so the resume prefills only the
+  uncached tail and continues the stream;
+- deadlines (``deadline_s``, checked at admission, between prefill
+  chunks and at every dispatch boundary; a live deadline clamps the
+  fused block through a per-step EMA), ``cancel(uid)`` at the next step
+  boundary, and ``close()``, which aborts everything in flight;
+- ``fault_injector=`` (``inference/faults.py``): page exhaustion,
+  prefill/decode dispatch errors, nonfinite logits and stalls each fail
+  exactly their target; ``replica_down`` escapes ``step()``, which tears
+  the engine down before re-raising any exception;
+- ``inflight()``, ``eject(uid)`` and ``admit_migrated(req)``: a live
+  request leaves as a resume-carrying :class:`Request` that another
+  engine admits.
+
+A teardown needs no device-side repair: every replay uploads the host
+mirrors (block tables, lengths, active flags, budgets), and an inactive
+row writes only the trash page.
+
 Not ported yet (the constructor raises NotImplementedError): meshes,
-speculative decoding (so the mixed program has no verify rows), fault
-injection, the journal, tracing and the watchdog; nor the quantization
-gauges and the byte ledger. Priorities, deadlines, cancellation and preemption are not
-ported either: every request has priority 0, so the reference engine
-could not preempt on the same traffic.
+speculative decoding (so the mixed program has no verify rows), the
+journal, tracing (``trace_ctx=`` too) and the watchdog; nor the
+quantization gauges, the byte ledger and the per-tenant counters
+(``tenant=`` is carried as a label only).
 """
 from __future__ import annotations
 
@@ -82,6 +110,7 @@ from ..quantization.kv import (KV_QUANT_DTYPES, STORAGE, dequantize_per_page,
 from ..quantization.weights import (cast_params, dequantize_params,
                                     quantize_weights_int8)
 from . import sampler as _sampler
+from .faults import InjectedFault, ReplicaDown
 from .graphs import EagerProgram, GraphProgram, GraphPool
 from .scheduler import SHED_POLICIES, QueueFullError, RequestQueue
 
@@ -146,7 +175,11 @@ def _emit_block(chain, n_emit, active, eos_ids, remaining):
 
 @dataclass
 class Request:
-    """One generation request in the stream."""
+    """One generation request in the stream. A preempted request is
+    requeued as a Request whose ``prompt`` is the original prompt plus
+    every token already emitted (``resume_out``), whose budget is the
+    remainder, and whose ``resume_key`` is its slot's generator state —
+    re-admission then continues the same token stream."""
     uid: int
     prompt: np.ndarray          # [L] int32 token ids
     max_new_tokens: int
@@ -155,16 +188,29 @@ class Request:
     seed: int = 0
     t_arrival: float = 0.0      # perf_counter at add_request (TTFT base)
     digests: tuple = ()         # chained per-full-page prompt digests
-    priority: int = 0           # queue order; always 0 in this slice
-    seq: int = 0                # arrival order
+    priority: int = 0           # higher wins (queue order, preemption)
+    deadline_s: object = None   # fail after t_arrival + deadline_s
+    seq: int = 0                # arrival order (kept across preemption)
+    resume_out: object = None   # tokens already emitted (resume)
+    # the sampled slot's torch.Generator state (get_state()) at
+    # preemption, None for a greedy slot: the reference's [2] u32 key
+    resume_key: object = None
+    ttft_s: object = None       # observed TTFT (set before a resume)
+    preemptions: int = 0        # times this request was preempted
+    tenant: str = "default"     # label only (the per-tenant counters: A6)
 
 
 @dataclass
 class Completion:
     uid: int
     tokens: list                # generated ids (excludes the prompt)
-    finish_reason: str          # "eos" | "length" | "shed"
+    finish_reason: str          # "eos" | "length" | "deadline" |
+    #                             "cancelled" | "shed" | "error" |
+    #                             "nonfinite" | "aborted" | "collateral"
     ttft_s: object = None       # time to first token (None: never got one)
+    priority: int = 0
+    preemptions: int = 0        # preempt-and-resume cycles survived
+    tenant: str = "default"
 
 
 @dataclass
@@ -187,6 +233,18 @@ class _SlotState:
     cow_src: int = -1           # page to clone before the first chunk
     cow_dst: int = -1
     ttft_s: object = None
+    # resilience
+    priority: int = 0
+    deadline_s: object = None
+    seq: int = 0                # arrival order (survives preemption)
+    admit_seq: int = 0          # admission order (preemption tiebreak)
+    admit_round: int = 0        # _try_admit call that admitted this slot
+    digests: tuple = ()         # the request's prompt-page digests
+    reg_from: int = 0           # first digest index THIS slot registered
+    preemptions: int = 0
+    resume_out: object = None   # tokens emitted before preemption
+    resume_key: object = None   # generator state saved at preemption
+    tenant: str = "default"
 
 
 class PagedKVCache:
@@ -338,6 +396,25 @@ class PagedKVCache:
     def lookup(self, digest):
         """The page registered under ``digest``, or None."""
         return self._hash_to_page.get(digest)
+
+    def refcount(self, page):
+        """Live references on ``page`` (0 = free or cache-only)."""
+        return self._ref.get(page, 0)
+
+    def unregister(self, digest):
+        """Drop a digest -> page mapping: a torn-down request whose
+        prefill never finished writing a page it registered at admission
+        must not leave that digest serving garbage. A cache-only page
+        orphaned by it returns to the free list. Returns True if the
+        digest was registered."""
+        page = self._hash_to_page.pop(digest, None)
+        if page is None:
+            return False
+        del self._page_hash[page]
+        if page in self._lru:
+            del self._lru[page]
+            self._free.append(page)
+        return True
 
     def register(self, digest, page):
         """Map ``digest`` to an in-use ``page`` (idempotent: an existing
@@ -695,9 +772,11 @@ class ServingEngine:
     ``weight_dtype`` (None, "bf16" or "int8"), ``mixed_step`` (every
     step ONE dispatch: each queued prefill slot's next chunk and every
     decode slot's token as rows of one ragged program; the reference's
-    ``mixed_step=True`` without verify rows). ``attention="auto"`` runs
-    the ragged kernel (the plain version for CPU tensors); ``"torch"``
-    the plain version.
+    ``mixed_step=True`` without verify rows), ``preemption`` (False: a
+    queued request of higher priority waits for pages instead of
+    evicting), ``fault_injector`` (``inference/faults.py``).
+    ``attention="auto"`` runs the ragged kernel (the plain version for
+    CPU tensors); ``"torch"`` the plain version.
     ``record_logits=True`` keeps every emitted token's f32 logits in
     ``logit_log[uid]`` (on the host), for parity checks.
 
@@ -719,12 +798,12 @@ class ServingEngine:
                  prefill_chunks_per_step=None, admit_lookahead=4,
                  decode_block="adaptive",
                  decode_block_buckets=(1, 4, 8, 16), max_queue=None,
-                 shed_policy="reject", kv_dtype=None, weight_dtype=None,
+                 shed_policy="reject", preemption=True,
+                 fault_injector=None, kv_dtype=None, weight_dtype=None,
                  record_logits=False, mesh=None, speculative=None,
-                 mixed_step=False, fault_injector=None, journal=None,
-                 tracer=None, watchdog=None, _capture=True):
+                 mixed_step=False, journal=None, tracer=None,
+                 watchdog=None, _capture=True):
         for name, val in (("mesh", mesh), ("speculative", speculative),
-                          ("fault_injector", fault_injector),
                           ("journal", journal), ("tracer", tracer),
                           ("watchdog", watchdog)):
             if val is not None and val is not False:
@@ -784,6 +863,8 @@ class ServingEngine:
         self._k_ramp = 0
         self.max_queue = None if max_queue is None else int(max_queue)
         self.shed_policy = shed_policy
+        self.preemption = bool(preemption)
+        self.faults = fault_injector
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
         self.max_seq_len = max_seq_len
@@ -841,16 +922,23 @@ class ServingEngine:
         self._prefilling = deque()  # slots with pending chunks, FIFO
         self._pending = RequestQueue()
         self._next_uid = 0
-        self._next_seq = 0
+        self._next_seq = 0          # arrival order (queue tiebreak)
+        self._next_admit = 0        # admission order (preempt tiebreak)
+        self._admit_round = 0       # _try_admit call counter (anti-thrash)
         self._finished_now = []
         self._early_done = []       # completions minted outside a step
+        self._cancel_pending = set()
+        self._step_ema = None       # EMA seconds per single decode step
+        self._closed = False
         self.stats = {"steps": 0, "prefill_chunks": 0,
                       "tokens_emitted": 0, "admitted": 0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "cached_tokens": 0, "cow_copies": 0,
                       "admission_skips": 0, "decode_blocks": 0,
                       "decode_block_k": 0, "fused_blocks": 0,
-                      "sheds": 0,
+                      "sheds": 0, "preemptions": 0,
+                      "collateral_requeues": 0, "cancelled": 0,
+                      "deadline_expired": 0, "faults": 0, "resumes": 0,
                       # model-forward dispatches: prefill chunks, decode
                       # steps and fused blocks (as in the reference)
                       "dispatches": 0,
@@ -930,20 +1018,17 @@ class ServingEngine:
         C = self.prefill_chunk
         return max(prompt_len + max_new, -(-prompt_len // C) * C)
 
-    def add_request(self, prompt, max_new_tokens, temperature=0.0,
-                    eos_id=None, seed=0):
-        """Enqueue a request; returns its uid. At the ``max_queue``
-        bound the shed policy runs (``reject`` raises
-        :class:`QueueFullError`)."""
-        prompt = np.asarray(prompt, np.int32).reshape(-1)
+    def _check_fits(self, prompt, max_new, what="prompt"):
+        """Validate a request against the engine's position space and
+        page pool (reference ``add_request``/``admit_migrated``)."""
         if prompt.size == 0:
             raise ValueError("empty prompt")
-        if int(max_new_tokens) < 1:
+        if max_new < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        need = self._positions_needed(prompt.size, int(max_new_tokens))
+        need = self._positions_needed(prompt.size, max_new)
         if need > self.max_seq_len:
             raise ValueError(
-                f"prompt({prompt.size}) + max_new({max_new_tokens}) "
+                f"{what}({prompt.size}) + max_new({max_new}) "
                 f"(prefill-padded to {need} positions) exceeds the "
                 f"engine's max_seq_len({self.max_seq_len})")
         pages = -(-need // self.page_size)
@@ -951,24 +1036,53 @@ class ServingEngine:
             raise ValueError(
                 f"request needs {pages} pages but the pool only has "
                 f"{self.kv.num_pages - 1} — it could never be admitted")
+
+    def _enqueue(self, prompt, priority, **fields):
+        """Run the shed policy at the ``max_queue`` bound, then queue a
+        fresh Request under a new uid and arrival seq. Returns the
+        uid."""
         if self.max_queue is not None and \
                 len(self._pending) >= self.max_queue:
-            self._shed_for(0)  # raises unless a victim was shed
+            self._shed_for(priority)  # raises unless a victim was shed
         uid = self._next_uid
         self._next_uid += 1
         digests = _page_digests(prompt, self.page_size) \
             if self.kv.prefix_cache else ()
         seq = self._next_seq
         self._next_seq += 1
-        self._pending.push(Request(
-            uid=uid, prompt=prompt, max_new_tokens=int(max_new_tokens),
-            temperature=float(temperature),
-            eos_id=-1 if eos_id is None else int(eos_id),
-            seed=int(seed), t_arrival=time.perf_counter(),
-            digests=digests, seq=seq))
+        self._pending.push(Request(uid=uid, prompt=prompt, digests=digests,
+                                   priority=priority, seq=seq, **fields))
         return uid
 
+    def add_request(self, prompt, max_new_tokens, temperature=0.0,
+                    eos_id=None, seed=0, priority=0, deadline_s=None,
+                    trace_ctx=None, tenant=None):
+        """Enqueue a request; returns its uid. ``priority`` (higher wins)
+        orders the queue and arms page-pool preemption; ``deadline_s``
+        fails the request once that many seconds have passed since this
+        call; ``tenant`` is a label the request's Completion and
+        :meth:`inflight` carry. At the ``max_queue`` bound the shed
+        policy runs (``reject``, and a ``shed_lowest_priority`` arrival
+        that outranks nothing, raise :class:`QueueFullError`)."""
+        if trace_ctx is not None:
+            raise NotImplementedError(
+                "trace_ctx= is not ported to paddle_tpu_torch yet")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if deadline_s is not None and float(deadline_s) < 0:
+            raise ValueError("deadline_s must be >= 0 (or None)")
+        self._check_fits(prompt, int(max_new_tokens))
+        return self._enqueue(
+            prompt, int(priority), max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature),
+            eos_id=-1 if eos_id is None else int(eos_id), seed=int(seed),
+            t_arrival=time.perf_counter(),
+            deadline_s=None if deadline_s is None else float(deadline_s),
+            tenant=str(tenant) if tenant else "default")
+
     def _shed_for(self, incoming_priority):
+        """The queue is at ``max_queue``: shed one queued victim for an
+        arrival of ``incoming_priority`` (finish_reason "shed") or raise
+        QueueFullError."""
         victim = self._pending.pick_shed_victim(incoming_priority,
                                                 self.shed_policy)
         self.stats["sheds"] += 1
@@ -978,7 +1092,267 @@ class ServingEngine:
                 f"{self.max_queue}, policy {self.shed_policy!r})",
                 depth=len(self._pending), policy=self.shed_policy)
         self._pending.remove(victim)
-        self._early_done.append(Completion(victim.uid, [], "shed"))
+        self._fail_queued(victim, "shed")
+
+    # -- resilience ----------------------------------------------------------
+    def _count_failure(self, reason):
+        if reason == "cancelled":
+            self.stats["cancelled"] += 1
+        elif reason == "deadline":
+            self.stats["deadline_expired"] += 1
+
+    def cancel(self, uid):
+        """Mark ``uid`` for teardown at the next step boundary — queued,
+        prefilling or decoding alike (finish_reason ``"cancelled"``,
+        partial tokens kept, pages reclaimed). Returns True when the uid
+        is live in the engine. Unapplied cancels force K=1."""
+        uid = int(uid)
+        known = (uid in self._cancel_pending
+                 or self._pending.find_uid(uid) is not None
+                 or any(st.uid == uid for st in self._slots.values()))
+        if known:
+            self._cancel_pending.add(uid)
+        return known
+
+    def _apply_cancels(self):
+        while self._cancel_pending:
+            uid = self._cancel_pending.pop()
+            req = self._pending.find_uid(uid)
+            if req is not None:
+                self._pending.remove(req)
+                self._fail_queued(req, "cancelled")
+                continue
+            slot = self._slot_of(uid)
+            if slot is not None:
+                self._abort_slot(slot, "cancelled")
+
+    def _slot_of(self, uid):
+        return next((s for s, st in self._slots.items() if st.uid == uid),
+                    None)
+
+    def _fail_queued(self, req, reason):
+        """Terminal failure of a queued request: its Completion keeps the
+        tokens it emitted before a preemption."""
+        self._early_done.append(Completion(
+            req.uid, list(req.resume_out or []), reason, ttft_s=req.ttft_s,
+            priority=req.priority, preemptions=req.preemptions,
+            tenant=req.tenant))
+        self._count_failure(reason)
+
+    def _abort_slot(self, slot, reason, requeue=False):
+        """Tear an in-flight request out of its slot: the shared path of
+        cancellation, deadline expiry, faults, preemption
+        (``requeue=True``) and teardown. Unregisters digests of pages this
+        admission registered but never finished writing (requeueing any
+        later admission that mapped one), releases the pages through the
+        refcount / double-free guard, clears the slot's host mirrors, and
+        either requeues the request (with its emitted tokens and
+        generator state) or mints its failure Completion."""
+        st = self._slots.pop(slot)
+        was_active = bool(self._active[slot])
+        resume = None
+        if requeue:
+            prior = len(st.resume_out or [])
+            new = st.out[prior:] if was_active else []
+            if new:
+                gen = self._gens[slot]
+                resume = {"prompt": np.concatenate(
+                    [st.toks[:st.prompt_len].astype(np.int32),
+                     np.asarray(new, np.int32)]),
+                    "out": list(st.out),
+                    "key": None if gen is None else gen.get_state()}
+            else:
+                resume = {"prompt": st.toks[:st.prompt_len].astype(np.int32),
+                          "out": list(st.resume_out)
+                          if st.resume_out else None,
+                          "key": st.resume_key}
+            resume["digests"] = _page_digests(
+                resume["prompt"], self.page_size) \
+                if self.kv.prefix_cache else ()
+        collateral = self._release_slot_pages(st, was_active, resume)
+        if slot in self._prefilling:
+            self._prefilling.remove(slot)
+        self._clear_slot(slot)
+        if requeue:
+            self._requeue_slot(st, resume, reason)
+        else:
+            self._early_done.append(Completion(
+                st.uid, list(st.out), reason, ttft_s=st.ttft_s,
+                priority=st.priority, preemptions=st.preemptions,
+                tenant=st.tenant))
+            self._count_failure(reason)
+        # a torn-down prefill may strand later admissions that mapped its
+        # now-unregistered pages: requeue them (they restart clean;
+        # strict-FIFO chunk order means none of them has activated)
+        for cslot in collateral:
+            if cslot in self._slots:
+                self._abort_slot(cslot, "collateral", requeue=True)
+
+    def _release_slot_pages(self, st, was_active, resume):
+        """Release ``st``'s pages. Unregisters digests this admission
+        registered over pages never fully written; a preemption
+        (``resume``) first registers the fully written generated pages
+        under the resumed sequence's digests, so re-admission maps all
+        but the uncached tail. Returns the slots that share an
+        unregistered page: the collateral the caller requeues."""
+        kv, PS = self.kv, self.page_size
+        prior = len(st.resume_out or [])
+        written = (st.prompt_len + len(st.out) - prior - 1) \
+            if was_active else st.pf_base
+        if resume is not None and was_active and kv.prefix_cache:
+            for i in range(len(st.digests), len(resume["digests"])):
+                if (i + 1) * PS <= written and i < len(st.pages):
+                    kv.register(resume["digests"][i], st.pages[i])
+        collateral = []
+        if kv.prefix_cache and st.digests:
+            bad_pages = set()
+            for i in range(st.reg_from, len(st.digests)):
+                if (i + 1) * PS <= written:
+                    continue
+                page = st.pages[i]
+                if kv.unregister(st.digests[i]) and kv.refcount(page) > 1:
+                    bad_pages.add(page)
+            if bad_pages:
+                collateral = [s for s, other in self._slots.items()
+                              if bad_pages & set(other.pages)]
+        if st.cow_src >= 0:
+            kv.release([st.cow_src])
+            st.cow_src = -1
+        kv.release(st.pages)
+        return collateral
+
+    def _requeue_slot(self, st, resume, reason):
+        """Preemption's tail: the resume Request back into the queue at
+        the front of its priority class (its original seq)."""
+        self._pending.push(Request(
+            uid=st.uid, prompt=resume["prompt"],
+            max_new_tokens=st.max_new - len(resume["out"] or []),
+            temperature=st.temperature, eos_id=st.eos_id, seed=st.seed,
+            t_arrival=st.t_arrival, digests=resume["digests"],
+            priority=st.priority, deadline_s=st.deadline_s, seq=st.seq,
+            resume_out=resume["out"], resume_key=resume["key"],
+            ttft_s=st.ttft_s, preemptions=st.preemptions + 1,
+            tenant=st.tenant))
+        self.stats["preemptions"] += 1
+        if reason == "collateral":
+            self.stats["collateral_requeues"] += 1
+
+    def _expired(self, x, now):
+        return x.deadline_s is not None and now - x.t_arrival > x.deadline_s
+
+    def _expire_queued(self):
+        now = time.perf_counter()
+        for r in [r for r in self._pending if self._expired(r, now)]:
+            self._pending.remove(r)
+            self._fail_queued(r, "deadline")
+
+    def _expire_slots(self):
+        """Deadline check at a prefill/decode dispatch boundary."""
+        now = time.perf_counter()
+        for slot in [s for s, st in self._slots.items()
+                     if self._expired(st, now)]:
+            if slot in self._slots:  # not requeued as collateral of an
+                self._abort_slot(slot, "deadline")  # earlier abort
+
+    def _preempt_victims(self, req):
+        """Slots a preemption for ``req`` may evict: strictly lower
+        priority, and not admitted by this same ``_try_admit`` call (an
+        admit/preempt cycle inside one call could otherwise never
+        end)."""
+        return [s for s, st in self._slots.items()
+                if st.priority < req.priority
+                and st.admit_round != self._admit_round]
+
+    def _preempt_for_head(self):
+        """Evict the lowest-priority (then latest-admitted) in-flight
+        request so the highest-priority queued request can be admitted;
+        skipped when even evicting every eligible victim could not cover
+        the head's uncached pages. Returns True if a victim was
+        preempted."""
+        if not self.preemption or not self._pending:
+            return False
+        head = self._pending[0]
+        victims = self._preempt_victims(head)
+        if not victims:
+            return False
+        if self._free_slots:
+            rows = -(-self._positions_needed(
+                head.prompt.size, head.max_new_tokens) // self.page_size)
+            # the head's real demand is its uncached remainder, under the
+            # cap _plan_admission applies (a fully cached prompt still
+            # allocates its copy-on-write page)
+            k, cow, _ = self._cached_prefix(head.digests, head.prompt.size)
+            shared = (k - 1) if cow else k
+            freeable = sum(1 for s in victims
+                           for p in self._slots[s].pages
+                           if self.kv.refcount(p) == 1)
+            if self.kv.num_available + freeable < rows - shared:
+                return False
+        victim = min(victims, key=lambda s: (
+            self._slots[s].priority, -self._slots[s].admit_seq))
+        self._abort_slot(victim, "pages", requeue=True)
+        return True
+
+    def _teardown_all(self, reason):
+        """``close()`` and the exception path of ``step()``: fail every
+        queued request and abort every in-flight one with ``reason``,
+        every page released through the double-free guard."""
+        self._cancel_pending.clear()
+        # aborting a prefilling slot can requeue a later admission that
+        # shared its pages (collateral): drain the queue again after the
+        # slot sweep
+        while self._pending or self._slots:
+            before = (len(self._pending), len(self._slots))
+            while self._pending:
+                self._fail_queued(self._pending.pop(0), reason)
+            for slot in list(self._slots):
+                if slot in self._slots:  # not collateral of an earlier abort
+                    self._abort_slot(slot, reason)
+            if (len(self._pending), len(self._slots)) == before:
+                break  # no progress: do not spin
+
+    def _on_injected_fault(self, e):
+        """An injected dispatch exception: fail exactly the targeted
+        request and keep serving."""
+        self.stats["faults"] += 1
+        slot = self._slot_of(e.uid)
+        if slot is not None:
+            self._abort_slot(slot, "error")
+
+    def _check_nonfinite_fault(self):
+        """Injected nonfinite decode logits: the targeted request fails
+        with finish_reason "nonfinite". Only decoding slots are targets;
+        a prefilling neighbour produced no decode logits."""
+        if self.faults is None:
+            return
+        uids = [self._slots[s].uid for s in np.nonzero(self._active)[0]]
+        if not uids:
+            return
+        hit = self.faults.fire("nonfinite_logits", uids=uids)
+        if hit is None:
+            return
+        self.stats["faults"] += 1
+        slot = self._slot_of(hit["uid"])
+        if slot is not None:
+            self._abort_slot(slot, "nonfinite")
+
+    def _decode_faults(self):
+        """``decode_error`` and ``stall`` over the decoding slots, before
+        the replay."""
+        uids = [self._slots[s].uid for s in np.nonzero(self._active)[0]]
+        if self.faults is None or not uids:
+            return
+        self.faults.maybe_raise("decode_error", uids=uids)
+        if self.faults.stall(uids=uids) is not None:
+            self.stats["faults"] += 1
+
+    def _prefill_faults(self, st):
+        """``prefill_error`` and ``stall`` for one prefill chunk."""
+        if self.faults is None:
+            return
+        self.faults.maybe_raise("prefill_error", uid=st.uid)
+        if self.faults.stall(uids=[st.uid]) is not None:
+            self.stats["faults"] += 1
 
     # -- admission -----------------------------------------------------------
     def _cached_prefix(self, digests, P):
@@ -1002,7 +1376,12 @@ class ServingEngine:
     def _plan_admission(self, req):
         """Reserve the pages for ``req``: pin the longest cached prefix
         and allocate the rest. Returns the plan dict, or None — with
-        every pin undone — when the pool cannot cover the request."""
+        every pin undone — when the pool cannot cover the request (or an
+        injected ``page_exhaustion`` says so)."""
+        if self.faults is not None and self.faults.fire(
+                "page_exhaustion", uid=req.uid):
+            self.stats["faults"] += 1
+            return None
         kv = self.kv
         P = req.prompt.size
         PS = self.page_size
@@ -1031,29 +1410,44 @@ class ServingEngine:
                 "hits": k, "misses": len(digests) - k}
 
     def _try_admit(self):
-        """Admit queued requests into free slots, FIFO with the bounded
-        lookahead: when the head cannot get pages, up to
-        ``admit_lookahead`` requests are scanned and the first that fits
-        is admitted out of order (skips counted)."""
-        while self._pending and self._free_slots:
+        """Admit queued requests into free slots in priority order (FIFO
+        within a class) with the bounded lookahead: when the head cannot
+        get pages, up to ``admit_lookahead`` requests are scanned and the
+        first that fits is admitted out of order (skips counted). The
+        lookahead does not cross into a lower class while the blocked
+        head could preempt instead. When nothing in the window fits,
+        preemption evicts lower-priority in-flight work for the head."""
+        self._expire_queued()
+        self._admit_round += 1
+        while self._pending:
             admitted = False
-            for i in range(min(len(self._pending), self.admit_lookahead)):
-                req = self._pending[i]
-                plan = self._plan_admission(req)
-                if plan is None:
-                    continue
-                self._pending.pop(i)
-                self.stats["admission_skips"] += i
-                self._admit(req, self._free_slots.pop(), plan)
-                admitted = True
-                break
-            if not admitted:
+            if self._free_slots:
+                head = self._pending[0]
+                hold_class = self.preemption and \
+                    bool(self._preempt_victims(head))
+                for i in range(min(len(self._pending),
+                                   self.admit_lookahead)):
+                    req = self._pending[i]
+                    if hold_class and req.priority != head.priority:
+                        break
+                    plan = self._plan_admission(req)
+                    if plan is None:
+                        continue
+                    self._pending.pop(i)
+                    self.stats["admission_skips"] += i
+                    self._admit(req, self._free_slots.pop(), plan)
+                    admitted = True
+                    break
+            if admitted:
+                continue
+            if not self._preempt_for_head():
                 break
 
     def _admit(self, req, slot, plan):
         """Map the plan's pages into the slot's block table, register
         the digests this request's prefill will populate, and queue the
-        prompt's chunks as deferred work."""
+        prompt's chunks as deferred work. A resumed request's budget
+        counts the tokens it emitted before."""
         P = req.prompt.size
         C = self.prefill_chunk
         pages, base0 = plan["pages"], plan["base0"]
@@ -1068,13 +1462,24 @@ class ServingEngine:
             self.kv.register(req.digests[i], pages[i])
         toks = np.zeros(pf_end, np.int64)
         toks[:P] = req.prompt
+        resume_out = list(req.resume_out or [])
         self._slots[slot] = _SlotState(
-            uid=req.uid, prompt_len=P, max_new=req.max_new_tokens,
-            eos_id=req.eos_id, pages=pages, temperature=req.temperature,
-            seed=req.seed, t_arrival=req.t_arrival, toks=toks,
-            pf_base=base0, pf_end=pf_end,
-            cow_src=plan["cow_src"], cow_dst=plan["cow_dst"])
+            uid=req.uid, prompt_len=P,
+            max_new=req.max_new_tokens + len(resume_out),
+            eos_id=req.eos_id, pages=pages, out=resume_out,
+            temperature=req.temperature, seed=req.seed,
+            t_arrival=req.t_arrival, toks=toks, pf_base=base0,
+            pf_end=pf_end, cow_src=plan["cow_src"], cow_dst=plan["cow_dst"],
+            ttft_s=req.ttft_s, priority=req.priority,
+            deadline_s=req.deadline_s, seq=req.seq,
+            admit_seq=self._next_admit, admit_round=self._admit_round,
+            digests=req.digests, reg_from=plan["hits"],
+            preemptions=req.preemptions, resume_out=req.resume_out,
+            resume_key=req.resume_key, tenant=req.tenant)
+        self._next_admit += 1
         self._prefilling.append(slot)
+        if req.preemptions:
+            self.stats["resumes"] += 1
         self.stats["admitted"] += 1
         self.stats["prefix_hits"] += plan["hits"]
         self.stats["prefix_misses"] += plan["misses"]
@@ -1102,16 +1507,25 @@ class ServingEngine:
 
     def _run_prefill_chunks(self):
         """Run at most ``prefill_chunks_per_step`` chunks, strictly FIFO
-        by admission order; a slot whose last chunk lands is
-        activated."""
+        by admission order; a slot past its deadline is failed between
+        chunks, an injected ``prefill_error`` fails its target, and a
+        slot whose last chunk lands is activated."""
         budget = self.prefill_chunks_per_step
         ran = 0
         while budget > 0 and self._prefilling:
             slot = self._prefilling[0]
             st = self._slots[slot]
-            if st.cow_src >= 0:
-                self._run_cow_copy(st)
-            self._run_one_chunk(slot, st)
+            if self._expired(st, time.perf_counter()):
+                self._abort_slot(slot, "deadline")
+                continue
+            try:
+                self._prefill_faults(st)
+                if st.cow_src >= 0:
+                    self._run_cow_copy(st)
+                self._run_one_chunk(slot, st)
+            except InjectedFault as e:
+                self._on_injected_fault(e)
+                continue
             ran += 1
             budget -= 1
             if st.pf_base >= st.pf_end:
@@ -1122,9 +1536,15 @@ class ServingEngine:
     def _activate(self, slot, st):
         """Prefill complete: sample the first token and make the slot
         live for the next decode step. A sampled slot's generator is
-        seeded here with the request's seed."""
+        seeded here with the request's seed; a resumed slot's is
+        restored from the state saved at preemption, so its first sample
+        draws what the interrupted decode step would have drawn. A
+        resumed slot continues its token list and keeps its TTFT."""
         gen = None
-        if st.temperature > 0:
+        if st.resume_key is not None:
+            gen = torch.Generator(device=self.device)
+            gen.set_state(st.resume_key)
+        elif st.temperature > 0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(st.seed)
         tok = self._fns.sample_first(st.logits, st.temperature, gen)
@@ -1132,8 +1552,9 @@ class ServingEngine:
             self.logit_log.setdefault(st.uid, []).append(
                 st.logits.float().cpu())
         st.logits = None
-        st.ttft_s = time.perf_counter() - st.t_arrival
-        st.out = [tok]
+        if st.ttft_s is None:
+            st.ttft_s = time.perf_counter() - st.t_arrival
+        st.out = list(st.resume_out or []) + [tok]
         self._gens[slot] = gen
         self._lengths[slot] = st.prompt_len + 1
         self._tokens[slot] = tok
@@ -1150,14 +1571,15 @@ class ServingEngine:
     # -- decode --------------------------------------------------------------
     def _choose_block_k(self):
         """The decode block size for this dispatch (reference
-        ``serving.py:3160``). Any pending admission or prefill work
+        ``serving.py:3160``). Any pending admission, prefill or cancel
         forces K=1. Under steady pure-decode load the adaptive policy
         runs one confirming per-token step, then jumps to the largest
         bucket, clamped to the smallest bucket covering the largest
         remaining budget; it fuses nothing when the runway is shorter
         than ``2 * buckets[1]``. A fixed ``decode_block=K`` goes
-        straight to its bucket."""
-        if self._pending or self._prefilling:
+        straight to its bucket. A live deadline clamps K so one fused
+        block cannot overshoot it."""
+        if self._pending or self._prefilling or self._cancel_pending:
             self._k_ramp = 0
             return 1
         buckets = self.decode_block_buckets
@@ -1174,7 +1596,27 @@ class ServingEngine:
             k = self.decode_block
         if k > max_rem:
             k = min(b for b in buckets if b >= max_rem)
-        return k
+        return self._clamp_k_deadline(k)
+
+    def _clamp_k_deadline(self, k):
+        """A K-step block commits the engine for about K steps; the
+        nearest live deadline bounds how many it may fuse (per-step EMA;
+        no EMA yet, a cold engine, takes K=1)."""
+        if k <= 1:
+            return k
+        now = time.perf_counter()
+        rem = min((st.deadline_s - (now - st.t_arrival)
+                   for st in self._slots.values()
+                   if st.deadline_s is not None), default=None)
+        if rem is None:
+            return k
+        if self._step_ema is None or self._step_ema <= 0:
+            return 1
+        cap = int(rem / self._step_ema)
+        if cap >= k:
+            return k
+        fit = [b for b in self.decode_block_buckets if b <= max(cap, 1)]
+        return max(fit) if fit else 1
 
     def _replay(self, key, *host):
         """Dispatch program ``key`` on the host arrays ``host``: replay
@@ -1256,20 +1698,33 @@ class ServingEngine:
     def _run_mixed_dispatch(self):
         """ONE ragged dispatch for everything (reference
         ``_run_mixed_dispatch``, ``serving.py:3510``, without verify
-        rows, faults, deadlines or telemetry): every queued prefill slot
-        contributes its next chunk as a ``q_len = C`` row, every active
-        slot a decode row. A prefill slot whose last chunk lands is
-        activated from the program's logits; decode rows apply as a
-        token block. Returns the tokens emitted."""
+        rows or telemetry): every queued prefill slot contributes its
+        next chunk as a ``q_len = C`` row — a slot past its deadline or
+        hit by an injected ``prefill_error`` is failed while the rows are
+        packed — and every active slot a decode row, after the
+        ``decode_error``/``stall`` faults. A prefill slot whose last
+        chunk lands is activated from the program's logits; decode rows
+        apply as a token block. Returns the tokens emitted."""
         S, QB, C = self.num_slots, self.prefill_chunk, self.prefill_chunk
         pf_rows = []   # (slot, st, base, last_idx)
         for slot in list(self._prefilling):
-            st = self._slots[slot]
-            if st.cow_src >= 0:
-                self._run_cow_copy(st)
+            st = self._slots.get(slot)
+            if st is None:      # requeued as collateral of an abort above
+                continue
+            if self._expired(st, time.perf_counter()):
+                self._abort_slot(slot, "deadline")
+                continue
+            try:
+                self._prefill_faults(st)
+                if st.cow_src >= 0:
+                    self._run_cow_copy(st)
+            except InjectedFault as e:
+                self._on_injected_fault(e)
+                continue
             base, P = st.pf_base, st.prompt_len
             last = P - 1 - base if base <= P - 1 < base + C else 0
             pf_rows.append((slot, st, base, last))
+        self._decode_faults()
         kind = np.zeros(S, np.int32)
         q_lens = np.ones(S, np.int32)
         start = np.zeros(S, np.int64)
@@ -1339,18 +1794,27 @@ class ServingEngine:
                 self._finish(slot, reason)
         return emitted
 
-    def _finish(self, slot, reason):
-        st = self._slots.pop(slot)
-        self.kv.release(st.pages)
+    def _clear_slot(self, slot):
+        """Zero a vacated slot's host mirrors and free it. Every replay
+        uploads these mirrors, so the next dispatch sees the slot
+        inactive: its rows write the trash page only."""
         self._bt[slot] = 0
         self._lengths[slot] = 0
+        self._tokens[slot] = 0
         self._active[slot] = False
+        self._temps[slot] = 0.0
         self._eos[slot] = -1
         self._remaining[slot] = 0
         self._gens[slot] = None
         self._free_slots.append(slot)
-        self._finished_now.append(Completion(st.uid, st.out, reason,
-                                             ttft_s=st.ttft_s))
+
+    def _finish(self, slot, reason):
+        st = self._slots.pop(slot)
+        self.kv.release(st.pages)
+        self._clear_slot(slot)
+        self._finished_now.append(Completion(
+            st.uid, st.out, reason, ttft_s=st.ttft_s, priority=st.priority,
+            preemptions=st.preemptions, tenant=st.tenant))
 
     # -- the engine loop -----------------------------------------------------
     @torch.no_grad()
@@ -1359,35 +1823,87 @@ class ServingEngine:
         queued prefill chunk and decode row (``mixed_step``), or up to
         ``prefill_chunks_per_step`` deferred prefill chunks and one
         decode dispatch (a step or a fused block) over every active
-        slot. Returns the Completions finished now."""
+        slot. Returns the Completions finished now. An exception that
+        escapes the step (``ReplicaDown``, or a real failure) first tears
+        the engine down — every in-flight page released, the pool
+        verifiable — and then propagates."""
+        try:
+            return self._step()
+        except Exception:
+            self._teardown_all("error")
+            raise
+
+    def _step(self):
+        """The reference's ``_step`` order (``serving.py:3759``): the
+        injected replica death first, cancels, admission, prefill chunks,
+        cancels and deadlines again, the dispatch with its injected
+        faults, then the nonfinite fault and the trailing deadline
+        check."""
+        if self.faults is not None and \
+                self.faults.fire("replica_down") is not None:
+            self.stats["faults"] += 1
+            raise ReplicaDown("injected replica death")
         self._finished_now = []
+        self._apply_cancels()
         self._try_admit()
-        k = None
+        if not self.mixed_step:
+            self._run_prefill_chunks()
+        self._apply_cancels()   # a cancel that landed while chunks ran
+        self._expire_slots()    # deadlines at the dispatch boundary
         if self.mixed_step:
             if self._active.any() or self._prefilling:
-                self._run_mixed_dispatch()
-                k = 1
-        else:
-            self._run_prefill_chunks()
-            if self._active.any():
-                k = self._choose_block_k()
-                if k > 1:
-                    self._run_decode_block(k)
-                else:
-                    self._run_decode_step()
-        if k is not None:
-            self.stats["steps"] += 1
-            self.stats["decode_blocks"] += 1
-            self.stats["decode_block_k"] = k
+                self._dispatch(self._run_mixed_dispatch, 1)
+        elif self._active.any():
+            k = self._choose_block_k()
+            self._dispatch(functools.partial(self._run_decode_block, k)
+                           if k > 1 else self._run_decode_step, k,
+                           decode_faults=True)
         finished = self._early_done + self._finished_now
         self._early_done = []
         self._finished_now = finished
         return finished
 
+    def _dispatch(self, run, k, decode_faults=False):
+        """Run one decode (or mixed) dispatch of ``k`` steps: an injected
+        fault fails its target, a clean dispatch feeds the per-step EMA
+        and the step counters and then meets the nonfinite fault; the
+        deadline check follows either way."""
+        t0 = time.perf_counter()
+        try:
+            if decode_faults:
+                self._decode_faults()
+            run()
+        except InjectedFault as e:
+            self._on_injected_fault(e)
+        else:
+            per = (time.perf_counter() - t0) / k
+            self._step_ema = per if self._step_ema is None else \
+                0.8 * self._step_ema + 0.2 * per
+            self.stats["steps"] += 1
+            self.stats["decode_blocks"] += 1
+            self.stats["decode_block_k"] = k
+            self._check_nonfinite_fault()
+        self._expire_slots()    # the trailing dispatch boundary
+
+    def close(self):
+        """Abort everything still in flight or queued (finish_reason
+        ``"aborted"``; every page released through the double-free
+        guard, so the pool verifies clean) and return ``{uid:
+        Completion}`` of it, with any completion not yet delivered by a
+        step. Idempotent: a second call returns ``{}``. Afterwards
+        ``has_work`` is False."""
+        if self._closed:
+            return {}
+        self._teardown_all("aborted")
+        aborted = {c.uid: c for c in self._early_done}
+        self._early_done = []
+        self._closed = True
+        return aborted
+
     @property
     def has_work(self):
         return (bool(self._pending) or bool(self._slots)
-                or bool(self._early_done))
+                or bool(self._early_done) or bool(self._cancel_pending))
 
     def run(self, max_steps=None):
         """Drive step() until the stream drains; returns
@@ -1402,3 +1918,61 @@ class ServingEngine:
                 raise RuntimeError(
                     f"serving loop exceeded max_steps={max_steps}")
         return done
+
+    # -- migration between engines (the fleet router's hooks) ----------------
+    def inflight(self):
+        """Every request live in this engine, queued and in a slot, as
+        plain dicts."""
+        out = [{"uid": r.uid, "priority": r.priority, "tenant": r.tenant,
+                "seq": r.seq, "queued": True,
+                "tokens_out": len(r.resume_out or [])}
+               for r in self._pending]
+        out.extend({"uid": st.uid, "priority": st.priority,
+                    "tenant": st.tenant, "seq": st.seq, "queued": False,
+                    "tokens_out": len(st.out)}
+                   for st in self._slots.values())
+        return out
+
+    def eject(self, uid):
+        """Remove a live request — queued or in flight — and return it as
+        a resume-carrying :class:`Request` for another engine's
+        :meth:`admit_migrated`. An in-flight request goes through the
+        preemption path (emitted tokens and generator state kept, fully
+        written pages registered under the resumed digests), so the
+        migrated continuation is the same stream. Call between steps.
+        Raises KeyError for a uid not live here."""
+        uid = int(uid)
+        self._cancel_pending.discard(uid)
+        req = self._pending.find_uid(uid)
+        if req is None:
+            slot = self._slot_of(uid)
+            if slot is None:
+                raise KeyError(f"uid {uid} is not live in this engine")
+            self._abort_slot(slot, "migrated", requeue=True)
+            req = self._pending.find_uid(uid)
+        self._pending.remove(req)
+        return req
+
+    def admit_migrated(self, req, trace_ctx=None):
+        """Admit a :class:`Request` ejected from another engine under a
+        fresh local uid and arrival seq, keeping the resume prompt, the
+        remaining budget, the generator state, ``t_arrival`` (the TTFT
+        and deadline basis), the observed ``ttft_s``, priority, deadline,
+        tenant and preemption count. Digests are recomputed for this
+        engine's page size. The same admission control as
+        :meth:`add_request` (may shed, or raise QueueFullError). Returns
+        the new uid."""
+        if trace_ctx is not None:
+            raise NotImplementedError(
+                "trace_ctx= is not ported to paddle_tpu_torch yet")
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        max_new = int(req.max_new_tokens)
+        self._check_fits(prompt, max_new, "migrated prompt")
+        return self._enqueue(
+            prompt, int(req.priority), max_new_tokens=max_new,
+            temperature=float(req.temperature), eos_id=int(req.eos_id),
+            seed=int(req.seed), t_arrival=float(req.t_arrival),
+            deadline_s=req.deadline_s,
+            resume_out=list(req.resume_out) if req.resume_out else None,
+            resume_key=req.resume_key, ttft_s=req.ttft_s,
+            preemptions=int(req.preemptions), tenant=req.tenant)

@@ -11,7 +11,11 @@ others), the serving
 engine on the card against
 the same engine on the CPU (float and quantized pools, int8 weights), the
 captured engine (CUDA graphs of the serving programs) against the eager
-one, per phase and with ``mixed_step=True``, and
+one, per phase and with ``mixed_step=True``, serving resilience on it
+(preempt-and-resume over bf16, int8 and fp8 pools against the eager
+engine, no capture after the constructor through every drill, the pages
+no live slot holds kept across the replay after an abort, ``close()``),
+and
 GPT and packed-BERT training steps through the kernels against the same
 steps through the plain versions.
 
@@ -418,6 +422,211 @@ def test_a_capture_that_fails_raises(cuda):
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 3, res.stdout + res.stderr
     assert "raised:" in res.stdout
+
+
+# -- serving resilience on the captured engine ---------------------------------
+
+def _low_reqs():
+    """Three requests that fill the three slots of a pool short of pages,
+    the last admitted sampled, and a long arrival of priority 5 that must
+    preempt it."""
+    rng = np.random.RandomState(41)
+    lows = [dict(prompt=rng.randint(0, 128, n), max_new_tokens=40,
+                 temperature=t, seed=60 + i)
+            for i, (n, t) in enumerate(((22, 0.0), (30, 0.0), (27, 0.8)))]
+    high = dict(prompt=rng.randint(0, 128, 60), max_new_tokens=20,
+                priority=5)
+    return lows, high
+
+
+RES_POOL = 1 + 3 * 9 + 2     # the three requests' pages and 2 more
+
+
+def _decoding(eng, uid, n=1):
+    s = next((s for s, st in eng._slots.items() if st.uid == uid), None)
+    return s is not None and bool(eng._active[s]) and \
+        len(eng._slots[s].out) >= n
+
+
+def _steps(eng, done, until, max_steps=500):
+    for _ in range(max_steps):
+        if until():
+            return
+        for c in eng.step():
+            done[c.uid] = c
+        eng.kv.verify()
+    raise AssertionError("the engine never got there")
+
+
+def _preempt_serve(eng):
+    """The three requests until each decodes 8 tokens, then the arrival;
+    drained. Returns (completions by uid, uids)."""
+    lows, high = _low_reqs()
+    done = {}
+    uids = [eng.add_request(**r) for r in lows]
+    _steps(eng, done, lambda: all(_decoding(eng, u, 8) for u in uids))
+    uids.append(eng.add_request(**high))
+    _steps(eng, done, lambda: not eng.has_work)
+    return done, uids
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_captured_preempt_resume_equals_the_eager_engine(cuda, kv_dtype,
+                                                         mixed):
+    """Preemption tears a slot down between replays, releases and reuses
+    its pages and carries a sampled slot's generator across the
+    re-admission: the captured engine gives the eager engine's tokens,
+    logits and counters, and captures nothing more."""
+    runs = []
+    for capture in (True, False):
+        eng = _graph_engine(cuda, capture, kv_dtype=kv_dtype,
+                            mixed_step=mixed, num_pages=RES_POOL)
+        n = eng.stats["graph_captures"]
+        done, uids = _preempt_serve(eng)
+        torch.cuda.synchronize()
+        assert eng.stats["graph_captures"] == n
+        assert eng.kv.num_in_use == 0
+        runs.append(([done[u].tokens for u in uids],
+                     [done[u].preemptions for u in uids],
+                     [eng.logit_log[u] for u in uids], dict(eng.stats)))
+    (tc, pc, lc, sc), (te, pe, le, se) = runs
+    assert tc == te and pc == pe
+    assert sc["preemptions"] >= 1 and sc["resumes"] >= 1 and pc[2] >= 1
+    for a, b in zip(lc, le):
+        assert len(a) == len(b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for key in sc:
+        if not key.startswith("graph_"):
+            assert sc[key] == se[key], key
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_graph_captures_are_fixed_through_every_drill(cuda, mixed):
+    """Preemption and resume, cancels while queued, prefilling and
+    decoding, a deadline of 0, a shed, each per-request fault kind,
+    replica_down and close(): no graph is captured after the
+    constructor, every fault fails only its target, and the pool
+    verifies after each."""
+    from paddle_tpu_torch.inference import FaultInjector, ReplicaDown
+    inj = FaultInjector()
+    eng = _graph_engine(cuda, True, mixed_step=mixed, num_pages=RES_POOL,
+                        max_queue=3, shed_policy="shed_oldest",
+                        fault_injector=inj)
+    n = eng.stats["graph_captures"]
+    done, uids = _preempt_serve(eng)
+    assert eng.stats["preemptions"] >= 1
+    assert eng.stats["graph_captures"] == n
+    lows, high = _low_reqs()
+    rng = np.random.RandomState(42)
+    a, b = (eng.add_request(**r) for r in lows[:2])
+    _steps(eng, done, lambda: _decoding(eng, a) and _decoding(eng, b))
+    inj.inject("decode_error", uid=a).inject("nonfinite_logits", uid=b)
+    c = eng.add_request(rng.randint(0, 128, 20), 6)
+    inj.inject("prefill_error", uid=c).inject("stall")
+    d = eng.add_request(rng.randint(0, 128, 12), 6)
+    inj.inject("page_exhaustion", uid=d)
+    _steps(eng, done, lambda: not inj.armed and not eng._pending)
+    shed = eng.add_request(rng.randint(0, 128, 12), 4)
+    gone = eng.add_request(rng.randint(0, 128, 12), 4, deadline_s=0.0)
+    q = eng.add_request(rng.randint(0, 128, 12), 4)
+    eng.cancel(q)
+    eng.add_request(rng.randint(0, 128, 12), 4)   # sheds the oldest
+    _steps(eng, done, lambda: gone in done and q in done)
+    long = eng.add_request(rng.randint(0, 128, 70), 4)
+    _steps(eng, done, lambda: any(st.uid == long and 0 < st.pf_base
+                                  < st.pf_end
+                                  for st in eng._slots.values()))
+    eng.cancel(long)
+    dec = eng.add_request(rng.randint(0, 128, 10), 40)
+    _steps(eng, done, lambda: _decoding(eng, dec, 2))
+    eng.cancel(dec)
+    _steps(eng, done, lambda: not eng.has_work)
+    assert eng.stats["graph_captures"] == n
+    want = {a: "error", b: "nonfinite", c: "error", d: "length",
+            gone: "deadline", q: "cancelled", shed: "shed",
+            long: "cancelled", dec: "cancelled"}
+    assert {u: done[u].finish_reason for u in want} == want
+    assert {c.finish_reason for u, c in done.items() if u not in want} \
+        == {"length"}
+    assert eng.stats["faults"] == 5
+    eng.add_request(**lows[0])
+    _steps(eng, done, lambda: any(eng._active))
+    inj.inject("replica_down")
+    with pytest.raises(ReplicaDown):
+        eng.step()
+    eng.kv.verify()
+    assert eng.kv.num_in_use == 0
+    eng.add_request(**lows[0])
+    eng.add_request(**high)
+    _steps(eng, done, lambda: any(eng._active))
+    aborted = eng.close()
+    assert aborted and {c.finish_reason for c in aborted.values()} \
+        <= {"aborted", "error"}
+    eng.kv.verify()
+    assert eng.kv.num_in_use == 0 and not eng.has_work
+    assert eng.close() == {}
+    assert eng.stats["graph_captures"] == n
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("program", ["decode_step", "decode_block",
+                                     "mixed"])
+def test_pages_no_live_slot_holds_survive_the_replay_after_an_abort(
+        cuda, kv_dtype, program):
+    """A cancelled decoding slot is torn down between two replays: its
+    host mirrors are cleared, so in the next replay of the decode step,
+    a fused block or the mixed program its row writes the trash page
+    only. Every page (and scale row) that no live slot holds keeps its
+    bytes across that replay, the torn-down slot's pages among them."""
+    kw = {"decode_step": dict(decode_block=1),
+          "decode_block": dict(decode_block=4),
+          "mixed": dict(mixed_step=True)}[program]
+    eng = _graph_engine(cuda, True, kv_dtype=kv_dtype, **kw)
+    lows, _ = _low_reqs()
+    done = {}
+    uids = [eng.add_request(**r) for r in lows]
+    _steps(eng, done, lambda: all(_decoding(eng, u, 2) for u in uids))
+    kv = eng.kv
+    tensors = (*kv.k, *kv.v, *kv.k_scale, *kv.v_scale)
+    torch.cuda.synchronize()
+    before = [t.view(torch.uint8).clone() for t in tensors]
+    victim = next(st for st in eng._slots.values() if st.uid == uids[1])
+    keep = {0} | {p for st in eng._slots.values() if st is not victim
+                  for p in st.pages}
+    held = sorted(set(range(kv.num_pages)) - keep)
+    assert set(victim.pages) <= set(held)
+    keys = []
+    replay = eng._replay
+    eng._replay = lambda key, *h: (keys.append(key), replay(key, *h))[1]
+    eng.cancel(uids[1])
+    for c in eng.step():
+        done[c.uid] = c
+    torch.cuda.synchronize()
+    assert keys == [{"decode_step": 1, "decode_block": 4,
+                     "mixed": "mixed"}[program]]
+    assert done[uids[1]].finish_reason == "cancelled"
+    idx = torch.tensor(held, device=cuda)
+    for t, b in zip(tensors, before):
+        assert torch.equal(t.view(torch.uint8)[idx], b[idx])
+    del eng._replay
+    _steps(eng, done, lambda: not eng.has_work)
+    assert eng.kv.num_in_use == 0
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_close_releases_every_page_of_the_captured_engine(cuda, mixed):
+    eng = _graph_engine(cuda, True, mixed_step=mixed, num_pages=RES_POOL)
+    lows, high = _low_reqs()
+    done = {}
+    uids = [eng.add_request(**r) for r in lows]
+    _steps(eng, done, lambda: _decoding(eng, uids[0], 2))
+    uids.append(eng.add_request(**high))
+    aborted = eng.close()
+    assert sorted(aborted) == sorted(uids)
+    assert {c.finish_reason for c in aborted.values()} == {"aborted"}
+    eng.kv.verify()
+    assert eng.kv.num_in_use == 0 and not eng.has_work
 
 
 # -- the split-KV design of the float-pool kernel ------------------------------

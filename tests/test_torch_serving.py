@@ -7,8 +7,8 @@ same weights (2 layers, hidden 64, 4 heads, vocab 128):
   (``dispatches``, ``prefill_chunks``, ``decode_blocks``,
   ``prefix_hits``, ``cow_copies``) equal, with adaptive decode blocks,
   a shared prefix and a fully cached prompt (copy-on-write);
-- the page allocator and the prefix-cache digests against the
-  reference's, operation by operation;
+- the page allocator (``refcount`` and ``unregister`` included) and the
+  prefix-cache digests against the reference's, operation by operation;
 - a sampled request emits the same tokens alone or in a busy batch;
 - the levers not ported yet raise NotImplementedError, and unknown
   quantization formats raise ValueError (the quantized levers
@@ -26,8 +26,8 @@ from paddle_tpu.inference.serving import _page_digests as jax_digests
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM, _gen_params
 from paddle_tpu_torch.inference.scheduler import QueueFullError
-from paddle_tpu_torch.inference.serving import (PagedKVCache, ServingEngine,
-                                                _page_digests)
+from paddle_tpu_torch.inference.serving import (PagedKVCache, Request,
+                                                ServingEngine, _page_digests)
 from paddle_tpu_torch.models.gpt import gpt2_tiny, params_from_numpy
 
 # tiny shapes: a few threads are plenty, and the suite runs several
@@ -187,6 +187,11 @@ def test_kv_allocator_matches_jax_op_for_op():
     assert both("lookup", d[1]) == p1[1]
     both("share", p1[1])                  # a cache-only page comes back
     both("release", p2)
+    assert [both("refcount", p) for p in p1] == [1, 1, 0, 0]
+    assert both("unregister", d[2])       # orphans a cache-only page
+    assert not both("unregister", d[2])
+    assert both("unregister", d[1])       # an in-use page stays in use
+    assert both("refcount", p1[1]) == 1 and both("lookup", d[1]) is None
     with pytest.raises(RuntimeError):
         ours.release([p2[0]])             # double free
     both("alloc", 9)                      # evicts cache-only pages LRU
@@ -233,14 +238,25 @@ def test_queue_bound_sheds_or_rejects(ref):
 
 @pytest.mark.parametrize("lever", [
     dict(mesh=object()), dict(speculative=True),
-    dict(fault_injector=object()), dict(journal="j.jsonl"),
+    dict(trace_ctx={"trace_id": "t"}), dict(journal="j.jsonl"),
     dict(tracer=object()), dict(watchdog=True),
 ])
 def test_unported_levers_raise(ref, lever):
+    """The constructor's unported levers, and ``add_request``'s and
+    ``admit_migrated``'s ``trace_ctx=`` (the tracer's, not ported)."""
     _, params = ref
+    kw = dict(device="cpu", num_slots=1, page_size=8, prefill_chunk=8,
+              max_seq_len=64)
+    if "trace_ctx" in lever:
+        eng = ServingEngine(gpt2_tiny(), params, **kw)
+        with pytest.raises(NotImplementedError):
+            eng.add_request([1, 2, 3], 2, **lever)
+        with pytest.raises(NotImplementedError):
+            eng.admit_migrated(Request(0, np.arange(3), 2), **lever)
+        assert not eng.has_work
+        return
     with pytest.raises(NotImplementedError):
-        ServingEngine(gpt2_tiny(), params, device="cpu", num_slots=1,
-                      page_size=8, prefill_chunk=8, max_seq_len=64, **lever)
+        ServingEngine(gpt2_tiny(), params, **kw, **lever)
 
 
 @pytest.mark.parametrize("lever,match", [
