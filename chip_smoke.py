@@ -16,14 +16,16 @@ exits non-zero:
    - ragged paged attention at GPT-2 small's serving shapes (12 heads of
      64, pages of 16, 8 slots, 64 pages a slot): a mixed case (decode
      row, a full prefill row of 32, a k+1-like row, an idle slot,
-     extents across page boundaries), the decode shape and the
-     prefill-chunk shape; float32 within 1e-4 and bfloat16 within 2e-2
+     extents across page boundaries), the decode shape, the
+     prefill-chunk shape and the speculative verify's (8 slots of
+     q_len 5 at the decode extents + 4); float32 within 1e-4 and
+     bfloat16 within 2e-2
      on live rows, idle slots exactly zero, bit-identical across two
      launches, every case on the split-KV design (``split_kv``: the
      counter ``split_launches``, ``design`` of each case);
    - the same kernel over int8 and fp8 pools (the port's
      ``quantize_per_page`` of random pages, each page and head scaled by
-     10^U(-2, 1) first) at the same three shapes, q in float32 and
+     10^U(-2, 1) first) at the same four shapes, q in float32 and
      bfloat16: live rows within 1e-4 / 2e-2 as max-abs error over
      max-abs plain, idle slots exactly zero, bit-identical across two
      launches, every case on the split-KV design over codes as the
@@ -189,6 +191,30 @@ exits non-zero:
    T plus its Gumbel draw, regenerated from a generator seeded as the
    request's); at bf16 weights the same comparison recorded. The
    counters and the phase's seconds.
+   ``serve_spec`` — speculative decoding (``speculative=True``: a draft
+   of GPT-2 small's first 3 layers, ``draft_k=4``) at serve's
+   configuration on serve's requests. Every ragged launch inside one
+   verify dispatch (per phase) and one mixed dispatch with verify rows,
+   over bf16 and int8 pools, held against the plain version within 1e-5
+   (eager engines at float32 weights, ``per_call_parity``; one launch a
+   target layer). Captured engines at bf16 weights, per phase and mixed
+   over bf16 and int8 pools (the per-phase bf16 one on 3 fresh engines,
+   the others once): every request finishes, the pool verifies, the
+   programs captured are exactly the prefill chunk, decode step, verify
+   and page copy (or the mixed program and the page copy) and the
+   draft's page copy, prefill chunk, mirror step and propose scan, none
+   after the constructor; ragged launches = the target's layers x its
+   prefill, decode, verify and mixed dispatches + the draft's layers x
+   its prefill and mirror dispatches and 5 x its propose scans, every
+   launch on the split-KV design, the draft's (a float32 pool) on the
+   float counters; the fresh engines' tokens, sampled ones too,
+   identical; the bf16 engines' replays traced (``check_replay_kernels``).
+   Recorded: the acceptance rate, tokens/s (median, [min, max]) beside
+   ``serve``'s, TTFT, dispatches and rounds, and where the greedy
+   streams part from ``serve_graphs``' logged per-phase engine. Held:
+   with float32 weights over bf16 pools the greedy requests' tokens of
+   the spec engine, per phase and mixed, against the plain captured
+   engine's up to the first step whose top-2 margin is below 1e-3.
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version, both engines eager
    (``_capture=False``: the per-call hold wraps ``pa._launch``, which a
@@ -311,6 +337,7 @@ HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,        # non-tensor-core float32
               "bfloat16": 989e12}      # dense bf16 tensor cores
 PS, NH, HD, S_SLOTS, MP, CHUNK = 16, 12, 64, 8, 64, 32
+SPEC_K = 4                # serve_spec's draft_k
 
 
 def emit(obj):
@@ -491,6 +518,10 @@ RAGGED_SHAPES = {
     "decode": ([47, 133, 260, 301, 388, 455, 512, 590], [1] * S_SLOTS, 1),
     # the engine's prefill chunk: one slot, q_len = kv tail of 32
     "prefill": ([288], [CHUNK], CHUNK),
+    # a speculative verify at the decode extents: 8 slots of q_len
+    # k + 1 = 5 over kv_len = length + k
+    "verify": ([51, 137, 264, 305, 392, 459, 516, 594],
+               [SPEC_K + 1] * S_SLOTS, SPEC_K + 1),
 }
 
 
@@ -653,7 +684,7 @@ def held_quant_call(c, pa, design, tol, label):
 
 def run_quant_kernel_phase():
     """The ragged kernel over int8 and fp8 pools against its plain
-    version at the three shapes of the float phase, q in f32 and bf16:
+    version at the four shapes of the float phase, q in f32 and bf16:
     every case on the split-KV design as routed, and on the first design
     forced (``first``); timed at bf16 q with the first design, its plain
     version, SDPA over K/V gathered and dequantized beforehand (not
@@ -1555,18 +1586,28 @@ def serve_model():
     return cfg, params
 
 
-def serve_run(cfg, params, reqs, name, **kw):
+def serve_run(cfg, params, reqs, name, replays=None, **kw):
     """One fresh engine (captured in its constructor, before the clock
     starts) serving ``reqs``, the launch counters zeroed just before the
-    run. Checks that every request finished with its tokens in range and
-    that the page pool verifies. Returns (engine, uids, completions, wall
-    seconds, counters)."""
+    run; with a ``replays`` dict, the dispatches of each program counted
+    into it (and ``captures_before``, the graphs captured before the
+    run). Checks that every request finished with its tokens in range
+    and that the page pool verifies. Returns (engine, uids, completions,
+    wall seconds, counters)."""
     import torch
     from paddle_tpu_torch.inference.graphs import COUNTERS
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     eng = ServingEngine(cfg, params, device="cuda", **dict(SERVE_KW, **kw))
+    if replays is not None:
+        real = eng._replay
+        replays["captures_before"] = eng.stats["graph_captures"]
+
+        def counted(key, *host):
+            replays[key] = replays.get(key, 0) + 1
+            return real(key, *host)
+        eng._replay = counted
     uids = [eng.add_request(**r) for r in reqs]
     pa.reset_launches()
     t0 = time.perf_counter()
@@ -1634,8 +1675,10 @@ def ragged_want(eng, keys):
     want = dict.fromkeys(RAGGED_KERNELS, 0)
     for key in keys:
         launches, split, qlaunches, qsplit = eng._progs[key].deltas
-        rows = {"copy_page": None, "prefill": (1, C),
-                "mixed": (S, C)}.get(key, (S, 1))
+        rows = {"copy_page": None, "draft_copy": None, "prefill": (1, C),
+                "draft_prefill": (1, C), "mixed": (S, eng._fns.QB),
+                "verify": (S, getattr(eng.spec, "k", 0) + 1)
+                }.get(key, (S, 1))
         nsplit = 1 if rows is None else pa.split_plan(*rows, *shape)[1]
         want["first"] += launches + qlaunches - split - qsplit
         want["split"] += split + qsplit
@@ -2381,6 +2424,220 @@ def run_serve_resilience_phase(model):
     out["seconds"] = time.perf_counter() - t0
     out["gpu"] = smi()
     return out
+
+
+# -- speculative decoding ------------------------------------------------------
+
+SPEC_KW = dict(speculative=True, draft_k=SPEC_K)
+SPEC_PROGRAMS = {False: ["copy_page", "prefill", 1, "verify", "draft_copy",
+                         "draft_prefill", "mirror", "propose"],
+                 True: ["copy_page", "mixed", "draft_copy", "draft_prefill",
+                        "mirror", "propose"]}
+SPEC_PARITY_REQS = 4      # serve_traffic's first requests in the held run
+
+
+def spec_launches(eng, counts, replays, name):
+    """Ragged launches = layers x dispatches of each program: the
+    target's layers a prefill chunk, decode step, verify and mixed
+    dispatch, the draft's a draft prefill chunk and mirror step and
+    ``k + 1`` times theirs a propose scan; the target's on its pool
+    kind's counters, the draft's (a float pool) on the float ones, every
+    launch on the split-KV design. Returns (target, draft) launches."""
+    L, dL, k = eng.cfg.num_layers, eng.spec.cfg.num_layers, eng.spec.k
+    target = L * sum(replays.get(key, 0)
+                     for key in ("prefill", 1, "verify", "mixed"))
+    draft = dL * (replays.get("draft_prefill", 0) + replays.get("mirror", 0)
+                  + (k + 1) * replays.get("propose", 0))
+    float_l, quant_l = (draft, target) if eng.kv.quantized else \
+        (target + draft, 0)
+    want = {"launches": float_l, "split_launches": float_l,
+            "quant_launches": quant_l, "quant_split_launches": quant_l}
+    if counts != want or not (target and draft):
+        raise AssertionError(f"{name}: launches {counts}, want {want} "
+                             f"(dispatches {replays})")
+    return target, draft
+
+
+def spec_parity_once(model, kd, mixed):
+    """An eager speculative engine (``_capture=False``, float32 weights
+    so that q is float32, as in ``parity``) over ``kd`` pools on
+    ``serve_traffic``'s first requests, until its first verify dispatch
+    (per phase) or its first mixed dispatch with verify rows: every
+    ragged launch inside that dispatch held against the plain version
+    (``per_call_parity``), one a target layer."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    cfg, params = model
+    eng = ServingEngine(cfg, params, device="cuda", kv_dtype=kd,
+                        weight_dtype=None, mixed_step=mixed, _capture=False,
+                        **SPEC_KW, **SERVE_KW)
+    real, rec = eng._replay, {}
+
+    def held(key, *host):
+        verify = key == "verify" or (key == "mixed" and (host[1] == 3).any())
+        if rec or not verify:
+            return real(key, *host)
+        with per_call_parity(pa, PER_CALL_TOL) as r:
+            out = real(key, *host)
+            torch.cuda.synchronize()
+        rec.update(r, program=key)
+        return out
+    eng._replay = held
+    for r in serve_traffic(cfg.vocab_size)[:SPEC_PARITY_REQS]:
+        eng.add_request(**r)
+    steps = 0
+    while not rec:
+        if steps > 2000 or not eng.has_work:
+            raise AssertionError(f"serve_spec {kd}: no verify dispatch")
+        eng.step()
+        steps += 1
+    eng.close()
+    if rec["calls"] != cfg.num_layers:
+        raise AssertionError(f"serve_spec {kd}: {rec['calls']} launches "
+                             f"held in one {rec['program']} dispatch")
+    return rec
+
+
+def run_serve_spec_phase(model, serve, logged):
+    """Speculative decoding (``speculative=True``: the 3-layer truncated
+    draft, ``draft_k=4``) at serve's configuration on ``serve_traffic``:
+
+    - ``per_call_parity``: every ragged launch inside one verify dispatch
+      (per phase) and one mixed dispatch with verify rows, over bf16 and
+      int8 pools, held against the plain version (``spec_parity_once``);
+    - captured engines at bf16 weights, per phase and mixed over bf16
+      and int8 pools (the per-phase bf16 one on ``SERVE_REPEATS`` fresh
+      engines, the others once): every request finishes, the pool
+      verifies, exactly the programs of ``SPEC_PROGRAMS`` captured and
+      none after the constructor, launches = layers x dispatches of each
+      program (``spec_launches``), the repeats' tokens (sampled ones too)
+      identical; the acceptance rate, tokens/s with [min, max] beside
+      ``serve``'s, dispatches, rounds and TTFT recorded; the per-phase
+      and mixed bf16 engines' replays traced (``check_replay_kernels``);
+      where their greedy streams part from ``serve_graphs``' logged
+      per-phase engine (``tokens_until_tie``), recorded;
+    - float32 weights over bf16 pools: greedy tokens of the spec engine,
+      per phase and mixed, held against the plain captured engine's up
+      to the first step whose top-2 margin is below ``PARITY_TOL``.
+    Returns the record and the launches (float, quantized)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, params = model
+    reqs = serve_traffic(cfg.vocab_size)
+    out = {"phase": "serve_spec", "draft_k": SPEC_K,
+           "draft_layers": max(1, cfg.num_layers // 4),
+           "requests": len(reqs),
+           "sampled_requests": sum(r["temperature"] > 0 for r in reqs)}
+    out["per_call_parity"] = {
+        f"{'mixed_' if mixed else ''}{kd}": spec_parity_once(model, kd, mixed)
+        for kd in ("bf16", "int8") for mixed in (False, True)}
+    launches = {"float": 0, "quant": 0}
+    greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0]
+    for kd, mixed in (("bf16", False), ("int8", False), ("bf16", True),
+                      ("int8", True)):
+        key = f"{'mixed_' if mixed else ''}{kd}"
+        name = f"serve_spec {key}"
+        runs, tokens = [], None
+        for i in range(SERVE_REPEATS if key == "bf16" else 1):
+            replays = {}
+            eng, uids, done, wall, counts = serve_run(
+                cfg, params, reqs, name, replays=replays, kv_dtype=kd,
+                weight_dtype="bf16", mixed_step=mixed, **SPEC_KW)
+            st = dict(eng.stats)
+            if list(eng._progs) != SPEC_PROGRAMS[mixed] or not (
+                    replays["captures_before"] == st["graph_captures"]
+                    == len(SPEC_PROGRAMS[mixed])):
+                raise AssertionError(f"{name}: graphs {list(eng._progs)}, "
+                                     f"{replays['captures_before']} "
+                                     f"captured before the run, "
+                                     f"{st['graph_captures']} after")
+            target, draft = spec_launches(eng, counts, replays, name)
+            if not (st["spec_rounds"] > 0 and st["spec_rejected"] > 0):
+                raise AssertionError(f"{name}: {st['spec_rounds']} rounds")
+            toks = [done[u].tokens for u in uids]
+            if tokens is not None and toks != tokens:
+                raise AssertionError(f"{name}: two fresh spec engines "
+                                     "served different tokens")
+            tokens = toks
+            ttft = np.array([done[u].ttft_s for u in uids])
+            runs.append({"wall_s": wall,
+                         "tokens_per_s": st["tokens_emitted"] / wall,
+                         "ttft_p50_s": float(np.percentile(ttft, 50)),
+                         "ttft_p99_s": float(np.percentile(ttft, 99)),
+                         "capture_s": eng.capture_seconds})
+            if i == 0:
+                launches["quant" if eng.kv.quantized else "float"] += target
+                launches["float"] += draft
+                rec = {"target_launches": target, "draft_launches": draft,
+                       "dispatches_by_program": {
+                           str(k): v for k, v in replays.items()
+                           if k != "captures_before"}}
+                if kd == "bf16":
+                    rec["replay_kernels_traced"] = check_replay_kernels(
+                        eng, name)
+            del eng
+        rec.update({k: Ms([r[k] for r in runs]) for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "wall_s",
+            "capture_s")})
+        rec.update({
+            "kv_dtype": kd, "mixed_step": mixed, "timed_repeats": len(runs),
+            "tokens_generated": st["tokens_emitted"],
+            "acceptance_rate": st["spec_accepted"] / st["spec_proposed"],
+            **{k: st[k] for k in (
+                "spec_rounds", "spec_proposed", "spec_accepted",
+                "spec_rejected", "dispatches", "prefill_chunks",
+                "decode_steps", "mixed_steps", "graph_captures",
+                "graph_replays", "prefix_hits", "cow_copies")},
+            "sampled_identical_across_engines": len(runs) > 1})
+        # where the bf16-weight spec streams part from the plain per-phase
+        # engine's (serve_graphs' logged engine over the same pools)
+        phase_tokens, phase_logits, _ = logged[kd]
+        steps, differs = tokens_until_tie(
+            [tokens[i] for i in greedy], [phase_tokens[i] for i in greedy],
+            [phase_logits[i] for i in greedy], PARITY_TOL)
+        rec["bf16_weights_vs_plain_recorded"] = {
+            "greedy_requests": len(greedy), "steps_compared": steps,
+            "first_differs": None if differs is None else
+            (greedy[differs[0]], differs[1])}
+        out[key] = rec
+        torch.cuda.empty_cache()
+    out["bf16"]["tokens_per_s_vs_serve"] = \
+        out["bf16"]["tokens_per_s"] / serve["tokens_per_s"]
+    out["serve_tokens_per_s"] = serve["tokens_per_s"]
+    # held: float32 weights over bf16 pools, greedy requests, spec against
+    # the plain captured per-phase engine
+    greqs = [reqs[i] for i in greedy]
+    eng, uids, done, _, _ = serve_run(cfg, params, greqs, "serve_spec f32",
+                                      kv_dtype="bf16", weight_dtype=None,
+                                      record_logits=True)
+    plain = ([done[u].tokens for u in uids], [eng.logit_log[u] for u in uids])
+    del eng
+    out["f32_weights"] = {}
+    for mixed in (False, True):
+        name = f"serve_spec f32{' mixed' if mixed else ''}"
+        eng, uids, done, _, _ = serve_run(cfg, params, greqs, name,
+                                          kv_dtype="bf16", weight_dtype=None,
+                                          mixed_step=mixed, **SPEC_KW)
+        toks = [done[u].tokens for u in uids]
+        steps, differs = tokens_until_tie(toks, plain[0], plain[1],
+                                          PARITY_TOL)
+        if differs:
+            raise AssertionError(f"{name}: request {differs[0]} token "
+                                 f"{differs[1]} differs from the plain "
+                                 "engine's")
+        out["f32_weights"]["mixed" if mixed else "per_phase"] = {
+            "steps_compared": steps, "tokens_identical": toks == plain[0],
+            "acceptance_rate": eng.stats["spec_accepted"]
+            / eng.stats["spec_proposed"], "tol": PARITY_TOL}
+        del eng
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["gpu"] = smi()
+    return out, launches
 
 
 def check_quant_pools(serve, q8, f8):
@@ -3265,6 +3522,8 @@ def main():
     emit(with_spreads(run_serve_mixed_phase(
         model, logged, {"bf16": serve_tokens, "int8": int8_tokens})))
     emit(run_serve_resilience_phase(model))
+    spec, spec_launches_ = run_serve_spec_phase(model, serve, logged)
+    emit(with_spreads(spec))
     del model, logged
     torch.cuda.empty_cache()
     parity = run_parity_phase()
@@ -3322,14 +3581,18 @@ def main():
         "design": "split_kv (float32/bfloat16 pools, HD % 8 == 0, 16-byte "
                   "aligned; else ragged_paged_attention_kernel)",
         "launches_split_kv": split_launches,
-        "cases": {n: kres[n]["bfloat16"] for n in ("mixed", "prefill")}}]
+        "launches_by_phase": {"serve": launches,
+                              "serve_spec": spec_launches_["float"]},
+        "cases": {n: kres[n]["bfloat16"]
+                  for n in ("mixed", "prefill", "verify")}}]
     qdec = qres["decode"]["int8"]["bfloat16"]
     kernels.append({
         "name": "ragged_paged_attention_quant", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention_pallas.py:102",
-        "launches": sum(qlaunches.values()),
-        "launches_by_phase": qlaunches,
+        "launches": sum(qlaunches.values()) + spec_launches_["quant"],
+        "launches_by_phase": {**qlaunches,
+                              "serve_spec": spec_launches_["quant"]},
         "max_abs_err": max(r["max_abs_err"] for case in qres.values()
                            for fmt in case.values() for r in fmt.values()),
         "max_rel_err": max(r["rel_err"] for case in qres.values()

@@ -20,6 +20,12 @@
   ``mixed_step=True`` one mixed dispatch a step, ported verbatim so
   that the port dispatches the same sequence of programs as the
   reference engine on the same traffic.
+- speculative decoding (``speculative=``, ``draft_k=``;
+  ``inference/speculative.py``): under steady decode a draft proposes
+  ``k`` tokens and the target verifies ``k + 1`` positions in one
+  dispatch — the verify program, a ``q_len = k + 1`` row a slot on the
+  ragged kernel — or, with ``mixed_step``, as verify rows (kind 3) of
+  the mixed program.
 
 Every attention — the decode step, each step of a fused block, and each
 prefill chunk (one slot with ``q_len = C`` and ``kv_len = base + C``,
@@ -83,8 +89,7 @@ mirrors (block tables, lengths, active flags, budgets), and an inactive
 row writes only the trash page.
 
 Not ported yet (the constructor raises NotImplementedError): meshes,
-speculative decoding (so the mixed program has no verify rows), the
-journal, tracing (``trace_ctx=`` too) and the watchdog; nor the
+the journal, tracing (``trace_ctx=`` too) and the watchdog; nor the
 quantization gauges, the byte ledger and the per-tenant counters
 (``tenant=`` is carried as a label only).
 """
@@ -113,6 +118,7 @@ from . import sampler as _sampler
 from .faults import InjectedFault, ReplicaDown
 from .graphs import EagerProgram, GraphProgram, GraphPool
 from .scheduler import SHED_POLICIES, QueueFullError, RequestQueue
+from .speculative import SpecState
 
 __all__ = ["PagedKVCache", "ServingEngine", "Request", "Completion",
            "QueueFullError"]
@@ -195,6 +201,8 @@ class Request:
     # the sampled slot's torch.Generator state (get_state()) at
     # preemption, None for a greedy slot: the reference's [2] u32 key
     resume_key: object = None
+    # and its draft generator's under speculation (ROADMAP C16)
+    resume_draft_key: object = None
     ttft_s: object = None       # observed TTFT (set before a resume)
     preemptions: int = 0        # times this request was preempted
     tenant: str = "default"     # label only (the per-tenant counters: A6)
@@ -244,6 +252,7 @@ class _SlotState:
     preemptions: int = 0
     resume_out: object = None   # tokens emitted before preemption
     resume_key: object = None   # generator state saved at preemption
+    resume_draft_key: object = None   # the draft generator's (C16)
     tenant: str = "default"
 
 
@@ -461,7 +470,7 @@ class PagedKVCache:
 
 def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
                        prefill_chunk, attention, device, quant=None,
-                       weight_quant=False):
+                       weight_quant=False, spec_k=None):
     """The serving programs over a model's layer ``core``
     (``models.gpt.make_layer_core``), as plain functions of (params,
     pools, scales, state tensors) — the port of the reference's
@@ -471,7 +480,8 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
     ``sample_first`` is a function of tensors only — no host read, no
     shape that depends on the data — so a CUDA graph can capture it
     (``inference/graphs.py``). The mixed-step program's query block is
-    the chunk width, ``QB = C`` (the reference's ``max(C, 1)``).
+    the widest row any kind contributes, ``QB = max(C, spec_k + 1)``
+    (the reference's ``mixed_qb``).
 
     ``quant`` is the quantized-pool format (``"int8"``/``"fp8"``, falsy
     = off): every program takes the per-layer scale lists next to the
@@ -479,7 +489,9 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
     requantize the pages they touch, and the attention reads the codes
     with their scales. ``weight_quant``: the params arrive as the int8
     artifact (``quantization/weights.py``) and each program widens them
-    to float32 at its entry."""
+    to float32 at its entry. ``spec_k`` (speculative decoding's
+    ``draft_k``, None = off) adds the target's verify program and verify
+    rows (kind 3) to the mixed program."""
     NH, HD, H, scale = core.NH, core.HD, core.H, core.scale
     S, PS, MP, C = num_slots, page_size, pages_per_slot, prefill_chunk
     T = MP * PS  # per-slot attention extent
@@ -663,7 +675,71 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             noise = _sampler.gumbel_noise(lg.shape, generator, lg.device)
         return int(_sampler.sample_token(lg, float(temp), noise))
 
-    QB = C
+    K1 = spec_k + 1 if spec_k else 1   # rows a verify (or decode) reads
+    R2 = _span_pages(K1, PS)           # pages K1 contiguous rows can span
+    span2 = torch.arange(R2, device=dev)
+    k1_rows = torch.arange(K1, device=dev)
+
+    def verify_fn(params, kpools, vpools, kscales, vscales, bt, lengths,
+                  tokens, active, temps, eos_ids, remaining, gumbel,
+                  uniforms, proposed, q_logits):
+        """ONE target dispatch of a speculative round (reference
+        ``verify``, ``speculative.py:197``): the K/V of the ``k + 1``
+        positions ``[last token, k proposals]`` of every slot are
+        span-written, one ragged launch a layer attends them as a
+        ``q_len = k + 1`` row with ``kv_len = lengths + k`` (row j attends
+        positions ``< lengths + j``, the reference's own limits), the head
+        runs on all ``k + 1`` rows, :func:`sampler.spec_accept` picks the
+        chain and the closed-form emit/EOS/budget mask (``_emit_block``)
+        the rows each slot emits. ``gumbel`` ``[S, V]`` and ``uniforms``
+        ``[S, k]`` are the target generators' draws (zero for greedy
+        rows); ``proposed`` ``[k, S]`` and ``q_logits`` ``[k, S, V]`` the
+        propose scan's. The accepted prefix's writes are final; the rejected
+        tail's sit past the new length. Returns the ``(k + 1, S)`` token
+        block and emit mask, the accepted counts ``[S]`` and the f32
+        logits ``[S, k + 1, V]``."""
+        params = prep(params)
+        wte, wpe = params["wte"], params["wpe"]
+        toks = torch.cat([tokens[:, None], proposed.T], 1)     # [S, K1]
+        t0 = (lengths - 1).clamp(0, T - 1)
+        pos = (t0[:, None] + k1_rows[None]).clamp(max=T - 1)
+        sidx = rows[:, None]
+        page = torch.where(active[:, None], bt[sidx, pos // PS].long(), 0)
+        off = torch.where(active[:, None], pos % PS, 0)
+        row0 = pos[:, 0] // PS
+        rr = row0[:, None] + span2[None]
+        valid = rr <= (pos[:, -1] // PS)[:, None]
+        pages_r = torch.where(active[:, None] & valid,
+                              bt[sidx, rr.clamp(max=MP - 1)].long(), 0)
+        rloc = (pos // PS - row0[:, None]).clamp(0, R2 - 1)
+        x = wte[toks] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
+        kv_lens = torch.where(active, (t0 + K1).clamp(max=T), 0).to(
+            torch.int32)
+        q_lens = torch.where(active, K1, 1).to(torch.int32)
+        for li, lay in enumerate(params["layers"]):
+            h = core.ln(x, *lay["ln1"])
+            q, k, v = core.qkv_proj(lay, h)           # [S, K1, NH, HD]
+            kp, vp = kpools[li], vpools[li]
+            ks, vs = layer_scales(kscales, vscales, li)
+            for pool, sc, new in ((kp, ks, k), (vp, vs, v)):
+                if quant:
+                    _requant_write(pool, sc, pages_r, (sidx, rloc, off),
+                                   new, quant)
+                else:
+                    pool[page, off] = new.to(pool.dtype)
+            o = ragged(q.contiguous(), kp, vp, bt, kv_lens, q_lens,
+                       scale=scale, k_scale=ks, v_scale=vs)
+            x = core.attn_out(lay, x, o.reshape(S, K1, H))
+            x = core.mlp_tail(lay, x)
+        lg32 = (core.ln(x, *params["lnf"]) @ wte.T).float()  # [S, K1, V]
+        chain, n_acc = _sampler.spec_accept(
+            lg32, q_logits.transpose(0, 1), proposed.T, temps, uniforms,
+            gumbel)
+        tok_block, emit_block = _emit_block(chain, n_acc + 1, active,
+                                            eos_ids, remaining)
+        return tok_block, emit_block, n_acc, lg32
+
+    QB = max(C, K1)
     RM = _span_pages(QB, PS)   # pages QB contiguous rows can span
     qb_rows = torch.arange(QB, device=dev)
     span_m = torch.arange(RM, device=dev)
@@ -688,23 +764,29 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
 
     def mixed_step_fn(params, kpools, vpools, kscales, vscales, bt,
                       kind, q_lens, start, tokens_q, last_idx, active,
-                      temps, eos_ids, remaining, noise):
+                      temps, eos_ids, remaining, noise, uniforms=None,
+                      proposed=None, q_logits=None):
         """ONE dispatch for whatever work exists (reference
-        ``mixed_step_fn``, ``serving.py:1130``, without verify rows):
-        per-slot rows of kind 0 = idle, 1 = decode (``q_len`` 1), 2 =
-        prefill chunk (``q_len`` C); ``start[s]`` is the pool
-        position of the slot's first query row. K/V of every live
-        row is span-written, one ragged launch a layer attends all
-        rows, decode rows sample one token (``noise`` ``[S, V]``
-        Gumbel noise, zero for greedy rows), prefill rows surface the
-        logits at ``last_idx``. ``bt`` [S, MP] int32, ``kind`` and
-        ``q_lens`` [S] int32, ``start``, ``last_idx``, ``eos_ids``,
-        ``remaining`` [S] int64, ``tokens_q`` [S, QB] int64,
-        ``active`` [S] bool, ``temps`` [S] f32. Returns the ``(QB,
-        S)`` token block and emit mask, the prefill rows' f32 logits
-        ``[S, V]`` and the decode rows' ``[S, V]``. Only rows 0 and
-        ``last_idx`` of a slot are read, so the head runs on those
-        two rows alone (the reference forms ``[S, QB, V]``)."""
+        ``mixed_step_fn``, ``serving.py:1130``): per-slot rows of kind
+        0 = idle, 1 = decode (``q_len`` 1), 2 = prefill chunk (``q_len``
+        C), 3 = speculative verify (``q_len`` k + 1: the last token and
+        the k ``proposed``, an engine with ``spec_k`` only); ``start[s]``
+        is the pool position of the slot's first query row. K/V of
+        every live row is span-written, one ragged launch a layer
+        attends all rows, decode rows sample one token (``noise`` ``[S,
+        V]`` Gumbel noise, zero for greedy rows), verify rows run
+        :func:`sampler.spec_accept` (``noise`` their correction draw,
+        ``uniforms`` ``[S, k]``, ``q_logits`` ``[k, S, V]`` the draft's),
+        prefill rows surface the logits at ``last_idx``. ``bt`` [S, MP]
+        int32, ``kind`` and ``q_lens`` [S] int32, ``start``,
+        ``last_idx``, ``eos_ids``, ``remaining`` [S] int64, ``tokens_q``
+        [S, QB] int64, ``active`` [S] bool, ``temps`` [S] f32. Returns
+        the ``(QB, S)`` token block and emit mask, the prefill rows' f32
+        logits ``[S, V]``, the decode and verify rows' ``[S, k + 1, V]``
+        (``[S, 1, V]`` without ``spec_k``) and the accepted counts
+        ``[S]`` (0 off verify rows). Only rows ``0 .. k`` and
+        ``last_idx`` of a slot are read, so the head runs on those rows
+        alone (the reference forms ``[S, QB, V]``)."""
         params = prep(params)
         wte, wpe = params["wte"], params["wpe"]
         live = kind > 0
@@ -721,6 +803,10 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         pages_r = torch.where(pvalid, bt[sidx, rr.clamp(max=MP - 1)]
                               .long(), 0)
         rloc = (pos // PS - row0[:, None]).clamp(0, RM - 1)
+        if spec_k:      # verify rows: [last sampled token, k proposals]
+            spliced = torch.cat([tokens_q[:, :1], proposed.T,
+                                 tokens_q[:, K1:]], 1)
+            tokens_q = torch.where((kind == 3)[:, None], spliced, tokens_q)
         x = wte[tokens_q] + wpe[pos.clamp(max=wpe.shape[0] - 1)]
         kv_lens = torch.where(live, (start + q_lens).clamp(max=T),
                               0).to(torch.int32)
@@ -735,20 +821,33 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
                        scale=scale, k_scale=ks, v_scale=vs)
             x = core.attn_out(lay, x, o.reshape(S, QB, H))
             x = core.mlp_tail(lay, x)
-        ends = torch.stack([x[:, 0],
-                            x[rows, last_idx.clamp(max=QB - 1)]])
+        # one head product over rows 0 .. K1-1 and last_idx of each slot
+        sel = torch.cat([k1_rows[None].expand(S, K1),
+                         last_idx.clamp(max=QB - 1)[:, None]], 1)
+        ends = x[rows[:, None], sel]                       # [S, K1+1, H]
         lg = (core.ln(ends, *params["lnf"]) @ wte.T).float()
-        lg32, pf_logits = lg[0], lg[1]
-        nxt = _sampler.sample_token(lg32, temps, noise)
+        pf_logits = lg[:, K1]
+        nxt = _sampler.sample_token(lg[:, 0], temps, noise)
         chain = torch.cat([nxt[:, None], nxt.new_zeros(S, QB - 1)], 1)
-        tok_block, emit_block = _emit_block(
-            chain, (kind == 1).to(torch.int64), active, eos_ids,
-            remaining)
-        return tok_block, emit_block, pf_logits, lg32
+        n_emit = (kind == 1).to(torch.int64)
+        n_acc = torch.zeros_like(n_emit)
+        if spec_k:
+            chain_v, n_acc_v = _sampler.spec_accept(
+                lg[:, :K1], q_logits.transpose(0, 1), proposed.T, temps,
+                uniforms, noise)
+            is_v = kind == 3
+            chain = torch.where(is_v[:, None], torch.cat(
+                [chain_v, chain_v.new_zeros(S, QB - K1)], 1), chain)
+            n_acc = torch.where(is_v, n_acc_v, 0)
+            n_emit = torch.where(is_v, n_acc_v + 1, n_emit)
+        tok_block, emit_block = _emit_block(chain, n_emit, active, eos_ids,
+                                            remaining)
+        return tok_block, emit_block, pf_logits, lg[:, :K1], n_acc
 
     return SimpleNamespace(prefill=prefill_chunk_fn, decode_step=decode_step,
                            decode_block=decode_block, copy_page=copy_page_fn,
-                           sample_first=sample_first, mixed=mixed_step_fn)
+                           sample_first=sample_first, mixed=mixed_step_fn,
+                           verify=verify_fn if spec_k else None, QB=QB)
 
 
 class ServingEngine:
@@ -772,9 +871,12 @@ class ServingEngine:
     ``weight_dtype`` (None, "bf16" or "int8"), ``mixed_step`` (every
     step ONE dispatch: each queued prefill slot's next chunk and every
     decode slot's token as rows of one ragged program; the reference's
-    ``mixed_step=True`` without verify rows), ``preemption`` (False: a
-    queued request of higher priority waits for pages instead of
-    evicting), ``fault_injector`` (``inference/faults.py``).
+    ``mixed_step=True``), ``preemption`` (False: a queued request of
+    higher priority waits for pages instead of evicting),
+    ``fault_injector`` (``inference/faults.py``), ``speculative`` (True:
+    a draft of the target's first ``max(1, L // 4)`` layers; an int: that
+    many; a ``(cfg, params)`` pair; False or None: off) with ``draft_k``
+    proposals a round.
     ``attention="auto"`` runs the ragged kernel (the plain version for
     CPU tensors); ``"torch"`` the plain version.
     ``record_logits=True`` keeps every emitted token's f32 logits in
@@ -784,7 +886,10 @@ class ServingEngine:
     dispatches as a CUDA graph (``inference/graphs.py``; the reference
     jits them) before any request: the decode step, a fused block for
     each bucket above 1 and the prefill chunk — or, with
-    ``mixed_step``, the mixed program — and the page copy. The capture
+    ``mixed_step``, the mixed program — and the page copy; under
+    speculation the verify program (per phase, in place of the fused
+    blocks) and the draft's page copy, prefill chunk, mirror step and
+    propose scan. The capture
     runs with every slot idle, so its writes land on the trash page
     only. ``stats["graph_captures"]`` counts the graphs and
     ``["graph_replays"]`` their replays; ``capture_seconds`` the
@@ -801,11 +906,10 @@ class ServingEngine:
                  shed_policy="reject", preemption=True,
                  fault_injector=None, kv_dtype=None, weight_dtype=None,
                  record_logits=False, mesh=None, speculative=None,
-                 mixed_step=False, journal=None, tracer=None,
+                 draft_k=4, mixed_step=False, journal=None, tracer=None,
                  watchdog=None, _capture=True):
-        for name, val in (("mesh", mesh), ("speculative", speculative),
-                          ("journal", journal), ("tracer", tracer),
-                          ("watchdog", watchdog)):
+        for name, val in (("mesh", mesh), ("journal", journal),
+                          ("tracer", tracer), ("watchdog", watchdog)):
             if val is not None and val is not False:
                 raise NotImplementedError(
                     f"{name}= is not ported to paddle_tpu_torch yet")
@@ -815,6 +919,7 @@ class ServingEngine:
         if attention not in ("auto", "torch"):
             raise ValueError(f"unknown attention impl {attention!r} "
                              "('auto' or 'torch')")
+        spec_on = speculative is not None and speculative is not False
         self.device = resolve_device(device)
         self.cfg = cfg
         maxpos = cfg.max_position_embeddings
@@ -883,7 +988,7 @@ class ServingEngine:
         # the pools store the raw params' dtype unless kv_dtype says
         # otherwise (the reference reads it before any weight cast)
         raw_dtype = params["wte"].dtype
-        params = tree_map(
+        params = raw_params = tree_map(
             lambda t: t.to(device=self.device, dtype=raw_dtype), params)
         # what the programs dispatch (reference ``_prep_weights``,
         # ``serving.py:1673``): the raw dict, its bf16 cast, or the
@@ -904,7 +1009,12 @@ class ServingEngine:
             pages_per_slot=self.pages_per_slot,
             prefill_chunk=self.prefill_chunk, attention=attention,
             device=self.device, quant=self.kv.quant_dtype,
-            weight_quant=weight_dtype == "int8")
+            weight_quant=weight_dtype == "int8",
+            spec_k=int(draft_k) if spec_on else None)
+        # speculative decoding (reference serving.py:1623): the draft's
+        # pool, weights and programs, riding this engine's page numbers
+        self.spec = SpecState(self, speculative, int(draft_k),
+                              raw_params) if spec_on else None
         self.record_logits = bool(record_logits)
         self.logit_log = {}
 
@@ -945,6 +1055,10 @@ class ServingEngine:
                       # decode forward passes: a fused block of K
                       # counts K (port-only: the kernel-launch check)
                       "decode_steps": 0, "mixed_steps": 0,
+                      # speculative rounds and their proposals by
+                      # verification outcome
+                      "spec_rounds": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "spec_rejected": 0,
                       # port-only: CUDA graphs captured / replayed (the
                       # reference pins its jit cache sizes)
                       "graph_captures": 0, "graph_replays": 0}
@@ -961,28 +1075,34 @@ class ServingEngine:
         bt = np.zeros((S, MP), np.int32)
         flags = (np.zeros(S, bool), np.zeros(S, np.float32))
         budget = (np.full(S, -1, np.int64), np.zeros(S, np.int64))
-        if key == "copy_page":
+        step = (bt, np.zeros(S, np.int64), np.zeros(S, np.int64), *flags)
+        if key in ("copy_page", "draft_copy"):
             return zero, zero
-        if key == "prefill":
+        if key in ("prefill", "draft_prefill"):
             return np.zeros(MP, np.int32), zero, np.zeros(C, np.int64), zero
-        if key == "mixed":      # QB = C rows a slot
+        if key == "mixed":      # QB rows a slot
             return (bt, np.zeros(S, np.int32), np.ones(S, np.int32),
-                    np.zeros(S, np.int64), np.zeros((S, C), np.int64),
+                    np.zeros(S, np.int64),
+                    np.zeros((S, self._fns.QB), np.int64),
                     np.zeros(S, np.int64), *flags, *budget)
-        return (bt, np.zeros(S, np.int64), np.zeros(S, np.int64), *flags,
-                *(budget if key > 1 else ()))
+        if key in (1, "mirror"):
+            return step
+        return (*step, *budget)     # fused blocks, propose and verify
 
     @torch.no_grad()
     def _build_programs(self, capture):
         """The programs this engine dispatches, keyed ``"copy_page"``,
         ``"prefill"``, the decode bucket ``K`` (1 is the decode step) or
-        ``"mixed"``: CUDA graphs on a CUDA device unless ``capture`` is
-        false, else eager. Each graph is captured on
-        :meth:`_idle_host`'s state, so its warm-up and capture write the
-        trash page 0 only."""
+        ``"mixed"``, and under speculation ``"verify"`` (per phase) and
+        the draft's ``"draft_copy"``, ``"draft_prefill"``, ``"mirror"``
+        and ``"propose"``: CUDA graphs on a CUDA device unless
+        ``capture`` is false, else eager. A speculative engine's decode
+        is per-token or a round, so it has no fused block. Each graph is
+        captured on :meth:`_idle_host`'s state, so its warm-up and
+        capture write the trash page 0 only."""
         S, V, kv, dev = (self.num_slots, self.cfg.vocab_size, self.kv,
                          self.device)
-        fns = self._fns
+        fns, spec = self._fns, self.spec
         pools = (kv.k, kv.v, kv.k_scale, kv.v_scale)
         fixed = (self.params, *pools)
         graphs = GraphPool(dev) if capture and dev.type == "cuda" else None
@@ -996,19 +1116,40 @@ class ServingEngine:
             progs[key] = GraphProgram(graphs, get_fn(), fix,
                                       self._idle_host(key), buffers)
 
+        def noise(*shape):
+            return torch.zeros(*shape, S, V, device=dev)
+
+        # the spec programs' draws and round inputs: gumbel [S, V],
+        # uniforms [S, k], proposed [k, S], q_logits [k, S, V]
+        verify_in = () if spec is None else (
+            torch.zeros(S, spec.k, device=dev), spec.proposed,
+            spec.q_logits)
         make("copy_page", lambda: fns.copy_page, pools)
         if self.mixed_step:
-            make("mixed", lambda: fns.mixed, fixed,
-                 (torch.zeros(S, V, device=dev),))
-            return progs
-        make("prefill", lambda: fns.prefill, fixed)
-        make(1, lambda: fns.decode_step, fixed,
-             (torch.zeros(S, V, device=dev),))
-        for k in self.decode_block_buckets:
-            if k > 1:
-                make(k, lambda k=k: functools.partial(
-                    fns.decode_block, k, collect_logits=self.record_logits),
-                     fixed, (torch.zeros(k, S, V, device=dev),))
+            make("mixed", lambda: fns.mixed, fixed, (noise(), *verify_in))
+        else:
+            make("prefill", lambda: fns.prefill, fixed)
+            make(1, lambda: fns.decode_step, fixed, (noise(),))
+            for k in self.decode_block_buckets:
+                if k > 1 and spec is None:
+                    make(k, lambda k=k: functools.partial(
+                        fns.decode_block, k,
+                        collect_logits=self.record_logits),
+                         fixed, (noise(k),))
+            if spec is not None:
+                make("verify", lambda: fns.verify, fixed,
+                     (noise(), *verify_in))
+        if spec is not None:
+            dfns = spec.fns
+            dfixed = (spec.params, spec.dk, spec.dv, (), ())
+            make("draft_copy", lambda: dfns.copy_page, dfixed[1:])
+            make("draft_prefill", lambda: dfns.prefill, dfixed)
+            # the mirror's token is discarded: no noise, nothing drawn
+            make("mirror", lambda: lambda *a: dfns.decode_step(*a, None),
+                 dfixed)
+            make("propose", lambda: functools.partial(
+                dfns.decode_block, spec.k + 1, collect_logits=True),
+                 dfixed, (noise(spec.k + 1),))
         return progs
 
     # -- request intake ------------------------------------------------------
@@ -1160,12 +1301,15 @@ class ServingEngine:
                     [st.toks[:st.prompt_len].astype(np.int32),
                      np.asarray(new, np.int32)]),
                     "out": list(st.out),
-                    "key": None if gen is None else gen.get_state()}
+                    "key": None if gen is None else gen.get_state(),
+                    "draft_key": None if self.spec is None
+                    else self.spec.gen_state(slot)}
             else:
                 resume = {"prompt": st.toks[:st.prompt_len].astype(np.int32),
                           "out": list(st.resume_out)
                           if st.resume_out else None,
-                          "key": st.resume_key}
+                          "key": st.resume_key,
+                          "draft_key": st.resume_draft_key}
             resume["digests"] = _page_digests(
                 resume["prompt"], self.page_size) \
                 if self.kv.prefix_cache else ()
@@ -1231,8 +1375,8 @@ class ServingEngine:
             t_arrival=st.t_arrival, digests=resume["digests"],
             priority=st.priority, deadline_s=st.deadline_s, seq=st.seq,
             resume_out=resume["out"], resume_key=resume["key"],
-            ttft_s=st.ttft_s, preemptions=st.preemptions + 1,
-            tenant=st.tenant))
+            resume_draft_key=resume["draft_key"], ttft_s=st.ttft_s,
+            preemptions=st.preemptions + 1, tenant=st.tenant))
         self.stats["preemptions"] += 1
         if reason == "collateral":
             self.stats["collateral_requeues"] += 1
@@ -1296,7 +1440,10 @@ class ServingEngine:
     def _teardown_all(self, reason):
         """``close()`` and the exception path of ``step()``: fail every
         queued request and abort every in-flight one with ``reason``,
-        every page released through the double-free guard."""
+        every page released through the double-free guard. Best effort,
+        as the reference's (``serving.py:2705``): an abort that raises
+        leaves its slot to the next sweep and never replaces the
+        exception ``step()`` is re-raising."""
         self._cancel_pending.clear()
         # aborting a prefilling slot can requeue a later admission that
         # shared its pages (collateral): drain the queue again after the
@@ -1304,10 +1451,18 @@ class ServingEngine:
         while self._pending or self._slots:
             before = (len(self._pending), len(self._slots))
             while self._pending:
-                self._fail_queued(self._pending.pop(0), reason)
+                req = self._pending.pop(0)
+                try:
+                    self._fail_queued(req, reason)
+                except Exception:
+                    pass
             for slot in list(self._slots):
-                if slot in self._slots:  # not collateral of an earlier abort
+                if slot not in self._slots:  # collateral of an earlier abort
+                    continue
+                try:
                     self._abort_slot(slot, reason)
+                except Exception:
+                    pass
             if (len(self._pending), len(self._slots)) == before:
                 break  # no progress: do not spin
 
@@ -1447,7 +1602,10 @@ class ServingEngine:
         """Map the plan's pages into the slot's block table, register
         the digests this request's prefill will populate, and queue the
         prompt's chunks as deferred work. A resumed request's budget
-        counts the tokens it emitted before."""
+        counts the tokens it emitted before. A later admission that maps
+        one of these pages before it is written waits for it: the
+        per-phase engine runs chunks strictly FIFO, the mixed one holds
+        such a row back (:meth:`_prefill_hazard`)."""
         P = req.prompt.size
         C = self.prefill_chunk
         pages, base0 = plan["pages"], plan["base0"]
@@ -1455,9 +1613,8 @@ class ServingEngine:
         bt_row = np.zeros(self.pages_per_slot, np.int32)
         bt_row[:len(pages)] = pages
         self._bt[slot] = bt_row
-        # register at ADMISSION: strict-FIFO chunk draining means any
-        # later admission that maps these pages cannot read them before
-        # they are written
+        # register at ADMISSION: no later admission that maps these pages
+        # reads them before they are written (see the docstring)
         for i in range(plan["hits"], len(req.digests)):
             self.kv.register(req.digests[i], pages[i])
         toks = np.zeros(pf_end, np.int64)
@@ -1475,7 +1632,8 @@ class ServingEngine:
             admit_seq=self._next_admit, admit_round=self._admit_round,
             digests=req.digests, reg_from=plan["hits"],
             preemptions=req.preemptions, resume_out=req.resume_out,
-            resume_key=req.resume_key, tenant=req.tenant)
+            resume_key=req.resume_key,
+            resume_draft_key=req.resume_draft_key, tenant=req.tenant)
         self._next_admit += 1
         self._prefilling.append(slot)
         if req.preemptions:
@@ -1490,6 +1648,8 @@ class ServingEngine:
         """Clone the shared last page into the slot's private page
         before its tail chunk recomputes the final token."""
         self._replay("copy_page", np.int64(st.cow_src), np.int64(st.cow_dst))
+        if self.spec is not None:
+            self.spec.copy_page(st.cow_src, st.cow_dst)
         self.kv.release([st.cow_src])
         st.cow_src = -1
         self.stats["cow_copies"] += 1
@@ -1499,6 +1659,10 @@ class ServingEngine:
         last = P - 1 - base if base <= P - 1 < base + C else 0
         logits = self._replay("prefill", self._bt[slot], np.int64(base),
                               st.toks[base:base + C], np.int64(last))
+        if self.spec is not None:
+            # the draft mirrors every target prefill chunk, so its pool
+            # holds draft K/V wherever the target's does
+            self.spec.prefill_chunk(slot, base, st.toks[base:base + C])
         st.pf_base = base + C
         if st.pf_base >= st.pf_end:    # a graph's output: the next replay
             st.logits = logits.clone()  # overwrites it
@@ -1539,7 +1703,12 @@ class ServingEngine:
         seeded here with the request's seed; a resumed slot's is
         restored from the state saved at preemption, so its first sample
         draws what the interrupted decode step would have drawn. A
-        resumed slot continues its token list and keeps its TTFT."""
+        resumed slot continues its token list and keeps its TTFT.
+
+        Under speculation a resumed slot samples nothing here: its last
+        emitted token (the resume prompt's last) becomes the pending
+        token, as it was when the slot was preempted, so the next round
+        draws what the interrupted one would have (ROADMAP C16)."""
         gen = None
         if st.resume_key is not None:
             gen = torch.Generator(device=self.device)
@@ -1547,20 +1716,29 @@ class ServingEngine:
         elif st.temperature > 0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(st.seed)
+        if st.ttft_s is None:
+            st.ttft_s = time.perf_counter() - st.t_arrival
+        self._gens[slot] = gen
+        self._temps[slot] = st.temperature
+        self._active[slot] = True
+        self._eos[slot] = st.eos_id
+        if self.spec is not None:
+            self.spec.on_activate(slot, st)
+            if st.resume_out:
+                st.logits = None
+                st.out = list(st.resume_out)
+                self._lengths[slot] = st.prompt_len
+                self._tokens[slot] = st.out[-1]
+                self._remaining[slot] = st.max_new - len(st.out)
+                return
         tok = self._fns.sample_first(st.logits, st.temperature, gen)
         if self.record_logits:
             self.logit_log.setdefault(st.uid, []).append(
                 st.logits.float().cpu())
         st.logits = None
-        if st.ttft_s is None:
-            st.ttft_s = time.perf_counter() - st.t_arrival
         st.out = list(st.resume_out or []) + [tok]
-        self._gens[slot] = gen
         self._lengths[slot] = st.prompt_len + 1
         self._tokens[slot] = tok
-        self._temps[slot] = st.temperature
-        self._active[slot] = True
-        self._eos[slot] = st.eos_id
         self._remaining[slot] = st.max_new - len(st.out)
         self.stats["tokens_emitted"] += 1
         if tok == st.eos_id:
@@ -1582,6 +1760,11 @@ class ServingEngine:
         if self._pending or self._prefilling or self._cancel_pending:
             self._k_ramp = 0
             return 1
+        if self.spec is not None:
+            # a speculative engine's multi-token path is the round; its
+            # other decode is per-token (a fused block would leave holes
+            # in the draft's pool, which the mirror step fills)
+            return 1
         buckets = self.decode_block_buckets
         max_rem = int(self._remaining[self._active].max())
         if self.decode_block == "adaptive":
@@ -1597,6 +1780,22 @@ class ServingEngine:
         if k > max_rem:
             k = min(b for b in buckets if b >= max_rem)
         return self._clamp_k_deadline(k)
+
+    def _choose_spec(self):
+        """Run a speculative round this dispatch (reference
+        ``_choose_spec``, ``serving.py:3207``)? As the adaptive block:
+        pending admission, prefill or cancel work takes the plain
+        per-token step, so interleaving and TTFT are the plain engine's;
+        a runway of one token cannot pay for the draft's dispatch; a live
+        deadline that cannot cover ``k + 1`` steps falls back too."""
+        if self.spec is None or not self._active.any():
+            return False
+        if self._pending or self._prefilling or self._cancel_pending:
+            return False
+        if int(self._remaining[self._active].max()) < 2:
+            return False
+        k1 = self.spec.k + 1
+        return self._clamp_k_deadline(k1) >= k1
 
     def _clamp_k_deadline(self, k):
         """A K-step block commits the engine for about K steps; the
@@ -1626,21 +1825,41 @@ class ServingEngine:
             self.stats["graph_replays"] += 1
         return self._progs[key].replay(*host)
 
-    def _fill_noise(self, key, k):
+    def _fill_noise(self, key, k, gens=None):
         """Gumbel noise for the active sampled slots into program
         ``key``'s noise buffer, viewed ``[k, S, V]``, zero rows elsewhere
         (a greedy row's token ignores it). Each token draws its own
-        ``[V]`` from its slot's generator, so a request's draws do not
-        depend on how steps group into blocks; greedy slots draw
-        nothing."""
+        ``[V]`` from its slot's generator (of ``gens``, default the
+        target's), so a request's draws do not depend on how steps group
+        into blocks; greedy slots draw nothing."""
         buf = self._progs[key].buffers[0].view(k, self.num_slots, -1)
         buf.zero_()
         V = self.cfg.vocab_size
+        gens = self._gens if gens is None else gens
         for s in np.nonzero(self._active)[0]:
             if self._temps[s] > 0:
                 buf[:, s] = torch.stack([
-                    _sampler.gumbel_noise((V,), self._gens[s], self.device)
+                    _sampler.gumbel_noise((V,), gens[s], self.device)
                     for _ in range(k)])
+
+    def _fill_verify_noise(self, key, verify_rows):
+        """The target generators' draws for program ``key`` (``"verify"``
+        or a speculative ``"mixed"``): each active sampled slot draws one
+        ``[V]`` Gumbel draw (its decode token or its round's correction),
+        and a slot of ``verify_rows`` then its round's ``k`` acceptance
+        uniforms. A round draws the same whatever its outcome; greedy
+        slots draw nothing."""
+        gumbel, uniforms = self._progs[key].buffers[:2]
+        gumbel.zero_()
+        uniforms.zero_()
+        V, k = self.cfg.vocab_size, self.spec.k
+        for s in np.nonzero(self._active)[0]:
+            if self._temps[s] > 0:
+                gen = self._gens[s]
+                gumbel[s] = _sampler.gumbel_noise((V,), gen, self.device)
+                if verify_rows[s]:
+                    uniforms[s] = torch.rand(k, generator=gen,
+                                             device=self.device)
 
     def _log_step_logits(self, lg32, emit):
         """record_logits: keep each emitted token's logits per uid."""
@@ -1649,7 +1868,7 @@ class ServingEngine:
                 lg32[slot].cpu())
 
     def _run_decode_step(self):
-        """One per-token decode dispatch (K=1)."""
+        """One per-token decode dispatch (K=1); returns 1."""
         self._fill_noise(1, 1)
         nxt, lg32 = self._replay(1, self._bt, self._lengths, self._tokens,
                                  self._active, self._temps)
@@ -1658,7 +1877,10 @@ class ServingEngine:
         nxt = nxt.cpu().numpy()
         if self.record_logits:
             self._log_step_logits(lg32, self._active)
-        emitted = 0
+        if self.spec is not None:
+            # before the host mirrors advance: the draft writes the
+            # position the target just wrote
+            self.spec.mirror_step()
         finish_plan = []
         for slot in np.nonzero(self._active)[0]:
             st = self._slots[slot]
@@ -1668,18 +1890,17 @@ class ServingEngine:
             self._tokens[slot] = tok
             self._remaining[slot] -= 1
             self.stats["tokens_emitted"] += 1
-            emitted += 1
             if tok == st.eos_id:
                 finish_plan.append((slot, "eos"))
             elif len(st.out) >= st.max_new:
                 finish_plan.append((slot, "length"))
         for slot, reason in finish_plan:
             self._finish(slot, reason)
-        return emitted
+        return 1
 
     def _run_decode_block(self, k):
         """One fused K-step decode dispatch, then apply the ``(K,
-        slots)`` token block on the host."""
+        slots)`` token block on the host; returns ``k``."""
         self._fill_noise(k, k)
         tok_block, emit_block, lgs = self._replay(
             k, self._bt, self._lengths, self._tokens, self._active,
@@ -1689,24 +1910,49 @@ class ServingEngine:
         if self.record_logits:
             for i, lg32 in enumerate(lgs):
                 self._log_step_logits(lg32, emitb[i])
-        emitted = self._apply_token_block(tokb, emitb, k)
+        self._apply_token_block(tokb, emitb, k)
         self.stats["fused_blocks"] += 1
         self.stats["dispatches"] += 1
         self.stats["decode_steps"] += k
-        return emitted
+        return k
+
+    def _prefill_hazard(self, st, earlier):
+        """C14: does ``st``'s next chunk read a page (or copy a COW
+        source) that one of the ``earlier`` prefilling slots has not
+        written yet? Such a page was registered at that slot's admission
+        and mapped from the prefix cache by this one; the per-phase
+        engine writes it first, since it runs chunks strictly FIFO."""
+        PS = self.page_size
+        reads = set(st.pages[:-(-(st.pf_base + self.prefill_chunk) // PS)])
+        if st.cow_src >= 0:
+            reads.add(st.cow_src)
+        for e in earlier:
+            last = -(-e.pf_end // PS)
+            if reads & set(e.pages[e.pf_base // PS:last]):
+                return True
+        return False
 
     def _run_mixed_dispatch(self):
         """ONE ragged dispatch for everything (reference
-        ``_run_mixed_dispatch``, ``serving.py:3510``, without verify
-        rows or telemetry): every queued prefill slot contributes its
-        next chunk as a ``q_len = C`` row — a slot past its deadline or
-        hit by an injected ``prefill_error`` is failed while the rows are
-        packed — and every active slot a decode row, after the
-        ``decode_error``/``stall`` faults. A prefill slot whose last
-        chunk lands is activated from the program's logits; decode rows
-        apply as a token block. Returns the tokens emitted."""
-        S, QB, C = self.num_slots, self.prefill_chunk, self.prefill_chunk
+        ``_run_mixed_dispatch``, ``serving.py:3510``, without telemetry):
+        every queued prefill slot contributes its next chunk as a
+        ``q_len = C`` row — a slot past its deadline or hit by an
+        injected ``prefill_error`` is failed while the rows are packed,
+        and a slot whose chunk would read a page an earlier prefilling
+        slot has not written waits (:meth:`_prefill_hazard`, ROADMAP
+        C14) — and every active slot a decode row, after the
+        ``decode_error``/``stall`` faults. Under speculation the round's
+        propose scan runs first and every active slot whose budget
+        covers two tokens takes a verify row (``q_len = k + 1``); a
+        dispatch with decode rows and no round is mirrored into the
+        draft's pool, and every packed chunk is prefilled into it after
+        the dispatch. A prefill slot whose last chunk lands is activated
+        from the program's logits; decode and verify rows apply as a
+        token block. Returns the block's k (``k + 1`` with a round)."""
+        S, QB, C = self.num_slots, self._fns.QB, self.prefill_chunk
+        spec = self.spec
         pf_rows = []   # (slot, st, base, last_idx)
+        packed = []    # prefilling slots before this one, held back too
         for slot in list(self._prefilling):
             st = self._slots.get(slot)
             if st is None:      # requeued as collateral of an abort above
@@ -1714,24 +1960,46 @@ class ServingEngine:
             if self._expired(st, time.perf_counter()):
                 self._abort_slot(slot, "deadline")
                 continue
+            hazard = self._prefill_hazard(st, packed)
+            packed.append(st)
+            if hazard:
+                continue
             try:
                 self._prefill_faults(st)
                 if st.cow_src >= 0:
                     self._run_cow_copy(st)
             except InjectedFault as e:
                 self._on_injected_fault(e)
+                packed.pop()
                 continue
             base, P = st.pf_base, st.prompt_len
             last = P - 1 - base if base <= P - 1 < base + C else 0
             pf_rows.append((slot, st, base, last))
         self._decode_faults()
+        active_slots = np.nonzero(self._active)[0]
+        # the reference's spec gate (serving.py:3556-3569) without the
+        # pending-work test: a verify row rides the dispatch beside any
+        # prefill chunk
+        K = spec.k if spec is not None else 0
+        use_spec = (spec is not None and len(active_slots) > 0
+                    and not self._cancel_pending
+                    and int(self._remaining[self._active].max()) >= 2
+                    and self._clamp_k_deadline(K + 1) >= K + 1)
+        if use_spec:
+            spec.propose()
+        elif spec is not None:
+            spec.zero_round()
         kind = np.zeros(S, np.int32)
         q_lens = np.ones(S, np.int32)
         start = np.zeros(S, np.int64)
         tokens_q = np.zeros((S, QB), np.int64)
         last_idx = np.zeros(S, np.int64)
-        for s in np.nonzero(self._active)[0]:
-            kind[s] = 1
+        for s in active_slots:
+            if use_spec and self._remaining[s] >= 2:
+                kind[s] = 3
+                q_lens[s] = K + 1
+            else:
+                kind[s] = 1
             start[s] = self._lengths[s] - 1
             tokens_q[s, 0] = self._tokens[s]
         for slot, st, base, last in pf_rows:
@@ -1740,8 +2008,11 @@ class ServingEngine:
             start[slot] = base
             tokens_q[slot, :C] = st.toks[base:base + C]
             last_idx[slot] = last
-        self._fill_noise("mixed", 1)
-        tok_block, emit_block, pf_logits, lg32 = self._replay(
+        if spec is not None:
+            self._fill_verify_noise("mixed", kind == 3)
+        else:
+            self._fill_noise("mixed", 1)
+        tok_block, emit_block, pf_logits, lg_rows, n_acc = self._replay(
             "mixed", self._bt, kind, q_lens, start, tokens_q, last_idx,
             self._active, self._temps, self._eos, self._remaining)
         self.stats["dispatches"] += 1
@@ -1749,16 +2020,26 @@ class ServingEngine:
         tokb = tok_block.cpu().numpy()          # (QB, S)
         emitb = emit_block.cpu().numpy()
         if self.record_logits:
-            self._log_step_logits(lg32, emitb[0])
-        emitted = self._apply_token_block(tokb, emitb, QB)
+            for i in range(lg_rows.shape[1]):
+                self._log_step_logits(lg_rows[:, i], emitb[i])
+        if spec is not None:
+            if use_spec:
+                spec.count_round(n_acc.cpu().numpy(),
+                                 np.nonzero(kind == 3)[0])
+            elif (kind == 1).any():
+                # before the host mirrors advance, as per phase
+                spec.mirror_step()
+        self._apply_token_block(tokb, emitb, QB)
         for slot, st, base, last in pf_rows:
+            if spec is not None:
+                spec.prefill_chunk(slot, base, st.toks[base:base + C])
             st.pf_base = base + C
             self.stats["prefill_chunks"] += 1
             if st.pf_base >= st.pf_end:
                 st.logits = pf_logits[slot].clone()
                 self._prefilling.remove(slot)
                 self._activate(slot, st)
-        return emitted
+        return K + 1 if use_spec else 1
 
     def _apply_token_block(self, tokb, emitb, k):
         """Apply a ``(k, slots)`` device token block to the host
@@ -1806,6 +2087,8 @@ class ServingEngine:
         self._eos[slot] = -1
         self._remaining[slot] = 0
         self._gens[slot] = None
+        if self.spec is not None:
+            self.spec.gens[slot] = None
         self._free_slots.append(slot)
 
     def _finish(self, slot, reason):
@@ -1852,27 +2135,32 @@ class ServingEngine:
         self._expire_slots()    # deadlines at the dispatch boundary
         if self.mixed_step:
             if self._active.any() or self._prefilling:
-                self._dispatch(self._run_mixed_dispatch, 1)
+                self._dispatch(self._run_mixed_dispatch)
         elif self._active.any():
-            k = self._choose_block_k()
-            self._dispatch(functools.partial(self._run_decode_block, k)
-                           if k > 1 else self._run_decode_step, k,
-                           decode_faults=True)
+            # reference serving.py:3832-3848
+            if self._choose_spec():
+                run = self.spec.run_round
+            else:
+                k = self._choose_block_k()
+                run = functools.partial(self._run_decode_block, k) \
+                    if k > 1 else self._run_decode_step
+            self._dispatch(run, decode_faults=True)
         finished = self._early_done + self._finished_now
         self._early_done = []
         self._finished_now = finished
         return finished
 
-    def _dispatch(self, run, k, decode_faults=False):
-        """Run one decode (or mixed) dispatch of ``k`` steps: an injected
-        fault fails its target, a clean dispatch feeds the per-step EMA
-        and the step counters and then meets the nonfinite fault; the
-        deadline check follows either way."""
+    def _dispatch(self, run, decode_faults=False):
+        """Run one decode (or mixed) dispatch, ``run()`` returning its
+        block's ``k`` steps: an injected fault fails its target, a clean
+        dispatch feeds the per-step EMA and the step counters and then
+        meets the nonfinite fault; the deadline check follows either
+        way."""
         t0 = time.perf_counter()
         try:
             if decode_faults:
                 self._decode_faults()
-            run()
+            k = run()
         except InjectedFault as e:
             self._on_injected_fault(e)
         else:
@@ -1956,7 +2244,7 @@ class ServingEngine:
     def admit_migrated(self, req, trace_ctx=None):
         """Admit a :class:`Request` ejected from another engine under a
         fresh local uid and arrival seq, keeping the resume prompt, the
-        remaining budget, the generator state, ``t_arrival`` (the TTFT
+        remaining budget, the generator states, ``t_arrival`` (the TTFT
         and deadline basis), the observed ``ttft_s``, priority, deadline,
         tenant and preemption count. Digests are recomputed for this
         engine's page size. The same admission control as
@@ -1974,5 +2262,6 @@ class ServingEngine:
             seed=int(req.seed), t_arrival=float(req.t_arrival),
             deadline_s=req.deadline_s,
             resume_out=list(req.resume_out) if req.resume_out else None,
-            resume_key=req.resume_key, ttft_s=req.ttft_s,
+            resume_key=req.resume_key,
+            resume_draft_key=req.resume_draft_key, ttft_s=req.ttft_s,
             preemptions=int(req.preemptions), tenant=req.tenant)

@@ -15,7 +15,10 @@ one, per phase and with ``mixed_step=True``, serving resilience on it
 (preempt-and-resume over bf16, int8 and fp8 pools against the eager
 engine, no capture after the constructor through every drill, the pages
 no live slot holds kept across the replay after an abort, ``close()``),
-and
+speculative decoding on it (captured against eager over bf16, int8 and
+fp8 pools and with int8 weights, per phase and mixed; no capture after
+the constructor; the verify replay's traced kernels against its capture
+record), and
 GPT and packed-BERT training steps through the kernels against the same
 steps through the plain versions.
 
@@ -629,12 +632,115 @@ def test_close_releases_every_page_of_the_captured_engine(cuda, mixed):
     assert eng.kv.num_in_use == 0 and not eng.has_work
 
 
+# -- speculative decoding on the captured engine --------------------------------
+
+SPEC_KW = dict(speculative=1, draft_k=3)
+
+
+@pytest.mark.parametrize("kv_dtype,weight_dtype", [
+    ("bf16", None), ("int8", None), ("fp8", None), ("bf16", "int8")])
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_captured_spec_engine_equals_the_eager_engine_bit_for_bit(
+        cuda, kv_dtype, weight_dtype, mixed):
+    """Speculative rounds (the propose scan, the verify program or the
+    mixed program's verify rows, the mirror step and the draft's prefill
+    and page copy) captured and eager, over bf16, int8 and fp8 pools and
+    with int8 weights: tokens, logged logits and launch counters
+    identical."""
+    runs = []
+    for capture in (True, False):
+        eng = _graph_engine(cuda, capture, kv_dtype=kv_dtype,
+                            weight_dtype=weight_dtype, mixed_step=mixed,
+                            **SPEC_KW)
+        pa.reset_launches()
+        toks = _graph_serve(eng, _graph_reqs())
+        torch.cuda.synchronize()
+        runs.append((toks, [eng.logit_log[u] for u in sorted(eng.logit_log)],
+                     [getattr(pa, c) for c in COUNTS], dict(eng.stats)))
+    (tc, lc, cc, sc), (te, le, ce, se) = runs
+    assert tc == te
+    for a, b in zip(lc, le):
+        assert len(a) == len(b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert cc == ce and sum(cc) > 0
+    assert sc["spec_rounds"] > 0 and sc["spec_rejected"] > 0
+    # the draft's page copy replays beside the target's
+    assert sc["graph_replays"] == sc["dispatches"] + 2 * sc["cow_copies"]
+    for key in sc:
+        if not key.startswith("graph_"):
+            assert sc[key] == se[key], key
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_spec_graph_captures_are_fixed_after_construction(cuda, mixed):
+    """Every program a speculative engine can dispatch is captured in the
+    constructor — per phase the prefill chunk, the decode step, the
+    verify program and the page copy (no fused block), or the mixed
+    program and the page copy, and the draft's page copy, prefill chunk,
+    mirror step and propose scan — and none after it; each graph's
+    launch deltas are its program's (target or draft layers)."""
+    eng = _graph_engine(cuda, True, mixed_step=mixed, **SPEC_KW)
+    keys = (["copy_page", "mixed"] if mixed else
+            ["copy_page", "prefill", 1, "verify"]) + \
+        ["draft_copy", "draft_prefill", "mirror", "propose"]
+    assert list(eng._progs) == keys
+    n = eng.stats["graph_captures"]
+    assert n == len(keys)
+    L, dL, k = gpt2_tiny().num_layers, 1, SPEC_KW["draft_k"]
+    per = {"copy_page": 0, "prefill": L, 1: L, "verify": L, "mixed": L,
+           "draft_copy": 0, "draft_prefill": dL, "mirror": dL,
+           "propose": dL * (k + 1)}
+    for key, prog in eng._progs.items():
+        assert prog.deltas == [per[key]] * 2 + [0, 0], key
+    first = _graph_serve(eng, _graph_reqs())
+    second = _graph_serve(eng, _graph_reqs())
+    assert eng.stats["graph_captures"] == n
+    # greedy streams repeat; a sampled one may not: the second serve finds
+    # the shared prefix cached, so rounds fall on other steps, and a round
+    # draws otherwise than plain steps
+    greedy = [i for i, r in enumerate(_graph_reqs()) if r[2] == 0]
+    assert [first[i] for i in greedy] == [second[i] for i in greedy]
+    assert eng.stats["spec_rounds"] > 0 and eng.stats["cow_copies"] > 0
+
+
+def test_the_verify_replay_traces_its_recorded_kernels(cuda):
+    """One replay of the verify graph under ``torch.profiler``: the ragged
+    kernels the device ran (split-KV split and merge) equal the launches
+    the graph recorded at its capture."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = _graph_engine(cuda, True, **SPEC_KW)
+    prog = eng._progs["verify"]
+    S = eng.num_slots
+    nsplit = pa.split_plan(S, SPEC_KW["draft_k"] + 1, eng.cfg.num_heads,
+                           eng.page_size, eng.pages_per_slot)[1]
+    want = {"split": prog.deltas[1],
+            "merge": prog.deltas[1] * (nsplit > 1)}
+    assert want["split"] == eng.cfg.num_layers
+    for _ in range(3):      # the profiler can lose a record: trace again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prog.replay(*eng._idle_host("verify"))
+            torch.cuda.synchronize()
+        got = dict.fromkeys(want, 0)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for kind in got:
+                    got[kind] += f"ragged_paged_attention_{kind}_kernel" \
+                        in e.name
+        if got == want:
+            break
+    assert got == want
+
+
 # -- the split-KV design of the float-pool kernel ------------------------------
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", ["mixed", "decode", "prefill"])
+@pytest.mark.parametrize("shape", ["mixed", "decode", "prefill", "verify"])
 def test_split_kv_kernel_matches_plain_at_the_smoke_shapes(cuda, shape, dtype,
                                                            tol):
     """GPT-2 small's serving shapes (chip_smoke.RAGGED_SHAPES): every call
@@ -703,7 +809,7 @@ def test_quantized_pools_keep_the_first_design(cuda):
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
-@pytest.mark.parametrize("shape", ["mixed", "decode", "prefill"])
+@pytest.mark.parametrize("shape", ["mixed", "decode", "prefill", "verify"])
 def test_quant_split_kv_kernel_matches_plain_at_the_smoke_shapes(
         cuda, shape, fmt, dtype, tol):
     """GPT-2 small's serving shapes over int8 / fp8 pools

@@ -24,7 +24,9 @@ the same drills in tests/test_torch_resilience_mixed.py.
   the same sequences; the overload stress with ``verify()`` after every
   step; a failure inside a program tears down and re-raises;
   ``eject``/``admit_migrated`` between two port engines gives the
-  unmigrated stream."""
+  unmigrated stream; the teardown finishes its sweep when an abort
+  raises and re-raises the step's own exception (ROADMAP C15), with and
+  without speculation."""
 import numpy as np
 import pytest
 import torch
@@ -228,3 +230,8 @@ def test_resumed_request_cancelled_mid_prefill_keeps_its_tokens(ref):
         == "cancelled" and c.preemptions == jc.preemptions == 1
     assert [int(t) for t in c.tokens] == emitted
     assert list(jc.tokens) == []
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_teardown_survives_a_failing_abort(ref, spec):
+    drills.check_teardown_past_a_failing_abort(ref, False, spec)

@@ -6,7 +6,9 @@ mixed_step=True)``: the drills of tests/serving_drills.py, as
 tests/test_torch_resilience.py runs them on the per-phase engine.
 Deadlines, prefill faults and copy-on-write run while the mixed
 dispatch packs its prefill rows; ``decode_error`` and ``stall`` fire
-before its replay."""
+before its replay. A prefill row whose chunk would read a page that an
+earlier prefilling request has not written waits for it (ROADMAP C14),
+and the teardown finishes its sweep when an abort raises (C15)."""
 import pytest
 import torch
 
@@ -50,3 +52,13 @@ def test_mixed_failing_program_tears_down_and_reraises(ref):
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_mixed_eject_and_admit_migrated(ref, temperature):
     drills.check_migration(ref, True, temperature)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_mixed_shared_prefix_admitted_together(ref, seed):
+    drills.check_shared_prefix_admitted_together(ref, seed)
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_mixed_teardown_survives_a_failing_abort(ref, spec):
+    drills.check_teardown_past_a_failing_abort(ref, True, spec)

@@ -237,13 +237,15 @@ def test_queue_bound_sheds_or_rejects(ref):
 
 
 @pytest.mark.parametrize("lever", [
-    dict(mesh=object()), dict(speculative=True),
+    dict(mesh=object()), dict(speculative=True, tracer=object()),
     dict(trace_ctx={"trace_id": "t"}), dict(journal="j.jsonl"),
     dict(tracer=object()), dict(watchdog=True),
 ])
 def test_unported_levers_raise(ref, lever):
     """The constructor's unported levers, and ``add_request``'s and
-    ``admit_migrated``'s ``trace_ctx=`` (the tracer's, not ported)."""
+    ``admit_migrated``'s ``trace_ctx=`` (the tracer's, not ported).
+    Speculation is ported; the spans of its rounds need the tracer, which
+    still raises on a speculative engine."""
     _, params = ref
     kw = dict(device="cpu", num_slots=1, page_size=8, prefill_chunk=8,
               max_seq_len=64)
