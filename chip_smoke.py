@@ -297,6 +297,29 @@ exits non-zero:
    gradient as float64 einsums), packed through the kernels and the plain
    versions, and the same examples unpacked through the flash kernels and
    theirs; the kernel's error at most 4x the plain f32 version's.
+15. ``resnet_parity`` — ResNet-50 (``num_classes=10``, random weights
+   from seed 0) at 64 x 64, batch 8, float32, TF32 off: the model on the
+   card (cuDNN convs, ATen batch norm and pooling) against the same
+   weights through the port on the CPU. Unit gains: train-mode logits
+   (1e-3 of max-abs) and running statistics (1e-4). With each residual
+   branch's last batch-norm gain at 0.25 (``RESNET_GAIN``, as
+   ``tests/test_torch_resnet_train.py``, whose docstring says why):
+   gradients by name (all 161, relative L2 5e-2), the losses of K = 3
+   ``Momentum`` steps at lr 1e-4 (rtol 1e-5), the parameter updates
+   (relative L2 1e-1) and buffers (1e-4) by name, eval-mode logits
+   afterwards (1e-4); then O1 bf16: the dtypes at conv, BN, every block,
+   logits and loss equal, and for weights and data from each of three
+   seeds (``RESNET_O1_SEEDS``) K = 3 steps of ``bench.py``'s loss (the
+   bf16 cross entropy of the bf16 logits) whose float32 cross entropy of
+   the same logits agrees within 2e-2 (the bf16 losses, whose spacing is
+   0.0156 near 2.3, are recorded with their gap in bf16 steps). No hold
+   is caught.
+16. ``resnet`` — ``paddle_tpu_torch.tools.bench_resnet.run``, ``bench.py``'s
+   settings (O1 bf16, Momentum 0.1, batch 128 of 224 x 224, K = 30) with
+   one warm-up and two timed calls, NCHW: images/s, step ms, MFU, peak
+   memory, first and last losses (every loss finite); then one warm-up
+   and one timed call in NHWC, recorded only, and the two step times'
+   ratio. Followed by ``bench_resnet``'s own JSON line.
 
 Then the script's seconds, the kernel summary line, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.
@@ -3436,6 +3459,238 @@ def run_bench_phase():
             **bgp.record(TRAIN_B, TRAIN_S, tok, mfu, loss, **kw)}
 
 
+# -- ResNet-50 training (bench.py) ---------------------------------------------
+
+RESNET_B, RESNET_HW, RESNET_K, RESNET_LR, RESNET_GAIN = 8, 64, 3, 1e-4, 0.25
+RESNET_TOL = {"logits": 1e-3, "buffers": 1e-4, "grad_l2": 5e-2,
+              "loss_rtol": 1e-5, "update_l2": 1e-1, "eval": 1e-4,
+              "o1_ce_f32": 2e-2}
+RESNET_O1_SEEDS = (0, 1, 2)
+
+
+def _f64(a):
+    """A tensor or an array as a float64 numpy array on the host."""
+    import numpy as np
+    if hasattr(a, "detach"):
+        a = a.detach().double().cpu().numpy()
+    return np.asarray(a, np.float64)
+
+
+def max_rel(a, b):
+    """Largest absolute difference over the largest absolute value of
+    ``b`` (tensors or arrays, float64 on the host)."""
+    import numpy as np
+    a, b = _f64(a), _f64(b)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+
+
+def l2_rel(a, b):
+    """``|a - b| / |b|`` in L2 (tensors or arrays, float64 on the host)."""
+    import numpy as np
+    a, b = _f64(a), _f64(b)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def update_l2(p, want, p0):
+    """``|p - want| / |want - p0|``: a parameter update's error in
+    relative L2; an update below 1e-6 of the tensor's norm, which float32
+    does not resolve, counts as that much."""
+    import numpy as np
+    p, want, p0 = _f64(p), _f64(want), _f64(p0)
+    return float(np.linalg.norm(p - want) / max(
+        np.linalg.norm(want - p0), 1e-6 * np.linalg.norm(p0), 1e-30))
+
+
+def resnet_pair(gain, seed=0):
+    """ResNet-50 on the card and on the CPU with the same weights (from
+    ``seed``), each residual branch's last batch-norm gain scaled by
+    ``gain``."""
+    import torch
+    from paddle_tpu_torch.vision.models import (load_reference_state,
+                                                reference_state, resnet50)
+    cpu = resnet50(num_classes=10, device="cpu", seed=seed)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("bn3.weight"):
+                p.mul_(gain)
+    gpu = resnet50(num_classes=10, device="cuda", seed=1)
+    load_reference_state(gpu, *reference_state(cpu))
+    return gpu, cpu
+
+
+def resnet_batch(k=None, seed=0):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    lead = (RESNET_B,) if k is None else (k, RESNET_B)
+    return (torch.rand(*lead, 3, RESNET_HW, RESNET_HW, generator=g),
+            torch.randint(0, 10, lead, generator=g))
+
+
+def resnet_dtypes(m, x, y):
+    """Dtypes at conv1, bn1, every block, the logits and the loss, under
+    O1 (the loss outside the autocast, as ``bench.py``)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        t = m.conv1(x)
+        out = [t.dtype]
+        t = m.bn1(t)
+        out.append(t.dtype)
+        t = m.maxpool(m.relu(t))
+        for layer in (m.layer1, m.layer2, m.layer3, m.layer4):
+            for blk in layer:
+                t = blk(t)
+                out.append(t.dtype)
+        logits = m(x)
+    return out + [logits.dtype, cross_entropy(logits, y).dtype]
+
+
+def run_resnet_parity_phase():
+    """ResNet-50 through cuDNN/ATen on the card against the port on the
+    CPU (phase 15 of the docstring)."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.vision.models import reference_state
+
+    t0 = time.perf_counter()
+    tol, rec, fails = RESNET_TOL, {"phase": "resnet_parity"}, []
+
+    def hold(name, value, limit):
+        rec[name] = value
+        if not value <= limit:
+            fails.append(f"{name} {value} > {limit}")
+
+    states = reference_state
+    x, y = resnet_batch()
+    dev = torch.device("cuda")
+    gpu, cpu = resnet_pair(1.0)
+    hold("unit_gains_logits_err", max_rel(gpu(x.to(dev)), cpu(x)),
+         tol["logits"])
+    (_, gb), (_, cb) = states(gpu), states(cpu)
+    hold("unit_gains_buffers_err", max(max_rel(gb[n], cb[n]) for n in cb),
+         tol["buffers"])
+
+    def loss(m, xx, yy):
+        return cross_entropy(m(xx), yy)
+
+    def steps(pair, loss_fns=(loss, loss)):
+        return [TrainStep(m, fn, Momentum(learning_rate=RESNET_LR,
+                                          momentum=0.9), device=d)
+                for m, fn, d in zip(pair, loss_fns, (dev, "cpu"))]
+
+    pair = resnet_pair(RESNET_GAIN)
+    sg, sc = steps(pair)
+    lg, gg, _ = sg.grad_step(x.to(dev), y.to(dev))
+    lc, gc, _ = sc.grad_step(x, y)
+    hold("grad_loss_rel", abs(float(lg) - float(lc)) / abs(float(lc)),
+         tol["loss_rtol"])
+    if len(gg) != 161:
+        fails.append(f"{len(gg)} gradients, want 161")
+    hold("grad_l2_max", max(l2_rel(a, b) for a, b in zip(gg, gc)),
+         tol["grad_l2"])
+    rec["grad_err_max"] = max(max_rel(a, b) for a, b in zip(gg, gc))
+    pair = resnet_pair(RESNET_GAIN)
+    p0 = states(pair[1])[0]
+    sg, sc = steps(pair)
+    xs, ys = resnet_batch(RESNET_K, seed=1)
+    lg = sg.multi_step(xs.to(dev), ys.to(dev)).cpu()
+    lc = sc.multi_step(xs, ys)
+    rec["losses"] = {"cuda": lg.tolist(), "cpu": lc.tolist()}
+    hold("loss_rel_max", float(((lg - lc).abs() / lc.abs()).max()),
+         tol["loss_rtol"])
+    (gp, gb), (cp, cb) = states(pair[0]), states(pair[1])
+    hold("update_l2_max", max(update_l2(gp[n], cp[n], p0[n]) for n in cp),
+         tol["update_l2"])
+    hold("buffers_err", max(max_rel(gb[n], cb[n]) for n in cb),
+         tol["buffers"])
+    for m in pair:
+        m.eval()
+    xe, _ = resnet_batch(seed=2)
+    hold("eval_logits_err", max_rel(pair[0](xe.to(dev)), pair[1](xe)),
+         tol["eval"])
+
+    pair = resnet_pair(RESNET_GAIN)
+    dts = [resnet_dtypes(m, x.to(d), y.to(d))
+           for m, d in zip(pair, (dev, "cpu"))]
+    rec["o1_dtypes"] = [str(t).replace("torch.", "") for t in dts[0]]
+    if dts[0] != dts[1] or dts[0][0] != torch.bfloat16:
+        fails.append(f"O1 dtypes differ: {dts}")
+
+    def o1_loss(f32):
+        """``bench.py``'s loss, the bf16 cross entropy of the bf16 logits;
+        into ``f32`` the same logits' cross entropy in float32, which
+        resolves what a bf16 loss cannot."""
+        def fn(m, xx, yy):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                logits = m(xx)
+            f32.append(cross_entropy(logits.detach().float(), yy))
+            return cross_entropy(logits, yy)
+        return fn
+
+    rec["o1"] = []
+    for seed in RESNET_O1_SEEDS:
+        pair = resnet_pair(RESNET_GAIN, seed)
+        f32 = ([], [])
+        sg, sc = steps(pair, (o1_loss(f32[0]), o1_loss(f32[1])))
+        xs, ys = resnet_batch(RESNET_K, seed=4 + seed)
+        lg = sg.multi_step(xs.to(dev), ys.to(dev)).cpu()
+        lc = sc.multi_step(xs, ys)
+        fg, fc = (torch.stack(f).cpu() for f in f32)
+        diff = float((fg - fc).abs().max())
+        rec["o1"].append({
+            "seed": seed, "ce_f32": {"cuda": fg.tolist(), "cpu": fc.tolist()},
+            "ce_f32_diff_max": diff,
+            "loss_bf16": {"cuda": lg.float().tolist(),
+                          "cpu": lc.float().tolist()},
+            "loss_bf16_diff_max_steps": int(bf16_steps(lg, lc).max())})
+        hold(f"o1_ce_f32_diff_max_seed{seed}", diff, tol["o1_ce_f32"])
+    if not all(b.dtype == torch.float32 for b in pair[0].buffers()):
+        fails.append("a running statistic left float32 under O1")
+    rec.update(tolerances=tol, batch=RESNET_B, size=RESNET_HW, k=RESNET_K,
+               lr=RESNET_LR, residual_gain=RESNET_GAIN,
+               seconds=time.perf_counter() - t0)
+    if fails:
+        raise AssertionError(f"resnet_parity: {fails}; {rec}")
+    return rec
+
+
+RESNET_STEPS = 3 * 30     # bench_resnet.run: one warm call, two timed, K=30
+
+
+def run_resnet_phase():
+    """``bench_resnet.run`` at ``bench.py``'s settings, NCHW (one warm-up,
+    two timed calls), then one timed NHWC call, recorded only. Returns
+    the phase record and ``bench_resnet``'s own line."""
+    import torch
+    from paddle_tpu_torch.tools import bench_resnet
+
+    t0 = time.perf_counter()
+    runs = {}
+    for fmt, reps in (("NCHW", 2), ("NHWC", 1)):
+        rec = bench_resnet.run(warmup=1, reps=reps, data_format=fmt)
+        losses = rec.pop("losses")
+        if len(losses) != (1 + reps) * bench_resnet.K or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"resnet {fmt}: non-finite or missing "
+                                 f"losses: {losses}")
+        runs[fmt] = rec
+        torch.cuda.empty_cache()
+    nchw, nhwc = runs["NCHW"], runs["NHWC"]
+    keep = ("value", "step_ms", "mfu", "peak_mem_bytes", "loss_first",
+            "loss_last", "first_call_s")
+    return {"phase": "resnet", "imgs_per_s": nchw["value"],
+            **{k: nchw[k] for k in keep if k != "value"},
+            "steps": RESNET_STEPS, "batch": nchw["batch_per_chip"],
+            "forward_flops_per_image": nchw["forward_flops_per_image"],
+            "nhwc": {k: nhwc[k] for k in keep},
+            "nhwc_over_nchw_step_ms": nhwc["step_ms"] / nchw["step_ms"],
+            "gpu": nchw["gpu"], "seconds": time.perf_counter() - t0}, \
+        {"phase": "bench_resnet", **nchw}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3563,6 +3818,11 @@ def main():
         4, packed_ms={kn: pt[kn]["ms"] for kn in ("fwd", "dq", "dkv")})
     emit(bert_packed)
     emit(run_bert_parity_phase())
+    torch.cuda.empty_cache()
+    emit(run_resnet_parity_phase())
+    resnet, bench_resnet_line = run_resnet_phase()
+    emit(resnet)
+    emit(bench_resnet_line)
     dec = kres["decode"]["bfloat16"]
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",

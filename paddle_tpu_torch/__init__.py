@@ -22,20 +22,24 @@ so that each module sits where its counterpart does:
   <- ``paddle_tpu/kernels/packed_flash_pallas.py``
 - ``amp/``                     <- ``paddle_tpu/amp/__init__.py``
 - ``nn/``                      <- ``paddle_tpu/nn`` (layers, functional
-  ops, ``clip.py``, ``transformer.py`` <- ``nn/layer/transformer.py``)
-  and the one-device ``mp_layers``
+  ops, ``clip.py``, ``transformer.py`` <- ``nn/layer/transformer.py``,
+  ``conv.py``, ``norm.py``, ``pooling.py`` <- their ``nn/layer``
+  namesakes, ``functional/{conv,norm,pooling}.py``) and the one-device
+  ``mp_layers``
+- ``vision/models/resnet.py``  <- ``paddle_tpu/vision/models/resnet.py``
 - ``distributed/utils_recompute.py`` <- its namesake
 - ``optimizer/``               <- ``paddle_tpu/optimizer`` (``AdamW``,
-  ``lr.py``)
+  ``Momentum``, ``lr.py``)
 - ``parallel/api.py``          <- ``paddle_tpu/parallel/api.py``
   (``TrainStep``)
 - ``tools/``                   <- ``tools/bench_gpt_pretrain.py``,
-  ``tools/bench_bert.py``
+  ``tools/bench_bert.py``, and ``bench.py`` as ``tools/bench_resnet.py``
 
 The slices ported so far are GPT-2 generation through the paged serving
 engine (over float, int8 or fp8 KV pools, with float or int8 weights),
 the single-device GPT-2 training step (with and without the fused head +
-CE) and the BERT-base fine-tune, unpacked and sequence-packed.
+CE), the BERT-base fine-tune, unpacked and sequence-packed, and ResNet-50
+training as ``bench.py`` runs it.
 Entry points run on CUDA unless the caller passes ``device="cpu"`` (see
 ``device.py``).
 """

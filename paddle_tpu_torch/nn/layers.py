@@ -12,13 +12,16 @@ reference's attribute names — port of ``paddle_tpu/nn/layer/common.py``
   reference's row-parallel forward: ``matmul_v2`` (white), then the bias
   added by a plain add, which under O1 promotes the low-precision
   product to float32.
-- :class:`Embedding`, :class:`LayerNorm`, :class:`Dropout`.
+- :class:`Embedding`, :class:`LayerNorm`, :class:`Dropout`, :class:`ReLU`
+  (``nn/layer/activation.py``).
 - :func:`load_named_state`, which carries the reference's
-  ``named_parameters()`` (as numpy arrays) into a module by name; the
-  models' ``load_reference_state`` call it.
+  ``named_parameters()`` (and, given them, its ``named_buffers()``) as
+  numpy arrays into a module by name; the models' ``load_reference_state``
+  call it.
 
 Weights are made on the host from a numpy ``Generator`` (XavierUniform
-for matrices and embeddings, zero biases, unit LayerNorm gains, as the
+for matrices and embeddings, :func:`kaiming_uniform` for convolutions
+(``nn/initializer.py:108``), zero biases, unit LayerNorm gains, as the
 reference initialises them) and placed on ``device``, which follows the
 port's device policy (CUDA unless the caller asks for the CPU).
 """
@@ -31,7 +34,7 @@ from ..device import resolve_device
 from . import functional as F
 
 __all__ = ["Linear", "RowParallelLinear", "Embedding", "LayerNorm",
-           "Dropout", "load_named_state"]
+           "Dropout", "ReLU", "load_named_state"]
 
 
 def _param(array, device):
@@ -42,6 +45,13 @@ def _param(array, device):
 def xavier_uniform(rng, shape):
     """XavierUniform of a 2-D ``[fan_in, fan_out]`` weight."""
     limit = float(np.sqrt(6.0 / (shape[0] + shape[1])))
+    rng = rng if rng is not None else np.random.default_rng()
+    return rng.uniform(-limit, limit, shape).astype(np.float32)
+
+
+def kaiming_uniform(rng, shape, fan_in):
+    """KaimingUniform for ReLU: U(-sqrt(6 / fan_in), sqrt(6 / fan_in))."""
+    limit = float(np.sqrt(6.0 / fan_in))
     rng = rng if rng is not None else np.random.default_rng()
     return rng.uniform(-limit, limit, shape).astype(np.float32)
 
@@ -101,19 +111,31 @@ class Dropout(torch.nn.Module):
         return F.dropout(x, self.p, self.training, self.generator)
 
 
+class ReLU(torch.nn.Module):
+    def forward(self, x):
+        return F.relu(x)
+
+
 @torch.no_grad()
-def load_named_state(module, named):
+def load_named_state(module, named, buffers=None):
     """Copy ``{name: array}`` (the reference's ``named_parameters()``
     through ``np.asarray``) into ``module``'s parameters of the same
-    names; raises on a missing, extra or misshapen name."""
-    own = dict(module.named_parameters())
-    missing, extra = set(own) - set(named), set(named) - set(own)
-    if missing or extra:
-        raise KeyError(f"parameter names differ: missing "
-                       f"{sorted(missing)}, unexpected {sorted(extra)}")
-    for name, p in own.items():
-        a = np.asarray(named[name], np.float32)
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {a.shape} != "
-                             f"{tuple(p.shape)}")
-        p.copy_(torch.tensor(a))
+    names, and ``buffers`` (its ``named_buffers()``) into the buffers,
+    when given; raises on a missing, extra or misshapen name. Every name
+    is checked before anything is copied."""
+    pairs = [("parameter", dict(module.named_parameters()), named)]
+    if buffers is not None:
+        pairs.append(("buffer", dict(module.named_buffers()), buffers))
+    for kind, own, given in pairs:
+        missing, extra = set(own) - set(given), set(given) - set(own)
+        if missing or extra:
+            raise KeyError(f"{kind} names differ: missing "
+                           f"{sorted(missing)}, unexpected {sorted(extra)}")
+        for name, t in own.items():
+            shape = np.shape(given[name])
+            if tuple(shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {shape} != "
+                                 f"{tuple(t.shape)}")
+    for _, own, given in pairs:
+        for name, t in own.items():
+            t.copy_(torch.tensor(np.asarray(given[name], np.float32)))

@@ -1,6 +1,7 @@
 """Optimizers — port of ``paddle_tpu/optimizer/optimizer.py`` (the
-``Optimizer`` base and ``AdamW``) together with the mapping the compiled
-train step applies to it (``paddle_tpu/static/executor.py:76-98``).
+``Optimizer`` base, ``AdamW`` and ``Momentum`` ``:336-350``) together with
+the mapping the compiled train step applies to them
+(``paddle_tpu/static/executor.py:76-106``).
 
 The reference's ``TrainStep`` does not run ``AdamW._update_param``: it
 runs ``optax.inject_hyperparams(optax.adamw)`` built from the
@@ -18,6 +19,18 @@ The update is in place on the parameters and the moments (float32).
 ``apply_decay_param_fun`` and ``lr_ratio`` are kept on the optimizer, but
 the reference's ``TrainStep`` ignores them (``ROADMAP.md`` C), so the
 port's ``TrainStep`` refuses an optimizer that sets them.
+
+:class:`Momentum` follows ``optax.sgd(momentum=, nesterov=)``, which the
+reference's ``TrainStep`` runs for it (``executor.py:103-106``):
+
+    trace = g + momentum * trace
+    p     = p - lr * trace                       (plain)
+    p     = p - lr * (g + momentum * trace)      (use_nesterov)
+
+with a float32 trace, in place. ``optax.sgd`` takes no decay, so the
+reference's step drops ``weight_decay`` (and ``rescale_grad``) without a
+word; the port's ``TrainStep`` refuses a ``Momentum`` that sets either
+(``ROADMAP.md`` caveat 12).
 """
 from __future__ import annotations
 
@@ -25,7 +38,7 @@ import torch
 
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "AdamW"]
+__all__ = ["Optimizer", "AdamW", "Momentum"]
 
 
 class Optimizer:
@@ -87,4 +100,32 @@ class AdamW(Optimizer):
         upd = torch._foreach_div(mu_hat, den)
         if wd:
             torch._foreach_add_(upd, params, alpha=wd)
+        torch._foreach_add_(params, upd, alpha=-float(lr))
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, rescale_grad=1.0):
+        super().__init__(learning_rate, parameters, grad_clip)
+        self._momentum = float(momentum)
+        self._use_nesterov = bool(use_nesterov)
+        self._wd = float(getattr(weight_decay, "coeff", weight_decay) or 0.0)
+        self._rescale_grad = float(rescale_grad)
+
+    def init_state(self, params):
+        """A zero trace (float32, beside each parameter)."""
+        return {"trace": [torch.zeros_like(p, dtype=torch.float32)
+                          for p in params]}
+
+    @torch.no_grad()
+    def update(self, params, grads, state, lr):
+        """One ``optax.sgd`` momentum step at learning rate ``lr``, in
+        place on ``params`` and ``state``."""
+        mu, trace = self._momentum, state["trace"]
+        torch._foreach_mul_(trace, mu)
+        torch._foreach_add_(trace, grads)
+        upd = trace
+        if self._use_nesterov:
+            upd = torch._foreach_add(grads, trace, alpha=mu)
         torch._foreach_add_(params, upd, alpha=-float(lr))

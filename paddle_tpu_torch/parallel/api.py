@@ -2,10 +2,18 @@
 (``TrainStep``) for one device.
 
 ``TrainStep(model, loss_fn, optimizer)`` runs ``loss_fn(model, *batch)``,
-its backward, the optimizer's gradient clip and the ``optax.adamw``
-update (``optimizer/optimizer.py``), as the reference's compiled step
-does (``:328-378``), eagerly: PyTorch needs no trace. The model's
-parameters are updated in place.
+its backward, the optimizer's gradient clip and the ``optax.adamw`` or
+``optax.sgd`` momentum update (``AdamW`` or ``Momentum``,
+``optimizer/optimizer.py``), as the reference's compiled step does
+(``:328-378``), eagerly: PyTorch needs no trace. The model's parameters
+are updated in place.
+
+The model's buffers (BatchNorm's running statistics) are carried
+through every step as the reference carries them (``:143``, swapped in
+and out ``:220-249``, threaded through the scan ``:448-566``, updated by
+``grad_step`` too ``:572-613``): here the layer's forward updates its
+buffers in place, once a step, so ``__call__``, each step of
+``multi_step`` and ``grad_step`` all leave them moved by one batch.
 
 - ``__call__(*batch)``: one step; returns the loss as a device scalar,
   with no host sync (``:409-445``).
@@ -20,9 +28,10 @@ parameters are updated in place.
 What the reference's step also does and the port does not yet (a mesh,
 FSDP/ZeRO placements, the numerics pass, skipping non-finite steps,
 extra state, aux outputs, gradient merge, ASP, an optimizer other than
-AdamW, a clip other than by global norm, eval-only steps) raises
-``NotImplementedError``, as do ``apply_decay_param_fun`` and
-``lr_ratio``, which the reference's step silently ignores. The device
+AdamW and Momentum, a clip other than by global norm, eval-only steps)
+raises ``NotImplementedError``, as do AdamW's ``apply_decay_param_fun``
+and ``lr_ratio`` and Momentum's ``weight_decay`` and ``rescale_grad``,
+which the reference's step silently ignores. The device
 follows ``resolve_device``: CUDA unless ``device="cpu"``.
 """
 from __future__ import annotations
@@ -32,7 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..nn.clip import ClipGradByGlobalNorm
-from ..optimizer.optimizer import AdamW
+from ..optimizer.optimizer import AdamW, Momentum
 
 __all__ = ["TrainStep"]
 
@@ -57,16 +66,23 @@ class TrainStep:
                           optimizer is None)):
             if on:
                 _refuse(what)
-        if not isinstance(optimizer, AdamW):
+        if not isinstance(optimizer, (AdamW, Momentum)):
             _refuse(f"optimizer {type(optimizer).__name__}")
         if getattr(optimizer, "_grad_merge_k", 0) > 1:
             _refuse("gradient merge")
         if getattr(optimizer, "_asp_masks_by_param", None):
             _refuse("ASP")
-        if optimizer._apply_decay_param_fun is not None:
-            _refuse("AdamW(apply_decay_param_fun=...)")
-        if optimizer._lr_ratio is not None:
-            _refuse("AdamW(lr_ratio=...)")
+        if isinstance(optimizer, AdamW):
+            if optimizer._apply_decay_param_fun is not None:
+                _refuse("AdamW(apply_decay_param_fun=...)")
+            if optimizer._lr_ratio is not None:
+                _refuse("AdamW(lr_ratio=...)")
+        else:
+            # optax.sgd takes neither: the reference's step drops them
+            if optimizer._wd:
+                _refuse("Momentum(weight_decay=...)")
+            if optimizer._rescale_grad != 1.0:
+                _refuse("Momentum(rescale_grad=...)")
         clip = optimizer._grad_clip
         if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
             _refuse(f"grad_clip {type(clip).__name__}")

@@ -2,7 +2,8 @@
 """Where the PyTorch port's training-step time goes on one NVIDIA GPU.
 
     python3 -m paddle_tpu_torch.tools.profile_train [--steps N] [--out PATH]
-        [--fused-ce [--share-p] | --bert [--pack P]]
+        [--fused-ce [--share-p] | --bert [--pack P] | --resnet
+        [--data-format NHWC]]
 
 Run from the repository root. Builds the training step of
 ``chip_smoke.py``'s train phase (GPT-2
@@ -13,7 +14,10 @@ fused-CE kernels, and with ``--share-p`` too its ``train_fused_ce_sharep``
 phase (``kernels.fused_ce._SHARE_P`` set: the shared-dl dh/dw pair); with
 ``--bert`` the BERT-base fine-tune step of
 ``tools/bench_bert.py``, 64 sequences of 128, packed ``--pack`` to a row
-through the packed flash kernels when ``--pack`` is above 1),
+through the packed flash kernels when ``--pack`` is above 1; with
+``--resnet`` the ResNet-50 step of ``bench_resnet`` (``bench.py``'s: O1
+bf16, Momentum 0.1, batches of 128 images of 224 x 224, 8 of them made on
+the card), in ``--data-format``),
 runs ``TrainStep.multi_step`` of 8 steps to warm up, ``--steps`` steps
 timed without the profiler, and ``--steps`` steps under
 ``torch.profiler`` (CPU and CUDA activities), then prints one JSON line:
@@ -25,8 +29,11 @@ timed without the profiler, and ``--steps`` steps under
   against the unprofiled step time, since the profiler slows the host);
 - ``by_class`` — device milliseconds per step and kernel counts for the
   three flash-attention kernels, the three fused-CE kernels, the three
-  packed flash kernels, matrix products, the optimizer
-  (``multi_tensor_apply``), softmax/cross-entropy, and everything else;
+  packed flash kernels, convolution (cuDNN's forward, data- and
+  weight-gradient kernels and its layout transposes), matrix products,
+  batch norm, pooling, the optimizer (``multi_tensor_apply``: AdamW's or
+  Momentum's update), softmax/cross-entropy, elementwise kernels (casts,
+  ReLU and its gradient, the residual adds), and everything else;
 - ``kernels_per_step`` and the top kernels by device time (all 30
   written to ``--out`` when given).
 
@@ -50,13 +57,23 @@ def kernel_class(name):
                  "packed_flash_dkv"):
         if part in low:
             return part
+    if any(s in low for s in ("convolve", "conv2d", "conv_", "fprop",
+                              "dgrad", "wgrad", "cudnn", "implicit_gemm",
+                              "nchwtonhwc", "nhwctonchw", "tensortransform")):
+        return "convolution"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                               "nvjet", "sm90_", "matmul", "splitkreduce")):
         return "matmul"
+    if "batch_norm" in low or "batchnorm" in low:
+        return "batch_norm"
+    if "pool" in low:
+        return "pooling"
     if "multi_tensor_apply" in low:
         return "optimizer"
     if any(s in low for s in ("softmax", "nll_loss", "cross_entropy")):
         return "softmax_ce"
+    if "elementwise" in low:
+        return "elementwise"
     return "other"
 
 
@@ -115,10 +132,16 @@ def main():
                     help="the BERT-base fine-tune step of bench_bert")
     ap.add_argument("--pack", type=int, default=0,
                     help="with --bert: sequences packed to a row")
+    ap.add_argument("--resnet", action="store_true",
+                    help="the ResNet-50 step of bench_resnet (bench.py)")
+    ap.add_argument("--data-format", default="NCHW",
+                    choices=("NCHW", "NHWC"), help="with --resnet")
     args = ap.parse_args()
-    if args.bert and (args.fused_ce or args.steps > 8):
-        ap.error("--bert takes no --fused-ce and at most 8 --steps (its "
-                 "8 batches)")
+    if (args.bert or args.resnet) and (args.fused_ce or args.steps > 8):
+        ap.error("--bert and --resnet take no --fused-ce and at most 8 "
+                 "--steps (their 8 batches)")
+    if args.bert and args.resnet:
+        ap.error("--bert or --resnet, not both")
     if args.share_p and not args.fused_ce:
         ap.error("--share-p needs --fused-ce")
     import torch
@@ -142,6 +165,15 @@ def main():
     dev = torch.device("cuda")
     if args.bert:
         step, stacked, batch, seq = bert_step(args.pack, dev)
+    elif args.resnet:
+        from paddle_tpu_torch.tools import bench_resnet
+        _, step = bench_resnet.build(args.data_format, dev)
+        x, y = bench_resnet.make_data(8, bench_resnet.BATCH, args.data_format,
+                                      dev)
+        batch, seq = bench_resnet.BATCH, None
+
+        def stacked(k):
+            return x[:k], y[:k]
     else:
         batch, seq = B, S
         cfg = gpt2_small(dropout=0.0, recompute=True,
@@ -187,7 +219,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     res = {"tool": "profile_train", "gpu": gpu,
-           "model": "bert_base" if args.bert else "gpt2_small",
+           "model": ("bert_base" if args.bert else "resnet50" if args.resnet
+                     else "gpt2_small"),
+           "data_format": args.data_format if args.resnet else None,
            "fused_ce": args.fused_ce, "share_p": args.share_p, "pack": args.pack if args.bert else None,
            "batch": batch, "seq": seq, "steps": args.steps,
            "step_ms": step_s * 1e3,

@@ -20,7 +20,9 @@ fp8 pools and with int8 weights, per phase and mixed; no capture after
 the constructor; the verify replay's traced kernels against its capture
 record), and
 GPT and packed-BERT training steps through the kernels against the same
-steps through the plain versions.
+steps through the plain versions, and the ResNet slice (conv, batch norm
+and pooling on cuDNN/ATen, a ResNet-18 ``multi_step`` with Momentum) on
+the card against the CPU.
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -1847,3 +1849,104 @@ def test_packed_backward_holds_when_one_warpgroup_lags(cuda, stalled):
         torch.cuda.synchronize()
         for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             assert torch.equal(a, b), (case, name)
+
+
+# -- ResNet-50 training (bench.py): cuDNN/ATen on the card against the CPU --
+
+@pytest.mark.parametrize("case", ["conv_s2_p3", "conv_same_s2_nhwc",
+                                  "conv_groups_bias", "max_pool",
+                                  "adaptive_avg_pool", "batch_norm_train",
+                                  "batch_norm_nhwc", "batch_norm_bf16"])
+def test_resnet_functional_ops_on_the_card_match_the_cpu(cuda, case):
+    """Output, input gradients and running statistics on the card within
+    1e-5 of max-abs of the CPU's (float32, TF32 off), or 1e-2 for the bf16
+    batch norm (bf16 input, float32 weight, bias and statistics)."""
+    from chip_smoke import max_rel
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator().manual_seed(len(case))
+    x = torch.randn(4, 8, 15, 15, generator=g)
+    w = torch.randn(8, 8, 7, 7, generator=g) * 0.1
+    stats = [torch.zeros(8), torch.ones(8)]
+    ops = {
+        "conv_s2_p3": (lambda t, s: F.conv2d(t, w.to(t.device), None, 2, 3)),
+        "conv_same_s2_nhwc": (lambda t, s: F.conv2d(
+            t.permute(0, 2, 3, 1).contiguous(), w[:, :, :3, :3].to(t.device),
+            None, 2, "SAME", data_format="NHWC")),
+        "conv_groups_bias": (lambda t, s: F.conv2d(
+            t, w[:, :4, :3, :3].to(t.device),
+            torch.ones(8, device=t.device), 1, [1, 0, 2, 1], groups=2)),
+        "max_pool": (lambda t, s: F.max_pool2d(t, 3, 2, 1)),
+        "adaptive_avg_pool": (lambda t, s: F.adaptive_avg_pool2d(t, 4)),
+        "batch_norm_train": (lambda t, s: F.batch_norm(
+            t, *s, torch.full((8,), 1.5, device=t.device),
+            torch.full((8,), 0.5, device=t.device), training=True)),
+        "batch_norm_nhwc": (lambda t, s: F.batch_norm(
+            t.permute(0, 2, 3, 1), *s, training=True, data_format="NHWC")),
+        "batch_norm_bf16": (lambda t, s: F.batch_norm(
+            t.to(torch.bfloat16), *s, torch.ones(8, device=t.device),
+            torch.zeros(8, device=t.device), training=True)),
+    }
+    tol = 1e-2 if case.endswith("bf16") else 1e-5
+    res = []
+    for dev in (cuda, "cpu"):
+        t = x.to(dev).requires_grad_()
+        s = [v.to(dev) for v in stats]
+        out = ops[case](t, s)
+        # a random projection: sum(out^2) would give batch norm a dx that
+        # cancels to rounding noise
+        proj = torch.randn(out.shape, generator=torch.Generator()
+                           .manual_seed(7)).to(dev)
+        (out.float() * proj).sum().backward()
+        res.append((out, t.grad, s))
+    (out, dx, s), (wout, wdx, ws) = res
+    assert out.dtype == wout.dtype and out.shape == wout.shape
+    assert max_rel(out, wout) <= tol
+    assert max_rel(dx, wdx) <= tol
+    for a, b in zip(s, ws):
+        assert a.dtype == torch.float32
+        assert max_rel(a, b) <= 1e-5
+
+
+def test_resnet18_multi_step_on_the_card_matches_the_cpu(cuda):
+    """ResNet-18 (BasicBlock), batch 4 of 64 x 64, three Momentum steps at
+    lr 1e-4: losses rtol 1e-5, parameter updates within 5e-2 in relative
+    L2 and buffers within 1e-4 of max-abs (the CPU test's limits for
+    ResNet-18; a ReLU gate that flips under rounding in steps 2-3 moves
+    an update by a few percent: 2.0e-2 read)."""
+    from chip_smoke import max_rel, update_l2
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.vision.models import (load_reference_state,
+                                                reference_state, resnet18)
+    cpu = resnet18(num_classes=10, device="cpu", seed=0)
+    gpu = resnet18(num_classes=10, device=cuda, seed=1)
+    load_reference_state(gpu, *reference_state(cpu))
+    p0 = reference_state(cpu)[0]
+    g = torch.Generator().manual_seed(1)
+    xs, ys = torch.rand(3, 4, 3, 64, 64, generator=g), \
+        torch.randint(0, 10, (3, 4), generator=g)
+    losses = []
+    for m, dev in ((gpu, cuda), (cpu, "cpu")):
+        step = TrainStep(m, lambda mm, x, y: cross_entropy(mm(x), y),
+                         Momentum(learning_rate=1e-4, momentum=0.9),
+                         device=dev)
+        losses.append(step.multi_step(xs.to(dev), ys.to(dev)).cpu())
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-5, atol=0)
+    (gp, gb), (cp, cb) = reference_state(gpu), reference_state(cpu)
+    for n in cp:
+        d = update_l2(gp[n], cp[n], p0[n])
+        assert d <= 5e-2, (n, d)
+    for n in cb:
+        assert max_rel(gb[n], cb[n]) <= 1e-4, n
+
+
+def test_resnet50_with_no_device_lands_on_the_card(cuda):
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.vision.models import resnet50
+    m = resnet50()
+    assert {p.device.type for p in m.parameters()} == {"cuda"}
+    assert {b.device.type for b in m.buffers()} == {"cuda"}
+    step = TrainStep(m, lambda mm, x, y: 0, Momentum())
+    assert step.device.type == "cuda"
