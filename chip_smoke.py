@@ -215,6 +215,22 @@ exits non-zero:
    with float32 weights over bf16 pools the greedy requests' tokens of
    the spec engine, per phase and mixed, against the plain captured
    engine's up to the first step whose top-2 margin is below 1e-3.
+   ``serve_telemetry`` — serve's requests on captured engines with the
+   serving telemetry on (``logit_health=True``, a fresh registry, a
+   tracer of their own): over bf16 and int8 pools at bf16 weights, the
+   tokens and ragged launches equal to ``serve``'s and ``serve_int8``'s
+   and to ``tracing=False`` engines', no capture after the constructor
+   (the census of ``serving_jit_compiles`` included), ``serving_mfu``
+   and ``serving_mbu`` in (0, 1.05], the logit health finite,
+   ``expose_text()`` holding every family of the engine's telemetry,
+   and the flight-recorder dump ``close()`` writes checked (every
+   request's trace with queued, prefill, decode and finish in order,
+   parent links resolving, spans inside their trace). Recorded over
+   bf16 pools: tokens/s with tracing on and off (3 engines each, in
+   turns; median and [min, max]), the ledger's MFU/MBU against one
+   H100's peaks, TTFT and per-token p50/p99 from the histograms; then
+   one ``python3 -m paddle_tpu_torch.tools.bench_serving --model small``
+   line, printed as it is.
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version, both engines eager
    (``_capture=False``: the per-call hold wraps ``pa._launch``, which a
@@ -1711,16 +1727,25 @@ def ragged_want(eng, keys):
 
 def ragged_traced(run):
     """Run ``run()`` under ``torch.profiler``; the ragged kernels the
-    device ran, counted by kind (``RAGGED_KERNELS``)."""
+    device ran, counted by kind (``RAGGED_KERNELS``). Dead engines are
+    collected first and the collector is off during the trace, so no
+    engine's graphs are destroyed inside it."""
+    import gc
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    gc.collect()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    gc.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        gc.enable()
     got = dict.fromkeys(RAGGED_KERNELS, 0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2658,6 +2683,229 @@ def run_serve_spec_phase(model, serve, logged):
             / eng.stats["spec_proposed"], "tol": PARITY_TOL}
         del eng
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["gpu"] = smi()
+    return out, launches
+
+
+# the families the engine's telemetry binds (reference _init_telemetry and
+# its ledger): expose_text() must hold every one
+TELEMETRY_FAMILIES = (
+    "serving_queue_depth", "serving_active_slots", "serving_pages_free",
+    "serving_pages_used", "serving_pages_cached", "serving_pages_shared",
+    "serving_admissions_total", "serving_admission_skips_total",
+    "serving_completions_total", "serving_tokens_emitted_total",
+    "serving_prefix_cache_hits_total", "serving_prefix_cache_misses_total",
+    "serving_prefix_cached_tokens_total", "serving_prefill_chunk_seconds",
+    "serving_decode_step_seconds", "serving_decode_block_size",
+    "serving_decode_blocks_total", "serving_tokens_per_dispatch",
+    "serving_ttft_seconds", "serving_preemptions_total",
+    "serving_shed_total", "serving_deadline_expired_total",
+    "serving_cancellations_total", "serving_preempted_resume_cached_frac",
+    "serving_faults_injected_total", "serving_kv_pool_bytes",
+    "serving_spec_rounds_total", "serving_spec_tokens_total",
+    "serving_spec_accept_rate", "serving_ragged_rows_total",
+    "serving_ragged_q_len", "serving_logit_absmax",
+    "serving_logit_nonfinite_total", "serving_token_latency_seconds",
+    "serving_jit_compiles", "serving_graph_replays_total",
+    "serving_model_flops_total", "serving_hbm_bytes_total",
+    "serving_collective_bytes_total", "serving_mfu", "serving_mbu",
+    "serving_mfu_per_chip", "serving_mbu_per_chip",
+    "serving_weight_bytes_per_step", "serving_goodput_tokens_total",
+    "serving_tier_tokens_total", "serving_goodput_tokens_per_s",
+    "serving_raw_tokens_per_s", "serving_tenant_flops_total",
+    "serving_tenant_hbm_bytes_total",
+    "serving_tenant_collective_bytes_total", "serving_tenant_tokens_total",
+    "serving_tenant_goodput_tokens_total",
+    "serving_tenant_cached_tokens_total", "serving_tenant_requests_total",
+    "serving_tenant_ttft_seconds", "serving_tenant_token_latency_seconds",
+    "serving_request_cost_flops", "serving_request_cost_hbm_bytes",
+    "serving_segment_steps", "serving_decode_blocked_frac")
+TELEMETRY_PHASES = ("queued", "prefill", "decode", "finish")
+
+
+def check_flight_recorder(path, name, uids, engine_id):
+    """The engine's flight-recorder dump at ``path``: one completed
+    ``request`` trace a request of ``uids``, each with the lifecycle
+    spans queued, prefill, decode and finish in that order, every parent
+    link resolving to a span of its trace, every span inside its trace's
+    interval and ending after it starts. Returns the spans counted."""
+    with open(path) as f:
+        doc = json.load(f)
+    if doc.get("format") != "paddle_tpu-flight-recorder-v1":
+        raise AssertionError(f"{name}: dump format {doc.get('format')!r}")
+    traces = {t["trace_id"]: t for t in doc["completed"]
+              if t["name"] == "request"}
+    want = {f"e{engine_id}:req{u}" for u in uids}
+    if set(traces) != want or doc["in_flight"]:
+        raise AssertionError(f"{name}: dump holds {sorted(traces)} and "
+                             f"{len(doc['in_flight'])} in flight")
+    spans = 0
+    for tid, tr in traces.items():
+        ids = {s["span_id"] for s in tr["spans"]}
+        first = {}
+        for s in tr["spans"]:
+            if s["parent_id"] is not None and s["parent_id"] not in ids:
+                raise AssertionError(f"{name}: {tid} span {s['name']} "
+                                     "has no parent in its trace")
+            if not (tr["t0"] <= s["t0"] <= s["t1"] <= tr["t1"]):
+                raise AssertionError(f"{name}: {tid} span {s['name']} "
+                                     "is not inside its trace")
+            first.setdefault(s["name"], s["t0"])
+        if any(p not in first for p in TELEMETRY_PHASES) or \
+                [first[p] for p in TELEMETRY_PHASES] != sorted(
+                    first[p] for p in TELEMETRY_PHASES):
+            raise AssertionError(f"{name}: {tid} lifecycle spans "
+                                 f"{sorted(first)} out of order")
+        spans += len(tr["spans"])
+    return spans
+
+
+def telemetry_run(model, reqs, name, tracing, kv_dtype, pm_path):
+    """One captured engine at serve's configuration with logit health, a
+    fresh registry and (``tracing``) its own tracer and postmortem file,
+    through ``serve_run``: every request finished, the pool verified,
+    none of the programs captured after the constructor. Returns the
+    engine, the tokens in request order, the launch counters, tokens/s
+    and the wall seconds."""
+    from paddle_tpu_torch.observability import MetricsRegistry, Tracer
+
+    cfg, params = model
+    eng, uids, done, wall, counts = serve_run(
+        cfg, params, reqs, name, weight_dtype="bf16", kv_dtype=kv_dtype,
+        registry=MetricsRegistry(), logit_health=True, tracing=tracing,
+        tracer=Tracer("requests") if tracing else None,
+        postmortem_path=pm_path)
+    census = eng.compile_counts()
+    graphs = 1 + len(eng.decode_block_buckets) + 1
+    if eng.stats["graph_captures"] != graphs or \
+            sum(census.values()) != graphs + 1:
+        raise AssertionError(f"{name}: {eng.stats['graph_captures']} "
+                             f"graphs captured, census {census}")
+    return (eng, uids, [done[u].tokens for u in uids], counts,
+            eng.stats["tokens_emitted"] / wall)
+
+
+def run_serve_telemetry_phase(model, want_tokens, want_launches):
+    """``serve_telemetry``: serve's traffic on captured engines with the
+    port's telemetry (logit health, a fresh registry, tracing on).
+    Over bf16 and int8 pools: tokens equal to ``serve``'s and
+    ``serve_int8``'s (``want_tokens``) and ragged launches equal to
+    theirs (``want_launches``) and to a ``tracing=False`` engine's; no
+    capture after the constructor; the ledger's ``serving_mfu`` and
+    ``serving_mbu`` in (0, 1.05]; ``expose_text()`` holding every
+    family; the flight-recorder dump written by ``close()`` checked
+    (``check_flight_recorder``). Over bf16 pools tokens/s with tracing
+    on (the default) and off, on ``SERVE_REPEATS`` engines each, run in
+    turns; the ledger's MFU/MBU against one H100's peaks, TTFT and
+    per-token p50/p99 from the engine's histograms. Then one
+    ``python3 -m paddle_tpu_torch.tools.bench_serving --model small``
+    line. Returns (the phase's record, launches by pool kind)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    cfg, _ = model
+    reqs = serve_traffic(cfg.vocab_size)
+    t0 = time.perf_counter()
+    out = {"phase": "serve_telemetry", "requests": len(reqs),
+           "repeats": SERVE_REPEATS}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kd in ("bf16", "int8"):
+            rates = {True: [], False: []}
+            n = SERVE_REPEATS if kd == "bf16" else 1
+            first = None
+            for i in range(2 * n):
+                tracing = i % 2 == 0
+                name = f"serve_telemetry {kd} tracing={tracing}"
+                pm = os.path.join(tmp, f"pm_{kd}_{i}.json")
+                eng, uids, toks, counts, rate = telemetry_run(
+                    model, reqs, name, tracing, kd, pm)
+                got = counts["quant_launches" if kd == "int8"
+                             else "launches"]
+                if toks != want_tokens[kd] or got != want_launches[kd]:
+                    raise AssertionError(
+                        f"{name}: tokens or ragged launches ({got}) differ "
+                        f"from the telemetry-off serve's "
+                        f"({want_launches[kd]})")
+                rates[tracing].append(rate)
+                if first is None:
+                    first, launches[kd] = eng, got
+                    reg = eng.metrics
+                    text = reg.expose_text()
+                    missing = [f for f in TELEMETRY_FAMILIES
+                               if f"# TYPE {f} " not in text]
+                    if missing:
+                        raise AssertionError(f"{name}: families missing "
+                                             f"from expose_text(): "
+                                             f"{missing}")
+                    led = eng.ledger.summary()
+                    gauges = {fam: reg.get(fam).labels(
+                        engine=eng.engine_id).value
+                        for fam in ("serving_mfu", "serving_mbu")}
+                    if not all(0 < v <= 1.05 for v in gauges.values()):
+                        raise AssertionError(f"{name}: ledger {gauges}")
+                    lat = reg.get("serving_token_latency_seconds")
+                    ttft = reg.get("serving_ttft_seconds")
+                    absmax = reg.get("serving_logit_absmax").labels(
+                        engine=eng.engine_id).value
+                    nonfinite = reg.get(
+                        "serving_logit_nonfinite_total").value
+                    if not (np.isfinite(absmax) and absmax > 0
+                            and nonfinite == 0):
+                        raise AssertionError(f"{name}: logit health "
+                                             f"{absmax} {nonfinite}")
+                    eng.close()
+                    spans = check_flight_recorder(pm, name, uids,
+                                                  eng.engine_id)
+                    rec = {"mfu": gauges["serving_mfu"],
+                           "mbu": gauges["serving_mbu"],
+                           "model_flops_total": led["model_flops_total"],
+                           "hbm_bytes_total": led["hbm_bytes_total"],
+                           "ledger_wall_s": led["wall_s"],
+                           "peak_flops": led["peak_flops"],
+                           "peak_hbm_bytes_per_s":
+                               led["peak_hbm_bytes_per_s"],
+                           "ttft_p50_s": ttft.quantile(0.5),
+                           "ttft_p99_s": ttft.quantile(0.99),
+                           "token_latency_p50_s": lat.quantile(0.5),
+                           "token_latency_p99_s": lat.quantile(0.99),
+                           "logit_absmax": absmax,
+                           "trace_spans": spans,
+                           "census": eng.compile_counts(),
+                           "graph_replays": eng.stats["graph_replays"],
+                           "kernel_launches": got}
+                else:
+                    eng.close()
+                del eng
+            rec["tokens_per_s_tracing"] = Ms(rates[True])
+            if rates[False]:
+                rec["tokens_per_s_no_tracing"] = Ms(rates[False])
+                rec["tracing_vs_off"] = \
+                    rec["tokens_per_s_tracing"] / \
+                    rec["tokens_per_s_no_tracing"]
+            out[kd] = rec
+            torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.bench_serving",
+         "--model", "small", "--requests", "8", "--max-new", "32"],
+        cwd=here, capture_output=True, text=True, timeout=300)
+    lines = [x for x in res.stdout.splitlines() if x.startswith("{")]
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_serving: rc {res.returncode}, "
+                             f"{res.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    if not (line["value"] > 0 and 0 < line["mbu"] <= 1.05
+            and line["anatomy_conserved_frac"] == 1.0
+            and line["platform"] == "cuda"):
+        raise AssertionError(f"bench_serving: {lines[0][:2000]}")
+    line.pop("snapshot", None)
+    out["bench_serving"] = line
+    out["bench_serving_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     out["gpu"] = smi()
     return out, launches
@@ -3779,6 +4027,12 @@ def main():
     emit(run_serve_resilience_phase(model))
     spec, spec_launches_ = run_serve_spec_phase(model, serve, logged)
     emit(with_spreads(spec))
+    tele, tele_launches = run_serve_telemetry_phase(
+        model, {"bf16": serve_tokens, "int8": int8_tokens},
+        {"bf16": launches, "int8": qlaunches["serve_int8"]})
+    bench_serving_line = tele.pop("bench_serving")
+    emit(with_spreads(tele))
+    emit(bench_serving_line)
     del model, logged
     torch.cuda.empty_cache()
     parity = run_parity_phase()
@@ -3842,7 +4096,8 @@ def main():
                   "aligned; else ragged_paged_attention_kernel)",
         "launches_split_kv": split_launches,
         "launches_by_phase": {"serve": launches,
-                              "serve_spec": spec_launches_["float"]},
+                              "serve_spec": spec_launches_["float"],
+                              "serve_telemetry": tele_launches["bf16"]},
         "cases": {n: kres[n]["bfloat16"]
                   for n in ("mixed", "prefill", "verify")}}]
     qdec = qres["decode"]["int8"]["bfloat16"]
@@ -3850,9 +4105,11 @@ def main():
         "name": "ragged_paged_attention_quant", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention_pallas.py:102",
-        "launches": sum(qlaunches.values()) + spec_launches_["quant"],
+        "launches": sum(qlaunches.values()) + spec_launches_["quant"]
+        + tele_launches["int8"],
         "launches_by_phase": {**qlaunches,
-                              "serve_spec": spec_launches_["quant"]},
+                              "serve_spec": spec_launches_["quant"],
+                              "serve_telemetry": tele_launches["int8"]},
         "max_abs_err": max(r["max_abs_err"] for case in qres.values()
                            for fmt in case.values() for r in fmt.values()),
         "max_rel_err": max(r["rel_err"] for case in qres.values()

@@ -32,8 +32,13 @@ so that each module sits where its counterpart does:
   ``Momentum``, ``lr.py``)
 - ``parallel/api.py``          <- ``paddle_tpu/parallel/api.py``
   (``TrainStep``)
+- ``observability/``           <- ``paddle_tpu/observability`` (its
+  serving half: registry, exporters, step logger, tracing, the
+  graph-capture census in ``compile_tracker.py``, the ledger, anatomy)
+- ``profiler/``                <- ``paddle_tpu/profiler``
 - ``tools/``                   <- ``tools/bench_gpt_pretrain.py``,
-  ``tools/bench_bert.py``, and ``bench.py`` as ``tools/bench_resnet.py``
+  ``tools/bench_bert.py``, ``tools/bench_serving.py`` (its single-engine
+  path), and ``bench.py`` as ``tools/bench_resnet.py``
 
 The slices ported so far are GPT-2 generation through the paged serving
 engine (over float, int8 or fp8 KV pools, with float or int8 weights),
@@ -45,5 +50,6 @@ Entry points run on CUDA unless the caller passes ``device="cpu"`` (see
 """
 from . import device  # noqa: F401  (pins the TF32 switches off)
 from .device import resolve_device  # noqa: F401
+from . import observability  # noqa: F401
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "observability"]

@@ -3,9 +3,10 @@
 counterpart of the same file under ``paddle_tpu/inference/``."""
 from .faults import FAULT_KINDS, FaultInjector, InjectedFault, ReplicaDown
 from .scheduler import QueueFullError
-from .serving import Completion, Request, ServingEngine
+from .serving import (Completion, Request, ServingEngine,
+                      record_quant_logit_err)
 from .speculative import truncate_draft
 
 __all__ = ["FAULT_KINDS", "FaultInjector", "InjectedFault", "ReplicaDown",
            "QueueFullError", "ServingEngine", "Request", "Completion",
-           "truncate_draft"]
+           "truncate_draft", "record_quant_logit_err"]

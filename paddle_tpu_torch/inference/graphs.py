@@ -26,6 +26,18 @@ and device buffers the caller fills itself (the Gumbel noise).
   (they never run at the same time) and one side stream for warm-up and
   capture.
 
+Each program carries the graph-capture census of
+``observability/compile_tracker.py``: ``captures`` (1 for a graph; 0
+for an eager program until its first call, then 1 — where it first
+loads its kernels, as a jit compiles at its first call) and
+``replays`` (its dispatches).
+
+A capture runs with Python's cyclic garbage collector off, and an
+engine's first capture starts from a collected heap: the collector can
+run at any allocation, and destroying a dead engine's graph while another
+stream captures invalidates that capture (CUDA forbids the call), which
+then fails at its next launch.
+
 A replay runs no Python, so the kernel wrappers' launch counters
 (``kernels/paged_attention.py``) would not move. Each graph records the
 counters' deltas over its capture, takes them back (a capture launches
@@ -34,6 +46,8 @@ kernel launches that ran. A capture that fails raises; nothing falls
 back to eager dispatch.
 """
 from __future__ import annotations
+
+import gc
 
 import numpy as np
 import torch
@@ -68,6 +82,8 @@ class GraphPool:
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
+        # dead engines' graphs go now, not inside a capture
+        gc.collect()
 
 
 class _Staging:
@@ -112,7 +128,10 @@ class GraphProgram:
     ``buffers`` the device tensors the caller fills between replays.
     ``_WARMUP`` eager calls on the pool's side stream come first."""
 
+    captures = 1
+
     def __init__(self, gp, fn, fixed, host, buffers=()):
+        self.replays = 0
         self._staging = _Staging([np.ascontiguousarray(a) for a in host],
                                  gp.device)
         self.buffers = tuple(buffers)
@@ -124,8 +143,15 @@ class GraphProgram:
         torch.cuda.current_stream(gp.device).wait_stream(gp.stream)
         warm = _read_counters()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=gp.pool, stream=gp.stream):
-            self.outputs = fn(*args)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=gp.pool,
+                                  stream=gp.stream):
+                self.outputs = fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
         # the capture launched nothing: its counts become each replay's
         self.deltas = [a - b for a, b in zip(_read_counters(), warm)]
         _add_counters([-d for d in self.deltas])
@@ -136,21 +162,31 @@ class GraphProgram:
         self._staging.upload(host)
         self.graph.replay()
         _add_counters(self.deltas)
+        self.replays += 1
         return self.outputs
 
 
 class EagerProgram:
     """The same interface without a graph: ``replay`` calls
     ``get_fn()`` (looked up at every call, so a caller may wrap the
-    program) on the fixed tensors, fresh copies of the host arrays on
-    ``device`` and the buffers."""
+    program) on the fixed tensors, fresh copies of the host arrays (numpy
+    arrays and scalars; anything else passes as it is) on ``device`` and
+    the buffers."""
 
     def __init__(self, get_fn, fixed, device, buffers=()):
         self._get_fn = get_fn
         self._fixed = tuple(fixed)
         self._dev = device
         self.buffers = tuple(buffers)
+        self.replays = 0
+
+    @property
+    def captures(self):
+        return 1 if self.replays else 0
 
     def replay(self, *host):
-        args = [torch.tensor(np.asarray(a), device=self._dev) for a in host]
+        args = [torch.tensor(np.asarray(a), device=self._dev)
+                if isinstance(a, (np.ndarray, np.generic)) else a
+                for a in host]
+        self.replays += 1
         return self._get_fn()(*self._fixed, *args, *self.buffers)

@@ -88,15 +88,45 @@ A teardown needs no device-side repair: every replay uploads the host
 mirrors (block tables, lengths, active flags, budgets), and an inactive
 row writes only the trash page.
 
+Telemetry (reference ``serving.py:1761-2095``; ``observability/``), all
+of it host code around the replays — nothing of it is captured, and it
+adds no device sync to a step:
+
+- the ``serving_*`` series of the reference's ``_init_telemetry`` in
+  ``registry=`` (default the process registry; gauges carry an
+  ``engine`` label): queue, slots and page gauges, admissions,
+  completions by reason, tokens, prefix-cache hits, the prefill and
+  decode dispatch wall-time histograms (taken around the replay and the
+  token read the step already does), TTFT and per-token latency,
+  preemptions, sheds, deadlines, cancellations, faults by kind, the
+  speculative and ragged-row series, the graph-capture census under
+  ``serving_jit_compiles{engine,fn}``; ``logit_health=True`` adds the
+  logit abs-max gauge and non-finite counter, read from outputs of the
+  captured programs;
+- request tracing (``tracing=True``, ``tracer=``, ``trace_ctx=``): one
+  trace a request with ``queued`` / ``prefill`` / ``prefill_chunk`` /
+  ``decode`` / ``finish`` spans and the decision spans (``preempt``,
+  ``shed``, ``cancel``, ``deadline``, ``fault``, ``shutdown``,
+  ``migrate``), kept in the tracer's flight recorder, dumped to
+  ``postmortem_path`` on an exception in ``step()``, an injected fault,
+  ``close()`` and SIGUSR1;
+- the ledger (``observability/ledger.py``): analytic FLOPs and HBM bytes
+  per phase, MFU and MBU against one H100's peaks (``peak_flops=``,
+  ``peak_hbm_bytes_per_s=``), goodput by tier and cost by request and
+  ``tenant=``;
+- the latency anatomy (``anatomy_report()``) on the step clock;
+- ``step_log=``: one JSONL record a non-idle step.
+
 Not ported yet (the constructor raises NotImplementedError): meshes,
-the journal, tracing (``trace_ctx=`` too) and the watchdog; nor the
-quantization gauges, the byte ledger and the per-tenant counters
-(``tenant=`` is carried as a label only).
+the journal and the watchdog.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
+import os
+import tempfile
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
@@ -110,10 +140,18 @@ from ..kernels.paged_attention import (byte_view, paged_decode_attention,
                                        ragged_paged_attention,
                                        ragged_paged_attention_ref)
 from ..models.gpt import init_params, make_layer_core, tree_map
+from .. import profiler as _prof
+from ..observability import tracing as _tracing
+from ..observability.anatomy import (SEGMENT_STEP_BUCKETS, SEGMENTS,
+                                     AnatomyLedger, summarize)
+from ..observability.compile_tracker import CompileTracker
+from ..observability.ledger import ServingLedger
+from ..observability.registry import DEFAULT_BUCKETS, get_registry
+from ..observability.step_logger import StepLogger
 from ..quantization.kv import (KV_QUANT_DTYPES, STORAGE, dequantize_per_page,
                                page_scale_shape, quantize_per_page)
 from ..quantization.weights import (cast_params, dequantize_params,
-                                    quantize_weights_int8)
+                                    params_nbytes, quantize_weights_int8)
 from . import sampler as _sampler
 from .faults import InjectedFault, ReplicaDown
 from .graphs import EagerProgram, GraphProgram, GraphPool
@@ -121,7 +159,26 @@ from .scheduler import SHED_POLICIES, QueueFullError, RequestQueue
 from .speculative import SpecState
 
 __all__ = ["PagedKVCache", "ServingEngine", "Request", "Completion",
-           "QueueFullError"]
+           "QueueFullError", "record_quant_logit_err"]
+
+
+def record_quant_logit_err(registry, lever, err):
+    """Publish a measured quantization logit error (reference
+    ``serving.py:313``): ``serving_quant_logit_err{lever=}``, the
+    relative decode-logit deviation a harness observed between a
+    quantized engine and its full-precision reference on the same
+    stream. The engine cannot compute it alone — it needs the reference
+    run — so the measuring harness publishes it. Returns the value."""
+    g = registry.gauge(
+        "serving_quant_logit_err",
+        "measured relative decode-logit error of a quantization lever "
+        "vs its full-precision reference on the same stream (harness-"
+        "published: error against a reference requires the reference "
+        "run)",
+        labels=("lever",))
+    err = float(err)
+    g.labels(lever=str(lever)).set(err)
+    return err
 
 
 def _page_digests(tokens, page_size):
@@ -205,7 +262,8 @@ class Request:
     resume_draft_key: object = None
     ttft_s: object = None       # observed TTFT (set before a resume)
     preemptions: int = 0        # times this request was preempted
-    tenant: str = "default"     # label only (the per-tenant counters: A6)
+    tenant: str = "default"     # cost-attribution rollup label
+    trace_id: str = ""          # the request's trace ("" = tracing off)
 
 
 @dataclass
@@ -254,6 +312,11 @@ class _SlotState:
     resume_key: object = None   # generator state saved at preemption
     resume_draft_key: object = None   # the draft generator's (C16)
     tenant: str = "default"
+    # telemetry
+    trace_id: str = ""
+    sp_prefill: object = None   # open "prefill" span
+    span_decode: object = None  # open "decode" span
+    decode_steps: int = 0
 
 
 class PagedKVCache:
@@ -468,9 +531,22 @@ class PagedKVCache:
         return True
 
 
+def _health(lg32, mask):
+    """The logit-health reduction (reference ``_health``,
+    ``serving.py:923``): the non-finite count and the abs-max of the
+    logits ``lg32`` ``[S, R, V]`` at the rows ``mask`` ``[S, R]`` marks
+    (active or emitting), as one ``[2]`` float32 tensor, so the host
+    reads both with one copy."""
+    m = mask[..., None]
+    nonfinite = (m & ~torch.isfinite(lg32)).sum()
+    absmax = torch.where(m, lg32.abs(), 0.0).amax()
+    return torch.stack([nonfinite.float(), absmax])
+
+
 def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
                        prefill_chunk, attention, device, quant=None,
-                       weight_quant=False, spec_k=None):
+                       weight_quant=False, spec_k=None,
+                       logit_health=False):
     """The serving programs over a model's layer ``core``
     (``models.gpt.make_layer_core``), as plain functions of (params,
     pools, scales, state tensors) — the port of the reference's
@@ -583,10 +659,17 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         lg32 = logits.float()
         return _sampler.sample_token(lg32, temps, noise), lg32
 
-    def decode_step(params, *args):
+    def decode_step(params, kpools, vpools, kscales, vscales, bt, lengths,
+                    tokens, active, temps, noise):
         """One decode dispatch: :func:`step_core` on the widened
-        params."""
-        return step_core(prep(params), *args)
+        params (and, with ``logit_health``, its health over the active
+        slots)."""
+        nxt, lg32 = step_core(prep(params), kpools, vpools, kscales,
+                              vscales, bt, lengths, tokens, active, temps,
+                              noise)
+        if logit_health:
+            return nxt, lg32, _health(lg32[:, None], active[:, None])
+        return nxt, lg32
 
     def decode_block(K, params, kpools, vpools, kscales, vscales, bt,
                      lengths, tokens, active, temps, eos_ids, remaining,
@@ -599,9 +682,11 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         block; the weights are widened once for the block. ``noise`` is
         ``[K, S, V]`` or None. Returns the ``(K, S)`` token block, the
         ``(K, S)`` emit mask, and the ``[K, S, V]`` f32 logits when
-        ``collect_logits`` (else None)."""
+        ``collect_logits`` (else None); with ``logit_health`` the block's
+        health over each step's emitting slots (count summed, abs-max
+        maxed over the K steps)."""
         params = prep(params)
-        toks, emits, lgs = [], [], []
+        toks, emits, lgs, health = [], [], [], []
         for i in range(K):
             nxt, lg32 = step_core(params, kpools, vpools, kscales, vscales,
                                   bt, lengths, tokens, active, temps,
@@ -616,8 +701,14 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             emits.append(emit)
             if collect_logits:
                 lgs.append(lg32)
-        return (torch.stack(toks), torch.stack(emits),
-                torch.stack(lgs) if collect_logits else None)
+            if logit_health:
+                health.append(_health(lg32[:, None], emit[:, None]))
+        out = (torch.stack(toks), torch.stack(emits),
+               torch.stack(lgs) if collect_logits else None)
+        if logit_health:
+            hs = torch.stack(health)
+            return out + (torch.stack([hs[:, 0].sum(), hs[:, 1].amax()]),)
+        return out
 
     def prefill_chunk_fn(params, kpools, vpools, kscales, vscales, bt_row,
                          base, tok_chunk, last_idx):
@@ -737,6 +828,9 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             gumbel)
         tok_block, emit_block = _emit_block(chain, n_acc + 1, active,
                                             eos_ids, remaining)
+        if logit_health:    # over the emitted positions
+            return (tok_block, emit_block, n_acc, lg32,
+                    _health(lg32, emit_block.T))
         return tok_block, emit_block, n_acc, lg32
 
     QB = max(C, K1)
@@ -842,7 +936,10 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             n_emit = torch.where(is_v, n_acc_v + 1, n_emit)
         tok_block, emit_block = _emit_block(chain, n_emit, active, eos_ids,
                                             remaining)
-        return tok_block, emit_block, pf_logits, lg[:, :K1], n_acc
+        out = (tok_block, emit_block, pf_logits, lg[:, :K1], n_acc)
+        if logit_health:    # over the emitted rows, all among 0 .. k
+            return out + (_health(lg[:, :K1], emit_block[:K1].T),)
+        return out
 
     return SimpleNamespace(prefill=prefill_chunk_fn, decode_step=decode_step,
                            decode_block=decode_block, copy_page=copy_page_fn,
@@ -882,6 +979,11 @@ class ServingEngine:
     ``record_logits=True`` keeps every emitted token's f32 logits in
     ``logit_log[uid]`` (on the host), for parity checks.
 
+    Telemetry (the module docstring): ``registry``, ``step_log``,
+    ``tracer``, ``tracing``, ``postmortem_path``, ``logit_health``,
+    ``peak_flops`` and ``peak_hbm_bytes_per_s``, as the reference takes
+    them.
+
     On a CUDA device the constructor captures every program the engine
     dispatches as a CUDA graph (``inference/graphs.py``; the reference
     jits them) before any request: the decode step, a fused block for
@@ -907,9 +1009,12 @@ class ServingEngine:
                  fault_injector=None, kv_dtype=None, weight_dtype=None,
                  record_logits=False, mesh=None, speculative=None,
                  draft_k=4, mixed_step=False, journal=None, tracer=None,
-                 watchdog=None, _capture=True):
+                 watchdog=None, registry=None, step_log=None,
+                 tracing=True, postmortem_path=None, logit_health=False,
+                 peak_flops=None, peak_hbm_bytes_per_s=None,
+                 _capture=True):
         for name, val in (("mesh", mesh), ("journal", journal),
-                          ("tracer", tracer), ("watchdog", watchdog)):
+                          ("watchdog", watchdog)):
             if val is not None and val is not False:
                 raise NotImplementedError(
                     f"{name}= is not ported to paddle_tpu_torch yet")
@@ -998,6 +1103,7 @@ class ServingEngine:
         elif weight_dtype == "int8":
             params = quantize_weights_int8(params)
         self.params = params
+        self.logit_health = bool(logit_health)
         core = make_layer_core(cfg)
         self.kv = PagedKVCache(
             cfg.num_layers, num_pages, page_size, cfg.num_heads,
@@ -1010,11 +1116,8 @@ class ServingEngine:
             prefill_chunk=self.prefill_chunk, attention=attention,
             device=self.device, quant=self.kv.quant_dtype,
             weight_quant=weight_dtype == "int8",
-            spec_k=int(draft_k) if spec_on else None)
-        # speculative decoding (reference serving.py:1623): the draft's
-        # pool, weights and programs, riding this engine's page numbers
-        self.spec = SpecState(self, speculative, int(draft_k),
-                              raw_params) if spec_on else None
+            spec_k=int(draft_k) if spec_on else None,
+            logit_health=self.logit_health)
         self.record_logits = bool(record_logits)
         self.logit_log = {}
 
@@ -1062,6 +1165,24 @@ class ServingEngine:
                       # port-only: CUDA graphs captured / replayed (the
                       # reference pins its jit cache sizes)
                       "graph_captures": 0, "graph_replays": 0}
+        self._steps = 0            # step() calls: the anatomy's clock
+        self._log_seq = 0          # records written to the step log
+        self._step_tenant_tokens = {}   # tenant -> tokens this step
+        self.spec = None
+        self._init_telemetry(registry, step_log, raw_params,
+                             peak_flops, peak_hbm_bytes_per_s)
+        self._init_tracing(tracer, tracing, postmortem_path)
+        # speculative decoding (reference serving.py:1623): the draft's
+        # pool, weights and programs, riding this engine's page numbers
+        self.spec = SpecState(self, speculative, int(draft_k),
+                              raw_params) if spec_on else None
+        # the first-token sample ends in a host read, so it is never
+        # captured: eager on every device, in the census as the
+        # reference's jit
+        fns = self._fns     # (a lambda over self would make a cycle)
+        self._sample_prog = self._compiles.track(
+            "sample_first", EagerProgram(lambda: fns.sample_first, (),
+                                         self.device))
         t0 = time.perf_counter()
         self._progs = self._build_programs(_capture)
         self.capture_seconds = time.perf_counter() - t0
@@ -1109,12 +1230,17 @@ class ServingEngine:
         progs = {}
 
         def make(key, get_fn, fix, buffers=()):
+            name = self._CENSUS_NAME.get(key, "decode_block")
             if graphs is None:
                 progs[key] = EagerProgram(get_fn, fix, dev, buffers)
+                self._compiles.track(name, progs[key])
                 return
             self.stats["graph_captures"] += 1
+            t0 = time.perf_counter()
             progs[key] = GraphProgram(graphs, get_fn(), fix,
                                       self._idle_host(key), buffers)
+            self._compiles.track(name, progs[key], t0=t0,
+                                 t1=time.perf_counter())
 
         def noise(*shape):
             return torch.zeros(*shape, S, V, device=dev)
@@ -1150,7 +1276,344 @@ class ServingEngine:
             make("propose", lambda: functools.partial(
                 dfns.decode_block, spec.k + 1, collect_logits=True),
                  dfixed, (noise(spec.k + 1),))
+        self._compiles.publish()
         return progs
+
+    # -- telemetry -----------------------------------------------------------
+    # the census names of the programs: the reference's jitted function
+    # names, which its serving_jit_compiles{fn} series carry (a decode
+    # bucket K > 1 is "decode_block")
+    _CENSUS_NAME = {1: "decode_step", "prefill": "prefill_chunk",
+                    "copy_page": "page_copy", "mixed": "mixed_step",
+                    "draft_prefill": "draft_prefill",
+                    "mirror": "draft_mirror", "propose": "spec_propose",
+                    "verify": "spec_verify", "draft_copy": "draft_copy"}
+    _engine_ids = iter(range(1 << 62))  # "engine" label for gauge series
+
+    def _init_telemetry(self, registry, step_log, raw_params, peak_flops,
+                        peak_hbm_bytes_per_s):
+        """Bind the metric families of the reference's
+        ``_init_telemetry`` (``serving.py:1761``): the same names, help,
+        labels, buckets and zero-materialisation. ``registry`` defaults
+        to the process registry: counters and histograms of several
+        engines aggregate, point-in-time gauges carry an ``engine``
+        label. Gauge families are held, and the engine's series resolved
+        at every update, so a ``registry.reset()`` cannot orphan them."""
+        reg = registry if registry is not None else get_registry()
+        self.metrics = reg
+        self.engine_id = eid = str(next(ServingEngine._engine_ids))
+        self._g_queue = reg.gauge(
+            "serving_queue_depth", "requests waiting for a slot",
+            labels=("engine",))
+        self._g_active = reg.gauge(
+            "serving_active_slots", "slots currently decoding",
+            labels=("engine",))
+        self._g_pages_free = reg.gauge(
+            "serving_pages_free", "KV pages on the free list",
+            labels=("engine",))
+        self._g_pages_used = reg.gauge(
+            "serving_pages_used",
+            "KV pages held by live sequences (excludes the trash page "
+            "and cache-only residents)",
+            labels=("engine",))
+        self._g_pages_cached = reg.gauge(
+            "serving_pages_cached",
+            "cache-only prefix-cache pages (no live reference, "
+            "evictable LRU)",
+            labels=("engine",))
+        self._g_pages_shared = reg.gauge(
+            "serving_pages_shared",
+            "KV pages referenced by more than one live sequence",
+            labels=("engine",))
+        self._m_admissions = reg.counter(
+            "serving_admissions_total", "requests admitted into a slot")
+        self._m_admission_skips = reg.counter(
+            "serving_admission_skips_total",
+            "queued requests skipped over by admission lookahead "
+            "(a later request fit when the head did not)")
+        self._m_completions = reg.counter(
+            "serving_completions_total", "finished requests by reason",
+            labels=("reason",))
+        self._m_tokens = reg.counter(
+            "serving_tokens_emitted_total", "generated tokens emitted")
+        self._m_prefix_hits = reg.counter(
+            "serving_prefix_cache_hits_total",
+            "full prompt pages mapped from the prefix cache instead of "
+            "prefilled")
+        self._m_prefix_misses = reg.counter(
+            "serving_prefix_cache_misses_total",
+            "full prompt pages that had to be prefilled (no cache "
+            "entry)")
+        self._m_prefix_tokens = reg.counter(
+            "serving_prefix_cached_tokens_total",
+            "prompt tokens whose prefill was skipped via the prefix "
+            "cache")
+        # may stay at zero on a cache-cold stream: materialize them so
+        # exporters always see the family
+        for c in (self._m_admission_skips, self._m_prefix_hits,
+                  self._m_prefix_misses, self._m_prefix_tokens):
+            c.inc(0)
+        self._m_prefill_s = reg.histogram(
+            "serving_prefill_chunk_seconds",
+            "wall time of one chunked-prefill dispatch")
+        self._m_decode_s = reg.histogram(
+            "serving_decode_step_seconds",
+            "wall time of one ragged decode dispatch (a per-token step "
+            "or a K-step fused block) including sync")
+        self._g_block_size = reg.gauge(
+            "serving_decode_block_size",
+            "current decode block size K (adaptive: 1 under mixed "
+            "traffic, the largest runway-covered bucket under steady "
+            "decode)",
+            labels=("engine",))
+        self._m_blocks = reg.counter(
+            "serving_decode_blocks_total",
+            "decode dispatches (each a block of K >= 1 fused steps)")
+        self._m_tok_per_dispatch = reg.histogram(
+            "serving_tokens_per_dispatch",
+            "tokens emitted per decode dispatch (the dispatch-"
+            "amortization win of fused blocks)",
+            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0))
+        self._m_blocks.inc(0)
+        self._g_block_size.labels(engine=eid).set(0)
+        self._m_ttft = reg.histogram(
+            "serving_ttft_seconds",
+            "time from add_request to the request's first token",
+            buckets=DEFAULT_BUCKETS + (30.0, 60.0, 120.0, 300.0))
+        self._m_preempt = reg.counter(
+            "serving_preemptions_total",
+            "in-flight requests evicted and requeued by reason "
+            "(pages = page/slot pressure from a higher-priority "
+            "request; collateral = shared an unwritten page with a "
+            "torn-down prefill)",
+            labels=("reason",))
+        self._m_preempt.labels(reason="pages").inc(0)
+        self._m_shed = reg.counter(
+            "serving_shed_total",
+            "requests shed by admission control at the queue bound "
+            "(rejected incoming or dropped queued victims), by policy",
+            labels=("policy",))
+        self._m_shed.labels(policy=self.shed_policy).inc(0)
+        self._m_deadline = reg.counter(
+            "serving_deadline_expired_total",
+            "requests failed by deadline expiry (queued, prefilling, "
+            "or decoding)")
+        self._m_deadline.inc(0)
+        self._m_cancel = reg.counter(
+            "serving_cancellations_total",
+            "requests torn down via cancel(uid)")
+        self._m_cancel.inc(0)
+        self._m_resume_frac = reg.histogram(
+            "serving_preempted_resume_cached_frac",
+            "fraction of a preempted request's resume prompt (original "
+            "prompt + emitted tokens) served from the prefix cache at "
+            "re-admission — 1.0 means preemption cost only the COW "
+            "final-token recompute",
+            buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 1.0))
+        self._m_faults = reg.counter(
+            "serving_faults_injected_total",
+            "injected faults fired by the fault harness, by kind",
+            labels=("kind",))
+        self._g_kv_bytes = reg.gauge(
+            "serving_kv_pool_bytes",
+            "resident bytes of the paged K/V pools (+ scale tensors "
+            "under int8), by storage dtype",
+            labels=("engine", "dtype"))
+        self._m_spec_rounds = reg.counter(
+            "serving_spec_rounds_total",
+            "speculative rounds dispatched (one draft-propose + one "
+            "target-verify dispatch pair each)")
+        self._m_spec_rounds.inc(0)
+        self._m_spec_tokens = reg.counter(
+            "serving_spec_tokens_total",
+            "draft-proposed tokens by VERIFICATION outcome — the "
+            "draft-quality measure (accepted = the target reproduced "
+            "the proposal; emission may still truncate an accepted "
+            "tail at EOS/budget, see the spec_verify span's emitted "
+            "attr; rejected = rolled back)",
+            labels=("result",))
+        self._m_spec_tokens.labels(result="accepted").inc(0)
+        self._m_spec_tokens.labels(result="rejected").inc(0)
+        self._m_spec_accept = reg.histogram(
+            "serving_spec_accept_rate",
+            "per-round draft acceptance rate (accepted proposals / "
+            "proposals, over the round's active slots)",
+            buckets=(0.1, 0.25, 0.4, 0.5, 0.6, 0.75, 0.9, 0.95, 1.0))
+        self._m_ragged_rows = reg.counter(
+            "serving_ragged_rows_total",
+            "ragged rows dispatched by the mixed-step executable, by "
+            "kind (each slot contributes one row per dispatch: a "
+            "prefill chunk, a decode token, or a speculative verify "
+            "round)",
+            labels=("kind",))
+        for kind in ("prefill", "decode", "verify"):
+            self._m_ragged_rows.labels(kind=kind).inc(0)
+        self._m_ragged_qlen = reg.histogram(
+            "serving_ragged_q_len",
+            "query rows (q_len) of each live ragged row the mixed "
+            "dispatch ran (1 = decode, C = a prefill chunk, k+1 = a "
+            "verify round)",
+            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0))
+        self._g_logit_absmax = self._m_logit_nonfinite = None
+        if self.logit_health:
+            self._g_logit_absmax = reg.gauge(
+                "serving_logit_absmax",
+                "abs-max of the last decode dispatch's logits (active "
+                "slots; a fused block reports the max over its K "
+                "steps, so a mid-block spike is never missed)",
+                labels=("engine",))
+            self._m_logit_nonfinite = reg.counter(
+                "serving_logit_nonfinite_total",
+                "nonfinite decode-logit values seen (active slots)")
+            self._m_logit_nonfinite.inc(0)
+        self._m_tok_lat = reg.histogram(
+            "serving_token_latency_seconds",
+            "observed per-token latency: each engine step's wall time "
+            "attributed to every token it emitted (first tokens carry "
+            "their prefill, the tail a user sees)")
+        # the graph-capture census (observability/compile_tracker.py):
+        # the reference's family name, counting CUDA graphs captured
+        self._compiles = CompileTracker(
+            reg, gauge_name="serving_jit_compiles",
+            help="CUDA graphs captured per serving program (an eager "
+                 "program counts 1 from its first dispatch) — the "
+                 "counterpart of the reference's compiled executables; "
+                 "a rise after the constructor means a capture on the "
+                 "serving path",
+            extra_labels={"engine": eid},
+            replay_counter_name="serving_graph_replays_total")
+        names = ["decode_step", "decode_block", "prefill_chunk",
+                 "page_copy", "sample_first"]
+        if self.mixed_step:
+            names.append("mixed_step")
+        for name in names:
+            self._compiles.track(name)
+        # the ledger: analytic per-phase FLOPs/bytes on shapes the
+        # scheduler knows — host arithmetic only
+        self.ledger = ServingLedger(
+            reg, eid, self.cfg, raw_params, self.kv,
+            platform=self.device.type, peak_flops=peak_flops,
+            peak_hbm_bytes_per_s=peak_hbm_bytes_per_s,
+            slots=self.num_slots,
+            weight_bytes=params_nbytes(self.params),
+            weight_dtype=self.weight_dtype or str(
+                raw_params["wte"].dtype).replace("torch.", ""))
+        # the latency anatomy on the step clock
+        self.anatomy = AnatomyLedger()
+        self._anat_blocked_step = False
+        self._h_segment = reg.histogram(
+            "serving_segment_steps",
+            "per-request anatomy segment sizes in engine steps, by "
+            "segment (all eight observed per finished request, zeros "
+            "included, so counts stay comparable across segments)",
+            labels=("segment",), buckets=SEGMENT_STEP_BUCKETS)
+        for seg in SEGMENTS:
+            self._h_segment.labels(segment=seg)
+        self._g_blocked_frac = reg.gauge(
+            "serving_decode_blocked_frac",
+            "cumulative decode interference: decode steps whose "
+            "dispatch also carried prefill rows / all decode steps",
+            labels=("engine",))
+        self._g_blocked_frac.labels(engine=eid).set(0.0)
+        self._step_logger, self._owns_step_logger = \
+            StepLogger.coerce(step_log)
+        self._update_pool_gauges()
+
+    def _init_tracing(self, tracer, tracing, postmortem_path):
+        """Bind the request tracer (reference ``_init_tracing``): the
+        process tracer unless ``tracer`` is given; every request becomes
+        the trace ``e<engine>:req<uid>``. The flight recorder dumps to
+        ``postmortem_path`` (default: a per-engine file in the temp
+        dir) on an exception in ``step()``, an injected fault,
+        ``close()`` and SIGUSR1 (installed from the main thread only)."""
+        self._tracer = None
+        self._pm_handle = None
+        self._postmortem_path = None
+        self._span_queued = {}   # uid -> open "queued" span
+        if not tracing:
+            return
+        self._tracer = tracer if tracer is not None else \
+            _tracing.get_tracer()
+        self._postmortem_path = str(postmortem_path) if postmortem_path \
+            else os.path.join(
+                tempfile.gettempdir(),
+                f"paddle_tpu_torch_flightrec_{os.getpid()}"
+                f"_e{self.engine_id}.json")
+        self._pm_handle = _tracing.register_postmortem(
+            self._tracer, self._postmortem_path)
+        _tracing.install_signal_handler()  # no-op off the main thread
+
+    def _trace_span(self, name, trace_id, parent_id=None, **attrs):
+        """An open span on a request trace, or a null context when
+        tracing is off or the trace is gone: a tracing bug must never
+        take down the serving loop (the reference's contract, kept). The
+        span is created here, inside the try; a Span is its own
+        end-on-exit context."""
+        if self._tracer is None or not trace_id:
+            return contextlib.nullcontext()
+        try:
+            return self._tracer.start_span(name, trace_id=trace_id,
+                                           parent_id=parent_id, **attrs)
+        except Exception:
+            return contextlib.nullcontext()
+
+    def _end_trace(self, trace_id, **attrs):
+        """End a request trace; never raises (as ``_trace_span``)."""
+        if self._tracer is None or not trace_id:
+            return
+        try:
+            self._tracer.end_trace(trace_id, **attrs)
+        except Exception:
+            pass
+
+    def __del__(self):
+        # an engine dropped without close() must not leave its
+        # postmortem registration behind
+        try:
+            if getattr(self, "_pm_handle", None) is not None:
+                _tracing.unregister_postmortem(self._pm_handle)
+        except Exception:
+            pass
+
+    def _dump_postmortem(self, reason):
+        """Flight-recorder dump (never raises). Returns the path or
+        None."""
+        if self._tracer is None or not self._postmortem_path:
+            return None
+        try:
+            return self._tracer.dump(self._postmortem_path, reason=reason)
+        except Exception:
+            return None
+
+    def export_timeline(self, path):
+        """The merged Chrome-trace JSON of this engine's run: host
+        profiler spans, this engine's tracer and the graph-capture
+        events, one pid lane each (open in Perfetto)."""
+        tracers = [self._tracer] if self._tracer is not None else []
+        return _tracing.export_merged_chrome_trace(path, tracers=tracers)
+
+    def _update_pool_gauges(self):
+        if self._closed:  # never resurrect series close() retired
+            return
+        eid = self.engine_id
+        self._g_queue.labels(engine=eid).set(len(self._pending))
+        self._g_active.labels(engine=eid).set(int(self._active.sum()))
+        self._g_pages_free.labels(engine=eid).set(self.kv.num_free)
+        self._g_pages_used.labels(engine=eid).set(self.kv.num_in_use)
+        self._g_pages_cached.labels(engine=eid).set(self.kv.num_cached)
+        self._g_pages_shared.labels(engine=eid).set(self.kv.num_shared)
+        # static values, re-set per step so the series survive a
+        # registry.reset(); the draft's pool is resident memory too
+        self._g_kv_bytes.labels(engine=eid, dtype=self.kv.kv_dtype).set(
+            self.kv.pool_bytes())
+        if self.spec is not None:
+            self._g_kv_bytes.labels(engine=eid, dtype="draft").set(
+                self.spec.pool_bytes())
+
+    def _set_queue_gauge(self):
+        if not self._closed:
+            self._g_queue.labels(engine=self.engine_id).set(
+                len(self._pending))
 
     # -- request intake ------------------------------------------------------
     def _positions_needed(self, prompt_len, max_new):
@@ -1178,21 +1641,46 @@ class ServingEngine:
                 f"request needs {pages} pages but the pool only has "
                 f"{self.kv.num_pages - 1} — it could never be admitted")
 
-    def _enqueue(self, prompt, priority, **fields):
+    def _enqueue(self, prompt, priority, trace_ctx=None, trace_attrs=None,
+                 **fields):
         """Run the shed policy at the ``max_queue`` bound, then queue a
-        fresh Request under a new uid and arrival seq. Returns the
-        uid."""
+        fresh Request under a new uid and arrival seq; its trace (with
+        an open ``queued`` span), ledger record and anatomy record open
+        here. Returns the uid."""
         if self.max_queue is not None and \
                 len(self._pending) >= self.max_queue:
             self._shed_for(priority)  # raises unless a victim was shed
         uid = self._next_uid
         self._next_uid += 1
+        trace_id = ""
+        if self._tracer is not None:
+            trace_id = f"e{self.engine_id}:req{uid}"
+            extra = trace_attrs or {}
+            try:
+                self._tracer.start_trace(
+                    "request", trace_id=trace_id, uid=uid,
+                    engine=self.engine_id, parent_ctx=trace_ctx,
+                    prompt_tokens=int(prompt.size),
+                    max_new_tokens=int(fields["max_new_tokens"]), **extra)
+                self._span_queued[uid] = self._tracer.start_span(
+                    "queued", trace_id=trace_id,
+                    queue_depth=len(self._pending), **extra)
+            except Exception:
+                trace_id = ""
         digests = _page_digests(prompt, self.page_size) \
             if self.kv.prefix_cache else ()
         seq = self._next_seq
         self._next_seq += 1
+        tenant = fields["tenant"]
+        self.ledger.register_request(uid, tenant, priority=priority)
+        # a request lands between steps: the first step that sweeps its
+        # anatomy record is self._steps + 1
+        self.anatomy.register(uid, tenant=tenant, priority=priority,
+                              trace_id=trace_id, step=self._steps)
         self._pending.push(Request(uid=uid, prompt=prompt, digests=digests,
-                                   priority=priority, seq=seq, **fields))
+                                   priority=priority, seq=seq,
+                                   trace_id=trace_id, **fields))
+        self._set_queue_gauge()
         return uid
 
     def add_request(self, prompt, max_new_tokens, temperature=0.0,
@@ -1201,19 +1689,22 @@ class ServingEngine:
         """Enqueue a request; returns its uid. ``priority`` (higher wins)
         orders the queue and arms page-pool preemption; ``deadline_s``
         fails the request once that many seconds have passed since this
-        call; ``tenant`` is a label the request's Completion and
-        :meth:`inflight` carry. At the ``max_queue`` bound the shed
-        policy runs (``reject``, and a ``shed_lowest_priority`` arrival
-        that outranks nothing, raise :class:`QueueFullError`)."""
-        if trace_ctx is not None:
-            raise NotImplementedError(
-                "trace_ctx= is not ported to paddle_tpu_torch yet")
+        call. At the ``max_queue`` bound the shed policy runs
+        (``reject``, and a ``shed_lowest_priority`` arrival that
+        outranks nothing, raise :class:`QueueFullError`).
+
+        ``trace_ctx``: a caller's trace context (``Tracer.inject()``,
+        possibly from another process): the request's trace parents
+        under the caller's span in a merged timeline; a malformed one is
+        dropped, never raised. ``tenant``: the cost-attribution label of
+        the ``serving_tenant_*`` families (``None`` = ``"default"``)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if deadline_s is not None and float(deadline_s) < 0:
             raise ValueError("deadline_s must be >= 0 (or None)")
         self._check_fits(prompt, int(max_new_tokens))
         return self._enqueue(
-            prompt, int(priority), max_new_tokens=int(max_new_tokens),
+            prompt, int(priority), trace_ctx=trace_ctx,
+            max_new_tokens=int(max_new_tokens),
             temperature=float(temperature),
             eos_id=-1 if eos_id is None else int(eos_id), seed=int(seed),
             t_arrival=time.perf_counter(),
@@ -1224,23 +1715,50 @@ class ServingEngine:
         """The queue is at ``max_queue``: shed one queued victim for an
         arrival of ``incoming_priority`` (finish_reason "shed") or raise
         QueueFullError."""
-        victim = self._pending.pick_shed_victim(incoming_priority,
-                                                self.shed_policy)
+        policy = self.shed_policy
+        victim = self._pending.pick_shed_victim(incoming_priority, policy)
         self.stats["sheds"] += 1
+        self._m_shed.labels(policy=policy).inc()
         if victim is None:
             raise QueueFullError(
                 f"queue full (depth {len(self._pending)} >= max_queue "
-                f"{self.max_queue}, policy {self.shed_policy!r})",
-                depth=len(self._pending), policy=self.shed_policy)
+                f"{self.max_queue}, policy {policy!r})",
+                depth=len(self._pending), policy=policy)
         self._pending.remove(victim)
-        self._fail_queued(victim, "shed")
+        self._fail_queued(victim, "shed", policy=policy,
+                          queue_depth=len(self._pending))
 
     # -- resilience ----------------------------------------------------------
+    # the decision span a terminal reason records on the request's trace
+    _DECISION_SPAN = {"cancelled": "cancel", "shed": "shed",
+                      "deadline": "deadline", "aborted": "shutdown",
+                      "error": "fault", "nonfinite": "fault"}
+
     def _count_failure(self, reason):
         if reason == "cancelled":
             self.stats["cancelled"] += 1
+            self._m_cancel.inc()
         elif reason == "deadline":
             self.stats["deadline_expired"] += 1
+            self._m_deadline.inc()
+
+    def _count_fault(self, kind):
+        self.stats["faults"] += 1
+        self._m_faults.labels(kind=kind).inc()
+
+    def _record_failure(self, uid, trace_id, reason, tokens, **attrs):
+        """A request's terminal failure on its telemetry: the anatomy
+        record closes, the decision span and the trace end, and the
+        completion is counted."""
+        self._anat_finish(uid, reason)
+        with self._trace_span(self._DECISION_SPAN.get(reason, "fault"),
+                              trace_id, uid=uid, **attrs,
+                              tokens_emitted=tokens):
+            pass
+        self._end_trace(trace_id, status=reason, finish_reason=reason,
+                        tokens_emitted=tokens)
+        self._m_completions.labels(reason=reason).inc()
+        self._count_failure(reason)
 
     def cancel(self, uid):
         """Mark ``uid`` for teardown at the next step boundary — queued,
@@ -1271,14 +1789,21 @@ class ServingEngine:
         return next((s for s, st in self._slots.items() if st.uid == uid),
                     None)
 
-    def _fail_queued(self, req, reason):
-        """Terminal failure of a queued request: its Completion keeps the
-        tokens it emitted before a preemption."""
+    def _fail_queued(self, req, reason, **span_attrs):
+        """Terminal failure of a queued request: its queued span ends,
+        the decision span records, its trace ends; its Completion keeps
+        the tokens it emitted before a preemption."""
+        qs = self._span_queued.pop(req.uid, None)
+        if qs is not None:
+            qs.end(aborted=reason)
+        toks = list(req.resume_out or [])
         self._early_done.append(Completion(
-            req.uid, list(req.resume_out or []), reason, ttft_s=req.ttft_s,
+            req.uid, toks, reason, ttft_s=req.ttft_s,
             priority=req.priority, preemptions=req.preemptions,
             tenant=req.tenant))
-        self._count_failure(reason)
+        self._record_failure(req.uid, req.trace_id, reason, len(toks),
+                             **span_attrs)
+        self._set_queue_gauge()
 
     def _abort_slot(self, slot, reason, requeue=False):
         """Tear an in-flight request out of its slot: the shared path of
@@ -1288,9 +1813,17 @@ class ServingEngine:
         later admission that mapped one), releases the pages through the
         refcount / double-free guard, clears the slot's host mirrors, and
         either requeues the request (with its emitted tokens and
-        generator state) or mints its failure Completion."""
+        generator state) or mints its failure Completion. Every open span
+        of the request ends here."""
         st = self._slots.pop(slot)
         was_active = bool(self._active[slot])
+        if st.sp_prefill is not None:
+            st.sp_prefill.end(aborted=reason)
+            st.sp_prefill = None
+        if st.span_decode is not None:
+            st.span_decode.end(tokens=len(st.out), steps=st.decode_steps,
+                               aborted=reason)
+            st.span_decode = None
         resume = None
         if requeue:
             prior = len(st.resume_out or [])
@@ -1313,18 +1846,20 @@ class ServingEngine:
             resume["digests"] = _page_digests(
                 resume["prompt"], self.page_size) \
                 if self.kv.prefix_cache else ()
+        pages_freed = len(st.pages) + (1 if st.cow_src >= 0 else 0)
         collateral = self._release_slot_pages(st, was_active, resume)
         if slot in self._prefilling:
             self._prefilling.remove(slot)
         self._clear_slot(slot)
         if requeue:
-            self._requeue_slot(st, resume, reason)
+            self._requeue_slot(st, resume, pages_freed, reason)
         else:
             self._early_done.append(Completion(
                 st.uid, list(st.out), reason, ttft_s=st.ttft_s,
                 priority=st.priority, preemptions=st.preemptions,
                 tenant=st.tenant))
-            self._count_failure(reason)
+            self._record_failure(st.uid, st.trace_id, reason, len(st.out),
+                                 pages_freed=pages_freed)
         # a torn-down prefill may strand later admissions that mapped its
         # now-unregistered pages: requeue them (they restart clean;
         # strict-FIFO chunk order means none of them has activated)
@@ -1365,9 +1900,32 @@ class ServingEngine:
         kv.release(st.pages)
         return collateral
 
-    def _requeue_slot(self, st, resume, reason):
-        """Preemption's tail: the resume Request back into the queue at
-        the front of its priority class (its original seq)."""
+    def _requeue_slot(self, st, resume, pages_freed, reason):
+        """Preemption's tail: the ``preempt`` decision span on the
+        victim's trace, a fresh ``queued`` span, and the resume Request
+        back into the queue at the front of its priority class (its
+        original seq)."""
+        kv = self.kv
+        k = 0
+        while k < len(resume["digests"]) and \
+                kv.lookup(resume["digests"][k]) is not None:
+            k += 1
+        tail = max(len(resume["prompt"]) - k * self.page_size, 0)
+        with self._trace_span("preempt", st.trace_id, uid=st.uid,
+                              reason=reason, pages_freed=pages_freed,
+                              out_tokens=len(resume["out"] or []),
+                              tail_tokens=int(tail)):
+            pass
+        self.ledger.note_preemption(st.uid)
+        # the victim's later steps are "preempted" until re-admission
+        self.anatomy.note_state(st.uid, "preempted")
+        if self._tracer is not None and st.trace_id:
+            try:
+                self._span_queued[st.uid] = self._tracer.start_span(
+                    "queued", trace_id=st.trace_id,
+                    queue_depth=len(self._pending), resumed=True)
+            except Exception:
+                pass
         self._pending.push(Request(
             uid=st.uid, prompt=resume["prompt"],
             max_new_tokens=st.max_new - len(resume["out"] or []),
@@ -1376,10 +1934,12 @@ class ServingEngine:
             priority=st.priority, deadline_s=st.deadline_s, seq=st.seq,
             resume_out=resume["out"], resume_key=resume["key"],
             resume_draft_key=resume["draft_key"], ttft_s=st.ttft_s,
-            preemptions=st.preemptions + 1, tenant=st.tenant))
+            preemptions=st.preemptions + 1, tenant=st.tenant,
+            trace_id=st.trace_id))
         self.stats["preemptions"] += 1
         if reason == "collateral":
             self.stats["collateral_requeues"] += 1
+        self._m_preempt.labels(reason=reason).inc()
 
     def _expired(self, x, now):
         return x.deadline_s is not None and now - x.t_arrival > x.deadline_s
@@ -1388,7 +1948,8 @@ class ServingEngine:
         now = time.perf_counter()
         for r in [r for r in self._pending if self._expired(r, now)]:
             self._pending.remove(r)
-            self._fail_queued(r, "deadline")
+            self._fail_queued(r, "deadline",
+                              waited_s=round(now - r.t_arrival, 6))
 
     def _expire_slots(self):
         """Deadline check at a prefill/decode dispatch boundary."""
@@ -1467,9 +2028,11 @@ class ServingEngine:
                 break  # no progress: do not spin
 
     def _on_injected_fault(self, e):
-        """An injected dispatch exception: fail exactly the targeted
-        request and keep serving."""
-        self.stats["faults"] += 1
+        """An injected dispatch exception: the postmortem first (the
+        trace still shows the in-flight state), then fail exactly the
+        targeted request and keep serving."""
+        self._count_fault(e.kind)
+        self._dump_postmortem(f"fault:{e.kind}")
         slot = self._slot_of(e.uid)
         if slot is not None:
             self._abort_slot(slot, "error")
@@ -1486,7 +2049,10 @@ class ServingEngine:
         hit = self.faults.fire("nonfinite_logits", uids=uids)
         if hit is None:
             return
-        self.stats["faults"] += 1
+        self._count_fault("nonfinite_logits")
+        if self._m_logit_nonfinite is not None:
+            self._m_logit_nonfinite.inc()
+        self._dump_postmortem("fault:nonfinite_logits")
         slot = self._slot_of(hit["uid"])
         if slot is not None:
             self._abort_slot(slot, "nonfinite")
@@ -1499,7 +2065,7 @@ class ServingEngine:
             return
         self.faults.maybe_raise("decode_error", uids=uids)
         if self.faults.stall(uids=uids) is not None:
-            self.stats["faults"] += 1
+            self._count_fault("stall")
 
     def _prefill_faults(self, st):
         """``prefill_error`` and ``stall`` for one prefill chunk."""
@@ -1507,7 +2073,7 @@ class ServingEngine:
             return
         self.faults.maybe_raise("prefill_error", uid=st.uid)
         if self.faults.stall(uids=[st.uid]) is not None:
-            self.stats["faults"] += 1
+            self._count_fault("stall")
 
     # -- admission -----------------------------------------------------------
     def _cached_prefix(self, digests, P):
@@ -1535,7 +2101,7 @@ class ServingEngine:
         injected ``page_exhaustion`` says so)."""
         if self.faults is not None and self.faults.fire(
                 "page_exhaustion", uid=req.uid):
-            self.stats["faults"] += 1
+            self._count_fault("page_exhaustion")
             return None
         kv = self.kv
         P = req.prompt.size
@@ -1589,7 +2155,9 @@ class ServingEngine:
                     if plan is None:
                         continue
                     self._pending.pop(i)
-                    self.stats["admission_skips"] += i
+                    if i:
+                        self.stats["admission_skips"] += i
+                        self._m_admission_skips.inc(i)
                     self._admit(req, self._free_slots.pop(), plan)
                     admitted = True
                     break
@@ -1610,6 +2178,21 @@ class ServingEngine:
         C = self.prefill_chunk
         pages, base0 = plan["pages"], plan["base0"]
         pf_end = base0 + -(-(P - base0) // C) * C
+        qs = self._span_queued.pop(req.uid, None)
+        if qs is not None:
+            qs.end(queue_wait_s=round(time.perf_counter() - req.t_arrival,
+                                      6))
+        self.anatomy.note_state(req.uid, "prefill")
+        sp_prefill = None
+        if self._tracer is not None and req.trace_id:
+            try:
+                sp_prefill = self._tracer.start_span(
+                    "prefill", trace_id=req.trace_id, slot=int(slot),
+                    pages=len(pages), prompt_tokens=int(P),
+                    chunks=(pf_end - base0) // C, cached_tokens=int(base0),
+                    cow_pages=1 if plan["cow_src"] >= 0 else 0)
+            except Exception:
+                sp_prefill = None
         bt_row = np.zeros(self.pages_per_slot, np.int32)
         bt_row[:len(pages)] = pages
         self._bt[slot] = bt_row
@@ -1633,21 +2216,39 @@ class ServingEngine:
             digests=req.digests, reg_from=plan["hits"],
             preemptions=req.preemptions, resume_out=req.resume_out,
             resume_key=req.resume_key,
-            resume_draft_key=req.resume_draft_key, tenant=req.tenant)
+            resume_draft_key=req.resume_draft_key, tenant=req.tenant,
+            trace_id=req.trace_id, sp_prefill=sp_prefill)
         self._next_admit += 1
+        if base0:
+            # prompt tokens the prefix cache served: the prefill cost
+            # the cache saved this request and tenant
+            self.ledger.note_cached(req.uid, base0)
         self._prefilling.append(slot)
         if req.preemptions:
+            # how much of the resume prompt the prefix cache served
             self.stats["resumes"] += 1
+            self._m_resume_frac.observe(base0 / max(P, 1))
         self.stats["admitted"] += 1
         self.stats["prefix_hits"] += plan["hits"]
         self.stats["prefix_misses"] += plan["misses"]
         self.stats["cached_tokens"] += base0
+        self._m_admissions.inc()
+        if plan["hits"]:
+            self._m_prefix_hits.inc(plan["hits"])
+            self._m_prefix_tokens.inc(base0)
+        if plan["misses"]:
+            self._m_prefix_misses.inc(plan["misses"])
 
     # -- prefill -------------------------------------------------------------
     def _run_cow_copy(self, st):
         """Clone the shared last page into the slot's private page
         before its tail chunk recomputes the final token."""
-        self._replay("copy_page", np.int64(st.cow_src), np.int64(st.cow_dst))
+        parent = st.sp_prefill.span_id if st.sp_prefill is not None \
+            else None
+        with self._trace_span("cow_copy", st.trace_id, parent_id=parent,
+                              src=int(st.cow_src), dst=int(st.cow_dst)):
+            self._replay("copy_page", np.int64(st.cow_src),
+                         np.int64(st.cow_dst))
         if self.spec is not None:
             self.spec.copy_page(st.cow_src, st.cow_dst)
         self.kv.release([st.cow_src])
@@ -1655,14 +2256,29 @@ class ServingEngine:
         self.stats["cow_copies"] += 1
 
     def _run_one_chunk(self, slot, st):
+        """Dispatch the slot's next prefill chunk. Its wall-time
+        histogram times the dispatch, as the reference's times its
+        asynchronous jit call: nothing here waits for the device."""
         base, C, P = st.pf_base, self.prefill_chunk, st.prompt_len
         last = P - 1 - base if base <= P - 1 < base + C else 0
-        logits = self._replay("prefill", self._bt[slot], np.int64(base),
-                              st.toks[base:base + C], np.int64(last))
+        parent = st.sp_prefill.span_id if st.sp_prefill is not None \
+            else None
+        with self._trace_span("prefill_chunk", st.trace_id,
+                              parent_id=parent, base=base):
+            with _prof.RecordEvent("serving.prefill_chunk",
+                                   histogram=self._m_prefill_s):
+                logits = self._replay("prefill", self._bt[slot],
+                                      np.int64(base), st.toks[base:base + C],
+                                      np.int64(last))
         if self.spec is not None:
             # the draft mirrors every target prefill chunk, so its pool
             # holds draft K/V wherever the target's does
             self.spec.prefill_chunk(slot, base, st.toks[base:base + C])
+        # the ledger: useful positions only (padding rows are waste)
+        useful = max(min(C, P - base), 0)
+        self.ledger.on_prefill_chunk(useful, base, owner=st.uid)
+        if self.spec is not None:
+            self.ledger.on_draft_prefill(useful, base, owner=st.uid)
         st.pf_base = base + C
         if st.pf_base >= st.pf_end:    # a graph's output: the next replay
             st.logits = logits.clone()  # overwrites it
@@ -1716,8 +2332,6 @@ class ServingEngine:
         elif st.temperature > 0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(st.seed)
-        if st.ttft_s is None:
-            st.ttft_s = time.perf_counter() - st.t_arrival
         self._gens[slot] = gen
         self._temps[slot] = st.temperature
         self._active[slot] = True
@@ -1730,8 +2344,9 @@ class ServingEngine:
                 self._lengths[slot] = st.prompt_len
                 self._tokens[slot] = st.out[-1]
                 self._remaining[slot] = st.max_new - len(st.out)
+                self._open_decode(slot, st, None)
                 return
-        tok = self._fns.sample_first(st.logits, st.temperature, gen)
+        tok = self._sample_prog.replay(st.logits, st.temperature, gen)
         if self.record_logits:
             self.logit_log.setdefault(st.uid, []).append(
                 st.logits.float().cpu())
@@ -1740,11 +2355,42 @@ class ServingEngine:
         self._lengths[slot] = st.prompt_len + 1
         self._tokens[slot] = tok
         self._remaining[slot] = st.max_new - len(st.out)
-        self.stats["tokens_emitted"] += 1
+        self._open_decode(slot, st, tok)
+        self._count_tokens(st, 1)
         if tok == st.eos_id:
             self._finish(slot, "eos")
         elif len(st.out) >= st.max_new:
             self._finish(slot, "length")
+
+    def _open_decode(self, slot, st, tok):
+        """An activated slot's telemetry: its prefill span ends, a first
+        TTFT is observed, its anatomy turns ``decode`` from the next step
+        on (this step's sweep already counted its prefill) and its
+        ``decode`` span opens."""
+        if st.sp_prefill is not None:
+            st.sp_prefill.end(first_token=tok)
+            st.sp_prefill = None
+        if st.ttft_s is None:
+            st.ttft_s = time.perf_counter() - st.t_arrival
+            self._m_ttft.observe(st.ttft_s)
+            self.ledger.note_ttft(st.uid, st.ttft_s)
+        self.anatomy.note_state(st.uid, "decode")
+        if self._tracer is not None and st.trace_id:
+            try:
+                st.span_decode = self._tracer.start_span(
+                    "decode", trace_id=st.trace_id, slot=int(slot))
+            except Exception:
+                st.span_decode = None
+
+    def _count_tokens(self, st, n):
+        """``stats``, the registry counter, the request's ledger record
+        and the step's per-tenant count move together (reference
+        ``_count_tokens``), batched per slot."""
+        self.stats["tokens_emitted"] += n
+        self._m_tokens.inc(n)
+        self.ledger.note_tokens(st.uid, n)
+        self._step_tenant_tokens[st.tenant] = \
+            self._step_tenant_tokens.get(st.tenant, 0) + n
 
     # -- decode --------------------------------------------------------------
     def _choose_block_k(self):
@@ -1867,54 +2513,94 @@ class ServingEngine:
             self.logit_log.setdefault(self._slots[slot].uid, []).append(
                 lg32[slot].cpu())
 
+    def _publish_logit_health(self, health):
+        """A dispatch's logit health (the program's ``[2]`` output, read
+        after the token read has synced the step)."""
+        nonfinite, absmax = health.tolist()
+        self._g_logit_absmax.labels(engine=self.engine_id).set(absmax)
+        if nonfinite > 0:
+            self._m_logit_nonfinite.inc(nonfinite)
+
     def _run_decode_step(self):
-        """One per-token decode dispatch (K=1); returns 1."""
+        """One per-token decode dispatch (K=1); returns ``(tokens
+        emitted, 1)``. Its wall-time histogram covers the replay and the
+        token read that syncs it."""
         self._fill_noise(1, 1)
-        nxt, lg32 = self._replay(1, self._bt, self._lengths, self._tokens,
-                                 self._active, self._temps)
+        with _prof.RecordEvent("serving.decode_step",
+                               histogram=self._m_decode_s):
+            res = self._replay(1, self._bt, self._lengths, self._tokens,
+                               self._active, self._temps)
+            nxt = res[0].cpu().numpy()
         self.stats["dispatches"] += 1
         self.stats["decode_steps"] += 1
-        nxt = nxt.cpu().numpy()
+        if self.logit_health:
+            self._publish_logit_health(res[2])
         if self.record_logits:
-            self._log_step_logits(lg32, self._active)
+            self._log_step_logits(res[1], self._active)
         if self.spec is not None:
             # before the host mirrors advance: the draft writes the
             # position the target just wrote
             self.spec.mirror_step()
         finish_plan = []
+        owners = []         # (uid, tokens, attended context) a slot
         for slot in np.nonzero(self._active)[0]:
             st = self._slots[slot]
+            st.decode_steps += 1
             tok = int(nxt[slot])
             st.out.append(tok)
+            owners.append((st.uid, 1, int(self._lengths[slot])))
             self._lengths[slot] += 1
             self._tokens[slot] = tok
             self._remaining[slot] -= 1
-            self.stats["tokens_emitted"] += 1
+            self._count_tokens(st, 1)
             if tok == st.eos_id:
                 finish_plan.append((slot, "eos"))
             elif len(st.out) >= st.max_new:
                 finish_plan.append((slot, "length"))
+        # attributed before the finish sweep: a request finishing now
+        # carries this step's share on its finish span
+        emitted, ctx = len(owners), sum(c for _, _, c in owners)
+        self.ledger.on_decode(emitted, ctx, weight_passes=1, owners=owners)
+        if self.spec is not None:
+            # the draft's mirror ran the same positions
+            self.ledger.on_draft(emitted, ctx, weight_passes=1,
+                                 owners=owners)
         for slot, reason in finish_plan:
             self._finish(slot, reason)
-        return 1
+        return emitted, 1
 
     def _run_decode_block(self, k):
         """One fused K-step decode dispatch, then apply the ``(K,
-        slots)`` token block on the host; returns ``k``."""
+        slots)`` token block on the host; returns ``(tokens emitted,
+        k)``."""
         self._fill_noise(k, k)
-        tok_block, emit_block, lgs = self._replay(
-            k, self._bt, self._lengths, self._tokens, self._active,
-            self._temps, self._eos, self._remaining)
-        tokb = tok_block.cpu().numpy()          # (K, S) sampled tokens
-        emitb = emit_block.cpu().numpy()        # (K, S) emit mask
+        with _prof.RecordEvent("serving.decode_block",
+                               histogram=self._m_decode_s):
+            res = self._replay(
+                k, self._bt, self._lengths, self._tokens, self._active,
+                self._temps, self._eos, self._remaining)
+            tokb = res[0].cpu().numpy()         # (K, S) sampled tokens
+            emitb = res[1].cpu().numpy()        # (K, S) emit mask
+        if self.logit_health:
+            self._publish_logit_health(res[3])
         if self.record_logits:
-            for i, lg32 in enumerate(lgs):
+            for i, lg32 in enumerate(res[2]):
                 self._log_step_logits(lg32, emitb[i])
-        self._apply_token_block(tokb, emitb, k)
+
+        def block_span(slot, st, emitted, eos_hits):
+            # the fused block as one span on each participating request
+            # (a fused block runs on a pure-decode engine only)
+            return "decode_block", dict(
+                k=int(k), tokens_emitted=int(emitted),
+                eos_hits=int(eos_hits),
+                segment="decode_blocked" if self._anat_blocked_step
+                else "decode_compute")
+
+        emitted = self._apply_token_block(tokb, emitb, k, block_span)
         self.stats["fused_blocks"] += 1
         self.stats["dispatches"] += 1
         self.stats["decode_steps"] += k
-        return k
+        return emitted, k
 
     def _prefill_hazard(self, st, earlier):
         """C14: does ``st``'s next chunk read a page (or copy a COW
@@ -1934,7 +2620,7 @@ class ServingEngine:
 
     def _run_mixed_dispatch(self):
         """ONE ragged dispatch for everything (reference
-        ``_run_mixed_dispatch``, ``serving.py:3510``, without telemetry):
+        ``_run_mixed_dispatch``, ``serving.py:3510``):
         every queued prefill slot contributes its next chunk as a
         ``q_len = C`` row — a slot past its deadline or hit by an
         injected ``prefill_error`` is failed while the rows are packed,
@@ -1948,7 +2634,9 @@ class ServingEngine:
         draft's pool, and every packed chunk is prefilled into it after
         the dispatch. A prefill slot whose last chunk lands is activated
         from the program's logits; decode and verify rows apply as a
-        token block. Returns the block's k (``k + 1`` with a round)."""
+        token block. Every participating request gets a ``mixed_step``
+        span (its row's kind, q_len and anatomy segment). Returns
+        ``(tokens emitted, the block's k)`` (``k + 1`` with a round)."""
         S, QB, C = self.num_slots, self._fns.QB, self.prefill_chunk
         spec = self.spec
         pf_rows = []   # (slot, st, base, last_idx)
@@ -1975,6 +2663,10 @@ class ServingEngine:
             base, P = st.pf_base, st.prompt_len
             last = P - 1 - base if base <= P - 1 < base + C else 0
             pf_rows.append((slot, st, base, last))
+        # the dispatch's composition is known: its decode rows are
+        # blocked iff prefill rows share it
+        self._anat_blocked_step = len(pf_rows) > 0
+        self.anatomy.resolve_decode(self._anat_blocked_step)
         self._decode_faults()
         active_slots = np.nonzero(self._active)[0]
         # the reference's spec gate (serving.py:3556-3569) without the
@@ -2008,44 +2700,119 @@ class ServingEngine:
             start[slot] = base
             tokens_q[slot, :C] = st.toks[base:base + C]
             last_idx[slot] = last
+        old_len = {int(s): int(self._lengths[s]) for s in active_slots}
         if spec is not None:
             self._fill_verify_noise("mixed", kind == 3)
         else:
             self._fill_noise("mixed", 1)
-        tok_block, emit_block, pf_logits, lg_rows, n_acc = self._replay(
-            "mixed", self._bt, kind, q_lens, start, tokens_q, last_idx,
-            self._active, self._temps, self._eos, self._remaining)
+        with _prof.RecordEvent("serving.mixed_step",
+                               histogram=self._m_decode_s):
+            res = self._replay(
+                "mixed", self._bt, kind, q_lens, start, tokens_q,
+                last_idx, self._active, self._temps, self._eos,
+                self._remaining)
+            tokb = res[0].cpu().numpy()         # (QB, S)
+            emitb = res[1].cpu().numpy()
+        pf_logits, lg_rows, n_acc = res[2:5]
         self.stats["dispatches"] += 1
         self.stats["mixed_steps"] += 1
-        tokb = tok_block.cpu().numpy()          # (QB, S)
-        emitb = emit_block.cpu().numpy()
+        if self.logit_health:
+            self._publish_logit_health(res[5])
         if self.record_logits:
             for i in range(lg_rows.shape[1]):
                 self._log_step_logits(lg_rows[:, i], emitb[i])
+        # per-row telemetry and the mixed_step span on every
+        # participating request
+        n_pf = len(pf_rows)
+        n_dec = int((kind == 1).sum())
+        n_ver = int((kind == 3).sum())
+        kind_names = {1: "decode", 2: "prefill", 3: "verify"}
+        for slot in [int(s) for s in active_slots] + \
+                [slot for slot, _, _, _ in pf_rows]:
+            st = self._slots[slot]
+            kn = kind_names[int(kind[slot])]
+            self._m_ragged_rows.labels(kind=kn).inc()
+            self._m_ragged_qlen.observe(float(q_lens[slot]))
+            span = st.sp_prefill if st.sp_prefill is not None \
+                else st.span_decode
+            seg = "prefill" if kn == "prefill" else (
+                "decode_blocked" if n_pf else "decode_compute")
+            with self._trace_span(
+                    "mixed_step", st.trace_id,
+                    parent_id=None if span is None else span.span_id,
+                    kind=kn, q_len=int(q_lens[slot]), rows_prefill=n_pf,
+                    rows_decode=n_dec, rows_verify=n_ver, owner=st.uid,
+                    segment=seg):
+                pass
+        nacc = None
         if spec is not None:
             if use_spec:
-                spec.count_round(n_acc.cpu().numpy(),
-                                 np.nonzero(kind == 3)[0])
-            elif (kind == 1).any():
+                # the propose scan ran k + 1 draft steps for every active
+                # slot (a decode row's proposals are computed too)
+                owners = [(self._slots[int(s)].uid, K + 1,
+                           sum(old_len[int(s)] + j for j in range(K + 1)))
+                          for s in active_slots]
+                self.ledger.on_draft(
+                    (K + 1) * len(active_slots),
+                    sum(c for _, _, c in owners), weight_passes=K + 1,
+                    owners=owners)
+                nacc = n_acc.cpu().numpy()
+                spec.count_round(nacc, np.nonzero(kind == 3)[0])
+            elif n_dec:
                 # before the host mirrors advance, as per phase
                 spec.mirror_step()
-        self._apply_token_block(tokb, emitb, QB)
+                owners = [(self._slots[int(s)].uid, 1, old_len[int(s)])
+                          for s in active_slots]
+                self.ledger.on_draft(len(active_slots),
+                                     sum(c for _, _, c in owners),
+                                     weight_passes=1, owners=owners)
+
+        def mixed_span(slot, st, emitted, eos_hits):
+            # verify rows keep the per-phase spec_verify decision span
+            if kind[slot] != 3:
+                return None
+            return spec.verify_span(slot, int(nacc[slot]),
+                                    int(emitb[:, slot].sum()),
+                                    old_len[int(slot)])
+
+        # a dispatch without active slots bills no decode weight pass:
+        # its weight stream belongs to the prefill rows
+        emitted = self._apply_token_block(
+            tokb, emitb, QB, mixed_span,
+            ledger_phase="spec_verify" if use_spec else "decode",
+            weight_passes=1 if len(active_slots) else 0)
         for slot, st, base, last in pf_rows:
+            with self._trace_span(
+                    "prefill_chunk", st.trace_id,
+                    parent_id=None if st.sp_prefill is None
+                    else st.sp_prefill.span_id, base=base):
+                pass
             if spec is not None:
                 spec.prefill_chunk(slot, base, st.toks[base:base + C])
+            useful = max(min(C, st.prompt_len - base), 0)
+            self.ledger.on_prefill_chunk(useful, base, owner=st.uid)
+            if spec is not None:
+                self.ledger.on_draft_prefill(useful, base, owner=st.uid)
             st.pf_base = base + C
             self.stats["prefill_chunks"] += 1
             if st.pf_base >= st.pf_end:
                 st.logits = pf_logits[slot].clone()
                 self._prefilling.remove(slot)
                 self._activate(slot, st)
-        return K + 1 if use_spec else 1
+        return emitted, K + 1 if use_spec else 1
 
-    def _apply_token_block(self, tokb, emitb, k):
+    def _apply_token_block(self, tokb, emitb, k, span_for=None,
+                           ledger_phase="decode", weight_passes=None):
         """Apply a ``(k, slots)`` device token block to the host
         scheduler: append each slot's emitted tokens, finish
-        EOS/budget-exhausted slots, advance the host mirrors."""
+        EOS/budget-exhausted slots, advance the host mirrors (reference
+        ``_apply_token_block``). ``span_for(slot, st, emitted,
+        eos_hits)`` may return a ``(name, attrs)`` span to record under
+        each participating request's decode span; ``ledger_phase`` and
+        ``weight_passes`` (default ``k``) feed the ledger. Returns the
+        tokens emitted."""
         plan = []
+        eos_hits = 0
         for slot in np.nonzero(self._active)[0]:
             st = self._slots[slot]
             toks, reason = [], None
@@ -2056,21 +2823,42 @@ class ServingEngine:
                 toks.append(tok)
                 if tok == st.eos_id:
                     reason = "eos"
+                    eos_hits += 1
                     break
                 if len(st.out) + len(toks) >= st.max_new:
                     reason = "length"
                     break
             plan.append((slot, st, toks, reason))
-        emitted = 0
+        emitted = sum(len(toks) for _, _, toks, _ in plan)
+        owners = []   # (uid, tokens, attended context) a live slot
         for slot, st, toks, reason in plan:
+            ctx = 0
             for tok in toks:
                 st.out.append(tok)
+                st.decode_steps += 1
+                # attended context: the slot's length at this step
+                ctx += int(self._lengths[slot])
                 self._lengths[slot] += 1
                 self._tokens[slot] = tok
                 self._remaining[slot] -= 1
-            self.stats["tokens_emitted"] += len(toks)
-            emitted += len(toks)
+            if toks:
+                self._count_tokens(st, len(toks))
+            owners.append((st.uid, len(toks), ctx))
+        # attributed before the finish sweep: a request finishing in
+        # this dispatch carries its share on its finish span
+        self.ledger.on_decode(
+            emitted, sum(c for _, _, c in owners),
+            weight_passes=k if weight_passes is None else weight_passes,
+            phase=ledger_phase, owners=owners)
         for slot, st, toks, reason in plan:
+            span = span_for(slot, st, emitted, eos_hits) \
+                if span_for is not None else None
+            if span is not None and st.span_decode is not None:
+                name, attrs = span
+                with self._trace_span(name, st.trace_id,
+                                      parent_id=st.span_decode.span_id,
+                                      **attrs):
+                    pass
             if reason is not None:
                 self._finish(slot, reason)
         return emitted
@@ -2092,12 +2880,45 @@ class ServingEngine:
         self._free_slots.append(slot)
 
     def _finish(self, slot, reason):
+        """A request finished (``eos``/``length``): its decode span ends
+        and its ``finish`` span carries its attributed cost and its
+        anatomy, as the reference's (``serving.py:2339``)."""
         st = self._slots.pop(slot)
-        self.kv.release(st.pages)
-        self._clear_slot(slot)
-        self._finished_now.append(Completion(
-            st.uid, st.out, reason, ttft_s=st.ttft_s, priority=st.priority,
-            preemptions=st.preemptions, tenant=st.tenant))
+        if st.span_decode is not None:
+            st.span_decode.end(tokens=len(st.out), steps=st.decode_steps)
+        rec = self.ledger.request_record(st.uid) or {}
+        anat = self._anat_finish(st.uid, reason)
+        with self._trace_span(
+                "finish", st.trace_id, reason=reason,
+                pages_released=len(st.pages),
+                anat_segments=anat["segments"],
+                anat_total_steps=anat["total_steps"],
+                anat_conserved=anat["conserved"],
+                anat_blocked_frac=round(anat["blocked_frac"], 6),
+                anat_tenant=anat["tenant"], anat_tier=anat["priority"],
+                tenant=st.tenant,
+                cost_flops=float(sum(rec.get("flops", {}).values())),
+                cost_hbm_bytes=float(sum(rec.get("hbm_bytes", {}).values())),
+                cost_collective_bytes=0.0,
+                cached_tokens_saved=int(rec.get("cached_tokens", 0))):
+            self.kv.release(st.pages)
+            self._clear_slot(slot)
+            self._finished_now.append(Completion(
+                st.uid, st.out, reason, ttft_s=st.ttft_s,
+                priority=st.priority, preemptions=st.preemptions,
+                tenant=st.tenant))
+            self._m_completions.labels(reason=reason).inc()
+        self._end_trace(st.trace_id, finish_reason=reason,
+                        tokens_emitted=len(st.out))
+
+    def _anat_finish(self, uid, reason):
+        """Close the anatomy record at the current step and feed the
+        per-segment histogram (all eight segments, zeros included)."""
+        rec = self.anatomy.finish(uid, self._steps, reason)
+        if not self._closed:
+            for seg, n in rec["totals"].items():
+                self._h_segment.labels(segment=seg).observe(n)
+        return rec
 
     # -- the engine loop -----------------------------------------------------
     @torch.no_grad()
@@ -2107,35 +2928,51 @@ class ServingEngine:
         ``prefill_chunks_per_step`` deferred prefill chunks and one
         decode dispatch (a step or a fused block) over every active
         slot. Returns the Completions finished now. An exception that
-        escapes the step (``ReplicaDown``, or a real failure) first tears
-        the engine down — every in-flight page released, the pool
-        verifiable — and then propagates."""
+        escapes the step (``ReplicaDown``, or a real failure) first
+        writes the flight-recorder postmortem (every in-flight request's
+        partial span tree), then tears the engine down — every in-flight
+        page released, the pool verifiable — and then propagates."""
+        self._steps += 1
         try:
             return self._step()
         except Exception:
+            self._dump_postmortem("exception")
             self._teardown_all("error")
             raise
 
     def _step(self):
         """The reference's ``_step`` order (``serving.py:3759``): the
-        injected replica death first, cancels, admission, prefill chunks,
-        cancels and deadlines again, the dispatch with its injected
-        faults, then the nonfinite fault and the trailing deadline
-        check."""
+        anatomy sweep, the injected replica death, cancels, admission,
+        prefill chunks, cancels and deadlines again, the dispatch with
+        its injected faults, then the nonfinite fault and the trailing
+        deadline check; the step's telemetry closes it."""
+        # attribute this step to every live request by its state at the
+        # step's start, before fault injection: a death step counts
+        self.anatomy.on_step()
         if self.faults is not None and \
                 self.faults.fire("replica_down") is not None:
-            self.stats["faults"] += 1
-            raise ReplicaDown("injected replica death")
+            self._count_fault("replica_down")
+            raise ReplicaDown(
+                f"injected replica death (engine {self.engine_id})")
+        t_step0 = time.perf_counter()
+        tokens_before = self.stats["tokens_emitted"]
+        chunks_before = self.stats["prefill_chunks"]
         self._finished_now = []
+        self._step_tenant_tokens = {}
         self._apply_cancels()
         self._try_admit()
         if not self.mixed_step:
-            self._run_prefill_chunks()
+            ran = self._run_prefill_chunks()
+            # a decode-ready step is blocked iff prefill chunks ran in
+            # this step (the decode dispatch below waited for them)
+            self._anat_blocked_step = ran > 0
+            self.anatomy.resolve_decode(self._anat_blocked_step)
         self._apply_cancels()   # a cancel that landed while chunks ran
         self._expire_slots()    # deadlines at the dispatch boundary
+        k_block = 0
         if self.mixed_step:
             if self._active.any() or self._prefilling:
-                self._dispatch(self._run_mixed_dispatch)
+                k_block = self._dispatch(self._run_mixed_dispatch)
         elif self._active.any():
             # reference serving.py:3832-3848
             if self._choose_spec():
@@ -2144,25 +2981,27 @@ class ServingEngine:
                 k = self._choose_block_k()
                 run = functools.partial(self._run_decode_block, k) \
                     if k > 1 else self._run_decode_step
-            self._dispatch(run, decode_faults=True)
-        finished = self._early_done + self._finished_now
-        self._early_done = []
-        self._finished_now = finished
-        return finished
+            k_block = self._dispatch(run, decode_faults=True)
+        self._step_telemetry(t_step0, k_block,
+                             self.stats["tokens_emitted"] - tokens_before,
+                             self.stats["prefill_chunks"] - chunks_before)
+        return self._finished_now
 
     def _dispatch(self, run, decode_faults=False):
-        """Run one decode (or mixed) dispatch, ``run()`` returning its
-        block's ``k`` steps: an injected fault fails its target, a clean
-        dispatch feeds the per-step EMA and the step counters and then
-        meets the nonfinite fault; the deadline check follows either
-        way."""
+        """Run one decode (or mixed) dispatch, ``run()`` returning
+        ``(tokens emitted, k)``: an injected fault fails its target, a
+        clean dispatch feeds the per-step EMA, the step counters and the
+        block series and then meets the nonfinite fault; the deadline
+        check follows either way. Returns ``k``, 0 when a fault hit."""
         t0 = time.perf_counter()
+        k = 0
         try:
             if decode_faults:
                 self._decode_faults()
-            k = run()
+            emitted, k = run()
         except InjectedFault as e:
             self._on_injected_fault(e)
+            k = 0
         else:
             per = (time.perf_counter() - t0) / k
             self._step_ema = per if self._step_ema is None else \
@@ -2170,22 +3009,97 @@ class ServingEngine:
             self.stats["steps"] += 1
             self.stats["decode_blocks"] += 1
             self.stats["decode_block_k"] = k
+            if not self._closed:
+                self._g_block_size.labels(engine=self.engine_id).set(k)
+            self._m_blocks.inc()
+            self._m_tok_per_dispatch.observe(emitted)
             self._check_nonfinite_fault()
         self._expire_slots()    # the trailing dispatch boundary
+        return k
+
+    def _step_telemetry(self, t_step0, k_block, emitted, chunks_ran):
+        """The step's tail (reference ``_step``, ``serving.py:3870``):
+        its wall time to every token it emitted, overall and by tenant;
+        the anatomy's pending decode records resolved (a dispatch that
+        never ran blocked nobody); the gauges and the census; the
+        ledger's completions and wall time; the step log. An idle poll
+        (nothing dispatched, emitted or finished) adds no wall time and
+        writes no record."""
+        dt = time.perf_counter() - t_step0
+        if emitted:
+            self._m_tok_lat.observe(dt, emitted)
+        for tenant, n in self._step_tenant_tokens.items():
+            self.ledger.note_token_latency(tenant, dt, n)
+        self.anatomy.resolve_decode(False)
+        if not self._closed:
+            self._g_blocked_frac.labels(engine=self.engine_id).set(
+                round(self.anatomy.blocked_frac(), 6))
+        self._update_pool_gauges()
+        if not self._closed:
+            self._compiles.publish()
+        finished = self._early_done + self._finished_now
+        self._early_done = []
+        self._finished_now = finished
+        for c in finished:
+            self.ledger.on_completion(c)
+        decoded = k_block > 0
+        if decoded or emitted or finished or chunks_ran:
+            self.ledger.on_step(dt)
+        if self._step_logger is not None and (
+                decoded or emitted or finished):
+            self._log_seq += 1
+            self._step_logger.log(
+                "serving_step", step=self._log_seq, tokens=emitted,
+                dt_s=round(dt, 6), queue_depth=len(self._pending),
+                active_slots=int(self._active.sum()),
+                pages_free=self.kv.num_free, prefill_chunks=chunks_ran,
+                decode_k=k_block, finished=len(finished))
 
     def close(self):
         """Abort everything still in flight or queued (finish_reason
         ``"aborted"``; every page released through the double-free
-        guard, so the pool verifies clean) and return ``{uid:
-        Completion}`` of it, with any completion not yet delivered by a
-        step. Idempotent: a second call returns ``{}``. Afterwards
-        ``has_work`` is False."""
+        guard and every open span ended, so the pool verifies clean) and
+        return ``{uid: Completion}`` of it, with any completion not yet
+        delivered by a step. Then retire the engine's telemetry: the
+        aborted requests' ledger records close, a final flight-recorder
+        dump (reason ``"close"``) is written and the postmortem hook
+        removed, a step log opened from a path is closed, and this
+        engine's labeled gauge and census series leave the registry
+        (shared counters and histograms keep their totals). Idempotent:
+        a second call returns ``{}``. Afterwards ``has_work`` is
+        False."""
         if self._closed:
             return {}
         self._teardown_all("aborted")
         aborted = {c.uid: c for c in self._early_done}
         self._early_done = []
+        # the teardown never runs the step's tail: retire the stranded
+        # cost records here (the tier goodput counters stay as the step
+        # loop left them)
+        for c in aborted.values():
+            self.ledger.finish_request(c.uid, c.finish_reason,
+                                       ttft_s=c.ttft_s)
         self._closed = True
+        self._dump_postmortem("close")
+        if self._pm_handle is not None:
+            _tracing.unregister_postmortem(self._pm_handle)
+            self._pm_handle = None
+        if self._owns_step_logger and self._step_logger is not None:
+            self._step_logger.close()
+        eid = self.engine_id
+        for fam in (self._g_queue, self._g_active, self._g_pages_free,
+                    self._g_pages_used, self._g_pages_cached,
+                    self._g_pages_shared, self._g_block_size):
+            fam.remove(engine=eid)
+        self._g_kv_bytes.remove(engine=eid, dtype=self.kv.kv_dtype)
+        if self.spec is not None:
+            self._g_kv_bytes.remove(engine=eid, dtype="draft")
+        if self._g_logit_absmax is not None:
+            self._g_logit_absmax.remove(engine=eid)
+        self._g_blocked_frac.remove(engine=eid)
+        self._compiles.remove_series()
+        self.ledger.close()
+        self.anatomy.close()
         return aborted
 
     @property
@@ -2207,7 +3121,46 @@ class ServingEngine:
                     f"serving loop exceeded max_steps={max_steps}")
         return done
 
+    def compile_counts(self):
+        """{fn: captures} of the graph-capture census (what
+        ``serving_jit_compiles{engine=,fn=}`` publishes)."""
+        return self._compiles.counts()
+
+    def request_costs(self):
+        """The per-request cost-attribution view (what a
+        ``MetricsServer`` provider route serves as ``/requests.json``):
+        every live and completed request record, the per-tenant rollup
+        and the conservation check (``conserved`` must read true)."""
+        doc = self.ledger.request_records()
+        doc["engine"] = self.engine_id
+        doc["tenants"] = self.ledger.tenant_totals()
+        doc["conservation"] = self.ledger.attribution_check()
+        return doc
+
+    def anatomy_report(self):
+        """The latency-anatomy view (``/anatomy.json``): every completed
+        request's segment ledger, the per-tenant/per-tier p50/p99
+        decomposition, the conservation tally (``frac`` must read 1.0)
+        and the cumulative ``decode_blocked_frac``."""
+        recs = self.anatomy.request_records()
+        return {"engine": self.engine_id, "records": recs,
+                "summary": summarize(recs),
+                "conservation": self.anatomy.conservation_check(),
+                "decode_blocked_frac": self.anatomy.blocked_frac(),
+                "live": self.anatomy.live}
+
     # -- migration between engines (the fleet router's hooks) ----------------
+    @property
+    def queue_depth(self):
+        """Queued (not yet admitted) requests — a router load signal."""
+        return len(self._pending)
+
+    @property
+    def free_pages(self):
+        """Pages an admission could claim right now (free + evictable
+        cache-only residents) — the other router load signal."""
+        return self.kv.num_available
+
     def inflight(self):
         """Every request live in this engine, queued and in a slot, as
         plain dicts."""
@@ -2239,6 +3192,21 @@ class ServingEngine:
             self._abort_slot(slot, "migrated", requeue=True)
             req = self._pending.find_uid(uid)
         self._pending.remove(req)
+        # the local trace ends under a migrate decision span; the ledger
+        # and anatomy records close as "migrated" (the destination
+        # engine opens its own)
+        qs = self._span_queued.pop(uid, None)
+        if qs is not None:
+            qs.end(aborted="migrated")
+        tokens = len(req.resume_out or [])
+        with self._trace_span("migrate", req.trace_id, uid=uid,
+                              tokens_emitted=tokens):
+            pass
+        self._end_trace(req.trace_id, status="migrated",
+                        finish_reason="migrated", tokens_emitted=tokens)
+        self.ledger.finish_request(uid, "migrated")
+        self._anat_finish(uid, "migrated")
+        self._set_queue_gauge()
         return req
 
     def admit_migrated(self, req, trace_ctx=None):
@@ -2248,16 +3216,15 @@ class ServingEngine:
         and deadline basis), the observed ``ttft_s``, priority, deadline,
         tenant and preemption count. Digests are recomputed for this
         engine's page size. The same admission control as
-        :meth:`add_request` (may shed, or raise QueueFullError). Returns
-        the new uid."""
-        if trace_ctx is not None:
-            raise NotImplementedError(
-                "trace_ctx= is not ported to paddle_tpu_torch yet")
+        :meth:`add_request` (may shed, or raise QueueFullError); a fresh
+        trace (``migrated=True``, under ``trace_ctx``), ledger record and
+        anatomy record open here. Returns the new uid."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         max_new = int(req.max_new_tokens)
         self._check_fits(prompt, max_new, "migrated prompt")
         return self._enqueue(
-            prompt, int(req.priority), max_new_tokens=max_new,
+            prompt, int(req.priority), trace_ctx=trace_ctx,
+            trace_attrs={"migrated": True}, max_new_tokens=max_new,
             temperature=float(req.temperature), eos_id=int(req.eos_id),
             seed=int(req.seed), t_arrival=float(req.t_arrival),
             deadline_s=req.deadline_s,

@@ -26,6 +26,13 @@ accepted round leaves no hole. A rejected tail rolls back by not
 advancing lengths: its K/V writes sit past the new length and are
 written again before anything attends them.
 
+Telemetry (reference ``speculative.py:466-584``): ``spec_draft`` spans
+under each active request's decode span, the ``spec_verify`` decision
+span with the round's acceptance and rollback, the
+``serving_spec_rounds_total`` / ``serving_spec_tokens_total{result}`` /
+``serving_spec_accept_rate`` series, and the draft's work in the ledger
+under ``spec_draft`` at the draft's own cost constants.
+
 All of the draft's programs come from the port's own
 ``serving._build_serving_fns`` over the draft's layer core, so their
 attention is the ragged kernel too. The draft pool is never quantized
@@ -49,8 +56,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import profiler as _prof
 from ..models.gpt import make_layer_core, tree_map
-from ..quantization.weights import cast_params, quantize_weights_int8
+from ..quantization.weights import (cast_params, params_nbytes,
+                                    quantize_weights_int8)
 
 __all__ = ["SpecState", "truncate_draft", "draft_seed"]
 
@@ -120,8 +129,8 @@ class SpecState:
         self.cfg = dcfg
         self.k = int(draft_k)
         raw_dtype = dparams["wte"].dtype
-        dparams = tree_map(lambda t: t.to(device=dev, dtype=raw_dtype),
-                           dparams)
+        dparams = raw = tree_map(
+            lambda t: t.to(device=dev, dtype=raw_dtype), dparams)
         if engine.weight_dtype == "bf16":
             dparams = cast_params(dparams)
         elif engine.weight_dtype == "int8":
@@ -151,6 +160,18 @@ class SpecState:
         # fused block's masks cannot trigger
         self.no_eos = np.full(S, -1, np.int64)
         self.no_budget = np.full(S, 1 << 30, np.int64)
+        # telemetry: the census names of the draft's programs and the
+        # verify (the reference's), the draft pool on the pool gauge,
+        # and the draft's cost constants in the ledger (its weight bytes
+        # as dispatched: the target's weight lever applies)
+        for name in ("draft_prefill", "draft_mirror", "spec_propose",
+                     "spec_verify", "draft_copy"):
+            engine._compiles.track(name)
+        engine._g_kv_bytes.labels(engine=engine.engine_id,
+                                  dtype="draft").set(self.pool_bytes())
+        engine.ledger.set_draft(dcfg, raw, self.pool_bytes(), NP,
+                                engine.page_size,
+                                weight_bytes=params_nbytes(self.params))
 
     def pool_bytes(self):
         """Resident bytes of the draft's K/V pool."""
@@ -201,15 +222,24 @@ class SpecState:
         """The draft half of a round: the ``k + 1``-step propose scan over
         the engine's current host mirrors, each sampled slot drawing its
         Gumbel noise from its draft generator; the first ``k`` proposals
-        and their logits go into :attr:`proposed` and :attr:`q_logits`."""
+        and their logits go into :attr:`proposed` and :attr:`q_logits`.
+        Each active request gets a ``spec_draft`` span."""
         eng = self.eng
         eng._fill_noise("propose", self.k + 1, self.gens)
-        toks, _, lgs = eng._replay(
-            "propose", eng._bt, eng._lengths, eng._tokens, eng._active,
-            eng._temps, self.no_eos, self.no_budget)
-        self.proposed.copy_(toks[:self.k])
-        self.q_logits.copy_(lgs[:self.k])
+        with _prof.RecordEvent("serving.spec_draft"):
+            toks, _, lgs = eng._replay(
+                "propose", eng._bt, eng._lengths, eng._tokens, eng._active,
+                eng._temps, self.no_eos, self.no_budget)
+            self.proposed.copy_(toks[:self.k])
+            self.q_logits.copy_(lgs[:self.k])
         eng.stats["dispatches"] += 1
+        for s in np.nonzero(eng._active)[0]:
+            st = eng._slots[s]
+            if st.span_decode is not None:
+                with eng._trace_span("spec_draft", st.trace_id,
+                                     parent_id=st.span_decode.span_id,
+                                     k=self.k):
+                    pass
 
     def zero_round(self):
         """A mixed dispatch without verify rows reads zeros."""
@@ -217,36 +247,81 @@ class SpecState:
         self.q_logits.zero_()
 
     def count_round(self, nacc, slots):
-        """Stats of one round over the verifying ``slots``."""
-        st = self.eng.stats
-        acc = int(np.minimum(nacc[slots], self.k).sum()) if len(slots) \
-            else 0
-        proposed = self.k * len(slots)
+        """Stats, series and ledger records of one round over the
+        verifying ``slots``."""
+        eng, k = self.eng, self.k
+        for s in slots:
+            acc_s = int(min(int(nacc[s]), k))
+            eng.ledger.note_spec(eng._slots[s].uid, acc_s, k - acc_s)
+        acc = int(np.minimum(nacc[slots], k).sum()) if len(slots) else 0
+        proposed = k * len(slots)
+        st = eng.stats
         st["spec_rounds"] += 1
         st["spec_proposed"] += proposed
         st["spec_accepted"] += acc
         st["spec_rejected"] += proposed - acc
+        eng._m_spec_rounds.inc()
+        if proposed:
+            eng._m_spec_tokens.labels(result="accepted").inc(acc)
+            eng._m_spec_tokens.labels(result="rejected").inc(proposed - acc)
+            eng._m_spec_accept.observe(acc / proposed)
+
+    def verify_span(self, slot, accepted, emitted, old_len):
+        """The ``spec_verify`` decision span of a verifying slot: the
+        round's verification outcome (accepted / rolled back), its
+        emitted tokens (fewer than accepted + 1 where EOS or the budget
+        cut the tail) and the pages whose only writes rolled back."""
+        t0 = old_len - 1
+        ps = self.eng.page_size
+        rb_pages = max((t0 + self.k) // ps - (t0 + max(emitted, 1) - 1) // ps,
+                       0)
+        return "spec_verify", dict(k=self.k, accepted=accepted,
+                                   rolled_back=self.k - accepted,
+                                   emitted=emitted, rollback_pages=rb_pages)
 
     def run_round(self):
         """One per-phase round (reference ``run_round``,
         ``speculative.py:472``): the propose scan (dispatch 1), then the
         target's verify of ``k + 1`` positions with the acceptance chain
         and the emit/EOS/budget mask on the device (dispatch 2); the token
-        block applies through the fused block's host path. Returns the
-        block's ``k + 1``."""
-        eng = self.eng
+        block applies through the fused block's host path. Returns
+        ``(tokens emitted, k + 1)``."""
+        eng, k = self.eng, self.k
+        active_slots = np.nonzero(eng._active)[0]
+        old_len = {int(s): int(eng._lengths[s]) for s in active_slots}
         self.propose()
         eng._fill_verify_noise("verify", eng._active)
-        tok_block, emit_block, n_acc, lg32 = eng._replay(
-            "verify", eng._bt, eng._lengths, eng._tokens, eng._active,
-            eng._temps, eng._eos, eng._remaining)
+        with _prof.RecordEvent("serving.spec_verify",
+                               histogram=eng._m_decode_s):
+            res = eng._replay(
+                "verify", eng._bt, eng._lengths, eng._tokens, eng._active,
+                eng._temps, eng._eos, eng._remaining)
+            tokb = res[0].cpu().numpy()         # (k+1, S)
+            emitb = res[1].cpu().numpy()
         eng.stats["dispatches"] += 1
-        tokb = tok_block.cpu().numpy()          # (k+1, S)
-        emitb = emit_block.cpu().numpy()
-        nacc = n_acc.cpu().numpy()
+        nacc = res[2].cpu().numpy()
+        if eng.logit_health:
+            eng._publish_logit_health(res[4])
         if eng.record_logits:
-            for i in range(self.k + 1):
-                eng._log_step_logits(lg32[:, i], emitb[i])
-        self.count_round(nacc, np.nonzero(eng._active)[0])
-        eng._apply_token_block(tokb, emitb, self.k + 1)
-        return self.k + 1
+            for i in range(k + 1):
+                eng._log_step_logits(res[3][:, i], emitb[i])
+        # the propose scan ran k + 1 draft steps a slot (one weight pass
+        # each); the verify is billed by _apply_token_block under
+        # spec_verify, emitted positions only
+        owners = [(eng._slots[s].uid, k + 1,
+                   sum(old_len[int(s)] + j for j in range(k + 1)))
+                  for s in active_slots]
+        self.count_round(nacc, active_slots)
+        eng.ledger.on_draft((k + 1) * len(active_slots),
+                            sum(c for _, _, c in owners),
+                            weight_passes=k + 1, owners=owners)
+
+        def spec_span(slot, st, emitted, eos_hits):
+            return self.verify_span(slot, int(nacc[slot]),
+                                    int(emitb[:, slot].sum()),
+                                    old_len[int(slot)])
+
+        emitted = eng._apply_token_block(tokb, emitb, k + 1, spec_span,
+                                         ledger_phase="spec_verify",
+                                         weight_passes=1)
+        return emitted, k + 1

@@ -1950,3 +1950,95 @@ def test_resnet50_with_no_device_lands_on_the_card(cuda):
     assert {b.device.type for b in m.buffers()} == {"cuda"}
     step = TrainStep(m, lambda mm, x, y: 0, Momentum())
     assert step.device.type == "cuda"
+
+
+# -- serving telemetry on the captured engine ---------------------------------
+
+def _telemetry_engine(dev, tracing=True, **kw):
+    from paddle_tpu_torch.observability import MetricsRegistry, Tracer
+    return _graph_engine(dev, True, registry=MetricsRegistry(),
+                         tracing=tracing, logit_health=tracing,
+                         tracer=Tracer("requests") if tracing else None,
+                         **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_telemetry_changes_no_token_and_captures_nothing_more(
+        cuda, kv_dtype, mixed, tmp_path):
+    """Captured engines with the telemetry on (tracing, logit health, a
+    registry) and off (``tracing=False``): the same tokens and ragged
+    launches, the graph count fixed from the constructor on, the census
+    gauge equal to it, every request's trace complete."""
+    runs = []
+    for tracing in (True, False):
+        eng = _telemetry_engine(cuda, tracing, kv_dtype=kv_dtype,
+                                mixed_step=mixed,
+                                postmortem_path=str(tmp_path / "pm.json"))
+        graphs = eng.stats["graph_captures"]
+        pa.reset_launches()
+        toks = _graph_serve(eng, _graph_reqs())
+        torch.cuda.synchronize()
+        assert eng.stats["graph_captures"] == graphs
+        census = eng.compile_counts()
+        assert sum(census.values()) == graphs + 1     # + sample_first
+        runs.append((toks, {c: getattr(pa, c) for c in COUNTS}))
+        if tracing:
+            traces = eng._tracer.completed_traces()
+            assert len(traces) == len(_graph_reqs())
+            assert all(tr.find("finish") and tr.find("decode")
+                       for tr in traces)
+            assert eng.anatomy_report()["conservation"]["frac"] == 1.0
+            assert eng.ledger.attribution_check()["conserved"]
+        eng.close()
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_logit_health_reads_the_graph_outputs(cuda, kv_dtype, mixed):
+    """The abs-max gauge after each decode dispatch is the graph's own
+    reduction: equal to a plain reduction of the logits the dispatch
+    logged for its emitting rows; no non-finite value counted."""
+    eng = _telemetry_engine(cuda, kv_dtype=kv_dtype, mixed_step=mixed)
+    logged = []
+    real = eng._log_step_logits
+
+    def log(lg32, emit):
+        logged.extend(lg32[s].float().cpu() for s in np.nonzero(emit)[0])
+        real(lg32, emit)
+    eng._log_step_logits = log
+    gauge = eng.metrics.get("serving_logit_absmax")
+    for p, n, t, seed in _graph_reqs():
+        eng.add_request(p, n, temperature=t, seed=seed)
+    checked = 0
+    while eng.has_work:
+        logged.clear()
+        eng.step()
+        if logged:
+            want = max(float(x.abs().max()) for x in logged)
+            got = gauge.labels(engine=eng.engine_id).value
+            assert got == pytest.approx(want, rel=1e-6, abs=0), (got, want)
+            checked += 1
+    assert checked > 5
+    assert eng.metrics.get("serving_logit_nonfinite_total").value == 0
+
+
+def test_a_dead_engine_collected_during_a_capture_breaks_nothing(cuda):
+    """A captured engine left as cyclic garbage (its graphs alive until
+    the collector runs), then a new engine captured with the collector's
+    threshold at 1, so it would run at every allocation: the capture
+    runs with the collector off (a dead engine's graph destroyed inside
+    another's capture invalidates it), and the new engine serves."""
+    import gc
+    dead = _graph_engine(cuda, True)
+    dead.cycle = dead
+    del dead
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eng = _graph_engine(cuda, True)
+    finally:
+        gc.set_threshold(*old)
+    assert eng.stats["graph_captures"] == 6
+    assert all(_graph_serve(eng, _graph_reqs()[:4]))

@@ -81,7 +81,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "paddle_tpu_torch.parallel.api" in out["modules"]
     for name in ("kernels.packed_flash", "nn.transformer", "models.bert",
                  "tools.bench_bert", "quantization", "quantization.kv",
-                 "quantization.weights"):
+                 "quantization.weights", "observability",
+                 "observability.registry", "observability.exporters",
+                 "observability.step_logger", "observability.tracing",
+                 "observability.compile_tracker", "observability.ledger",
+                 "observability.anatomy", "profiler",
+                 "tools.bench_serving"):
         assert f"paddle_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:

@@ -29,6 +29,7 @@ from paddle_tpu_torch.inference.scheduler import QueueFullError
 from paddle_tpu_torch.inference.serving import (PagedKVCache, Request,
                                                 ServingEngine, _page_digests)
 from paddle_tpu_torch.models.gpt import gpt2_tiny, params_from_numpy
+from paddle_tpu_torch.observability import Tracer
 
 # tiny shapes: a few threads are plenty, and the suite runs several
 # workers at once beside timing-sensitive tests
@@ -237,25 +238,29 @@ def test_queue_bound_sheds_or_rejects(ref):
 
 
 @pytest.mark.parametrize("lever", [
-    dict(mesh=object()), dict(speculative=True, tracer=object()),
+    dict(mesh=object()), dict(speculative=True, tracer=Tracer("t")),
     dict(trace_ctx={"trace_id": "t"}), dict(journal="j.jsonl"),
-    dict(tracer=object()), dict(watchdog=True),
+    dict(tracer=Tracer("t")), dict(watchdog=True),
 ])
-def test_unported_levers_raise(ref, lever):
-    """The constructor's unported levers, and ``add_request``'s and
-    ``admit_migrated``'s ``trace_ctx=`` (the tracer's, not ported).
-    Speculation is ported; the spans of its rounds need the tracer, which
-    still raises on a speculative engine."""
+def test_unported_levers_raise(ref, lever, tmp_path):
+    """The constructor's unported levers (meshes, the journal, the
+    watchdog) raise NotImplementedError. The tracer (speculative engines
+    too) and ``add_request``'s and ``admit_migrated``'s ``trace_ctx=``
+    are ported: they serve, and every request gets its trace
+    (tests/test_torch_serving_telemetry.py holds them to the
+    reference's)."""
     _, params = ref
     kw = dict(device="cpu", num_slots=1, page_size=8, prefill_chunk=8,
-              max_seq_len=64)
-    if "trace_ctx" in lever:
-        eng = ServingEngine(gpt2_tiny(), params, **kw)
-        with pytest.raises(NotImplementedError):
-            eng.add_request([1, 2, 3], 2, **lever)
-        with pytest.raises(NotImplementedError):
-            eng.admit_migrated(Request(0, np.arange(3), 2), **lever)
-        assert not eng.has_work
+              max_seq_len=64, postmortem_path=str(tmp_path / "pm.json"))
+    if "trace_ctx" in lever or "tracer" in lever:
+        ctx = lever.pop("trace_ctx", None)
+        eng = ServingEngine(gpt2_tiny(), params, **kw, **lever)
+        a = eng.add_request([1, 2, 3], 2, trace_ctx=ctx)
+        b = eng.admit_migrated(Request(0, np.arange(3), 2), trace_ctx=ctx)
+        assert set(eng.run()) == {a, b}
+        assert eng._tracer.get(f"e{eng.engine_id}:req{b}").root.attrs[
+            "migrated"] is True
+        eng.close()
         return
     with pytest.raises(NotImplementedError):
         ServingEngine(gpt2_tiny(), params, **kw, **lever)
