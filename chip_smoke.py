@@ -231,6 +231,22 @@ exits non-zero:
    H100's peaks, TTFT and per-token p50/p99 from the histograms; then
    one ``python3 -m paddle_tpu_torch.tools.bench_serving --model small``
    line, printed as it is.
+   ``serve_journal`` — serve's requests as a journal schedule on
+   captured engines with a ``journal=`` file, ``watchdog=`` on, a bound
+   ``FaultInjector`` (a 0-second stall armed at step 5, recorded) and an
+   ``SLOEngine`` evaluated every 4 steps: tokens and ragged launches
+   equal to ``serve``'s (and ``serve_int8``'s over int8 pools), no
+   capture after the constructor; the first engine's ``prefix_hit``
+   baseline seeded at 0.9 on traffic that rarely shares a page forces a
+   trip between steps, whose flight-recorder dump must parse with its
+   format and reason; its journal, and one each per phase over int8
+   pools and mixed over bf16 and int8 pools, replayed through fresh
+   captured engines (with a fresh injector) with
+   ``check_divergence(...)["divergences"] == 0`` (sampled requests
+   included: port against port), the fault re-armed and the launches
+   equal. Recorded: tokens/s with all of it on and off (3 engines each,
+   in turns). Then one ``bench_serving --model small --workload ...
+   --gen-workload`` line, printed as it is.
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version, both engines eager
    (``_capture=False``: the per-call hold wraps ``pa._launch``, which a
@@ -285,6 +301,22 @@ exits non-zero:
    the same), the loss falls at least 1 nat and the last step within
    0.25 nat of ``train_fused_ce``'s; step ms, tokens/s, MFU and peak
    memory beside ``train_fused_ce``'s.
+   ``train_numerics`` — the ``train_fused_ce`` step with
+   ``skip_nonfinite=True`` and numerics off, ``"stats"`` and ``"watch"``
+   (one warm and two timed calls of K = 8 each, fresh models from seed
+   0): losses and parameters of ``stats`` and ``watch`` bit-identical to
+   off, ``tensor_health`` launched 0 / 1 / 3 times a step; the kernel on
+   the step's real float32 gradients and their bfloat16 copies against
+   its plain version (``nan``, ``inf``, ``zero_frac``, ``absmax`` exact,
+   ``sq_sum`` within 1e-5 relative; bit-identical across two launches),
+   timed beside the plain version, ``torch._foreach_norm`` at ord 2 and
+   inf (a partial yardstick) and the bound; a window whose step 3 has a
+   NaN loss ends bit-identical (parameters, AdamW moments and step
+   count) to the window without that step, with ``found_inf`` and a
+   ``first_nonfinite()`` naming a parameter; a poisoned single step
+   leaves the state bit-identical and a ``halt`` watchdog's bundle
+   passes ``numerics_check.validate_bundle``. Recorded: tokens/s, step
+   ms, the overhead against off and peak memory of each mode.
 10. ``train_parity_fused_ce`` — as ``train_parity`` with ``fused_ce=True``:
    through the kernels against the plain versions, and against
    ``fused_ce=False``, at the same tolerances.
@@ -2911,6 +2943,287 @@ def run_serve_telemetry_phase(model, want_tokens, want_launches):
     return out, launches
 
 
+JOURNAL_SLO_EVERY = 4      # steps between two SLO evaluations
+JOURNAL_FAULT_TICK = 5     # the step the bound injector arms its stall at
+
+
+def journal_run(model, reqs, name, kv_dtype="bf16", mixed=False, path=None,
+                observed=True, trip=False, pm_path=None):
+    """One fresh captured engine at serve's configuration (bf16 weights)
+    driving serve's requests as a journal schedule (every arrival at step
+    0, as ``serve_run`` adds them) through ``journal.replay``. With
+    ``observed``: the engine journals to ``path``, arms the watchdog,
+    binds a ``FaultInjector`` (a 0-second stall armed at step
+    ``JOURNAL_FAULT_TICK``: a recorded outside input that changes no
+    token) and an ``SLOEngine`` (a TTFT and a success objective) is
+    evaluated every ``JOURNAL_SLO_EVERY`` steps; with ``trip`` the
+    watchdog's ``prefix_hit`` baseline is seeded at 0.9 and a tracer
+    dumps to ``pm_path`` (the watchdog observing from step 0, a window
+    of 4 steps, 8 page lookups). Without ``observed`` the same drive, none of
+    it (tracing stays on, the default, in both). Checks: every request
+    finished with its tokens in range, the pool verifies, no capture
+    after the constructor. Returns (engine, tokens in request order,
+    ragged launches, tokens/s, slo reports, host seconds by component:
+    the SLO evaluations, the journal's event calls and the watchdog's
+    observations with the postmortem dumps its trips write, counted)."""
+    import torch
+    from paddle_tpu_torch.inference import FaultInjector
+    from paddle_tpu_torch.inference.graphs import COUNTERS
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import (MetricsRegistry, SLOEngine,
+                                                SLOSpec, Tracer)
+    from paddle_tpu_torch.observability import journal as jnl
+
+    cfg, params = model
+    kw = dict(SERVE_KW, weight_dtype="bf16", kv_dtype=kv_dtype,
+              registry=MetricsRegistry(), mixed_step=mixed)
+    if observed:
+        kw.update(journal=path, fault_injector=FaultInjector(),
+                  watchdog=dict(postmortem=True, interval_steps=4,
+                                min_samples=8) if trip else True)
+        if trip:
+            kw.update(tracer=Tracer("requests"), postmortem_path=pm_path)
+    eng = ServingEngine(cfg, params, device="cuda", **kw)
+    captures = eng.stats["graph_captures"]
+    slo, reports = None, []
+    if observed:
+        slo = SLOEngine([SLOSpec(name="serve", tenant="default",
+                                 ttft_p99_s=60.0, success_frac=0.9,
+                                 windows=(1.0, 10.0), min_count=2)],
+                        source=eng.metrics)
+        if trip:
+            eng.watchdog.seed_baseline("prefix_hit", 0.9)
+            # watch from step 0, so the first window holds the first
+            # admissions' page lookups
+            eng.watchdog.observe(eng)
+
+    host = {"slo_s": 0.0, "journal_s": 0.0, "watchdog_s": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[key] += time.perf_counter() - t
+        return call
+    if observed:
+        eng.journal.event = timed(eng.journal.event, "journal_s")
+        eng.watchdog.observe = timed(eng.watchdog.observe, "watchdog_s")
+        evaluate = timed(slo.evaluate, "slo_s")
+
+    def on_tick(k):
+        if slo is not None and k % JOURNAL_SLO_EVERY == 0:
+            reports.append(evaluate())
+        if observed and k == JOURNAL_FAULT_TICK:
+            eng.faults.inject("stall", seconds=0.0)
+
+    sched = jnl.schedule_from_stream(reqs, arrival_steps=0)
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    res = jnl.replay(sched, eng, on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c: getattr(mod, c) for mod, names in COUNTERS for c in names}
+    done = res.completions
+    if sorted(done) != list(range(len(reqs))):
+        raise AssertionError(f"{name}: not every request completed")
+    for u, r in enumerate(reqs):
+        c = done[u]
+        if c.finish_reason not in ("length", "eos") or not all(
+                0 <= t < cfg.vocab_size for t in c.tokens):
+            raise AssertionError(f"{name}: request {u} finished "
+                                 f"{c.finish_reason}")
+    eng.kv.verify()
+    if eng.stats["graph_captures"] != captures:
+        raise AssertionError(f"{name}: captured after the constructor")
+    launches = counts["quant_launches" if kv_dtype in SPLIT_CODES
+                      else "launches"]
+    if observed:
+        host["trips"] = len(eng.watchdog.trips)
+        host["dumps"] = sum(len(t["postmortems"])
+                            for t in eng.watchdog.trips)
+        host["wall_s"] = wall
+    return (eng, [done[u].tokens for u in range(len(reqs))], launches,
+            eng.stats["tokens_emitted"] / wall, reports, host)
+
+
+def journal_replay_check(model, path, name, kv_dtype, mixed, launches):
+    """A fresh captured engine (with a fresh injector, for the recorded
+    fault arm) driven by ``replay`` through the journal at ``path``:
+    ``check_divergence`` 0 on every axis (tokens, sampled streams too,
+    outcomes, ledger conservation, anatomy segments), the fault re-armed,
+    the ragged launches equal to the recording's, no capture after the
+    constructor. Returns the report's counts."""
+    import torch
+    from paddle_tpu_torch.inference import FaultInjector
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.observability import journal as jnl
+
+    cfg, params = model
+    eng = ServingEngine(cfg, params, device="cuda",
+                        **dict(SERVE_KW, weight_dtype="bf16",
+                               kv_dtype=kv_dtype, mixed_step=mixed,
+                               registry=MetricsRegistry(),
+                               fault_injector=FaultInjector()))
+    captures = eng.stats["graph_captures"]
+    pa.reset_launches()
+    res = jnl.replay(path, eng)
+    torch.cuda.synchronize()
+    got = pa.quant_launches if kv_dtype in SPLIT_CODES else pa.launches
+    rep = jnl.check_divergence(path, res)
+    if rep["divergences"] != 0 or res.skipped:
+        raise AssertionError(f"{name}: replay diverged: {rep['first']}, "
+                             f"skipped {res.skipped}")
+    if got != launches or eng.stats["graph_captures"] != captures:
+        raise AssertionError(f"{name}: replay launches {got} != "
+                             f"{launches}, or a capture after the "
+                             "constructor")
+    eng.kv.verify()
+    eng.close()
+    return {"requests": rep["requests"], "divergences": rep["divergences"],
+            "anatomy_requests": rep["anatomy"]["replayed"],
+            "kernel_launches": got}
+
+
+def run_serve_journal_phase(model, want_tokens, want_launches):
+    """``serve_journal``: serve's traffic on captured engines with the
+    journal, the watchdog, a bound ``FaultInjector`` and an ``SLOEngine``
+    evaluated every 4 steps (``journal_run``). Over bf16 pools per
+    phase: a first observed engine with its watchdog's ``prefix_hit``
+    baseline seeded at 0.9 (a trip forced: serve's pages rarely hit),
+    the trip held between steps with the flight-recorder dump it wrote
+    valid; then 3 observed engines and 3 without any of it, in turns,
+    tokens/s of each; every one's tokens and ragged launches equal to
+    ``serve``'s. The first one's journal, and
+    the journals of one observed engine per phase over int8 pools and
+    mixed over bf16 and int8 pools, replayed through fresh captured
+    engines with 0 divergences (``journal_replay_check``); the int8 one's
+    tokens and launches equal to ``serve_int8``'s. Then one ``python3 -m
+    paddle_tpu_torch.tools.bench_serving --model small --workload ...
+    --gen-workload`` line. Returns (the record, launches by pool kind in
+    the held runs)."""
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.observability import journal as jnl
+
+    cfg, _ = model
+    reqs = serve_traffic(cfg.vocab_size)
+    t0 = time.perf_counter()
+    out = {"phase": "serve_journal", "requests": len(reqs),
+           "repeats": SERVE_REPEATS}
+    launches = {"float": 0, "quant": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        name = "serve_journal bf16 trip"
+        path = os.path.join(tmp, "bf16_trip.jsonl")
+        pm = os.path.join(tmp, "pm_trip.json")
+        eng, toks, got, _, reports, trip_host = journal_run(
+            model, reqs, name, path=path, trip=True, pm_path=pm)
+        if toks != want_tokens["bf16"] or got != want_launches["bf16"]:
+            raise AssertionError(f"{name}: tokens or ragged launches "
+                                 f"({got}) differ from serve's "
+                                 f"({want_launches['bf16']})")
+        launches["float"] += got
+        trips = list(eng.watchdog.trips)
+        if not trips or trips[0]["kind"] != "prefix_hit" or \
+                pm not in trips[0]["postmortems"]:
+            raise AssertionError(f"{name}: no prefix_hit trip with its "
+                                 f"dump: {trips}")
+        with open(pm) as f:
+            dump = json.load(f)
+        if dump.get("format") != "paddle_tpu-flight-recorder-v1" or \
+                dump.get("reason") != "watchdog:prefix_hit":
+            raise AssertionError(f"{name}: trip dump {dump.get('format')} "
+                                 f"{dump.get('reason')}")
+        wd_spans = [t for t in eng._tracer.completed_traces()
+                    if t.root.name == "watchdog"]
+        eng.close()
+        kinds = [e["kind"] for e in jnl.read_journal(path)]
+        if kinds.count("submit") != len(reqs) or \
+                kinds.count("complete") != len(reqs) or \
+                kinds.count("fault") != 1 or kinds[-1] != "summary":
+            raise AssertionError(f"{name}: journal events {kinds}")
+        del eng
+        rec = {"watchdog_trips": [{k: v for k, v in t.items()
+                                   if k != "postmortems"} for t in trips],
+               "watchdog_spans": len(wd_spans),
+               "trip_dump_in_flight": len(dump["in_flight"]),
+               "slo_evaluations": len(reports),
+               "slo_last": reports[-1] if reports else None,
+               "journal_events": len(kinds), "kernel_launches": got,
+               "trip_run_host": trip_host}
+        rec["replay"] = journal_replay_check(
+            model, path, "serve_journal bf16 replay", "bf16", False, got)
+        launches["float"] += rec["replay"]["kernel_launches"]
+        # the observability's cost: observed and plain engines in turns
+        rates, hosts = {True: [], False: []}, []
+        for i in range(2 * SERVE_REPEATS):
+            observed = i % 2 == 0
+            name = f"serve_journal bf16 observed={observed}"
+            eng, toks, got, rate, _, host = journal_run(
+                model, reqs, name, observed=observed,
+                path=os.path.join(tmp, f"bf16_{i}.jsonl"))
+            if toks != want_tokens["bf16"] or got != want_launches["bf16"]:
+                raise AssertionError(f"{name}: tokens or ragged launches "
+                                     f"({got}) differ from serve's")
+            rates[observed].append(rate)
+            if observed:
+                hosts.append(host)
+            eng.close()
+            del eng
+        rec["observed_host"] = hosts
+        rec["tokens_per_s_observed"] = Ms(rates[True])
+        rec["tokens_per_s_off"] = Ms(rates[False])
+        rec["observed_vs_off"] = rec["tokens_per_s_observed"] / \
+            rec["tokens_per_s_off"]
+        out["bf16"] = rec
+        for kd, mixed in (("int8", False), ("bf16", True), ("int8", True)):
+            name = f"serve_journal {kd} mixed={mixed}"
+            path = os.path.join(tmp, f"{kd}_{mixed}.jsonl")
+            eng, toks, got, rate, _, _ = journal_run(model, reqs, name, kd,
+                                                     mixed, path)
+            if not mixed and (toks != want_tokens[kd]
+                              or got != want_launches[kd]):
+                raise AssertionError(f"{name}: tokens or launches differ "
+                                     "from serve_int8's")
+            eng.close()
+            key = "quant" if kd in SPLIT_CODES else "float"
+            launches[key] += got
+            r = journal_replay_check(model, path, f"{name} replay", kd,
+                                     mixed, got)
+            launches[key] += r["kernel_launches"]
+            out[f"{kd}{'_mixed' if mixed else ''}"] = {
+                "kernel_launches": got, "tokens_per_s": rate, "replay": r}
+            del eng
+            torch.cuda.empty_cache()
+        wl = os.path.join(tmp, "workload.jsonl")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.bench_serving",
+             "--model", "small", "--workload", wl, "--gen-workload",
+             "--requests", "16", "--max-new", "32"],
+            cwd=here, capture_output=True, text=True, timeout=300)
+    lines = [x for x in res.stdout.splitlines() if x.startswith("{")]
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_serving --workload: rc "
+                             f"{res.returncode}, {res.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    if not (line["value"] > 0 and line["requests"] == 16
+            and line["attribution_conserved"] == 1.0
+            and line["platform"] == "cuda"):
+        raise AssertionError(f"bench_serving --workload: {lines[0][:2000]}")
+    out["bench_serving"] = line
+    out["bench_serving_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    out["gpu"] = smi()
+    return out, launches
+
+
 def check_quant_pools(serve, q8, f8):
     """The reference's byte checks (tests/test_kv_quant.py:175-179,
     tests/test_quant_decode.py:252): an int8 pool under 0.56 of the bf16
@@ -3298,6 +3611,248 @@ def run_train_phase(kernel_ms, fused_ce=False, fce_ms=None, base=None,
                            for k, v in fce_launches.items()},
                         **{f"{k}_wgmma_tma": v for k, v in hopper.items()}}, \
         ids
+
+
+NUMERICS_MODES = (None, "stats", "watch")
+NUMERICS_POISON = 3       # the window step whose loss is made non-finite
+
+
+def scaled_bf16_loss(m, ids, labels, s):
+    """``bf16_loss`` times a per-step scale: a NaN scale poisons a step
+    (its loss and every gradient non-finite), 1 leaves it as it is."""
+    return bf16_loss(m, ids, labels) * s
+
+
+def numerics_step(cfg, mode, lr=6e-4):
+    """The ``train_fused_ce`` step (GPT-2 small from seed 0, AdamW with
+    weight decay 0.1 and the global-norm clip 1.0) with ``numerics=mode``
+    and ``skip_nonfinite=True``."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    opt = AdamW(lr, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
+    return model, TrainStep(model, scaled_bf16_loss, opt, device="cuda",
+                            numerics=mode, skip_nonfinite=True)
+
+
+def state_snapshot(step):
+    """The parameters and the AdamW state (moments, device step count) as
+    copies on the card."""
+    st = step._opt_state
+    return ([p.detach().clone() for p in step._params],
+            [t.clone() for t in st["mu"] + st["nu"]],
+            st["count"].clone())
+
+
+def state_equal(a, b):
+    import torch
+    return (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+            and torch.equal(a[2], b[2]))
+
+
+def time_tensor_health(grads):
+    """``tensor_health`` on ``grads`` against its plain version on the same
+    tensors (``nan``, ``inf``, ``zero_frac`` and ``absmax`` exact,
+    ``sq_sum`` within 1e-5 relative), bit-identical across two launches,
+    in float32 and as bfloat16 copies; then the float32 list timed: the
+    kernel, the plain version, and ``torch._foreach_norm`` at ord 2 and
+    at ord inf (two of the five statistics: no one PyTorch call computes
+    all five, so this is a partial yardstick), beside the bound (every
+    element read once at 3.35 TB/s)."""
+    import torch
+    from paddle_tpu_torch.kernels import tensor_health as th
+
+    out = {"tensors": len(grads),
+           "elements": sum(g.numel() for g in grads)}
+    abs_err = 0.0
+    for name, xs in (("float32", grads),
+                     ("bfloat16", [g.bfloat16() for g in grads])):
+        got = th.tensor_health(xs)
+        again = th.tensor_health(xs)
+        want = th.tensor_health_ref(xs)
+        torch.cuda.synchronize()
+        for k in th.STAT_NAMES:
+            if not torch.equal(got[k], again[k]):
+                raise AssertionError(f"tensor_health {name}: {k} differs "
+                                     "between two launches")
+            if k == "sq_sum":
+                err = ((got[k] - want[k]).abs()
+                       / want[k].abs().clamp(min=1e-30)).max().item()
+                if not err <= 1e-5:
+                    raise AssertionError(f"tensor_health {name}: sq_sum "
+                                         f"relative error {err}")
+                out[f"{name}_sq_sum_rel_err"] = err
+                abs_err = max(abs_err, (got[k] - want[k]).abs().max().item())
+            elif not torch.equal(got[k].float().nan_to_num(-1.0),
+                                 want[k].float().nan_to_num(-1.0)):
+                raise AssertionError(f"tensor_health {name}: {k} differs "
+                                     "from the plain version")
+        out[f"{name}_nonfinite"] = int(got["nan"].sum() + got["inf"].sum())
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    out["ms"] = cuda_ms(lambda i: th.tensor_health(grads), 8)
+    out["plain_ms"] = cuda_ms(lambda i: th.tensor_health_ref(grads), 4)
+    out["foreach_norm_ms"] = cuda_ms(
+        lambda i: (torch._foreach_norm(grads, 2),
+                   torch._foreach_norm(grads, float("inf"))), 8)
+    out["host_us"] = host_us(lambda i: th.tensor_health(grads), 8)
+    out["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    out["bytes"] = nbytes
+    out["max_abs_err"] = abs_err           # sq_sum's: the rest are exact
+    return out
+
+
+def run_train_numerics_phase(base):
+    """``train_numerics``: the ``train_fused_ce`` step with
+    ``skip_nonfinite=True`` and numerics off, ``"stats"`` and ``"watch"``,
+    each on a fresh model from seed 0 over the same batches (one warm and
+    two timed ``multi_step`` calls of K = 8). Held: the losses and the
+    parameters of ``stats`` and ``watch`` bit-identical to off;
+    ``tensor_health`` launched once a step under ``stats`` and three
+    times under ``watch``, never off; the kernel on the step's real
+    gradients against its plain version (``time_tensor_health``). Then a
+    window of K = 8 whose step ``NUMERICS_POISON`` has a NaN loss ends
+    with the parameters and AdamW state (moments and step count)
+    bit-identical to a window of the other 7 steps, its
+    ``numerics_view()`` holding ``found_inf`` and a ``first_nonfinite()``
+    that names a parameter of the model; a poisoned single step leaves
+    the state bit-identical across it, and a ``halt`` watchdog on its
+    view writes a bundle that ``numerics_check.validate_bundle`` passes.
+    Recorded: tokens/s and step ms of each mode, the overhead against
+    off, the launches a step, peak memory (the masked step keeps old
+    copies of the parameters and moments). Returns (the record, the
+    ``tensor_health`` reading and its launches in the timed runs)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import tensor_health as th
+    from paddle_tpu_torch.models.gpt import gpt2_small
+    from paddle_tpu_torch.observability import numerics as nmod
+    from paddle_tpu_torch.tools import numerics_check
+
+    t0 = time.perf_counter()
+    cfg = gpt2_small(dropout=0.0, recompute=True, fused_ce=True)
+    ids, labels = train_batch(cfg.vocab_size, TRAIN_B, TRAIN_S)
+    dev = torch.device("cuda")
+    sids = torch.as_tensor(ids, device=dev).expand(TRAIN_K, -1, -1)
+    slab = torch.as_tensor(labels, device=dev).expand(TRAIN_K, -1, -1)
+    ones = torch.ones(TRAIN_K, 1, device=dev)
+    out = {"phase": "train_numerics", "model": "gpt2_small",
+           "batch": TRAIN_B, "seq": TRAIN_S, "k": TRAIN_K,
+           "skip_nonfinite": True}
+    runs, launched = {}, 0
+    for mode in NUMERICS_MODES:
+        torch.cuda.empty_cache()
+        model, step = numerics_step(cfg, mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        curve = step.multi_step(sids, slab, ones).cpu().tolist()
+        th.reset_launches()
+        tt = time.perf_counter()
+        for _ in range(2):
+            curve += step.multi_step(sids, slab, ones).cpu().tolist()
+        wall = time.perf_counter() - tt
+        steps = 2 * TRAIN_K
+        per_step = th.launches / steps
+        launched += th.launches
+        if per_step != {None: 0, "stats": 1, "watch": 3}[mode]:
+            raise AssertionError(f"train_numerics {mode}: tensor_health "
+                                 f"launches {th.launches} in {steps} steps")
+        if not all(np.isfinite(curve)):
+            raise AssertionError(f"train_numerics {mode}: losses {curve}")
+        if mode is not None:
+            view = step.numerics_view()
+            if view.found_inf or view.first_nonfinite() is not None:
+                raise AssertionError(f"train_numerics {mode}: a clean "
+                                     "window reads non-finite")
+        key = mode or "off"
+        runs[key] = {"losses": curve,
+                     "params": [p.detach().clone() for p in step._params]}
+        out[key] = {"step_ms": wall / steps * 1e3,
+                    "tokens_per_s": TRAIN_B * TRAIN_S * steps / wall,
+                    "tensor_health_launches_per_step": per_step,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        if mode is None:
+            grads = [g.float() for g in step.grad_step(
+                sids[0], slab[0], ones[0])[1]]
+        del model, step
+    for mode in ("stats", "watch"):
+        same = runs[mode]["losses"] == runs["off"]["losses"] and all(
+            torch.equal(a, b) for a, b in zip(runs[mode]["params"],
+                                              runs["off"]["params"]))
+        if not same:
+            raise AssertionError(f"train_numerics {mode}: losses or "
+                                 "parameters differ from numerics off")
+        out[mode]["overhead_vs_off"] = \
+            1.0 - out[mode]["tokens_per_s"] / out["off"]["tokens_per_s"]
+    del runs
+    torch.cuda.empty_cache()
+    health = time_tensor_health(grads)
+    del grads
+    torch.cuda.empty_cache()
+    # the poisoned window against the window without the poisoned step
+    s = torch.ones(TRAIN_K, 1, device=dev)
+    s[NUMERICS_POISON] = float("nan")
+    model, step = numerics_step(cfg, "watch")
+    losses = step.multi_step(sids, slab, s).cpu()
+    view = step.numerics_view()
+    names = dict(model.named_parameters())
+    first = view.first_nonfinite()
+    if not (view.found_inf and first is not None and first[0] in names
+            and bool(torch.isnan(losses[NUMERICS_POISON]))):
+        raise AssertionError(f"train_numerics: poisoned window view "
+                             f"found_inf={view.found_inf} first={first}")
+    poisoned = state_snapshot(step)
+    # one poisoned step alone: the state bit-identical across it, and the
+    # halt watchdog's bundle on disk
+    step(sids[0], slab[0], s[NUMERICS_POISON:NUMERICS_POISON + 1])
+    if not state_equal(state_snapshot(step), poisoned):
+        raise AssertionError("train_numerics: a poisoned step moved the "
+                             "parameters or the AdamW state")
+    with tempfile.TemporaryDirectory() as tmp:
+        dog = nmod.watch(nmod.WatchPolicy(action="halt", dump_dir=tmp,
+                                          save_tensors=1))
+        try:
+            dog.check(step.numerics_view(step=TRAIN_K), step=TRAIN_K)
+            raise AssertionError("train_numerics: the halt watchdog did "
+                                 "not fire")
+        except nmod.NumericsAnomalyError as e:
+            problems = numerics_check.validate_bundle(e.bundle)
+            bundle = json.load(open(os.path.join(e.bundle,
+                                                 "bundle.json")))
+        if problems:
+            raise AssertionError(f"train_numerics: bundle {problems}")
+    del model, step
+    torch.cuda.empty_cache()
+    keep = [i for i in range(TRAIN_K) if i != NUMERICS_POISON]
+    model, step = numerics_step(cfg, "watch")
+    clean_losses = step.multi_step(sids[keep], slab[keep],
+                                   torch.ones(len(keep), 1, device=dev)).cpu()
+    if not state_equal(state_snapshot(step), poisoned):
+        raise AssertionError("train_numerics: the poisoned window's state "
+                             "differs from the window without that step")
+    if not torch.equal(clean_losses, losses[keep]):
+        raise AssertionError("train_numerics: the steps after the poisoned "
+                             "one lost their losses")
+    del model, step, poisoned
+    torch.cuda.empty_cache()
+    out.update({
+        "poisoned_step": NUMERICS_POISON,
+        "first_nonfinite": list(first),
+        "adamw_count_after_poisoned_window": TRAIN_K - 1,
+        "bundle_reason": bundle["reason"],
+        "bundle_first_nonfinite": bundle["health"]["first_nonfinite"],
+        "bundle_tensor_dumps": len(bundle["tensor_dumps"]),
+        "tensor_health": health,
+        "train_fused_ce_step_ms": base["step_ms"],
+        "train_fused_ce_peak_mem_bytes": base["peak_mem_bytes"],
+        "seconds": time.perf_counter() - t0, "gpu": smi()})
+    return out, health, launched
 
 
 PARITY_STEPS, PARITY_LR = 3, 6e-4
@@ -4033,6 +4588,12 @@ def main():
     bench_serving_line = tele.pop("bench_serving")
     emit(with_spreads(tele))
     emit(bench_serving_line)
+    jour, jour_launches = run_serve_journal_phase(
+        model, {"bf16": serve_tokens, "int8": int8_tokens},
+        {"bf16": launches, "int8": qlaunches["serve_int8"]})
+    workload_line = jour.pop("bench_serving")
+    emit(with_spreads(jour))
+    emit(workload_line)
     del model, logged
     torch.cuda.empty_cache()
     parity = run_parity_phase()
@@ -4058,6 +4619,9 @@ def main():
         base=fused)
     emit(fused_sharep)
     del model
+    torch.cuda.empty_cache()
+    numerics, health, health_launches = run_train_numerics_phase(fused)
+    emit(with_spreads(numerics))
     torch.cuda.empty_cache()
     emit(run_train_parity_phase())
     emit(run_train_parity_fused_ce_phase())
@@ -4097,7 +4661,8 @@ def main():
         "launches_split_kv": split_launches,
         "launches_by_phase": {"serve": launches,
                               "serve_spec": spec_launches_["float"],
-                              "serve_telemetry": tele_launches["bf16"]},
+                              "serve_telemetry": tele_launches["bf16"],
+                              "serve_journal": jour_launches["float"]},
         "cases": {n: kres[n]["bfloat16"]
                   for n in ("mixed", "prefill", "verify")}}]
     qdec = qres["decode"]["int8"]["bfloat16"]
@@ -4106,10 +4671,11 @@ def main():
         "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention_pallas.py:102",
         "launches": sum(qlaunches.values()) + spec_launches_["quant"]
-        + tele_launches["int8"],
+        + tele_launches["int8"] + jour_launches["quant"],
         "launches_by_phase": {**qlaunches,
                               "serve_spec": spec_launches_["quant"],
-                              "serve_telemetry": tele_launches["int8"]},
+                              "serve_telemetry": tele_launches["int8"],
+                              "serve_journal": jour_launches["quant"]},
         "max_abs_err": max(r["max_abs_err"] for case in qres.values()
                            for fmt in case.values() for r in fmt.values()),
         "max_rel_err": max(r["rel_err"] for case in qres.values()
@@ -4280,6 +4846,27 @@ def main():
                                    for n, case in pres.items()},
                 "library_bwd_ms": pt[kn]["library_bwd_ms"],
                 "bwd_pair": pt["bwd_pair"]})})
+    kernels.append({
+        "name": "tensor_health", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/tensor_health.cu",
+        "replaces": "paddle_tpu/observability/numerics.py:66",
+        "replaces_note": "no pallas_call: the reference's tensor_stats / "
+                         "stats_tree, which XLA fuses into its train step",
+        "launches": health_launches,
+        "max_abs_err": health["max_abs_err"],
+        "ms": health["ms"], "host_us": health["host_us"],
+        "plain_ms": health["plain_ms"],
+        "bound_ms": health["bound_ms"], "bound_by": health["bound_by"],
+        "library_ms": None,
+        "library_note": "no one PyTorch call computes the five "
+                        "statistics; torch._foreach_norm at ord 2 and "
+                        "inf (two of them) as a partial yardstick",
+        "partial_library_ms": health["foreach_norm_ms"],
+        "shape": f"GPT-2 small's {health['tensors']} float32 gradients, "
+                 f"{health['elements']} elements",
+        "source_kernel": "tensor_health_partial_kernel + "
+                         "tensor_health_reduce_kernel",
+        "launches_by_phase": {"train_numerics": health_launches}})
     emit({"phase": "seconds", "total": time.perf_counter() - t_start})
     emit({"kernels": with_spreads(kernels)})
     print(gpu, flush=True)

@@ -32,8 +32,9 @@ CUDA graph is captured for them):
   path as a real crash would.
 
 Arms are consumed as they fire (``count`` firings each); ``log`` records
-every fired fault. The reference's ``bind_journal`` (the fleet journal)
-is not ported.
+every fired fault. ``bind_journal`` (reference ``faults.py:103-134``)
+records every arm as a journal ``fault`` event on the recorder's step
+clock, so a replay re-arms it at the same step.
 """
 from __future__ import annotations
 
@@ -87,6 +88,19 @@ class FaultInjector:
     def __init__(self):
         self._arms = []
         self.log = []  # _Fired records, in firing order
+        self._journal = None
+        self._journal_step = None
+        self._journal_replica = None
+
+    def bind_journal(self, journal, step_fn=None, replica=None):
+        """Attach a journal writer: every later :meth:`inject` — the arm,
+        the outside input, not its firing — is recorded as a ``fault``
+        event stamped with ``step_fn()`` (the recorder's step clock) and
+        the owning replica's name. Chainable."""
+        self._journal = journal
+        self._journal_step = step_fn
+        self._journal_replica = replica
+        return self
 
     def inject(self, kind, uid=None, count=1, seconds=0.0):
         """Arm ``count`` firings of ``kind``, optionally targeting one
@@ -99,6 +113,17 @@ class FaultInjector:
             raise ValueError("count must be >= 1")
         self._arms.append(_Arm(kind, uid=uid, count=int(count),
                                seconds=float(seconds)))
+        if self._journal is not None:
+            try:
+                self._journal.event(
+                    "fault",
+                    step=int(self._journal_step())
+                    if self._journal_step is not None else 0,
+                    fault=kind, uid=uid, count=int(count),
+                    seconds=float(seconds),
+                    replica=self._journal_replica)
+            except Exception:
+                pass  # recording never breaks injection
         return self
 
     @property

@@ -117,8 +117,23 @@ adds no device sync to a step:
 - the latency anatomy (``anatomy_report()``) on the step clock;
 - ``step_log=``: one JSONL record a non-idle step.
 
-Not ported yet (the constructor raises NotImplementedError): meshes,
-the journal and the watchdog.
+The rest of the reference's observability (``serving.py:1608-1670``):
+
+- ``watchdog=`` (``True``, a dict of ``ServingWatchdog`` settings, or a
+  shared ``observability.slo.ServingWatchdog``): observed at the step
+  boundary of every step that did work, under the reference's condition
+  (``:3896-3903``): host arithmetic over the engine's counters and
+  ``kv.cache_stats``, no dispatch and no capture;
+- ``journal=`` (a path, owned and closed with the engine, or a shared
+  ``observability.journal.JournalWriter``): the ``config`` record
+  (:meth:`config_fingerprint`), one ``submit`` a request, one
+  ``complete`` a finished request (on the step it finished at, with its
+  anatomy segments), the ``summary`` at ``close()``, and the arms of a
+  bound ``FaultInjector``, all on the engine's step clock, so
+  ``observability.journal.replay`` drives a fresh engine (of either
+  package) through the same schedule.
+
+Not ported yet (the constructor raises NotImplementedError): meshes.
 """
 from __future__ import annotations
 
@@ -128,8 +143,9 @@ import hashlib
 import os
 import tempfile
 import time
+import weakref
 from collections import OrderedDict, deque
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from types import SimpleNamespace
 
 import numpy as np
@@ -145,8 +161,11 @@ from ..observability import tracing as _tracing
 from ..observability.anatomy import (SEGMENT_STEP_BUCKETS, SEGMENTS,
                                      AnatomyLedger, summarize)
 from ..observability.compile_tracker import CompileTracker
+from ..observability.journal import JournalWriter
+from ..observability.journal import _digest as _journal_digest
 from ..observability.ledger import ServingLedger
 from ..observability.registry import DEFAULT_BUCKETS, get_registry
+from ..observability.slo import ServingWatchdog
 from ..observability.step_logger import StepLogger
 from ..quantization.kv import (KV_QUANT_DTYPES, STORAGE, dequantize_per_page,
                                page_scale_shape, quantize_per_page)
@@ -376,7 +395,9 @@ class PagedKVCache:
         self._hash_to_page = {}    # digest -> page
         self._page_hash = {}       # page -> digest (registered pages)
         self._lru = OrderedDict()  # cache-only pages, oldest first
-        self.evictions = 0
+        # the reference's counters (serving.py:537); the watchdog's
+        # page_thrash reads the evictions
+        self.cache_stats = {"hits": 0, "misses": 0, "evictions": 0}
 
     # -- accounting ----------------------------------------------------------
     def pool_bytes(self):
@@ -428,7 +449,7 @@ class PagedKVCache:
         page, _ = self._lru.popitem(last=False)
         del self._hash_to_page[self._page_hash.pop(page)]
         self._free.append(page)
-        self.evictions += 1
+        self.cache_stats["evictions"] += 1
 
     def release(self, pages):
         """Decref each page; refcount 0 sends a registered page to the
@@ -1013,11 +1034,9 @@ class ServingEngine:
                  tracing=True, postmortem_path=None, logit_health=False,
                  peak_flops=None, peak_hbm_bytes_per_s=None,
                  _capture=True):
-        for name, val in (("mesh", mesh), ("journal", journal),
-                          ("watchdog", watchdog)):
-            if val is not None and val is not False:
-                raise NotImplementedError(
-                    f"{name}= is not ported to paddle_tpu_torch yet")
+        if mesh is not None and mesh is not False:
+            raise NotImplementedError(
+                "mesh= is not ported to paddle_tpu_torch yet")
         if weight_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"unknown weight_dtype {weight_dtype!r} "
                              "(None, 'bf16' or 'int8')")
@@ -1103,6 +1122,17 @@ class ServingEngine:
         elif weight_dtype == "int8":
             params = quantize_weights_int8(params)
         self.params = params
+        # the journal's weights identity (reference serving.py:1515-1522):
+        # blake2b of a strided sample of the raw embedding table as
+        # float32, so the same weights give the same digest in both
+        # packages
+        wte = raw_params["wte"]
+        sample = wte[::max(1, wte.shape[0] // 16),
+                     ::max(1, wte.shape[1] // 8)]
+        self._weights_digest = hashlib.blake2b(
+            np.ascontiguousarray(sample.detach().float().cpu().numpy(),
+                                 np.float32).tobytes(),
+            digest_size=8).hexdigest()
         self.logit_health = bool(logit_health)
         core = make_layer_core(cfg)
         self.kv = PagedKVCache(
@@ -1172,6 +1202,17 @@ class ServingEngine:
         self._init_telemetry(registry, step_log, raw_params,
                              peak_flops, peak_hbm_bytes_per_s)
         self._init_tracing(tracer, tracing, postmortem_path)
+        # the serving watchdog (reference serving.py:1608-1625): True
+        # builds the default, a dict parameterizes it, an instance is
+        # shared
+        self.watchdog = None
+        if watchdog:
+            if isinstance(watchdog, ServingWatchdog):
+                self.watchdog = watchdog
+            else:
+                kw = dict(watchdog) if isinstance(watchdog, dict) else {}
+                self.watchdog = ServingWatchdog(
+                    registry=self.metrics, tracer=self._tracer, **kw)
         # speculative decoding (reference serving.py:1623): the draft's
         # pool, weights and programs, riding this engine's page numbers
         self.spec = SpecState(self, speculative, int(draft_k),
@@ -1186,6 +1227,99 @@ class ServingEngine:
         t0 = time.perf_counter()
         self._progs = self._build_programs(_capture)
         self.capture_seconds = time.perf_counter() - t0
+        # the journal (reference serving.py:1644-1670): a writer is
+        # shared, a path is owned (closed with the engine); events ride
+        # the step clock self._steps
+        self._owns_journal = False
+        if journal is not None and not hasattr(journal, "event"):
+            journal = JournalWriter(
+                str(journal), name=f"engine{self.engine_id}-journal",
+                registry=self.metrics,
+                meta={"recorder": "ServingEngine",
+                      "engine": self.engine_id})
+            self._owns_journal = True
+        self.journal = journal
+        if journal is not None:
+            self._journal_event("config", replica=f"e{self.engine_id}",
+                                step=0,
+                                fingerprint=self.config_fingerprint())
+            if self.faults is not None and \
+                    hasattr(self.faults, "bind_journal"):
+                # a weak reference: the injector must not keep a dead
+                # engine (and its graphs) alive in a cycle (C17)
+                me = weakref.ref(self)
+                self.faults.bind_journal(journal, lambda: me()._steps,
+                                         f"e{self.engine_id}")
+
+    # -- the journal ---------------------------------------------------------
+    def _journal_event(self, kind, **fields):
+        """Recording never breaks serving, as with traces."""
+        if self.journal is None:
+            return
+        try:
+            self.journal.event(kind, **fields)
+        except Exception:
+            pass
+
+    # the MoE levers of the reference's GPTConfig, which the port does not
+    # have (GPTConfig(num_experts>0) raises): their defaults, so the
+    # fingerprint's model record is the reference's key for key
+    _MOE_DEFAULTS = {"moe_top_k": 2, "moe_every": 2, "moe_aux_weight": 0.01}
+
+    def config_fingerprint(self):
+        """The engine-identity record the journal stores (reference
+        ``config_fingerprint``, ``serving.py:1721``): the model config,
+        every scheduling and quantization lever, and a weights digest,
+        plus a stable hash of the whole record. Key for key the
+        reference's; ``attention`` names the port's implementation
+        (``auto`` / ``torch``, the reference's ``jax`` / ``pallas``), so
+        the hashes of the two packages' engines differ."""
+        model = {**self._MOE_DEFAULTS, **asdict(self.cfg)}
+        fp = {
+            "model": model,
+            "num_slots": self.num_slots,
+            "page_size": self.page_size,
+            "num_pages": int(self.kv.num_pages),
+            "max_seq_len": self.max_seq_len,
+            "prefill_chunk": self.prefill_chunk,
+            "prefill_chunks_per_step": self.prefill_chunks_per_step,
+            "mixed_step": self.mixed_step,
+            "admit_lookahead": self.admit_lookahead,
+            "attention": self.attention,
+            "decode_block": self.decode_block,
+            "decode_block_buckets": list(self.decode_block_buckets),
+            "kv_dtype": self.kv_dtype,
+            "weight_dtype": self.weight_dtype,
+            "collective_dtype": "f32",
+            "chips": 1,
+            "max_queue": self.max_queue,
+            "shed_policy": self.shed_policy,
+            "preemption": self.preemption,
+            "prefix_cache": bool(self.kv.prefix_cache),
+            "speculative": self.spec is not None,
+            "weights_digest": self._weights_digest,
+        }
+        fp["fingerprint"] = _journal_digest(fp)
+        return fp
+
+    def _trace_id_of(self, uid):
+        """A queued request's trace id ("" with tracing off)."""
+        req = self._pending.find_uid(uid)
+        return req.trace_id if req is not None else ""
+
+    def _journal_complete(self, c):
+        """The ``complete`` event, on the step the request finished at
+        (the anatomy record's), with its segments: the replay identity
+        payload."""
+        eid = f"e{self.engine_id}"
+        fin = self.anatomy.record_of(c.uid)
+        self._journal_event(
+            "complete", uid=c.uid,
+            step=fin["finish_step"] if fin else self._steps,
+            tokens=[int(t) for t in c.tokens],
+            finish_reason=c.finish_reason, replica=eid, migrations=0,
+            ttft_s=c.ttft_s, trace_id=f"{eid}:req{c.uid}",
+            segments=self.anatomy.sequence_of(c.uid))
 
     def _idle_host(self, key):
         """Host inputs of program ``key`` at the idle state — block tables
@@ -1702,14 +1836,29 @@ class ServingEngine:
         if deadline_s is not None and float(deadline_s) < 0:
             raise ValueError("deadline_s must be >= 0 (or None)")
         self._check_fits(prompt, int(max_new_tokens))
-        return self._enqueue(
+        tenant = str(tenant) if tenant else "default"
+        uid = self._enqueue(
             prompt, int(priority), trace_ctx=trace_ctx,
             max_new_tokens=int(max_new_tokens),
             temperature=float(temperature),
             eos_id=-1 if eos_id is None else int(eos_id), seed=int(seed),
             t_arrival=time.perf_counter(),
             deadline_s=None if deadline_s is None else float(deadline_s),
-            tenant=str(tenant) if tenant else "default")
+            tenant=tenant)
+        # the journal's arrival (reference serving.py:2307), on the step
+        # clock: it lands before step self._steps + 1
+        if self.journal is not None:
+            self._journal_event(
+                "submit", uid=uid, step=self._steps,
+                prompt=[int(t) for t in prompt],
+                max_new_tokens=int(max_new_tokens),
+                temperature=float(temperature),
+                eos_id=None if eos_id is None else int(eos_id),
+                seed=int(seed), priority=int(priority),
+                deadline_s=None if deadline_s is None
+                else float(deadline_s),
+                tenant=tenant, trace_id=self._trace_id_of(uid))
+        return uid
 
     def _shed_for(self, incoming_priority):
         """The queue is at ``max_queue``: shed one queued victim for an
@@ -2934,11 +3083,15 @@ class ServingEngine:
         page released, the pool verifiable — and then propagates."""
         self._steps += 1
         try:
-            return self._step()
+            comps = self._step()
         except Exception:
             self._dump_postmortem("exception")
             self._teardown_all("error")
             raise
+        if self.journal is not None:
+            for c in comps:
+                self._journal_complete(c)
+        return comps
 
     def _step(self):
         """The reference's ``_step`` order (``serving.py:3759``): the
@@ -3045,6 +3198,10 @@ class ServingEngine:
         decoded = k_block > 0
         if decoded or emitted or finished or chunks_ran:
             self.ledger.on_step(dt)
+            # the watchdog rides the step boundary (idle polls skipped,
+            # the ledger's rule): host arithmetic over counter deltas
+            if self.watchdog is not None:
+                self.watchdog.observe(self)
         if self._step_logger is not None and (
                 decoded or emitted or finished):
             self._log_seq += 1
@@ -3079,6 +3236,16 @@ class ServingEngine:
         for c in aborted.values():
             self.ledger.finish_request(c.uid, c.finish_reason,
                                        ttft_s=c.ttft_s)
+        if self.journal is not None:
+            for c in aborted.values():
+                self._journal_complete(c)
+            try:
+                cons = {f"e{self.engine_id}": bool(
+                    self.ledger.attribution_check()["conserved"])}
+            except Exception:
+                cons = {}
+            self._journal_event("summary", step=self._steps,
+                                stats=dict(self.stats), conserved=cons)
         self._closed = True
         self._dump_postmortem("close")
         if self._pm_handle is not None:
@@ -3100,6 +3267,14 @@ class ServingEngine:
         self._compiles.remove_series()
         self.ledger.close()
         self.anatomy.close()
+        if self.journal is not None:
+            try:
+                if self._owns_journal:
+                    self.journal.close()
+                else:
+                    self.journal.flush()
+            except Exception:
+                pass
         return aborted
 
     @property

@@ -29,7 +29,8 @@ __all__ = ["SOURCES", "find_nvcc", "build_all", "load", "launch_context"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_attention", "flash_attention", "fused_ce", "packed_flash")
+SOURCES = ("paged_attention", "flash_attention", "fused_ce", "packed_flash",
+           "tensor_health")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

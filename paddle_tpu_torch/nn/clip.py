@@ -24,7 +24,15 @@ class ClipGradByGlobalNorm:
     def clip(self, grads):
         """The list of gradients, scaled to a global norm of at most
         ``clip_norm``."""
-        sq = torch.stack([g.float().square().sum() for g in grads])
-        gnorm = sq.sum().sqrt()
+        return self.clip_and_norm(grads)[0]
+
+    def clip_and_norm(self, grads):
+        """``(clipped, gnorm, sq_sums)``: the clipped gradients, the
+        global norm and the per-tensor sums of squares it was taken from
+        (0-d float32 tensors), which the numerics pass reuses as the
+        reference's ``_clip_and_norm`` shares them
+        (``paddle_tpu/parallel/api.py:254-299``)."""
+        sqs = [g.float().square().sum() for g in grads]
+        gnorm = torch.stack(sqs).sum().sqrt()
         scale = self.clip_norm / torch.clamp(gnorm, min=self.clip_norm)
-        return [(g.float() * scale).to(g.dtype) for g in grads]
+        return [(g.float() * scale).to(g.dtype) for g in grads], gnorm, sqs

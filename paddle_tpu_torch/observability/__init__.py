@@ -20,13 +20,21 @@ counterpart of ``paddle_tpu/observability`` (its serving half):
 - :mod:`anatomy` — latency anatomy: every live request's every step in
   exactly one segment, the segments summing exactly to
   admission→finish.
+- :mod:`slo` — per-tenant SLO burn rates (``SLOEngine``, ``SLOSpec``)
+  and the serving watchdog (``ServingWatchdog``).
+- :mod:`journal` — the serving journal: crash-safe recording, replay
+  through a fresh engine, the divergence checker and the workload
+  generator.
+- :mod:`numerics` — training numerics: the TensorHealth pass of
+  ``TrainStep(numerics=...)``, its host view and the anomaly watchdog
+  with its postmortem bundle.
 
-Instrumented call sites: ``inference/serving.py`` and
-``inference/speculative.py``. The host-span profiler
-(``paddle_tpu_torch.profiler``) can feed spans into a registry histogram
-via ``profiler.feed_registry(...)``. The reference's SLO engine and
-watchdog, fleet journal, training numerics and cross-process aggregation
-are not ported yet.
+Instrumented call sites: ``inference/serving.py``,
+``inference/speculative.py``, ``inference/faults.py`` (the journal's
+fault arms) and ``parallel/api.py`` (the numerics pass). The host-span
+profiler (``paddle_tpu_torch.profiler``) can feed spans into a registry
+histogram via ``profiler.feed_registry(...)``. Cross-process aggregation
+(``aggregate.py``) is not ported yet.
 """
 from .registry import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, get_registry,
@@ -53,6 +61,19 @@ from .anatomy import (  # noqa: F401
     exemplars,
 )
 from . import anatomy  # noqa: F401
+from .slo import SLOEngine, SLOSpec, ServingWatchdog, WATCHDOG_KINDS  # noqa: F401
+from . import slo  # noqa: F401
+from .journal import (  # noqa: F401
+    JOURNAL_FORMAT, JournalError, JournalReader, JournalWriter,
+    check_divergence, generate_workload, read_journal, replay,
+    write_workload,
+)
+from . import journal  # noqa: F401
+from .numerics import (  # noqa: F401
+    NUMERICS_BUNDLE_FORMAT, NumericsAnomalyError, TensorHealth,
+    WatchPolicy, AnomalyWatchdog, watch,
+)
+from . import numerics  # noqa: F401
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
@@ -67,4 +88,10 @@ __all__ = [
     "SEGMENTS", "ROUTER_SEGMENTS", "SEGMENT_STEP_BUCKETS",
     "AnatomyLedger", "RouterAnatomy", "segment_totals", "summarize",
     "records_from_journal", "exemplars", "anatomy",
+    "SLOEngine", "SLOSpec", "ServingWatchdog", "WATCHDOG_KINDS", "slo",
+    "JOURNAL_FORMAT", "JournalError", "JournalReader", "JournalWriter",
+    "check_divergence", "generate_workload", "read_journal", "replay",
+    "write_workload", "journal",
+    "NUMERICS_BUNDLE_FORMAT", "NumericsAnomalyError", "TensorHealth",
+    "WatchPolicy", "AnomalyWatchdog", "watch", "numerics",
 ]

@@ -72,35 +72,70 @@ class AdamW(Optimizer):
         self._apply_decay_param_fun = apply_decay_param_fun
         self._lr_ratio = lr_ratio
 
-    def init_state(self, params):
+    def init_state(self, params, device_count=False):
         """Zero moments (float32, beside each parameter) and a zero step
-        count."""
-        return {"count": 0,
+        count: a Python int, or with ``device_count`` a 0-d int64 tensor
+        on the parameters' device (a step that may be rejected on the
+        device must not count, and the host cannot know without a
+        sync)."""
+        count = 0
+        if device_count:
+            count = torch.zeros((), dtype=torch.int64,
+                                device=params[0].device)
+        return {"count": count,
                 "mu": [torch.zeros_like(p, dtype=torch.float32)
                        for p in params],
                 "nu": [torch.zeros_like(p, dtype=torch.float32)
                        for p in params]}
 
+    def _bias_corrections(self, count):
+        """``(1 - b1**count, 1 - b2**count)`` as 0-d float32 tensors for a
+        device ``count``: a gather from a table of the host's values
+        (the same float32 numbers as the host-count path), grown through
+        pinned memory, so nothing waits for the card. The table covers
+        every update made with a device count so far."""
+        self._device_updates = getattr(self, "_device_updates", 0) + 1
+        tab = getattr(self, "_bc_table", None)
+        if tab is None or tab.device != count.device \
+                or tab.shape[1] <= self._device_updates:
+            n = max(64, 2 * self._device_updates)
+            host = torch.tensor([[1.0 - self._beta1 ** t for t in range(n)],
+                                 [1.0 - self._beta2 ** t for t in range(n)]],
+                                dtype=torch.float32)
+            if count.device.type == "cuda":
+                host = host.pin_memory()
+            tab = self._bc_table = host.to(count.device, non_blocking=True)
+        bc = torch.index_select(tab, 1, count.reshape(1))
+        return bc[0, 0], bc[1, 0]
+
     @torch.no_grad()
     def update(self, params, grads, state, lr):
         """One ``optax.adamw`` step at learning rate ``lr``, in place on
-        ``params`` and ``state`` (float32 parameters and gradients)."""
+        ``params`` and ``state`` (float32 parameters and gradients).
+        Returns the step's direction ``u + weight_decay * p`` (the
+        parameters moved by ``-lr`` times it: optax's update)."""
         b1, b2, eps, wd = self._beta1, self._beta2, self._epsilon, self._wd
         mu, nu = state["mu"], state["nu"]
-        state["count"] += 1
-        t = state["count"]
+        if isinstance(state["count"], torch.Tensor):
+            state["count"] = state["count"] + 1
+            bc1, bc2 = self._bias_corrections(state["count"])
+        else:
+            state["count"] += 1
+            t = state["count"]
+            bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-        mu_hat = torch._foreach_div(mu, 1.0 - b1 ** t)
-        den = torch._foreach_div(nu, 1.0 - b2 ** t)
+        mu_hat = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
         upd = torch._foreach_div(mu_hat, den)
         if wd:
             torch._foreach_add_(upd, params, alpha=wd)
         torch._foreach_add_(params, upd, alpha=-float(lr))
+        return upd
 
 
 class Momentum(Optimizer):
@@ -113,15 +148,17 @@ class Momentum(Optimizer):
         self._wd = float(getattr(weight_decay, "coeff", weight_decay) or 0.0)
         self._rescale_grad = float(rescale_grad)
 
-    def init_state(self, params):
-        """A zero trace (float32, beside each parameter)."""
+    def init_state(self, params, device_count=False):
+        """A zero trace (float32, beside each parameter); ``optax.sgd``
+        keeps no step count, so ``device_count`` changes nothing."""
         return {"trace": [torch.zeros_like(p, dtype=torch.float32)
                           for p in params]}
 
     @torch.no_grad()
     def update(self, params, grads, state, lr):
         """One ``optax.sgd`` momentum step at learning rate ``lr``, in
-        place on ``params`` and ``state``."""
+        place on ``params`` and ``state``. Returns the step's direction
+        (the parameters moved by ``-lr`` times it)."""
         mu, trace = self._momentum, state["trace"]
         torch._foreach_mul_(trace, mu)
         torch._foreach_add_(trace, grads)
@@ -129,3 +166,4 @@ class Momentum(Optimizer):
         if self._use_nesterov:
             upd = torch._foreach_add(grads, trace, alpha=mu)
         torch._foreach_add_(params, upd, alpha=-float(lr))
+        return upd

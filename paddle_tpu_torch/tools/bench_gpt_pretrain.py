@@ -5,6 +5,7 @@
     python3 -m paddle_tpu_torch.tools.bench_gpt_pretrain [--batch B]
         [--seq S] [--k K] [--sweep] [--recompute | --no-recompute]
         [--ce-chunk N] [--fused-ce] [--bf16-residual | --f32-residual]
+        [--numerics off|stats|watch]
 
 Run from the repository root. Measures tokens a second for the full
 pretraining step (O1 bf16 autocast, flash attention, AdamW 6e-4 with
@@ -17,9 +18,15 @@ are the reference's (``:33-35``): 6 x the matmul parameters
 causal attention. ``--fused-ce`` is the reference's flagship
 configuration: the head and the cross entropy in the fused-CE kernels.
 
+``--numerics stats|watch`` runs the step with ``TrainStep``'s numerics
+pass (``stats``: the gradients' TensorHealth, one ``tensor_health``
+launch a step; ``watch``: gradients, parameters and updates, three) and
+then the same configuration with it off, and adds the reference's
+``numerics``, ``tokens_per_sec_numerics_off`` and
+``numerics_overhead_pct`` (``:165-177``).
+
 Prints one JSON line (one a batch with ``--sweep``) with the card's
-``nvidia-smi`` name and power limit. Not ported: ``--numerics`` other
-than ``off`` (the training numerics pass) raises, there is no mesh (one
+``nvidia-smi`` name and power limit. Not ported: there is no mesh (one
 device), and the reference's ``vs_baseline`` (relative to a target set
 for a TPU) is dropped. Needs a CUDA device; exits non-zero without one.
 """
@@ -47,10 +54,9 @@ def run(batch: int, seq: int, k: int = 8, reps: int = 3,
         numerics: str = "off"):
     """``(tokens_per_s, mfu, last_loss)`` of the step, on the current CUDA
     device (``resolve_device``: raises without one)."""
-    if numerics != "off":
-        raise NotImplementedError(
-            "bench_gpt_pretrain: --numerics is not ported to "
-            "paddle_tpu_torch yet")
+    if numerics not in ("off", "stats", "watch"):
+        raise ValueError(f"numerics must be off|stats|watch, got "
+                         f"{numerics!r}")
     import torch
 
     from .. import amp
@@ -69,7 +75,8 @@ def run(batch: int, seq: int, k: int = 8, reps: int = 3,
             return m.loss(ids, labels)
 
     step = TrainStep(model, loss_fn, AdamW(6e-4, weight_decay=0.1),
-                     device=dev)
+                     device=dev,
+                     numerics=None if numerics == "off" else numerics)
     rng = np.random.RandomState(0)
     ids = rng.randint(0, cfg.vocab_size, (k, batch, seq)).astype(np.int64)
     idt = torch.as_tensor(ids, device=dev)
@@ -118,7 +125,10 @@ def main():
     ap.add_argument("--k", type=int, default=8,
                     help="steps a multi_step call")
     ap.add_argument("--numerics", choices=("off", "stats", "watch"),
-                    default="off", help="only 'off' is ported")
+                    default="off",
+                    help="the TensorHealth pass: 'stats' the gradients, "
+                         "'watch' gradients, parameters and updates; the "
+                         "line adds the overhead against an off run")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -143,9 +153,17 @@ def main():
                   flush=True)
             torch.cuda.empty_cache()
         return 0
-    print(json.dumps(record(args.batch, args.seq, *run(args.batch, args.seq,
-                                                        **kw), **kw)),
-          flush=True)
+    tok, mfu, loss = run(args.batch, args.seq, **kw)
+    rec = record(args.batch, args.seq, tok, mfu, loss, **kw)
+    if args.numerics != "off":
+        # the same configuration with the pass off, measured second
+        tok_off, _, _ = run(args.batch, args.seq, **dict(kw, numerics="off"))
+        rec["numerics"] = args.numerics
+        rec["tokens_per_sec_numerics_off"] = round(tok_off, 1)
+        rec["numerics_overhead_pct"] = round(
+            100.0 * (1.0 - tok / tok_off), 2) if tok_off > 0 \
+            else None
+    print(json.dumps(rec), flush=True)
     return 0
 
 

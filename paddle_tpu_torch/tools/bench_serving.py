@@ -29,16 +29,26 @@ baseline; ``--speculative`` sweeps ``--draft-k`` against per-token and
 adaptive-block baselines; ``--tenants A:0.6,B:0.4`` labels requests with
 tenants and adds the per-tenant cost columns.
 
-Not ported (the flag exits non-zero): the fleet router (``--fleet``,
-``--kill-replica``, ``--route``, ``--prefix-groups``), the fleet journal
-and its workloads (``--journal``, ``--workload``, ``--gen-workload``,
-``--autoscale``), meshes (``--mesh``, ``--kv-shard``,
-``--collective-dtype``) and the target's synthetic pre-training
-(``--spec-train-steps``): the speculative legs run on the random-weight
-target, so their acceptance rate measures the mechanism, not a trained
-draft. The reference's SLO and watchdog columns (``slo``,
-``slo_alerts``, ``watchdog_trips_total``, ``slo_alerts_total``) read
-null, the mesh columns their one-card values.
+Observability, as the reference's: the default stream runs with the
+serving watchdog armed and an ``SLOEngine`` (a TTFT objective a tenant)
+evaluated every 8 steps (``watchdog_trips_total``, ``slo_alerts_total``);
+the ``--overload`` replay paces its arrivals as a journal schedule
+(``observability.journal.replay``), and its resilient leg runs with the
+watchdog armed and the two-tier SLO engine (gold and bulk: TTFT p99 at
+twice the uncontended high tier's, success 0.9) evaluated every 4 steps
+(``slo``, ``slo_alerts``, ``watchdog_trips_total``); ``--journal PATH``
+records that leg. ``--workload FILE`` replays a workload journal (seed-
+recipe prompts, diurnal and burst arrivals) through one fresh engine
+and prints the ``workload_replay`` line; ``--gen-workload`` writes the
+file first, byte-reproducible from ``--seed``.
+
+Not ported (the flag exits non-zero): the fleet router and its journal
+legs (``--fleet``, ``--kill-replica``, ``--route``, ``--autoscale``),
+meshes (``--mesh``, ``--kv-shard``, ``--collective-dtype``) and the
+target's synthetic pre-training (``--spec-train-steps``): the
+speculative legs run on the random-weight target, so their acceptance
+rate measures the mechanism, not a trained draft. The mesh columns read
+their one-card values.
 """
 from __future__ import annotations
 
@@ -51,8 +61,7 @@ import time
 
 import numpy as np
 
-NOT_PORTED = ("--fleet", "--kill-replica", "--route", "--prefix-groups",
-              "--journal", "--workload", "--gen-workload", "--autoscale",
+NOT_PORTED = ("--fleet", "--kill-replica", "--route", "--autoscale",
               "--mesh", "--kv-shard", "--collective-dtype",
               "--spec-train-steps")
 
@@ -115,6 +124,17 @@ def _parser():
     ap.add_argument("--tenants", default=None,
                     help="name:weight,... tenant mix (own rng: the token "
                          "stream is unchanged)")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="record the --overload resilient leg (or the "
+                         "--workload replay) to this journal file")
+    ap.add_argument("--workload", default=None, metavar="FILE",
+                    help="replay a workload journal through one fresh "
+                         "engine and print the workload_replay line")
+    ap.add_argument("--gen-workload", action="store_true",
+                    help="(re)generate the --workload FILE from --seed "
+                         "and --requests first (byte-reproducible)")
+    ap.add_argument("--prefix-groups", type=int, default=4,
+                    help="shared-prefix groups of a generated workload")
     return ap
 
 
@@ -138,6 +158,12 @@ def _pcts(vals):
     return {"p50_ms": round(float(np.percentile(a, 50)), 3),
             "p99_ms": round(float(np.percentile(a, 99)), 3),
             "n": len(vals)}
+
+
+def _family_sum(snapshot, name):
+    """The sum of a counter family's series in a snapshot."""
+    return sum(s["value"] for s in
+               (snapshot.get(name) or {"series": []})["series"])
 
 
 def _q_ms(hist, q):
@@ -316,11 +342,27 @@ class Bench:
         copy-on-write path), the registry reset, then the measured
         stream; with ``--steady-decode`` admission and prefill run
         outside the clock."""
+        from ..observability import SLOEngine, SLOSpec
         a = self.args
+        # the watchdog and the SLO evaluation ride the measured replay,
+        # as the reference's drive
         engine = self.engine(prefix_cache=prefix_cache,
                              decode_block=decode_block, kv_dtype=kv_dtype,
-                             weight_dtype=weight_dtype, logit_health=True)
+                             weight_dtype=weight_dtype, logit_health=True,
+                             watchdog=True)
         registry = engine.metrics
+        slo = SLOEngine(
+            [SLOSpec(name=f"bench-{t}", tenant=t, ttft_p99_s=60.0,
+                     windows=(1.0, 10.0))
+             for t in (self.tenant_names or ["default"])],
+            source=registry)
+        slo_tick = [0]
+
+        def step():
+            engine.step()
+            slo_tick[0] += 1
+            if slo_tick[0] % 8 == 0:
+                slo.evaluate()
         warm = self.make_stream(a.warmup_requests, with_prefix=False)
         for prompt, nnew in warm:
             engine.add_request(prompt, nnew)
@@ -335,7 +377,7 @@ class Bench:
             engine.add_request(prompt, nnew, tenant=self.draw_tenant())
         if a.steady_decode:
             while engine._pending or engine._prefilling:
-                engine.step()
+                step()
             registry.reset()
         toks0 = engine.stats["tokens_emitted"]
         dispatches0 = engine.stats["decode_blocks"]
@@ -343,7 +385,7 @@ class Bench:
         self.sync()
         t_start = time.perf_counter()
         while engine.has_work:
-            engine.step()
+            step()
         self.sync()
         wall = time.perf_counter() - t_start
         lat = registry.get("serving_token_latency_seconds")
@@ -359,8 +401,10 @@ class Bench:
                 1.0 if engine.ledger.attribution_check()["conserved"]
                 else 0.0,
             "tenants": tenant_fields(engine.ledger, wall),
-            "watchdog_trips_total": None,
-            "slo_alerts_total": None,
+            "watchdog_trips_total": int(_family_sum(
+                snapshot, "serving_watchdog_trips_total")),
+            "slo_alerts_total": int(_family_sum(
+                snapshot, "serving_slo_alerts_total")),
             "prefill_compiles": counts["prefill_chunk"],
             "weight_bytes_per_step": int(l1["weight_bytes_per_step"]),
             "decode_hbm_bytes_per_token": round(
@@ -582,11 +626,15 @@ class Bench:
     def run_overload(self):
         """The oversubscribed two-tier replay (reference
         ``run_overload``): paced arrivals (one every
-        ``--arrival-steps`` engine steps) through (a) the high tier
+        ``--arrival-steps`` engine steps, a journal schedule driven by
+        ``observability.journal.replay``) through (a) the high tier
         alone, (b) a resilient engine (priorities, a bounded queue with
-        the shed policy, preemption, a pool too small for every slot)
-        and (c) a FIFO baseline on the same pool."""
-        from ..inference import QueueFullError
+        the shed policy, preemption, a pool too small for every slot;
+        the watchdog armed, the two-tier SLO engine evaluated every 4
+        steps, and ``--journal`` recording it) and (c) a FIFO baseline on
+        the same pool."""
+        from .. import observability as obs
+        from ..observability import journal as jnl
         a = self.args
         pages_per_slot = self.max_seq_len // a.page_size
         tight_pages = a.slots * pages_per_slot * 3 // 4 + 1
@@ -597,30 +645,46 @@ class Bench:
         stream = [(p, n, t) for (p, n), t in
                   zip(self.make_stream(a.requests), tiers)]
 
-        def replay(resilient, bounded=True, admit_tier=None):
+        def replay(resilient, bounded=True, admit_tier=None,
+                   with_slo=None, record=None):
             engine = self.engine(
                 num_pages=tight_pages,
                 max_queue=max_queue if (resilient and bounded) else None,
-                shed_policy=a.shed_policy, preemption=resilient)
+                shed_policy=a.shed_policy, preemption=resilient,
+                journal=record, watchdog=with_slo is not None)
+            slo = None
+            if with_slo is not None:
+                # the objective: twice the uncontended high tier's p99
+                slo = obs.SLOEngine(
+                    [obs.SLOSpec(name=f"overload-{t}", tenant=t,
+                                 ttft_p99_s=with_slo, success_frac=0.9,
+                                 windows=(0.5, 5.0), min_count=2)
+                     for t in ("gold", "bulk")], source=engine.metrics)
             for p, n in self.make_stream(a.warmup_requests):
                 engine.add_request(p, n)
             engine.run(max_steps=1_000_000)
-            done, rejected, uid_tier = {}, 0, {}
+            # item i lands after i * arrival_steps steps; a filtered
+            # tier's submit keeps its slot, so the admitted tier's
+            # arrival times never shift
+            sched = jnl.schedule_from_stream(
+                [{"prompt": p, "max_new_tokens": n,
+                  "priority": t if resilient else 0,
+                  "tenant": "gold" if t >= 2 else "bulk"}
+                 for p, n, t in stream], arrival_steps=a.arrival_steps)
+            tier_of = {ev["uid"]: t for ev, (_, _, t) in zip(sched, stream)}
+            if admit_tier is not None:
+                sched = [ev for ev in sched
+                         if tier_of[ev["uid"]] == admit_tier]
+
+            def on_tick(k):
+                if slo is not None and k % 4 == 0:
+                    slo.evaluate()
+
             t_wall0 = time.perf_counter()
-            for p, n, t in stream:
-                if admit_tier is None or t == admit_tier:
-                    try:
-                        uid = engine.add_request(
-                            p, n, priority=t if resilient else 0,
-                            tenant="gold" if t >= 2 else "bulk")
-                        uid_tier[uid] = t
-                    except QueueFullError:
-                        rejected += 1
-                for _ in range(a.arrival_steps):
-                    for c in engine.step():
-                        done[c.uid] = c
-            for c in engine.run(max_steps=1_000_000).values():
-                done[c.uid] = c
+            res = jnl.replay(sched, engine, on_tick=on_tick)
+            done = {c.uid: c for c in res.completions.values()}
+            uid_tier = {euid: tier_of[juid]
+                        for juid, euid in res.uid_map.items()}
             engine.kv.verify()
             stats = dict(engine.stats)
             frac = engine.metrics.get(
@@ -634,10 +698,19 @@ class Bench:
             stats["attribution_conserved"] = \
                 1.0 if engine.ledger.attribution_check()["conserved"] \
                 else 0.0
+            if slo is not None:
+                stats["slo"] = [{"slo": r["slo"], "alerting": r["alerting"],
+                                 "burn": r["burn"]} for r in slo.evaluate()]
+                snap = engine.metrics.snapshot()
+                stats["slo_alerts"] = {
+                    sr["labels"]["slo"]: sr["value"]
+                    for sr in (snap.get("serving_slo_alerts_total")
+                               or {"series": []})["series"]}
+                stats["watchdog_trips_total"] = int(_family_sum(
+                    snap, "serving_watchdog_trips_total"))
             stats["anatomy_summary"] = engine.anatomy_report()["summary"]
             engine.close()
-            done = {u: c for u, c in done.items() if u in uid_tier}
-            return done, rejected, stats, uid_tier
+            return done, len(res.rejected), stats, uid_tier
 
         def tier_ttfts(done, uid_tier):
             out = {"high": [], "low": []}
@@ -651,7 +724,8 @@ class Bench:
         ttft_u = tier_ttfts(done_u, tiers_u)["high"]
         ttft_target_s = max(2.0 * (np.percentile(np.asarray(ttft_u), 99)
                                    if ttft_u else 0.01), 0.005)
-        done_r, rejected, stats_r, tiers_r = replay(True)
+        done_r, rejected, stats_r, tiers_r = replay(
+            True, with_slo=float(ttft_target_s), record=a.journal)
         ttft_r = tier_ttfts(done_r, tiers_r)
         reasons = {}
         for c in done_r.values():
@@ -692,10 +766,79 @@ class Bench:
             "attribution_conserved": stats_r["attribution_conserved"],
             "tenants": stats_r["tenants"],
             "slo_ttft_target_s": round(float(ttft_target_s), 4),
-            "slo": None, "slo_alerts": None, **self.stamp}
+            "slo": stats_r["slo"], "slo_alerts": stats_r["slo_alerts"],
+            "watchdog_trips_total": stats_r["watchdog_trips_total"],
+            "journal": a.journal, **self.stamp}
         rec.update(stats_r["ledger"])
         rec.update(anatomy_fields(stats_r["anatomy_summary"]))
         print(json.dumps(rec), flush=True)
+
+    # -- --workload ------------------------------------------------------------
+    def load_workload(self):
+        """The ``--workload`` journal, (re)generated first under
+        ``--gen-workload`` (byte-reproducible from ``--seed``). Returns
+        (reader, the workload's parameters)."""
+        from ..observability import journal as jnl
+        a = self.args
+        if a.gen_workload:
+            if not a.workload:
+                raise SystemExit("--gen-workload needs --workload FILE")
+            plen = a.prefix_len or 2 * a.page_size
+            jnl.write_workload(
+                a.workload, seed=a.seed, requests=a.requests,
+                vocab=self.vocab, min_prompt=a.min_prompt,
+                max_prompt=max(a.min_prompt, min(
+                    a.max_prompt, self.max_seq_len - a.max_new - plen)),
+                min_new=1, max_new=a.max_new,
+                prefix_groups=max(1, a.prefix_groups), prefix_len=plen,
+                tenants=dict(zip(self.tenant_names, self.tenant_weights))
+                if self.tenant_names else None)
+        rd = jnl.JournalReader(a.workload)
+        wl = (rd.meta or {}).get("workload", {})
+        if int(wl.get("vocab", self.vocab)) > self.vocab:
+            raise SystemExit(
+                f"workload vocab {wl.get('vocab')} exceeds the model's "
+                f"({self.vocab}): regenerate with --gen-workload")
+        return rd, wl
+
+    def run_workload(self):
+        """One fresh engine through a workload journal (reference
+        ``run_workload``): seed-recipe prompts expand on demand, the
+        diurnal and burst arrival steps are the schedule; prints the
+        ``workload_replay`` line."""
+        from ..observability import journal as jnl
+        a = self.args
+        rd, wl = self.load_workload()
+        engine = self.engine(journal=a.journal)
+        for p, n in self.make_stream(max(a.warmup_requests, 1),
+                                     with_prefix=False):
+            engine.add_request(p, n)
+        engine.run(max_steps=1_000_000)
+        self.sync()
+        res = jnl.replay(rd, engine)
+        self.sync()
+        toks = sum(len(c.tokens) for c in res.completions.values())
+        reasons = {}
+        for c in res.completions.values():
+            reasons[c.finish_reason] = reasons.get(c.finish_reason, 0) + 1
+        stats = dict(engine.stats)
+        conserved = engine.ledger.attribution_check()["conserved"]
+        engine.close()
+        print(json.dumps({
+            "metric": f"gpt2_{a.model}_workload_replay_tokens_per_sec",
+            "value": round(toks / max(res.wall_s, 1e-9), 1),
+            "unit": "tokens/sec", "workload": a.workload,
+            "workload_meta": {k: wl.get(k) for k in (
+                "seed", "requests", "prefix_groups", "prefix_len",
+                "sample_frac", "base_arrivals_per_tick",
+                "horizon_ticks") if k in wl},
+            "requests": len(res.completions),
+            "rejected": len(res.rejected), "ticks": res.ticks,
+            "completions": reasons,
+            "prefix_cache_hits": stats.get("prefix_hits", 0),
+            "prefix_cached_tokens": stats.get("cached_tokens", 0),
+            "attribution_conserved": 1.0 if conserved else 0.0,
+            **self.stamp}), flush=True)
 
     # -- --speculative ---------------------------------------------------------
     def run_speculative(self):
@@ -794,8 +937,8 @@ def main(argv=None):
     if refused:
         sys.stderr.write(
             f"{', '.join(refused)}: not ported to paddle_tpu_torch "
-            "(the fleet router, the journal, meshes and the target's "
-            "pre-training come in later slices)\n")
+            "(the fleet router, meshes and the target's pre-training "
+            "come in later slices)\n")
         raise SystemExit(2)
     args = _parser().parse_args(argv)
     if args.shared_prefix and args.prefix_len <= 0:
@@ -805,6 +948,8 @@ def main(argv=None):
         bench = Bench(args)
         if args.mixed_steady:
             bench.run_mixed_steady()
+        elif args.workload:
+            bench.run_workload()
         elif args.overload:
             bench.run_overload()
         elif args.speculative:

@@ -22,7 +22,9 @@ record), and
 GPT and packed-BERT training steps through the kernels against the same
 steps through the plain versions, and the ResNet slice (conv, batch norm
 and pooling on cuDNN/ATen, a ResNet-18 ``multi_step`` with Momentum) on
-the card against the CPU.
+the card against the CPU, and the rest of observability: the
+``tensor_health`` kernel against its plain version, ``skip_nonfinite``
+bit-identity, and journal record and replay on captured engines.
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -2042,3 +2044,189 @@ def test_a_dead_engine_collected_during_a_capture_breaks_nothing(cuda):
         gc.set_threshold(*old)
     assert eng.stats["graph_captures"] == 6
     assert all(_graph_serve(eng, _graph_reqs()[:4]))
+
+
+# -- the tensor_health kernel, skip_nonfinite, the journal ---------------------
+
+def _health_inputs(dev, dtype):
+    """Sizes 0, 1, 4095 and GPT-2 small's embedding (38.6M), with NaN and
+    Inf placed at the ends, in the middle and past the 16-byte body (the
+    tail the kernel reads a value at a time), one all-zero tensor, and a
+    view that starts off 16-byte alignment."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    big = torch.randn(50304 * 768, generator=g)
+    big[::7] = 0.0
+    big[123] = float("nan")
+    big[-1] = float("inf")
+    mid = torch.randn(4095, generator=g)
+    mid[4094] = float("-inf")
+    mid[4093] = float("nan")
+    mid[5] = 0.0
+    base = torch.randn(1000, generator=g)
+    base[501] = float("nan")
+    xs = [torch.zeros(0), torch.tensor([-3.5]), mid, torch.zeros(333), big,
+          torch.tensor([0.0, float("inf")]), base]
+    out = [x.to(dev, dtype) for x in xs]
+    out.append(out[-1][1:])                    # a view off alignment
+    return out
+
+
+def _health_equal(got, want):
+    for k in ("nan", "inf"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("absmax", "zero_frac"):
+        assert torch.equal(got[k].nan_to_num(-1.0),
+                           want[k].nan_to_num(-1.0)), k
+    rel = ((got["sq_sum"] - want["sq_sum"]).abs()
+           / want["sq_sum"].abs().clamp(min=1e-30)).nan_to_num(0.0)
+    assert float(rel.max()) <= 1e-5
+    assert torch.equal(got["sq_sum"].isnan(), want["sq_sum"].isnan())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_health_matches_its_plain_version(cuda, dtype):
+    """``nan``, ``inf``, ``absmax`` (NaN where a NaN is held) and
+    ``zero_frac`` exact against the plain version, ``sq_sum`` within
+    1e-5 relative; an empty tensor's 0 counts, 0 abs-max and NaN zero
+    fraction; bit-identical across two launches; one launch pair."""
+    from paddle_tpu_torch.kernels import tensor_health as th
+    xs = _health_inputs(cuda, dtype)
+    th.reset_launches()
+    got = th.tensor_health(xs)
+    assert th.launches == 1
+    again = th.tensor_health(xs)
+    want = th.tensor_health_ref(xs)
+    torch.cuda.synchronize()
+    _health_equal(got, want)
+    for k in th.STAT_NAMES:
+        assert torch.equal(got[k].nan_to_num(-1.0),
+                           again[k].nan_to_num(-1.0)), k
+    assert got["nan"].tolist()[:5] == [0, 0, 1, 0, 1]
+    assert torch.isnan(got["absmax"][4]) and torch.isnan(got["zero_frac"][0])
+    assert float(got["absmax"][0]) == 0.0 and float(got["sq_sum"][0]) == 0.0
+    assert float(got["zero_frac"][3]) == 1.0
+
+
+def test_tensor_health_one_launch_over_gpt2_small_gradients(cuda):
+    """GPT-2 small's 148 trainable tensors (float32) in one launch pair,
+    against the plain version; 161 tensors take two."""
+    from paddle_tpu_torch.kernels import tensor_health as th
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    model = GPTForCausalLM(gpt2_small(), device=cuda, seed=0)
+    params = [p.detach() for p in model.parameters()]
+    assert len(params) == 148
+    th.reset_launches()
+    got = th.tensor_health(params)
+    assert th.launches == 1
+    _health_equal(got, th.tensor_health_ref(params))
+    more = params + params[:13]
+    th.reset_launches()
+    got = th.tensor_health(more)
+    assert th.launches == 2 and got["nan"].shape == (161,)
+    _health_equal(got, th.tensor_health_ref(more))
+
+
+def test_tensor_health_raises_on_what_it_does_not_take(cuda):
+    from paddle_tpu_torch.kernels import tensor_health as th
+    with pytest.raises(TypeError):
+        th.tensor_health([torch.ones(4, device=cuda, dtype=torch.float16)])
+    with pytest.raises(ValueError):
+        th.tensor_health([torch.ones(4, 4, device=cuda).t()])
+    with pytest.raises(ValueError):
+        th.tensor_health([torch.ones(4, device=cuda), torch.ones(4)])
+
+
+def _numerics_step(dev, mode):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    model = GPTForCausalLM(gpt2_tiny(dropout=0.0, bf16_residual=False),
+                           device=dev, seed=0)
+    return TrainStep(model, lambda m, i, y, s: m.loss(i, y) * s, AdamW(
+        3e-3, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0)),
+        device=dev, numerics=mode, skip_nonfinite=True)
+
+
+def _snap(step):
+    st = step._opt_state
+    return ([p.detach().clone() for p in step._params],
+            [t.clone() for t in st["mu"] + st["nu"]], st["count"].clone())
+
+
+def _same(a, b):
+    return (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+            and torch.equal(a[2], b[2]))
+
+
+@pytest.mark.parametrize("mode", ["stats", "watch"])
+def test_skip_nonfinite_is_bit_identical_on_the_card(cuda, mode):
+    """A poisoned step (NaN loss) leaves the parameters, AdamW's moments
+    and its device step count bit-identical; a window with the poisoned
+    step ends as the window without it; numerics modes leave the losses
+    and parameters of numerics off; one ``tensor_health`` launch a kind a
+    step; no host sync needed to mask (the state stays on the card)."""
+    from paddle_tpu_torch.kernels import tensor_health as th
+    rng = np.random.RandomState(0)
+    ids = torch.tensor(rng.randint(0, 128, (4, 2, 32)), device=cuda)
+    lab = torch.roll(ids, -1, -1)
+    s = torch.ones(4, 1, device=cuda)
+    step = _numerics_step(cuda, mode)
+    step(ids[0], lab[0], s[0])
+    before = _snap(step)
+    th.reset_launches()
+    step(ids[1], lab[1], torch.full((1,), float("nan"), device=cuda))
+    assert th.launches == (1 if mode == "stats" else 3)
+    assert _same(_snap(step), before)
+    assert step.numerics_view().found_inf
+    step(ids[2], lab[2], s[2])
+    clean = _numerics_step(cuda, mode)
+    clean(ids[0], lab[0], s[0])
+    clean(ids[2], lab[2], s[2])
+    assert _same(_snap(step), _snap(clean))
+    off = _numerics_step(cuda, None)
+    on = _numerics_step(cuda, mode)
+    assert torch.equal(off.multi_step(ids, lab, s), on.multi_step(ids, lab, s))
+    assert all(torch.equal(a, b) for a, b in zip(off._params, on._params))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["per_phase", "mixed"])
+def test_journal_record_and_replay_on_captured_engines(cuda, kv_dtype, mixed,
+                                                       tmp_path):
+    """A captured engine with ``journal=``, ``watchdog=True`` and a bound
+    ``FaultInjector`` (a 0-second stall armed mid-run) serves the graph
+    requests (sampled ones too); a fresh captured engine replays the
+    journal with 0 divergences; neither captures after its constructor;
+    the ragged launches of the two equal."""
+    from paddle_tpu_torch.inference import FaultInjector
+    from paddle_tpu_torch.observability import journal as jnl
+    path = str(tmp_path / "j.jsonl")
+    eng = _graph_engine(cuda, True, kv_dtype=kv_dtype, mixed_step=mixed,
+                        journal=path, watchdog=True,
+                        fault_injector=FaultInjector())
+    graphs = eng.stats["graph_captures"]
+    sched = jnl.schedule_from_stream(
+        [dict(prompt=p, max_new_tokens=n, temperature=t, seed=sd)
+         for p, n, t, sd in _graph_reqs()], arrival_steps=3)
+
+    def arm(k):
+        if k == 4:
+            eng.faults.inject("stall", seconds=0.0)
+    pa.reset_launches()
+    jnl.replay(sched, eng, on_tick=arm)
+    rec_counts = {c: getattr(pa, c) for c in COUNTS}
+    assert eng.stats["graph_captures"] == graphs
+    eng.close()
+    fresh = _graph_engine(cuda, True, kv_dtype=kv_dtype, mixed_step=mixed,
+                          fault_injector=FaultInjector())
+    graphs = fresh.stats["graph_captures"]
+    pa.reset_launches()
+    res = jnl.replay(path, fresh)
+    assert fresh.stats["graph_captures"] == graphs
+    assert {c: getattr(pa, c) for c in COUNTS} == rec_counts
+    rep = jnl.check_divergence(path, res)
+    assert rep["divergences"] == 0, rep["first"]
+    assert rep["requests"] == len(_graph_reqs()) and not res.skipped
+    fresh.kv.verify()

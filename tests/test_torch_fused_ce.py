@@ -258,7 +258,8 @@ def test_ctypes_bindings_match_the_c_prototypes():
 def test_bench_entry_point_counts_the_reference_flops_and_refuses_numerics():
     """``paddle_tpu_torch.tools.bench_gpt_pretrain`` keeps the reference's
     model FLOPs a token (``tools/bench_gpt_pretrain.py:33-35``); its
-    ``--numerics`` pass is not ported and raises before anything runs."""
+    ``--numerics`` pass is ported (``off``, ``stats``, ``watch``), and a
+    mode the reference does not know raises before anything runs."""
     import importlib.util
 
     from paddle_tpu_torch.tools import bench_gpt_pretrain as bgp
@@ -269,5 +270,5 @@ def test_bench_entry_point_counts_the_reference_flops_and_refuses_numerics():
     for args in ((12, 768, 50304, 1024), (2, 64, 128, 32)):
         assert bgp.model_flops_per_token(*args) == \
             ref.model_flops_per_token(*args)
-    with pytest.raises(NotImplementedError):
-        bgp.run(2, 16, numerics="stats")
+    with pytest.raises(ValueError):
+        bgp.run(2, 16, numerics="all")

@@ -37,7 +37,8 @@ if not torch.cuda.is_available():
     from paddle_tpu_torch.parallel.api import TrainStep
     from paddle_tpu_torch.models.bert import (
         BertForSequenceClassification, bert_tiny)
-    from paddle_tpu_torch.tools import bench_bert
+    from paddle_tpu_torch.tools import bench_bert, numerics_check
+    import tempfile
     cpu_model = GPTForCausalLM(gpt2_tiny(), device="cpu")
     for name, call in (("engine", lambda: ServingEngine(gpt2_tiny())),
                        ("init_params", lambda: init_params(gpt2_tiny())),
@@ -52,7 +53,9 @@ if not torch.cuda.is_available():
                            AdamW())),
                        ("bert", lambda: BertForSequenceClassification(
                            bert_tiny())),
-                       ("bench_bert", lambda: bench_bert.run(8, pack=4))):
+                       ("bench_bert", lambda: bench_bert.run(8, pack=4)),
+                       ("numerics_check", lambda: numerics_check.self_drive(
+                           tempfile.mkdtemp()))):
         try:
             call()
             result["refused"][name] = False
@@ -86,7 +89,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "observability.step_logger", "observability.tracing",
                  "observability.compile_tracker", "observability.ledger",
                  "observability.anatomy", "profiler",
-                 "tools.bench_serving"):
+                 "tools.bench_serving", "observability.slo",
+                 "observability.journal", "observability.numerics",
+                 "kernels.tensor_health", "tools.numerics_check"):
         assert f"paddle_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:
@@ -94,7 +99,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                                   "engine_cuda": True, "engine_quant": True,
                                   "model": True,
                                   "train_step": True, "bert": True,
-                                  "bench_bert": True}
+                                  "bench_bert": True,
+                                  "numerics_check": True}
 
 
 def test_chip_smoke_fails_without_a_gpu_or_without_the_port(tmp_path):
@@ -127,6 +133,30 @@ def test_ctypes_binding_matches_the_c_prototype():
              ctypes.c_float if p.startswith("float") else ctypes.c_int
              for p in params]
     assert kinds == pa.ARGTYPES
+
+
+def test_tensor_health_binding_matches_the_c_prototype():
+    """The tensor_health wrapper's argtypes list the C entry's
+    parameters in order (pointers as c_void_p)."""
+    import ctypes
+    import re
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import tensor_health as th
+    with open(os.path.join(ROOT, "paddle_tpu_torch", "kernels", "csrc",
+                           "tensor_health.cu")) as f:
+        text = f.read()
+    sig = re.search(r'extern "C" int tensor_health\((.*?)\)', text,
+                    re.S).group(1)
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    kinds = [ctypes.c_void_p if "*" in p else
+             ctypes.c_float if p.startswith("float") else ctypes.c_int
+             for p in params]
+    assert kinds == th.ARGTYPES
+    assert "tensor_health" in _build.SOURCES
+    assert int(re.search(r"kMaxTensors = (\d+);", text).group(1)) == \
+        th._MAX_TENSORS
+    assert int(re.search(r"kChunk = (\d+);", text).group(1)) == th._CHUNK
 
 
 @pytest.fixture

@@ -14,6 +14,8 @@ same weights (2 layers, hidden 64, 4 heads, vocab 128):
   quantization formats raise ValueError (the quantized levers
   themselves: tests/test_torch_quant_serving.py; ``mixed_step``:
   tests/test_torch_mixed_step.py)."""
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -243,15 +245,30 @@ def test_queue_bound_sheds_or_rejects(ref):
     dict(tracer=Tracer("t")), dict(watchdog=True),
 ])
 def test_unported_levers_raise(ref, lever, tmp_path):
-    """The constructor's unported levers (meshes, the journal, the
-    watchdog) raise NotImplementedError. The tracer (speculative engines
-    too) and ``add_request``'s and ``admit_migrated``'s ``trace_ctx=``
-    are ported: they serve, and every request gets its trace
-    (tests/test_torch_serving_telemetry.py holds them to the
-    reference's)."""
+    """The constructor's unported lever (meshes) raises
+    NotImplementedError. The tracer (speculative engines too),
+    ``add_request``'s and ``admit_migrated``'s ``trace_ctx=``, the
+    journal and the watchdog are ported: they serve
+    (tests/test_torch_serving_telemetry.py, tests/test_torch_journal.py
+    and tests/test_torch_slo.py hold them to the reference's)."""
     _, params = ref
     kw = dict(device="cpu", num_slots=1, page_size=8, prefill_chunk=8,
               max_seq_len=64, postmortem_path=str(tmp_path / "pm.json"))
+    if "journal" in lever or "watchdog" in lever:
+        if "journal" in lever:
+            lever = dict(journal=str(tmp_path / lever["journal"]))
+        eng = ServingEngine(gpt2_tiny(), params, **kw, **lever)
+        u = eng.add_request([1, 2, 3], 2)
+        assert set(eng.run()) == {u}
+        eng.close()
+        if "journal" in lever:
+            kinds = [json.loads(x)["kind"]
+                     for x in open(lever["journal"]).read().splitlines()]
+            assert kinds == ["meta", "config", "submit", "complete",
+                             "summary"]
+        else:
+            assert eng.watchdog is not None
+        return
     if "trace_ctx" in lever or "tracer" in lever:
         ctx = lever.pop("trace_ctx", None)
         eng = ServingEngine(gpt2_tiny(), params, **kw, **lever)

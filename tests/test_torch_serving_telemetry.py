@@ -447,8 +447,9 @@ def test_a_failing_tracer_is_swallowed(ref, tmp_path):
 
 def test_constructor_surface(ref, tmp_path):
     """The reference's telemetry keywords construct; ``add_request``
-    takes ``trace_ctx=`` and ``tenant=``; ``mesh=``, ``journal=`` and
-    ``watchdog=`` still raise."""
+    takes ``trace_ctx=`` and ``tenant=``; ``mesh=`` still raises
+    (``journal=`` and ``watchdog=`` are ported: tests/test_torch_journal.py
+    and tests/test_torch_slo.py)."""
     reg, tracer = MetricsRegistry(), Tracer("caller")
     eng = ServingEngine(GPTConfig(**CFG), ref[2], device="cpu",
                         registry=reg, tracer=Tracer("requests"),
@@ -470,10 +471,9 @@ def test_constructor_surface(ref, tmp_path):
     assert lines and all(json.loads(x)["event"] == "serving_step"
                          for x in lines)
     assert json.load(open(tmp_path / "pm.json"))["reason"] == "close"
-    for name in ("mesh", "journal", "watchdog"):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(GPTConfig(**CFG), ref[2], device="cpu",
-                          **{name: object()}, **KW)
+    with pytest.raises(NotImplementedError):
+        ServingEngine(GPTConfig(**CFG), ref[2], device="cpu",
+                      mesh=object(), **KW)
 
 
 # the keys of the reference's default-stream line
@@ -528,7 +528,7 @@ def test_bench_serving_prints_the_reference_keys(capsys):
         assert set(line["tenants"]) == {"a", "b", "default"}
         assert line["decode_compiles"] == 1
     assert out[1]["quant_logit_err_absmax"] is not None
-    for flag in ("--fleet", "--mesh", "--journal", "--spec-train-steps"):
+    for flag in ("--fleet", "--mesh", "--autoscale", "--spec-train-steps"):
         with pytest.raises(SystemExit) as e:
             bench_serving.main(["--model", "tiny", flag, "2"])
         assert e.value.code != 0

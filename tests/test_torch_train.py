@@ -299,11 +299,16 @@ def test_unported_options_raise():
         gpt2_tiny(num_experts=4)
     m = GPTForCausalLM(gpt2_tiny(), device="cpu")
     for kw in (dict(mesh=object()), dict(fsdp_params=True),
-               dict(shard_opt="dp"), dict(numerics="stats"),
-               dict(skip_nonfinite=True), dict(extra_state=[]),
+               dict(shard_opt="dp"), dict(extra_state=[]),
                dict(has_aux=True)):
         with pytest.raises(NotImplementedError):
             TrainStep(m, _port_loss, AdamW(), device="cpu", **kw)
+    # ported: the numerics pass and skip_nonfinite construct; a mode the
+    # reference does not know raises its ValueError
+    TrainStep(m, _port_loss, AdamW(), device="cpu", numerics="stats",
+              skip_nonfinite=True)
+    with pytest.raises(ValueError):
+        TrainStep(m, _port_loss, AdamW(), device="cpu", numerics="all")
     for opt in (AdamW(apply_decay_param_fun=lambda n: True),
                 AdamW(lr_ratio=lambda p: 1.0), None):
         with pytest.raises(NotImplementedError):
