@@ -247,6 +247,40 @@ exits non-zero:
    equal. Recorded: tokens/s with all of it on and off (3 engines each,
    in turns). Then one ``bench_serving --model small --workload ...
    --gen-workload`` line, printed as it is.
+   ``serve_fleet`` — the fleet router (``inference/router.py``) over
+   captured engines at serve's configuration, every replica with its own
+   registry and all of them on one set of bf16 weight tensors, on 48
+   requests in 4 prefix groups (a 64-token system prompt each, tails of
+   32–256 tokens, 32–128 new tokens, a quarter at priority 2, tenants
+   ``gold`` and ``bulk``, every fourth sampled), one arrival a router
+   step; in every fleet run the replica deaths are the injected
+   ``replica_down`` faults and nothing else (a step that raised anything
+   else, a kernel error say, fails the phase): (1) affinity against
+   random placement on 2 replicas with saturation off (the random fleet
+   over int8 pools), the affinity hit rate above the random one; (2) 3
+   replicas with replica f0 killed
+   (``replica_down``) at router step 24, the router journaling and an
+   ``SLOEngine`` over its aggregator on the step clock, each replica's
+   ``MetricsServer`` pulled over loopback through a ``FleetAggregator``:
+   every request finishes ``eos``/``length``, one death whose journal
+   reason names the injected fault, requeues, anatomy conservation 1.0,
+   no capture after a constructor, the ragged launches equal to every
+   replica's per-graph launches times its replays, the HTTP totals equal
+   to the replicas' sums (every source answering before the kill);
+   tokens/s, the high tier's p99 TTFT against a high-only 3-replica
+   fleet, remote preemptions and peak memory recorded; (3) that journal
+   through a fresh 3-replica fleet: 0 divergences, 0 on anatomy, the
+   same launches; (4) a 2-replica fleet whose high arrival preempts a
+   decoding request across replicas, then f0 dies: every request's
+   tokens against one unfailed engine's up to the first top-2 margin
+   below 1e-3, held with float32 weights and pools, recorded at bf16;
+   (5) one ``bench_serving --model small --autoscale 3 --workload ...
+   --gen-workload --journal ...`` process at serve's slots, pages and
+   chunks on 64 generated prompts of 128-256 tokens: elastic 1 -> N -> 1,
+   the chip-step ledger balanced, its replay line 0.0, joins equal to
+   ``scale_out`` decisions, no failed join and no death in either run,
+   every joined replica placed work (each join's capture seconds beside
+   its lag).
 5. ``parity``  — the same model in float32, four greedy requests, with
    the kernel and with the plain version, both engines eager
    (``_capture=False``: the per-call hold wraps ``pa._launch``, which a
@@ -2417,8 +2451,6 @@ def preempt_compare(model, weight_dtype, mixed, hold):
     margin is that of its logits over its temperature plus its Gumbel
     draw, regenerated from a generator seeded as the request's. Held
     (``hold``) or recorded."""
-    import torch
-    from paddle_tpu_torch.inference import sampler
     from paddle_tpu_torch.inference.serving import ServingEngine
 
     cfg, params = model
@@ -2442,15 +2474,9 @@ def preempt_compare(model, weight_dtype, mixed, hold):
         del eng
     (pre, _, npre), (ref, logits, nref) = runs[True], runs[False]
     reqs = lows + highs
-    margins = []
-    for r, lg in zip(reqs, logits):
-        if r.get("temperature", 0) > 0:
-            gen = torch.Generator(device=dev).manual_seed(r["seed"])
-            lg = [x.to(dev) / r["temperature"] + sampler.gumbel_noise(
-                x.shape, gen, dev) for x in lg]
-        margins.append(lg)
     steps, differs = tokens_until_tie([c.tokens for c in pre],
-                                      [c.tokens for c in ref], margins,
+                                      [c.tokens for c in ref],
+                                      tie_margins(reqs, logits, dev),
                                       PARITY_TOL)
     victims = [i for i, c in enumerate(pre) if c.preemptions]
     kinds = {"greedy" if reqs[i].get("temperature", 0) == 0 else "sampled"
@@ -3219,6 +3245,511 @@ def run_serve_journal_phase(model, want_tokens, want_launches):
         raise AssertionError(f"bench_serving --workload: {lines[0][:2000]}")
     out["bench_serving"] = line
     out["bench_serving_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    out["gpu"] = smi()
+    return out, launches
+
+
+# -- the fleet (the router over captured engines) -----------------------------
+
+FLEET_REQUESTS = 48        # run_fleet's trace shape at GPT-2 small
+FLEET_GROUPS = 4           # prefix groups, each behind its system prompt
+FLEET_PREFIX = 64
+FLEET_KILL_STEP = 24       # the router step replica f0 dies at (leg 2)
+FLEET_SLO_EVERY = 4        # router steps between two SLO evaluations
+# the autoscaler's generated workload: 128-256-token prompts so that 8
+# slots queue up, and outputs of 16 x (1 + Pareto) tokens so that each
+# joined replica decodes before it drains (at bench_serving's defaults,
+# 32 requests of 1-3 tokens, the one join served a single request)
+FLEET_AUTO_REQUESTS, FLEET_AUTO_MIN_NEW = 64, 16
+# leg 4: lows fill both replicas' slots, mids saturate them once every
+# low has started decoding (step 43 of this trace), a high preempts one
+# across replicas, then f0 dies; per-token decode keeps those points
+# inside the lows' decode
+FLEET_ID_LOWS, FLEET_ID_MIDS = 16, 2
+FLEET_ID_MID_STEP, FLEET_ID_HIGH_STEP, FLEET_ID_KILL_STEP = 40, 44, 52
+
+
+def fleet_traffic(vocab):
+    """``run_fleet``'s trace (``bench_serving.fleet_stream``) at GPT-2
+    small: ``FLEET_REQUESTS`` requests in ``FLEET_GROUPS`` prefix groups
+    behind a 64-token system prompt each, tails of 32-256 tokens, 32-128
+    new tokens, a quarter at priority 2 (tenant ``gold``, the rest
+    ``bulk``); every fourth sampled at 0.8 (``fleet_identity`` holds
+    sampled reruns too)."""
+    import numpy as np
+    from paddle_tpu_torch.tools import bench_serving as bs
+    reqs = bs.fleet_stream(np.random.default_rng(20), vocab, FLEET_REQUESTS,
+                           prefix_groups=FLEET_GROUPS,
+                           prefix_len=FLEET_PREFIX, min_prompt=32,
+                           max_prompt=256, min_new=32, max_new=128,
+                           high_frac=0.25)
+    for i, r in enumerate(reqs):
+        r.update(temperature=0.8 if i % 4 == 3 else 0.0, seed=3000 + i)
+    return reqs
+
+
+def fleet_build(cfg, params, n, kv_dtype="bf16", slo=False, engine_kw=None,
+                **rkw):
+    """``bench_serving.build_fleet`` of ``n`` captured engines at serve's
+    configuration on ``params`` (one parameter dict: every engine serves
+    the same weight tensors), each with its own registry; with ``slo`` a
+    step-clock ``SLOEngine`` over the router's aggregator (count
+    objectives, so replay sees the same burns). Returns (engines, router,
+    graph captures a replica, each engine's capture seconds)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability import MetricsRegistry, SLOSpec
+    from paddle_tpu_torch.tools import bench_serving as bs
+
+    def make_engine(**kw):
+        return ServingEngine(cfg, params, device="cuda", kv_dtype=kv_dtype,
+                             registry=MetricsRegistry(),
+                             **dict(SERVE_KW, **(engine_kw or {}), **kw))
+    engines, router = bs.build_fleet(make_engine, n, **rkw)
+    if slo:
+        bs.step_clock_slo(router, [
+            SLOSpec(name=f"fleet-{t}", tenant=t, success_frac=0.9,
+                    windows=(8.0, 64.0), min_count=2)
+            for t in ("gold", "bulk")])
+    if any(e.params["wte"].data_ptr() != params["wte"].data_ptr()
+           for e in engines):
+        raise AssertionError("serve_fleet: a replica copied the weights")
+    return (engines, router, [e.stats["graph_captures"] for e in engines],
+            [e.capture_seconds for e in engines])
+
+
+def fleet_drive(router, sched, on_tick=None):
+    """``bench_serving.drive_fleet`` on the card: (the replay's result,
+    its wall seconds less ``on_tick``'s, ``on_tick``'s seconds)."""
+    import torch
+    from paddle_tpu_torch.tools import bench_serving as bs
+    return bs.drive_fleet(router, sched, torch.cuda.synchronize, on_tick)
+
+
+def fleet_check(name, engines, router, captures, replays0, counts, uids,
+                done, deaths):
+    """Every request finished ``eos``/``length`` with tokens in range,
+    the replica deaths are the ``deaths`` injected ``replica_down``
+    faults and nothing else (a step that raised anything else, a kernel
+    error say, would be a death of its own), no replica captured after
+    its constructor, every live replica's pool verifies, and the ragged
+    launches counted in the run (``counts``: float, quantized) equal
+    every replica's per-graph launch deltas times the replays it made in
+    the run. Returns the float and quantized launches."""
+    vocab = engines[0].cfg.vocab_size
+    if sorted(done) != sorted(uids):
+        raise AssertionError(f"{name}: {len(done)} of {len(uids)} "
+                             "requests completed")
+    for u, c in done.items():
+        if c.finish_reason not in ("eos", "length") or not all(
+                0 <= t < vocab for t in c.tokens):
+            raise AssertionError(f"{name}: request {u} finished "
+                                 f"{c.finish_reason}")
+    if router.stats["replica_deaths"] != deaths or len(router.deaths) != \
+            deaths or not all(d["error"] == "ReplicaDown"
+                              and "injected replica death" in d["reason"]
+                              for d in router.deaths):
+        raise AssertionError(f"{name}: {deaths} injected deaths, the "
+                             f"router saw {router.deaths}")
+    if [e.stats["graph_captures"] for e in engines] != captures:
+        raise AssertionError(f"{name}: a replica captured after its "
+                             "constructor")
+    want = [0, 0]
+    for eng, r0 in zip(engines, replays0):
+        for key, prog in eng._progs.items():
+            n = prog.replays - r0[key]
+            want[0] += prog.deltas[0] * n
+            want[1] += prog.deltas[2] * n
+    if list(counts) != want:
+        raise AssertionError(f"{name}: ragged launches {counts} != the "
+                             f"graphs' deltas x replays {want}")
+    for st in router.replicas.values():
+        if st.status != "dead":
+            st.handle.engine.kv.verify()
+    return want
+
+
+def fleet_replays(engines):
+    return [{k: p.replays for k, p in e._progs.items()} for e in engines]
+
+
+def fleet_counts():
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    return (pa.launches, pa.quant_launches)
+
+
+def fleet_sums(registries, names):
+    return {n: sum(s["value"] for r in registries
+                   for s in (r.snapshot().get(n) or {"series": []})["series"])
+            for n in names}
+
+
+FLEET_HTTP_SUMS = ("serving_tokens_emitted_total", "serving_admissions_total")
+
+
+def fleet_identity_traffic(vocab):
+    """Leg 4's requests: ``FLEET_ID_LOWS`` of priority 0 at step 0 (they
+    fill both replicas' slots), ``FLEET_ID_MIDS`` of priority 1 at step
+    ``FLEET_ID_MID_STEP`` (queued: every replica saturated) and one of
+    priority 2 at ``FLEET_ID_HIGH_STEP``, which must preempt a decoding
+    low across replicas; every fourth sampled."""
+    reqs = fleet_traffic(vocab)[:FLEET_ID_LOWS + FLEET_ID_MIDS + 1]
+    steps = []
+    for i, r in enumerate(reqs):
+        r["priority"] = 0 if i < FLEET_ID_LOWS else \
+            1 if i < FLEET_ID_LOWS + FLEET_ID_MIDS else 2
+        r["tenant"] = "gold" if r["priority"] else "bulk"
+        steps.append(0 if i < FLEET_ID_LOWS else FLEET_ID_MID_STEP
+                     if r["priority"] == 1 else FLEET_ID_HIGH_STEP)
+    return reqs, steps
+
+
+def fleet_identity(model, params, kv_dtype, hold):
+    """Leg 4: ``fleet_identity_traffic`` through a 2-replica fleet whose
+    engines do not preempt locally (``preemption=False``; saturation at
+    one queued request; per-token decode, ``decode_block=1``, in both the
+    fleet and the reference), so the high arrival preempts a decoding low on
+    the other replica (``preempts_remote`` >= 1, the victim's emitted
+    tokens recorded), then f0 dies at ``FLEET_ID_KILL_STEP``; against one
+    unfailed engine (``record_logits``) on the same requests. Every
+    request's tokens equal the unfailed engine's up to the first step
+    whose top-2 margin is below ``PARITY_TOL`` (a sampled request's
+    margin over its logits / T plus its Gumbel draw:
+    ``tie_margins``), held (``hold``) or recorded."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import Tracer
+    from paddle_tpu_torch.tools import bench_serving as bs
+    cfg, _ = model
+    reqs, steps = fleet_identity_traffic(cfg.vocab_size)
+    ref = ServingEngine(cfg, params, device="cuda", kv_dtype=kv_dtype,
+                        record_logits=True, decode_block=1, **SERVE_KW)
+    uids = [ref.add_request(**{k: v for k, v in r.items()
+                               if k not in ("priority", "tenant")})
+            for r in reqs]
+    rdone = ref.run(max_steps=20000)
+    ref_tokens = [rdone[u].tokens for u in uids]
+    logits = [ref.logit_log.get(u) for u in uids]
+    dev = ref.device
+    del ref
+    engines, router, captures, _ = fleet_build(
+        cfg, params, 2, kv_dtype=kv_dtype, tracer=Tracer("router"),
+        engine_kw=dict(preemption=False, decode_block=1),
+        saturation_depth=1)
+    sched = bs.fleet_schedule(reqs, 0, kill=(FLEET_ID_KILL_STEP, "f0"))
+    for ev, s in zip(sched, steps):
+        ev["step"] = s
+    name = f"serve_fleet identity {kv_dtype or 'f32'}"
+    r0 = fleet_replays(engines)
+    pa.reset_launches()
+    res, _, _ = fleet_drive(router, sched)
+    done = res.completions
+    launched = fleet_check(name, engines, router, captures, r0,
+                           fleet_counts(), range(len(reqs)), done, 1)
+    got = [done[u].tokens for u in range(len(reqs))]
+    steps_cmp, differs = tokens_until_tie(
+        got, ref_tokens, tie_margins(reqs, logits, dev), PARITY_TOL)
+    moved = [sp.attrs for tr in router._tracer.completed_traces()
+             for sp in tr.spans if sp.name == "requeue"]
+    rec = {"weights": "f32" if kv_dtype is None else "bf16",
+           "kv_dtype": kv_dtype or "f32", "requests": len(reqs),
+           "preempts_remote": router.stats["preempts_remote"],
+           "replica_deaths": router.stats["replica_deaths"],
+           "requeued": router.stats["requeued"],
+           "remote_victims_tokens_out": [
+               a["tokens_out"] for a in moved
+               if a["reason"] == "preempt_remote"],
+           "steps_compared": steps_cmp, "first_differs": differs,
+           "tokens_identical": got == ref_tokens, "held": hold,
+           "kernel_launches": launched[0]}
+    if hold and (differs or rec["preempts_remote"] < 1
+                 or rec["replica_deaths"] != 1
+                 or not any(rec["remote_victims_tokens_out"])):
+        raise AssertionError(f"{name}: {rec}")
+    router.close()
+    return rec
+
+
+def tie_margins(reqs, logits, dev):
+    """Per request, the logits whose top-2 margin ``tokens_until_tie``
+    reads: a greedy request's as logged, a sampled one's over its
+    temperature plus its Gumbel draw (regenerated from a generator seeded
+    as the request's)."""
+    import torch
+    from paddle_tpu_torch.inference import sampler
+    out = []
+    for r, lg in zip(reqs, logits):
+        if r.get("temperature", 0) > 0:
+            gen = torch.Generator(device=dev).manual_seed(r["seed"])
+            lg = [x.to(dev) / r["temperature"] + sampler.gumbel_noise(
+                x.shape, gen, dev) for x in lg]
+        out.append(lg)
+    return out
+
+
+def run_serve_fleet_phase(model):
+    """``serve_fleet``: the fleet router over captured engines at GPT-2
+    small's widths (serve's configuration; every replica its own
+    registry; all replicas one set of weight tensors), on
+    ``fleet_traffic`` at one arrival a router step. Legs:
+
+    1. affinity against random (2 replicas, saturation off): the affinity
+       hit rate above the random one; the random fleet over int8 pools
+       (row 2 under the router).
+    2. overload with a kill, recorded (3 replicas, saturation at 2 x
+       slots, f0 ``replica_down`` at ``FLEET_KILL_STEP``, ``journal=``, an
+       ``SLOEngine`` over the router's aggregator evaluated every
+       ``FLEET_SLO_EVERY`` steps; each replica's ``MetricsServer`` on
+       loopback pulled through a ``FleetAggregator``): every request ends
+       ``eos``/``length``; one death, its journal reason naming the
+       injected fault, deaths = the ``replica_down`` arms journaled;
+       ``requeued`` >= 1; fleet anatomy conservation 1.0; no capture after
+       a constructor; the ragged launches = every replica's graph deltas
+       x its replays; over HTTP, ``serving_tokens_emitted_total`` and
+       ``serving_admissions_total`` equal the replicas' sums and every
+       source answers before the kill. Recorded: tokens/s, the high
+       tier's p99 TTFT against a high-only uncontended 3-replica fleet,
+       ``preempts_remote``, peak memory.
+    3. leg 2's journal through a fresh 3-replica fleet: 0 divergences (0
+       on anatomy), the same ragged launches.
+    4. identity (``fleet_identity``): held with float32 weights and
+       pools, recorded at bf16.
+    5. the autoscaler: one ``bench_serving --model small --autoscale 3
+       --workload ... --gen-workload --journal ...`` process at serve's
+       slots, pages and chunks: elastic 1 -> N -> 1, the chip-step ledger
+       balanced, the replay line 0.0, joins = ``scale_out`` decisions, no
+       ``join_failed`` hold, join error or death on either line, every
+       joined replica placed work.
+    Every fleet run's deaths are its injected ``replica_down`` faults
+    (``fleet_check``): 0 in leg 1 and the uncontended fleet, 1 elsewhere.
+    Returns (the record, the float and quantized ragged launches)."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models.gpt import tree_map
+    from paddle_tpu_torch.observability import FleetAggregator, MetricsServer
+    from paddle_tpu_torch.observability import journal as jnl
+    from paddle_tpu_torch.tools import bench_serving as bs
+
+    t0 = time.perf_counter()
+    cfg, params = model
+    bf16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    reqs = fleet_traffic(cfg.vocab_size)
+    out = {"phase": "serve_fleet", "requests": len(reqs),
+           "prefix_groups": FLEET_GROUPS, "prefix_len": FLEET_PREFIX,
+           "kill_step": FLEET_KILL_STEP}
+    launches = [0, 0]
+    captures_s = []
+
+    def high_p99(res):
+        t = bs.tier_ttfts(res.completions)["high"]
+        return float(np.percentile(np.asarray(t), 99)) if t else None
+
+    def leg(name, n, sched, deaths, kv_dtype="bf16", slo_every=None,
+            uids=range(len(reqs)), **kw):
+        engines, router, caps, cs = fleet_build(cfg, bf16, n,
+                                                kv_dtype=kv_dtype,
+                                                slo=slo_every is not None,
+                                                **kw)
+        captures_s.extend(cs)
+        r0 = fleet_replays(engines)
+        pa.reset_launches()
+        res, _, _ = fleet_drive(router, sched, slo_every and (
+            lambda k: k % slo_every == 0 and router.slo.evaluate()))
+        got = fleet_check(name, engines, router, caps, r0, fleet_counts(),
+                          uids, res.completions, deaths)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        return engines, router, res, got
+
+    # 1. the hit-rate comparison
+    t1 = time.perf_counter()
+    rates, cached = {}, None
+    for pol, kd in (("affinity", "bf16"), ("random", "int8")):
+        engines, router, _, _ = leg(
+            f"serve_fleet {pol}", 2, bs.fleet_schedule(reqs), 0,
+            kv_dtype=kd, policy=pol, saturation_depth=10 ** 9)
+        rates[pol] = router.affinity_hit_rate()
+        if pol == "affinity":
+            cached = [e.stats["cached_tokens"] for e in engines]
+        router.close()
+        del engines, router
+    if not rates["affinity"] > rates["random"]:
+        raise AssertionError(f"serve_fleet: affinity hit rate {rates}")
+    out["affinity"] = {"hit_rate": rates["affinity"],
+                       "random_hit_rate": rates["random"],
+                       "random_kv_dtype": "int8",
+                       "cached_tokens_per_replica": cached,
+                       "seconds": time.perf_counter() - t1}
+
+    # 2. overload with the kill, recorded; 5. aggregation over HTTP
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, router, res_u, _ = leg(
+            "serve_fleet uncontended", 3,
+            bs.fleet_schedule(reqs, only_tier=2), 0,
+            uids=[i for i, r in enumerate(reqs) if r["priority"] == 2])
+        p99_u = high_p99(res_u)
+        router.close()
+        del router
+        path = os.path.join(tmp, "fleet.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engines, router, caps, cs = fleet_build(
+            cfg, bf16, 3, journal=path, slo=True,
+            saturation_depth=2 * SERVE_KW["num_slots"])
+        captures_s.extend(cs)
+        servers = [MetricsServer(registry=e.metrics, replica=f"f{i}")
+                   for i, e in enumerate(engines)]
+        agg = FleetAggregator(fleet_name="serve_fleet")
+        for i, s in enumerate(servers):
+            agg.add_source(s.base_url, replica=f"f{i}")
+        http = {}
+
+        def pull(when):
+            fleet = agg.aggregate()
+            want = fleet_sums([e.metrics for e in engines], FLEET_HTTP_SUMS)
+            got = {n: agg.total(n) for n in FLEET_HTTP_SUMS}
+            http[when] = {"sources_ok": fleet["sources_ok"],
+                          "sources_total": fleet["sources_total"],
+                          **got}
+            if got != want or (when == "before_kill" and not
+                               fleet["sources_ok"] == fleet["sources_total"]
+                               == len(engines)):
+                raise AssertionError(f"serve_fleet http {when}: {http}, "
+                                     f"the replicas' sums {want}")
+
+        def on_tick(k):
+            if k % FLEET_SLO_EVERY == 0:
+                router.slo.evaluate()
+            if k == FLEET_KILL_STEP - 1:
+                pull("before_kill")
+        r0 = fleet_replays(engines)
+        pa.reset_launches()
+        res, wall, hook_s = fleet_drive(
+            router, bs.fleet_schedule(reqs, kill=(FLEET_KILL_STEP, "f0")),
+            on_tick)
+        got = fleet_check("serve_fleet overload", engines, router, caps, r0,
+                          fleet_counts(), range(len(reqs)), res.completions,
+                          1)
+        launches[0] += got[0]
+        pull("after")
+        urllib.request.urlopen(servers[1].base_url + "/healthz",
+                               timeout=5).read()
+        for s in servers:
+            s.close()
+        peak = torch.cuda.max_memory_allocated()
+        anat = router.anatomy_report()["conservation"]
+        stats = dict(router.stats)
+        router.close()
+        kinds = jnl.read_journal(path)
+        dead = kinds.by_kind("replica_dead")
+        arms = [e for e in kinds.by_kind("fault")
+                if e.get("fault") == "replica_down"]
+        toks = sum(len(c.tokens) for c in res.completions.values())
+        p99_o = high_p99(res)
+        if not (stats["replica_deaths"] == 1 == len(dead) == len(arms)
+                and all("injected replica death" in e["reason"]
+                        for e in dead)
+                and stats["requeued"] >= 1 and anat["frac"] == 1.0):
+            raise AssertionError(f"serve_fleet overload: {stats}, deaths "
+                                 f"{dead}, arms {arms}, anatomy {anat}")
+        out["overload"] = {
+            "replicas": 3, "saturation_depth": 2 * SERVE_KW["num_slots"],
+            "tokens": toks, "wall_s": wall, "tokens_per_s": toks / wall,
+            "on_tick_s": hook_s,
+            "survived_frac": sum(c.finish_reason in ("eos", "length")
+                                 for c in res.completions.values())
+            / len(reqs),
+            "stats": stats, "replica_dead_reasons": [e["reason"]
+                                                     for e in dead],
+            "high_p99_ttft_s": p99_o, "uncontended_high_p99_ttft_s": p99_u,
+            "high_p99_vs_uncontended": p99_o / p99_u if p99_u else None,
+            "anatomy_conservation": anat, "kernel_launches": got[0],
+            "peak_memory_gb": peak / 2 ** 30, "http": http,
+            "seconds": time.perf_counter() - t1}
+        del engines, router
+
+        # 3. the replay
+        t1 = time.perf_counter()
+        _, router, res2, got2 = leg(
+            "serve_fleet replay", 3, path, 1, slo_every=FLEET_SLO_EVERY,
+            saturation_depth=2 * SERVE_KW["num_slots"])
+        rep = jnl.check_divergence(path, res2)
+        anat_div = sum(d["field"] == "anatomy" for d in rep["all"])
+        router.close()
+        # the recorded joins of the fleet's own members cannot re-apply
+        # (replay mints no engine); every other event must
+        extra = [e for e in res2.skipped if not (
+            e["kind"] == "join" and e["step"] == 0
+            and e["replica"] in router.replicas)]
+        if rep["divergences"] or anat_div or got2[0] != got[0] or extra:
+            raise AssertionError(f"serve_fleet replay: {rep['first']}, "
+                                 f"launches {got2} against {got}, skipped "
+                                 f"{extra}")
+        out["replay"] = {"requests": rep["requests"],
+                         "divergences": rep["divergences"],
+                         "anatomy_divergences": anat_div,
+                         "kernel_launches": got2[0],
+                         "seconds": time.perf_counter() - t1}
+        del router
+    torch.cuda.empty_cache()
+
+    # 4. identity: held at float32 weights and pools, recorded at bf16
+    t1 = time.perf_counter()
+    out["identity"] = [fleet_identity(model, params, None, hold=True),
+                       fleet_identity(model, bf16, "bf16", hold=False)]
+    launches[0] += sum(r["kernel_launches"] for r in out["identity"])
+    out["identity_seconds"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    out["capture_s"] = Ms(captures_s)
+
+    # 6. the autoscaler, one bench_serving process
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        here = os.path.dirname(os.path.abspath(__file__))
+        res = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.bench_serving",
+             "--model", "small", "--autoscale", "3", "--workload",
+             os.path.join(tmp, "wl.jsonl"), "--gen-workload", "--journal",
+             os.path.join(tmp, "auto.jsonl"), "--requests",
+             str(FLEET_AUTO_REQUESTS), "--min-prompt", "128",
+             "--max-prompt", "256", "--workload-min-new",
+             str(FLEET_AUTO_MIN_NEW),
+             "--slots", str(SERVE_KW["num_slots"]),
+             "--page-size", str(PS), "--prefill-chunk", str(CHUNK)],
+            cwd=here, capture_output=True, text=True, timeout=300)
+    lines = [json.loads(x) for x in res.stdout.splitlines()
+             if x.startswith("{")]
+    if res.returncode != 0 or len(lines) != 2:
+        raise AssertionError(f"bench_serving --autoscale: rc "
+                             f"{res.returncode}, {res.stderr[-2000:]}")
+    au, rp = lines
+    # a factory that raised (a capture that failed) is a join_failed hold
+    # and a replica whose step raised is a death: neither may happen,
+    # in the recorded run or its replay; every joined replica serves
+    if not (au["elastic_1_n_1"] == 1.0
+            and au["chip_accounting_conserved"] == 1.0
+            and rp["value"] == 0.0
+            and au["router_joins"] - 1 == au["decisions"]["scale_out"]
+            == len(au["joins"]) and au["platform"] == "gpu"
+            and all(x["join_failed"] == 0 == x["replica_deaths"]
+                    and not x["join_errors"] for x in lines)
+            and all(au["placements_by_replica"].get(j["replica"], 0) >= 1
+                    for j in au["joins"])):
+        raise AssertionError(f"bench_serving --autoscale: {lines}")
+    out["autoscale"] = {k: au[k] for k in (
+        "value", "replica_trace", "decisions", "joins", "router_joins",
+        "placements_by_replica", "join_failed", "replica_deaths",
+        "scaling_lag_max_steps", "chip_steps", "chip_steps_static",
+        "gold_burn_max", "requests", "ticks", "tokens")}
+    out["autoscale"]["replay"] = {k: rp[k] for k in (
+        "value", "replay_identical", "scale_decisions", "requests")}
+    out["autoscale"]["seconds"] = time.perf_counter() - t1
+    out["kernel_launches"] = {"float": launches[0], "quant": launches[1]}
     out["seconds"] = time.perf_counter() - t0
     out["gpu"] = smi()
     return out, launches
@@ -4594,6 +5125,8 @@ def main():
     workload_line = jour.pop("bench_serving")
     emit(with_spreads(jour))
     emit(workload_line)
+    fleet, fleet_launches = run_serve_fleet_phase(model)
+    emit(with_spreads(fleet))
     del model, logged
     torch.cuda.empty_cache()
     parity = run_parity_phase()
@@ -4662,7 +5195,8 @@ def main():
         "launches_by_phase": {"serve": launches,
                               "serve_spec": spec_launches_["float"],
                               "serve_telemetry": tele_launches["bf16"],
-                              "serve_journal": jour_launches["float"]},
+                              "serve_journal": jour_launches["float"],
+                              "serve_fleet": fleet_launches[0]},
         "cases": {n: kres[n]["bfloat16"]
                   for n in ("mixed", "prefill", "verify")}}]
     qdec = qres["decode"]["int8"]["bfloat16"]
@@ -4671,11 +5205,13 @@ def main():
         "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention_pallas.py:102",
         "launches": sum(qlaunches.values()) + spec_launches_["quant"]
-        + tele_launches["int8"] + jour_launches["quant"],
+        + tele_launches["int8"] + jour_launches["quant"]
+        + fleet_launches[1],
         "launches_by_phase": {**qlaunches,
                               "serve_spec": spec_launches_["quant"],
                               "serve_telemetry": tele_launches["int8"],
-                              "serve_journal": jour_launches["quant"]},
+                              "serve_journal": jour_launches["quant"],
+                              "serve_fleet": fleet_launches[1]},
         "max_abs_err": max(r["max_abs_err"] for case in qres.values()
                            for fmt in case.values() for r in fmt.values()),
         "max_rel_err": max(r["rel_err"] for case in qres.values()

@@ -14,6 +14,11 @@ counterpart of ``paddle_tpu/observability`` (its serving half):
   bounded flight recorder (``dump(path)`` postmortems on engine
   exception / ``close()`` / SIGUSR1), and the merged Chrome-trace
   export (host-profiler + request + capture lanes).
+- :mod:`aggregate` — cross-process metric aggregation: the versioned
+  mergeable snapshot format, ``aggregate_snapshots()`` (counters sum,
+  histograms merge bucket-wise, gauges keep a ``replica`` label) and
+  the :class:`FleetAggregator` that pulls N ``MetricsServer``
+  endpoints, files, registries or callables into one fleet view.
 - :mod:`ledger` — the serving goodput/MFU/MBU ledger: analytic
   per-phase model-FLOPs/HBM-bytes models against one H100's peaks,
   per-tier goodput and per-request/per-tenant cost attribution.
@@ -33,8 +38,9 @@ Instrumented call sites: ``inference/serving.py``,
 ``inference/speculative.py``, ``inference/faults.py`` (the journal's
 fault arms) and ``parallel/api.py`` (the numerics pass). The host-span
 profiler (``paddle_tpu_torch.profiler``) can feed spans into a registry
-histogram via ``profiler.feed_registry(...)``. Cross-process aggregation
-(``aggregate.py``) is not ported yet.
+histogram via ``profiler.feed_registry(...)``. The fleet router
+(``inference/router.py``) and the autoscaler (``inference/autoscale.py``)
+feed the registry, the aggregator and the journal too.
 """
 from .registry import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, get_registry,
@@ -50,6 +56,12 @@ from .tracing import (  # noqa: F401
     extract_context, dump_chrome_events,
 )
 from . import tracing  # noqa: F401
+from .aggregate import (  # noqa: F401
+    SNAPSHOT_FORMAT, FLEET_FORMAT, wrap_snapshot, aggregate_snapshots,
+    merged_quantile, series_quantile, fleet_expose_text,
+    FleetAggregator,
+)
+from . import aggregate  # noqa: F401
 from .ledger import (  # noqa: F401
     ServingLedger, model_costs, LEDGER_PHASES, GOODPUT_REASONS,
     REQUEST_COST_BUCKETS,
@@ -83,6 +95,9 @@ __all__ = [
     "export_merged_chrome_trace", "register_postmortem",
     "unregister_postmortem", "install_signal_handler", "tracing",
     "extract_context", "dump_chrome_events",
+    "SNAPSHOT_FORMAT", "FLEET_FORMAT", "wrap_snapshot",
+    "aggregate_snapshots", "merged_quantile", "series_quantile",
+    "fleet_expose_text", "FleetAggregator", "aggregate",
     "ServingLedger", "model_costs", "LEDGER_PHASES",
     "GOODPUT_REASONS", "REQUEST_COST_BUCKETS", "ledger",
     "SEGMENTS", "ROUTER_SEGMENTS", "SEGMENT_STEP_BUCKETS",

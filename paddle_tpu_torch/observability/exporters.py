@@ -7,6 +7,11 @@ time (no background sampling thread):
 
 - ``GET /metrics``        -> Prometheus text exposition (0.0.4)
 - ``GET /metrics.json``   -> the raw ``snapshot()`` dict as JSON
+- ``GET /snapshot.json``  -> the VERSIONED mergeable snapshot
+  (``observability.aggregate``): the raw snapshot wrapped with
+  ``format`` / ``replica`` / wall-clock ``ts`` / monotonic
+  ``uptime_s`` — what a :class:`~.aggregate.FleetAggregator` pulls
+  (the stamps give aggregator-side rates their denominator).
 - ``GET /healthz``        -> ``200 {"status": "ok", ...}`` liveness
   probe (what a router health-checks before routing to a replica).
 - **provider routes**: ``providers={"/requests.json":
@@ -17,9 +22,10 @@ time (no background sampling thread):
   that raises returns 500 (with the error in the body) instead of
   taking down the listener.
 
-The reference's ``/snapshot.json`` (the versioned snapshot its fleet
-aggregator merges, ``observability/aggregate.py``) is not ported: the
-aggregator comes with the fleet.
+``MetricsServer(registry=aggregator)`` with a
+:class:`~.aggregate.FleetAggregator` serves the merged fleet view: the
+aggregator is duck-typed like a registry (``expose_text()``,
+``snapshot()``).
 
 ``start_metrics_server(port=0)`` binds an ephemeral port (read it back
 from ``server.port``) and serves from a daemon thread; ``close()``
@@ -65,6 +71,9 @@ class MetricsServer:
                 elif path == "/metrics.json":
                     body = json.dumps(registry.snapshot()).encode()
                     ctype = "application/json"
+                elif path == "/snapshot.json":
+                    body = json.dumps(server.snapshot()).encode()
+                    ctype = "application/json"
                 elif path == "/healthz":
                     body = json.dumps(server.health()).encode()
                     ctype = "application/json"
@@ -104,7 +113,8 @@ class MetricsServer:
         if not path.startswith("/"):
             raise ValueError(f"provider path must start with '/': "
                              f"{path!r}")
-        if path in ("/", "/metrics", "/metrics.json", "/healthz"):
+        if path in ("/", "/metrics", "/metrics.json",
+                    "/snapshot.json", "/healthz"):
             raise ValueError(f"provider path {path!r} shadows a "
                              "built-in route")
         if not callable(fn):
@@ -118,6 +128,15 @@ class MetricsServer:
         the snapshot's counters it gives an aggregator a rate
         denominator that survives wall-clock jumps."""
         return time.monotonic() - self._mono0
+
+    def snapshot(self):
+        """The versioned mergeable snapshot (aggregate.SNAPSHOT_FORMAT)
+        stamped with this replica's name, wall-clock ``ts`` and
+        monotonic ``uptime_s`` — what ``/snapshot.json`` serves and a
+        FleetAggregator merges."""
+        from .aggregate import wrap_snapshot
+        return wrap_snapshot(self.registry, replica=self.replica,
+                             ts=time.time(), uptime_s=self.uptime_s)
 
     def health(self):
         """The ``/healthz`` liveness document."""
@@ -158,8 +177,8 @@ def start_metrics_server(port=0, registry: MetricsRegistry = None,
                          host="127.0.0.1", replica=None,
                          providers=None) -> MetricsServer:
     """Serve ``registry`` (default: the process registry) on
-    ``http://host:port/metrics`` (+ ``/metrics.json``, ``/healthz``,
-    and any ``providers`` routes);
+    ``http://host:port/metrics`` (+ ``/metrics.json``,
+    ``/snapshot.json``, ``/healthz``, and any ``providers`` routes);
     ``port=0`` picks a free one."""
     return MetricsServer(registry=registry, host=host, port=port,
                          replica=replica, providers=providers)

@@ -42,13 +42,28 @@ recipe prompts, diurnal and burst arrivals) through one fresh engine
 and prints the ``workload_replay`` line; ``--gen-workload`` writes the
 file first, byte-reproducible from ``--seed``.
 
-Not ported (the flag exits non-zero): the fleet router and its journal
-legs (``--fleet``, ``--kill-replica``, ``--route``, ``--autoscale``),
-meshes (``--mesh``, ``--kv-shard``, ``--collective-dtype``) and the
-target's synthetic pre-training (``--spec-train-steps``): the
-speculative legs run on the random-weight target, so their acceptance
-rate measures the mechanism, not a trained draft. The mesh columns read
-their one-card values.
+The fleet, as the reference's: ``--fleet N`` replays one mixed-tenant,
+shared-prefix (``--prefix-groups`` groups), two-tier trace through a
+``FleetRouter`` over N captured engines — the gentle replay under both
+routing policies (affinity hit rate against the random baseline), the
+high tier alone, and the overload replay under ``--route`` with replica
+f0 killed at router step ``--kill-replica``; with ``--journal`` the
+overload leg is recorded and replayed through a fresh fleet right away
+(the ``fleet_journal_replay`` line). ``--autoscale MAX_N`` with
+``--workload`` drives an elastic 1..MAX_N fleet through the workload
+journal under the ``AutoscaleController`` (an ``SLOEngine`` on the
+router's step clock over a count objective); with ``--journal`` it is
+recorded and replayed through a fresh fleet and controller (the
+``autoscale_replay`` line). The reference puts one replica on each chip;
+here every replica is an engine on the one card, so these lines carry
+``"chips": 1`` and ``replicas``, and ``platform`` is ``gpu`` (or
+``cpu``) as the reference's backend names it.
+
+Not ported (the flag exits non-zero): meshes (``--mesh``, ``--kv-shard``,
+``--collective-dtype``) and the target's synthetic pre-training
+(``--spec-train-steps``): the speculative legs run on the random-weight
+target, so their acceptance rate measures the mechanism, not a trained
+draft. The mesh columns read their one-card values.
 """
 from __future__ import annotations
 
@@ -61,8 +76,7 @@ import time
 
 import numpy as np
 
-NOT_PORTED = ("--fleet", "--kill-replica", "--route", "--autoscale",
-              "--mesh", "--kv-shard", "--collective-dtype",
+NOT_PORTED = ("--mesh", "--kv-shard", "--collective-dtype",
               "--spec-train-steps")
 
 
@@ -126,15 +140,35 @@ def _parser():
                          "stream is unchanged)")
     ap.add_argument("--journal", default=None, metavar="PATH",
                     help="record the --overload resilient leg (or the "
-                         "--workload replay) to this journal file")
+                         "--workload replay, the --fleet overload leg, the "
+                         "--autoscale run) to this journal file")
     ap.add_argument("--workload", default=None, metavar="FILE",
                     help="replay a workload journal through one fresh "
                          "engine and print the workload_replay line")
     ap.add_argument("--gen-workload", action="store_true",
                     help="(re)generate the --workload FILE from --seed "
                          "and --requests first (byte-reproducible)")
+    ap.add_argument("--workload-min-new", type=int, default=1,
+                    help="--gen-workload: the fewest new tokens a "
+                         "request (its outputs are this times 1 + a "
+                         "Pareto draw, up to --max-new)")
     ap.add_argument("--prefix-groups", type=int, default=4,
-                    help="shared-prefix groups of a generated workload")
+                    help="shared-prefix groups of a generated workload "
+                         "and of the fleet trace")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="front this many engines with a FleetRouter and "
+                         "replay one mixed-tenant trace through it")
+    ap.add_argument("--kill-replica", type=int, default=None,
+                    metavar="AT_STEP",
+                    help="fleet mode: kill replica f0 (replica_down) at "
+                         "this router step of the overload replay")
+    ap.add_argument("--route", default="affinity",
+                    choices=("affinity", "random"),
+                    help="fleet mode routing policy of the overload "
+                         "replay (the hit-rate comparison runs both)")
+    ap.add_argument("--autoscale", type=int, default=0, metavar="MAX_N",
+                    help="replay the --workload journal through an "
+                         "elastic 1..MAX_N fleet under the autoscaler")
     return ap
 
 
@@ -242,6 +276,112 @@ def tenant_fields(ledger, wall_s):
             "cost_per_goodput_token": round(hbm / good, 1)
             if good else None,
             "requests": dict(tc["requests"])}
+    return out
+
+
+# -- the fleet's trace, fleet and drive (run_fleet's; chip_smoke.py's too) ---
+
+def fleet_stream(rng, vocab, requests, *, prefix_groups, prefix_len,
+                 min_prompt, max_prompt, min_new, max_new, high_frac,
+                 tenant=None):
+    """``run_fleet``'s trace: ``requests`` prompts, request i behind
+    prefix group i mod ``prefix_groups`` (a ``prefix_len``-token system
+    prompt each), tails of ``min_prompt``..``max_prompt`` tokens,
+    ``min_new``..``max_new`` new tokens, ``high_frac`` of them at
+    priority 2 (shuffled), the rest at 0. ``rng`` is a numpy
+    ``RandomState`` or ``Generator``, drawn in one fixed order;
+    ``tenant()`` names a request's tenant (None, or no ``tenant``:
+    ``gold`` at priority 2, else ``bulk``). Returns request dicts
+    (``prompt``, ``max_new_tokens``, ``priority``, ``tenant``)."""
+    draw = getattr(rng, "integers", None) or rng.randint
+    prefixes = [draw(0, vocab, prefix_len) for _ in range(prefix_groups)]
+    n_high = max(1, int(round(requests * high_frac)))
+    tiers = [2] * n_high + [0] * (requests - n_high)
+    rng.shuffle(tiers)
+    out = []
+    for i in range(requests):
+        tail = draw(0, vocab, int(draw(min_prompt, max_prompt + 1)))
+        nnew = int(draw(min_new, max_new + 1))
+        name = tenant() if tenant else None
+        out.append({"prompt": np.concatenate([prefixes[i % prefix_groups],
+                                              tail]),
+                    "max_new_tokens": nnew, "priority": int(tiers[i]),
+                    "tenant": name or ("gold" if tiers[i] >= 2
+                                       else "bulk")})
+    return out
+
+
+def fleet_schedule(stream, arrival_steps=1, only_tier=None, kill=None):
+    """``stream`` as a journal schedule, request i after i *
+    ``arrival_steps`` router steps; ``only_tier`` drops the other tiers'
+    submits but keeps their steps, so arrival times never shift;
+    ``kill=(step, replica)`` adds a ``replica_down`` fault event at that
+    step (after its submit)."""
+    from ..observability import journal as jnl
+    sched = jnl.schedule_from_stream(stream, arrival_steps=arrival_steps)
+    if only_tier is not None:
+        sched = [ev for ev, r in zip(sched, stream)
+                 if r["priority"] == only_tier]
+    if kill is not None:
+        sched.append({"kind": "fault", "step": int(kill[0]),
+                      "seq": len(stream) + 1, "fault": "replica_down",
+                      "replica": kill[1]})
+    return sched
+
+
+def build_fleet(make_engine, n, **rkw):
+    """``n`` engines from ``make_engine(fault_injector=...)`` (f0 gets a
+    ``FaultInjector``: the kill target) as replicas f0..f{n-1} behind a
+    ``FleetRouter`` with its own registry (``rkw``: the router's
+    arguments). Returns (engines, router)."""
+    from ..inference import EngineReplica, FaultInjector, FleetRouter
+    from ..observability import MetricsRegistry
+    engines = [make_engine(fault_injector=FaultInjector() if i == 0
+                           else None) for i in range(n)]
+    router = FleetRouter([EngineReplica(e, f"f{i}")
+                          for i, e in enumerate(engines)],
+                         registry=MetricsRegistry(), **rkw)
+    return engines, router
+
+
+def step_clock_slo(router, specs):
+    """An ``SLOEngine`` over ``router``'s aggregator on its step clock:
+    with count objectives its burns, and every decision read from them,
+    are the same under replay."""
+    from ..observability import SLOEngine
+    router.slo = SLOEngine(specs, source=router.aggregator,
+                           registry=router.metrics,
+                           clock=lambda: float(router.steps_taken))
+    return router.slo
+
+
+def drive_fleet(router, sched, sync=lambda: None, on_tick=None, **kw):
+    """``journal.replay`` of ``sched`` through ``router`` between two
+    ``sync()`` calls (``kw``: replay's, e.g. ``controller``). Returns
+    (the replay's result, its wall seconds less the seconds spent in
+    ``on_tick``, those seconds)."""
+    from ..observability import journal as jnl
+    hook_s = [0.0]
+
+    def tick(k):
+        t = time.perf_counter()
+        on_tick(k)
+        hook_s[0] += time.perf_counter() - t
+    sync()
+    t0 = time.perf_counter()
+    res = jnl.replay(sched, router, on_tick=tick if on_tick else None,
+                     **kw)
+    sync()
+    return res, time.perf_counter() - t0 - hook_s[0], hook_s[0]
+
+
+def tier_ttfts(done):
+    """TTFT seconds of completions by tier: ``high`` (priority >= 2) and
+    ``low``."""
+    out = {"high": [], "low": []}
+    for c in done.values():
+        if c.ttft_s is not None:
+            out["high" if c.priority >= 2 else "low"].append(c.ttft_s)
     return out
 
 
@@ -789,7 +929,7 @@ class Bench:
                 vocab=self.vocab, min_prompt=a.min_prompt,
                 max_prompt=max(a.min_prompt, min(
                     a.max_prompt, self.max_seq_len - a.max_new - plen)),
-                min_new=1, max_new=a.max_new,
+                min_new=a.workload_min_new, max_new=a.max_new,
                 prefix_groups=max(1, a.prefix_groups), prefix_len=plen,
                 tenants=dict(zip(self.tenant_names, self.tenant_weights))
                 if self.tenant_names else None)
@@ -839,6 +979,291 @@ class Bench:
             "prefix_cached_tokens": stats.get("cached_tokens", 0),
             "attribution_conserved": 1.0 if conserved else 0.0,
             **self.stamp}), flush=True)
+
+    # -- --fleet --------------------------------------------------------------
+    def fleet_stamp(self, replicas):
+        """The fleet lines' device keys: the reference's backend name
+        (``gpu`` or ``cpu``), one card, and the replicas on it."""
+        return {**self.stamp,
+                "platform": "gpu" if self.device.type == "cuda" else "cpu",
+                "chips": 1, "replicas": int(replicas)}
+
+    def run_fleet(self):
+        """The fleet-router replay (reference ``run_fleet``). One
+        mixed-tenant, shared-prefix, two-tier trace through a
+        ``FleetRouter`` over ``--fleet`` engines, three ways: (a) a
+        gently paced replay under both routing policies with saturation
+        off — the affinity hit rate against the random baseline on the
+        same traffic; (b) the high tier alone at the same cadence — the
+        uncontended TTFT reference; (c) the full replay under ``--route``
+        with replica f0 killed at ``--kill-replica`` — p99 TTFT per tier,
+        the high-against-uncontended ratio and survival through the kill.
+        With ``--journal`` (c) is recorded and replayed through a fresh
+        fleet, and a second line carries the divergence count."""
+        from ..observability import journal as jnl
+        a, rng = self.args, self.rng
+        N = a.fleet
+        G = max(1, a.prefix_groups)
+        plen = a.prefix_len
+        stream = fleet_stream(
+            rng, self.vocab, a.requests, prefix_groups=G, prefix_len=plen,
+            min_prompt=a.min_prompt, max_prompt=a.max_prompt,
+            min_new=max(a.max_new // 2, 1), max_new=a.max_new,
+            high_frac=a.high_frac, tenant=self.draw_tenant)
+        n_high = sum(r["priority"] >= 2 for r in stream)
+
+        def make_engine(**kw):
+            e = self.engine(**kw)
+            # warm-up per engine: the programs and the copy-on-write
+            # page copy (a duplicate pair) outside measured TTFT
+            for p, n in self.make_stream(max(a.warmup_requests, 1),
+                                         with_prefix=False):
+                e.add_request(p, n)
+            dup = rng.randint(0, self.vocab, a.page_size)
+            e.add_request(dup, 2)
+            e.add_request(dup, 2)
+            e.run(max_steps=1_000_000)
+            return e
+
+        def fleet(policy, **rkw):
+            return build_fleet(make_engine, N, policy=policy, **rkw)
+
+        def replay(router, kill_step=None, only_tier=None):
+            """Request i lands after i * ``--arrival-steps`` router
+            steps; the kill takes f0 at ``kill_step``."""
+            res, wall, _ = drive_fleet(router, fleet_schedule(
+                stream, a.arrival_steps, only_tier,
+                None if kill_step is None else (kill_step, "f0")),
+                self.sync)
+            return {c.uid: c for c in res.completions.values()}, wall
+
+        # (a) the hit-rate comparison: both policies, the same trace,
+        # saturation fallback off so the number measures placement alone
+        hit_rates, aff_cached = {}, []
+        for pol in ("affinity", "random"):
+            engines, router = fleet(pol, saturation_depth=10 ** 9)
+            replay(router)
+            hit_rates[pol] = router.affinity_hit_rate()
+            if pol == "affinity":
+                aff_cached = [e.stats["cached_tokens"] for e in engines]
+            router.close()
+        # (b) the uncontended reference: the high tier alone, no kill
+        engines, router = fleet(a.route)
+        done_u, _ = replay(router, only_tier=2)
+        high_u = _pcts(tier_ttfts(done_u)["high"])
+        router.close()
+        # (c) the oversubscribed replay with the mid-trace kill
+        engines, router = fleet(a.route, saturation_depth=2 * a.slots,
+                                journal=a.journal)
+        done_o, wall = replay(router, kill_step=a.kill_replica)
+        tt = tier_ttfts(done_o)
+        high_o, low_o = _pcts(tt["high"]), _pcts(tt["low"])
+        ok = sum(1 for c in done_o.values()
+                 if c.finish_reason in ("eos", "length"))
+        reasons = {}
+        for c in done_o.values():
+            reasons[c.finish_reason] = reasons.get(c.finish_reason, 0) + 1
+        ratio = (round(high_o["p99_ms"] / high_u["p99_ms"], 3)
+                 if high_o["p99_ms"] and high_u["p99_ms"] else None)
+        toks = sum(len(c.tokens) for c in done_o.values())
+        arep = router.anatomy_report()     # read before close
+        rec = {
+            "metric": f"gpt2_{a.model}_fleet_router_affinity_hit_rate",
+            "value": round(hit_rates["affinity"], 4),
+            "unit": "fraction", "fleet": N, "route": a.route,
+            "kill_step": a.kill_replica, "requests": a.requests,
+            "slots": a.slots, "prefix_groups": G, "prefix_len": plen,
+            "high_frac": round(n_high / a.requests, 3),
+            "arrival_steps": a.arrival_steps,
+            "random_hit_rate": round(hit_rates["random"], 4),
+            "hit_rate_minus_random": round(
+                hit_rates["affinity"] - hit_rates["random"], 4),
+            "affinity_cached_tokens_per_replica": aff_cached,
+            "ttft": {"high": high_o, "low": low_o},
+            "uncontended_high": high_u,
+            "high_p99_vs_uncontended": ratio,
+            "survived_frac": round(ok / len(stream), 4),
+            "completions": reasons,
+            "replica_deaths": router.stats["replica_deaths"],
+            "replica_dead_reasons": [d["reason"] for d in router.deaths],
+            "requeued": router.stats["requeued"],
+            "preempts_remote": router.stats["preempts_remote"],
+            "tokens_per_sec": round(toks / wall, 1),
+            "decode_compiles_max": max(
+                e.compile_counts()["decode_step"] for e in engines),
+            "prefill_compiles_max": max(
+                e.compile_counts()["prefill_chunk"] for e in engines),
+            **self.fleet_stamp(N)}
+        rec.update(anatomy_fields(arep["summary"]))
+        router.close()
+        print(json.dumps(rec), flush=True)
+        if not a.journal:
+            return
+        # a recorded window is only a journal if a FRESH fleet driven
+        # through it lands on the same tokens
+        engines2, router2 = fleet(a.route, saturation_depth=2 * a.slots)
+        res, wall2, _ = drive_fleet(router2, a.journal, self.sync)
+        report = jnl.check_divergence(a.journal, res,
+                                      registry=router2.metrics)
+        toks2 = sum(len(c.tokens) for c in res.completions.values())
+        router2.close()
+        print(json.dumps({
+            "metric": f"gpt2_{a.model}_fleet_journal_replay",
+            "value": float(report["divergences"]),
+            "unit": "divergences", "journal": a.journal,
+            "requests": report["requests"],
+            "replayed": report["replayed"],
+            "replay_identical": 1.0 if report["identical"] else 0.0,
+            "rejected": len(res.rejected), "ticks": res.ticks,
+            "replay_tokens_per_sec": round(toks2 / max(wall2, 1e-9), 1),
+            "first_divergence": report["first"],
+            "anatomy_divergences": sum(
+                1 for d in report["all"] if d["field"] == "anatomy"),
+            "anatomy_requests_recorded": report["anatomy"]["recorded"],
+            "anatomy_requests_replayed": report["anatomy"]["replayed"],
+            **self.fleet_stamp(N)}), flush=True)
+
+    # -- --autoscale ----------------------------------------------------------
+    def run_autoscale(self):
+        """The workload replay with the controller closed over the fleet
+        (reference ``run_autoscale``). The ``--workload`` journal drives
+        an elastic 1..``--autoscale`` fleet (one replica from the start;
+        the ``AutoscaleController`` joins and drains the rest on queue
+        pressure and per-tenant burn); after the schedule drains, the
+        idle tail runs until the fleet is back at its floor. The numbers
+        are step-denominated: the replica-count trace, scaling lag,
+        chip-steps against static N, the worst gold-tier burn, and each
+        join's capture seconds beside its lag. With ``--journal`` the run
+        is recorded and replayed through a FRESH fleet and controller —
+        ``check_divergence`` on tokens, outcomes, ledger, decisions and
+        anatomy lands on the second line."""
+        from ..inference import (AutoscaleController, AutoscalePolicy,
+                                 EngineReplica, FleetRouter)
+        from ..observability import MetricsRegistry, SLOSpec
+        from ..observability import journal as jnl
+        a = self.args
+        rd, wl = self.load_workload()
+        max_n = max(int(a.autoscale), 2)
+        pol = AutoscalePolicy(
+            min_replicas=1, max_replicas=max_n, scale_out_burn=0.5,
+            queue_high=float(a.slots), confirm_out=2, queue_low=0.0,
+            scale_in_burn=0.25, idle_steps=24, cooldown_steps=12)
+
+        def make_engine():
+            # no warm-up: an engine's state is a function of the
+            # schedule alone, so record and replay mint identical
+            # replicas (a captured engine's programs are ready at its
+            # constructor's end)
+            return self.engine()
+
+        def build(journal):
+            router = FleetRouter(
+                [EngineReplica(make_engine(), "a0")],
+                registry=MetricsRegistry(), journal=journal,
+                name="autoscale0", seed=a.seed)
+            # burn on the STEP clock over a count objective: the
+            # decision inputs stay deterministic under replay
+            step_clock_slo(router, [SLOSpec(
+                name="gold-success", tenant="gold", success_frac=0.99,
+                windows=(8.0, 64.0), min_count=2)])
+            ctl = AutoscaleController(router, make_engine, pol,
+                                      static_n=max_n)
+            return router, ctl
+
+        def failures(ctl, deaths):
+            # what the controller and the router would otherwise absorb:
+            # a factory that raised (a join_failed hold) and a replica
+            # whose step raised (a death), each with its exception
+            return {"join_failed": sum(
+                        d["counterfactual"]["blocked"] == "join_failed"
+                        for d in ctl.decisions),
+                    "join_errors": [e for _, e in ctl.join_errors],
+                    "replica_deaths": len(deaths),
+                    "replica_dead_reasons": deaths}
+
+        def drive(router, ctl):
+            burn = [0.0]
+
+            def on_tick(_k):
+                burn[0] = max(burn[0], float(
+                    router.scale_signals().get("max_burn") or 0.0))
+            res, _, _ = drive_fleet(router, rd, self.sync, on_tick,
+                                    controller=ctl)
+            for _ in range(600):       # the idle scale-in tail
+                if len(router.live_replicas()) <= pol.min_replicas:
+                    break
+                router.step()
+                ctl.tick()
+            self.sync()
+            burn[0] = max(burn[0], float(
+                router.scale_signals().get("max_burn") or 0.0))
+            return res, burn[0]
+
+        router, ctl = build(a.journal)
+        res, burn_max = drive(router, ctl)
+        rep = ctl.report()
+        trace = [n for _, n in rep["replica_trace"]]
+        elastic_1n1 = trace[0] == 1 and trace[-1] == 1 and max(trace) > 1
+        toks = sum(len(c.tokens) for c in res.completions.values())
+        joins = [{"replica": d["replica"], "step": d["step"],
+                  "lag_steps": d["counterfactual"]["lag_steps"],
+                  "capture_s": round(router.replicas[d["replica"]]
+                                     .handle.engine.capture_seconds, 4)}
+                 for d in ctl.decisions if d["decision"] == "scale_out"]
+        router_joins = router.stats["joins"]
+        placed = {}
+        for sr in (router.metrics.snapshot().get("router_requests_total")
+                   or {"series": []})["series"]:
+            nm = sr["labels"]["replica"]
+            placed[nm] = placed.get(nm, 0) + int(sr["value"])
+        deaths = [d["reason"] for d in router.deaths]
+        router.close()
+        print(json.dumps({
+            "metric": f"gpt2_{a.model}_autoscale_chip_steps_saved_frac",
+            "value": round(rep["chip_steps_saved_frac"], 4),
+            "unit": "fraction", "workload": a.workload,
+            "workload_meta": {k: wl.get(k) for k in (
+                "seed", "requests", "base_arrivals_per_tick",
+                "burst_mult", "horizon_ticks") if k in wl},
+            "static_n": ctl.static_n, "chip_steps": rep["chip_steps"],
+            "chip_steps_static": rep["chip_steps_static"],
+            "chip_steps_under_static": 1.0
+            if rep["chip_steps"] < rep["chip_steps_static"] else 0.0,
+            "replica_trace": rep["replica_trace"],
+            "max_replicas_seen": rep["max_replicas_seen"],
+            "elastic_1_n_1": 1.0 if elastic_1n1 else 0.0,
+            "gold_burn_max": round(burn_max, 4),
+            "gold_burn_under_1": 1.0 if burn_max < 1.0 else 0.0,
+            "scaling_lag_max_steps": rep["scaling_lag_max_steps"],
+            "decisions": rep["decisions"],
+            "blocked_cooldown": rep["blocked_cooldown"],
+            "chip_accounting_conserved": 1.0
+            if rep["conservation"]["conserved"] else 0.0,
+            "requests": len(res.completions),
+            "rejected": len(res.rejected),
+            "ticks": rep["ticks"], "tokens": toks,
+            "router_joins": router_joins, "joins": joins,
+            "placements_by_replica": placed, **failures(ctl, deaths), **self.fleet_stamp(max_n)}),
+            flush=True)
+        if not a.journal:
+            return
+        router2, ctl2 = build(None)
+        res2, _ = drive(router2, ctl2)
+        report = jnl.check_divergence(a.journal, res2,
+                                      registry=router2.metrics)
+        deaths2 = [d["reason"] for d in router2.deaths]
+        router2.close()
+        print(json.dumps({
+            "metric": f"gpt2_{a.model}_autoscale_replay",
+            "value": float(report["divergences"]),
+            "unit": "divergences", "journal": a.journal,
+            "replay_identical": 1.0 if report["identical"] else 0.0,
+            "requests": report["requests"],
+            "replayed": report["replayed"],
+            "scale_decisions": report["scale_decisions"],
+            "first_divergence": report["first"],
+            **failures(ctl2, deaths2), **self.fleet_stamp(max_n)}),
+            flush=True)
 
     # -- --speculative ---------------------------------------------------------
     def run_speculative(self):
@@ -937,19 +1362,28 @@ def main(argv=None):
     if refused:
         sys.stderr.write(
             f"{', '.join(refused)}: not ported to paddle_tpu_torch "
-            "(the fleet router, meshes and the target's pre-training "
-            "come in later slices)\n")
+            "(meshes and the target's pre-training come in later "
+            "slices)\n")
         raise SystemExit(2)
     args = _parser().parse_args(argv)
     if args.shared_prefix and args.prefix_len <= 0:
         args.prefix_len = 256
+    if args.fleet and args.prefix_len <= 0:
+        # the fleet's affinity subject: a 2-page shared system prompt a
+        # group (sized into max_seq_len)
+        args.prefix_len = 2 * args.page_size
     import torch
     with torch.no_grad():
         bench = Bench(args)
         if args.mixed_steady:
             bench.run_mixed_steady()
         elif args.workload:
-            bench.run_workload()
+            if args.autoscale:
+                bench.run_autoscale()
+            else:
+                bench.run_workload()
+        elif args.fleet:
+            bench.run_fleet()
         elif args.overload:
             bench.run_overload()
         elif args.speculative:

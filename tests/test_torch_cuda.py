@@ -24,7 +24,9 @@ steps through the plain versions, and the ResNet slice (conv, batch norm
 and pooling on cuDNN/ATen, a ResNet-18 ``multi_step`` with Momentum) on
 the card against the CPU, and the rest of observability: the
 ``tensor_health`` kernel against its plain version, ``skip_nonfinite``
-bit-identity, and journal record and replay on captured engines.
+bit-identity, and journal record and replay on captured engines; and
+the fleet router over captured engines (a kill, a dead replica dropped
+while a new one captures, a fleet journal's replay).
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -2230,3 +2232,132 @@ def test_journal_record_and_replay_on_captured_engines(cuda, kv_dtype, mixed,
     assert rep["divergences"] == 0, rep["first"]
     assert rep["requests"] == len(_graph_reqs()) and not res.skipped
     fresh.kv.verify()
+
+
+# -- the fleet router over captured engines -----------------------------------
+
+def _fleet(dev, n=2, journal=None, **kw):
+    from paddle_tpu_torch.inference import (EngineReplica, FaultInjector,
+                                            FleetRouter)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    engines = [_graph_engine(dev, True, registry=MetricsRegistry(),
+                             fault_injector=FaultInjector() if i == 0
+                             else None, **kw) for i in range(n)]
+    router = FleetRouter([EngineReplica(e, f"f{i}")
+                          for i, e in enumerate(engines)],
+                         registry=MetricsRegistry(), journal=journal,
+                         saturation_depth=2)
+    return engines, router
+
+
+def _fleet_sched():
+    from paddle_tpu_torch.observability import journal as jnl
+    sched = jnl.schedule_from_stream(
+        [dict(prompt=p, max_new_tokens=n, temperature=t, seed=sd,
+              priority=2 if i == 5 else 0)
+         for i, (p, n, t, sd) in enumerate(_graph_reqs() * 2)],
+        arrival_steps=1)
+    sched.append({"kind": "fault", "step": 6, "seq": 99,
+                  "fault": "replica_down", "replica": "f0"})
+    return sched
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_captured_fleet_survives_a_kill(cuda, kv_dtype):
+    """Two captured engines behind a router, f0 killed mid-trace: every
+    request finishes with its whole budget, the deaths equal the injected
+    faults, no replica captures after its constructor, and the ragged
+    launches equal each replica's graph deltas times its replays."""
+    from paddle_tpu_torch.observability import journal as jnl
+    engines, router = _fleet(cuda, kv_dtype=kv_dtype)
+    graphs = [e.stats["graph_captures"] for e in engines]
+    replays = [{k: p.replays for k, p in e._progs.items()} for e in engines]
+    pa.reset_launches()
+    res = jnl.replay(_fleet_sched(), router)
+    torch.cuda.synchronize()
+    assert [e.stats["graph_captures"] for e in engines] == graphs
+    assert router.stats["replica_deaths"] == 1
+    assert [(d["replica"], d["error"]) for d in router.deaths] == [
+        ("f0", "ReplicaDown")]
+    assert router.replicas["f0"].status == "dead"
+    assert router.stats["requeued"] >= 1
+    want = [0, 0]
+    for e, r0 in zip(engines, replays):
+        for k, p in e._progs.items():
+            want[0] += p.deltas[0] * (p.replays - r0[k])
+            want[1] += p.deltas[2] * (p.replays - r0[k])
+    assert [pa.launches, pa.quant_launches] == want and sum(want) > 0
+    reqs = _graph_reqs() * 2
+    got = res.completions
+    assert sorted(got) == list(range(len(reqs)))
+    assert [(got[i].finish_reason, len(got[i].tokens))
+            for i in range(len(reqs))] == [("length", n)
+                                           for _, n, _, _ in reqs]
+    engines[1].kv.verify()
+    router.close()
+
+
+def test_a_dead_replica_dropped_while_a_new_one_captures(cuda):
+    """The collector's setting of ROADMAP C17 under the router: f0 dies,
+    the caller drops its engine (cyclic garbage until the collector
+    runs), and a new captured replica joins while the collector would run
+    at every allocation; the new replica takes traffic and serves."""
+    import gc
+
+    from paddle_tpu_torch.inference import EngineReplica
+    from paddle_tpu_torch.observability import journal as jnl
+    engines, router = _fleet(cuda)
+    jnl.replay(_fleet_sched(), router)
+    assert router.replicas["f0"].status == "dead"
+    dead = engines[0]
+    dead.cycle = dead
+    router.replicas["f0"].handle.engine = None
+    del engines[0], dead
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        new = _graph_engine(cuda, True)
+    finally:
+        gc.set_threshold(*old)
+    assert new.stats["graph_captures"] == 6
+    router.join(EngineReplica(new, "f2"))
+    router.drain("f1")
+    uids = [router.submit(p, n, temperature=t, seed=s)
+            for p, n, t, s in _graph_reqs()]
+    done = router.run(max_steps=4000)
+    assert all(done[u].finish_reason in ("eos", "length") for u in uids)
+    assert [(d["replica"], d["error"]) for d in router.deaths] == [
+        ("f0", "ReplicaDown")]
+    assert new.stats["graph_captures"] == 6
+    placed = {}
+    for s in router.metrics.snapshot()["router_requests_total"]["series"]:
+        rep = s["labels"]["replica"]
+        placed[rep] = placed.get(rep, 0) + s["value"]
+    assert placed["f2"] == len(uids)
+    new.kv.verify()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_fleet_journal_replays_on_captured_engines(cuda, kv_dtype, tmp_path):
+    """A captured fleet records a window with a kill and a priority-2
+    arrival (``journal=``); a fresh captured fleet replays it with 0
+    divergences, the same ragged launches, no capture after the
+    constructors."""
+    from paddle_tpu_torch.observability import journal as jnl
+    path = str(tmp_path / "fleet.jsonl")
+    counts = []
+    for journal in (path, None):
+        engines, router = _fleet(cuda, kv_dtype=kv_dtype, journal=journal)
+        graphs = [e.stats["graph_captures"] for e in engines]
+        pa.reset_launches()
+        res = jnl.replay(_fleet_sched() if journal else path, router)
+        torch.cuda.synchronize()
+        counts.append({c: getattr(pa, c) for c in COUNTS})
+        assert [e.stats["graph_captures"] for e in engines] == graphs
+        router.close()
+    assert counts[0] == counts[1]
+    rep = jnl.check_divergence(path, res)
+    assert rep["divergences"] == 0, rep["first"]
+    assert rep["requests"] == len(_graph_reqs()) * 2
+    dead = jnl.read_journal(path).by_kind("replica_dead")
+    assert len(dead) == 1 and "injected replica death" in dead[0]["reason"]

@@ -37,7 +37,8 @@ if not torch.cuda.is_available():
     from paddle_tpu_torch.parallel.api import TrainStep
     from paddle_tpu_torch.models.bert import (
         BertForSequenceClassification, bert_tiny)
-    from paddle_tpu_torch.tools import bench_bert, numerics_check
+    from paddle_tpu_torch.tools import (bench_bert, bench_serving,
+                                        numerics_check, replay)
     import tempfile
     cpu_model = GPTForCausalLM(gpt2_tiny(), device="cpu")
     for name, call in (("engine", lambda: ServingEngine(gpt2_tiny())),
@@ -55,7 +56,11 @@ if not torch.cuda.is_available():
                            bert_tiny())),
                        ("bench_bert", lambda: bench_bert.run(8, pack=4)),
                        ("numerics_check", lambda: numerics_check.self_drive(
-                           tempfile.mkdtemp()))):
+                           tempfile.mkdtemp())),
+                       ("bench_fleet", lambda: bench_serving.main(
+                           ["--model", "tiny", "--fleet", "2"])),
+                       ("replay_selfcheck", lambda: replay.main(
+                           ["--selfcheck", "--quiet"]))):
         try:
             call()
             result["refused"][name] = False
@@ -91,7 +96,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "observability.anatomy", "profiler",
                  "tools.bench_serving", "observability.slo",
                  "observability.journal", "observability.numerics",
-                 "kernels.tensor_health", "tools.numerics_check"):
+                 "kernels.tensor_health", "tools.numerics_check",
+                 "inference.router", "inference.autoscale",
+                 "observability.aggregate", "tools.replay",
+                 "tools.autoscale_sim"):
         assert f"paddle_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:
@@ -100,7 +108,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                                   "model": True,
                                   "train_step": True, "bert": True,
                                   "bench_bert": True,
-                                  "numerics_check": True}
+                                  "numerics_check": True,
+                                  "bench_fleet": True,
+                                  "replay_selfcheck": True}
 
 
 def test_chip_smoke_fails_without_a_gpu_or_without_the_port(tmp_path):

@@ -171,8 +171,14 @@ def test_metrics_server_serves_and_shuts_down():
         with urllib.request.urlopen(srv.base_url + "/healthz",
                                     timeout=5) as resp:
             assert json.loads(resp.read())["status"] == "ok"
+        with urllib.request.urlopen(srv.base_url + "/snapshot.json",
+                                    timeout=5) as resp:
+            snap = json.loads(resp.read())
+            assert snap["format"] == pobs.SNAPSHOT_FORMAT
+            assert snap["metrics"]["hits_total"]["series"][0][
+                "value"] == 3
         with pytest.raises(urllib.error.HTTPError):
-            urllib.request.urlopen(srv.base_url + "/snapshot.json",
+            urllib.request.urlopen(srv.base_url + "/nowhere.json",
                                    timeout=5)
         with pytest.raises(ValueError):
             srv.add_provider("/metrics", dict)
