@@ -402,6 +402,41 @@ exits non-zero:
    memory, first and last losses (every loss finite); then one warm-up
    and one timed call in NHWC, recorded only, and the two step times'
    ratio. Followed by ``bench_resnet``'s own JSON line.
+17. ``generate`` — ``paddle_tpu_torch.tools.bench_generate`` at GPT-2
+   small (random weights from seed 0, batch 8, 32 + 224 tokens, bf16,
+   temperature 1, top-k 40; one warm and three timed calls): decode
+   tokens/s, ms a step, the decode step's capture seconds (one
+   ``GraphProgram``, replayed once a step) and one eager call's tokens/s
+   beside it; captured tokens equal eager ones bit for bit at float32
+   and bf16 (same seed); one bf16 call under ``torch.profiler`` (device
+   busy ms against the call's wall ms, the idle share, ms by kernel
+   class, the top kernels); dense greedy tokens at float32 against the
+   paged engine's (ragged kernel, serve's settings) on 8 of serve's
+   greedy requests, up to the first top-2 margin below 1e-3; peak
+   memory (the profile and the paged hold at GPT-2 small only). Followed by the tool's JSON line. ``generate_medium`` — the
+   same at GPT-2 medium (24 x 1024, 16 heads), the bf16 identity only.
+18. ``longctx`` — ``paddle_tpu_torch.tools.bench_longctx`` at float32
+   (the CUDA-core flash kernels) and bf16 (wgmma/TMA): B=1, H=12, D=64,
+   causal fwd+bwd of sum(out^2) at T = 2048 .. 32768, naive attention up
+   to 8192, the tool's lines; flash against its plain version at T =
+   2048 and 8192 (out, dq, dk, dv within 1e-4 f32, 2e-2 / 3e-2 bf16);
+   the flash launch counters over the tool's run, 105 a kernel, on
+   each design as routed.
+19. ``transformer_cache`` — the reference's ``Transformer`` defaults
+   (512 wide, 8 heads, 6 + 6 layers, ff 2048), batch 8, source 128, 64
+   cached decoding steps, float32 and O1 bf16: stepwise outputs against
+   the full forward under the square subsequent mask (1e-4, 2e-2), 768
+   flash launches (6 layers x 64 steps x self and cross; all on
+   wgmma/TMA at bf16), the flash forward against plain at one query
+   over 1, 33, 64 and 128 keys; ms a decoding step.
+20. ``serve_spec_trained`` — ``bench_serving --speculative
+   --spec-train-steps 300`` in its own process, at serve's configuration
+   and at ``--model tiny`` (the reference's recorded configuration): the
+   target trained through ``TrainStep(Adam(3e-3))`` before the
+   speculative legs; the steps reported, the training loss falling (by
+   at least 1 nat at tiny); acceptance and tokens/s beside
+   ``serve_spec``'s untrained reading. Followed by the GPT-2 small
+   tool's JSON line.
 
 Then the script's seconds, the kernel summary line, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.
@@ -5025,6 +5060,370 @@ def run_resnet_phase():
         {"phase": "bench_resnet", **nchw}
 
 
+# -- dense generation, long context, the transformer's caches, trained spec --
+
+GEN_PARITY_REQS = 8       # serve's greedy requests held dense vs paged
+TF_BATCH, TF_SRC, TF_STEPS = 8, 128, 64   # transformer_cache's decoding
+LONGCTX_HOLD = (2048, 8192)               # flash held against plain
+SPEC_TRAIN_STEPS = 300
+
+
+def gen_decoder(model, capture=True):
+    """The model's dense decoder of the last ``generate`` call of this
+    kind (captured or eager)."""
+    return [d for k, d in model._gen_programs.items() if k[-1] == capture][-1]
+
+
+def run_generate_phase(name, model_name):
+    """``bench_generate`` at full width (``model_name`` of GPT-2, random
+    weights from seed 0, batch 8, 32 + 224 tokens, bf16, temperature 1,
+    top-k 40): the tool's line (one warm, three timed calls), the
+    decode step a captured graph (its capture seconds, replays = steps),
+    one eager call's tokens/s beside it, and captured tokens equal to
+    eager ones bit for bit (bf16; at gpt2_small also float32, same
+    seed). At gpt2_small, one bf16 call profiled (``profile_generate``)
+    and dense greedy tokens at float32 against the
+    paged engine's (the ragged kernel, ``SERVE_KW``, f32 weights) on
+    ``GEN_PARITY_REQS`` of serve's greedy requests, up to the first step
+    whose engine top-2 margin is below ``PARITY_TOL``
+    (``tokens_until_tie``). Peak memory recorded."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.graphs import GraphProgram
+    from paddle_tpu_torch.tools import bench_generate as bg
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    B, P, N = 8, 32, 224
+    with torch.no_grad():
+        model = bg.build_model(model_name, dev, P + N)
+        line, toks = bg.run(model, B, P, N, reps=3)
+        dec = gen_decoder(model)
+        if not isinstance(dec.program, GraphProgram) or \
+                dec.program.replays != 4 * (N - 1):
+            raise AssertionError(f"{name}: the decode step is not one "
+                                 "captured graph replayed a step")
+        V = model.gpt.cfg.vocab_size
+        if toks.shape != (B, P + N) or toks.min() < 0 or toks.max() >= V:
+            raise AssertionError(f"{name}: tokens {toks.shape}")
+        rec = {"phase": name, "model": f"gpt2_{model_name}",
+               "batch": B, "prompt_len": P, "new_tokens": N,
+               "dtype": "bfloat16", "top_k": 40,
+               "tokens_per_s": line["value"],
+               "ms_per_token_step": line["ms_per_token_step"],
+               "capture_s": dec.capture_seconds}
+        ids = np.random.RandomState(0).randint(0, V, (B, P))
+        kw = dict(max_new_tokens=N, temperature=1.0, top_k=40, seed=0)
+        for dt in ("bfloat16", None) if model_name == "small" \
+                else ("bfloat16",):
+            cap = model.generate(ids, dtype=dt, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eag = model.generate(ids, dtype=dt, _capture=False, **kw).cpu()
+            if dt == "bfloat16":   # the tool's arguments: one eager call
+                rec["eager_tokens_per_s"] = B * N / (
+                    time.perf_counter() - t1)
+            if not torch.equal(cap.cpu(), eag):
+                raise AssertionError(f"{name}: captured tokens differ from "
+                                     f"eager ones ({dt or 'float32'})")
+            rec[f"captured_equals_eager_{dt or 'float32'}"] = True
+        rec["captured_vs_eager"] = line["value"] / rec["eager_tokens_per_s"]
+        if model_name == "small":
+            rec["profile"] = profile_generate(
+                model, ids, dict(kw, dtype="bfloat16"), N - 1,
+                B * N / line["value"] * 1e3)
+            rec["dense_vs_paged"] = dense_vs_paged(model)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t0
+    rec["gpu"] = smi()
+    del model, dec
+    torch.cuda.empty_cache()
+    return rec, line
+
+
+def profile_generate(model, ids, kw, steps, call_ms):
+    """One captured ``generate`` call under ``torch.profiler``: device busy
+    ms (the union of kernel intervals) against the call's wall ms, the
+    idle share (also against ``call_ms``, the unprofiled call's: the
+    profiler slows the host), device ms by ``profile_train``'s kernel
+    classes, kernels a decode step and the top five kernels by device
+    ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.tools.profile_train import busy_us, kernel_class
+
+    model.generate(ids, **kw).cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.generate(ids, **kw).cpu()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("generate: the profiler recorded no device "
+                             "time")
+    busy = busy_us(kern) * 1e-3
+    by_class, by_name = {}, {}
+    for e in kern:
+        ms = (e.time_range.end - e.time_range.start) * 1e-3
+        by_class[kernel_class(e.name)] = by_class.get(
+            kernel_class(e.name), 0.0) + ms
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_frac": 1.0 - busy / (wall * 1e3),
+            "device_idle_frac_unprofiled": 1.0 - busy / call_ms,
+            "kernels_per_step": len(kern) / steps,
+            "by_class_ms": by_class,
+            "top_ms": [{"name": n, "ms": v} for n, v in top]}
+
+
+def dense_vs_paged(model):
+    """Greedy float32: ``generate`` one request at a time against one
+    captured paged engine serving all of them."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.gpt import gen_params
+
+    cfg = model.gpt.cfg
+    reqs = [r for r in serve_traffic(cfg.vocab_size)
+            if r["temperature"] == 0][:GEN_PARITY_REQS]
+    eng = ServingEngine(cfg, gen_params(model), device="cuda",
+                        record_logits=True, **SERVE_KW)
+    uids = [eng.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
+    done = eng.run(max_steps=20000)
+    dense = []
+    for r in reqs:
+        n = len(r["prompt"])
+        out = model.generate(r["prompt"][None], r["max_new_tokens"])
+        dense.append(out[0, n:].cpu().tolist())
+    eng_toks = [list(done[u].tokens) for u in uids]
+    steps, differs = tokens_until_tie(
+        dense, eng_toks, [eng.logit_log[u] for u in uids], PARITY_TOL)
+    if differs is not None or steps == 0:
+        raise AssertionError(f"dense vs paged greedy: request {differs} "
+                             f"differs ({steps} steps held)")
+    total = sum(len(t) for t in eng_toks)
+    del eng
+    torch.cuda.empty_cache()
+    return {"requests": len(reqs), "steps_held": steps,
+            "tokens": total, "identical_to_tie": True}
+
+
+def flash_counts(fa):
+    return {k: getattr(fa, k) for k in (
+        "fwd_launches", "fwd_hopper_launches", "dq_launches",
+        "dq_hopper_launches", "dkv_launches", "dkv_hopper_launches")}
+
+
+def run_longctx_phase():
+    """``bench_longctx`` (one GPT-2-small attention layer, B=1, H=12,
+    D=64, causal fwd+bwd of sum(out^2), T = 2048..32768, naive up to
+    8192) at float32 (the CUDA-core kernels) and bfloat16 (wgmma/TMA):
+    the tool's lines (one warm and 20 timed calls each); flash against
+    its plain version at ``LONGCTX_HOLD`` (out and dq, dk, dv within
+    1e-4 f32, 2e-2 forward and 3e-2 gradients bf16, max-abs error over
+    max-abs); every line a value (no OOM); the flash launch counters'
+    deltas over the tool's run, each design's, held to 21 a length of
+    each kernel, all on wgmma/TMA at bf16 and none at f32."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.tools import bench_longctx as bl
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {"phase": "longctx", "lengths": list(bl.LENGTHS)}
+    for dtype, ftol, gtol in (("float32", F32_TOL, F32_TOL),
+                              ("bfloat16", BF16_TOL, BF16_GRAD_TOL)):
+        dt = getattr(torch, dtype)
+        rec = {"held": {}}
+        for T in LONGCTX_HOLD:
+            q, k, v = bl.inputs(T, dt, dev, np.random.RandomState(T))
+            got = [bl.flash(q, k, v).detach(), *bl.grads(bl.flash, q, k, v)]
+            with fa.use_plain():
+                want = [bl.flash(q, k, v).detach(),
+                        *bl.grads(bl.flash, q, k, v)]
+            errs = {}
+            for key, a, b, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                                      (ftol, gtol, gtol, gtol)):
+                err = rel_err(a, b)
+                if not (err <= tol and bool(torch.isfinite(a).all())):
+                    raise AssertionError(f"longctx {key} ({T}, {dtype}): "
+                                         f"{err} > {tol} or non-finite")
+                errs[key] = err
+            rec["held"][str(T)] = errs
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+        lines = []
+        fa.reset_launches()
+        t1 = time.perf_counter()
+        bl.run(dtype=dtype, device=dev, emit=lines.append)
+        rec["tool_s"] = time.perf_counter() - t1
+        rec["lines"] = [json.loads(x) for x in lines]
+        if any(r["value"] is None for r in rec["lines"]):
+            raise AssertionError(f"longctx {dtype}: a length did not fit")
+        n = (bl.ITERS + 1) * len(bl.LENGTHS)
+        c = rec["launches"] = flash_counts(fa)
+        hop = n if dtype == "bfloat16" else 0
+        if (c["fwd_launches"], c["dq_launches"], c["dkv_launches"]) != \
+                (n, n, n) or (c["fwd_hopper_launches"],
+                              c["dq_hopper_launches"],
+                              c["dkv_hopper_launches"]) != (hop, hop, hop):
+            raise AssertionError(f"longctx {dtype}: launches {c}")
+        out[dtype] = rec
+    out["seconds"] = time.perf_counter() - t0
+    out["gpu"] = smi()
+    return out
+
+
+def run_transformer_cache_phase():
+    """The reference's ``Transformer`` defaults (d_model 512, 8 heads,
+    6 + 6 layers, ff 2048, eval mode) on the card, batch ``TF_BATCH``,
+    source ``TF_SRC``, ``TF_STEPS`` cached decoding steps (the decoder's
+    ``gen_cache``: a growing self-attention ``Cache`` and the memory's
+    ``StaticCache``), float32 and O1 bf16: the stepwise outputs against
+    the full forward under ``generate_square_subsequent_mask`` (1e-4
+    f32, 2e-2 bf16, max-abs error over max-abs); every decoding step's
+    attention a flash launch (6 layers x steps x self and cross; all
+    wgmma/TMA at bf16, none at f32); the flash forward against its plain
+    version at the Lq = 1 shapes (self over 1, 33 and 64 cached
+    positions, cross over the source). Decoding ms a step recorded."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    model = nn.Transformer(device=dev, rng=np.random.default_rng(0))
+    model.eval()
+    heads, d = model.nhead, model.d_model
+    rng = np.random.RandomState(0)
+    src = torch.tensor(rng.randn(TF_BATCH, TF_SRC, d), dtype=torch.float32,
+                       device=dev)
+    tgt = torch.tensor(rng.randn(TF_BATCH, TF_STEPS, d),
+                       dtype=torch.float32, device=dev)
+    out = {"phase": "transformer_cache", "d_model": d, "nhead": heads,
+           "layers": [model.encoder.num_layers, model.decoder.num_layers],
+           "batch": TF_BATCH, "source": TF_SRC, "steps": TF_STEPS}
+    for dtype, tol, ctx in (
+            ("float32", F32_TOL, contextlib.nullcontext),
+            ("bfloat16", BF16_TOL,
+             lambda: amp.auto_cast(level="O1", dtype="bfloat16"))):
+        rec = {}
+        with torch.no_grad(), ctx():
+            full = model(src, tgt, tgt_mask=model.
+                         generate_square_subsequent_mask(TF_STEPS))
+            mem = model.encoder(src)
+            cache = model.decoder.gen_cache(mem)
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            t1 = time.perf_counter()
+            steps = []
+            for i in range(TF_STEPS):
+                o, cache = model.decoder(tgt[:, i:i + 1], mem, cache=cache)
+                steps.append(o)
+            torch.cuda.synchronize()
+            rec["ms_per_step"] = (time.perf_counter() - t1) * 1e3 / TF_STEPS
+            c = rec["launches"] = flash_counts(fa)
+        n = model.decoder.num_layers * TF_STEPS * 2
+        hop = n if dtype == "bfloat16" else 0
+        if (c["fwd_launches"], c["fwd_hopper_launches"]) != (n, hop):
+            raise AssertionError(f"transformer_cache {dtype}: flash "
+                                 f"launches {c}, want {n} ({hop} wgmma)")
+        err = rel_err(torch.cat(steps, 1), full)
+        if not (err <= tol and bool(torch.isfinite(full).all())):
+            raise AssertionError(f"transformer_cache {dtype}: stepwise vs "
+                                 f"full {err} > {tol}")
+        rec.update(stepwise_vs_full=err, out_dtype=str(full.dtype),
+                   cache_k_dtype=str(cache[0][0].k.dtype))
+        kernel = {}
+        dt = getattr(torch, dtype)
+        for lk in (1, 33, TF_STEPS, TF_SRC):
+            q = torch.randn(TF_BATCH, 1, heads, d // heads, device=dev).to(dt)
+            k, v = (torch.randn(TF_BATCH, lk, heads, d // heads,
+                                device=dev).to(dt) for _ in range(2))
+            o, lse = fa.flash_attention_fwd(q, k, v, False)
+            ro, rlse = fa.flash_attention_fwd_ref(q, k, v, False)
+            e = max(rel_err(o, ro), rel_err(lse, rlse))
+            if e > tol:
+                raise AssertionError(f"flash at Lq=1, Lk={lk} ({dtype}): "
+                                     f"{e} > {tol}")
+            kernel[str(lk)] = e
+        rec["kernel_vs_plain_lq1"] = kernel
+        out[dtype] = rec
+    out["seconds"] = time.perf_counter() - t0
+    out["gpu"] = smi()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_trained_line(model):
+    """One ``bench_serving --speculative --spec-train-steps`` process at
+    ``model``'s configuration; its JSON line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.bench_serving",
+         "--model", model, "--speculative", "--spec-train-steps",
+         str(SPEC_TRAIN_STEPS)],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    lines = [x for x in res.stdout.splitlines() if x.startswith("{")]
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_serving --spec-train-steps ({model}): "
+                             f"rc {res.returncode}, {res.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    if line["spec_train_steps"] != SPEC_TRAIN_STEPS \
+            or line["platform"] != "cuda":
+        raise AssertionError(f"bench_serving --spec-train-steps: "
+                             f"{lines[0][:2000]}")
+    return line
+
+
+def run_serve_spec_trained_phase(spec):
+    """``bench_serving --speculative --spec-train-steps 300``: the target
+    trained through ``TrainStep(Adam(3e-3))`` on next = (tok + 7) mod V
+    with 8% noise before the speculative legs, in its own process, at
+    serve's configuration (GPT-2 small, 8 slots, pages of 16, chunks of
+    32, the 3-layer draft, ``draft_k=4``) and at ``--model tiny`` (vocab
+    128, 2 layers: the configuration of the reference's own recorded
+    reading). Holds the steps each reports, a training loss that falls
+    (the mean of the last ten steps below the first) at GPT-2 small, and
+    by at least 1 nat at tiny. Acceptance and tokens/s recorded beside
+    ``serve_spec``'s untrained reading. At GPT-2 small the reference's
+    recipe (lr 3e-3 from the first step, dropout on) falls about half a
+    nat in 300 steps (PERF.md, Findings)."""
+    t0 = time.perf_counter()
+    out = {"phase": "serve_spec_trained",
+           "spec_train_steps": SPEC_TRAIN_STEPS,
+           "untrained_serve_spec": {
+               "acceptance_rate": spec["bf16"]["acceptance_rate"],
+               "tokens_per_s": spec["bf16"]["tokens_per_s"]}}
+    lines = {}
+    for model, min_fall in (("small", 0.0), ("tiny", 1.0)):
+        line = lines[model] = spec_trained_line(model)
+        fall = line["spec_train_loss_first"] - line["spec_train_loss_last"]
+        if not fall > min_fall:
+            raise AssertionError(f"serve_spec_trained ({model}): the loss "
+                                 f"fell {fall} nat, want > {min_fall}")
+        out[model] = {"loss_first": line["spec_train_loss_first"],
+                      "loss_last": line["spec_train_loss_last"],
+                      "loss_fall": fall,
+                      "acceptance_rate": line["accept_rate"],
+                      "tokens_per_s": line["value"],
+                      **{k: line[k] for k in (
+                          "speedup_vs_k1", "speedup_vs_adaptive",
+                          "baseline_k1_tokens_per_sec",
+                          "baseline_adaptive_tokens_per_sec")}}
+    out["bench_serving"] = lines["small"]
+    out["seconds"] = time.perf_counter() - t0
+    out["gpu"] = smi()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5174,6 +5573,23 @@ def main():
     resnet, bench_resnet_line = run_resnet_phase()
     emit(resnet)
     emit(bench_resnet_line)
+    for name, size in (("generate", "small"), ("generate_medium", "medium")):
+        gen, gen_line = run_generate_phase(name, size)
+        emit(gen)
+        emit(gen_line)
+    longctx = run_longctx_phase()
+    emit(longctx)
+    tcache = run_transformer_cache_phase()
+    emit(tcache)
+    trained = run_serve_spec_trained_phase(spec)
+    trained_line = trained.pop("bench_serving")
+    emit(trained)
+    emit(trained_line)
+    flash_by_phase = {
+        f"{name}_{dt}": src[dt]["launches"]
+        for name, src in (("longctx", longctx),
+                          ("transformer_cache", tcache))
+        for dt in ("float32", "bfloat16")}
     dec = kres["decode"]["bfloat16"]
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
@@ -5251,6 +5667,11 @@ def main():
             "also_replaces":
                 f"paddle_tpu/kernels/flash_attention_pallas.py:{also}",
             "launches": flaunch[f"flash_{kn}"],
+            "launches_by_phase": {
+                "train": flaunch[f"flash_{kn}"],
+                **{ph: {"all": c[f"{kn}_launches"],
+                        "wgmma_tma": c[f"{kn}_hopper_launches"]}
+                   for ph, c in flash_by_phase.items()}},
             "max_abs_err": max(r[o]["max_abs_err"] for case in fres.values()
                                for r in case.values() for o in outputs[kn]),
             "ms": ft[kn]["ms"], "plain_ms": ft[kn]["plain_ms"],

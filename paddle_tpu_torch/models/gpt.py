@@ -2,16 +2,18 @@
 
 For the paged serving engine:
 
-- :class:`GPTConfig`, :func:`gpt2_small`, :func:`gpt2_tiny` — the
-  configurations (dense models only: MoE layers are not ported yet).
+- :class:`GPTConfig`, :func:`gpt2_small`, :func:`gpt2_medium`,
+  :func:`gpt2_tiny` — the configurations (dense models only: MoE layers
+  are not ported yet).
 - :func:`init_params` — random weights from a numpy seed, in the layout
   of the reference's ``_gen_params`` (``gpt.py:283``).
 - :func:`params_from_numpy` — carries the reference's weights across:
   ``_gen_params(model)`` with every leaf passed through ``np.asarray``
   becomes the port's parameter dict, the same tree with torch leaves.
 - :func:`make_layer_core` — the per-layer math of ``_make_layer_core``
-  (``gpt.py:328``): ``ln``, ``qkv_proj``, ``attn_out`` and the dense
-  ``mlp_tail``.
+  (``gpt.py:328``): ``ln``, ``qkv_proj``, ``attn_out``, the dense
+  ``mlp_tail``, and the dense-cache ``step_layer`` and ``prefill_layer``
+  (``gpt.py:385-419``) of :meth:`GPTForCausalLM.generate`.
 
 For training (``gpt.py:74-251``): :class:`GPTAttention`,
 :class:`GPTMLP`, :class:`GPTBlock`, :class:`GPTModel` and
@@ -20,12 +22,21 @@ equal to the reference's; :meth:`GPTForCausalLM.load_reference_state`
 takes the reference's ``named_parameters()`` as numpy arrays, and
 :func:`gen_params` hands a (trained) model to the serving engine.
 
+Dense KV-cache generation (``gpt.py:421-588``, ``_gen_decode_fn`` and
+``_generate``): :meth:`GPTForCausalLM.generate` prefills the prompt in
+one batched pass and then decodes token by token over per-layer caches
+``[b, total, NH, HD]``. On CUDA the decode step is one captured
+``GraphProgram`` (``inference/graphs.py``) per (batch, bucketed total
+length, dtype, top-k), the port's counterpart of the reference's one
+``jax.jit`` per total length; on the CPU it runs eagerly.
+
 Layout kept from the reference: weights are ``[in, out]`` and applied
 as ``h @ W``; the fused qkv projection splits ``[q|k|v]`` on the last
 axis; the LM head is tied (``@ wte.T``).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from types import SimpleNamespace
 
@@ -38,7 +49,8 @@ from ..device import resolve_device
 from ..distributed.utils_recompute import recompute
 from ..nn import functional as PF
 
-__all__ = ["GPTConfig", "gpt2_small", "gpt2_tiny", "init_params",
+__all__ = ["GPTConfig", "gpt2_small", "gpt2_medium", "gpt2_tiny",
+           "init_params",
            "params_from_numpy", "make_layer_core", "tree_map",
            "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "gen_params"]
@@ -80,6 +92,10 @@ class GPTConfig:
 
 def gpt2_small(**kw):
     return GPTConfig(num_layers=12, hidden_size=768, num_heads=12, **kw)
+
+
+def gpt2_medium(**kw):
+    return GPTConfig(num_layers=24, hidden_size=1024, num_heads=16, **kw)
 
 
 def gpt2_tiny(**kw):
@@ -176,9 +192,44 @@ def make_layer_core(cfg, eps=None):
         m = F.gelu(h2 @ p[0] + p[1], approximate="tanh") @ p[2] + p[3]
         return x + m
 
+    def step_layer(lay, x, k_cache, v_cache, t):
+        """One token a row through one block over the dense caches: x
+        ``[b, H]``, caches ``[b, T, NH, HD]``, ``t`` the position (an int
+        or a 0-d int64 tensor on x's device). Writes k and v at ``t`` in
+        place (the reference's ``dynamic_update_slice``) and attends over
+        the whole cache, masked to ``arange(T) <= t``. Returns ``(x,
+        k_cache, v_cache)``."""
+        h = ln(x, *lay["ln1"])
+        q, k, v = qkv_proj(lay, h)                        # [b, NH, HD]
+        at = torch.as_tensor(t, device=x.device).reshape(1)
+        k_cache.index_copy_(1, at, k[:, None].to(k_cache.dtype))
+        v_cache.index_copy_(1, at, v[:, None].to(v_cache.dtype))
+        scores = torch.einsum("bhd,bthd->bht", q, k_cache) * scale
+        mask = torch.arange(k_cache.shape[1], device=x.device) <= at
+        scores = torch.where(mask, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bht,bthd->bhd", probs, v_cache).reshape(-1, H)
+        x = attn_out(lay, x, o)
+        return mlp_tail(lay, x), k_cache, v_cache
+
+    def prefill_layer(lay, x):
+        """The whole prompt through one block, causal; x ``[b, P, H]``.
+        Returns ``(x, k [b, P, NH, HD], v)``."""
+        b, P = x.shape[0], x.shape[1]
+        h = ln(x, *lay["ln1"])
+        q, k, v = qkv_proj(lay, h)                     # [b, P, NH, HD]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        causal = torch.ones(P, P, dtype=torch.bool, device=x.device).tril()
+        scores = torch.where(causal, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, P, H)
+        x = attn_out(lay, x, o)
+        return mlp_tail(lay, x), k, v
+
     return SimpleNamespace(H=H, NH=NH, HD=HD, scale=scale, ln=ln,
                            qkv_proj=qkv_proj, attn_out=attn_out,
-                           mlp_tail=mlp_tail)
+                           mlp_tail=mlp_tail, step_layer=step_layer,
+                           prefill_layer=prefill_layer)
 
 
 # -- training (gpt.py:74-251) -------------------------------------------------
@@ -290,6 +341,10 @@ class GPTForCausalLM(torch.nn.Module):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         self.gpt = GPTModel(cfg, rng=rng, generator=gen, device=dev)
+        # generate()'s decode programs, keyed (batch, total, dtype,
+        # top_k), and the graph pool they share on CUDA
+        self._gen_programs = {}
+        self._gen_pool = None
 
     def forward(self, input_ids):
         hidden = self.gpt(input_ids)
@@ -356,3 +411,216 @@ def gen_params(model):
               for b in g.blocks]
     return dict(wte=a(g.wte.weight), wpe=a(g.wpe.weight),
                 lnf=(a(g.ln_f.weight), a(g.ln_f.bias)), layers=layers)
+
+
+# -- dense KV-cache generation (gpt.py:421-588) -------------------------------
+
+_GEN_BUCKET = 32   # the scan length is bucketed to a multiple of this
+
+
+def _flat_params(params):
+    """The parameter tree's leaves in a fixed order, and a function that
+    rebuilds the tree from such a list."""
+    leaves = []
+    tree_map(leaves.append, params)
+
+    def rebuild(flat):
+        it = iter(flat)
+        return tree_map(lambda _: next(it), params)
+    return leaves, rebuild
+
+
+class _DenseDecoder:
+    """The decode step of one (batch, total length, dtype, top-k) as one
+    program (the reference's ``_gen_decode_fn``, ``gpt.py:421``).
+
+    Its fixed tensors keep their addresses for its lifetime: the weights
+    at the decode dtype (each :meth:`run` copies the model's live
+    weights in, so updates between calls are seen), the per-layer caches
+    ``[b, total, NH, HD]``, which the eager prefill writes in place, the
+    current tokens, the output ``[b, total]`` int64 and the temperature.
+    The host input is the position ``t``; the step embeds the token at
+    ``t``, writes k and v there, samples position ``t + 1``'s token into
+    the tokens and the output. The Gumbel noise is a device buffer filled
+    outside the program from the call's ``torch.Generator``. On CUDA the
+    program is a captured ``GraphProgram`` (``capture_seconds`` its
+    warm-up and capture); a capture that fails raises. On the CPU, and
+    with ``capture=False`` (comparisons only), it is an
+    ``EagerProgram``."""
+
+    def __init__(self, cfg, params, b, total, dtype, top_k, device, pool,
+                 capture=True):
+        from ..inference.graphs import EagerProgram, GraphProgram
+        self.core = make_layer_core(cfg)
+        self.top_k = int(top_k)
+        self.device = device
+        NH, HD = self.core.NH, self.core.HD
+        leaves, self._rebuild = _flat_params(params)
+        self.weights = [torch.empty(p.shape, dtype=dtype, device=device)
+                        for p in leaves]
+        self.caches = [torch.zeros(b, total, NH, HD, dtype=dtype,
+                                   device=device)
+                       for _ in range(2 * cfg.num_layers)]
+        self.tok = torch.zeros(b, dtype=torch.int64, device=device)
+        self.out = torch.zeros(b, total, dtype=torch.int64, device=device)
+        self.temp = torch.zeros((), dtype=torch.float32, device=device)
+        self.noise = torch.zeros(b, cfg.vocab_size, dtype=torch.float32,
+                                 device=device)
+        self.load(params)
+        fixed = (*self.weights, *self.caches, self.tok, self.out,
+                 self.temp)
+        self.capture_seconds = 0.0
+        if device.type == "cuda" and capture:
+            t0 = time.perf_counter()
+            self.program = GraphProgram(pool, self._step, fixed,
+                                        (np.zeros((), np.int64),),
+                                        (self.noise,))
+            torch.cuda.synchronize(device)
+            self.capture_seconds = time.perf_counter() - t0
+        else:
+            self.program = EagerProgram(lambda: self._step, fixed, device,
+                                        (self.noise,))
+
+    @torch.no_grad()
+    def load(self, params):
+        leaves, _ = _flat_params(params)
+        torch._foreach_copy_(self.weights, leaves)
+
+    def _unpack(self, flat):
+        nw, nc = len(self.weights), len(self.caches)
+        params = self._rebuild(flat[:nw])
+        caches = flat[nw:nw + nc]
+        return params, list(zip(caches[0::2], caches[1::2])), flat[nw + nc:]
+
+    def select(self, logits, temp, noise):
+        """``temp > 0``: the Gumbel-max draw over the top-k-filtered,
+        temperature-scaled logits; else argmax. Float32, as the
+        reference samples (``gpt.py:467``)."""
+        from ..inference import sampler
+        lg = logits.float()
+        drawn = torch.argmax(sampler.apply_top_k(
+            sampler.scale_by_temp(lg, temp), self.top_k) + noise, dim=-1)
+        return torch.where(temp > 0, drawn, sampler.greedy(lg))
+
+    def _step(self, *args):
+        params, caches, (tok, out, temp, pos, noise) = self._unpack(args)
+        core = self.core
+        wte = params["wte"]
+        x = wte[tok] + params["wpe"].index_select(0, pos.reshape(1))
+        for lay, (kc, vc) in zip(params["layers"], caches):
+            x, _, _ = core.step_layer(lay, x, kc, vc, pos)
+        logits = core.ln(x, *params["lnf"]) @ wte.T              # [b, V]
+        nxt = self.select(logits, temp, noise)
+        tok.copy_(nxt)
+        out.index_copy_(1, (pos + 1).reshape(1), nxt[:, None])
+        return nxt
+
+    def _fill_noise(self, gen):
+        from ..inference import sampler
+        self.noise.copy_(sampler.gumbel_noise(self.noise.shape, gen,
+                                              self.device))
+
+    @torch.no_grad()
+    def run(self, ids, n_total, temperature, seed):
+        """Prefill ``ids`` ``[b, L0]`` (int64, on the device) eagerly
+        into the caches, sample position L0, then decode up to position
+        ``n_total - 1``. Returns ``[b, n_total]`` int64."""
+        core = self.core
+        L0 = ids.shape[1]
+        params, caches, _ = self._unpack(self.weights + self.caches)
+        sampled = temperature > 0
+        self.temp.fill_(float(temperature))
+        gen = None
+        if sampled:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed))
+        wte = params["wte"]
+        x = wte[ids] + params["wpe"][:L0][None]
+        for lay, (kc, vc) in zip(params["layers"], caches):
+            x, k, v = core.prefill_layer(lay, x)
+            for cache, new in ((kc, k), (vc, v)):
+                cache[:, :L0].copy_(new)
+                cache[:, L0:].zero_()
+        logits = core.ln(x[:, -1], *params["lnf"]) @ wte.T
+        if sampled:
+            self._fill_noise(gen)
+        first = self.select(logits, self.temp, self.noise)
+        self.out[:, :L0].copy_(ids)
+        self.out[:, L0].copy_(first)
+        self.tok.copy_(first)
+        for t in range(L0, n_total - 1):
+            if sampled:
+                self._fill_noise(gen)
+            self.program.replay(np.asarray(t, np.int64))
+        return self.out[:, :n_total].clone()
+
+
+def _gen_dtype(dtype, default):
+    if dtype is None:
+        return default
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))
+
+
+def _generate(self, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
+              seed=0, dtype=None, use_approx_topk=False, _capture=True):
+    """Greedy (``temperature=0``) or sampled generation with dense KV
+    caches (reference ``_generate``, ``gpt.py:524``): one batched prefill
+    over the prompt, then one decode step a token. Returns ``[b,
+    prompt_len + max_new_tokens]`` int64 on the model's device.
+
+    ``dtype``: the decode's compute dtype (``"bfloat16"`` casts the
+    floating weights; sampling stays float32); default the parameters'
+    own. ``top_k``: exact top-k filter of the sampled draw;
+    ``use_approx_topk=True`` raises (the TPU-native ``approx_max_k``,
+    ROADMAP). The Gumbel noise comes from a ``torch.Generator`` seeded
+    with ``seed``: sampled streams are not the reference's; greedy
+    streams are. ``_capture=False`` (private) decodes eagerly on CUDA
+    too, for comparisons with the captured program."""
+    if use_approx_topk:
+        raise NotImplementedError(
+            "approx top-k is the TPU-native approx_max_k; the port "
+            "implements exact top-k only")
+    wte = self.gpt.wte.weight
+    dev = wte.device
+    ids = input_ids.detach().cpu().numpy() if isinstance(
+        input_ids, torch.Tensor) else np.asarray(input_ids)
+    ids = torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(dev)
+    b, L0 = ids.shape
+    req_new = int(max_new_tokens)
+    req_total = L0 + req_new
+    maxpos = self.gpt.cfg.max_position_embeddings
+    if req_total > maxpos:
+        raise ValueError(
+            f"prompt_len({L0}) + max_new_tokens({max_new_tokens}) = "
+            f"{req_total} exceeds max_position_embeddings({maxpos}) — "
+            "the position table would silently clamp")
+    if req_new == 0:
+        return ids
+    # the bucket (gpt.py:563): nearby lengths share one program; only
+    # the requested positions are decoded
+    bucket_new = min(-(-req_new // _GEN_BUCKET) * _GEN_BUCKET, maxpos - L0)
+    total = L0 + bucket_new
+    want = _gen_dtype(dtype, wte.dtype)
+    key = (b, total, want, int(top_k), bool(_capture))
+    progs = self._gen_programs
+    if any(k[1] != total for k in progs):
+        # one program set per total length, as the reference keeps one
+        # jitted function per total length
+        progs.clear()
+    params = gen_params(self)
+    dec = progs.get(key)
+    if dec is None:
+        if dev.type == "cuda" and self._gen_pool is None:
+            from ..inference.graphs import GraphPool
+            self._gen_pool = GraphPool(dev)
+        dec = progs[key] = _DenseDecoder(self.gpt.cfg, params, b, total,
+                                         want, top_k, dev, self._gen_pool,
+                                         _capture)
+    else:
+        dec.load(params)
+    return dec.run(ids, req_total, float(temperature), seed)
+
+
+GPTForCausalLM.generate = _generate

@@ -11,7 +11,8 @@ from .layers import (Dropout, Embedding, LayerNorm, Linear,  # noqa: F401
                      ReLU, RowParallelLinear, load_named_state)
 from .norm import BatchNorm1D, BatchNorm2D  # noqa: F401
 from .pooling import AdaptiveAvgPool2D, MaxPool2D  # noqa: F401
-from .transformer import (MultiHeadAttention,  # noqa: F401
+from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
+                          TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "Conv2D", "Dropout",
@@ -19,4 +20,5 @@ __all__ = ["functional", "ClipGradByGlobalNorm", "Conv2D", "Dropout",
            "load_named_state", "BatchNorm1D", "BatchNorm2D",
            "AdaptiveAvgPool2D", "MaxPool2D", "Sequential",
            "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+           "TransformerEncoderLayer", "TransformerDecoder",
+           "TransformerDecoderLayer", "Transformer"]

@@ -5,7 +5,10 @@
 
 Each keeps the reference's autocast name (``linear_op`` and
 ``matmul_v2`` are on the white list; the others are on no list and run
-in their inputs' dtype).
+in their inputs' dtype). Outside autocast, ``linear`` and ``matmul``
+promote mixed float inputs as ``jnp.matmul`` does (a bf16 residual
+stream into float32 weights computes in float32), where ``torch.matmul``
+would raise.
 """
 from __future__ import annotations
 
@@ -18,17 +21,22 @@ __all__ = ["linear", "matmul", "embedding", "dropout", "gelu", "relu",
            "tanh", "layer_norm"]
 
 
+def _promoted(x, y):
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with ``weight`` ``[in, out]`` (``linear_op``:
     under O1 the bias is cast to the low dtype too)."""
     x, weight, bias = amp.cast_inputs("linear_op", x, weight, bias)
-    out = torch.matmul(x, weight)
+    out = torch.matmul(*_promoted(x, weight))
     return out if bias is None else out + bias
 
 
 def matmul(x, y, transpose_y=False):
     """``matmul_v2``: ``x @ y``, or ``x @ y^T``."""
-    x, y = amp.cast_inputs("matmul_v2", x, y)
+    x, y = _promoted(*amp.cast_inputs("matmul_v2", x, y))
     return torch.matmul(x, y.transpose(-1, -2) if transpose_y else y)
 
 

@@ -1,12 +1,12 @@
 """Optimizers — port of ``paddle_tpu/optimizer/optimizer.py`` (the
-``Optimizer`` base, ``AdamW`` and ``Momentum`` ``:336-350``) together with
-the mapping the compiled train step applies to them
-(``paddle_tpu/static/executor.py:76-106``).
+``Optimizer`` base, ``Momentum`` ``:336``, ``Adam`` ``:353`` and its
+subclass ``AdamW`` ``:375``) together with the mapping the compiled train
+step applies to them (``paddle_tpu/static/executor.py:76-106``).
 
-The reference's ``TrainStep`` does not run ``AdamW._update_param``: it
-runs ``optax.inject_hyperparams(optax.adamw)`` built from the
-optimizer's hyperparameters. So :meth:`AdamW.update` follows
-``optax.adamw``:
+The reference's ``TrainStep`` does not run ``_update_param``: it runs
+``optax.inject_hyperparams(optax.adamw)`` (or ``optax.adam``) built from
+the optimizer's hyperparameters. So :meth:`Adam.update` follows
+``optax.adam`` and, with a decay, ``optax.adamw``:
 
     mu   = b1 * mu + (1 - b1) * g
     nu   = b2 * nu + (1 - b2) * g * g
@@ -14,11 +14,15 @@ optimizer's hyperparameters. So :meth:`AdamW.update` follows
     u    = (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t)) + eps)
     p    = p - lr * (u + weight_decay * p)
 
-Decay applies to every parameter; ``eps`` sits outside the square root.
-The update is in place on the parameters and the moments (float32).
+Decay applies to every parameter; ``eps`` sits outside the square root
+(as in the reference's eager ``_adam_update``, ``:255-263``). The update
+is in place on the parameters and the moments (float32). ``Adam`` has no
+decay term: ``optax.adam`` takes none, so the reference's step drops
+``Adam(weight_decay=...)`` without a word, and the port's ``TrainStep``
+refuses it (``ROADMAP.md`` caveat 15). ``AdamW``'s
 ``apply_decay_param_fun`` and ``lr_ratio`` are kept on the optimizer, but
-the reference's ``TrainStep`` ignores them (``ROADMAP.md`` C), so the
-port's ``TrainStep`` refuses an optimizer that sets them.
+the reference's ``TrainStep`` ignores them (caveat 4), so the port's
+``TrainStep`` refuses an optimizer that sets them.
 
 :class:`Momentum` follows ``optax.sgd(momentum=, nesterov=)``, which the
 reference's ``TrainStep`` runs for it (``executor.py:103-106``):
@@ -38,7 +42,7 @@ import torch
 
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "AdamW", "Momentum"]
+__all__ = ["Optimizer", "Adam", "AdamW", "Momentum"]
 
 
 class Optimizer:
@@ -60,17 +64,19 @@ class Optimizer:
             self._learning_rate.step()
 
 
-class AdamW(Optimizer):
+def _coeff(weight_decay):
+    return float(getattr(weight_decay, "coeff", weight_decay) or 0.0)
+
+
+class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-08, parameters=None, weight_decay=0.01,
-                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None):
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None):
         super().__init__(learning_rate, parameters, grad_clip)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
-        self._wd = float(getattr(weight_decay, "coeff", weight_decay))
-        self._apply_decay_param_fun = apply_decay_param_fun
-        self._lr_ratio = lr_ratio
+        self._wd = _coeff(weight_decay)
 
     def init_state(self, params, device_count=False):
         """Zero moments (float32, beside each parameter) and a zero step
@@ -110,10 +116,11 @@ class AdamW(Optimizer):
 
     @torch.no_grad()
     def update(self, params, grads, state, lr):
-        """One ``optax.adamw`` step at learning rate ``lr``, in place on
-        ``params`` and ``state`` (float32 parameters and gradients).
-        Returns the step's direction ``u + weight_decay * p`` (the
-        parameters moved by ``-lr`` times it: optax's update)."""
+        """One ``optax.adam`` step (``optax.adamw`` with a decay) at
+        learning rate ``lr``, in place on ``params`` and ``state``
+        (float32 parameters and gradients). Returns the step's direction
+        ``u + weight_decay * p`` (the parameters moved by ``-lr`` times
+        it: optax's update)."""
         b1, b2, eps, wd = self._beta1, self._beta2, self._epsilon, self._wd
         mu, nu = state["mu"], state["nu"]
         if isinstance(state["count"], torch.Tensor):
@@ -138,6 +145,17 @@ class AdamW(Optimizer):
         return upd
 
 
+class AdamW(Adam):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip)
+        self._wd = _coeff(weight_decay)
+        self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
+
+
 class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
@@ -145,7 +163,7 @@ class Momentum(Optimizer):
         super().__init__(learning_rate, parameters, grad_clip)
         self._momentum = float(momentum)
         self._use_nesterov = bool(use_nesterov)
-        self._wd = float(getattr(weight_decay, "coeff", weight_decay) or 0.0)
+        self._wd = _coeff(weight_decay)
         self._rescale_grad = float(rescale_grad)
 
     def init_state(self, params, device_count=False):

@@ -2,11 +2,11 @@
 (``TrainStep``) for one device.
 
 ``TrainStep(model, loss_fn, optimizer)`` runs ``loss_fn(model, *batch)``,
-its backward, the optimizer's gradient clip and the ``optax.adamw`` or
-``optax.sgd`` momentum update (``AdamW`` or ``Momentum``,
-``optimizer/optimizer.py``), as the reference's compiled step does
-(``:328-378``), eagerly: PyTorch needs no trace. The model's parameters
-are updated in place.
+its backward, the optimizer's gradient clip and the ``optax.adam``,
+``optax.adamw`` or ``optax.sgd`` momentum update (``Adam``, ``AdamW`` or
+``Momentum``, ``optimizer/optimizer.py``), as the reference's compiled
+step does (``:328-378``), eagerly: PyTorch needs no trace. The model's
+parameters are updated in place.
 
 The model's buffers (BatchNorm's running statistics) are carried
 through every step as the reference carries them (``:143``, swapped in
@@ -42,19 +42,19 @@ buffers in place, once a step, so ``__call__``, each step of
 - ``skip_nonfinite=True`` (``:359-372``): with the pass on, a step whose
   raw gradients hold a NaN or an Inf is rejected on the device:
   ``torch.where(found_inf, old, new)`` over the parameters and the whole
-  optimizer state (old copies kept in buffers of the same size; AdamW's
+  optimizer state (old copies kept in buffers of the same size; Adam's
   step count lives on the device, so it does not advance either). As in
   the reference, buffers are not masked, and without the pass
   (``numerics=None``) nothing is masked (ROADMAP caveat 14).
 
 What the reference's step also does and the port does not yet (a mesh,
 FSDP/ZeRO placements, extra state, aux outputs, gradient merge, ASP, an
-optimizer other than AdamW and Momentum, a clip other than by global
-norm, eval-only steps) raises ``NotImplementedError``, as do AdamW's
-``apply_decay_param_fun`` and ``lr_ratio`` and Momentum's
-``weight_decay`` and ``rescale_grad``, which the reference's step
-silently ignores. The device follows ``resolve_device``: CUDA unless
-``device="cpu"``.
+optimizer other than Adam, AdamW and Momentum, a clip other than by
+global norm, eval-only steps) raises ``NotImplementedError``, as do
+AdamW's ``apply_decay_param_fun`` and ``lr_ratio``, Adam's
+``weight_decay`` and Momentum's ``weight_decay`` and ``rescale_grad``,
+which the reference's step silently ignores. The device follows
+``resolve_device``: CUDA unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ import torch
 from ..device import resolve_device
 from ..nn.clip import ClipGradByGlobalNorm
 from ..observability.numerics import TensorHealth, stats_tree
-from ..optimizer.optimizer import AdamW, Momentum
+from ..optimizer.optimizer import Adam, AdamW, Momentum
 
 __all__ = ["TrainStep"]
 
@@ -93,7 +93,7 @@ class TrainStep:
         elif numerics not in ("stats", "watch"):
             raise ValueError(
                 f"numerics must be None|'stats'|'watch', got {numerics!r}")
-        if not isinstance(optimizer, (AdamW, Momentum)):
+        if not isinstance(optimizer, (Adam, Momentum)):
             _refuse(f"optimizer {type(optimizer).__name__}")
         if getattr(optimizer, "_grad_merge_k", 0) > 1:
             _refuse("gradient merge")
@@ -104,6 +104,10 @@ class TrainStep:
                 _refuse("AdamW(apply_decay_param_fun=...)")
             if optimizer._lr_ratio is not None:
                 _refuse("AdamW(lr_ratio=...)")
+        elif isinstance(optimizer, Adam):
+            # optax.adam takes no decay: the reference's step drops it
+            if optimizer._wd:
+                _refuse("Adam(weight_decay=...)")
         else:
             # optax.sgd takes neither: the reference's step drops them
             if optimizer._wd:

@@ -59,11 +59,19 @@ here every replica is an engine on the one card, so these lines carry
 ``"chips": 1`` and ``replicas``, and ``platform`` is ``gpu`` (or
 ``cpu``) as the reference's backend names it.
 
+Before the speculative legs, ``--spec-train-steps`` (300) Adam steps
+pre-train the target, as the reference's ``_train_synthetic``: a port
+``GPTForCausalLM`` with the bench's configuration and weights, in train
+mode, through ``TrainStep`` with ``Adam(learning_rate=3e-3)`` on batches
+of 16 x (s + 1) tokens, s = min(24, maxpos - 1), next = (tok + 7) mod V
+with 8% noise, drawn from ``np.random.RandomState(--seed)`` in the
+reference's order; the trained weights (``gen_params``) then serve and
+make the draft. The line reports the steps and the training loss's first
+step and the mean of its last ten (``spec_train_loss_first`` /
+``_last``).
+
 Not ported (the flag exits non-zero): meshes (``--mesh``, ``--kv-shard``,
-``--collective-dtype``) and the target's synthetic pre-training
-(``--spec-train-steps``): the speculative legs run on the random-weight
-target, so their acceptance rate measures the mechanism, not a trained
-draft. The mesh columns read their one-card values.
+``--collective-dtype``). The mesh columns read their one-card values.
 """
 from __future__ import annotations
 
@@ -76,8 +84,7 @@ import time
 
 import numpy as np
 
-NOT_PORTED = ("--mesh", "--kv-shard", "--collective-dtype",
-              "--spec-train-steps")
+NOT_PORTED = ("--mesh", "--kv-shard", "--collective-dtype")
 
 
 def _parser():
@@ -135,6 +142,10 @@ def _parser():
     ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--draft-k", default="4")
     ap.add_argument("--draft-layers", type=int, default=None)
+    ap.add_argument("--spec-train-steps", type=int, default=300,
+                    help="Adam steps of synthetic pre-training of the "
+                         "target before the speculative legs (0: the "
+                         "random target)")
     ap.add_argument("--tenants", default=None,
                     help="name:weight,... tenant mix (own rng: the token "
                          "stream is unchanged)")
@@ -1266,14 +1277,61 @@ class Bench:
             flush=True)
 
     # -- --speculative ---------------------------------------------------------
+    def train_synthetic(self, steps):
+        """``steps`` Adam steps of the target on the synthetic stream
+        next = (tok + 7) mod V with 8% noise (reference
+        ``_train_synthetic``): the bench's weights loaded into a port
+        ``GPTForCausalLM``, trained in train mode (dropout on) through
+        ``TrainStep``, then handed back as ``self.params``. Returns the
+        per-step losses (None for ``steps <= 0``)."""
+        if steps <= 0:
+            return None
+        torch = self.torch
+        from ..models.gpt import GPTForCausalLM, gen_params, tree_map
+        from ..optimizer import Adam
+        from ..parallel.api import TrainStep
+        model = GPTForCausalLM(self.cfg, device=self.device,
+                               seed=self.args.seed)
+        dst = []
+        tree_map(dst.append, gen_params(model))
+        src = []
+        tree_map(src.append, self.params)
+        torch._foreach_copy_(dst, src)
+        model.train()
+        step = TrainStep(model, lambda m, x, y: m.loss(x, y),
+                         Adam(learning_rate=3e-3), device=self.device)
+        vocab, maxpos = self.vocab, self.cfg.max_position_embeddings
+        trng = np.random.RandomState(self.args.seed)
+        s = min(24, maxpos - 1)
+        losses = []
+        with torch.enable_grad():
+            for _ in range(steps):
+                x = np.zeros((16, s + 1), np.int64)
+                x[:, 0] = trng.randint(0, vocab, 16)
+                for t in range(1, s + 1):
+                    nxt = (x[:, t - 1] + 7) % vocab
+                    ns = trng.rand(16) < 0.08
+                    x[:, t] = np.where(ns, trng.randint(0, vocab, 16), nxt)
+                losses.append(step(x[:, :-1], x[:, 1:]))
+        model.eval()
+        self.params = gen_params(model)
+        return torch.stack(losses).float().cpu().numpy()
+
     def run_speculative(self):
         """The speculative steady-decode replay (reference
-        ``run_speculative``) on the random-weight target: the same
-        requests twice an engine (wave 0 warms, wave 1 is measured from
-        when its prefill drains) through one engine per ``--draft-k``
-        and the per-token and adaptive-block baselines."""
+        ``run_speculative``) on the target after ``--spec-train-steps``
+        of :meth:`train_synthetic`: the same requests twice an engine
+        (wave 0 warms, wave 1 is measured from when its prefill drains)
+        through one engine per ``--draft-k`` and the per-token and
+        adaptive-block baselines."""
         from ..inference import truncate_draft
         a = self.args
+        losses = self.train_synthetic(a.spec_train_steps)
+        train = {"spec_train_steps": max(int(a.spec_train_steps), 0),
+                 "spec_train_loss_first": None
+                 if losses is None else float(losses[0]),
+                 "spec_train_loss_last": None
+                 if losses is None else float(losses[-10:].mean())}
         draft = truncate_draft(self.cfg, self.params, a.draft_layers)
         n = min(a.requests, a.slots)
         reqs = [(self.rng.randint(0, self.vocab, int(self.rng.randint(
@@ -1331,8 +1389,7 @@ class Bench:
                 "value": spec["tokens_per_sec"],
                 "unit": "tokens/sec/chip", "draft_k": k,
                 "draft_layers": draft[0].num_layers,
-                "target_layers": self.cfg.num_layers,
-                "spec_train_steps": 0,
+                "target_layers": self.cfg.num_layers, **train,
                 **{key: spec[key] for key in (
                     "accept_rate", "spec_rounds", "rounds_per_token",
                     "p50_ms_per_token", "p99_ms_per_token",
@@ -1362,8 +1419,7 @@ def main(argv=None):
     if refused:
         sys.stderr.write(
             f"{', '.join(refused)}: not ported to paddle_tpu_torch "
-            "(meshes and the target's pre-training come in later "
-            "slices)\n")
+            "(meshes are not ported yet)\n")
         raise SystemExit(2)
     args = _parser().parse_args(argv)
     if args.shared_prefix and args.prefix_len <= 0:

@@ -179,8 +179,16 @@ def test_pre_norm_encoder_layer_with_a_dense_mask_matches():
                           paddle.to_tensor(mask))._array)
     got = _np(port(torch.from_numpy(x), torch.from_numpy(mask)))
     np.testing.assert_allclose(got, want, **LOGIT_TOL)
-    with pytest.raises(NotImplementedError):
-        port(torch.from_numpy(x), cache=object())
+    # the incremental cache (now ported): an empty Cache from
+    # gen_cache gives the uncached output and the cache of this step
+    jout, jcache = ref(paddle.to_tensor(x), paddle.to_tensor(mask),
+                       ref.gen_cache(paddle.to_tensor(x)))
+    tout, tcache = port(torch.from_numpy(x), torch.from_numpy(mask),
+                        port.gen_cache(torch.from_numpy(x)))
+    np.testing.assert_allclose(_np(tout), np.asarray(jout._array),
+                               **LOGIT_TOL)
+    np.testing.assert_allclose(_np(tcache.k), np.asarray(jcache.k._array),
+                               **LOGIT_TOL)
     with pytest.raises(NotImplementedError):
         nn.TransformerEncoderLayer(32, 4, 48, activation="swish",
                                    device="cpu")

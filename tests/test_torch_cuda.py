@@ -26,7 +26,12 @@ the card against the CPU, and the rest of observability: the
 ``tensor_health`` kernel against its plain version, ``skip_nonfinite``
 bit-identity, and journal record and replay on captured engines; and
 the fleet router over captured engines (a kill, a dead replica dropped
-while a new one captures, a fleet journal's replay).
+while a new one captures, a fleet journal's replay); and dense KV-cache
+generation (the captured decode step against the eager one bit for bit,
+dense greedy tokens against the paged engine's), the flash kernels at
+one query against a cache, the transformer's cached decoding on the card
+against the CPU, and the long-context bench's flash gradients against
+naive attention at 4096.
 
 Every test skips without a card (the kernels have no CPU mode). This file
 imports no JAX, so it also runs on the GPU machine, which has none:
@@ -2361,3 +2366,139 @@ def test_fleet_journal_replays_on_captured_engines(cuda, kv_dtype, tmp_path):
     assert rep["requests"] == len(_graph_reqs()) * 2
     dead = jnl.read_journal(path).by_kind("replica_dead")
     assert len(dead) == 1 and "injected replica death" in dead[0]["reason"]
+
+
+# -- dense generation, the transformer's caches, long context -------------------
+
+def _gen_model(dev, **kw):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    model = GPTForCausalLM(gpt2_tiny(dropout=0.0, **kw), device=dev, seed=2)
+    model.eval()
+    return model
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_captured_generate_equals_eager(cuda, dtype):
+    """The captured decode step gives the eager step's tokens bit for
+    bit, greedy and sampled (same seed, same noise), and replays one
+    graph across calls of one shape."""
+    model = _gen_model(cuda)
+    ids = np.random.RandomState(3).randint(0, 128, (3, 11))
+    for kw in (dict(), dict(temperature=0.9, top_k=20, seed=5)):
+        cap = model.generate(ids, max_new_tokens=40, dtype=dtype, **kw)
+        eag = model.generate(ids, max_new_tokens=40, dtype=dtype,
+                             _capture=False, **kw)
+        assert cap.device.type == "cuda" and cap.dtype == torch.int64
+        assert torch.equal(cap, eag)
+    keys = [k for k in model._gen_programs if k[-1]]
+    assert len(keys) == 2        # top_k 0 and 20: one graph each
+    from paddle_tpu_torch.inference.graphs import GraphProgram
+    assert all(isinstance(model._gen_programs[k].program, GraphProgram)
+               for k in keys)
+
+
+def test_dense_generate_equals_the_paged_engine_greedy(cuda):
+    """Dense greedy tokens against the paged engine's (ragged kernel) at
+    f32 weights, up to the first top-2 margin below 1e-3."""
+    from paddle_tpu_torch.models.gpt import gen_params
+    model = _gen_model(cuda)
+    eng = ServingEngine(model.gpt.cfg, gen_params(model), device=cuda,
+                        num_slots=4, page_size=8, prefill_chunk=8,
+                        max_seq_len=128, record_logits=True)
+    rng = np.random.RandomState(7)
+    held = 0
+    for n in (5, 19, 40):
+        ids = rng.randint(0, 128, (1, n))
+        dense = model.generate(ids, max_new_tokens=30)[0, n:].cpu().numpy()
+        uid = eng.add_request(ids[0], 30)
+        done = eng.run(max_steps=2000)
+        toks = np.asarray(done[uid].tokens)
+        for i, (a, b) in enumerate(zip(dense, toks)):
+            top2 = torch.topk(eng.logit_log[uid][i], 2).values
+            if float(top2[0] - top2[1]) < 1e-3:
+                break
+            assert a == b, (n, i)
+            held += 1
+    assert held >= 60
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Lk", [1, 7, 64, 129, 1000])
+def test_flash_at_one_query_matches_plain(cuda, Lk, dtype):
+    """The cached decoder's shape: one query against Lk keys, non-causal
+    (self-attention over the cache, cross-attention over the memory)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do = _fa_inputs(cuda, 8, 8, 1, Lk, 64, dtype)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_fwd(q, k, v, False)
+    delta = fa.attention_delta(out, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False)
+    torch.cuda.synchronize()
+    assert fa.fwd_hopper_launches == (dtype == torch.bfloat16)
+    rout, rlse = fa.flash_attention_fwd_ref(q, k, v, False)
+    rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, False)
+    rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, False)
+    ftol, gtol = FA_TOL[dtype]
+    assert _rel(out, rout) <= ftol and _rel(lse, rlse) <= ftol
+    grads = [("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)]
+    if Lk == 1:
+        # one key: P is 1 whatever q and k are, so dS = P (dP - delta)
+        # and with it dq and dk are exactly 0; both sides hold rounding
+        # noise (about 1e-7)
+        for name, a, _ in grads[:2]:
+            assert float(a.float().abs().max()) <= 1e-5, name
+        grads = grads[2:]
+    for name, a, b in grads:
+        assert _rel(a, b) <= gtol, name
+
+
+def test_transformer_cached_decoding_on_the_card(cuda):
+    """Stepwise cached decoding of the encoder-decoder on the card against
+    the same model on the CPU and against its own masked full forward;
+    every step's attention is a flash launch."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    kw = dict(d_model=64, nhead=4, num_encoder_layers=2,
+              num_decoder_layers=2, dim_feedforward=128, dropout=0.0)
+    models = [nn.Transformer(**kw, device=d, rng=np.random.default_rng(4))
+              for d in ("cpu", cuda)]
+    rng = np.random.RandomState(8)
+    src = torch.tensor(rng.randn(3, 17, 64), dtype=torch.float32)
+    tgt = torch.tensor(rng.randn(3, 9, 64), dtype=torch.float32)
+    outs = []
+    for m in models:
+        m.eval()
+        dev = next(m.parameters()).device
+        s, t = src.to(dev), tgt.to(dev)
+        fa.reset_launches()
+        with torch.no_grad():
+            mem = m.encoder(s)
+            cache = m.decoder.gen_cache(mem)
+            steps = []
+            for i in range(9):
+                o, cache = m.decoder(t[:, i:i + 1], mem, cache=cache)
+                steps.append(o)
+            full = m(s, t, tgt_mask=m.generate_square_subsequent_mask(9))
+        outs.append((torch.cat(steps, 1).cpu(), full.cpu()))
+        if dev.type == "cuda":
+            # encoder 2 layers + 9 steps x 2 layers x (self + cross)
+            # + the full forward's encoder and cross-attention (2 + 2)
+            assert fa.fwd_launches == 2 + 9 * 2 * 2 + 2 + 2
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outs[1][0], outs[1][1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_long_context_flash_matches_naive_at_4096(cuda, dtype):
+    from paddle_tpu_torch.tools import bench_longctx as bl
+    dt = getattr(torch, dtype)
+    q, k, v = bl.inputs(4096, dt, cuda, np.random.RandomState(0))
+    flash = bl.grads(bl.flash, q, k, v)
+    naive = bl.grads(bl.naive, q, k, v)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    for name, a, b in zip(("dq", "dk", "dv"), flash, naive):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= tol, (name, _rel(a, b))

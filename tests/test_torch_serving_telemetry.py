@@ -528,8 +528,7 @@ def test_bench_serving_prints_the_reference_keys(capsys):
         assert set(line["tenants"]) == {"a", "b", "default"}
         assert line["decode_compiles"] == 1
     assert out[1]["quant_logit_err_absmax"] is not None
-    for flag in ("--mesh", "--kv-shard", "--collective-dtype",
-                 "--spec-train-steps"):
+    for flag in ("--mesh", "--kv-shard", "--collective-dtype"):
         with pytest.raises(SystemExit) as e:
             bench_serving.main(["--model", "tiny", flag, "2"])
         assert e.value.code != 0
