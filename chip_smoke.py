@@ -12,7 +12,8 @@ exits non-zero:
 2. ``build``   — compiles every CUDA source of the port with ``nvcc``
    (one process per source, all at once) and reports the seconds.
 3. ``kernels`` — each kernel against its plain PyTorch version on the
-   card, float32 and bfloat16:
+   card, float32 and bfloat16, and the flash, fused-CE and packed-flash
+   kernels at float16 too (see the float16 note below):
    - ragged paged attention at GPT-2 small's serving shapes (12 heads of
      64, pages of 16, 8 slots, 64 pages a slot): a mixed case (decode
      row, a full prefill row of 32, a k+1-like row, an idle slot,
@@ -89,6 +90,16 @@ exits non-zero:
      (``fwd_design``); dq and dk/dv the wgmma/TMA design in every bfloat16
      case at D=64 (``hopper_bwd``) and the CUDA-core one at D=128 and in
      float32 (``bwd_design``).
+   float16 (the CUDA-core designs: the wgmma/TMA ones are bf16 only):
+   flash at amp_fp16's shape (B=8, L=1024, causal; timed), L=1000, the
+   dead-row case, L=4096 with and without causal (the causal one timed)
+   and D=128; fused CE at amp_fp16's head (T=8192, d=768, V=50304;
+   timed, its shared-dl pair too, the float16 h with the bf16 dl),
+   T=1000 and the ignored-label case; packed flash at BERT's pack-4
+   shape (timed), causal, L=300, L=4096 and D=128. Outputs within 2e-3
+   of max-abs (one float16 rounding step), lse within it; the fused-CE
+   gradients, subnormal in float16 at g = 1/T, within one float16 step
+   an element; every float16 launch on the CUDA-core design.
    Times each kernel (CUDA events: the median of 5 repeats of a timed
    loop, printed with the min-max spread as ``<key>_spread``), its plain
    version and one PyTorch
@@ -358,6 +369,18 @@ exits non-zero:
    the pair's kernels against its plain versions.
 11. ``bench`` — ``paddle_tpu_torch.tools.bench_gpt_pretrain.run`` with
    ``fused_ce=True`` and ``reps=1``, printing that tool's JSON line.
+   ``amp_fp16`` — GPT-2 small at full width (``fused_ce=True``,
+   ``bf16_residual`` on, dropout 0) trained eagerly in pure float16:
+   ``amp.decorate(level="O2", dtype="float16")``, the eager ``AdamW``,
+   ``auto_cast(level="O2", dtype="float16")``, ``GradScaler()`` at its
+   defaults, ``scaler.minimize(opt, scaler.scale(loss))`` on one
+   repeated 8 x 1024 batch: 4 steps, 2 with the loss times inf, 3 more.
+   The first loss within 5e-2 of the float32 loss on the same weights,
+   the loss falling, the overflow steps leaving every parameter
+   bit-identical and the step count unchanged, halving the scale once and
+   raising ``amp_found_inf_total`` by 2, the next step updating again;
+   the flash and fused-CE launches (float16, none on wgmma/TMA), losses,
+   scales, ms a step and peak memory.
 12. ``bert`` — ``paddle_tpu_torch.tools.bench_bert.run(pack=0, reps=1)``:
    the BERT-base fine-tune step (12 layers, d=768, 12 heads, FFN 3072,
    vocab 30522, dropout 0.1, AdamW 3e-5, O1 bf16) on 64 x 128 tokens, 24
@@ -429,6 +452,16 @@ exits non-zero:
    flash launches (6 layers x 64 steps x self and cross; all on
    wgmma/TMA at bf16), the flash forward against plain at one query
    over 1, 33, 64 and 128 keys; ms a decoding step.
+``hapi_fit`` (after ``bert_parity``) — BERT-base at bench_bert's 64 x
+   128 through ``Model.prepare(AdamW, CrossEntropyLoss, Accuracy())``
+   under ``amp.decorate(level="O2", dtype="bfloat16")`` and
+   ``auto_cast(level="O2")``: ``fit`` for 6 batches with
+   ``TelemetryCallback`` and ``NumericsCallback(scaler=GradScaler())``,
+   its losses equal bit for bit to a hand-written ``TrainStep`` loop's;
+   the train series families live (``train_jit_compiles``: no series,
+   nothing compiled); every flash launch on wgmma/TMA; ``evaluate``,
+   ``predict``, and a ``save``/``load`` round trip that predicts and
+   trains as the saved model does.
 20. ``serve_spec_trained`` — ``bench_serving --speculative
    --spec-train-steps 300`` in its own process, at serve's configuration
    and at ``--model tiny`` (the reference's recorded configuration): the
@@ -457,6 +490,12 @@ import sys
 import time
 
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+# float16 runs the CUDA-core kernels: inputs widened to float32 as they
+# load, every product and sum float32, as in the plain versions, so an
+# output differs from the plain one by at most one float16 rounding step
+# (2^-10 of its magnitude, under 1e-3 of max-abs); the fused-CE gradients,
+# subnormal in float16 at g = 1/T, are held to one float16 step an element
+F16_TOL = 2e-3
 # the code formats the wrapper routes to the split-KV design (whole
 # 16-code units)
 SPLIT_CODES = ("int8", "fp8")
@@ -475,7 +514,8 @@ PARITY_TOL = 1e-3
 PER_CALL_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,        # non-tensor-core float32
-              "bfloat16": 989e12}      # dense bf16 tensor cores
+              "bfloat16": 989e12,      # dense bf16 tensor cores
+              "float16": 989e12}       # dense fp16 tensor cores
 PS, NH, HD, S_SLOTS, MP, CHUNK = 16, 12, 64, 8, 64, 32
 SPEC_K = 4                # serve_spec's draft_k
 
@@ -905,6 +945,26 @@ FLASH_CASES = {
 }
 
 
+# float16: amp_fp16's attention (GPT-2 small, B=8) and, from FLASH_CASES,
+# the ragged, dead-row, streamed (L=4096) and D=128 cases
+FLASH_F16_CASES = {"amp_fp16": (8, 12, 1024, 1024, 64, True)}
+FLASH_F16_ALSO = ("ragged1000", "causal256x128", "long4096",
+                  "long4096_causal", "d128")
+FLASH_F16_TIMED = ("amp_fp16", "long4096_causal")
+
+
+def flash_dtypes(name):
+    """``(dtype, output tol, gradient tol)`` of a flash case."""
+    import torch
+    out = []
+    if name in FLASH_CASES:
+        out += [(torch.float32, F32_TOL, F32_TOL),
+                (torch.bfloat16, BF16_TOL, BF16_GRAD_TOL)]
+    if name in FLASH_F16_CASES or name in FLASH_F16_ALSO:
+        out.append((torch.float16, F16_TOL, F16_TOL))
+    return out
+
+
 def flash_inputs(B, H, Lq, Lk, D, dtype, seed):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -959,9 +1019,11 @@ def design(hopper):
 
 def with_rate(rec):
     """A timed record with its achieved TFLOP/s and its factor over the
-    library call."""
+    library call (None where no library call computes the function)."""
+    lib = rec["library_ms"]
     return dict(rec, tflops=rec["flops"] / rec["ms"] / 1e9,
-                factor_over_library=rec["ms"] / rec["library_ms"])
+                factor_over_library=None if lib is None
+                else rec["ms"] / lib)
 
 
 def run_flash_phase():
@@ -971,10 +1033,8 @@ def run_flash_phase():
 
     results = {}
     for ci, (name, (B, H, Lq, Lk, D, causal)) in enumerate(
-            FLASH_CASES.items()):
-        for dtype, ftol, gtol in ((torch.float32, F32_TOL, F32_TOL),
-                                  (torch.bfloat16, BF16_TOL,
-                                   BF16_GRAD_TOL)):
+            {**FLASH_CASES, **FLASH_F16_CASES}.items()):
+        for dtype, ftol, gtol in flash_dtypes(name):
             q, k, v, do = flash_inputs(B, H, Lq, Lk, D, dtype, 100 + ci)
             before = fa.fwd_hopper_launches
             out, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -1020,8 +1080,9 @@ def run_flash_phase():
                 rec[key] = {"rel_err": err, "max_abs_err": float(
                     (a.float() - b.float()).abs().max())}
             del rout, rlse, rdq, rdk, rdv
-            if name in ("train", "bert128", "long4096_causal") and \
-                    dtype == torch.bfloat16:
+            if (name in ("train", "bert128", "long4096_causal")
+                    and dtype == torch.bfloat16) or \
+                    (name in FLASH_F16_TIMED and dtype == torch.float16):
                 rec["timing"] = time_flash(q, k, v, do, out, lse, delta,
                                            causal, fa, F)
                 if not all(torch.equal(a, b) for a, b in zip(
@@ -1123,6 +1184,43 @@ FCE_CASES = {
 }
 
 
+# float16: amp_fp16's head (GPT-2 small, B=8 x 1024 tokens) and, from
+# FCE_CASES, the ragged and ignored-label cases
+FCE_F16_CASES = {"amp_fp16": (8 * 1024, 50304, 768, 0)}
+FCE_F16_ALSO = ("ragged1000", "ignored300")
+
+
+def fce_dtypes(name):
+    import torch
+    if name in FCE_F16_CASES:
+        return (torch.float16,)
+    out = ((torch.bfloat16,) if name == "train"
+           else (torch.float32, torch.bfloat16))
+    return out + ((torch.float16,) if name in FCE_F16_ALSO else ())
+
+
+def fce_hold(key, a, b, tol, what):
+    """One fused-CE output against the plain one: ``{"rel_err",
+    "max_abs_err"}``; max-abs error over max-abs within ``tol``, or for a
+    float16 gradient (subnormal at g = 1/T) within one float16 step an
+    element (``max_f16_steps``). Raises otherwise or on a non-finite."""
+    import torch
+    err = rel_err(a, b)
+    rec = {"rel_err": err,
+           "max_abs_err": float((a.float() - b.float()).abs().max())}
+    if a.dtype == torch.float16:
+        rec["max_f16_steps"] = int(bf16_steps(a, b).max()) if a.numel() \
+            else 0
+        ok = rec["max_f16_steps"] <= 1
+    else:
+        ok = err <= tol
+    if not (ok and bool(torch.isfinite(a).all())):
+        raise AssertionError(f"fused CE {key} kernel vs plain ({what}): "
+                             f"{rec} beyond {tol} (float16: one step) or "
+                             "non-finite")
+    return rec
+
+
 def fce_inputs(T, V, d, ignored, dtype, seed):
     """h ~ N(0, 1) (a LayerNorm output), w ~ N(0, 0.05), int32 labels
     and g = 1/T (the mean's cotangent); every 16th label (from row 1) is
@@ -1187,12 +1285,11 @@ def run_fused_ce_phase():
     from paddle_tpu_torch.kernels import fused_ce as fc
 
     results = {}
-    for ci, (name, (T, V, d, ignored)) in enumerate(FCE_CASES.items()):
-        dtypes = ((torch.bfloat16,) if name == "train"
-                  else (torch.float32, torch.bfloat16))
-        for dtype in dtypes:
-            gtol = (F32_TOL if dtype == torch.float32
-                    else FCE_BF16_GRAD_TOL)
+    for ci, (name, (T, V, d, ignored)) in enumerate(
+            {**FCE_CASES, **FCE_F16_CASES}.items()):
+        for dtype in fce_dtypes(name):
+            gtol = {torch.float32: F32_TOL, torch.float16: F16_TOL}.get(
+                dtype, FCE_BF16_GRAD_TOL)
             h, w, lab, g = fce_inputs(T, V, d, ignored, dtype, 300 + ci)
             before = (fc.fwd_hopper_launches, fc.dh_hopper_launches,
                       fc.dw_hopper_launches)
@@ -1227,13 +1324,7 @@ def run_fused_ce_phase():
                                    ("dw", dw, rdw, gtol),
                                    ("dh_softmax", sdh, srdh, gtol),
                                    ("dw_softmax", sdw, srdw, gtol)):
-                err = rel_err(a, b)
-                if not (err <= tol and bool(torch.isfinite(a).all())):
-                    raise AssertionError(
-                        f"fused CE {key} kernel vs plain ({name}, {dtype}): "
-                        f"max-abs err / max-abs {err} > {tol} or non-finite")
-                rec[key] = {"rel_err": err, "max_abs_err": float(
-                    (a.float() - b.float()).abs().max())}
+                rec[key] = fce_hold(key, a, b, tol, f"{name}, {dtype}")
             none = (lab < 0) | (lab >= V)
             if not torch.equal(nll[none], lse[none]):
                 raise AssertionError("fused CE: a row whose label picks "
@@ -1245,7 +1336,7 @@ def run_fused_ce_phase():
             rec["sharep"] = check_fused_ce_sharep(h, w, lab, lse, g, dh, dw,
                                                   gtol, ignored, fc)
             torch.cuda.empty_cache()
-            if name == "train":
+            if name in ("train", "amp_fp16"):
                 again = (fc.fused_ce_bwd_dh(h, w, lab, lse, g),
                          fc.fused_ce_bwd_dw(h, w, lab, lse, g))
                 if not (torch.equal(dh, again[0])
@@ -1254,7 +1345,8 @@ def run_fused_ce_phase():
                                          "bit-identical across two launches")
                 rec["backward_bit_identical"] = True
                 del again
-                rec["timing"] = time_fused_ce(h, w, lab, lse, g, fc)
+                rec["timing"] = time_fused_ce(
+                    h, w, lab, lse, g, fc, full=dtype == torch.bfloat16)
             results.setdefault(name, {})[str(dtype).replace(
                 "torch.", "")] = rec
             del h, w, lab, g, nll, lse, dh, dw
@@ -1268,7 +1360,9 @@ def fce_design(hopper):
 
 def bf16_steps(a, b):
     """How many bf16 rounding steps apart each pair of bf16 elements lies
-    (int32; the bit patterns ordered as the values are)."""
+    (int32; the bit patterns ordered as the values are). The same order
+    holds for float16's bit patterns: float16 pairs count float16 steps
+    (subnormal steps included)."""
     import torch
 
     def key(x):
@@ -1311,14 +1405,8 @@ def check_fused_ce_sharep(h, w, lab, lse, g, dh10, dw11, gtol, ignored,
            "dw_design": fce_design(hopper[1])}
     for key, a, b in (("dh", dh, rdh), ("dw", dw, rdw),
                       ("dh_softmax", sdh, srdh), ("dw_softmax", sdw, srdw)):
-        err = rel_err(a, b)
-        if not (err <= gtol and bool(torch.isfinite(a).all())):
-            raise AssertionError(
-                f"fused CE sharep {key} kernel vs plain (T={T}, V={V}, "
-                f"{h.dtype}): max-abs err / max-abs {err} > {gtol} or "
-                "non-finite")
-        rec[key] = {"rel_err": err, "max_abs_err": float(
-            (a.float() - b.float()).abs().max())}
+        rec[key] = fce_hold(f"sharep {key}", a, b, gtol,
+                            f"T={T}, V={V}, {h.dtype}")
     del rdh, rdw, sdh, sdw, srdh, srdw
     pdw = fc.fused_ce_bwd_dw_sharep_ref(h, rdl).float()
     moved = (dl.float() - rdl.float()).abs().t() @ h.float().abs()
@@ -1398,7 +1486,7 @@ def fce_first_design(kind, h, w, lab, lse, g, fc):
     return call
 
 
-def time_fused_ce(h, w, lab, lse, g, fc):
+def time_fused_ce(h, w, lab, lse, g, fc, full=True):
     """Kernel, plain and library times at the training shape, with the
     bounds. The library yardstick is the unfused head: ``torch.matmul``
     of bf16 operands and ``F.cross_entropy`` over the float32 logits
@@ -1407,8 +1495,8 @@ def time_fused_ce(h, w, lab, lse, g, fc):
     (dw), so each backward kernel, which recomputes the logits, meets the
     forward and the one product of its own. The forward kernel is also
     timed with one vocab split (``fwd_one_split_ms``), the forward, dh,
-    dw and dh_sharep kernels on their first designs (``first_design_ms``).
-    The
+    dw and dh_sharep kernels on their first designs (``first_design_ms``);
+    with ``full=False`` (float16, which takes those designs) neither. The
     shared-dl pair: dh_sharep against row 10's yardstick that also keeps
     the bf16 dl (the gradient at the bf16 logits, taken with dh),
     dw_sharep against ``torch.matmul(dl.t(), h)`` on the stored dl;
@@ -1423,9 +1511,12 @@ def time_fused_ce(h, w, lab, lse, g, fc):
                        3),
          "dw": cuda_ms(lambda i: fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g),
                        3)}
-    one_split = cuda_ms(lambda i: fc._launch_fwd(h, w, lab, nsplit=1), 10)
-    first = {kn: cuda_ms(fce_first_design(kn, h, w, lab, lse, g, fc), 5)
-             for kn in ("fwd", "dh", "dw")}
+    one_split = first = None
+    if full:
+        one_split = cuda_ms(lambda i: fc._launch_fwd(h, w, lab, nsplit=1),
+                            10)
+        first = {kn: cuda_ms(fce_first_design(kn, h, w, lab, lse, g, fc), 5)
+                 for kn in ("fwd", "dh", "dw")}
     V = w.shape[0]
     lab64 = torch.where((lab >= 0) & (lab < V), lab.long(), -100)
 
@@ -1450,22 +1541,26 @@ def time_fused_ce(h, w, lab, lse, g, fc):
                 * g).sum()
         torch.autograd.grad(loss, (hg, logits))
     lib["dh_sharep"] = cuda_ms(lib_dh_sharep, 5)
-    first["dh_sharep"] = cuda_ms(
-        fce_first_design("dh_sharep", h, w, lab, lse, g, fc), 5)
+    if full:
+        first["dh_sharep"] = cuda_ms(
+            fce_first_design("dh_sharep", h, w, lab, lse, g, fc), 5)
     torch.cuda.empty_cache()
     _, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
     t["dw_sharep"] = cuda_ms(lambda i: fc.fused_ce_bwd_dw_sharep(h, dl), 5)
     p["dw_sharep"] = cuda_ms(
         lambda i: fc.fused_ce_bwd_dw_sharep_ref(h, dl), 3)
-    lib["dw_sharep"] = cuda_ms(lambda i: torch.matmul(dl.t(), h), 5)
+    # float16 h with the bf16 dl: no one PyTorch call multiplies the pair
+    lib["dw_sharep"] = (cuda_ms(lambda i: torch.matmul(dl.t(), h), 5)
+                        if dl.dtype == h.dtype else None)
     del dl
     torch.cuda.empty_cache()
     b = fce_bounds(h, w)
     out = {kn: with_rate(dict(ms=t[kn], plain_ms=p[kn], library_ms=lib[kn],
                               **b[kn])) for kn in t}
-    out["fwd"]["fwd_one_split_ms"] = one_split
-    for kn, ms in first.items():
-        out[kn]["first_design_ms"] = ms
+    if full:
+        out["fwd"]["fwd_one_split_ms"] = one_split
+        for kn, ms in first.items():
+            out[kn]["first_design_ms"] = ms
     out["pair"] = {"sharep_ms": t["dh_sharep"] + t["dw_sharep"],
                    "recompute_ms": t["dh"] + t["dw"]}
     return out
@@ -1484,6 +1579,11 @@ PACKED_CASES = {
     "L4096": (1, 12, 4096, 64, True, "uneven"),
     "d128": (4, 6, 512, 128, False, "pack4"),
 }
+
+
+# float16, from PACKED_CASES: BERT's pack-4 shape (timed), the causal,
+# ragged, long and D=128 cases
+PACKED_F16 = ("bert", "uneven_causal", "L300", "L4096", "d128")
 
 
 def packed_ids(B, L, layout):
@@ -1551,9 +1651,11 @@ def run_packed_flash_phase():
     for ci, (name, (B, H, L, D, causal, layout)) in enumerate(
             PACKED_CASES.items()):
         seg = packed_ids(B, L, layout)
-        for dtype, ftol, gtol in ((torch.float32, F32_TOL, F32_TOL),
-                                  (torch.bfloat16, BF16_TOL,
-                                   BF16_GRAD_TOL)):
+        dtypes = [(torch.float32, F32_TOL, F32_TOL),
+                  (torch.bfloat16, BF16_TOL, BF16_GRAD_TOL)]
+        if name in PACKED_F16:
+            dtypes.append((torch.float16, F16_TOL, F16_TOL))
+        for dtype, ftol, gtol in dtypes:
             q, k, v, do = flash_inputs(B, H, L, L, D, dtype, 500 + ci)
             before = pf.fwd_hopper_launches
             out, lse = pf.packed_flash_fwd(q, k, v, seg, causal)
@@ -1613,7 +1715,7 @@ def run_packed_flash_phase():
                                      "two launches")
             rec["backward_bit_identical"] = True
             del again
-            if name == "bert" and dtype == torch.bfloat16:
+            if name == "bert" and dtype != torch.float32:
                 rec["timing"] = time_packed(q, k, v, seg, do, lse, delta,
                                             causal, pf)
             results.setdefault(name, {})[str(dtype).replace(
@@ -4708,6 +4810,310 @@ def c11_errors(cap, grads):
     return out
 
 
+# amp_fp16: normal steps, overflow steps (the loss times inf) in a row,
+# normal steps after; the injected run is the scaler's default
+# decr_every_n_nan_or_inf = 2, so the scale halves once
+AMP_STEPS = (4, 2, 3)
+AMP_B, AMP_S = 8, 1024
+# the first O2 float16 loss against the float32 loss on the same weights:
+# float16 weights and activations (and the bf16 residual stream) round
+# each logit by ~1e-3 of itself; the mean over 8192 tokens moves by a few
+# 1e-3 nats, so 5e-2 nats (0.5% of the ~10.9 of random weights) holds it
+AMP_LOSS_TOL = 5e-2
+
+
+def run_amp_fp16_phase():
+    """GPT-2 small at full width (``fused_ce=True``, ``bf16_residual`` at
+    its default, dropout off) trained eagerly in pure float16:
+    ``amp.decorate(model, opt, level="O2", dtype="float16")``, the eager
+    ``AdamW``, ``auto_cast(level="O2", dtype="float16")`` around the loss
+    and ``GradScaler()`` at its defaults; each step ``scaler.minimize(opt,
+    scaler.scale(loss))`` on one repeated batch (B=8 x 1024). Holds: the
+    first loss within ``AMP_LOSS_TOL`` of the float32 loss on the same
+    weights; the loss falls from the first step to the last; the
+    injected overflow steps leave every parameter bit-identical and the
+    optimizer's step count unchanged, halve the scale once and raise
+    ``amp_found_inf_total`` by exactly their number; the next step
+    updates again; every flash and fused-CE launch is float16 on the
+    CUDA-core designs (none on wgmma/TMA), one ``tensor_health`` launch
+    (the unscale's finite check) a step."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.kernels import tensor_health as th
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t_phase = time.perf_counter()
+    cfg = gpt2_small(fused_ce=True, dropout=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    ids_np, lab_np = train_batch(cfg.vocab_size, AMP_B, AMP_S)
+    ids = torch.as_tensor(ids_np, device="cuda")
+    labels = torch.as_tensor(lab_np, device="cuda")
+    with torch.no_grad():
+        loss32 = float(model.loss(ids, labels))     # float32, no autocast
+    opt = AdamW(1e-4, parameters=list(model.parameters()))
+    amp.decorate(model, opt, level="O2", dtype="float16")
+    if not all(p.dtype == torch.float16 for p in model.parameters()):
+        raise AssertionError("amp_fp16: decorate left a parameter that is "
+                             "not float16")
+    reg = MetricsRegistry()
+    scaler = amp.GradScaler(registry=reg)
+
+    def found_total():
+        return reg.snapshot()["amp_found_inf_total"]["series"][0]["value"]
+
+    normal, inject, after = AMP_STEPS
+    plan = [1.0] * normal + [math.inf] * inject + [1.0] * after
+    losses, scales, step_ms, held = [], [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in (fa, fc, th):
+        m.reset_launches()
+    for i, mult in enumerate(plan):
+        if i == normal:        # the state the overflow steps must keep
+            snap = [p.detach().clone() for p in model.parameters()]
+            count0, found0, scale0 = (opt._step_count, found_total(),
+                                      scaler._scale)
+        if i == normal + inject:
+            held["overflow"] = {
+                "params_bit_identical": all(torch.equal(a, b) for a, b in
+                                            zip(model.parameters(), snap)),
+                "step_count_unchanged": opt._step_count == count0,
+                "scale_before": scale0, "scale_after": scaler._scale,
+                "found_inf_raised_by": found_total() - found0}
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = model.loss(ids, labels)
+        scaler.minimize(opt, scaler.scale(loss * mult if mult != 1.0
+                                          else loss))
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        scales.append(scaler._scale)
+        if i == normal + inject:
+            held["updates_again"] = (
+                opt._step_count == count0 + 1 and any(
+                    not torch.equal(a, b) for a, b in
+                    zip(model.parameters(), snap)))
+    del snap
+    launches = {"flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
+                "flash_dkv": fa.dkv_launches, "fused_ce_fwd": fc.fwd_launches,
+                "fused_ce_dh": fc.dh_launches, "fused_ce_dw": fc.dw_launches,
+                "tensor_health": th.launches}
+    wgmma = (fa.fwd_hopper_launches + fa.dq_hopper_launches
+             + fa.dkv_hopper_launches + fc.fwd_hopper_launches
+             + fc.dh_hopper_launches + fc.dw_hopper_launches)
+    n = len(plan)
+    L = cfg.num_layers
+    want = {"flash_fwd": L * n, "flash_dq": L * n, "flash_dkv": L * n,
+            "fused_ce_fwd": n, "fused_ce_dh": n, "fused_ce_dw": n,
+            "tensor_health": n}
+    ov = held["overflow"]
+    first_gap = abs(losses[0] - loss32)
+    checks = {
+        "first_loss_vs_float32": first_gap <= AMP_LOSS_TOL,
+        "loss_falls": losses[-1] < losses[0],
+        "finite_losses": all(math.isfinite(x) for i, x in enumerate(losses)
+                             if not normal <= i < normal + inject),
+        "overflow_params_bit_identical": ov["params_bit_identical"],
+        "overflow_step_count_unchanged": ov["step_count_unchanged"],
+        "overflow_halves_scale_once": ov["scale_after"] == ov["scale_before"]
+        * 0.5,
+        "found_inf_counts_the_injections": ov["found_inf_raised_by"] == inject,
+        "updates_again": held["updates_again"],
+        "launches": launches == want and wgmma == 0}
+    rec = {"phase": "amp_fp16",
+           "model": "gpt2_small (12 layers, d=768, V=50304), fused_ce, "
+                    "bf16_residual, dropout 0",
+           "batch": [AMP_B, AMP_S], "plan": ["finite" if m == 1.0 else "inf"
+                                             for m in plan],
+           "loss": losses, "scale": scales, "loss_float32_first": loss32,
+           "first_loss_gap": first_gap, "first_loss_tol": AMP_LOSS_TOL,
+           "overflow": ov, "launches": launches, "launches_want": want,
+           "route": {"flash": "cuda_cores (float16: flash_attention_"
+                              "{fwd,dq,dkv}_kernel<__half>)",
+                     "fused_ce": "float32 engine over widened float16 "
+                                 "(fused_ce_{fwd,dh,dw}_kernel<float, "
+                                 "__half>)",
+                     "wgmma_tma_launches": wgmma},
+           "step_ms": step_ms,
+           "ms_per_step": statistics.median(
+               [t for i, t in enumerate(step_ms)
+                if i and not normal <= i < normal + inject]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "optimizer_steps": opt._step_count, "checks": checks,
+           "seconds": time.perf_counter() - t_phase}
+    if not all(checks.values()):
+        raise AssertionError(f"amp_fp16: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}: "
+                             f"{json.dumps(rec)}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+HAPI_STEPS = 6                # fit's batches: 64 sequences of 128 each
+HAPI_FAMILIES = ("train_grad_norm", "train_steps_total", "train_loss",
+                 "amp_loss_scale", "amp_found_inf_total")
+
+
+def run_hapi_fit_phase():
+    """BERT-base (``BertForSequenceClassification``, bench_bert's 64 x 128
+    unpacked shape) through ``Model.prepare(AdamW, CrossEntropyLoss,
+    Accuracy())`` under ``amp.decorate(level="O2", dtype="bfloat16")``
+    with ``fit`` inside ``auto_cast(level="O2")``: ``HAPI_STEPS`` batches
+    with ``TelemetryCallback`` and ``NumericsCallback(scaler=GradScaler())``
+    on one registry, then ``evaluate``, ``predict`` and a ``save`` /
+    ``load`` round trip. Holds: fit's losses equal, bit for bit, a
+    hand-written ``TrainStep`` loop's on the same weights and batches
+    (numerics on in both); the train series families the reference's
+    ``drive_train`` demands are live (``train_jit_compiles``: the family
+    exists without series, nothing is compiled); every flash launch on the
+    wgmma/TMA designs; the loaded model (its dropout generator's state
+    carried across: masks are drawn, not saved) predicts and trains as
+    the saved one does, bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import Model, amp, io, metric, nn
+    from paddle_tpu_torch.hapi.callbacks import (Callback, NumericsCallback,
+                                                 TelemetryCallback)
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.bert import (BertForSequenceClassification,
+                                              bert_base)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.api import TrainStep
+    from paddle_tpu_torch.tools.bench_bert import make_data
+
+    t_phase = time.perf_counter()
+    ids, y, _, _ = make_data(64, 0, k=HAPI_STEPS)
+    x, yy = ids.reshape(-1, ids.shape[-1]), y.reshape(-1)
+
+    class Rows(io.Dataset):
+        def __init__(self, n):
+            self.n = n
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, i):
+            return x[i], yy[i]
+
+    cfg = bert_base()
+
+    def build(seed=0):
+        net = BertForSequenceClassification(cfg, num_classes=2,
+                                            device="cuda", seed=seed)
+        return amp.decorate(net, level="O2", dtype="bfloat16")
+
+    ce = nn.CrossEntropyLoss()
+    hand = build()
+    step = TrainStep(hand, lambda m, a, b: ce(m(a), b),
+                     AdamW(3e-5, weight_decay=0.01), device="cuda",
+                     numerics="stats")
+    want = []
+    with amp.auto_cast(level="O2"):
+        for i in range(HAPI_STEPS):
+            want.append(step(x[64 * i:64 * (i + 1)], yy[64 * i:64 * (i + 1)]))
+    want = [float(v) for v in want]
+    del hand, step
+    torch.cuda.empty_cache()
+
+    class Losses(Callback):
+        def __init__(self):
+            self.seen = []
+
+        def on_train_batch_end(self, s, logs=None):
+            self.seen.append(logs["loss"][0])
+
+    reg = MetricsRegistry()
+    tel = TelemetryCallback(registry=reg, tracing=False)
+    num = NumericsCallback(registry=reg, scaler=amp.GradScaler(registry=reg),
+                           telemetry=tel)
+    model = Model(build(), device="cuda")
+    model.prepare(AdamW(3e-5, weight_decay=0.01), nn.CrossEntropyLoss(),
+                  metric.Accuracy())
+    rec_cb = Losses()
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O2"):
+        model.fit(Rows(64 * HAPI_STEPS), batch_size=64, epochs=1,
+                  shuffle=False, verbose=0, callbacks=[num, tel, rec_cb])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkv": fa.dkv_launches}
+    wgmma = {"fwd": fa.fwd_hopper_launches, "dq": fa.dq_hopper_launches,
+             "dkv": fa.dkv_hopper_launches}
+    snap = reg.snapshot()
+    series = {f: len(snap[f]["series"]) for f in HAPI_FAMILIES}
+    with amp.auto_cast(level="O2"):
+        ev = model.evaluate(Rows(128), batch_size=64, verbose=0)
+        pred = model.predict(Rows(128), batch_size=64, stack_outputs=True)[0]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "bert")
+        model.save(path)
+        twin = Model(build(seed=1), device="cuda")
+        twin.prepare(AdamW(3e-5, weight_decay=0.01), nn.CrossEntropyLoss(),
+                     metric.Accuracy())
+        twin.load(path)
+
+    def dropout_rng(m):      # one generator feeds every dropout of a model
+        return next(mod.generator for mod in m.network.modules()
+                    if getattr(mod, "generator", None) is not None)
+    # the dropout masks are drawn, not saved: carry the generator across
+    dropout_rng(twin).set_state(dropout_rng(model).get_state())
+    with amp.auto_cast(level="O2"):
+        same_pred = np.array_equal(twin.predict_batch([x[:64]])[0],
+                                   model.predict_batch([x[:64]])[0])
+        a = model.train_batch([x[:64]], [yy[:64]])
+        b = twin.train_batch([x[:64]], [yy[:64]])
+    same_params = all(torch.equal(p, q) for p, q in zip(
+        model.network.parameters(), twin.network.parameters()))
+    checks = {
+        "fit_losses_equal_hand_loop": rec_cb.seen == want,
+        "finite": all(map(math.isfinite, want)),
+        "families_live": all(series.values()),
+        "train_jit_compiles_has_no_series":
+            snap["train_jit_compiles"]["series"] == [],
+        "flash_on_wgmma_tma": flash == wgmma == {
+            kn: cfg.num_layers * HAPI_STEPS for kn in ("fwd", "dq", "dkv")},
+        "load_predicts_the_same": same_pred,
+        "load_trains_the_same": a[0] == b[0] and same_params,
+        "bf16_parameters": all(p.dtype == torch.bfloat16
+                               for p in model.network.parameters())}
+    grad_norm = next(s["value"] for s in snap["train_grad_norm"]["series"]
+                     if s["labels"].get("layer") == "__global__")
+    rec = {"phase": "hapi_fit",
+           "model": "bert_base (12 layers, d=768), 2 classes, O2 bf16",
+           "batch": [64, int(x.shape[1])], "steps": HAPI_STEPS,
+           "fit_losses": rec_cb.seen, "hand_loop_losses": want,
+           "fit_seconds": fit_s, "ms_per_step": fit_s / HAPI_STEPS * 1e3,
+           "eval": ev, "predict_shape": list(pred.shape),
+           "flash_launches": flash, "flash_wgmma_tma_launches": wgmma,
+           "series": series, "train_grad_norm_global": grad_norm,
+           "train_jit_compiles": "no meaning in the port: its train step "
+                                 "is eager, nothing is compiled (family "
+                                 "registered, no series)",
+           "checks": checks, "seconds": time.perf_counter() - t_phase}
+    if not all(checks.values()):
+        raise AssertionError(f"hapi_fit: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}: "
+                             f"{json.dumps(rec, default=str)}")
+    del model, twin
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_bert_parity_phase():
     """float32, no autocast, dropout 0, BERT-base at full width, batch 8
     (two rows of four 128-token sequences). Packed through the kernels
@@ -5424,6 +5830,98 @@ def run_serve_spec_trained_phase(spec):
     return out
 
 
+def float16_kernel_entries(fres, cres, pres, amp16):
+    """The kernels line's float16 entries: the flash and fused-CE kernels
+    at float16 on amp_fp16's path (their launches there, times at its
+    shapes), with the shared-dl pair's and the packed kernels' float16
+    readings (held in their phases, on no float16 path) beside them."""
+    entries = []
+    ft = fres["amp_fp16"]["float16"]["timing"]
+    lt = fres["long4096_causal"]["float16"]["timing"]
+    pt = pres["bert"]["float16"]["timing"]
+    outputs = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for kn, line, also in (("fwd", 52, 166), ("dq", 93, 213),
+                           ("dkv", 126, 251)):
+        name = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                "dkv": "flash_attention_bwd_dkv"}[kn]
+        pkn = {"fwd": "packed_flash_fwd", "dq": "packed_flash_bwd_dq",
+               "dkv": "packed_flash_bwd_dkv"}[kn]
+        entries.append({
+            "name": f"{name}[float16]", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention_pallas.py:{line}",
+            "also_replaces":
+                f"paddle_tpu/kernels/flash_attention_pallas.py:{also}",
+            "launches": amp16["launches"][f"flash_{kn}"],
+            "launches_by_phase": {"amp_fp16": amp16["launches"][
+                f"flash_{kn}"]},
+            "max_abs_err": max(r[o]["max_abs_err"] for case in fres.values()
+                               for dt, r in case.items() if dt == "float16"
+                               for o in outputs[kn]),
+            "ms": ft[kn]["ms"], "plain_ms": ft[kn]["plain_ms"],
+            "bound_ms": ft[kn]["bound_ms"], "bound_by": ft[kn]["bound_by"],
+            "library_ms": ft[kn]["library_ms"], "tflops": ft[kn]["tflops"],
+            "factor_over_library": ft[kn]["factor_over_library"],
+            "shape": "amp_fp16: B=8 L=1024 H=12 D=64 causal float16",
+            "source_kernel": f"flash_attention_{kn}_kernel<__half, 64>",
+            "design": "cuda_cores (float16 widened to float32 as it loads; "
+                      "the wgmma/TMA designs are bf16 only)",
+            "at_L4096": {"shape": "B=1 L=4096 H=12 D=64 causal float16",
+                         **{k: lt[kn][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}},
+            "packed_float16": {
+                "name": pkn, "shape": "BERT pack 4: B=16 L=512 H=12 D=64",
+                "max_abs_err": max(r[o]["max_abs_err"]
+                                   for case in pres.values()
+                                   for dt, r in case.items()
+                                   if dt == "float16" for o in outputs[kn]),
+                **{k: pt[kn][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+                "launches_note": "on no float16 path: held against the "
+                                 "plain version in the packed phase"}})
+    ct = cres["amp_fp16"]["float16"]["timing"]
+    outputs = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw",)}
+    for kn, line in (("fwd", 62), ("dh", 101), ("dw", 129)):
+        name = {"fwd": "fused_ce_fwd", "dh": "fused_ce_bwd_dh",
+                "dw": "fused_ce_bwd_dw"}[kn]
+        entry = {
+            "name": f"{name}[float16]", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
+            "replaces": f"paddle_tpu/kernels/fused_ce_pallas.py:{line}",
+            "launches": amp16["launches"][f"fused_ce_{kn}"],
+            "max_abs_err": max(r[o]["max_abs_err"] for case in cres.values()
+                               for dt, r in case.items() if dt == "float16"
+                               for o in outputs[kn]),
+            "ms": ct[kn]["ms"], "plain_ms": ct[kn]["plain_ms"],
+            "bound_ms": ct[kn]["bound_ms"], "bound_by": ct[kn]["bound_by"],
+            "library_ms": ct[kn]["library_ms"], "tflops": ct[kn]["tflops"],
+            "factor_over_library": ct[kn]["factor_over_library"],
+            "shape": "amp_fp16: T=8192 d=768 V=50304 float16",
+            "source_kernel": f"fused_ce_{kn}_kernel<float, __half>",
+            "design": "the float32 engine (CUDA cores) over float16 h and w "
+                      "widened as they load; dl float32"}
+        if kn in ("dh", "dw"):
+            sk = f"{kn}_sharep"
+            entry["sharep_float16"] = {
+                "name": f"fused_ce_bwd_{sk}",
+                "replaces": "paddle_tpu/kernels/fused_ce_pallas.py:"
+                            + ("158" if kn == "dh" else "189"),
+                "operands": "float16 h" + (", w" if kn == "dh" else
+                                           " with the bf16 dl"),
+                "max_abs_err": max(r["sharep"][kn]["max_abs_err"]
+                                   for case in cres.values()
+                                   for dt, r in case.items()
+                                   if dt == "float16"),
+                **{k: ct[sk][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+                "launches_note": "on no float16 path (_SHARE_P off): held "
+                                 "against the plain version in the "
+                                 "fused-CE phase"}
+        entries.append(entry)
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5559,6 +6057,8 @@ def main():
     emit(run_train_parity_fused_ce_phase())
     emit(run_train_parity_fused_ce_phase(sharep=True))
     emit(run_bench_phase())
+    amp16 = run_amp_fp16_phase()
+    emit(amp16)
     bt = fres["bert128"]["bfloat16"]["timing"]
     pt = pres["bert"]["bfloat16"]["timing"]
     bert, _ = run_bert_phase(0, flash_ms={kn: bt[kn]["ms"]
@@ -5568,6 +6068,8 @@ def main():
         4, packed_ms={kn: pt[kn]["ms"] for kn in ("fwd", "dq", "dkv")})
     emit(bert_packed)
     emit(run_bert_parity_phase())
+    hapi = run_hapi_fit_phase()
+    emit(hapi)
     torch.cuda.empty_cache()
     emit(run_resnet_parity_phase())
     resnet, bench_resnet_line = run_resnet_phase()
@@ -5669,6 +6171,9 @@ def main():
             "launches": flaunch[f"flash_{kn}"],
             "launches_by_phase": {
                 "train": flaunch[f"flash_{kn}"],
+                "hapi_fit": {"all": hapi["flash_launches"][kn],
+                             "wgmma_tma": hapi["flash_wgmma_tma_launches"][
+                                 kn]},
                 **{ph: {"all": c[f"{kn}_launches"],
                         "wgmma_tma": c[f"{kn}_hopper_launches"]}
                    for ph, c in flash_by_phase.items()}},
@@ -5824,6 +6329,7 @@ def main():
         "source_kernel": "tensor_health_partial_kernel + "
                          "tensor_health_reduce_kernel",
         "launches_by_phase": {"train_numerics": health_launches}})
+    kernels += float16_kernel_entries(fres, cres, pres, amp16)
     emit({"phase": "seconds", "total": time.perf_counter() - t_start})
     emit({"kernels": with_spreads(kernels)})
     print(gpu, flush=True)

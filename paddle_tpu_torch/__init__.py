@@ -21,6 +21,10 @@ so that each module sits where its counterpart does:
 - ``kernels/packed_flash.py`` (+ ``kernels/csrc/packed_flash.cu``)
   <- ``paddle_tpu/kernels/packed_flash_pallas.py``
 - ``amp/``                     <- ``paddle_tpu/amp/__init__.py``
+  (``auto_cast`` O1/O2, ``decorate``, ``GradScaler``)
+- ``io/``, ``metric/``         <- ``paddle_tpu/io``, ``paddle_tpu/metric``
+- ``hapi/``                    <- ``paddle_tpu/hapi`` (``Model``, the
+  callbacks, ``summary``/``flops``); ``callbacks.py`` <- its namesake
 - ``nn/``                      <- ``paddle_tpu/nn`` (layers, functional
   ops, ``clip.py``, ``transformer.py`` <- ``nn/layer/transformer.py``,
   ``conv.py``, ``norm.py``, ``pooling.py`` <- their ``nn/layer``
@@ -28,8 +32,8 @@ so that each module sits where its counterpart does:
   ``mp_layers``
 - ``vision/models/resnet.py``  <- ``paddle_tpu/vision/models/resnet.py``
 - ``distributed/utils_recompute.py`` <- its namesake
-- ``optimizer/``               <- ``paddle_tpu/optimizer`` (``AdamW``,
-  ``Momentum``, ``lr.py``)
+- ``optimizer/``               <- ``paddle_tpu/optimizer`` (the nine
+  eager optimizers, their optax mapping for ``TrainStep``, ``lr.py``)
 - ``parallel/api.py``          <- ``paddle_tpu/parallel/api.py``
   (``TrainStep``)
 - ``observability/``           <- ``paddle_tpu/observability`` (its
@@ -43,13 +47,22 @@ so that each module sits where its counterpart does:
 The slices ported so far are GPT-2 generation through the paged serving
 engine (over float, int8 or fp8 KV pools, with float or int8 weights),
 the single-device GPT-2 training step (with and without the fused head +
-CE), the BERT-base fine-tune, unpacked and sequence-packed, and ResNet-50
-training as ``bench.py`` runs it.
+CE), the BERT-base fine-tune, unpacked and sequence-packed, ResNet-50
+training as ``bench.py`` runs it, and mixed precision with the
+high-level training API (O1/O2 autocast in bf16 or float16, loss
+scaling, the eager optimizers, ``Model.fit``).
 Entry points run on CUDA unless the caller passes ``device="cpu"`` (see
 ``device.py``).
 """
 from . import device  # noqa: F401  (pins the TF32 switches off)
 from .device import resolve_device  # noqa: F401
 from . import observability  # noqa: F401
+from . import amp  # noqa: F401
+from . import io  # noqa: F401
+from . import metric  # noqa: F401
+from . import callbacks  # noqa: F401
+from .hapi.model import Model  # noqa: F401
+from .hapi.summary import flops, summary  # noqa: F401
 
-__all__ = ["resolve_device", "observability"]
+__all__ = ["resolve_device", "observability", "amp", "io", "metric",
+           "callbacks", "Model", "summary", "flops"]

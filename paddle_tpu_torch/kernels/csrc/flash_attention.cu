@@ -14,8 +14,8 @@
 //
 // Layout: q, out, dout, dq [B, Lq, H, D]; k, v, dk, dv [B, Lk, H, D]
 // (contiguous, the reference's public layout); lse and delta float32
-// [B*H, Lq]. Inputs float32 or bfloat16; every product and sum in
-// float32; outputs in the input type, lse in float32.
+// [B*H, Lq]. Inputs float32, bfloat16 or float16; every product and sum
+// in float32; outputs in the input type, lse in float32.
 //
 // Masking (the Python module's docstring states it in full): columns
 // >= Lk take no part; causal rows see columns <= row + Lk - Lq
@@ -106,8 +106,9 @@
 //   product runs, read slower on the card than this plain order.
 // - flash_attention_fwd_kernel, flash_attention_dq_kernel and
 //   flash_attention_dkv_kernel, the rest: float32 (the parity runs hold
-//   it to 1e-4, which TF32 tensor cores would break) and other head
-//   sizes. They run the products on the CUDA cores in float32, each
+//   it to 1e-4, which TF32 tensor cores would break), float16 (the
+//   wgmma/TMA designs are bf16 only; float16 loads widen to float32 as
+//   bf16 does here) and other head sizes. They run the products on the CUDA cores in float32, each
 //   thread holding a 4x4 register tile of the 64x64 score tile,
 //   shared-memory tiles padded to an odd row stride (no bank conflicts);
 //   they never form the [L, L] scores in device memory, skip every tile

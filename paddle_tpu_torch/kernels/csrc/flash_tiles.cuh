@@ -5,6 +5,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -24,6 +25,10 @@ template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_f32<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -32,6 +37,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // reductions over the 16 lanes that share a row (lane = 16 * (ty & 1) + tx)
@@ -112,15 +121,17 @@ int tiles(int L) { return (L + kTile - 1) / kTile; }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. An entry returns
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. An entry returns
 // cudaGetLastError() after its launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype or head size it does not take
 // (D <= 128). CALL(T, DMAX) launches for element type T and the
 // shared-memory plan of head size DMAX.
 #define FLASH_TILES_DISPATCH(CALL)                                          \
-  if (D < 1 || D > 128 || (dtype != 0 && dtype != 1))                       \
+  if (D < 1 || D > 128 || dtype < 0 || dtype > 2)                           \
     return (int)cudaErrorInvalidValue;                                      \
   if (dtype == 0 && D <= 64) return CALL(float, 64);                        \
   if (dtype == 0) return CALL(float, 128);                                  \
+  if (dtype == 2 && D <= 64) return CALL(__half, 64);                       \
+  if (dtype == 2) return CALL(__half, 128);                                 \
   if (D <= 64) return CALL(__nv_bfloat16, 64);                              \
   return CALL(__nv_bfloat16, 128)

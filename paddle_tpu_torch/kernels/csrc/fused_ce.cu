@@ -20,11 +20,22 @@
 //
 // Layout: h [T, d] and w [V, d] row-major (the tied head: logits = h @ w^T),
 // labels int32 [T], lse and g float32 [T]; dh [T, d] and dw [V, d] in the
-// inputs' type. Inputs float32 or bfloat16, the same type for h and w. Any
-// T and V: token rows >= T load as zeros and are never written, vocab
-// columns >= V count as -inf (probability 0, no gradient). A label outside
-// [0, V) picks no column: its nll is the lse and its one-hot is zero. d is
-// padded with zeros to a multiple of 16 inside shared memory; d <= 768.
+// inputs' type. Inputs float32, bfloat16 or float16, the same type for h
+// and w. Any T and V: token rows >= T load as zeros and are never written,
+// vocab columns >= V count as -inf (probability 0, no gradient). A label
+// outside [0, V) picks no column: its nll is the lse and its one-hot is
+// zero. d is padded with zeros to a multiple of 16 inside shared memory;
+// d <= 768.
+//
+// float16 runs the float32 engine below (the CUDA cores): h and w widen to
+// float32 as they load (exactly), so the logits, dl and both products are
+// the float32 path's, as the reference's kernels compute a float16 pair
+// (float32 dots of float32 dl); only dh and dw are rounded, to float16.
+// dl rounded to float16 before a wmma product, as bf16's is to bf16, would
+// flush the softmax terms of a large vocabulary (p * g below 6e-8) to
+// zero. The shared-dl dw pair multiplies the bf16 dl by the float16 h on
+// the same engine (no common 2-byte type; the reference's dot of the pair
+// promotes both to float32). The wgmma/TMA designs are bf16 only.
 //
 // What bounds these kernels on this card: at GPT-2 small's training shape
 // (T = 16384, d = 768, V = 50304) each of the three does 1.3-2.5 TFLOP
@@ -185,6 +196,7 @@
 // between barriers, so their latencies add up, and the 32-row tiles
 // stream all of w (or h) through L2 for every block.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -197,6 +209,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 using namespace nvcuda;
 
 constexpr int kWarps = 8;
@@ -209,9 +222,13 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) { return __float2half_rn(x); }
+
+__device__ __forceinline__ float widen(f16 x) { return __half2float(x); }
 
 // exp of the softmax: the intrinsic for bf16 (its error is far below bf16's
-// rounding), the accurate expf for the float32 parity path
+// rounding), the accurate expf for the float32 engine
 template <typename T>
 __device__ __forceinline__ float soft_exp(float x);
 template <>
@@ -415,6 +432,22 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* __restrict__ 
   }
 }
 
+// load_rows from a source of another type TS (float16 for the float32
+// engine), widened element by element as it loads
+template <typename T, typename TS>
+__device__ __forceinline__ void load_rows_as(T* dst, int ld, const TS* __restrict__ src, int r0,
+                                             int nrows, int rows, int d, int dpad, bool vec) {
+  if constexpr (std::is_same<T, TS>::value) {
+    load_rows(dst, ld, src, r0, nrows, rows, d, dpad, vec);
+  } else {
+    for (int i = threadIdx.x; i < rows * dpad; i += kThreads) {
+      const int r = i / dpad, c = i - r * dpad;
+      dst[r * ld + c] =
+          from_f32<T>((r < nrows && c < d) ? widen(src[(size_t)(r0 + r) * d + c]) : 0.f);
+    }
+  }
+}
+
 // per-row label / lse / g of rows [r0, r0 + rows); rows >= T get a label
 // that matches nothing, lse 0 and g 0, so their dl is exactly 0
 __device__ __forceinline__ void load_row_stats(int* slab, float* slse, float* sg,
@@ -590,9 +623,9 @@ __device__ __forceinline__ void acc_product(AccArray<T, R>& acc, const T* sa, in
 }
 
 // the accumulators to out rows [r0, r0 + min(R, nrows)) through shared
-// memory (sc, ldc), converted to T
-template <typename T, int R>
-__device__ __forceinline__ void store_acc(T* __restrict__ out, float* sc, int ldc,
+// memory (sc, ldc), converted to TO (T unless the caller says otherwise)
+template <typename T, int R, typename TO = T>
+__device__ __forceinline__ void store_acc(TO* __restrict__ out, float* sc, int ldc,
                                           const AccArray<T, R>& acc, int r0, int nrows, int d,
                                           int dpad) {
   using E = Engine<T>;
@@ -610,7 +643,7 @@ __device__ __forceinline__ void store_acc(T* __restrict__ out, float* sc, int ld
   const int n = min(R, nrows);
   for (int e = threadIdx.x; e < n * d; e += kThreads) {
     const int r = e / d, c = e - r * d;
-    out[(size_t)(r0 + r) * d + c] = from_f32<T>(sc[r * ldc + c]);
+    out[(size_t)(r0 + r) * d + c] = from_f32<TO>(sc[r * ldc + c]);
   }
 }
 
@@ -682,9 +715,9 @@ __device__ __forceinline__ unsigned char* stage(unsigned char* smem, const P& pl
 // forward: one block per (FWD_BT-token tile, vocab split); streams the
 // split's vocab tiles with an online (m, l) and picks the label's logit
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename TS>
 __global__ void __launch_bounds__(kThreads)
-fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ lab,
+fused_ce_fwd_kernel(const TS* __restrict__ h, const TS* __restrict__ w, const int* __restrict__ lab,
                     float* __restrict__ m_out, float* __restrict__ l_out,
                     float* __restrict__ t_out, int T_, int V, int d, int dpad, int tiles_per_split,
                     bool vec) {
@@ -702,12 +735,12 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int*
   const int vt_lo = blockIdx.y * tiles_per_split;
   const int vt_hi = min(nvt, vt_lo + tiles_per_split);
   constexpr int S = Cfg<T>::FWD_STAGES;
-  load_rows(sh, plan.ld, h, t0, T_ - t0, BT, d, dpad, vec);
+  load_rows_as(sh, plan.ld, h, t0, T_ - t0, BT, d, dpad, vec);
   for (int p = 0; p < S - 1; ++p) {
     const int vt = vt_lo + p;
     if (vt < vt_hi)
-      load_rows(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, w, vt * BV,
-                V - vt * BV, BV, d, dpad, vec);
+      load_rows_as(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, w, vt * BV,
+                   V - vt * BV, BV, d, dpad, vec);
     cp_async_commit();
   }
 
@@ -720,8 +753,8 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int*
     cp_async_wait<S - 2>();
     __syncthreads();
     if (nx < vt_hi)
-      load_rows(reinterpret_cast<T*>(stage(smem, plan, i + S - 1, S)), plan.ld, w, nx * BV,
-                V - nx * BV, BV, d, dpad, vec);
+      load_rows_as(reinterpret_cast<T*>(stage(smem, plan, i + S - 1, S)), plan.ld, w, nx * BV,
+                   V - nx * BV, BV, d, dpad, vec);
     cp_async_commit();
     logits_tile<T, BT, BV>(ss, P::LDS, sh, reinterpret_cast<const T*>(stage(smem, plan, i, S)),
                            plan.ld, dpad);
@@ -763,11 +796,11 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int*
 // backward dh: one block per DH_BT-token tile; streams every vocab tile.
 // With kStoreDl (the shared-dl pair) each dl tile also goes to dl [T, ldd].
 // ---------------------------------------------------------------------------
-template <typename T, bool kStoreDl>
+template <typename T, bool kStoreDl, typename TS>
 __global__ void __launch_bounds__(kThreads)
-fused_ce_dh_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ lab,
+fused_ce_dh_kernel(const TS* __restrict__ h, const TS* __restrict__ w, const int* __restrict__ lab,
                    const float* __restrict__ lse, const float* __restrict__ g,
-                   T* __restrict__ dh, bf16* __restrict__ dl, int ldd, int T_, int V, int d,
+                   TS* __restrict__ dh, bf16* __restrict__ dl, int ldd, int T_, int V, int d,
                    int dpad, bool vec) {
   using P = DhPlan<T>;
   constexpr int BT = Cfg<T>::DH_BT, BV = Cfg<T>::DH_BV;
@@ -782,11 +815,11 @@ fused_ce_dh_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
 
   constexpr int S = Cfg<T>::DH_STAGES;
   const int t0 = blockIdx.x * BT, ntiles = (V + BV - 1) / BV;
-  load_rows(sh, plan.ld, h, t0, T_ - t0, BT, d, dpad, vec);
+  load_rows_as(sh, plan.ld, h, t0, T_ - t0, BT, d, dpad, vec);
   for (int p = 0; p < S - 1; ++p) {
     if (p < ntiles)
-      load_rows(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, w, p * BV, V - p * BV,
-                BV, d, dpad, vec);
+      load_rows_as(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, w, p * BV,
+                   V - p * BV, BV, d, dpad, vec);
     cp_async_commit();
   }
   load_row_stats(slab, slse, sg, lab, lse, g, t0, BT, T_);
@@ -799,8 +832,8 @@ fused_ce_dh_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
     cp_async_wait<S - 2>();
     __syncthreads();
     if (nx < ntiles)
-      load_rows(reinterpret_cast<T*>(stage(smem, plan, nx, S)), plan.ld, w, nx * BV,
-                V - nx * BV, BV, d, dpad, vec);
+      load_rows_as(reinterpret_cast<T*>(stage(smem, plan, nx, S)), plan.ld, w, nx * BV,
+                   V - nx * BV, BV, d, dpad, vec);
     cp_async_commit();
     const T* sw = reinterpret_cast<const T*>(stage(smem, plan, it, S));
     logits_tile<T, BT, BV>(ss, P::LDS, sh, sw, plan.ld, dpad);
@@ -811,17 +844,17 @@ fused_ce_dh_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
     if (kStoreDl) store_dl_tile<T, BT, BV>(dl, ldd, sdl, P::LDL, t0, T_ - t0, v0, (V + 7) & ~7);
     acc_product<T, BT, BV, true>(acc, sdl, P::LDL, sw, plan.ld, dpad);  // dl @ w
   }
-  store_acc<T, BT>(dh, reinterpret_cast<float*>(smem), plan.ldc, acc, t0, T_ - t0, d, dpad);
+  store_acc<T, BT, TS>(dh, reinterpret_cast<float*>(smem), plan.ldc, acc, t0, T_ - t0, d, dpad);
 }
 
 // ---------------------------------------------------------------------------
 // backward dw: one block per DW_BV-row vocab tile; streams every token tile
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename TS>
 __global__ void __launch_bounds__(kThreads)
-fused_ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ lab,
+fused_ce_dw_kernel(const TS* __restrict__ h, const TS* __restrict__ w, const int* __restrict__ lab,
                    const float* __restrict__ lse, const float* __restrict__ g,
-                   T* __restrict__ dw, int T_, int V, int d, int dpad, bool vec) {
+                   TS* __restrict__ dw, int T_, int V, int d, int dpad, bool vec) {
   using P = DwPlan<T>;
   constexpr int BV = Cfg<T>::DW_BV, BT = Cfg<T>::DW_BT;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -835,11 +868,11 @@ fused_ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
 
   constexpr int S = Cfg<T>::DW_STAGES;
   const int v0 = blockIdx.x * BV, ntiles = (T_ + BT - 1) / BT;
-  load_rows(sw, plan.ld, w, v0, V - v0, BV, d, dpad, vec);
+  load_rows_as(sw, plan.ld, w, v0, V - v0, BV, d, dpad, vec);
   for (int p = 0; p < S - 1; ++p) {
     if (p < ntiles)
-      load_rows(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, h, p * BT, T_ - p * BT,
-                BT, d, dpad, vec);
+      load_rows_as(reinterpret_cast<T*>(stage(smem, plan, p, S)), plan.ld, h, p * BT,
+                   T_ - p * BT, BT, d, dpad, vec);
     cp_async_commit();
   }
   AccArray<T, BV> acc;
@@ -851,8 +884,8 @@ fused_ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
     cp_async_wait<S - 2>();
     __syncthreads();
     if (nx < ntiles)
-      load_rows(reinterpret_cast<T*>(stage(smem, plan, nx, S)), plan.ld, h, nx * BT,
-                T_ - nx * BT, BT, d, dpad, vec);
+      load_rows_as(reinterpret_cast<T*>(stage(smem, plan, nx, S)), plan.ld, h, nx * BT,
+                   T_ - nx * BT, BT, d, dpad, vec);
     cp_async_commit();
     // the last tile's dl pass, which read the stats, ended before a barrier
     load_row_stats(slab, slse, sg, lab, lse, g, t0, BT, T_);
@@ -863,38 +896,39 @@ fused_ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* 
     __syncthreads();
     acc_product<T, BV, BT, false>(acc, sdl, P::LDL, sh, plan.ld, dpad);  // dl^T @ h
   }
-  store_acc<T, BV>(dw, reinterpret_cast<float*>(smem), plan.ldc, acc, v0, V - v0, d, dpad);
+  store_acc<T, BV, TS>(dw, reinterpret_cast<float*>(smem), plan.ldc, acc, v0, V - v0, d, dpad);
 }
 
 // ---------------------------------------------------------------------------
 // backward dw over a stored dl (the shared-dl pair): one block per DW_BV-row
 // vocab tile; streams every (dl, h) token tile; dw = dl^T @ h
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename TH>
 __device__ __forceinline__ void load_dw_sharep_stage(unsigned char* smem,
                                                      const DwSharepPlan<T>& plan, int t,
-                                                     const T* __restrict__ h,
+                                                     const TH* __restrict__ h,
                                                      const bf16* __restrict__ dl, int ldd, int T_,
                                                      int v0, int V, int d, int dpad, bool vec) {
   using P = DwSharepPlan<T>;
   unsigned char* st = smem + (size_t)(t % P::STAGES) * plan.stage_bytes;
   const int t0 = t * P::BT;
-  load_rows(reinterpret_cast<T*>(st), plan.ld, h, t0, T_ - t0, P::BT, d, dpad, vec);
+  load_rows_as(reinterpret_cast<T*>(st), plan.ld, h, t0, T_ - t0, P::BT, d, dpad, vec);
   load_dl_tile<T, P::BT, P::BV>(reinterpret_cast<T*>(st + plan.dl_off), P::LDL, dl, ldd, t0,
                                 T_ - t0, v0, V);
 }
 
-template <typename T>
+template <typename T, typename TH>
 __global__ void __launch_bounds__(kThreads)
-fused_ce_dw_sharep_kernel(const T* __restrict__ h, const bf16* __restrict__ dl,
-                          T* __restrict__ dw, int ldd, int T_, int V, int d, int dpad, bool vec) {
+fused_ce_dw_sharep_kernel(const TH* __restrict__ h, const bf16* __restrict__ dl,
+                          TH* __restrict__ dw, int ldd, int T_, int V, int d, int dpad, bool vec) {
   using P = DwSharepPlan<T>;
   constexpr int BV = P::BV, BT = P::BT, S = P::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   const P plan(dpad);
   const int v0 = blockIdx.x * BV, ntiles = (T_ + BT - 1) / BT;
   for (int p = 0; p < S - 1; ++p) {
-    if (p < ntiles) load_dw_sharep_stage<T>(smem, plan, p, h, dl, ldd, T_, v0, V, d, dpad, vec);
+    if (p < ntiles)
+      load_dw_sharep_stage<T, TH>(smem, plan, p, h, dl, ldd, T_, v0, V, d, dpad, vec);
     cp_async_commit();
   }
   AccArray<T, BV> acc;
@@ -905,13 +939,14 @@ fused_ce_dw_sharep_kernel(const T* __restrict__ h, const bf16* __restrict__ dl,
     const int nx = it + S - 1;
     cp_async_wait<S - 2>();
     __syncthreads();  // tile it has landed; no warp still reads buffer (it - 1) % S
-    if (nx < ntiles) load_dw_sharep_stage<T>(smem, plan, nx, h, dl, ldd, T_, v0, V, d, dpad, vec);
+    if (nx < ntiles)
+      load_dw_sharep_stage<T, TH>(smem, plan, nx, h, dl, ldd, T_, v0, V, d, dpad, vec);
     cp_async_commit();
     const unsigned char* st = smem + (size_t)(it % S) * plan.stage_bytes;
     acc_product<T, BV, BT, false>(acc, reinterpret_cast<const T*>(st + plan.dl_off), P::LDL,
                                   reinterpret_cast<const T*>(st), plan.ld, dpad);  // dl^T @ h
   }
-  store_acc<T, BV>(dw, reinterpret_cast<float*>(smem), plan.ldc, acc, v0, V - v0, d, dpad);
+  store_acc<T, BV, TH>(dw, reinterpret_cast<float*>(smem), plan.ldc, acc, v0, V - v0, d, dpad);
 }
 
 // ---------------------------------------------------------------------------
@@ -1672,69 +1707,71 @@ int fwd_splits(int T_, int V, int device) {
   return n > 1 ? n : 1;
 }
 
-template <typename T>
+// T: the engine (and shared-memory) type; TS: h's and w's (float16 runs on
+// the float32 engine, widened as it loads)
+template <typename T, typename TS = T>
 int fwd(const void* h, const void* w, const void* lab, void* m, void* l, void* t, int T_, int V,
         int d, int nsplit, cudaStream_t st) {
   constexpr int BT = Cfg<T>::FWD_BT, BV = Cfg<T>::FWD_BV;
   const int dpad = pad16(d);
   const FwdPlan<T> plan(dpad);
-  auto kern = fused_ce_fwd_kernel<T>;
+  auto kern = fused_ce_fwd_kernel<T, TS>;
   cudaError_t e = prepare(kern, plan.bytes);
   if (e != cudaSuccess) return (int)e;
   const int nvt = (V + BV - 1) / BV;
   const int tps = (nvt + nsplit - 1) / nsplit;
   dim3 grid((T_ + BT - 1) / BT, nsplit);
   kern<<<grid, kThreads, plan.bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(lab),
+      static_cast<const TS*>(h), static_cast<const TS*>(w), static_cast<const int*>(lab),
       static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(t), T_, V, d, dpad,
-      tps, vec_ok<T>(d, h, w));
+      tps, vec_ok<TS>(d, h, w));
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kStoreDl>
+template <typename T, bool kStoreDl, typename TS = T>
 int bwd_dh(const void* h, const void* w, const void* lab, const void* lse, const void* g,
            void* dh, void* dl, int ldd, int T_, int V, int d, cudaStream_t st) {
   constexpr int BT = Cfg<T>::DH_BT;
   const int dpad = pad16(d);
   const DhPlan<T> plan(dpad);
-  auto kern = fused_ce_dh_kernel<T, kStoreDl>;
+  auto kern = fused_ce_dh_kernel<T, kStoreDl, TS>;
   cudaError_t e = prepare(kern, plan.bytes);
   if (e != cudaSuccess) return (int)e;
   kern<<<(T_ + BT - 1) / BT, kThreads, plan.bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(lab),
-      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dh),
-      static_cast<bf16*>(dl), ldd, T_, V, d, dpad, vec_ok<T>(d, h, w));
+      static_cast<const TS*>(h), static_cast<const TS*>(w), static_cast<const int*>(lab),
+      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<TS*>(dh),
+      static_cast<bf16*>(dl), ldd, T_, V, d, dpad, vec_ok<TS>(d, h, w));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TS = T>
 int bwd_dw(const void* h, const void* w, const void* lab, const void* lse, const void* g,
            void* dw, int T_, int V, int d, cudaStream_t st) {
   constexpr int BV = Cfg<T>::DW_BV;
   const int dpad = pad16(d);
   const DwPlan<T> plan(dpad);
-  auto kern = fused_ce_dw_kernel<T>;
+  auto kern = fused_ce_dw_kernel<T, TS>;
   cudaError_t e = prepare(kern, plan.bytes);
   if (e != cudaSuccess) return (int)e;
   kern<<<(V + BV - 1) / BV, kThreads, plan.bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), static_cast<const int*>(lab),
-      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<T*>(dw), T_, V,
-      d, dpad, vec_ok<T>(d, h, w));
+      static_cast<const TS*>(h), static_cast<const TS*>(w), static_cast<const int*>(lab),
+      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<TS*>(dw), T_, V,
+      d, dpad, vec_ok<TS>(d, h, w));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TH = T>
 int bwd_dw_sharep(const void* h, const void* dl, void* dw, int ldd, int T_, int V, int d,
                   cudaStream_t st) {
   constexpr int BV = Cfg<T>::DW_BV;
   const int dpad = pad16(d);
   const DwSharepPlan<T> plan(dpad);
-  auto kern = fused_ce_dw_sharep_kernel<T>;
+  auto kern = fused_ce_dw_sharep_kernel<T, TH>;
   cudaError_t e = prepare(kern, plan.bytes);
   if (e != cudaSuccess) return (int)e;
   kern<<<(V + BV - 1) / BV, kThreads, plan.bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const bf16*>(dl), static_cast<T*>(dw), ldd, T_, V, d,
-      dpad, vec_ok<T>(d, h, h));
+      static_cast<const TH*>(h), static_cast<const bf16*>(dl), static_cast<TH*>(dw), ldd, T_, V,
+      d, dpad, vec_ok<TH>(d, h, h));
   return (int)cudaGetLastError();
 }
 
@@ -1862,12 +1899,12 @@ bool dl_ok(const void* dl, int ldd, int V) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Each entry returns
-// cudaGetLastError() after its launch (0 = launched), or
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16 (h's and w's). Each
+// entry returns cudaGetLastError() after its launch (0 = launched), or
 // cudaErrorInvalidValue for a dtype, hidden size (1 <= d <= 768) or shape
 // it does not take. T = 0 launches nothing (the caller fills the outputs).
 #define FCE_CHECK()                                                                \
-  if ((dtype != 0 && dtype != 1) || d < 1 || d > kMaxD || T_ < 0 || V < 1)         \
+  if (dtype < 0 || dtype > 2 || d < 1 || d > kMaxD || T_ < 0 || V < 1)             \
     return (int)cudaErrorInvalidValue;                                             \
   if (T_ == 0) return 0
 
@@ -1875,8 +1912,8 @@ bool dl_ok(const void* dl, int ldd, int V) {
 // CUDA device `device` (its m/l/t parts are [nsplit, T]); 0 for a dtype,
 // shape or device it does not take.
 extern "C" int fused_ce_forward_splits(int dtype, int T_, int V, int device) {
-  if ((dtype != 0 && dtype != 1) || T_ < 1 || V < 1) return 0;
-  return dtype == 0 ? fwd_splits<float>(T_, V, device) : fwd_splits<bf16>(T_, V, device);
+  if (dtype < 0 || dtype > 2 || T_ < 1 || V < 1) return 0;
+  return dtype == 1 ? fwd_splits<bf16>(T_, V, device) : fwd_splits<float>(T_, V, device);
 }
 
 extern "C" int fused_ce_forward(int dtype, const void* h, const void* w, const void* labels,
@@ -1886,6 +1923,8 @@ extern "C" int fused_ce_forward(int dtype, const void* h, const void* w, const v
   if (nsplit < 1 || nsplit > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return fwd<float>(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit, st);
+  if (dtype == 2)
+    return fwd<float, f16>(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit, st);
   return fwd<bf16>(h, w, labels, m_part, l_part, t_part, T_, V, d, nsplit, st);
 }
 
@@ -1917,6 +1956,8 @@ extern "C" int fused_ce_backward_dh(int dtype, const void* h, const void* w, con
   FCE_CHECK();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dh<float, false>(h, w, labels, lse, g, dh, nullptr, 0, T_, V, d, st);
+  if (dtype == 2)
+    return bwd_dh<float, false, f16>(h, w, labels, lse, g, dh, nullptr, 0, T_, V, d, st);
   return bwd_dh<bf16, false>(h, w, labels, lse, g, dh, nullptr, 0, T_, V, d, st);
 }
 
@@ -1926,6 +1967,7 @@ extern "C" int fused_ce_backward_dw(int dtype, const void* h, const void* w, con
   FCE_CHECK();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dw<float>(h, w, labels, lse, g, dw, T_, V, d, st);
+  if (dtype == 2) return bwd_dw<float, f16>(h, w, labels, lse, g, dw, T_, V, d, st);
   return bwd_dw<bf16>(h, w, labels, lse, g, dw, T_, V, d, st);
 }
 
@@ -1965,6 +2007,8 @@ extern "C" int fused_ce_backward_dh_sharep(int dtype, const void* h, const void*
   if (!dl_ok(dl, ldd, V)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dh<float, true>(h, w, labels, lse, g, dh, dl, ldd, T_, V, d, st);
+  if (dtype == 2)
+    return bwd_dh<float, true, f16>(h, w, labels, lse, g, dh, dl, ldd, T_, V, d, st);
   return bwd_dh<bf16, true>(h, w, labels, lse, g, dh, dl, ldd, T_, V, d, st);
 }
 
@@ -1974,6 +2018,7 @@ extern "C" int fused_ce_backward_dw_sharep(int dtype, const void* h, const void*
   if (!dl_ok(dl, ldd, V)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dw_sharep<float>(h, dl, dw, ldd, T_, V, d, st);
+  if (dtype == 2) return bwd_dw_sharep<float, f16>(h, dl, dw, ldd, T_, V, d, st);
   return bwd_dw_sharep<bf16>(h, dl, dw, ldd, T_, V, d, st);
 }
 

@@ -15,9 +15,10 @@
 // (contiguous, the reference's public layout); seg int32 [B, L], read by
 // every head of its row (b = bh / H; the reference repeats it per head,
 // :314, the port does not copy it); lse and delta float32 [B*H, L].
-// Inputs float32 or bfloat16; every product and sum in float32; outputs
-// in the input type, lse in float32. Any L and any D <= 128 (the Pallas
-// wrapper takes only L <= 2048 and a multiple of 128, :302-307).
+// Inputs float32, bfloat16 or float16 (float16 on the CUDA-core kernels
+// only); every product and sum in float32; outputs in the input type,
+// lse in float32. Any L and any D <= 128 (the Pallas wrapper takes only
+// L <= 2048 and a multiple of 128, :302-307).
 //
 // The reference's arithmetic (_seg_causal_mask, :41-52): the forward
 // scales q in its own dtype before the product (:59); the backward takes

@@ -9,7 +9,7 @@
 // small's 148 gradients. This file does the whole list in one launch pair.
 //
 //   Input: a table of n tensors (pointer, numel, dtype: 0 float32, 1
-//   bfloat16), contiguous, any size (0 and odd sizes included).
+//   bfloat16, 2 float16), contiguous, any size (0 and odd sizes included).
 //   Output, one value a tensor, each element read once and widened to
 //   float32 first:
 //     nan [n] int32        count of NaN
@@ -35,13 +35,15 @@
 // - tensor_health_partial_kernel: one block a chunk of kChunk elements of
 //   one tensor (a block finds its tensor by binary search over the chunk
 //   prefix). 16-byte loads where the chunk is 16-byte aligned (4 float32
-//   or 8 bfloat16 values), scalar loads for the rest; each thread keeps
-//   its five running values, then a warp-shuffle and shared-memory tree
-//   gives the chunk's partials, written to a scratch array.
+//   or 8 bfloat16 or float16 values), scalar loads for the rest; each
+//   thread keeps its five running values, then a warp-shuffle and
+//   shared-memory tree gives the chunk's partials, written to a scratch
+//   array.
 // - tensor_health_reduce_kernel: one block a tensor sums its chunks'
 //   partials in a fixed order (a strided serial pass, then a shared-memory
 //   tree; sq_sum in double), with no atomics, so two launches give the
 //   same bits.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,7 +58,7 @@ struct Table {
   const void* ptr[kMaxTensors];
   long long numel[kMaxTensors];
   int chunk_start[kMaxTensors + 1];  // chunk_start[n] = the launch's chunks
-  unsigned char dtype[kMaxTensors];  // 0 float32, 1 bfloat16
+  unsigned char dtype[kMaxTensors];  // 0 float32, 1 bfloat16, 2 float16
   int n;
 };
 
@@ -73,15 +75,38 @@ __device__ __forceinline__ void take(Acc& a, float v) {
   a.sq = fmaf(v, v, a.sq);
 }
 
-// a bfloat16 is the high half of a float32
-__device__ __forceinline__ float bf16_lo(unsigned int w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned int w) {
-  return __uint_as_float(w & 0xffff0000u);
+// a 2-byte value (the low 16 bits of v) widened to float32: a bfloat16 is
+// the high half of a float32; a float16 goes through the intrinsic
+template <bool kHalf>
+__device__ __forceinline__ float widen16(unsigned int v) {
+  if (kHalf) return __half2float(__ushort_as_half((unsigned short)(v & 0xffffu)));
+  return __uint_as_float(v << 16);
 }
 
-__device__ __forceinline__ void take_bf16x2(Acc& a, unsigned int w) {
-  take(a, bf16_lo(w));
-  take(a, bf16_hi(w));
+template <bool kHalf>
+__device__ __forceinline__ void take16x2(Acc& a, unsigned int w) {
+  take(a, widen16<kHalf>(w));
+  take(a, widen16<kHalf>(w >> 16));
+}
+
+// a chunk of len 2-byte values at p
+template <bool kHalf>
+__device__ __forceinline__ void take16(Acc& a, const unsigned short* p, int len) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    const int nv = len >> 3;
+    const uint4* p8 = reinterpret_cast<const uint4*>(p);
+    for (int i = threadIdx.x; i < nv; i += kThreads) {
+      const uint4 w = __ldg(p8 + i);
+      take16x2<kHalf>(a, w.x);
+      take16x2<kHalf>(a, w.y);
+      take16x2<kHalf>(a, w.z);
+      take16x2<kHalf>(a, w.w);
+    }
+    done = nv << 3;
+  }
+  for (int i = done + threadIdx.x; i < len; i += kThreads)
+    take(a, widen16<kHalf>((unsigned int)__ldg(p + i)));
 }
 
 __device__ __forceinline__ void warp_reduce(Acc& a) {
@@ -131,21 +156,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = done + threadIdx.x; i < len; i += kThreads) take(a, __ldg(p + i));
   } else {
     const unsigned short* p = static_cast<const unsigned short*>(t.ptr[lo]) + start;
-    int done = 0;
-    if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
-      const int nv = len >> 3;
-      const uint4* p8 = reinterpret_cast<const uint4*>(p);
-      for (int i = threadIdx.x; i < nv; i += kThreads) {
-        const uint4 w = __ldg(p8 + i);
-        take_bf16x2(a, w.x);
-        take_bf16x2(a, w.y);
-        take_bf16x2(a, w.z);
-        take_bf16x2(a, w.w);
-      }
-      done = nv << 3;
-    }
-    for (int i = done + threadIdx.x; i < len; i += kThreads)
-      take(a, bf16_lo((unsigned int)__ldg(p + i)));
+    if (t.dtype[lo] == 2)
+      take16<true>(a, p, len);
+    else
+      take16<false>(a, p, len);
   }
   warp_reduce(a);
   __shared__ Acc s[kWarps];
@@ -233,7 +247,7 @@ extern "C" int tensor_health(const void* const* ptrs, const long long* numels, c
   t.n = n;
   long long chunks = 0;
   for (int i = 0; i < n; ++i) {
-    if (numels[i] < 0 || (dtypes[i] != 0 && dtypes[i] != 1) ||
+    if (numels[i] < 0 || dtypes[i] < 0 || dtypes[i] > 2 ||
         (numels[i] > 0 && ptrs[i] == nullptr))
       return (int)cudaErrorInvalidValue;
     t.ptr[i] = ptrs[i];

@@ -39,8 +39,9 @@ Pieces:
   16-byte aligned tensors at ``D`` = 64 or 128 (forward) and ``D`` = 64
   (dq and dk/dv; at 128 dk/dv's accumulators overflow the registers) —
   every GPT-2 and BERT-base shape — and the CUDA-core one for the rest
-  (float32, whose 1e-4 parity TF32 tensor cores would break, and other
-  head sizes). :func:`hopper_fwd` (forward) and :func:`hopper_bwd` (dq
+  (float32, whose 1e-4 parity TF32 tensor cores would break, float16,
+  which the wgmma/TMA designs do not take, and other head sizes).
+  :func:`hopper_fwd` (forward) and :func:`hopper_bwd` (dq
   and dk/dv) are the predicates that pick, by dtype, shape and alignment
   alone; ``fwd_launches``,
   ``dq_launches`` and ``dkv_launches`` count both designs and
@@ -76,7 +77,7 @@ dq_hopper_launches = 0    # of those, the wgmma/TMA dq's
 dkv_launches = 0
 dkv_hopper_launches = 0   # of those, the wgmma/TMA dk/dv's
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 128          # the kernels' shared-memory plans cover D <= 128
 _MAX_GRID_Y = 65535   # q (or k) tiles of 64 rows ride on grid.y
 _plain = False        # set only inside use_plain()
@@ -242,8 +243,8 @@ def _check(q, k, v, **more):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported dtype {q.dtype} (float32 or "
-                        "bfloat16)")
+        raise TypeError(f"unsupported dtype {q.dtype} (float32, "
+                        "bfloat16 or float16)")
     for name in ("k", "v", "do"):
         if name in named and named[name].dtype != q.dtype:
             raise TypeError(f"{name} is {named[name].dtype}, q {q.dtype}")

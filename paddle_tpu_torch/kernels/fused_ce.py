@@ -36,7 +36,10 @@ Pieces:
   ``dh_sharep_launches``, ``dw_sharep_launches``; :func:`reset_launches`);
 - two designs of the dw_sharep kernel: the wgmma/TMA GEMM for bfloat16 h
   with ``d`` a multiple of 8 and h 16-byte aligned, and the ``wmma`` /
-  CUDA-core one for the rest (float32 and other widths).
+  CUDA-core one for the rest (float32, float16 and other widths). Under
+  float16 it multiplies the bf16 dl by the float16 h, a pair with no
+  common 2-byte type: both widen to float32 and the products run on the
+  CUDA cores (the reference's ``jnp.dot`` of the pair promotes too);
   :func:`hopper_dw_sharep` is the one predicate that picks;
   ``dw_sharep_launches`` counts both and ``dw_sharep_hopper_launches`` the
   wgmma/TMA one;
@@ -46,13 +49,16 @@ Pieces:
   rows for dw and tokens for dh, the logits' two halves over d summed in a
   fixed order, dl rounded to bf16 before the second product; dh_sharep
   stores those bf16 dl tiles, so its dh is dh's bit for bit), and the
-  ``wmma`` / CUDA-core one for the rest;
+  ``wmma`` / CUDA-core one for the rest (float32, and float16, which runs
+  the float32 engine over loads widened as they land: dl stays float32,
+  and only dh and dw are rounded to float16);
 - two designs of the forward, by the same rule: on wgmma/TMA (a CTA's 64
   tokens of h resident, w streamed in [128 vocab x 64 d] boxes through a
   ring fed by a producer warp, two consumer warpgroups on alternate
   128-vocab tiles, each keeping a running ``(m, l, target)`` in registers,
   the two merged in one order), and the ``wmma`` / CUDA-core one for the
-  rest. :func:`hopper_recompute` is the one predicate that picks for all
+  rest (float16 included). :func:`hopper_recompute` is the one predicate
+  that picks for all
   four; ``fwd_launches``, ``dw_launches``, ``dh_launches`` and
   ``dh_sharep_launches`` count both designs and ``fwd_hopper_launches``,
   ``dw_hopper_launches``, ``dh_hopper_launches`` and
@@ -108,7 +114,7 @@ dw_sharep_hopper_launches = 0   # of those, the wgmma/TMA kernel's
 # it and restores it.
 _SHARE_P = False
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_D = 768           # the kernels' register accumulators cover d <= 768
 _plain = False        # set only inside use_plain()
 
@@ -254,7 +260,8 @@ def _check(h, w, labels, **rows):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if h.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported dtype {h.dtype} (float32 or bfloat16)")
+        raise TypeError(f"unsupported dtype {h.dtype} (float32, bfloat16 "
+                        "or float16)")
     if w.dtype != h.dtype:
         raise TypeError(f"w is {w.dtype}, h {h.dtype}")
     if labels.dtype != torch.int32:
@@ -338,7 +345,8 @@ def _check_dl(h, dl):
     if dl.device != h.device:
         raise ValueError(f"dl is on {dl.device}, h on {h.device}")
     if h.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported dtype {h.dtype} (float32 or bfloat16)")
+        raise TypeError(f"unsupported dtype {h.dtype} (float32, bfloat16 "
+                        "or float16)")
     if dl.dtype != torch.bfloat16:
         raise TypeError(f"dl must be bfloat16, not {dl.dtype}")
     if h.dim() != 2 or not h.is_contiguous():

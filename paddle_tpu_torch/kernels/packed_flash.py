@@ -40,16 +40,17 @@ Pieces:
   (``packed_flash_fwd_hopper_kernel``, the flash forward's body with
   segment ids) for bfloat16 at ``D`` = 64 or 128, 16-byte aligned q, k,
   v and ``L <= 16384`` — every BERT shape — and the CUDA-core one for the
-  rest (float32, whose 1e-4 parity TF32 tensor cores would break, other
-  head sizes, longer rows). :func:`hopper_fwd` is the predicate that
+  rest (float32, whose 1e-4 parity TF32 tensor cores would break,
+  float16, which the wgmma/TMA designs do not take, other head sizes,
+  longer rows). :func:`hopper_fwd` is the predicate that
   picks, by dtype, shape and alignment alone; ``fwd_launches`` counts
   both designs and ``fwd_hopper_launches`` the wgmma/TMA one;
 - two designs of dq and of dk/dv: the wgmma/TMA ones
   (``packed_flash_dq_hopper_kernel`` and ``packed_flash_dkv_hopper_kernel``,
   the flash backward's bodies with segment ids) for bfloat16 at ``D`` =
   64, ``L <= 16384`` and 16-byte aligned q, k, v, do — every BERT shape —
-  and the CUDA-core ones for the rest (float32, ``D`` = 128, whose dk/dv
-  accumulators would spill, other head sizes, longer rows).
+  and the CUDA-core ones for the rest (float32, float16, ``D`` = 128,
+  whose dk/dv accumulators would spill, other head sizes, longer rows).
   :func:`hopper_bwd` picks; ``dq_launches`` and ``dkv_launches`` count
   both designs and ``dq_hopper_launches`` and ``dkv_hopper_launches`` the
   wgmma/TMA ones;
@@ -85,7 +86,7 @@ dq_hopper_launches = 0    # of those, the wgmma/TMA dq's
 dkv_launches = 0
 dkv_hopper_launches = 0   # of those, the wgmma/TMA dk/dv's
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 128          # the kernels' shared-memory plans cover D <= 128
 _MAX_GRID_Y = 65535   # q (or k) tiles of 64 rows ride on grid.y
 _HOPPER_D = (64, 128)  # the wgmma forward's 64-column, 128-byte boxes
@@ -267,8 +268,8 @@ def _check(q, k, v, seg, **more):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported dtype {q.dtype} (float32 or "
-                        "bfloat16)")
+        raise TypeError(f"unsupported dtype {q.dtype} (float32, "
+                        "bfloat16 or float16)")
     for name in ("k", "v", "do"):
         if name in named and named[name].dtype != q.dtype:
             raise TypeError(f"{name} is {named[name].dtype}, q {q.dtype}")

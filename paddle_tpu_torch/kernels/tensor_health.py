@@ -21,7 +21,8 @@ For each tensor, after widening every element to float32:
   PyTorch version, one tensor / a list (stacked ``[n]`` per stat).
 - :func:`tensor_health` — the dispatcher: CPU tensors go to the plain
   version; CUDA tensors launch ``csrc/tensor_health.cu`` (one launch pair
-  for up to 160 tensors; float32 and bfloat16, contiguous) or raise.
+  for up to 160 tensors; float32, bfloat16 and float16, contiguous) or
+  raise.
   There is no fallback.
 
 The module attribute ``launches`` counts kernel launches (one a launch
@@ -44,7 +45,7 @@ STAT_NAMES = ("nan", "inf", "absmax", "sq_sum", "zero_frac")
 
 launches = 0          # launch pairs since reset_launches()
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_TENSORS = 160    # csrc/tensor_health.cu kMaxTensors
 _CHUNK = 8192         # csrc/tensor_health.cu kChunk
 # tensor_health(ptrs, numels, dtypes, n, p_cnt, p_f, total, out_nan,
@@ -114,7 +115,7 @@ def _check(tensors, dev):
                              f"{dev}")
         if t.dtype not in _DTYPE_CODE:
             raise TypeError(f"tensor {i}: unsupported dtype {t.dtype} "
-                            "(float32 or bfloat16)")
+                            "(float32, bfloat16 or float16)")
         if not t.is_contiguous():
             raise ValueError(f"tensor {i} must be contiguous")
 

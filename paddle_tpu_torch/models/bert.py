@@ -99,10 +99,10 @@ class BertEmbeddings(torch.nn.Module):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)
-        emb = self.word_embeddings(input_ids) + \
-            self.position_embeddings(position_ids)
+        emb = F.add(self.word_embeddings(input_ids),
+                    self.position_embeddings(position_ids))
         if token_type_ids is not None:
-            emb = emb + self.token_type_embeddings(token_type_ids)
+            emb = F.add(emb, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(emb))
 
 

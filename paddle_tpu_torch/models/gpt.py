@@ -296,11 +296,13 @@ class GPTBlock(torch.nn.Module):
 
     def forward(self, x):
         if self._bf16_res:
+            # astype (a cast: no autocast) then elementwise_add, which
+            # O2 casts to its low dtype (float16 rounds the bf16 stream)
             bf = torch.bfloat16
-            x = x.to(bf) + self.attn(self.ln1(x)).to(bf)
-            return x + self._mlp_out(x).to(bf)
-        x = x + self.attn(self.ln1(x))
-        return x + self._mlp_out(x)
+            x = PF.add(x.to(bf), self.attn(self.ln1(x)).to(bf))
+            return PF.add(x, self._mlp_out(x).to(bf))
+        x = PF.add(x, self.attn(self.ln1(x)))
+        return PF.add(x, self._mlp_out(x))
 
 
 class GPTModel(torch.nn.Module):
@@ -321,7 +323,7 @@ class GPTModel(torch.nn.Module):
     def forward(self, input_ids):
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        x = self.drop(PF.add(self.wte(input_ids), self.wpe(pos)))
         for blk in self.blocks:
             x = blk(x)
         return self.ln_f(x)

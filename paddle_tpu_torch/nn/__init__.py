@@ -9,6 +9,7 @@ from .clip import ClipGradByGlobalNorm  # noqa: F401
 from .conv import Conv2D  # noqa: F401
 from .layers import (Dropout, Embedding, LayerNorm, Linear,  # noqa: F401
                      ReLU, RowParallelLinear, load_named_state)
+from .loss import CrossEntropyLoss, MSELoss  # noqa: F401
 from .norm import BatchNorm1D, BatchNorm2D  # noqa: F401
 from .pooling import AdaptiveAvgPool2D, MaxPool2D  # noqa: F401
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
@@ -21,4 +22,5 @@ __all__ = ["functional", "ClipGradByGlobalNorm", "Conv2D", "Dropout",
            "AdaptiveAvgPool2D", "MaxPool2D", "Sequential",
            "MultiHeadAttention", "TransformerEncoder",
            "TransformerEncoderLayer", "TransformerDecoder",
-           "TransformerDecoderLayer", "Transformer"]
+           "TransformerDecoderLayer", "Transformer", "CrossEntropyLoss",
+           "MSELoss"]

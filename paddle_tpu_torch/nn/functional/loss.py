@@ -1,11 +1,18 @@
-"""Cross entropy — port of ``paddle_tpu/nn/functional/loss.py:28-102``
-(``softmax_with_cross_entropy`` and ``cross_entropy``, hard labels) and
-``:117-172`` (``fused_linear_cross_entropy``).
+"""Losses — port of ``paddle_tpu/nn/functional/loss.py:28-102``
+(``softmax_with_cross_entropy`` and ``cross_entropy``, hard labels),
+``:117-172`` (``fused_linear_cross_entropy``) and ``:175-183``
+(``mse_loss``).
 
-``cross_entropy`` is on the autocast black list, so under O1 the logits
-are cast to float32 first. Both means divide by ``max(#labels !=
-ignore_index, 1)``, as the reference does (``loss.py:96-101``,
-``:152-155``): an all-ignored batch gives 0, not torch's NaN.
+``softmax_with_cross_entropy`` is on the autocast black list, so under
+O1 and O2 the logits are cast to float32 first. The ops the reference
+runs after it each follow the cast rule too (``squeeze2``, and for the
+mean ``reduce_sum``, ``elementwise_max`` and ``elementwise_div``,
+``:96-101``): under O2 the per-token losses are rounded to the low dtype,
+summed in float32, and the mean is divided in the low dtype. Both means
+divide by ``max(#labels != ignore_index, 1)``, as the reference does
+(``:96-101``, ``:152-155``): an all-ignored batch gives 0, not torch's
+NaN. ``mse_loss`` is the black-listed ``mse_loss_op`` and a
+``reduce_mean`` / ``reduce_sum``.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import torch
 from ... import amp
 from ...kernels.fused_ce import fused_softmax_ce
 
-__all__ = ["cross_entropy", "fused_linear_cross_entropy"]
+__all__ = ["cross_entropy", "fused_linear_cross_entropy", "mse_loss"]
 
 
 def cross_entropy(input, label, ignore_index=-100,  # noqa: A002
@@ -31,9 +38,17 @@ def cross_entropy(input, label, ignore_index=-100,  # noqa: A002
     keep = label != ignore_index
     loss = torch.where(keep, -picked, torch.zeros((), dtype=logp.dtype,
                                                   device=logp.device))
+    (loss,) = amp.cast_inputs("squeeze2", loss)
     if reduction == "mean":
-        return loss.sum() / keep.sum().to(loss.dtype).clamp(min=1.0)
+        (num,) = amp.cast_inputs("reduce_sum", loss)
+        (den,) = amp.cast_inputs("reduce_sum", keep.to(loss.dtype))
+        one = torch.ones((), dtype=loss.dtype, device=loss.device)
+        den, one = amp.cast_inputs("elementwise_max", den.sum(), one)
+        num, den = amp.cast_inputs("elementwise_div", num.sum(),
+                                   torch.maximum(den, one))
+        return num / den
     if reduction == "sum":
+        (loss,) = amp.cast_inputs("reduce_sum", loss)
         return loss.sum()
     return loss
 
@@ -58,3 +73,23 @@ def fused_linear_cross_entropy(hidden, weight, label, ignore_index=-100):
     nll = torch.where(keep, nll, torch.zeros((), dtype=nll.dtype,
                                              device=nll.device))
     return nll.sum() / keep.sum().to(nll.dtype).clamp(min=1.0)
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        (loss,) = amp.cast_inputs("reduce_mean", loss)
+        return loss.mean()
+    if reduction == "sum":
+        (loss,) = amp.cast_inputs("reduce_sum", loss)
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def mse_loss(input, label, reduction="mean"):  # noqa: A002
+    """``(input - label)**2``, reduced (``mse_loss_op``: float32 under
+    O1 and O2)."""
+    input, label = amp.cast_inputs("mse_loss_op", input, label)
+    d = input - label
+    return _reduce(d * d, reduction)

@@ -70,7 +70,7 @@ class Linear(torch.nn.Module):
 
 class RowParallelLinear(Linear):
     def forward(self, x):
-        return F.matmul(x, self.weight) + self.bias
+        return F.add(F.matmul(x, self.weight), self.bias)
 
 
 class Embedding(torch.nn.Module):

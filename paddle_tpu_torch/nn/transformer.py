@@ -167,14 +167,14 @@ class TransformerEncoderLayer(torch.nn.Module):
             src = self.self_attn(src, src, src, src_mask)
         else:
             src, cache = self.self_attn(src, src, src, src_mask, cache)
-        src = residual + self.dropout1(src)
+        src = F.add(residual, self.dropout1(src))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
         src = self.linear2(self.dropout(self.activation(self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = F.add(residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src if cache is None else (src, cache)
@@ -224,7 +224,7 @@ class TransformerDecoderLayer(torch.nn.Module):
         else:
             tgt, incremental_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
                                                     cache[0])
-        tgt = residual + self.dropout1(tgt)
+        tgt = F.add(residual, self.dropout1(tgt))
         if not self.normalize_before:
             tgt = self.norm1(tgt)
 
@@ -236,7 +236,7 @@ class TransformerDecoderLayer(torch.nn.Module):
         else:
             tgt, static_cache = self.cross_attn(tgt, memory, memory,
                                                 memory_mask, cache[1])
-        tgt = residual + self.dropout2(tgt)
+        tgt = F.add(residual, self.dropout2(tgt))
         if not self.normalize_before:
             tgt = self.norm2(tgt)
 
@@ -244,7 +244,7 @@ class TransformerDecoderLayer(torch.nn.Module):
         if self.normalize_before:
             tgt = self.norm3(tgt)
         tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
-        tgt = residual + self.dropout3(tgt)
+        tgt = F.add(residual, self.dropout3(tgt))
         if not self.normalize_before:
             tgt = self.norm3(tgt)
         return tgt if cache is None else (tgt, (incremental_cache,

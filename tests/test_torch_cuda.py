@@ -1164,8 +1164,9 @@ def test_forward_splits_fill_the_card(cuda):
     wide: the first design's about two forward blocks an SM (64-token
     bf16 tiles, 32-token float32 ones); the wgmma design's one 64-token
     block an SM in whole waves while the blocks are fewer than the SMs,
-    one split from there on, bf16 only. A forced single split gives the
-    same answer."""
+    one split from there on, bf16 only. float16 runs the float32 engine,
+    so it takes float32's counts. A forced single split gives the same
+    answer."""
     from paddle_tpu_torch.kernels import fused_ce as fc
     fn = fc._kernel_fn("fused_ce_forward_splits", fc.SPLITS_ARGTYPES)
     hfn = fc._kernel_fn("fused_ce_forward_hopper_splits", fc.SPLITS_ARGTYPES)
@@ -1173,7 +1174,7 @@ def test_forward_splits_fill_the_card(cuda):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = ((16384, 50304), (1000, 50257), (2048, 50304), (40, 300),
               (300, 5000))
-    for code, bt in ((1, 64), (0, 32)):
+    for code, bt in ((1, 64), (0, 32), (2, 32)):
         for T, V in shapes:
             want = max(1, min(-(-2 * sms // -(-T // bt)), -(-V // 1024)))
             assert fn(code, T, V, dev) == want, (code, T, V)
@@ -1182,7 +1183,7 @@ def test_forward_splits_fill_the_card(cuda):
         want = 1 if blocks >= sms else max(1, min(sms // blocks,
                                                   -(-V // 1024)))
         assert hfn(1, T, V, dev) == want, (T, V)
-    assert fn(2, 10, 10, dev) == 0      # no such dtype
+    assert fn(3, 10, 10, dev) == 0      # no such dtype
     assert hfn(0, 10, 10, dev) == 0     # float32 takes the first design
     h, w, lab, _ = _fce_inputs(cuda, 1000, 50257, 64, torch.bfloat16, 2)
     split = fc.fused_ce_fwd(h, w, lab)
@@ -2090,7 +2091,8 @@ def _health_equal(got, want):
     assert torch.equal(got["sq_sum"].isnan(), want["sq_sum"].isnan())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_tensor_health_matches_its_plain_version(cuda, dtype):
     """``nan``, ``inf``, ``absmax`` (NaN where a NaN is held) and
     ``zero_frac`` exact against the plain version, ``sq_sum`` within
@@ -2135,8 +2137,8 @@ def test_tensor_health_one_launch_over_gpt2_small_gradients(cuda):
 
 def test_tensor_health_raises_on_what_it_does_not_take(cuda):
     from paddle_tpu_torch.kernels import tensor_health as th
-    with pytest.raises(TypeError):
-        th.tensor_health([torch.ones(4, device=cuda, dtype=torch.float16)])
+    with pytest.raises(TypeError):      # float16 is taken since C20
+        th.tensor_health([torch.ones(4, device=cuda, dtype=torch.float64)])
     with pytest.raises(ValueError):
         th.tensor_health([torch.ones(4, 4, device=cuda).t()])
     with pytest.raises(ValueError):
@@ -2502,3 +2504,192 @@ def test_long_context_flash_matches_naive_at_4096(cuda, dtype):
     for name, a, b in zip(("dq", "dk", "dv"), flash, naive):
         assert bool(torch.isfinite(a).all()), name
         assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+# -- float16 in the flash, fused-CE and packed-flash kernels ------------------
+#
+# float16 takes the CUDA-core kernels (the wgmma/TMA designs are bf16 only):
+# inputs widen to float32 as they load and every product and sum is
+# float32, as in the plain versions, so an output differs from the plain
+# one by at most one float16 rounding step (2^-10 of its magnitude, or
+# 2^-24 below 2^-14, where float16 is subnormal); nll and lse are float32
+# on both sides
+F16_TOL = 2e-3
+
+
+def _f16_steps(a, b):
+    """How many float16 rounding steps apart each pair of float16
+    elements lies (the bit patterns ordered as the values are; subnormal
+    steps count as steps)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+@pytest.mark.parametrize("case", ["causal1024", "ragged1000",
+                                  "causal256x128", "streamed4096", "d128",
+                                  "d32"])
+def test_flash_kernels_take_float16(cuda, case):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    B, H, Lq, Lk, D, causal = FA_CASES[case]
+    q, k, v, do = _fa_inputs(cuda, B, H, Lq, Lk, D, torch.float16)
+    assert not fa.hopper_fwd(q, k, v) and not fa.hopper_bwd(q, k, v, do)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = fa.attention_delta(out, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == (1, 1, 1)
+    assert (fa.fwd_hopper_launches, fa.dq_hopper_launches,
+            fa.dkv_hopper_launches) == (0, 0, 0)
+    rout, rlse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    rdq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal)
+    rdk, rdv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                              causal)
+    assert lse.dtype == torch.float32 and _rel(lse, rlse) <= 1e-4
+    for name, a, b in (("out", out, rout), ("dq", dq, rdq), ("dk", dk, rdk),
+                       ("dv", dv, rdv)):
+        assert a.dtype == torch.float16, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= F16_TOL, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("case", list(FCE_CASES))
+def test_fused_ce_kernels_take_float16(cuda, case):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    T, V, d = FCE_CASES[case]
+    h, w, lab, g = _fce_inputs(cuda, T, V, d, torch.float16)
+    assert not fc.hopper_recompute(h, w) and not fc.hopper_dw_sharep(h)
+    fc.reset_launches()
+    nll, lse = fc.fused_ce_fwd(h, w, lab)
+    dh = fc.fused_ce_bwd_dh(h, w, lab, lse, g)
+    dw = fc.fused_ce_bwd_dw(h, w, lab, lse, g)
+    torch.cuda.synchronize()
+    assert (fc.fwd_launches, fc.dh_launches, fc.dw_launches) == (1, 1, 1)
+    assert (fc.fwd_hopper_launches, fc.dh_hopper_launches,
+            fc.dw_hopper_launches) == (0, 0, 0)
+    rnll, rlse = fc.fused_ce_fwd_ref(h, w, lab)
+    rdh = fc.fused_ce_bwd_dh_ref(h, w, lab, lse, g)
+    rdw = fc.fused_ce_bwd_dw_ref(h, w, lab, lse, g)
+    assert _rel(nll, rnll) <= 2e-6 and _rel(lse, rlse) <= 2e-6
+    sdh, sdw = _softmax_parts(lab, g, V, dh, dw)
+    srdh, srdw = _softmax_parts(lab, g, V, rdh, rdw)
+    # the softmax-only rows (p * g down to 1e-9 here) keep their gradient:
+    # dl is float32 in the kernel, as in the plain version; every element
+    # within one float16 step of the plain one (subnormal outputs too)
+    for name, a, b in (("dh", dh, rdh), ("dw", dw, rdw),
+                       ("dh_softmax", sdh, srdh), ("dw_softmax", sdw, srdw)):
+        assert a.dtype == torch.float16, name
+        assert bool(torch.isfinite(a).all()), name
+        assert int(_f16_steps(a, b).max()) <= 1, name
+        assert b.abs().max() > 0, name
+    assert torch.all(dh[::3] == 0)
+
+
+@pytest.mark.parametrize("case", list(FCE_CASES))
+def test_fused_ce_sharep_pair_takes_float16_h_with_bf16_dl(cuda, case):
+    """The shared-dl pair under float16: dh_sharep's dh equal to the
+    recomputing dh's bit for bit, its dl bf16 (one bf16 step from the
+    plain dl), and dw_sharep multiplying that bf16 dl by the float16 h
+    (products in float32) within one float16 step of the plain dw of the
+    same dl."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    T, V, d = FCE_CASES[case]
+    h, w, lab, g = _fce_inputs(cuda, T, V, d, torch.float16, 1)
+    _, lse = fc.fused_ce_fwd(h, w, lab)
+    fc.reset_launches()
+    dh, dl = fc.fused_ce_bwd_dh_sharep(h, w, lab, lse, g)
+    dw = fc.fused_ce_bwd_dw_sharep(h, dl)
+    torch.cuda.synchronize()
+    assert (fc.dh_sharep_launches, fc.dw_sharep_launches) == (1, 1)
+    assert (fc.dh_sharep_hopper_launches, fc.dw_sharep_hopper_launches) \
+        == (0, 0)
+    assert dl.dtype == torch.bfloat16 and dw.dtype == torch.float16
+    rdh, rdl = fc.fused_ce_bwd_dh_sharep_ref(h, w, lab, lse, g)
+    assert torch.equal(dh, fc.fused_ce_bwd_dh(h, w, lab, lse, g))
+    assert int(_bf16_steps(dl, rdl).max()) <= 1
+    assert int(_f16_steps(dh, rdh).max()) <= 1
+    rdw = fc.fused_ce_bwd_dw_sharep_ref(h, dl)
+    assert bool(torch.isfinite(dw).all())
+    assert int(_f16_steps(dw, rdw).max()) <= 1
+
+
+@pytest.mark.parametrize("case", list(PF_CASES))
+def test_packed_flash_kernels_take_float16(cuda, case):
+    from paddle_tpu_torch.kernels import packed_flash as pf
+    B, H, L, D, causal, layout = PF_CASES[case]
+    q, k, v, do = _fa_inputs(cuda, B, H, L, L, D, torch.float16, seed=8)
+    seg = _pf_ids(cuda, B, L, layout)
+    assert not pf.hopper_fwd(q, k, v, seg)
+    assert not pf.hopper_bwd(q, k, v, do, seg)
+    pf.reset_launches()
+    out, lse = pf.packed_flash_fwd(q, k, v, seg, causal)
+    delta = pf.attention_delta(out, do)
+    dq = pf.packed_flash_bwd_dq(q, k, v, seg, do, lse, delta, causal)
+    dk, dv = pf.packed_flash_bwd_dkv(q, k, v, seg, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (pf.fwd_launches, pf.dq_launches, pf.dkv_launches) == (1, 1, 1)
+    assert (pf.fwd_hopper_launches, pf.dq_hopper_launches,
+            pf.dkv_hopper_launches) == (0, 0, 0)
+    rout, rlse = pf.packed_flash_fwd_ref(q, k, v, seg, causal)
+    rdq = pf.packed_flash_bwd_dq_ref(q, k, v, seg, do, lse, delta, causal)
+    rdk, rdv = pf.packed_flash_bwd_dkv_ref(q, k, v, seg, do, lse, delta,
+                                           causal)
+    assert _rel(lse, rlse) <= 1e-4
+    for name, a, b in (("out", out, rout), ("dq", dq, rdq), ("dk", dk, rdk),
+                       ("dv", dv, rdv)):
+        assert a.dtype == torch.float16, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= F16_TOL, (name, _rel(a, b))
+
+
+def _o2_fp16_step(dev, plain):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    m = GPTForCausalLM(gpt2_tiny(fused_ce=True, dropout=0.0), device=dev,
+                       seed=3)
+    opt = AdamW(1e-3, parameters=list(m.parameters()))
+    amp.decorate(m, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(registry=False)
+    rng = np.random.RandomState(0)
+    ids = torch.tensor(rng.randint(0, 128, (2, 64)), device=dev)
+    ctx = contextlib.ExitStack()
+    if plain:
+        ctx.enter_context(fa.use_plain())
+        ctx.enter_context(fc.use_plain())
+    with ctx:
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = m.loss(ids, ids.roll(-1, -1))
+        scaler.minimize(opt, scaler.scale(loss))
+    torch.cuda.synchronize()
+    return float(loss.detach()), [p.detach().float().cpu()
+                                  for p in m.parameters()]
+
+
+def test_o2_float16_gpt_step_goes_through_the_kernels(cuda):
+    """C20: under auto_cast(O2, float16) GPT-2's loss and its gradients
+    go through the flash and fused-CE kernels (the CUDA-core designs) and
+    raise no TypeError; loss and stepped parameters as the plain step's:
+    float16 parameters within two float16 steps of their magnitude plus
+    2 lr (AdamW's first step moves every parameter by about lr whatever
+    its gradient's size, so a gradient at rounding-noise level, as the
+    key bias's exact zero, can step the other way)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    fa.reset_launches()
+    fc.reset_launches()
+    loss, params = _o2_fp16_step(cuda, plain=False)
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == (2, 2, 2)
+    assert (fc.fwd_launches, fc.dh_launches, fc.dw_launches) == (1, 1, 1)
+    assert fa.fwd_hopper_launches == fc.fwd_hopper_launches == 0
+    ploss, pparams = _o2_fp16_step(cuda, plain=True)
+    assert fa.fwd_launches == 2           # the plain step launched nothing
+    assert abs(loss - ploss) <= 1e-3 * abs(ploss)
+    for a, b in zip(params, pparams):
+        assert bool(torch.isfinite(a).all())
+        assert bool(((a - b).abs() <= 2.0 ** -9 * b.abs() + 2e-3).all())

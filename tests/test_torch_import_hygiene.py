@@ -39,6 +39,7 @@ if not torch.cuda.is_available():
         BertForSequenceClassification, bert_tiny)
     from paddle_tpu_torch.tools import (bench_bert, bench_serving,
                                         numerics_check, replay)
+    from paddle_tpu_torch import Model, nn as pnn
     import tempfile
     cpu_model = GPTForCausalLM(gpt2_tiny(), device="cpu")
     for name, call in (("engine", lambda: ServingEngine(gpt2_tiny())),
@@ -60,7 +61,9 @@ if not torch.cuda.is_available():
                        ("bench_fleet", lambda: bench_serving.main(
                            ["--model", "tiny", "--fleet", "2"])),
                        ("replay_selfcheck", lambda: replay.main(
-                           ["--selfcheck", "--quiet"]))):
+                           ["--selfcheck", "--quiet"])),
+                       ("hapi_model", lambda: Model(
+                           pnn.Linear(3, 2, device="cpu")))):
         try:
             call()
             result["refused"][name] = False
@@ -99,7 +102,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "kernels.tensor_health", "tools.numerics_check",
                  "inference.router", "inference.autoscale",
                  "observability.aggregate", "tools.replay",
-                 "tools.autoscale_sim"):
+                 "tools.autoscale_sim", "amp", "io", "metric", "hapi",
+                 "hapi.model", "hapi.callbacks", "hapi.summary",
+                 "callbacks", "nn.loss", "optimizer.optimizer"):
         assert f"paddle_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
     if not out["cuda"]:
@@ -110,7 +115,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                                   "bench_bert": True,
                                   "numerics_check": True,
                                   "bench_fleet": True,
-                                  "replay_selfcheck": True}
+                                  "replay_selfcheck": True,
+                                  "hapi_model": True}
 
 
 def test_chip_smoke_fails_without_a_gpu_or_without_the_port(tmp_path):

@@ -299,10 +299,12 @@ def test_unported_options_raise():
         gpt2_tiny(num_experts=4)
     m = GPTForCausalLM(gpt2_tiny(), device="cpu")
     for kw in (dict(mesh=object()), dict(fsdp_params=True),
-               dict(shard_opt="dp"), dict(extra_state=[]),
-               dict(has_aux=True)):
+               dict(shard_opt="dp"), dict(extra_state=[])):
         with pytest.raises(NotImplementedError):
             TrainStep(m, _port_loss, AdamW(), device="cpu", **kw)
+    # ported: aux outputs and the eval-only step construct
+    TrainStep(m, _port_loss, AdamW(), device="cpu", has_aux=True)
+    TrainStep(m, _port_loss, None, device="cpu")
     # ported: the numerics pass and skip_nonfinite construct; a mode the
     # reference does not know raises its ValueError
     TrainStep(m, _port_loss, AdamW(), device="cpu", numerics="stats",
@@ -310,7 +312,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         TrainStep(m, _port_loss, AdamW(), device="cpu", numerics="all")
     for opt in (AdamW(apply_decay_param_fun=lambda n: True),
-                AdamW(lr_ratio=lambda p: 1.0), None):
+                AdamW(lr_ratio=lambda p: 1.0)):
         with pytest.raises(NotImplementedError):
             TrainStep(m, _port_loss, opt, device="cpu")
     for attr, val in (("_grad_merge_k", 4), ("_asp_masks_by_param", {1: 1})):
