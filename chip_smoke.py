@@ -638,12 +638,13 @@ def attention_case(kv_lens, q_lens, QB, dtype, rng, layers):
                 q_lens=torch.tensor(q_lens, dtype=torch.int32, device=dev))
 
 
-def case_bound(c):
+def case_bound(c, nh=NH):
     """Least time for one call: each input read once (q, the K/V rows
     below each slot's extent, and over a quantized pool the two scales of
     each page and head those rows lie in, tables, lengths), the output
     written once, and the FLOPs the rows' causal limits need, at the
-    card's peak for q's type."""
+    card's peak for q's type; over ``nh`` heads (a tensor-parallel rank's
+    share: q's heads)."""
     import numpy as np
     q = c["q"]
     S, QB = q.shape[0], q.shape[1]
@@ -652,15 +653,15 @@ def case_bound(c):
     kv_lens = np.minimum(c["kv_lens"].cpu().numpy(), MP * PS)
     q_lens = c["q_lens"].cpu().numpy()
     nbytes = 2 * q.numel() * item                       # q in, out
-    nbytes += 2 * int(kv_lens.sum()) * NH * HD * kv_item  # K and V rows
+    nbytes += 2 * int(kv_lens.sum()) * nh * HD * kv_item  # K and V rows
     if "scales" in c:                                   # f32, K and V
-        nbytes += 2 * int((-(-kv_lens // PS)).sum()) * NH * 4
+        nbytes += 2 * int((-(-kv_lens // PS)).sum()) * nh * 4
     nbytes += c["bt"].numel() * 4 + 2 * S * 4
     j = np.arange(QB)[None, :]
     L, n = kv_lens[:, None], q_lens[:, None]
     lim = np.where(j < n, np.minimum(L, L - n + 1 + j), L)
     lim = np.where(L > 0, np.maximum(lim, 0), 0)
-    flops = 4 * int(lim.sum()) * NH * HD                # QK^T and PV
+    flops = 4 * int(lim.sum()) * nh * HD                # QK^T and PV
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(q.dtype).replace("torch.", "")] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -703,6 +704,72 @@ RAGGED_SHAPES = {
     "verify": ([51, 137, 264, 305, 392, 459, 516, 594],
                [SPEC_K + 1] * S_SLOTS, SPEC_K + 1),
 }
+
+
+def heads_offset_record(c, pa, tol, timed, layers):
+    """A tensor-parallel rank's half of the heads, ``h0 = NH / 2``, of case
+    ``c``: the head-offset route (q of NH / 2 heads against the full
+    pools at offset ``h0`` in the C entries; a replicated pool) held against the
+    plain version with the same offset (max-abs error over the live rows,
+    relative to max-abs over code pools, within ``tol``; two launches
+    bit-identical, on the split-KV design; idle slots zero). ``timed``:
+    its ms beside the contiguous route's on the same shapes (the rank's
+    heads copied out once into pools of NH / 2 heads, as a heads-sharded
+    engine holds them), and the bound over the rank's bytes."""
+    import torch
+    h0, nh = NH // 2, NH - NH // 2
+    quant = "scales" in c
+    q = c["q"][:, :, h0:].contiguous()
+    (kp, vp) = c["pools"][0]
+    sc = dict(zip(("k_scale", "v_scale"), c["scales"][0])) if quant else {}
+    args = (q, kp, vp, c["bt"], c["kv_lens"], c["q_lens"])
+    counter = "quant_split_launches" if quant else "split_launches"
+    before = getattr(pa, counter)
+    out = pa.ragged_paged_attention(*args, h0=h0, **sc)
+    again = pa.ragged_paged_attention(*args, h0=h0, **sc)
+    torch.cuda.synchronize()
+    if getattr(pa, counter) != before + 2:
+        raise AssertionError("the head-offset route did not take the "
+                             "split-KV design")
+    if not torch.equal(out, again):
+        raise AssertionError("head-offset route not bit-identical across "
+                             "two launches")
+    ref = pa.ragged_paged_attention_ref(*args, h0=h0, **sc)
+    live = (torch.arange(q.shape[1], device=q.device)[None]
+            < c["q_lens"][:, None])[:, :, None, None]
+    err = float(((out.float() - ref.float()).abs() * live).max())
+    rel = err / max(float((ref.float() * live).abs().max()), 1e-30)
+    if not ((rel if quant else err) <= tol
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"head-offset kernel vs plain: max-abs err {err}"
+                             f" (relative {rel}) > {tol}")
+    idle = c["kv_lens"] == 0
+    if bool(idle.any()) and bool(out[idle].abs().max() != 0):
+        raise AssertionError("head-offset route: idle slot not zero")
+    rec = {"h0": h0, "heads": nh, "max_abs_err": err, "rel_err": rel,
+           "bit_identical": True, "design": "split_kv"}
+    if timed:
+        P = c["pools"]
+        S_ = c["scales"] if quant else [(None, None)] * layers
+        part = [tuple(t[:, :, h0:].contiguous() for t in pp) for pp in P]
+        spart = [tuple(None if t is None else t[:, h0:].contiguous()
+                       for t in ss) for ss in S_]
+
+        def offset(i):
+            (kp, vp), (ks, vs) = P[i % layers], S_[i % layers]
+            pa.ragged_paged_attention(q, kp, vp, c["bt"], c["kv_lens"],
+                                      c["q_lens"], k_scale=ks, v_scale=vs,
+                                      h0=h0)
+
+        def contiguous(i):
+            (kp, vp), (ks, vs) = part[i % layers], spart[i % layers]
+            pa.ragged_paged_attention(q, kp, vp, c["bt"], c["kv_lens"],
+                                      c["q_lens"], k_scale=ks, v_scale=vs)
+        rec["ms"] = cuda_ms(offset, 120)
+        rec["contiguous_ms"] = cuda_ms(contiguous, 120)
+        rec["bound_ms"], rec["bound_by"] = case_bound(dict(c, q=q), nh)
+        del part, spart
+    return rec
 
 
 def run_kernel_phase():
@@ -769,6 +836,8 @@ def run_kernel_phase():
                 rec["library_ms"] = cuda_ms(lib, 120)
                 rec["bound_ms"], rec["bound_by"] = case_bound(c)
                 del qs, kvs, mask
+            rec["heads_offset"] = heads_offset_record(
+                c, pa, tol, dtype == torch.bfloat16, layers)
             results.setdefault(name, {})[str(dtype).replace(
                 "torch.", "")] = rec
             del c, out, ref
@@ -814,7 +883,7 @@ def quant_first_design(c, pa, layers):
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
                 vs.data_ptr(), c["bt"].data_ptr(), c["kv_lens"].data_ptr(),
                 c["q_lens"].data_ptr(), out.data_ptr(), S, QB, NH_, HD_, PS,
-                c["bt"].shape[1], HD_ ** -0.5,
+                c["bt"].shape[1], kp.shape[2], 0, HD_ ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"first-design paged kernel: CUDA error {rc}")
@@ -920,6 +989,8 @@ def run_quant_kernel_phase():
                     rec["library_ms"] = cuda_ms(lib, 120)
                     rec["bound_ms"], rec["bound_by"] = case_bound(c)
                     del qs, kvs, mask
+                rec["heads_offset"] = heads_offset_record(
+                    c, pa, tol, dtype == torch.bfloat16, layers)
                 results.setdefault(name, {}).setdefault(fmt, {})[str(
                     dtype).replace("torch.", "")] = rec
                 del c
@@ -1902,6 +1973,11 @@ RAGGED_KERNELS = {"first": "ragged_paged_attention_kernel",
                   "split": "ragged_paged_attention_split_kernel",
                   "merge": "ragged_paged_attention_merge_kernel"}
 REPLAY_TRACES = 3          # traces of one replay before a mismatch fails
+# a traced run starts behind this GPU sleep (2 ms at 2 GHz): late in a
+# long process the profiler dropped the first kernels of a replay launched
+# as the trace opened (the first split kernel, or the first split and
+# merge pair, in three traces running), as if they fell before its window
+TRACE_LEAD_CYCLES = 4_000_000
 
 
 def ragged_want(eng, keys):
@@ -1929,10 +2005,11 @@ def ragged_want(eng, keys):
 
 
 def ragged_traced(run):
-    """Run ``run()`` under ``torch.profiler``; the ragged kernels the
-    device ran, counted by kind (``RAGGED_KERNELS``). Dead engines are
-    collected first and the collector is off during the trace, so no
-    engine's graphs are destroyed inside it."""
+    """Run ``run()`` under ``torch.profiler``, behind a GPU sleep of
+    ``TRACE_LEAD_CYCLES``; the ragged kernels the device ran, counted by
+    kind (``RAGGED_KERNELS``). Dead engines are collected first and the
+    collector is off during the trace, so no engine's graphs are
+    destroyed inside it."""
     import gc
 
     import torch
@@ -1945,6 +2022,7 @@ def ragged_traced(run):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(TRACE_LEAD_CYCLES)
             run()
             torch.cuda.synchronize()
     finally:
@@ -2064,6 +2142,331 @@ def max_logit_err(a, b):
     """Max-abs difference of two engines' logged logits, uid by uid."""
     return max(float((x - y).abs().max()) for u in a
                for x, y in zip(a[u], b[u]))
+
+
+# -- tensor-parallel serving ---------------------------------------------------
+
+TP_RANKS = 2
+TP_REQUESTS = 8           # the first requests of serve's traffic
+TP_RUNS = (("heads", "f32"), ("replicated", "f32"), ("heads", "int8"),
+           ("replicated", "int8"))
+# the float32 hold: the first requests, at most this many new tokens each
+TP_HOLD_REQUESTS, TP_HOLD_NEW = 4, 32
+# per-call hold at bf16 q: kernel and plain version each round a float32
+# result to bf16, so they differ by at most a bf16 step (2^-8 of a value)
+TP_CALL_TOL = 2.0 ** -7
+# tokens against serve's single-rank engine are held up to the first step
+# whose top-2 margin on the sharded engine is below this many bf16 steps
+# of its top logit: each rank's bf16 partial sum is rounded before the
+# all-reduce adds it, so a logit moves by bf16 steps
+TP_TIE_STEPS = 4
+# the int8 collective's logit error against the f32 collective's on the
+# same stream (max-abs of the difference over max-abs, while the tokens
+# agree) is held inside (0, TP_INT8_ERR_MAX]: 0 would mean the int8 path
+# did not run. Both pool modes read 0.0242 (0.75 / 31, a bf16 step) on an
+# NVIDIA H100 80GB HBM3 at 700 W; a scale per tensor instead of per
+# position, or the partials summed in bf16, moves it further
+TP_INT8_ERR_MAX = 0.04
+
+
+def serve_tp_rank(info, reqs, serve_tokens):
+    """One rank of ``serve_tp``: GPT-2 small from seed 0 at serve's
+    configuration (bf16 weights and pools), ``_capture=False`` (gloo's
+    collectives run on the host), each of ``TP_RUNS`` on a fresh engine
+    with the launch counters zeroed and every launch held against the
+    plain version on this rank's heads (``per_call_parity``). Rank 0
+    serves ``reqs`` and returns its readings; the others follow and
+    return theirs (launches, checks, peak memory)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.inference.tp import make_mesh
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models.gpt import gpt2_small, init_params
+
+    cfg = gpt2_small()
+    params = init_params(cfg, seed=0, device=info.device)
+    lead = info.rank == 0
+    out = [serve_tp_hold(info, cfg, params, reqs)]
+    f32_logits = {}
+    for kv_shard, cd in TP_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(
+            cfg, params, device=info.device,
+            mesh=make_mesh(info.nprocs, device=info.device),
+            kv_shard=kv_shard, collective_dtype=cd, weight_dtype="bf16",
+            kv_dtype="bf16", _capture=False, record_logits=lead, **SERVE_KW)
+        pa.reset_launches()
+        rec = {"kv_shard": kv_shard, "collective_dtype": cd,
+               "rank": info.rank, "pool_heads": eng.kv.k[0].shape[2]}
+        with per_call_parity(pa, TP_CALL_TOL) as pc:
+            if lead:
+                uids = [eng.add_request(**r) for r in reqs]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                done = eng.run(max_steps=20000)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                eng.kv.verify()
+            else:
+                eng.follow()
+        rec.update(per_call=dict(pc), launches=pa.launches,
+                   split_launches=pa.split_launches,
+                   quant_launches=pa.quant_launches,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(
+                       info.device))
+        if lead:
+            st = eng.stats
+            toks = [done[u].tokens for u in uids]
+            for u, r in zip(uids, reqs):
+                c = done[u]
+                if c.finish_reason not in ("length", "eos") or not all(
+                        0 <= t < cfg.vocab_size for t in c.tokens):
+                    raise AssertionError(f"serve_tp {kv_shard} {cd}: request"
+                                         f" {u} {c.finish_reason}")
+            logits = [eng.logit_log[u] for u in uids]
+            # recorded: the first token of a greedy request that differs
+            # from serve's, and this engine's margin there in bf16 steps
+            first = next(((r, k) for r, (ta, tb) in enumerate(
+                zip(serve_tokens, toks)) if reqs[r]["temperature"] == 0
+                for k in range(min(len(ta), len(tb))) if ta[k] != tb[k]),
+                None)
+            if first is not None:
+                top2 = torch.topk(logits[first[0]][first[1]].float(),
+                                  2).values
+                rec["first_differs_any"] = first
+                rec["margin_in_bf16_steps"] = float(
+                    top2[0] - top2[1]) / bf16_step(float(top2[0]))
+            # held: tokens against serve's, greedy requests, up to the
+            # first near-tie on this engine
+            steps, differs = 0, None
+            for r, (ta, tb, lg) in enumerate(zip(serve_tokens, toks,
+                                                 logits)):
+                if reqs[r]["temperature"] > 0:
+                    continue
+                for k, row in enumerate(lg[:min(len(ta), len(tb))]):
+                    top2 = torch.topk(row.float(), 2).values
+                    if float(top2[0] - top2[1]) < \
+                            TP_TIE_STEPS * bf16_step(float(top2[0])):
+                        break
+                    steps += 1
+                    if ta[k] != tb[k]:
+                        differs = differs or (r, k)
+                        break
+            led = eng.ledger
+            S, C = eng.num_slots, eng.prefill_chunk
+            census = {fn: {"counted": eng.xla_costs[fn]["collective_bytes"],
+                           "by_op": eng.xla_costs[fn]["collective_by_op"],
+                           "predicted": int(led.coll_bytes_per_position * n)}
+                      for fn, n in (("decode_step", S), ("prefill_chunk", C),
+                                    ("decode_block", S))
+                      if fn in eng.xla_costs}
+            rec.update(
+                tokens=toks, steps_compared=steps, first_differs=differs,
+                identical_to_serve=toks == serve_tokens,
+                census=census, wall_s=wall,
+                tokens_per_s=st["tokens_emitted"] / wall,
+                forwards=st["prefill_chunks"] + st["decode_steps"],
+                stats={k: st[k] for k in (
+                    "prefill_chunks", "decode_steps", "fused_blocks",
+                    "dispatches", "tokens_emitted", "backend",
+                    "graph_captures")},
+                coll_bytes_per_position=led.coll_bytes_per_position,
+                collective_bytes=dict(led.totals()["coll_bytes"]),
+                attribution_conserved=led.attribution_check()["conserved"],
+                pool_bytes_per_rank=eng.kv.pool_bytes())
+            if cd == "f32":
+                f32_logits[kv_shard] = (toks, logits)
+            else:
+                # the int8 collective against the f32 one on the same
+                # stream, while their tokens agree
+                ref_toks, ref_lg = f32_logits[kv_shard]
+                err = 0.0
+                for ta, tb, la, lb in zip(toks, ref_toks, logits, ref_lg):
+                    for k in range(min(len(ta), len(tb))):
+                        b = lb[k].float()
+                        err = max(err, float((la[k].float() - b).abs().max())
+                                  / float(b.abs().max()))
+                        if ta[k] != tb[k]:
+                            break
+                rec["logit_err_vs_f32"] = err
+            eng.close()
+            del logits
+        else:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        out.append(rec)
+    return out
+
+
+def serve_tp_hold(info, cfg, params, reqs):
+    """``serve_tp``'s float32 hold: the first ``TP_HOLD_REQUESTS``
+    requests (at most ``TP_HOLD_NEW`` new tokens) at float32 weights and
+    pools, heads-sharded with the f32 collective, every launch held
+    within ``PER_CALL_TOL`` of the plain version; rank 0 first serves
+    them on a single-rank eager engine and holds the sharded engine's
+    greedy tokens to its up to the first top-2 margin below
+    ``PARITY_TOL`` (``parity``'s rule: only float32 rounding parts
+    them)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.inference.tp import make_mesh
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    hold = [dict(r, max_new_tokens=min(r["max_new_tokens"], TP_HOLD_NEW))
+            for r in reqs[:TP_HOLD_REQUESTS]]
+    lead = info.rank == 0
+    kw = dict(SERVE_KW, device=info.device, _capture=False,
+              record_logits=lead)
+    rec = {"rank": info.rank}
+    if lead:
+        one = ServingEngine(cfg, params, **kw)
+        uids = [one.add_request(**r) for r in hold]
+        done = one.run(max_steps=20000)
+        single = ([done[u].tokens for u in uids],
+                  [one.logit_log[u] for u in uids])
+        one.close()
+        del one
+    eng = ServingEngine(cfg, params, mesh=make_mesh(info.nprocs,
+                                                    device=info.device),
+                        **kw)
+    pa.reset_launches()
+    with per_call_parity(pa, PER_CALL_TOL) as pc:
+        if lead:
+            uids = [eng.add_request(**r) for r in hold]
+            done = eng.run(max_steps=20000)
+        else:
+            eng.follow()
+    rec.update(per_call=dict(pc), launches=pa.launches,
+               split_launches=pa.split_launches)
+    if lead:
+        toks = [done[u].tokens for u in uids]
+        greedy = [r for r, q in enumerate(hold) if q["temperature"] == 0]
+        steps, differs = tokens_until_tie(
+            [toks[r] for r in greedy], [single[0][r] for r in greedy],
+            [single[1][r] for r in greedy], PARITY_TOL)
+        rec.update(steps_compared=steps, first_differs=differs,
+                   tokens_identical=toks == single[0],
+                   forwards=eng.stats["prefill_chunks"]
+                   + eng.stats["decode_steps"],
+                   max_logit_abs_err=max(
+                       float((x - y).abs().max())
+                       for a, b in zip([eng.logit_log[u] for u in uids],
+                                       single[1]) for x, y in zip(a, b)))
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_serve_tp_phase(serve_tokens):
+    """``serve_tp``: tensor-parallel serving (``inference/tp.py``) over
+    ``TP_RANKS`` ranks on one card (``distributed.spawn``; the kernels
+    were built before the spawn), on the first ``TP_REQUESTS`` of
+    serve's requests at serve's model and configuration, with heads-
+    sharded and replicated pools and the f32 and int8 collectives. Held:
+    greedy tokens equal to serve's up to the first near-tie
+    (``TP_TIE_STEPS``; f32 collective), every launch on every rank
+    against the plain version (``TP_CALL_TOL``), launches = layers x
+    forward passes on every rank (split-KV design), the counted
+    collective census equal to the ledger's prediction, the attribution
+    conserved, the int8 collective's logit error against the f32 one's
+    inside ``(0, TP_INT8_ERR_MAX]``; and first ``serve_tp_hold``: float32
+    weights and pools, the sharded engine's greedy tokens equal to a
+    single-rank engine's up to the first top-2 margin below
+    ``PARITY_TOL``, every launch within ``PER_CALL_TOL``. Recorded:
+    tokens/s (the backend named), each rank's peak memory, the first
+    token that differs from serve's with its margin in bf16 steps, the
+    phase's seconds. Returns the record and rank 0's launches."""
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models.gpt import gpt2_small
+
+    t0 = time.perf_counter()
+    cfg = gpt2_small()
+    reqs = serve_traffic(cfg.vocab_size)[:TP_REQUESTS]
+    ranks = spawn(serve_tp_rank, (reqs, serve_tokens[:TP_REQUESTS]),
+                  nprocs=TP_RANKS, device="cuda", timeout=300)
+    hold = ranks[0][0]
+    want = cfg.num_layers * hold["forwards"]
+    for r in ranks:
+        h = r[0]
+        if not (h["launches"] == h["split_launches"] == want
+                == h["per_call"]["calls"]):
+            raise AssertionError(f"serve_tp f32 hold rank {h['rank']}: "
+                                 f"launches {h['launches']}, checks "
+                                 f"{h['per_call']['calls']} != {want}")
+    if hold["first_differs"] is not None:
+        raise AssertionError(f"serve_tp f32 hold: request, token "
+                             f"{hold['first_differs']} differ from the "
+                             "single-rank engine's")
+    launches = hold["launches"]
+    runs = {"f32_hold": {
+        **{k: hold[k] for k in ("steps_compared", "tokens_identical",
+                                "max_logit_abs_err", "forwards")},
+        "requests": TP_HOLD_REQUESTS, "max_new_tokens": TP_HOLD_NEW,
+        "parity_tol": PARITY_TOL,
+        "per_call_max_rel_err": max(r[0]["per_call"]["max_rel_err"]
+                                    for r in ranks),
+        "per_call_tol": PER_CALL_TOL,
+        "launches_per_rank": [r[0]["launches"] for r in ranks]}}
+    for i, (kv_shard, cd) in enumerate(TP_RUNS, start=1):
+        name = f"{kv_shard}_{cd}"
+        lead = ranks[0][i]
+        want = cfg.num_layers * lead["forwards"]
+        for r in ranks:
+            rr = r[i]
+            if not (rr["launches"] == rr["split_launches"] == want
+                    and rr["quant_launches"] == 0):
+                raise AssertionError(
+                    f"serve_tp {name} rank {rr['rank']}: launches "
+                    f"{rr['launches']} (split {rr['split_launches']}) != "
+                    f"{cfg.num_layers} layers x {lead['forwards']} passes")
+            if rr["per_call"]["calls"] != want:
+                raise AssertionError(f"serve_tp {name} rank {rr['rank']}: "
+                                     f"{rr['per_call']['calls']} checks")
+        for fn, c in lead["census"].items():
+            if c["counted"] != c["predicted"]:
+                raise AssertionError(f"serve_tp {name} {fn}: census "
+                                     f"{c['counted']} != {c['predicted']}")
+        if set(lead["census"]) < {"decode_step", "prefill_chunk"}:
+            raise AssertionError(f"serve_tp {name}: census {lead['census']}")
+        if not lead["attribution_conserved"]:
+            raise AssertionError(f"serve_tp {name}: attribution")
+        if cd == "f32" and lead["first_differs"] is not None:
+            raise AssertionError(f"serve_tp {name}: request, token "
+                                 f"{lead['first_differs']} differ from "
+                                 "serve's")
+        if cd == "int8" and not 0 < lead["logit_err_vs_f32"] \
+                <= TP_INT8_ERR_MAX:
+            raise AssertionError(f"serve_tp {name}: logit error against "
+                                 f"the f32 collective "
+                                 f"{lead['logit_err_vs_f32']} outside (0, "
+                                 f"{TP_INT8_ERR_MAX}]")
+        launches += lead["launches"]
+        runs[name] = {
+            **{k: lead[k] for k in ("first_differs_any",
+                                    "margin_in_bf16_steps") if k in lead},
+            **{k: lead[k] for k in (
+                "steps_compared", "first_differs", "identical_to_serve",
+                "census", "wall_s", "tokens_per_s", "forwards", "stats",
+                "coll_bytes_per_position", "collective_bytes",
+                "pool_bytes_per_rank", "pool_heads")},
+            **({"logit_err_vs_f32": lead["logit_err_vs_f32"]}
+               if cd != "f32" else {}),
+            "launches_per_rank": [r[i]["launches"] for r in ranks],
+            "per_call_max_rel_err": max(r[i]["per_call"]["max_rel_err"]
+                                        for r in ranks),
+            "per_call_checks": [r[i]["per_call"]["calls"] for r in ranks],
+            "peak_mem_bytes_per_rank": [r[i]["peak_mem_bytes"]
+                                        for r in ranks]}
+    return {"phase": "serve_tp", "ranks": TP_RANKS, "backend": "gloo",
+            "device": "cuda:0 (every rank)", "captured": False,
+            "requests": len(reqs), "per_call_tol": TP_CALL_TOL,
+            "tie_bf16_steps": TP_TIE_STEPS,
+            "int8_logit_err_max": TP_INT8_ERR_MAX, "runs": runs,
+            "seconds": time.perf_counter() - t0, "gpu": smi()}, launches
 
 
 def run_serve_graphs_phase(model):
@@ -4038,14 +4441,14 @@ def per_call_parity(pa, tol, hold=True):
             torch.cuda.synchronize(t.device)
 
     def checked(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
-                k_scale, v_scale):
+                k_scale, v_scale, h0=0):
         out = real(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
-                   k_scale, v_scale)
+                   k_scale, v_scale, h0)
         sync(q)
         t0 = time.perf_counter()
         ref = pa.ragged_paged_attention_ref(q, k_pool, v_pool, block_tables,
                                             kv_lens, q_lens, scale, k_scale,
-                                            v_scale)
+                                            v_scale, h0)
         sync(q)
         rec["plain_s"] += time.perf_counter() - t0
         live = (torch.arange(q.shape[1], device=q.device)[None]
@@ -5983,6 +6386,8 @@ def main():
     model = serve_model()
     serve, launches, serve_tokens = run_serve_phase(model)
     emit(with_spreads(serve))
+    serve_tp, tp_launches = run_serve_tp_phase(serve_tokens)
+    emit(serve_tp)
     split_launches = serve["split_kv_launches"]
     quant_split = 0
     quant_serve, qlaunches = {}, {}
@@ -6110,11 +6515,14 @@ def main():
         "design": "split_kv (float32/bfloat16 pools, HD % 8 == 0, 16-byte "
                   "aligned; else ragged_paged_attention_kernel)",
         "launches_split_kv": split_launches,
+        "launches_serve_tp": "per rank, on NH / 2 heads (two ranks)",
         "launches_by_phase": {"serve": launches,
+                              "serve_tp": tp_launches,
                               "serve_spec": spec_launches_["float"],
                               "serve_telemetry": tele_launches["bf16"],
                               "serve_journal": jour_launches["float"],
                               "serve_fleet": fleet_launches[0]},
+        "heads_offset": dec["heads_offset"],
         "cases": {n: kres[n]["bfloat16"]
                   for n in ("mixed", "prefill", "verify")}}]
     qdec = qres["decode"]["int8"]["bfloat16"]
@@ -6152,7 +6560,8 @@ def main():
         "launches_split_kv": quant_split,
         "fp8_decode": {k: qres["decode"]["fp8"]["bfloat16"][k] for k in (
             "ms", "first_design_ms", "host_us", "plain_ms", "library_ms",
-            "bound_ms", "design")},
+            "bound_ms", "design", "heads_offset")},
+        "heads_offset": qdec["heads_offset"],
         "cases": {f"{n}_{fmt}": qres[n][fmt]["bfloat16"]
                   for n in qres for fmt in qres[n]
                   if (n, fmt) != ("decode", "int8")}})

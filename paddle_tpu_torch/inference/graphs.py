@@ -47,6 +47,7 @@ back to eager dispatch.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 
 import numpy as np
@@ -126,11 +127,14 @@ class GraphProgram:
     shapes and dtypes (the capture runs on these values: the engine
     passes an idle state whose writes land on the trash page);
     ``buffers`` the device tensors the caller fills between replays.
-    ``_WARMUP`` eager calls on the pool's side stream come first."""
+    ``_WARMUP`` eager calls on the pool's side stream come first.
+    ``during_capture``: a context entered around the capture alone (a
+    mesh engine's collective census counts one run there)."""
 
     captures = 1
 
-    def __init__(self, gp, fn, fixed, host, buffers=()):
+    def __init__(self, gp, fn, fixed, host, buffers=(),
+                 during_capture=None):
         self.replays = 0
         self._staging = _Staging([np.ascontiguousarray(a) for a in host],
                                  gp.device)
@@ -146,8 +150,9 @@ class GraphProgram:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=gp.pool,
-                                  stream=gp.stream):
+            with during_capture or contextlib.nullcontext(), \
+                    torch.cuda.graph(self.graph, pool=gp.pool,
+                                     stream=gp.stream):
                 self.outputs = fn(*args)
         finally:
             if collecting:

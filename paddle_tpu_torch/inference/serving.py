@@ -133,7 +133,22 @@ The rest of the reference's observability (``serving.py:1608-1670``):
   ``observability.journal.replay`` drives a fresh engine (of either
   package) through the same schedule.
 
-Not ported yet (the constructor raises NotImplementedError): meshes.
+Tensor-parallel serving (reference ``serving.py:236-265``; the layout,
+the collectives and the process model in ``inference/tp.py``):
+``mesh=make_mesh(mp)`` with ``kv_shard="heads"|"replicated"`` and
+``collective_dtype="f32"|"int8"``. One engine object a rank, built with
+the same arguments on every rank: rank 0 leads (the scheduler, the
+journal, telemetry, the ledger and every host read are its own, as on
+one card), ranks 1 .. mp-1 call :meth:`ServingEngine.follow`, which runs
+the leader's dispatches on their shards until the leader's ``close()``.
+Every program dispatch (:meth:`_replay`) and every noise fill goes
+through the dispatch channel first. Each rank's pools hold its heads
+(``heads``) or all heads (``replicated``; the attention reads the rank's
+heads at an offset); ``xla_costs[fn]`` holds the collective census of
+each program's first run. ``mesh`` with ``mp = 1`` is the single-card
+engine. Under a ``gloo`` group the programs cannot be captured (its
+collectives run on the host): ``_capture=True`` raises there, and the
+caller passes ``_capture=False``.
 """
 from __future__ import annotations
 
@@ -176,9 +191,11 @@ from .faults import InjectedFault, ReplicaDown
 from .graphs import EagerProgram, GraphProgram, GraphPool
 from .scheduler import SHED_POLICIES, QueueFullError, RequestQueue
 from .speculative import SpecState
+from .tp import DispatchChannel, TPContext
 
 __all__ = ["PagedKVCache", "ServingEngine", "Request", "Completion",
            "QueueFullError", "record_quant_logit_err"]
+
 
 
 def record_quant_logit_err(registry, lever, err):
@@ -236,6 +253,17 @@ def _requant_write(pool, scales, pages, index, new, quant):
     q, s = quantize_per_page(x, dtype=quant)
     byte_view(pool)[pages] = byte_view(q)
     scales[pages] = s
+
+
+def _propose(decode_block, k, proposed, q_logits, *args):
+    """The propose scan (the draft's fused block of ``k + 1`` steps,
+    logits collected): its first ``k`` proposals and their logits land in
+    the round's fixed buffers ``proposed`` ``[k, S]`` and ``q_logits``
+    ``[k, S, V]``, which the verify (or mixed) program reads."""
+    toks, emits, lgs = decode_block(k + 1, *args, collect_logits=True)
+    proposed.copy_(toks[:k])
+    q_logits.copy_(lgs[:k])
+    return toks, emits, lgs
 
 
 def _emit_block(chain, n_emit, active, eos_ids, remaining):
@@ -567,7 +595,7 @@ def _health(lg32, mask):
 def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
                        prefill_chunk, attention, device, quant=None,
                        weight_quant=False, spec_k=None,
-                       logit_health=False):
+                       logit_health=False, h0=0):
     """The serving programs over a model's layer ``core``
     (``models.gpt.make_layer_core``), as plain functions of (params,
     pools, scales, state tensors) — the port of the reference's
@@ -588,8 +616,14 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
     artifact (``quantization/weights.py``) and each program widens them
     to float32 at its entry. ``spec_k`` (speculative decoding's
     ``draft_k``, None = off) adds the target's verify program and verify
-    rows (kind 3) to the mixed program."""
-    NH, HD, H, scale = core.NH, core.HD, core.H, core.scale
+    rows (kind 3) to the mixed program.
+
+    A tensor-parallel rank's ``core`` (``make_layer_core(cfg, tp=)``)
+    computes its own heads and ends each layer's row-parallel products
+    in a collective; ``h0`` is where its heads start in the pools (non-
+    zero over a replicated pool, whose heads are all of the model's).
+    Each attention output is this rank's heads, ``[..., NH * HD]``."""
+    scale = core.scale
     S, PS, MP, C = num_slots, page_size, pages_per_slot, prefill_chunk
     T = MP * PS  # per-slot attention extent
     dev = device
@@ -603,14 +637,14 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
         def decode_attn(q, kp, vp, ks, vs, bt, n_valid):
             return ragged_paged_attention_ref(
                 q[:, None], kp, vp, bt, n_valid, torch.ones_like(n_valid),
-                scale, ks, vs)[:, 0]
-        ragged = ragged_paged_attention_ref
+                scale, ks, vs, h0)[:, 0]
+        ragged = functools.partial(ragged_paged_attention_ref, h0=h0)
     else:
         def decode_attn(q, kp, vp, ks, vs, bt, n_valid):
             return paged_decode_attention(q, kp, vp, bt, n_valid,
                                           scale=scale, k_scale=ks,
-                                          v_scale=vs)
-        ragged = ragged_paged_attention
+                                          v_scale=vs, h0=h0)
+        ragged = functools.partial(ragged_paged_attention, h0=h0)
 
     def prep(params):
         """Widen an int8 weight artifact at program entry; a no-op
@@ -674,7 +708,7 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             write_decode(kp, ks, page, off, k)
             write_decode(vp, vs, page, off, v)
             o = decode_attn(q.contiguous(), kp, vp, ks, vs, bt, n_valid)
-            x = core.attn_out(lay, x, o.reshape(S, H))
+            x = core.attn_out(lay, x, o.reshape(S, -1))
             x = core.mlp_tail(lay, x)
         logits = core.ln(x, *params["lnf"]) @ wte.T       # [S, V]
         lg32 = logits.float()
@@ -763,7 +797,7 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             o = ragged(q.contiguous()[None], kp, vp, bt1, kv_len,
                        chunk_qlen, scale=scale, k_scale=ks,
                        v_scale=vs)[0]
-            x = core.attn_out(lay, x, o.reshape(C, H))
+            x = core.attn_out(lay, x, o.reshape(C, -1))
             x = core.mlp_tail(lay, x)
         last = x.index_select(0, last_idx.reshape(1))[0]
         return core.ln(last, *params["lnf"]) @ wte.T
@@ -841,7 +875,7 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
                     pool[page, off] = new.to(pool.dtype)
             o = ragged(q.contiguous(), kp, vp, bt, kv_lens, q_lens,
                        scale=scale, k_scale=ks, v_scale=vs)
-            x = core.attn_out(lay, x, o.reshape(S, K1, H))
+            x = core.attn_out(lay, x, o.reshape(S, K1, -1))
             x = core.mlp_tail(lay, x)
         lg32 = (core.ln(x, *params["lnf"]) @ wte.T).float()  # [S, K1, V]
         chain, n_acc = _sampler.spec_accept(
@@ -934,7 +968,7 @@ def _build_serving_fns(core, *, num_slots, page_size, pages_per_slot,
             mixed_write(vp, vs, page, off, pages_r, rloc, rowlive, v)
             o = ragged(q.contiguous(), kp, vp, bt, kv_lens, q_lens,
                        scale=scale, k_scale=ks, v_scale=vs)
-            x = core.attn_out(lay, x, o.reshape(S, QB, H))
+            x = core.attn_out(lay, x, o.reshape(S, QB, -1))
             x = core.mlp_tail(lay, x)
         # one head product over rows 0 .. K1-1 and last_idx of each slot
         sel = torch.cat([k1_rows[None].expand(S, K1),
@@ -996,7 +1030,11 @@ class ServingEngine:
     many; a ``(cfg, params)`` pair; False or None: off) with ``draft_k``
     proposals a round.
     ``attention="auto"`` runs the ragged kernel (the plain version for
-    CPU tensors); ``"torch"`` the plain version.
+    CPU tensors); ``"torch"`` the plain version. ``mesh`` (an
+    ``inference.tp.make_mesh`` handle), ``kv_shard`` (``"heads"`` or
+    ``"replicated"``) and ``collective_dtype`` (``"f32"`` or ``"int8"``,
+    which needs a mesh): tensor-parallel serving, one engine a rank
+    (the module docstring; rank > 0 calls :meth:`follow`).
     ``record_logits=True`` keeps every emitted token's f32 logits in
     ``logit_log[uid]`` (on the host), for parity checks.
 
@@ -1028,23 +1066,57 @@ class ServingEngine:
                  decode_block_buckets=(1, 4, 8, 16), max_queue=None,
                  shed_policy="reject", preemption=True,
                  fault_injector=None, kv_dtype=None, weight_dtype=None,
-                 record_logits=False, mesh=None, speculative=None,
+                 record_logits=False, mesh=None, kv_shard="heads",
+                 collective_dtype="f32", speculative=None,
                  draft_k=4, mixed_step=False, journal=None, tracer=None,
                  watchdog=None, registry=None, step_log=None,
                  tracing=True, postmortem_path=None, logit_health=False,
                  peak_flops=None, peak_hbm_bytes_per_s=None,
                  _capture=True):
-        if mesh is not None and mesh is not False:
-            raise NotImplementedError(
-                "mesh= is not ported to paddle_tpu_torch yet")
         if weight_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"unknown weight_dtype {weight_dtype!r} "
                              "(None, 'bf16' or 'int8')")
         if attention not in ("auto", "torch"):
             raise ValueError(f"unknown attention impl {attention!r} "
                              "('auto' or 'torch')")
+        # the int8 collective is wire format between ranks: one card has
+        # none (reference serving.py:1359-1363)
+        if collective_dtype != "f32" and mesh is None:
+            raise ValueError(
+                f"collective_dtype={collective_dtype!r} needs a mesh "
+                "(the quantized collective is inter-chip wire format)")
         spec_on = speculative is not None and speculative is not False
+        # tensor parallelism (inference/tp.py): validated at any mp; a
+        # mesh of one rank is the single-card engine
+        self.mesh, self.tp, self._chan, self._role = mesh, None, None, None
+        self.chips = 1
+        self.kv_shard = kv_shard if mesh is not None else None
+        self.collective_dtype = collective_dtype
+        if mesh is not None:
+            tp = TPContext(mesh, cfg, kv_shard=kv_shard,
+                           collective_dtype=collective_dtype)
+            if mesh.device is not None and device is None:
+                device = mesh.device
+            if tp.mp > 1:
+                self.tp, self.chips = tp, tp.mp
+                self._role = "lead" if tp.rank == 0 else "follow"
         self.device = resolve_device(device)
+        if self.tp is not None:
+            self._chan = DispatchChannel(mesh)
+            # the engine's number on its rank set: every rank builds its
+            # engines in the same order, so the numbers agree
+            self._mesh_seq = next(ServingEngine._mesh_seqs)
+        if self.tp is not None and _capture and \
+                self.device.type == "cuda" and mesh.backend == "gloo":
+            raise ValueError(
+                "a gloo mesh runs its collectives on the host, which a CUDA "
+                "graph cannot capture: pass _capture=False (captured sharded "
+                "programs need one GPU a rank and the nccl backend)")
+        if self._role == "follow":
+            # a follower runs programs only: the leader keeps the
+            # journal, the traces, the watchdog and the step log
+            journal = watchdog = step_log = None
+            tracing = False
         self.cfg = cfg
         maxpos = cfg.max_position_embeddings
         max_seq_len = int(max_seq_len or maxpos)
@@ -1121,6 +1193,11 @@ class ServingEngine:
             params = cast_params(params)
         elif weight_dtype == "int8":
             params = quantize_weights_int8(params)
+        # the bytes of a whole weight pass, and of this rank's shard
+        self._weight_bytes = self._weight_bytes_chip = params_nbytes(params)
+        if self.tp is not None:
+            params = self.tp.prepare_params(params)
+            self._weight_bytes_chip = params_nbytes(params)
         self.params = params
         # the journal's weights identity (reference serving.py:1515-1522):
         # blake2b of a strided sample of the raw embedding table as
@@ -1134,9 +1211,11 @@ class ServingEngine:
                                  np.float32).tobytes(),
             digest_size=8).hexdigest()
         self.logit_health = bool(logit_health)
-        core = make_layer_core(cfg)
+        core = make_layer_core(cfg, tp=self.tp)
+        # a rank's pools: its heads, or all of them (kv_shard)
         self.kv = PagedKVCache(
-            cfg.num_layers, num_pages, page_size, cfg.num_heads,
+            cfg.num_layers, num_pages, page_size,
+            cfg.num_heads if self.tp is None else self.tp.pool_heads,
             cfg.hidden_size // cfg.num_heads, raw_dtype,
             prefix_cache=prefix_cache, kv_dtype=kv_dtype,
             device=self.device)
@@ -1147,7 +1226,11 @@ class ServingEngine:
             device=self.device, quant=self.kv.quant_dtype,
             weight_quant=weight_dtype == "int8",
             spec_k=int(draft_k) if spec_on else None,
-            logit_health=self.logit_health)
+            logit_health=self.logit_health,
+            h0=0 if self.tp is None else self.tp.h0)
+        # the collective census of each program's first run (the
+        # reference's per-dispatch HLO census keeps these keys)
+        self.xla_costs = {}
         self.record_logits = bool(record_logits)
         self.logit_log = {}
 
@@ -1195,6 +1278,10 @@ class ServingEngine:
                       # port-only: CUDA graphs captured / replayed (the
                       # reference pins its jit cache sizes)
                       "graph_captures": 0, "graph_replays": 0}
+        if self.tp is not None:
+            # which process group carries the collectives: a gloo run on
+            # one card is no multi-GPU number
+            self.stats["backend"] = self.mesh.backend
         self._steps = 0            # step() calls: the anatomy's clock
         self._log_seq = 0          # records written to the step log
         self._step_tenant_tokens = {}   # tenant -> tokens this step
@@ -1290,8 +1377,8 @@ class ServingEngine:
             "decode_block_buckets": list(self.decode_block_buckets),
             "kv_dtype": self.kv_dtype,
             "weight_dtype": self.weight_dtype,
-            "collective_dtype": "f32",
-            "chips": 1,
+            "collective_dtype": self.collective_dtype,
+            "chips": self.chips,
             "max_queue": self.max_queue,
             "shed_policy": self.shed_policy,
             "preemption": self.preemption,
@@ -1371,8 +1458,13 @@ class ServingEngine:
                 return
             self.stats["graph_captures"] += 1
             t0 = time.perf_counter()
+            # a replay runs no Python: the census counts the capture
+            census = self.tp.census() if self.tp is not None else None
             progs[key] = GraphProgram(graphs, get_fn(), fix,
-                                      self._idle_host(key), buffers)
+                                      self._idle_host(key), buffers,
+                                      during_capture=census)
+            if census is not None:
+                self._note_census(key, census, 1)
             self._compiles.track(name, progs[key], t0=t0,
                                  t1=time.perf_counter())
 
@@ -1408,8 +1500,8 @@ class ServingEngine:
             make("mirror", lambda: lambda *a: dfns.decode_step(*a, None),
                  dfixed)
             make("propose", lambda: functools.partial(
-                dfns.decode_block, spec.k + 1, collect_logits=True),
-                 dfixed, (noise(spec.k + 1),))
+                _propose, dfns.decode_block, spec.k, spec.proposed,
+                spec.q_logits), dfixed, (noise(spec.k + 1),))
         self._compiles.publish()
         return progs
 
@@ -1423,6 +1515,7 @@ class ServingEngine:
                     "mirror": "draft_mirror", "propose": "spec_propose",
                     "verify": "spec_verify", "draft_copy": "draft_copy"}
     _engine_ids = iter(range(1 << 62))  # "engine" label for gauge series
+    _mesh_seqs = iter(range(1 << 62))   # mesh engines built on this rank
 
     def _init_telemetry(self, registry, step_log, raw_params, peak_flops,
                         peak_hbm_bytes_per_s):
@@ -1629,9 +1722,11 @@ class ServingEngine:
             platform=self.device.type, peak_flops=peak_flops,
             peak_hbm_bytes_per_s=peak_hbm_bytes_per_s,
             slots=self.num_slots,
-            weight_bytes=params_nbytes(self.params),
+            weight_bytes=self._weight_bytes,
+            weight_bytes_chip=self._weight_bytes_chip,
             weight_dtype=self.weight_dtype or str(
-                raw_params["wte"].dtype).replace("torch.", ""))
+                raw_params["wte"].dtype).replace("torch.", ""),
+            tp=self.tp, act_bytes=self._act_bytes(raw_params))
         # the latency anatomy on the step clock
         self.anatomy = AnatomyLedger()
         self._anat_blocked_step = False
@@ -1789,7 +1884,10 @@ class ServingEngine:
         trace_id = ""
         if self._tracer is not None:
             trace_id = f"e{self.engine_id}:req{uid}"
-            extra = trace_attrs or {}
+            # a sharded engine's traces carry its mp (reference
+            # serving.py:2265-2276)
+            extra = dict(trace_attrs or {},
+                         **({"mp": self.chips} if self.tp else {}))
             try:
                 self._tracer.start_trace(
                     "request", trace_id=trace_id, uid=uid,
@@ -2423,11 +2521,14 @@ class ServingEngine:
             # the draft mirrors every target prefill chunk, so its pool
             # holds draft K/V wherever the target's does
             self.spec.prefill_chunk(slot, base, st.toks[base:base + C])
-        # the ledger: useful positions only (padding rows are waste)
+        # the ledger: useful positions only (padding rows are waste); the
+        # collectives carry the whole chunk
         useful = max(min(C, P - base), 0)
-        self.ledger.on_prefill_chunk(useful, base, owner=st.uid)
+        self.ledger.on_prefill_chunk(useful, base, phys_positions=C,
+                                     owner=st.uid)
         if self.spec is not None:
-            self.ledger.on_draft_prefill(useful, base, owner=st.uid)
+            self.ledger.on_draft_prefill(useful, base, phys_positions=C,
+                                         owner=st.uid)
         st.pf_base = base + C
         if st.pf_base >= st.pf_end:    # a graph's output: the next replay
             st.logits = logits.clone()  # overwrites it
@@ -2615,10 +2716,41 @@ class ServingEngine:
     def _replay(self, key, *host):
         """Dispatch program ``key`` on the host arrays ``host``: replay
         its graph (or call it eagerly). Returns its outputs; a graph's
-        are overwritten by its next replay."""
-        if isinstance(self._progs[key], GraphProgram):
+        are overwritten by its next replay. A mesh leader sends the
+        dispatch to its followers first."""
+        self._send("replay", key, host)
+        try:
+            return self._run_program(key, host)
+        except Exception as e:
+            if self._role != "lead":
+                raise
+            self._mesh_failed(e)
+
+    def _run_program(self, key, host):
+        """Run program ``key`` on this rank; on a mesh, its first run
+        counts its collectives into ``xla_costs`` (per scan step for the
+        fused block and the propose scan, as the reference's census
+        counts a scan body once)."""
+        prog = self._progs[key]
+        if isinstance(prog, GraphProgram):
             self.stats["graph_replays"] += 1
-        return self._progs[key].replay(*host)
+        name = self._CENSUS_NAME.get(key, "decode_block")
+        if self.tp is None or name in self.xla_costs:
+            return prog.replay(*host)
+        with self.tp.census() as census:
+            out = prog.replay(*host)
+        self._note_census(key, census, 1)
+        return out
+
+    def _note_census(self, key, census, runs):
+        """``xla_costs`` of program ``key`` from ``runs`` counted runs of
+        it, per scan step for a fused block and the propose scan."""
+        steps = runs * (key if isinstance(key, int) else (
+            self.spec.k + 1 if key == "propose" else 1))
+        self.xla_costs[self._CENSUS_NAME.get(key, "decode_block")] = {
+            "collective_bytes": census.total // steps,
+            "collective_by_op": {op: n // steps
+                                 for op, n in census.by_op.items()}}
 
     def _fill_noise(self, key, k, gens=None):
         """Gumbel noise for the active sampled slots into program
@@ -2626,16 +2758,24 @@ class ServingEngine:
         (a greedy row's token ignores it). Each token draws its own
         ``[V]`` from its slot's generator (of ``gens``, default the
         target's), so a request's draws do not depend on how steps group
-        into blocks; greedy slots draw nothing."""
+        into blocks; greedy slots draw nothing. A mesh leader sends the
+        generators' states first, so every rank draws the same noise."""
+        gens = self._gens if gens is None else gens
+        draws = [(int(s), gens[s]) for s in np.nonzero(self._active)[0]
+                 if self._temps[s] > 0]
+        if self._role == "lead":
+            self._send("noise", key, k,
+                       [(s, g.get_state()) for s, g in draws])
+        self._draw_noise(key, k, draws)
+
+    def _draw_noise(self, key, k, draws):
         buf = self._progs[key].buffers[0].view(k, self.num_slots, -1)
         buf.zero_()
         V = self.cfg.vocab_size
-        gens = self._gens if gens is None else gens
-        for s in np.nonzero(self._active)[0]:
-            if self._temps[s] > 0:
-                buf[:, s] = torch.stack([
-                    _sampler.gumbel_noise((V,), gens[s], self.device)
-                    for _ in range(k)])
+        for s, gen in draws:
+            buf[:, s] = torch.stack([
+                _sampler.gumbel_noise((V,), gen, self.device)
+                for _ in range(k)])
 
     def _fill_verify_noise(self, key, verify_rows):
         """The target generators' draws for program ``key`` (``"verify"``
@@ -2643,18 +2783,118 @@ class ServingEngine:
         ``[V]`` Gumbel draw (its decode token or its round's correction),
         and a slot of ``verify_rows`` then its round's ``k`` acceptance
         uniforms. A round draws the same whatever its outcome; greedy
-        slots draw nothing."""
+        slots draw nothing. Sent to a mesh's followers as
+        :meth:`_fill_noise` is."""
+        draws = [(int(s), self._gens[s], bool(verify_rows[s]))
+                 for s in np.nonzero(self._active)[0] if self._temps[s] > 0]
+        if self._role == "lead":
+            self._send("verify_noise", key,
+                       [(s, g.get_state(), v) for s, g, v in draws])
+        self._draw_verify_noise(key, draws)
+
+    def _draw_verify_noise(self, key, draws):
         gumbel, uniforms = self._progs[key].buffers[:2]
         gumbel.zero_()
         uniforms.zero_()
         V, k = self.cfg.vocab_size, self.spec.k
-        for s in np.nonzero(self._active)[0]:
-            if self._temps[s] > 0:
-                gen = self._gens[s]
-                gumbel[s] = _sampler.gumbel_noise((V,), gen, self.device)
-                if verify_rows[s]:
-                    uniforms[s] = torch.rand(k, generator=gen,
-                                             device=self.device)
+        for s, gen, verify in draws:
+            gumbel[s] = _sampler.gumbel_noise((V,), gen, self.device)
+            if verify:
+                uniforms[s] = torch.rand(k, generator=gen,
+                                         device=self.device)
+
+    # -- the mesh: the leader's dispatch channel and the follower loop ------
+    def _act_bytes(self, raw_params):
+        """The residual stream's itemsize, which every collective of the
+        programs carries (an int8 weight artifact is widened to float32
+        at each dispatch's entry)."""
+        if self.weight_dtype == "int8":
+            return 4
+        if self.weight_dtype == "bf16":
+            return 2
+        return raw_params["wte"].element_size()
+
+    def _send(self, op, *args):
+        """A mesh leader's message to its followers (nothing elsewhere).
+        A failure here or in the dispatch that follows raises the
+        follower's own error where one noted it (:meth:`_mesh_failed`)."""
+        if self._role != "lead":
+            return
+        if self._chan is None:
+            raise RuntimeError("this mesh engine's followers were stopped "
+                               "(close() or a fatal error)")
+        try:
+            self._chan.send((self._mesh_seq, op, args))
+        except Exception as e:
+            self._mesh_failed(e)
+
+    def _mesh_failed(self, err):
+        """Raise the followers' noted failures (naming their ranks) in
+        place of ``err``, a broken collective; ``err`` if none noted one."""
+        notes = self._chan.failures() if self._chan is not None else []
+        if notes:
+            raise RuntimeError("mesh follower(s) failed: " + "; ".join(
+                f"rank {r}:\n{tb}" for r, tb in notes)) from err
+        raise err
+
+    def _stop_followers(self):
+        """Tell the followers to leave :meth:`follow` (once); never
+        raises: a follower that is gone already has stopped."""
+        chan, self._chan = self._chan, None
+        if self._role == "lead" and chan is not None:
+            try:
+                chan.send((self._mesh_seq, "stop", ()))
+            except Exception:
+                pass
+
+    def _gen(self, state):
+        gen = torch.Generator(device=self.device)
+        gen.set_state(state)
+        return gen
+
+    def follow(self, *more):
+        """A follower rank's loop: receive the leader's dispatches and
+        noise fills and run them over this rank's shard, until the
+        leader closes the engine (or fails). ``more``: further engines of
+        this rank (a fleet's replicas, built in the leader's order),
+        served by the same loop until each is closed. A failure here is
+        noted in the rank set's store for the leader, then raised; a
+        wait longer than the process group's timeout raises."""
+        engines = {e._mesh_seq: e for e in (self, *more)
+                   if e._role == "follow"}
+        if len(engines) != 1 + len(more):
+            raise RuntimeError("follow() runs on a mesh follower (rank > 0)")
+        try:
+            with torch.no_grad():
+                while engines:
+                    seq, op, args = self._chan.recv()
+                    eng = engines[seq]
+                    if op == "stop":
+                        eng._closed = True
+                        del engines[seq]
+                    else:
+                        eng._follow_one(op, args)
+        except BaseException:
+            import traceback
+            self._chan.note_failure(traceback.format_exc())
+            raise
+
+    def _follow_one(self, op, args):
+        """One leader message on this follower engine."""
+        if op == "replay":
+            self._run_program(*args)
+        elif op == "noise":
+            key, k, states = args
+            self._draw_noise(key, k, [(s, self._gen(st))
+                                      for s, st in states])
+        elif op == "verify_noise":
+            key, states = args
+            self._draw_verify_noise(key, [(s, self._gen(st), v)
+                                          for s, st, v in states])
+        elif op == "zero_round":
+            self.spec.zero_round()
+        else:
+            raise RuntimeError(f"unknown mesh message {op!r}")
 
     def _log_step_logits(self, lg32, emit):
         """record_logits: keep each emitted token's logits per uid."""
@@ -2925,11 +3165,14 @@ class ServingEngine:
                                     old_len[int(slot)])
 
         # a dispatch without active slots bills no decode weight pass:
-        # its weight stream belongs to the prefill rows
+        # its weight stream belongs to the prefill rows; the collectives
+        # carried QB rows of every slot, the prefill rows' share billed
+        # with them
         emitted = self._apply_token_block(
             tokb, emitb, QB, mixed_span,
             ledger_phase="spec_verify" if use_spec else "decode",
-            weight_passes=1 if len(active_slots) else 0)
+            weight_passes=1 if len(active_slots) else 0,
+            ledger_positions=QB * (S - len(pf_rows)))
         for slot, st, base, last in pf_rows:
             with self._trace_span(
                     "prefill_chunk", st.trace_id,
@@ -2939,9 +3182,11 @@ class ServingEngine:
             if spec is not None:
                 spec.prefill_chunk(slot, base, st.toks[base:base + C])
             useful = max(min(C, st.prompt_len - base), 0)
-            self.ledger.on_prefill_chunk(useful, base, owner=st.uid)
+            self.ledger.on_prefill_chunk(useful, base, phys_positions=QB,
+                                         owner=st.uid)
             if spec is not None:
-                self.ledger.on_draft_prefill(useful, base, owner=st.uid)
+                self.ledger.on_draft_prefill(useful, base,
+                                             phys_positions=C, owner=st.uid)
             st.pf_base = base + C
             self.stats["prefill_chunks"] += 1
             if st.pf_base >= st.pf_end:
@@ -2951,15 +3196,17 @@ class ServingEngine:
         return emitted, K + 1 if use_spec else 1
 
     def _apply_token_block(self, tokb, emitb, k, span_for=None,
-                           ledger_phase="decode", weight_passes=None):
+                           ledger_phase="decode", weight_passes=None,
+                           ledger_positions=None):
         """Apply a ``(k, slots)`` device token block to the host
         scheduler: append each slot's emitted tokens, finish
         EOS/budget-exhausted slots, advance the host mirrors (reference
         ``_apply_token_block``). ``span_for(slot, st, emitted,
         eos_hits)`` may return a ``(name, attrs)`` span to record under
         each participating request's decode span; ``ledger_phase`` and
-        ``weight_passes`` (default ``k``) feed the ledger. Returns the
-        tokens emitted."""
+        ``weight_passes`` (default ``k``) and ``ledger_positions`` (the
+        positions the dispatch's collectives carried, default every slot
+        of every pass) feed the ledger. Returns the tokens emitted."""
         plan = []
         eos_hits = 0
         for slot in np.nonzero(self._active)[0]:
@@ -2998,7 +3245,8 @@ class ServingEngine:
         self.ledger.on_decode(
             emitted, sum(c for _, _, c in owners),
             weight_passes=k if weight_passes is None else weight_passes,
-            phase=ledger_phase, owners=owners)
+            phase=ledger_phase, phys_positions=ledger_positions,
+            owners=owners)
         for slot, st, toks, reason in plan:
             span = span_for(slot, st, emitted, eos_hits) \
                 if span_for is not None else None
@@ -3048,7 +3296,8 @@ class ServingEngine:
                 tenant=st.tenant,
                 cost_flops=float(sum(rec.get("flops", {}).values())),
                 cost_hbm_bytes=float(sum(rec.get("hbm_bytes", {}).values())),
-                cost_collective_bytes=0.0,
+                cost_collective_bytes=float(
+                    sum(rec.get("collective_bytes", {}).values())),
                 cached_tokens_saved=int(rec.get("cached_tokens", 0))):
             self.kv.release(st.pages)
             self._clear_slot(slot)
@@ -3087,6 +3336,7 @@ class ServingEngine:
         except Exception:
             self._dump_postmortem("exception")
             self._teardown_all("error")
+            self._stop_followers()      # a mesh leader's fatal error
             raise
         if self.journal is not None:
             for c in comps:
@@ -3228,6 +3478,7 @@ class ServingEngine:
         if self._closed:
             return {}
         self._teardown_all("aborted")
+        self._stop_followers()
         aborted = {c.uid: c for c in self._early_done}
         self._early_done = []
         # the teardown never runs the step's tail: retire the stranded

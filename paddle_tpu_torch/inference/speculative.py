@@ -135,20 +135,34 @@ class SpecState:
             dparams = cast_params(dparams)
         elif engine.weight_dtype == "int8":
             dparams = quantize_weights_int8(dparams)
+        # on a mesh the draft shards over the same ranks, its pool
+        # following the target's kv_shard (reference speculative.py:114)
+        self.tp = None
+        weight_bytes = weight_bytes_chip = params_nbytes(dparams)
+        if engine.tp is not None:
+            from .tp import TPContext
+            self.tp = TPContext(engine.mesh, dcfg, engine.kv_shard,
+                                engine.collective_dtype)
+            dparams = self.tp.prepare_params(dparams)
+            weight_bytes_chip = params_nbytes(dparams)
         self.params = dparams
         S, NP = engine.num_slots, engine.kv.num_pages
         dNH = dcfg.num_heads
-        shape = (NP, engine.page_size, dNH, dcfg.hidden_size // dNH)
+        shape = (NP, engine.page_size,
+                 dNH if self.tp is None else self.tp.pool_heads,
+                 dcfg.hidden_size // dNH)
         self.dk = [torch.zeros(shape, dtype=raw_dtype, device=dev)
                    for _ in range(dcfg.num_layers)]
         self.dv = [torch.zeros(shape, dtype=raw_dtype, device=dev)
                    for _ in range(dcfg.num_layers)]
         self.fns = _build_serving_fns(
-            make_layer_core(dcfg), num_slots=S, page_size=engine.page_size,
+            make_layer_core(dcfg, tp=self.tp), num_slots=S,
+            page_size=engine.page_size,
             pages_per_slot=engine.pages_per_slot,
             prefill_chunk=engine.prefill_chunk, attention=engine.attention,
             device=dev, quant=None,
-            weight_quant=engine.weight_dtype == "int8")
+            weight_quant=engine.weight_dtype == "int8",
+            h0=0 if self.tp is None else self.tp.h0)
         V = tcfg.vocab_size
         # the round's outputs as the verify/mixed program reads them:
         # fixed tensors, zeroed on a mixed dispatch without verify rows
@@ -171,7 +185,9 @@ class SpecState:
                                   dtype="draft").set(self.pool_bytes())
         engine.ledger.set_draft(dcfg, raw, self.pool_bytes(), NP,
                                 engine.page_size,
-                                weight_bytes=params_nbytes(self.params))
+                                weight_bytes=weight_bytes,
+                                weight_bytes_chip=weight_bytes_chip,
+                                act_bytes=engine._act_bytes(raw))
 
     def pool_bytes(self):
         """Resident bytes of the draft's K/V pool."""
@@ -227,11 +243,9 @@ class SpecState:
         eng = self.eng
         eng._fill_noise("propose", self.k + 1, self.gens)
         with _prof.RecordEvent("serving.spec_draft"):
-            toks, _, lgs = eng._replay(
-                "propose", eng._bt, eng._lengths, eng._tokens, eng._active,
-                eng._temps, self.no_eos, self.no_budget)
-            self.proposed.copy_(toks[:self.k])
-            self.q_logits.copy_(lgs[:self.k])
+            eng._replay("propose", eng._bt, eng._lengths, eng._tokens,
+                        eng._active, eng._temps, self.no_eos,
+                        self.no_budget)
         eng.stats["dispatches"] += 1
         for s in np.nonzero(eng._active)[0]:
             st = eng._slots[s]
@@ -242,7 +256,9 @@ class SpecState:
                     pass
 
     def zero_round(self):
-        """A mixed dispatch without verify rows reads zeros."""
+        """A mixed dispatch without verify rows reads zeros (on every
+        rank of a mesh)."""
+        self.eng._send("zero_round")
         self.proposed.zero_()
         self.q_logits.zero_()
 
@@ -323,5 +339,7 @@ class SpecState:
 
         emitted = eng._apply_token_block(tokb, emitb, k + 1, spec_span,
                                          ledger_phase="spec_verify",
-                                         weight_passes=1)
+                                         weight_passes=1,
+                                         ledger_positions=(k + 1)
+                                         * eng.num_slots)
         return emitted, k + 1

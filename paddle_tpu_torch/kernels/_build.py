@@ -12,11 +12,19 @@ builds, or a caller (``chip_smoke.py``) builds every source at once with
 ``defines`` (``-D`` flags, for a source's test hooks) build a variant
 beside the plain library, under its own name. :func:`launch_context` is
 the device context the wrappers launch in.
+
+Builds are serialised across processes by an ``flock`` on
+``_build/build.lock`` (the ranks of a sharded engine start together and
+may launch their first kernel at once): the first process compiles, the
+others wait and then find the library. A library is written under a
+temporary name and renamed into place, so no process loads a partial
+file. The lock is the kernel's own, released when its holder exits.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -69,14 +77,30 @@ def _target(name, defines=()):
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """The cross-process build lock (the module docstring)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=SOURCES, defines=()):
     """Compile every named source that is not built yet, one ``nvcc``
-    process each, all running at once. Returns ``build_log`` (keyed by
-    the name, followed by the defines if any); raises with the
-    compiler's output if any build fails."""
+    process each, all running at once, under the build lock. Returns
+    ``build_log`` (keyed by the name, followed by the defines if any);
+    raises with the compiler's output if any build fails."""
+    with _build_lock():
+        return _build_all(names, defines)
+
+
+def _build_all(names, defines):
     nvcc = None
     procs = {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for name in names:
         src, out = _target(name, defines)
         if out.exists():

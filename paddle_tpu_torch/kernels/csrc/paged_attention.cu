@@ -16,6 +16,10 @@
 //   padding rows (j >= q_len) attend the whole extent so they stay
 //   finite; kv_len 0 gives zeros. Pages past kv_len are never read.
 //   out [S, QB, NH, HD] in q's type; all arithmetic in float32.
+//   Every entry reads heads h0 .. h0 + NH - 1 of pools that hold
+//   PNH >= h0 + NH heads ([NP, PS, PNH, HD], scales [NP, PNH]): a
+//   tensor-parallel rank's heads of a replicated pool, read in place
+//   (inference/tp.py); PNH = NH, h0 = 0 is the pools of q's own heads.
 //
 // What bounds it on this card: bytes. Each layer's K and V stream once,
 // sum(kv_len) x NH x HD elements each, against 2 x HD multiply-adds per
@@ -189,7 +193,8 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
                               const int* __restrict__ kv_lens,
                               const int* __restrict__ q_lens,
                               QT* __restrict__ out, int QB, int NH, int HD,
-                              int PS, int MP, float scale, int words) {
+                              int PS, int MP, float scale, int words,
+                              int PNH, int h0) {
   extern __shared__ float smem[];
   const int row0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
@@ -214,6 +219,8 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
   const int L = min(kv_lens[s], MP * PS);
   const int qn = q_lens[s];
   const size_t head_stride = (size_t)NH * HD;  // one position of one slot
+  const size_t pool_stride = (size_t)PNH * HD;  // one position of one page
+  const int ph = h0 + h;                         // the head in the pool
   const size_t q_base = ((size_t)s * QB + row0) * head_stride + (size_t)h * HD;
 
   if (L <= 0) {  // idle slot: zeros, nothing read
@@ -250,7 +257,7 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
       const int p0 = t0 / PS;
       const int np = (t0 + tn - 1) / PS - p0 + 1;
       for (int i = tid; i < np; i += kThreads) {
-        const size_t g = (size_t)bt[p0 + i] * NH + h;
+        const size_t g = (size_t)bt[p0 + i] * PNH + ph;
         sks[i] = k_scale[g];
         svs[i] = v_scale[g];
       }
@@ -263,8 +270,8 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
           const int t = i / W, w = i - t * W;
           const int pos = t0 + t;
           const int page = bt[pos / PS];
-          const size_t off = ((size_t)page * PS + (pos % PS)) * head_stride +
-                             (size_t)h * HD + 4 * w;
+          const size_t off = ((size_t)page * PS + (pos % PS)) * pool_stride +
+                             (size_t)ph * HD + 4 * w;
           const float ks = sks[pos / PS - p0], vs = svs[pos / PS - p0];
           const uint32_t kw = *reinterpret_cast<const uint32_t*>(kb + off);
           const uint32_t vw = *reinterpret_cast<const uint32_t*>(vb + off);
@@ -281,8 +288,8 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
           const int t = i / HD, d = i - t * HD;
           const int pos = t0 + t;
           const int page = bt[pos / PS];
-          const size_t off = ((size_t)page * PS + (pos % PS)) * head_stride +
-                             (size_t)h * HD + d;
+          const size_t off = ((size_t)page * PS + (pos % PS)) * pool_stride +
+                             (size_t)ph * HD + d;
           sk[t * kstride + d] = code_f32<KVT>(kb[off]) * sks[pos / PS - p0];
           sv[t * HD + d] = code_f32<KVT>(vb[off]) * svs[pos / PS - p0];
         }
@@ -293,7 +300,7 @@ ragged_paged_attention_kernel(const QT* __restrict__ q,
         const int pos = t0 + t;
         const int page = bt[pos / PS];
         const size_t off =
-            ((size_t)page * PS + (pos % PS)) * head_stride + (size_t)h * HD + d;
+            ((size_t)page * PS + (pos % PS)) * pool_stride + (size_t)ph * HD + d;
         sk[t * kstride + d] = to_f32(k_pool[off]);
         sv[t * HD + d] = to_f32(v_pool[off]);
       }
@@ -359,7 +366,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const float* k_scale, const float* v_scale,
            const void* block_tables, const void* kv_lens, const void* q_lens,
            void* out, int S, int QB, int NH, int HD, int PS, int MP,
-           float scale, cudaStream_t stream) {
+           int PNH, int h0, float scale, cudaStream_t stream) {
   const bool quant = IsQuant<KVT>::value;
   if (quant != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;  // scales exactly for int8/fp8 pools
@@ -379,7 +386,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const KVT*>(v_pool), k_scale, v_scale,
       static_cast<const int*>(block_tables),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
-      static_cast<QT*>(out), QB, NH, HD, PS, MP, scale, words);
+      static_cast<QT*>(out), QB, NH, HD, PS, MP, scale, words, PNH, h0);
   return (int)cudaGetLastError();
 }
 
@@ -532,7 +539,8 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
                                     const int* __restrict__ kv_lens,
                                     const int* __restrict__ q_lens, QT* __restrict__ out,
                                     float* __restrict__ ws, int QB, int NH, int HD, int PS,
-                                    int MP, int SL, int nsplit, float scale) {
+                                    int MP, int SL, int nsplit, float scale, int PNH,
+                                    int h0) {
   using P = SplitPlan<KVT, NU, G, DECODE>;
   constexpr int E = P::E, EPL = P::EPL, RW = P::RW, GPW = P::GPW, SP = P::SP;
   constexpr bool kQuant = IsQuant<KVT>::value;
@@ -546,6 +554,8 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
   const int row0 = rt * P::ROWS;
   const int L = min(kv_lens[s], MP * PS), qn = q_lens[s];
   const size_t head_stride = (size_t)NH * HD;  // one position of one slot
+  const size_t pool_stride = (size_t)PNH * HD; // one position of one page
+  const int ph = h0 + h;                       // the head in the pool
   const bool direct = ws == nullptr;           // one split: out, not partials
 
   // positions [p0, p1) of this split that some row of the CTA attends
@@ -574,8 +584,8 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
     const int page = block_tables[(size_t)s * MP + pg0 + i];
     sbt[i] = page;
     if constexpr (kQuant) {
-      sks[i] = k_scale[(size_t)page * NH + h];
-      svs[i] = v_scale[(size_t)page * NH + h];
+      sks[i] = k_scale[(size_t)page * PNH + ph];
+      svs[i] = v_scale[(size_t)page * PNH + ph];
     }
   }
   const int RB = HD * (int)sizeof(KVT);  // bytes of one head's page row
@@ -594,8 +604,8 @@ ragged_paged_attention_split_kernel(const QT* __restrict__ q, const KVT* __restr
       const int pi = i / U, u = i - pi * U;
       const int pos = base + pi;
       if (pos >= p1) break;
-      const size_t off = ((size_t)sbt[pos / PS - pg0] * PS + pos % PS) * head_stride +
-                         (size_t)h * HD + (size_t)u * E;
+      const size_t off = ((size_t)sbt[pos / PS - pg0] * PS + pos % PS) * pool_stride +
+                         (size_t)ph * HD + (size_t)u * E;
       cp_async16(smem_u32(st + pi * RB + u * 16), k_pool + off);
       cp_async16(smem_u32(st + (SP + pi) * RB + u * 16), v_pool + off);
     }
@@ -802,7 +812,8 @@ template <typename QT, typename KVT, int NU, int G, bool DECODE>
 int launch_split_t(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
                    const float* v_scale, const void* block_tables, const void* kv_lens,
                    const void* q_lens, void* out, float* ws, int S, int QB, int NH, int HD, int PS,
-                   int MP, int SL, int nsplit, float scale, cudaStream_t stream) {
+                   int MP, int SL, int nsplit, int PNH, int h0, float scale,
+                   cudaStream_t stream) {
   using P = SplitPlan<KVT, NU, G, DECODE>;
   auto kern = ragged_paged_attention_split_kernel<QT, KVT, NU, G, DECODE>;
   const size_t smem = split_smem(HD, sizeof(KVT), SL, PS, P::SP, DECODE);
@@ -816,7 +827,7 @@ int launch_split_t(const void* q, const void* k_pool, const void* v_pool, const 
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), k_scale, v_scale, static_cast<const int*>(block_tables),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens), static_cast<QT*>(out),
-      nsplit > 1 ? ws : nullptr, QB, NH, HD, PS, MP, SL, nsplit, scale);
+      nsplit > 1 ? ws : nullptr, QB, NH, HD, PS, MP, SL, nsplit, scale, PNH, h0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return (int)e;
   // the merge launches while the split kernel runs (programmatic dependent
@@ -846,12 +857,12 @@ template <typename QT, typename KVT>
 int launch_split(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
                  const float* v_scale, const void* block_tables, const void* kv_lens,
                  const void* q_lens, void* out, float* ws, int S, int QB, int NH, int HD, int PS,
-                 int MP, int SL, int nsplit, float scale, cudaStream_t st) {
+                 int MP, int SL, int nsplit, int PNH, int h0, float scale, cudaStream_t st) {
   const int U = HD * (int)sizeof(KVT) / 16;
 #define PA_SPLIT(NU, G, DEC)                                                                 \
   return launch_split_t<QT, KVT, NU, G, DEC>(q, k_pool, v_pool, k_scale, v_scale,            \
                                              block_tables, kv_lens, q_lens, out, ws, S, QB, \
-                                             NH, HD, PS, MP, SL, nsplit, scale, st)
+                                             NH, HD, PS, MP, SL, nsplit, PNH, h0, scale, st)
 #define PA_SPLIT_NU(DEC)                 \
   if constexpr (IsQuant<KVT>::value) {   \
     if (U <= 4) PA_SPLIT(1, 4, DEC);     \
@@ -889,24 +900,24 @@ bool split_args_ok(const void* k_pool, const void* v_pool, int HD, int unit, int
 }  // namespace
 
 // dtype codes: q 0 = float32, 1 = bfloat16; pools those, 2 = int8 codes,
-// 3 = float8 e4m3 codes. k_scale/v_scale [NP, NH] float32 for the int8
-// and fp8 pools, null otherwise. Returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for a dtype pair or
-// scale pointers it does not take.
+// 3 = float8 e4m3 codes. k_scale/v_scale [NP, PNH] float32 for the int8
+// and fp8 pools, null otherwise. The pools hold PNH heads; q and out NH,
+// read from pool heads h0 .. h0 + NH - 1. Returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue for a dtype
+// pair, scale pointers or a head range it does not take.
 extern "C" int paged_attention_forward(int q_dtype, int kv_dtype, const void* q,
                                        const void* k_pool, const void* v_pool,
-                                       const float* k_scale,
-                                       const float* v_scale,
-                                       const void* block_tables,
-                                       const void* kv_lens, const void* q_lens,
-                                       void* out, int S, int QB, int NH, int HD,
-                                       int PS, int MP, float scale,
+                                       const float* k_scale, const float* v_scale,
+                                       const void* block_tables, const void* kv_lens,
+                                       const void* q_lens, void* out, int S, int QB, int NH,
+                                       int HD, int PS, int MP, int PNH, int h0, float scale,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (h0 < 0 || NH < 1 || h0 + NH > PNH) return (int)cudaErrorInvalidValue;
 #define PA_LAUNCH(QT, KVT)                                                    \
   return launch<QT, KVT>(q, k_pool, v_pool, k_scale, v_scale, block_tables, \
-                         kv_lens, q_lens, out, S, QB, NH, HD, PS, MP, scale, \
-                         st)
+                         kv_lens, q_lens, out, S, QB, NH, HD, PS, MP, PNH,  \
+                         h0, scale, st)
   if (q_dtype == 0 && kv_dtype == 0) PA_LAUNCH(float, float);
   if (q_dtype == 1 && kv_dtype == 1) PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == 0 && kv_dtype == 1) PA_LAUNCH(float, __nv_bfloat16);
@@ -919,25 +930,26 @@ extern "C" int paged_attention_forward(int q_dtype, int kv_dtype, const void* q,
   return (int)cudaErrorInvalidValue;
 }
 
-// The split-KV design: as paged_attention_forward, for float32 / bfloat16
-// pools (kv_dtype 0 or 1) with HD % 8 == 0, HD <= 256 and 16-byte aligned
-// pools. The extent [0, MP * PS) is cut into nsplit <= 64 splits of SL
-// positions (SL a multiple of PS); with nsplit > 1, ws holds S * QB * NH *
-// nsplit * (HD + 2) floats for the partials (acc, then m, then l) and a
-// second kernel merges them. Returns cudaGetLastError() after the
+// The split-KV design: as paged_attention_forward, for float32 /
+// bfloat16 pools (kv_dtype 0 or 1) with HD % 8 == 0, HD <= 256 and 16-byte
+// aligned pools. The extent [0, MP * PS) is cut into nsplit <= 64 splits
+// of SL positions (SL a multiple of PS); with nsplit > 1, ws holds S * QB *
+// NH * nsplit * (HD + 2) floats for the partials (acc, then m, then l) and
+// a second kernel merges them. Returns cudaGetLastError() after the
 // launches, or cudaErrorInvalidValue for what it does not take.
-extern "C" int paged_attention_forward_split(int q_dtype, int kv_dtype, const void* q,
-                                             const void* k_pool, const void* v_pool,
-                                             const void* block_tables, const void* kv_lens,
-                                             const void* q_lens, void* out, float* ws, int S,
-                                             int QB, int NH, int HD, int PS, int MP, int SL,
-                                             int nsplit, float scale, void* stream) {
+extern "C" int paged_attention_forward_split(
+    int q_dtype, int kv_dtype, const void* q, const void* k_pool, const void* v_pool,
+    const void* block_tables, const void* kv_lens, const void* q_lens, void* out, float* ws,
+    int S, int QB, int NH, int HD, int PS, int MP, int SL, int nsplit, int PNH, int h0,
+    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!split_args_ok(k_pool, v_pool, HD, 8, PS, MP, SL, nsplit, ws))
+  if (!split_args_ok(k_pool, v_pool, HD, 8, PS, MP, SL, nsplit, ws) || h0 < 0 || NH < 1 ||
+      h0 + NH > PNH)
     return (int)cudaErrorInvalidValue;
 #define PA_SPLIT_LAUNCH(QT, KVT)                                                            \
   return launch_split<QT, KVT>(q, k_pool, v_pool, nullptr, nullptr, block_tables, kv_lens, \
-                               q_lens, out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, scale, st)
+                               q_lens, out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, PNH, h0, \
+                               scale, st)
   if (q_dtype == 0 && kv_dtype == 0) PA_SPLIT_LAUNCH(float, float);
   if (q_dtype == 1 && kv_dtype == 1) PA_SPLIT_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == 0 && kv_dtype == 1) PA_SPLIT_LAUNCH(float, __nv_bfloat16);
@@ -947,24 +959,25 @@ extern "C" int paged_attention_forward_split(int q_dtype, int kv_dtype, const vo
 }
 
 // The split-KV design over int8 / float8 e4m3 code pools (kv_dtype 2 or
-// 3): as paged_attention_forward_split, with the per-page-per-head scales
-// k_scale / v_scale [NP, NH] (float32, 4-byte aligned) of
-// paged_attention_forward, HD % 16 == 0 (whole 16-code units), HD <= 256
-// and 16-byte aligned pools; ws as there.
+// 3): as paged_attention_forward_split, with the per-page-per-head
+// scales k_scale / v_scale [NP, PNH] (float32, 4-byte aligned) of
+// paged_attention_forward, HD % 16 == 0 (whole 16-code units),
+// HD <= 256 and 16-byte aligned pools; ws as there.
 extern "C" int paged_attention_forward_split_quant(
     int q_dtype, int kv_dtype, const void* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const void* block_tables, const void* kv_lens,
     const void* q_lens, void* out, float* ws, int S, int QB, int NH, int HD, int PS, int MP,
-    int SL, int nsplit, float scale, void* stream) {
+    int SL, int nsplit, int PNH, int h0, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t scales =
       reinterpret_cast<uintptr_t>(k_scale) | reinterpret_cast<uintptr_t>(v_scale);
   if (!split_args_ok(k_pool, v_pool, HD, 16, PS, MP, SL, nsplit, ws) || k_scale == nullptr ||
-      v_scale == nullptr || scales % 4 != 0)
+      v_scale == nullptr || scales % 4 != 0 || h0 < 0 || NH < 1 || h0 + NH > PNH)
     return (int)cudaErrorInvalidValue;
 #define PA_SPLIT_LAUNCH(QT, KVT)                                                           \
   return launch_split<QT, KVT>(q, k_pool, v_pool, k_scale, v_scale, block_tables, kv_lens, \
-                               q_lens, out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, scale, st)
+                               q_lens, out, ws, S, QB, NH, HD, PS, MP, SL, nsplit, PNH, h0, \
+                               scale, st)
   if (q_dtype == 0 && kv_dtype == 2) PA_SPLIT_LAUNCH(float, int8_t);
   if (q_dtype == 1 && kv_dtype == 2) PA_SPLIT_LAUNCH(__nv_bfloat16, int8_t);
   if (q_dtype == 0 && kv_dtype == 3) PA_SPLIT_LAUNCH(float, __nv_fp8_e4m3);
@@ -972,3 +985,4 @@ extern "C" int paged_attention_forward_split_quant(
 #undef PA_SPLIT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
+

@@ -28,6 +28,15 @@ dequantized as each page is read.
 - :func:`paged_decode_attention` — the ``q_len = 1`` entry
   (``paged_attention_pallas.py:219``).
 
+A head offset ``h0`` reads heads ``h0 .. h0 + NH - 1`` of pools that
+hold more heads than q (``[NP, PS, PNH, HD]``, scales ``[NP, PNH]``): a
+tensor-parallel rank's heads of a replicated pool
+(``inference/tp.py``; the reference's ``ragged_paged_attention_sharded``,
+``paged_attention_pallas.py:187-216``, runs the kernel on each chip's
+head shard). Every C entry takes it with the pool's own head count
+``PNH`` as its stride: nothing is copied. Pools whose heads are q's are
+the case ``PNH = NH``, ``h0 = 0``.
+
 The module attributes ``launches`` (float pools, both designs),
 ``split_launches`` (of those, the split-KV design's), ``quant_launches``
 (quantized pools, both designs) and ``quant_split_launches`` (of those,
@@ -59,20 +68,21 @@ _QUANT_POOLS = (torch.int8, torch.float8_e4m3fn)
 _MAX_HD = 256         # the kernel's shared-memory plan covers HD <= 256
 # paged_attention_forward(q_dtype, kv_dtype, q, k_pool, v_pool, k_scale,
 #   v_scale, block_tables, kv_lens, q_lens, out, S, QB, NH, HD, PS, MP,
-#   scale, stream): every pointer and the stream as c_void_p, or ctypes
-#   would pass a 32-bit int and cut the address
-ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+#   PNH, h0, scale, stream): every pointer and the stream as c_void_p, or
+#   ctypes would pass a 32-bit int and cut the address. PNH is the pools'
+#   head count and h0 the first of q's heads in them
+ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
 # paged_attention_forward_split(q_dtype, kv_dtype, q, k_pool, v_pool,
 #   block_tables, kv_lens, q_lens, out, ws, S, QB, NH, HD, PS, MP, SL,
-#   nsplit, scale, stream)
+#   nsplit, PNH, h0, scale, stream)
 SPLIT_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                  + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+                  + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 # paged_attention_forward_split_quant(q_dtype, kv_dtype, q, k_pool, v_pool,
 #   k_scale, v_scale, block_tables, kv_lens, q_lens, out, ws, S, QB, NH,
-#   HD, PS, MP, SL, nsplit, scale, stream)
+#   HD, PS, MP, SL, nsplit, PNH, h0, scale, stream)
 SPLIT_QUANT_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                        + [ctypes.c_int] * 8
+                        + [ctypes.c_int] * 10
                         + [ctypes.c_float, ctypes.c_void_p])
 # the pools routed to the split design and the head sizes it takes: whole
 # 16-byte units of a head's page row (8 bf16 / 4 f32 values, 16 int8 or
@@ -164,7 +174,7 @@ def _limits(kv_lens, q_lens, QB, T):
 
 def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
                                q_lens, scale=None, k_scale=None,
-                               v_scale=None):
+                               v_scale=None, h0=0):
     """Plain PyTorch ragged paged attention.
 
     q ``[S, QB, NH, HD]``; pools ``[NP, PS, NH, HD]``; block_tables
@@ -174,21 +184,24 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, kv_lens,
     output, to be discarded); a row with nothing to attend (``kv_len``
     0) gives zeros. An int8 or float8 pool needs its scales
     ``[NP, NH]`` f32 (both or neither): each gathered page is
-    dequantized as ``code.float() * scale[page, head]``. Computes in
-    float32, returns q's dtype."""
+    dequantized as ``code.float() * scale[page, head]``. With ``h0``
+    the pools hold ``PNH`` heads and q's read heads ``h0 .. h0 + NH -
+    1`` (scales ``[NP, PNH]``). Computes in float32, returns q's
+    dtype."""
     _check_scales(k_pool, k_scale, v_scale)
     S, QB, NH, HD = q.shape
+    heads = slice(h0, h0 + NH)
     PS = k_pool.shape[1]
     MP = block_tables.shape[1]
     T = MP * PS
     if scale is None:
         scale = 1.0 / HD ** 0.5
     bt = block_tables.to(torch.int64)
-    k = byte_view(k_pool)[bt].view(k_pool.dtype).float()  # [S,MP,PS,NH,HD]
-    v = byte_view(v_pool)[bt].view(v_pool.dtype).float()
-    if k_scale is not None:
-        k = k * k_scale[bt][:, :, None, :, None]
-        v = v * v_scale[bt][:, :, None, :, None]
+    k = byte_view(k_pool)[bt].view(k_pool.dtype)[..., heads, :].float()
+    v = byte_view(v_pool)[bt].view(v_pool.dtype)[..., heads, :].float()
+    if k_scale is not None:                               # [S,MP,PS,NH,HD]
+        k = k * k_scale[bt][:, :, None, heads, None]
+        v = v * v_scale[bt][:, :, None, heads, None]
     k = k.reshape(S, T, NH, HD)
     v = v.reshape(S, T, NH, HD)
     sc = torch.einsum("sqhd,sthd->shqt", q.float(), k) * scale
@@ -215,7 +228,7 @@ def _kernel_fn(name="paged_attention_forward", argtypes=ARGTYPES):
 
 
 def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale=None,
-           v_scale=None):
+           v_scale=None, h0=0):
     _check_scales(k_pool, k_scale, v_scale)
     dev = q.device
     scales = () if k_scale is None else (("k_scale", k_scale),
@@ -242,10 +255,12 @@ def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale=None,
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError("q and the pools must be 4-D")
     S, QB, NH, HD = q.shape
-    if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (NH, HD):
+    PNH = k_pool.shape[2]
+    if k_pool.shape != v_pool.shape or k_pool.shape[3] != HD or \
+            not 0 <= h0 <= PNH - NH:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
                          f"{tuple(v_pool.shape)} do not match q "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(q.shape)} at head offset {h0}")
     if block_tables.dim() != 2 or block_tables.shape[0] != S:
         raise ValueError(f"block_tables {tuple(block_tables.shape)} must "
                          f"be [{S}, pages_per_slot]")
@@ -254,18 +269,18 @@ def _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale=None,
     for name, t in scales:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.shape != (k_pool.shape[0], NH):
+        if t.shape != (k_pool.shape[0], PNH):
             raise ValueError(f"{name} {tuple(t.shape)} must be "
-                             f"[{k_pool.shape[0]}, {NH}] (pages, heads)")
+                             f"[{k_pool.shape[0]}, {PNH}] (pages, heads)")
     if HD > _MAX_HD:
         raise ValueError(f"head_dim {HD} > {_MAX_HD}")
 
 
 def _launch_split(q, k_pool, v_pool, block_tables, kv_lens, q_lens,
-                  scale, k_scale=None, v_scale=None):
+                  scale, k_scale=None, v_scale=None, h0=0):
     global launches, split_launches, quant_launches, quant_split_launches
     S, QB, NH, HD = q.shape
-    PS, MP = k_pool.shape[1], block_tables.shape[1]
+    PS, MP, PNH = k_pool.shape[1], block_tables.shape[1], k_pool.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -285,7 +300,7 @@ def _launch_split(q, k_pool, v_pool, block_tables, kv_lens, q_lens,
                 block_tables.data_ptr(), kv_lens.data_ptr(),
                 q_lens.data_ptr(), out.data_ptr(),
                 None if ws is None else ws.data_ptr(), S, QB, NH, HD, PS, MP,
-                SL, nsplit, float(scale), stream)
+                SL, nsplit, PNH, h0, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention split-KV kernel launch failed: "
                            f"CUDA error {rc}")
@@ -299,14 +314,15 @@ def _launch_split(q, k_pool, v_pool, block_tables, kv_lens, q_lens,
 
 
 def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
-            k_scale, v_scale):
+            k_scale, v_scale, h0=0):
     global launches, quant_launches
     _check(q, k_pool, v_pool, block_tables, kv_lens, q_lens, k_scale,
-           v_scale)
+           v_scale, h0)
     if split_kv(q, k_pool, v_pool, k_scale, v_scale):
         return _launch_split(q, k_pool, v_pool, block_tables, kv_lens,
-                             q_lens, scale, k_scale, v_scale)
+                             q_lens, scale, k_scale, v_scale, h0)
     S, QB, NH, HD = q.shape
+    PNH = k_pool.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -319,8 +335,8 @@ def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
                 None if v_scale is None else v_scale.data_ptr(),
                 block_tables.data_ptr(), kv_lens.data_ptr(),
                 q_lens.data_ptr(), out.data_ptr(), S, QB, NH, HD,
-                k_pool.shape[1], block_tables.shape[1], float(scale),
-                stream)
+                k_pool.shape[1], block_tables.shape[1],
+                PNH, h0, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -332,29 +348,31 @@ def _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, kv_lens,
-                           q_lens, scale=None, k_scale=None, v_scale=None):
+                           q_lens, scale=None, k_scale=None, v_scale=None,
+                           h0=0):
     """Ragged paged attention (see :func:`ragged_paged_attention_ref`
-    for the semantics). A CPU ``q`` runs the plain version; a CUDA ``q``
-    launches the CUDA kernel, building it on first use, or raises."""
+    for the semantics, ``h0`` included). A CPU ``q`` runs the plain
+    version; a CUDA ``q`` launches the CUDA kernel, building it on first
+    use, or raises."""
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, k_pool, v_pool, block_tables,
                                           kv_lens, q_lens, scale, k_scale,
-                                          v_scale)
+                                          v_scale, h0)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, k_pool, v_pool, block_tables, kv_lens, q_lens, scale,
-                   k_scale, v_scale)
+                   k_scale, v_scale, h0)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
-                           scale=None, k_scale=None, v_scale=None):
+                           scale=None, k_scale=None, v_scale=None, h0=0):
     """The ``q_len = 1`` row of the ragged kernel. q ``[S, NH, HD]``;
     lengths ``[S]`` int32 (attend pool positions ``< lengths[s]``; 0 =
     inactive slot, zeros). Returns ``[S, NH, HD]``."""
     out = ragged_paged_attention(
         q.unsqueeze(1), k_pool, v_pool, block_tables, lengths,
         torch.ones_like(lengths), scale=scale, k_scale=k_scale,
-        v_scale=v_scale)
+        v_scale=v_scale, h0=h0)
     return out[:, 0]

@@ -158,13 +158,23 @@ def init_params(cfg, seed=0, device=None, dtype=torch.float32):
     return params_from_numpy(_numpy_params(cfg, seed), device, dtype)
 
 
-def make_layer_core(cfg, eps=None):
+def make_layer_core(cfg, eps=None, tp=None):
     """Per-layer transformer math shared by the serving programs — the
     port of ``_make_layer_core`` (dense layers only). ``eps`` defaults
     to ``cfg.layer_norm_epsilon`` (the reference reads it from
-    ``model.gpt.ln_f._epsilon``)."""
+    ``model.gpt.ln_f._epsilon``).
+
+    ``tp`` (an ``inference.tp.TPContext``) makes it one rank's core of a
+    tensor-parallel engine: ``NH`` is this rank's heads, and
+    ``qkv_proj``, ``attn_out`` and ``mlp_tail`` are the context's hooks,
+    which run the same math over the rank's weight shard and end the
+    row-parallel products in a collective. ``H`` stays the model's
+    width (the residual stream is whole on every rank). Without ``tp``
+    the math is the single-card engine's."""
     H, NH = cfg.hidden_size, cfg.num_heads
     HD = H // NH
+    if tp is not None:
+        NH //= tp.mp
     scale = float(1.0 / np.sqrt(HD))
     eps = float(cfg.layer_norm_epsilon if eps is None else eps)
 
@@ -226,10 +236,15 @@ def make_layer_core(cfg, eps=None):
         x = attn_out(lay, x, o)
         return mlp_tail(lay, x), k, v
 
-    return SimpleNamespace(H=H, NH=NH, HD=HD, scale=scale, ln=ln,
+    core = SimpleNamespace(H=H, NH=NH, HD=HD, scale=scale, ln=ln,
                            qkv_proj=qkv_proj, attn_out=attn_out,
                            mlp_tail=mlp_tail, step_layer=step_layer,
                            prefill_layer=prefill_layer)
+    if tp is not None:
+        core.qkv_proj = lambda lay, h: tp.qkv_proj(core, lay, h)
+        core.attn_out = lambda lay, x, o: tp.attn_out(core, lay, x, o)
+        core.mlp_tail = lambda lay, x: tp.mlp_tail(core, lay, x)
+    return core
 
 
 # -- training (gpt.py:74-251) -------------------------------------------------

@@ -28,12 +28,23 @@ record per capture, with its start and end on the ``perf_counter``
 clock, which the merged timeline renders as its ``graph-capture`` lane.
 
 There is no XLA executable, so the reference's ``analyze()`` (the AOT
-``cost_analysis()`` / ``memory_analysis()`` pass), its
+``cost_analysis()`` / ``memory_analysis()`` pass) and its
 ``xla_cost_flops`` / ``xla_cost_bytes_accessed`` / ``xla_memory_bytes``
-gauges and ``hlo_collective_stats`` have no counterpart here, and the
-engine takes no ``cost_analysis=``. The serving ledger
-(``observability/ledger.py``) gives each dispatch's FLOPs and bytes
-analytically instead.
+gauges have no counterpart here, and the engine takes no
+``cost_analysis=``. The serving ledger (``observability/ledger.py``)
+gives each dispatch's FLOPs and bytes analytically instead.
+
+The reference's ``hlo_collective_stats`` (the collectives a compiled
+mesh program holds, ``engine.xla_costs[fn]["collective_bytes"]`` and
+``["collective_by_op"]``) has a counted counterpart: a tensor-parallel
+engine's programs call their collectives through one counting wrapper
+(``inference/tp.py``, ``TPContext._all_reduce`` / ``_all_gather``), and
+the engine arms it around each program's first run, keeping the bytes
+by op (``"all-reduce"``, ``"all-gather"``: each op's result, the
+reference's payload convention) under the same keys in
+``engine.xla_costs``. A fused decode block and the propose scan run K
+steps in one program; their entries are per step, as the reference's
+census counts a scan body once.
 """
 from __future__ import annotations
 

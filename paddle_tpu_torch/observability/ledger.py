@@ -42,12 +42,23 @@ holds exactly: every increment lies on the dyadic grid float64 adds
 exactly (see :meth:`ServingLedger._split_dispatch`), and
 :meth:`ServingLedger.attribution_check` verifies it.
 
-The mesh terms of the reference (per-chip constants, the collective
-payload, ``_chip_split`` / ``_tp_constants``) come with tensor-parallel
-serving; on one card they reduce to the single-chip values, so the
-``*_per_chip`` gauges equal ``serving_mfu`` / ``serving_mbu`` and the
-``serving_collective_bytes_total`` families stay at zero, as the
-reference's single-chip engine publishes them.
+The mesh terms (reference ``ledger.py:156-253``): on an ``mp``-rank
+tensor-parallel engine (``inference/tp.py``) the per-chip constants
+divide where the layout shards (:meth:`ServingLedger._chip_split`: the
+layer matmuls and attention by heads, the KV stream under
+``kv_shard="heads"``; the replicated lm head counts in full on every
+rank), each rank streams its own weight shard, and every weight pass
+pays the collective payload ``coll_bytes_per_position`` for each
+PHYSICAL position it carries (padding and idle slots ride the
+collectives too): ``serving_collective_bytes_total{phase}``, apportioned
+to requests under ``serving_tenant_collective_bytes_total`` with the
+same exact conservation, and ``serving_mfu_per_chip`` /
+``serving_mbu_per_chip``. The payload constant is
+``TPContext.collective_payload_per_position``, which the engine's
+counted collective census (``engine.xla_costs``) must equal. On one
+card the mesh terms reduce to the single-chip values: the per-chip
+gauges equal ``serving_mfu`` / ``serving_mbu`` and the collective
+families stay at zero.
 """
 from __future__ import annotations
 
@@ -112,13 +123,45 @@ class ServingLedger:
     fed by the engine's scheduler at phase boundaries (see the hooks
     in ``inference/serving.py`` / ``inference/speculative.py``)."""
 
+    @staticmethod
+    def _chip_split(c, mp, kv_shard, kv_bpt):
+        """Per-chip ``(matmul FLOPs a token, attention FLOPs a context
+        token, KV bytes a token)`` under an ``mp``-rank mesh (reference
+        ``_chip_split``): the layer matmuls and attention shard by heads
+        in both pool modes, the lm head stays whole; the KV stream
+        divides under ``kv_shard="heads"`` only."""
+        mm = c["matmul_flops_per_token"]
+        attn = c["attn_flops_per_ctx_token"]
+        if mp <= 1:
+            return mm, attn, kv_bpt
+        head = c["matmul_flops_head"]
+        mm_chip = (mm - head) / mp + head
+        if kv_shard == "heads":
+            return mm_chip, attn / mp, kv_bpt / mp
+        return mm_chip, attn / mp, kv_bpt
+
+    def _tp_constants(self, c, tp, act_bytes=None):
+        """The collective payload a position pays per weight pass, for
+        one model (the target or the draft; reference
+        ``_tp_constants``): 0 off a mesh."""
+        if tp is None or self.mp <= 1:
+            return 0.0
+        ab = c["act_bytes"] if act_bytes is None else int(act_bytes)
+        return float(tp.collective_payload_per_position(
+            c["num_layers"], c["hidden_size"], ab))
+
     def __init__(self, registry, engine_id, cfg, params, kv, platform="",
                  peak_flops=None, peak_hbm_bytes_per_s=None, slots=1,
                  weight_bytes=None, weight_dtype=None,
-                 max_request_records=1024):
+                 max_request_records=1024, tp=None, weight_bytes_chip=None,
+                 act_bytes=None):
         """``params`` the raw parameter dict; ``weight_bytes`` the bytes
         of what the programs dispatch (the bf16 cast or the int8
-        artifact, codes and scales), which one weight pass streams."""
+        artifact, codes and scales), which one weight pass streams;
+        ``kv`` this rank's pool. On a mesh, ``tp`` (the engine's
+        ``TPContext``), ``weight_bytes_chip`` (this rank's shard) and
+        ``act_bytes`` (the residual stream's itemsize, the collectives'
+        unit)."""
         self.engine_id = str(engine_id)
         self.platform = str(platform)
         self.peak_flops = float(peak_flops or DEFAULT_PEAK_FLOPS)
@@ -132,16 +175,33 @@ class ServingLedger:
         # KV bytes per resident token from the pool's actual storage:
         # pool_bytes includes the scale tensors, so the per-token figure
         # is exact for any kv_dtype
-        self.kv_bytes_per_token = kv.pool_bytes() / float(
-            kv.num_pages * kv.page_size)
+        self.mp = int(tp.mp) if tp is not None else 1
+        self.kv_shard = tp.kv_shard if tp is not None else None
+        self.collective_dtype = tp.collective_dtype if tp is not None \
+            else "f32"
+        # the whole pool's bytes: a heads-sharded rank holds 1/mp of it
+        pool = kv.pool_bytes() * (self.mp if self.kv_shard == "heads"
+                                  else 1)
+        self.kv_bytes_per_token = pool / float(kv.num_pages * kv.page_size)
         self.kv_dtype = kv.kv_dtype
         self.slots = int(slots)
+        self._mm_chip, self._attn_chip, self.kv_bytes_per_token_chip = \
+            self._chip_split(c, self.mp, self.kv_shard,
+                             self.kv_bytes_per_token)
+        self._param_bytes_chip = self._param_bytes if \
+            weight_bytes_chip is None else float(weight_bytes_chip)
+        self.coll_bytes_per_position = self._tp_constants(c, tp, act_bytes)
+        self._tp = tp
         self.weight_dtype = str(
             weight_dtype if weight_dtype is not None
             else f"f{c['act_bytes'] * 8}")
-        self._draft = None  # (mm, attn, param_bytes, kv_bpt)
+        self._draft = None  # (mm, attn, param_bytes, kv_bpt, chip
+        #                      constants, coll/position)
         self.flops = {p: 0.0 for p in LEDGER_PHASES}
         self.bytes = {p: 0.0 for p in LEDGER_PHASES}
+        self.flops_chip = {p: 0.0 for p in LEDGER_PHASES}
+        self.bytes_chip = {p: 0.0 for p in LEDGER_PHASES}
+        self.coll_bytes = {p: 0.0 for p in LEDGER_PHASES}
         self.wall_s = 0.0
         self.good_tokens = {}        # tier -> delivered useful tokens
         self.raw_tokens = {}         # tier -> all emitted tokens
@@ -161,8 +221,11 @@ class ServingLedger:
             labels=("phase",))
         self._c_coll = reg.counter(
             "serving_collective_bytes_total",
-            "analytic inter-chip collective PAYLOAD bytes, by serving "
-            "phase; zero on a single-card engine",
+            "analytic inter-chip collective PAYLOAD bytes (the "
+            "Megatron all-reduce pair per layer per weight pass; "
+            "physical convention: padded/masked positions ride the "
+            "collectives too), by serving phase; zero on a single-card "
+            "engine",
             labels=("phase",))
         for p in ("prefill", "decode"):
             self._c_flops.labels(phase=p).inc(0)
@@ -182,12 +245,15 @@ class ServingLedger:
             labels=("engine",))
         self._g_mfu_chip = reg.gauge(
             "serving_mfu_per_chip",
-            "per-chip model-FLOPs utilization; equals serving_mfu on "
-            "one card",
+            "per-chip model-FLOPs utilization on a mesh engine (sharded "
+            "terms / mp, the replicated lm head counted in full on every "
+            "rank); equals serving_mfu on one card",
             labels=("engine",))
         self._g_mbu_chip = reg.gauge(
             "serving_mbu_per_chip",
-            "per-chip HBM bandwidth utilization; equals serving_mbu on "
+            "per-chip HBM bandwidth utilization on a mesh engine (each "
+            "rank streams its weight shard and 1/mp of a heads-sharded "
+            "pool or all of a replicated one); equals serving_mbu on "
             "one card",
             labels=("engine",))
         for g in (self._g_mfu, self._g_mbu, self._g_mfu_chip,
@@ -299,17 +365,27 @@ class ServingLedger:
             buckets=REQUEST_COST_BUCKETS)
 
     def set_draft(self, cfg, params, draft_pool_bytes, num_pages,
-                  page_size, weight_bytes=None):
+                  page_size, weight_bytes=None, weight_bytes_chip=None,
+                  act_bytes=None):
         """Register the speculative draft's cost constants: its own
         matmul/attention terms, the bytes of its dispatched weights
         (the target's weight lever applies to it too) and its pool's
-        KV bytes per token."""
+        KV bytes per token (``draft_pool_bytes`` this rank's; on a mesh
+        the draft shards as the target does)."""
         c = model_costs(cfg, params)
+        pool = draft_pool_bytes * (self.mp if self.kv_shard == "heads"
+                                   else 1)
+        kv_bpt = pool / float(num_pages * page_size)
+        pbytes = c["param_bytes"] if weight_bytes is None \
+            else float(weight_bytes)
+        mm_chip, attn_chip, kv_chip = self._chip_split(
+            c, self.mp, self.kv_shard, kv_bpt)
         self._draft = (c["matmul_flops_per_token"],
-                       c["attn_flops_per_ctx_token"],
-                       c["param_bytes"] if weight_bytes is None
-                       else float(weight_bytes),
-                       draft_pool_bytes / float(num_pages * page_size))
+                       c["attn_flops_per_ctx_token"], pbytes, kv_bpt,
+                       mm_chip, attn_chip,
+                       pbytes if weight_bytes_chip is None
+                       else float(weight_bytes_chip), kv_chip,
+                       self._tp_constants(c, self._tp, act_bytes))
 
     # -- per-request cost attribution ----------------------------------------
     def register_request(self, uid, tenant="default", priority=0):
@@ -354,39 +430,42 @@ class ServingLedger:
             int(uid), "default", 0)
 
     @staticmethod
-    def _split_dispatch(owners, flops, nbytes, mm, attn, kvb, wtot):
+    def _split_dispatch(owners, flops, nbytes, coll, mm, attn, kvb, wtot):
         """Per-request shares of one multi-slot dispatch, summing
         EXACTLY to the dispatch totals. ``owners`` is
         ``[(uid, tokens_i, ctx_i)]`` over the live slots: matmul and
         attention FLOPs and KV traffic follow each slot's own counts;
-        the weight stream ``wtot`` is amortized evenly over slot
-        occupancy, integer-snapped, the remainder to the last slot —
-        every share stays on the dyadic grid float64 adds exactly."""
+        the weight stream ``wtot`` and the collective payload ``coll``
+        are amortized evenly over slot occupancy, integer-snapped, the
+        remainder to the last slot — every share stays on the dyadic
+        grid float64 adds exactly."""
         n = len(owners)
         if n == 0:
             return []
         wbase = float(int(wtot / n))
+        cbase = float(int(coll / n))
         out = []
-        f_acc = b_acc = 0.0
+        f_acc = b_acc = c_acc = 0.0
         for uid, toks, ctx in owners[:-1]:
             f = toks * mm + attn * float(ctx)
             b = wbase + (float(ctx) + toks) * kvb
-            out.append((uid, f, b))
+            out.append((uid, f, b, cbase))
             f_acc += f
             b_acc += b
+            c_acc += cbase
         # the max() is a no-op on the exact grid; off it (a page size
         # that is not a power of two under quantized pools) an ulp of
         # rounding must not hand Counter.inc a negative
         out.append((owners[-1][0], max(flops - f_acc, 0.0),
-                    max(nbytes - b_acc, 0.0)))
+                    max(nbytes - b_acc, 0.0), max(coll - c_acc, 0.0)))
         return out
 
     def _attr(self, phase, shares):
         """Route one dispatch's per-request shares onto the records and
         the tenant counters, aggregated per tenant before the
         increments (summing grid values first is still exact)."""
-        per_tenant = {}   # tenant -> [flops, bytes]
-        for uid, f, b in shares:
+        per_tenant = {}   # tenant -> [flops, bytes, coll]
+        for uid, f, b, c in shares:
             rec = self._rec(uid)
             t = rec["tenant"]
             tc = self.tenant_costs[t]
@@ -396,12 +475,20 @@ class ServingLedger:
             tc["flops"][phase] = tc["flops"].get(phase, 0.0) + f
             tc["hbm_bytes"][phase] = \
                 tc["hbm_bytes"].get(phase, 0.0) + b
-            agg = per_tenant.setdefault(t, [0.0, 0.0])
+            agg = per_tenant.setdefault(t, [0.0, 0.0, 0.0])
             agg[0] += f
             agg[1] += b
-        for t, (f, b) in per_tenant.items():
+            if c:
+                rec["collective_bytes"][phase] = \
+                    rec["collective_bytes"].get(phase, 0.0) + c
+                tc["collective_bytes"][phase] = \
+                    tc["collective_bytes"].get(phase, 0.0) + c
+                agg[2] += c
+        for t, (f, b, c) in per_tenant.items():
             self._c_t_flops.labels(tenant=t, phase=phase).inc(f)
             self._c_t_bytes.labels(tenant=t, phase=phase).inc(b)
+            if c:
+                self._c_t_coll.labels(tenant=t, phase=phase).inc(c)
 
     def note_cached(self, uid, tokens):
         """Prompt tokens served from the prefix cache at admission —
@@ -514,7 +601,8 @@ class ServingLedger:
         conserved = True
         residuals = {}
         for key, totals in (("flops", self.flops),
-                            ("hbm_bytes", self.bytes)):
+                            ("hbm_bytes", self.bytes),
+                            ("collective_bytes", self.coll_bytes)):
             res = {}
             for p in LEDGER_PHASES:
                 attributed = sum(
@@ -524,15 +612,20 @@ class ServingLedger:
                 res[p] = r
                 conserved = conserved and r == 0.0
             residuals[key] = res
-        residuals["collective_bytes"] = {p: 0.0 for p in LEDGER_PHASES}
         return {"conserved": conserved, "residuals": residuals}
 
     # -- phase hooks ---------------------------------------------------------
-    def _add(self, phase, flops, nbytes):
+    def _add(self, phase, flops, nbytes, flops_chip, bytes_chip,
+             coll_bytes=0.0):
         self.flops[phase] += flops
         self.bytes[phase] += nbytes
+        self.flops_chip[phase] += flops_chip
+        self.bytes_chip[phase] += bytes_chip
         self._c_flops.labels(phase=phase).inc(flops)
         self._c_bytes.labels(phase=phase).inc(nbytes)
+        if coll_bytes:
+            self.coll_bytes[phase] += coll_bytes
+            self._c_coll.labels(phase=phase).inc(coll_bytes)
 
     @staticmethod
     def _chunk_ctx_sum(tokens, ctx0):
@@ -540,55 +633,75 @@ class ServingLedger:
         ``tokens``) attends ctx0+i+1 earlier-or-self tokens."""
         return tokens * ctx0 + tokens * (tokens + 1) / 2.0
 
-    def on_prefill_chunk(self, tokens, ctx0, owner=None):
+    def on_prefill_chunk(self, tokens, ctx0, phys_positions=None,
+                         owner=None):
         """One prefill chunk: ``tokens`` useful prompt positions from
         context length ``ctx0`` (each position i attends ctx0+i+1
         tokens). Bytes: one weight stream + re-read of the written
-        extent + the chunk's own KV writes. The whole cost is the
-        ``owner``'s."""
+        extent + the chunk's own KV writes. ``phys_positions``: the
+        dispatch's physical width (the padded chunk), the collective
+        term's unit. The whole cost is the ``owner``'s."""
         tokens = int(tokens)
         if tokens <= 0:
             return
         ctx0 = int(ctx0)
         ctx_sum = self._chunk_ctx_sum(tokens, ctx0)
         flops = tokens * self._mm + self._attn * ctx_sum
-        nbytes = self._param_bytes + \
-            ((ctx0 + tokens) + tokens) * self.kv_bytes_per_token
-        self._add("prefill", flops, nbytes)
+        kv_traffic = (ctx0 + tokens) + tokens
+        nbytes = self._param_bytes + kv_traffic * self.kv_bytes_per_token
+        coll = (phys_positions if phys_positions is not None
+                else tokens) * self.coll_bytes_per_position
+        self._add("prefill", flops, nbytes,
+                  tokens * self._mm_chip + self._attn_chip * ctx_sum,
+                  self._param_bytes_chip
+                  + kv_traffic * self.kv_bytes_per_token_chip, coll)
         if owner is not None:
-            self._attr("prefill", [(owner, flops, nbytes)])
+            self._attr("prefill", [(owner, flops, nbytes, coll)])
 
-    def on_draft_prefill(self, tokens, ctx0, owner=None):
+    def on_draft_prefill(self, tokens, ctx0, phys_positions=None,
+                         owner=None):
         """The draft's mirror of one prefill chunk (same positions,
         same causal shape, the DRAFT's cost constants)."""
         if self._draft is None or int(tokens) <= 0:
             return
         ctx_sum = self._chunk_ctx_sum(int(tokens), int(ctx0))
-        self.on_draft(tokens, ctx_sum,
+        self.on_draft(tokens, ctx_sum, phys_positions=phys_positions,
                       owners=None if owner is None
                       else [(owner, int(tokens), ctx_sum)])
 
     def on_decode(self, tokens, ctx_sum, weight_passes=1,
-                  phase="decode", owners=None):
+                  phase="decode", phys_positions=None, owners=None):
         """``tokens`` emitted decode tokens attending ``ctx_sum`` total
         context positions, from a dispatch that streamed the weights
         ``weight_passes`` times (K for a K-step fused block, 1 for a
-        per-token step or a verify). ``owners`` ``[(uid, tokens_i,
-        ctx_i)]`` over the live slots: each request gets its own FLOPs
-        and KV traffic and an even slice of the weight stream."""
+        per-token step or a verify). ``phys_positions``: the positions
+        the dispatch's collectives carry (default ``weight_passes *
+        slots``: every slot of every step). ``owners`` ``[(uid,
+        tokens_i, ctx_i)]`` over the live slots: each request gets its
+        own FLOPs and KV traffic and an even slice of the weight stream
+        and the collective payload."""
         tokens = int(tokens)
         if tokens <= 0 and weight_passes <= 0:
             return
+        if phys_positions is None:
+            phys_positions = weight_passes * self.slots
         kvb = self.kv_bytes_per_token
+        kv_traffic = float(ctx_sum) + tokens
         wtot = weight_passes * self._param_bytes
         flops = tokens * self._mm + self._attn * float(ctx_sum)
-        nbytes = wtot + (float(ctx_sum) + tokens) * kvb
-        self._add(phase, flops, nbytes)
+        nbytes = wtot + kv_traffic * kvb
+        coll = phys_positions * self.coll_bytes_per_position
+        self._add(phase, flops, nbytes,
+                  tokens * self._mm_chip + self._attn_chip * float(ctx_sum),
+                  weight_passes * self._param_bytes_chip
+                  + kv_traffic * self.kv_bytes_per_token_chip, coll)
         if owners:
             self._attr(phase, self._split_dispatch(
-                owners, flops, nbytes, self._mm, self._attn, kvb, wtot))
+                owners, flops, nbytes, coll, self._mm, self._attn, kvb,
+                wtot))
 
-    def on_draft(self, tokens, ctx_sum, weight_passes=1, owners=None):
+    def on_draft(self, tokens, ctx_sum, weight_passes=1,
+                 phys_positions=None, owners=None):
         """Draft-model work (the propose scan, the mirror step, the
         draft prefill) under ``spec_draft`` with the draft's cost
         constants, attributed as :meth:`on_decode` does."""
@@ -597,14 +710,21 @@ class ServingLedger:
         tokens = int(tokens)
         if tokens <= 0 and weight_passes <= 0:
             return
-        mm, attn, pbytes, kvb = self._draft
+        (mm, attn, pbytes, kvb, mm_chip, attn_chip, pb_chip, kv_chip,
+         coll_pp) = self._draft
+        if phys_positions is None:
+            phys_positions = weight_passes * self.slots
+        kv_traffic = float(ctx_sum) + tokens
         wtot = weight_passes * pbytes
         flops = tokens * mm + attn * float(ctx_sum)
-        nbytes = wtot + (float(ctx_sum) + tokens) * kvb
-        self._add("spec_draft", flops, nbytes)
+        nbytes = wtot + kv_traffic * kvb
+        coll = phys_positions * coll_pp
+        self._add("spec_draft", flops, nbytes,
+                  tokens * mm_chip + attn_chip * float(ctx_sum),
+                  weight_passes * pb_chip + kv_traffic * kv_chip, coll)
         if owners:
             self._attr("spec_draft", self._split_dispatch(
-                owners, flops, nbytes, mm, attn, kvb, wtot))
+                owners, flops, nbytes, coll, mm, attn, kvb, wtot))
 
     # -- goodput -------------------------------------------------------------
     def on_completion(self, completion):
@@ -629,13 +749,16 @@ class ServingLedger:
         if self._closed or self.wall_s <= 0:
             return
         eid = self.engine_id
-        mfu = sum(self.flops.values()) / self.wall_s / self.peak_flops
-        mbu = sum(self.bytes.values()) / self.wall_s \
-            / self.peak_hbm_bytes_per_s
-        self._g_mfu.labels(engine=eid).set(mfu)
-        self._g_mbu.labels(engine=eid).set(mbu)
-        self._g_mfu_chip.labels(engine=eid).set(mfu)
-        self._g_mbu_chip.labels(engine=eid).set(mbu)
+        self._g_mfu.labels(engine=eid).set(
+            sum(self.flops.values()) / self.wall_s / self.peak_flops)
+        self._g_mbu.labels(engine=eid).set(
+            sum(self.bytes.values()) / self.wall_s
+            / self.peak_hbm_bytes_per_s)
+        self._g_mfu_chip.labels(engine=eid).set(
+            sum(self.flops_chip.values()) / self.wall_s / self.peak_flops)
+        self._g_mbu_chip.labels(engine=eid).set(
+            sum(self.bytes_chip.values()) / self.wall_s
+            / self.peak_hbm_bytes_per_s)
         for tier, n in self.raw_tokens.items():
             self._g_raw_rate.labels(engine=eid, tier=tier).set(
                 n / self.wall_s)
@@ -646,24 +769,32 @@ class ServingLedger:
         """Point-in-time copy of the ledger state (diff two of these to
         window a measurement — see :meth:`window`)."""
         return {"flops": dict(self.flops), "bytes": dict(self.bytes),
+                "flops_chip": dict(self.flops_chip),
+                "bytes_chip": dict(self.bytes_chip),
+                "coll_bytes": dict(self.coll_bytes),
                 "wall_s": self.wall_s,
                 "good_tokens": dict(self.good_tokens),
                 "raw_tokens": dict(self.raw_tokens),
                 "peak_flops": self.peak_flops,
                 "peak_hbm_bytes_per_s": self.peak_hbm_bytes_per_s,
                 "kv_bytes_per_token": self.kv_bytes_per_token,
-                "kv_dtype": self.kv_dtype,
+                "kv_bytes_per_token_chip": self.kv_bytes_per_token_chip,
+                "kv_dtype": self.kv_dtype, "mp": self.mp,
+                "kv_shard": self.kv_shard,
                 "weight_bytes_per_step": self._param_bytes,
+                "weight_bytes_per_step_chip": self._param_bytes_chip,
                 "weight_dtype": self.weight_dtype,
+                "collective_dtype": self.collective_dtype,
                 "platform": self.platform}
 
     @staticmethod
     def window(t0, t1):
         """MFU/MBU/goodput over the window between two ``totals()``
-        snapshots (``t0=None`` windows from engine start). The mesh
-        keys of the reference's window read their one-card values."""
+        snapshots (``t0=None`` windows from engine start), with the mesh
+        terms: per-chip utilization and the collective payload."""
         if t0 is None:
-            t0 = {"flops": {}, "bytes": {}, "wall_s": 0.0,
+            t0 = {"flops": {}, "bytes": {}, "flops_chip": {},
+                  "bytes_chip": {}, "coll_bytes": {}, "wall_s": 0.0,
                   "good_tokens": {}, "raw_tokens": {}}
         wall = t1["wall_s"] - t0["wall_s"]
         flops = {p: v - t0["flops"].get(p, 0.0)
@@ -674,6 +805,12 @@ class ServingLedger:
                 for t, n in t1["good_tokens"].items()}
         raw = {t: n - t0["raw_tokens"].get(t, 0)
                for t, n in t1["raw_tokens"].items()}
+        flops_chip = {p: v - t0.get("flops_chip", {}).get(p, 0.0)
+                      for p, v in t1.get("flops_chip", flops).items()}
+        bytes_chip = {p: v - t0.get("bytes_chip", {}).get(p, 0.0)
+                      for p, v in t1.get("bytes_chip", nbytes).items()}
+        coll = {p: v - t0.get("coll_bytes", {}).get(p, 0.0)
+                for p, v in t1.get("coll_bytes", {}).items()}
         safe_wall = max(wall, 1e-12)
         mfu = sum(flops.values()) / safe_wall / t1["peak_flops"]
         mbu = sum(nbytes.values()) / safe_wall \
@@ -686,13 +823,15 @@ class ServingLedger:
             "bytes_by_phase": nbytes,
             "mfu": mfu,
             "mbu": mbu,
-            "mp": 1,
-            "kv_shard": None,
-            "mfu_per_chip": mfu,
-            "mbu_per_chip": mbu,
-            "hbm_bytes_per_chip": sum(nbytes.values()),
-            "collective_bytes_total": 0.0,
-            "collective_bytes_by_phase": {p: 0.0 for p in flops},
+            "mp": t1.get("mp", 1),
+            "kv_shard": t1.get("kv_shard"),
+            "mfu_per_chip": sum(flops_chip.values()) / safe_wall
+            / t1["peak_flops"],
+            "mbu_per_chip": sum(bytes_chip.values()) / safe_wall
+            / t1["peak_hbm_bytes_per_s"],
+            "hbm_bytes_per_chip": sum(bytes_chip.values()),
+            "collective_bytes_total": sum(coll.values()),
+            "collective_bytes_by_phase": coll,
             "goodput_tokens_per_s": {
                 t: n / safe_wall for t, n in good.items()},
             "raw_tokens_per_s": {
@@ -704,7 +843,7 @@ class ServingLedger:
             "kv_dtype": t1["kv_dtype"],
             "weight_bytes_per_step": t1.get("weight_bytes_per_step"),
             "weight_dtype": t1.get("weight_dtype"),
-            "collective_dtype": "f32",
+            "collective_dtype": t1.get("collective_dtype", "f32"),
             "peak_flops": t1["peak_flops"],
             "peak_hbm_bytes_per_s": t1["peak_hbm_bytes_per_s"],
             "platform": t1["platform"]}

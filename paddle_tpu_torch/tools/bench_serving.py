@@ -70,8 +70,21 @@ make the draft. The line reports the steps and the training loss's first
 step and the mean of its last ten (``spec_train_loss_first`` /
 ``_last``).
 
-Not ported (the flag exits non-zero): meshes (``--mesh``, ``--kv-shard``,
-``--collective-dtype``). The mesh columns read their one-card values.
+The mesh sweep, as the reference's: ``--mesh 1,2`` (or ``mp=1,2``)
+replays the default stream once per mp degree (ascending, so the mp = 1
+leg comes first) through a tensor-parallel engine
+(``ServingEngine(mesh=make_mesh(mp))``, ``inference/tp.py``;
+``--kv-shard heads|replicated``, ``--collective-dtype f32,int8``, the
+int8 legs at mp > 1 only). An mp > 1 leg spawns its ranks
+(``distributed.spawn``): rank 0 drives the engine, the others follow.
+Its line divides the rate by mp (``value``, tokens/s/chip) and adds
+``tokens_per_chip_vs_mp1``, ``kv_pool_bytes_per_chip``, the ledger's
+``collective_bytes_per_token`` and the decode step's collective bytes
+counted (the census of its first run) beside the prediction. It names
+the process group's ``backend`` and whether the programs were
+``captured``: every rank on one card shares it over ``gloo``, whose
+collectives run on the host and cannot be captured, so such a line is
+no multi-GPU number.
 """
 from __future__ import annotations
 
@@ -84,7 +97,6 @@ import time
 
 import numpy as np
 
-NOT_PORTED = ("--mesh", "--kv-shard", "--collective-dtype")
 
 
 def _parser():
@@ -139,6 +151,17 @@ def _parser():
     ap.add_argument("--weight-dtype", default="none",
                     help="comma-separated weight dtypes (none, bf16, "
                          "int8)")
+    ap.add_argument("--mesh", default="1",
+                    help="comma-separated mp degrees (e.g. 1,2): one leg "
+                         "each through a tensor-parallel engine of mp "
+                         "ranks")
+    ap.add_argument("--kv-shard", default="heads",
+                    choices=("heads", "replicated"),
+                    help="page pools sharded along heads or replicated "
+                         "on every rank")
+    ap.add_argument("--collective-dtype", default="f32",
+                    help="comma-separated collective wire formats (f32, "
+                         "int8); int8 legs at mp > 1 only")
     ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--draft-k", default="4")
     ap.add_argument("--draft-layers", type=int, default=None)
@@ -470,6 +493,9 @@ class Bench:
         from ..inference.serving import ServingEngine
         from ..observability import MetricsRegistry
         a = self.args
+        mesh = kw.get("mesh")
+        if mesh is not None and mesh.mp > 1 and mesh.backend == "gloo":
+            kw["_capture"] = False     # host collectives: no CUDA graph
         kw.setdefault("num_slots", a.slots)
         kw.setdefault("admit_lookahead", a.admit_lookahead)
         if not kw.get("mixed_step"):
@@ -486,21 +512,34 @@ class Bench:
             self.torch.cuda.synchronize()
 
     # -- the default stream ------------------------------------------------
+    @staticmethod
+    def drive_kw(prefix_cache, decode_block="adaptive", kv_dtype=None,
+                 weight_dtype=None, mesh=None, kv_shard="heads",
+                 collective_dtype="f32"):
+        """The engine arguments of one :meth:`drive` (a mesh's followers
+        build theirs from the same)."""
+        kw = dict(prefix_cache=prefix_cache, decode_block=decode_block,
+                  kv_dtype=kv_dtype, weight_dtype=weight_dtype,
+                  logit_health=True, watchdog=True)
+        if mesh is not None:
+            kw.update(mesh=mesh, kv_shard=kv_shard,
+                      collective_dtype=collective_dtype)
+        return kw
+
     def drive(self, stream, prefix_cache, decode_block="adaptive",
-              kv_dtype=None, weight_dtype=None):
+              kv_dtype=None, weight_dtype=None, **mesh_kw):
         """One fresh engine over ``stream`` (reference ``drive``): a
         warm-up of prefix-free prompts (and a duplicate pair for the
         copy-on-write path), the registry reset, then the measured
         stream; with ``--steady-decode`` admission and prefill run
-        outside the clock."""
+        outside the clock. ``mesh_kw``: ``mesh``, ``kv_shard``,
+        ``collective_dtype`` of a mesh leader."""
         from ..observability import SLOEngine, SLOSpec
         a = self.args
         # the watchdog and the SLO evaluation ride the measured replay,
         # as the reference's drive
-        engine = self.engine(prefix_cache=prefix_cache,
-                             decode_block=decode_block, kv_dtype=kv_dtype,
-                             weight_dtype=weight_dtype, logit_health=True,
-                             watchdog=True)
+        engine = self.engine(**self.drive_kw(
+            prefix_cache, decode_block, kv_dtype, weight_dtype, **mesh_kw))
         registry = engine.metrics
         slo = SLOEngine(
             [SLOSpec(name=f"bench-{t}", tenant=t, ttft_p99_s=60.0,
@@ -547,6 +586,9 @@ class Bench:
         l1 = engine.ledger.totals()
         counts = engine.compile_counts()
         kv = engine.kv
+        # the whole pool: a heads-sharded rank holds 1/mp of it
+        pool = kv.pool_bytes() * (engine.chips
+                                  if engine.kv_shard == "heads" else 1)
         out = {
             "attribution_conserved":
                 1.0 if engine.ledger.attribution_check()["conserved"]
@@ -580,14 +622,21 @@ class Bench:
             "cow_copies": engine.stats["cow_copies"],
             "decode_compiles": counts["decode_step"],
             "decode_block_compiles": counts.get("decode_block", 0),
-            "kv_pool_bytes": kv.pool_bytes(),
+            "kv_pool_bytes": pool,
             "bytes_per_resident_token": round(
-                kv.pool_bytes() / ((kv.num_pages - 1) * kv.page_size), 2),
-            "chips": 1,
+                pool / ((kv.num_pages - 1) * kv.page_size), 2),
+            "chips": engine.chips,
             "kv_pool_bytes_per_chip": kv.pool_bytes(),
-            "collective_bytes_per_token": 0.0,
-            "decode_collective_bytes_counted": None,
-            "decode_collective_bytes_predicted": 0,
+            "collective_bytes_per_token": round(
+                sum(l1["coll_bytes"][p] - l0["coll_bytes"][p]
+                    for p in ("decode", "prefill")) / max(total, 1), 2),
+            "decode_collective_bytes_counted":
+                engine.xla_costs.get("decode_step", {}).get(
+                    "collective_bytes"),
+            "decode_collective_bytes_predicted": int(
+                engine.ledger.coll_bytes_per_position * engine.num_slots),
+            "backend": engine.stats.get("backend"),
+            "captured": engine.stats["graph_captures"] > 0,
             "ledger": ledger_fields(l0, l1),
             "snapshot": {
                 name: snapshot[name] for name in (
@@ -616,31 +665,61 @@ class Bench:
                     for t in str(a.kv_dtype).split(",")]
         wd_sweep = [None if t.strip() in ("none", "") else t.strip()
                     for t in str(a.weight_dtype).split(",")]
+        cd_sweep = [t.strip() for t in str(a.collective_dtype).split(",")]
+        # ascending: the mp = 1 leg (tokens_per_chip_vs_mp1's reference)
+        # runs first
+        mesh_sweep = sorted(int(t) for t in
+                            str(a.mesh).replace("mp=", "").split(","))
         stream = self.make_stream(a.requests)
-        base_absmax = {}
-        for kd in kv_sweep:
-            for wd in wd_sweep:
-                for k in sweep:
-                    self._one_line(stream, kd, wd, k, base_absmax)
+        base_absmax, mp1 = {}, {}
+        for mp in mesh_sweep:
+            for kd in kv_sweep:
+                for wd in wd_sweep:
+                    for cd in cd_sweep:
+                        # the int8 collective is wire format between
+                        # ranks: none at mp = 1
+                        if cd != "f32" and mp <= 1:
+                            continue
+                        for k in sweep:
+                            self._one_line(stream, kd, wd, k, base_absmax,
+                                           mp=mp, cd=cd, mp1=mp1)
 
-    def _one_line(self, stream, kd, wd, k, base_absmax):
+    def _leg(self, stream, prefix_cache, k, kd, wd, mp, cd):
+        """One drive: in this process at mp = 1, else over ``mp`` spawned
+        ranks (:func:`_mesh_leg`)."""
+        if mp <= 1:
+            return self.drive(stream, prefix_cache, decode_block=k,
+                              kv_dtype=kd, weight_dtype=wd)
+        from ..distributed.spawn import spawn
+        return spawn(_mesh_leg, (self.args, self.rng.get_state(), stream,
+                                 prefix_cache, k, kd, wd, cd),
+                     nprocs=mp, device=self.device.type)[0]
+
+    def _one_line(self, stream, kd, wd, k, base_absmax, mp=1, cd="f32",
+                  mp1=None):
         a = self.args
-        run = self.drive(stream, True, decode_block=k, kv_dtype=kd,
-                         weight_dtype=wd)
-        off = self.drive(stream, False, decode_block=k, kv_dtype=kd,
-                         weight_dtype=wd) if a.shared_prefix else None
+        run = self._leg(stream, True, k, kd, wd, mp, cd)
+        off = self._leg(stream, False, k, kd, wd, mp, cd) \
+            if a.shared_prefix else None
         # the logit-error reference is the full-precision leg only
-        quantized = kd is not None or wd is not None
+        quantized = kd is not None or wd is not None or cd != "f32"
         if not quantized and k not in base_absmax:
             base_absmax[k] = run["logit_absmax"]
         ref = base_absmax.get(k)
         quant_err = (round(abs(run["logit_absmax"] - ref) / ref, 6)
                      if quantized and ref and run["logit_absmax"]
                      is not None else None)
+        per_chip = round(run["tokens_per_sec"] / run["chips"], 1)
+        mp1 = {} if mp1 is None else mp1
+        if mp == 1:
+            mp1[(kd, wd, k)] = per_chip
         rec = {
             "metric": f"gpt2_{a.model}_serving_tokens_per_sec_per_chip",
-            "value": run["tokens_per_sec"], "unit": "tokens/sec/chip",
-            "mp": 1, "kv_shard": None, "tokens_per_chip_vs_mp1": None,
+            "value": per_chip, "unit": "tokens/sec/chip",
+            "mp": mp, "kv_shard": a.kv_shard if mp > 1 else None,
+            "tokens_per_chip_vs_mp1": round(per_chip / mp1[(kd, wd, k)], 4)
+            if mp > 1 and mp1.get((kd, wd, k)) else None,
+            "backend": run["backend"], "captured": run["captured"],
             **{key: run[key] for key in (
                 "kv_pool_bytes_per_chip", "collective_bytes_per_token",
                 "decode_collective_bytes_counted",
@@ -654,7 +733,7 @@ class Bench:
             "attention_impl": run["attention_impl"],
             "prefix_len": a.prefix_len, "decode_block": k,
             "kv_dtype": kd or "param", "weight_dtype": wd or "param",
-            "collective_dtype": "f32",
+            "collective_dtype": cd,
             **{key: run[key] for key in (
                 "weight_bytes_per_step", "decode_hbm_bytes_per_token")},
             "quant_logit_err_absmax": quant_err,
@@ -667,7 +746,7 @@ class Bench:
                 "decode_block_compiles", "attribution_conserved",
                 "prefill_compiles", "watchdog_trips_total",
                 "slo_alerts_total", "tenants")},
-            **self.stamp, "snapshot": run["snapshot"]}
+            **self.stamp, "chips": run["chips"], "snapshot": run["snapshot"]}
         rec.update(run["ledger"])
         rec.update(anatomy_fields(run["anatomy_summary"]))
         if off is not None:
@@ -1412,16 +1491,45 @@ class Bench:
             print(json.dumps(rec), flush=True)
 
 
+def _mesh_leg(info, args, rng_state, stream, prefix_cache, k, kd, wd, cd):
+    """One rank of an mp > 1 leg of the default sweep: every rank builds
+    the bench (the same weights from seed 0) and the engine on its
+    device; rank 0 drives it from the parent's random state and returns
+    the run, the others follow."""
+    import torch
+
+    from ..inference.tp import make_mesh
+    args.device = str(info.device)
+    if info.device.type == "cpu":   # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // info.nprocs))
+    with torch.no_grad():
+        bench = Bench(args)
+        bench.rng.set_state(rng_state)
+        mesh_kw = dict(mesh=make_mesh(info.nprocs, device=info.device),
+                       kv_shard=args.kv_shard, collective_dtype=cd)
+        if info.rank == 0:
+            run = bench.drive(stream, prefix_cache, decode_block=k,
+                              kv_dtype=kd, weight_dtype=wd, **mesh_kw)
+            run["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+                info.device) if info.device.type == "cuda" else None
+            return run
+        engine = bench.engine(**bench.drive_kw(prefix_cache, k, kd, wd,
+                                               **mesh_kw))
+        engine.follow()
+        engine.close()
+        return None
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    given = [a.split("=")[0] for a in argv if a.startswith("--")]
-    refused = [f for f in given if f in NOT_PORTED]
-    if refused:
-        sys.stderr.write(
-            f"{', '.join(refused)}: not ported to paddle_tpu_torch "
-            "(meshes are not ported yet)\n")
-        raise SystemExit(2)
     args = _parser().parse_args(argv)
+    if (args.mesh.replace("mp=", "") != "1" or args.kv_shard != "heads"
+            or args.collective_dtype != "f32") and (
+            args.mixed_steady or args.workload or args.fleet
+            or args.overload or args.speculative):
+        raise SystemExit("--mesh, --kv-shard and --collective-dtype sweep "
+                         "the default stream only")
     if args.shared_prefix and args.prefix_len <= 0:
         args.prefix_len = 256
     if args.fleet and args.prefix_len <= 0:

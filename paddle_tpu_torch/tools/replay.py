@@ -6,6 +6,7 @@ engines — port of ``tools/replay.py``.
         [--device cpu] [--param-seed 0] [--out replayed.jsonl]
         [--kv-dtype keep|none|bf16|int8|fp8] [--weight-dtype keep|...]
         [--decode-block keep|adaptive|K] [--expect-divergence]
+        [--mesh MP] [--collective-dtype keep|f32|int8]
     python3 -m paddle_tpu_torch.tools.replay --selfcheck [--device cpu]
 
 Run from the repository root. Rebuilds a FRESH fleet from the journal's
@@ -42,8 +43,14 @@ generator's byte-reproducibility.
 
 Workload journals (``observability.journal.write_workload``) carry no
 config events: drive those through ``bench_serving --workload``, which
-owns the engine configuration. Meshes (``--mesh``,
-``--collective-dtype``) are not ported and exit 2.
+owns the engine configuration.
+
+``--mesh MP`` (MP > 1) rebuilds every replica as a tensor-parallel
+engine over MP spawned ranks (``inference/tp.py``; rank 0 replays, the
+others follow every replica's dispatches), so a journal recorded on one
+card replays on a mesh; under ``f32`` collectives it must replay to the
+same tokens. ``--collective-dtype`` overrides the recorded wire format
+(an A/B lever, as the others).
 """
 from __future__ import annotations
 
@@ -55,7 +62,6 @@ import shutil
 import sys
 import tempfile
 
-NOT_PORTED = ("--mesh", "--collective-dtype")
 
 
 def _none_if(v):
@@ -71,11 +77,12 @@ def _config(model_fp):
 
 
 def build_fleet(rec, args, registry, out_writer=None, quiet=False,
-                params=None):
+                params=None, mesh=None):
     """A fresh fleet from the journal's config events (and the A/B
     overrides in ``args``). ``params`` overrides the weights
     (``init_params(cfg, seed=args.param_seed)`` otherwise), for a journal
-    whose weights no seed of the port makes. Returns (router,
+    whose weights no seed of the port makes; ``mesh`` makes every
+    replica a tensor-parallel engine over it. Returns (router,
     problems)."""
     from ..inference import (EngineReplica, FaultInjector, FleetRouter,
                              ServingEngine)
@@ -147,6 +154,13 @@ def build_fleet(rec, args, registry, out_writer=None, quiet=False,
             kw["decode_block"] = (
                 args.decode_block if args.decode_block == "adaptive"
                 else int(args.decode_block))
+        if mesh is not None:
+            kw.update(mesh=mesh, collective_dtype=(
+                fp.get("collective_dtype", "f32")
+                if getattr(args, "collective_dtype", "keep") == "keep"
+                else args.collective_dtype))
+            if mesh.backend == "gloo":
+                kw["_capture"] = False    # host collectives: no CUDA graph
         cfg, p = weights_for(fp)
         eng = ServingEngine(cfg, p, device=args.device, **kw)
         got = eng.config_fingerprint()["weights_digest"]
@@ -175,7 +189,27 @@ def build_fleet(rec, args, registry, out_writer=None, quiet=False,
     return router, problems
 
 
-def run_replay(args):
+def _mesh_replay(info, args):
+    """One rank of ``--mesh``: rank 0 replays (and returns the exit
+    code), the others follow every replica."""
+    import torch
+
+    from ..inference.tp import make_mesh
+    from ..observability import MetricsRegistry
+    from ..observability import journal as J
+    args.device = str(info.device)
+    mesh = make_mesh(info.nprocs, device=info.device)
+    with torch.no_grad():
+        if info.rank == 0:
+            return run_replay(args, mesh=mesh)
+        router, _ = build_fleet(J.read_journal(args.journal), args,
+                                MetricsRegistry(), quiet=True, mesh=mesh)
+        engines = [st.handle.engine for st in router.replicas.values()]
+        engines[0].follow(*engines[1:])
+    return None
+
+
+def run_replay(args, mesh=None):
     from ..observability import MetricsRegistry
     from ..observability import journal as J
 
@@ -193,11 +227,14 @@ def run_replay(args):
                   "replayed_journal": os.path.abspath(args.journal)},
             registry=registry)
     router, build_problems = build_fleet(
-        rec, args, registry, out_writer=out_writer, quiet=args.quiet)
+        rec, args, registry, out_writer=out_writer, quiet=args.quiet,
+        mesh=mesh)
     problems += build_problems
     res = J.replay(rec, router, max_steps=int(args.max_steps))
     report = J.check_divergence(rec, res, registry=registry)
     router.close()
+    for st in router.replicas.values():   # a dead replica's too
+        st.handle.engine.close()
     if out_writer is not None:
         out_writer.close()
 
@@ -216,6 +253,8 @@ def run_replay(args):
         "first_divergence": report["first"],
         "problems": problems,
         "platform": args.device,
+        "mp": 1 if mesh is None else mesh.mp,
+        "backend": None if mesh is None else mesh.backend,
     }
     print(json.dumps(line))
     if problems and not args.quiet:
@@ -395,22 +434,32 @@ def _parser():
     ap.add_argument("--selfcheck", action="store_true",
                     help="record+replay a tiny fleet scenario and "
                          "verify the checker trips on tampering")
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="replay every replica as a tensor-parallel "
+                         "engine over this many spawned ranks")
+    ap.add_argument("--collective-dtype", default="keep",
+                    choices=("keep", "f32", "int8"),
+                    help="override the collective wire format (with "
+                         "--mesh)")
     ap.add_argument("--quiet", action="store_true")
     return ap
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    refused = [f for f in (a.split("=")[0] for a in argv)
-               if f in NOT_PORTED]
-    if refused:
-        sys.stderr.write(f"{', '.join(refused)}: meshes are not ported "
-                         "to paddle_tpu_torch\n")
-        raise SystemExit(2)
     ap = _parser()
     args = ap.parse_args(argv)
     from ..device import resolve_device
-    args.device = str(resolve_device(args.device))
+    dev = resolve_device(args.device)
+    args.device = str(dev)
+    if args.mesh > 1:
+        if args.selfcheck or not args.journal:
+            ap.error("--mesh replays a --journal")
+        from ..distributed.spawn import spawn
+        return spawn(_mesh_replay, (args,), nprocs=args.mesh,
+                     device=dev.type)[0]
+    if args.collective_dtype not in ("keep", "f32"):
+        ap.error("--collective-dtype int8 needs --mesh > 1")
     import torch
     with torch.no_grad():
         if args.selfcheck:

@@ -790,7 +790,7 @@ def test_split_kv_kernel_at_forced_split_lengths(cuda, split_len):
                      device=cuda)
     rc = fn(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
             kl.data_ptr(), ql.data_ptr(), out.data_ptr(), ws.data_ptr(), S, QB,
-            NH, HD, PS, MP, split_len, nsplit, HD ** -0.5,
+            NH, HD, PS, MP, split_len, nsplit, NH, 0, HD ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
@@ -868,7 +868,8 @@ def test_quant_split_kv_kernel_at_forced_split_lengths(cuda, split_len, HD):
     rc = fn(0, 3, q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
             vs.data_ptr(), bt.data_ptr(), kl.data_ptr(), ql.data_ptr(),
             out.data_ptr(), ws.data_ptr(), S, QB, NH, HD, PS, MP, split_len,
-            nsplit, HD ** -0.5, torch.cuda.current_stream().cuda_stream)
+            nsplit, NH, 0, HD ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
     ref = pa.ragged_paged_attention_ref(q, kq, vq, bt, kl, ql, k_scale=ks,
@@ -2693,3 +2694,88 @@ def test_o2_float16_gpt_step_goes_through_the_kernels(cuda):
     for a, b in zip(params, pparams):
         assert bool(torch.isfinite(a).all())
         assert bool(((a - b).abs() <= 2.0 ** -9 * b.abs() + 2e-3).all())
+
+
+# -- tensor-parallel serving (paddle_tpu_torch/inference/tp.py) ---------------
+
+def _tp_ranks():
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import tp_ranks
+    return tp_ranks
+
+
+@pytest.mark.parametrize("pool,HD,design", [
+    ("float32", 16, "split"), ("bfloat16", 16, "split"),
+    ("float32", 12, "first"), ("int8", 64, "split"), ("fp8", 64, "split"),
+    ("int8", 18, "first"), ("fp8", 18, "first")])
+@pytest.mark.parametrize("h0", [1, 2])
+def test_head_offset_kernel_matches_plain(cuda, pool, HD, design, h0):
+    """A rank's heads read in place from a replicated pool: q of 2 heads
+    against pools of 4 at offset ``h0``, through the C entry of the
+    design ``split_kv`` routes to, against the plain
+    version with the same offset (1e-4 of max-abs, f32 q) and the plain
+    version on the slice of the pool copied out (the same bits); idle
+    slot zero; nothing else launched."""
+    if pool in ("int8", "fp8"):
+        (q, bt, kl, ql), kp, vp, ks, vs = _quant_case(cuda, 40 + h0, pool,
+                                                      torch.float32, HD)
+        sc = {"k_scale": ks, "v_scale": vs}
+    else:
+        q, kp, vp, bt, kl, ql = _case(cuda, 40 + h0, HD=HD)
+        kp, vp = kp.to(getattr(torch, pool)), vp.to(getattr(torch, pool))
+        sc = {}
+    q = q[:, :, :2].contiguous()
+    args = (q, kp, vp, bt, kl, ql)
+    assert pa.split_kv(q, kp, vp, *sc.values()) == (design == "split")
+    pa.reset_launches()
+    out = pa.ragged_paged_attention(*args, h0=h0, **sc)
+    torch.cuda.synchronize()
+    got = (pa.launches + pa.quant_launches,
+           pa.split_launches + pa.quant_split_launches)
+    assert got == (1, int(design == "split"))
+    ref = pa.ragged_paged_attention_ref(*args, h0=h0, **sc)
+    sl = {k: v[:, h0:h0 + 2].contiguous() for k, v in sc.items()}
+    part = pa.ragged_paged_attention_ref(
+        q, kp[:, :, h0:h0 + 2].contiguous(), vp[:, :, h0:h0 + 2].contiguous(),
+        bt, kl, ql, **sl)
+    assert torch.equal(ref, part)
+    assert _live_err(out, ref, ql) <= 1e-4 * float(ref.abs().max())
+    assert torch.all(out[3] == 0)
+
+
+def test_mp2_over_gloo_on_one_card_matches_the_single_rank_engine(cuda):
+    """Two ranks on cuda:0 over gloo (``_capture=False``): heads-sharded
+    and replicated pools and int8 pools emit the single-rank engine's
+    streams (float32 weights; greedy and sampled), the census equals the
+    prediction; ``_capture=True`` on the gloo mesh raises on every rank."""
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models.gpt import GPTConfig, _numpy_params
+    tpr = _tp_ranks()
+    cfg_kw = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=4,
+                  max_position_embeddings=64)
+    tree = _numpy_params(GPTConfig(**cfg_kw), 0)
+    scs = [{"traffic": "mixed", "engine": {"_capture": False}},
+           {"traffic": "mixed", "engine": {"_capture": False,
+                                          "kv_shard": "replicated"}},
+           {"traffic": "mixed", "args": {"n": 5},
+            "engine": {"_capture": False, "kv_dtype": "int8"}}]
+    recs = spawn(tpr.serve, (cfg_kw, tree, scs), nprocs=2,
+                 device="cuda")[0]
+    params = init_params(GPTConfig(**cfg_kw), seed=0, device=cuda)
+    for rec, kw, n in ((recs[0], {}, 8), (recs[1], {}, 8),
+                       (recs[2], {"kv_dtype": "int8"}, 5)):
+        eng = ServingEngine(GPTConfig(**cfg_kw), params, device=cuda,
+                            num_slots=3, **tpr.KW, **kw)
+        assert rec["tokens"] == tpr.mixed_stream(eng, n=n)
+        eng.close()
+        assert rec["stats"]["backend"] == "gloo"
+        S, C = rec["num_slots"], rec["prefill_chunk"]
+        per = rec["coll_bytes_per_position"]
+        assert rec["xla_costs"]["decode_step"]["collective_bytes"] == per * S
+        assert rec["xla_costs"]["prefill_chunk"]["collective_bytes"] == \
+            per * C
+    msgs = spawn(tpr.capture_refused, (cfg_kw, tree), nprocs=2,
+                 device="cuda")
+    assert all(m and "_capture=False" in m for m in msgs)

@@ -229,7 +229,9 @@ def test_replay_tool_exit_codes(ref, tmp_path, capsys):
     """``replay.py``: a JAX journal against the port's own seed reports
     the weights digest as a problem and exits 2; a port journal of
     ``init_params`` weights replays with exit 0 and a cross-linked
-    ``--out``; the mesh levers exit 2; ``--selfcheck`` passes."""
+    ``--out``; the int8 collective without ``--mesh`` exits 2 (the mesh
+    replay itself: tests/test_torch_tp_tools.py); ``--selfcheck``
+    passes."""
     jpath = tmp_path / "jax.jsonl"
     _record(lambda **k: _jax_fleet(ref, **k), jjnl, jpath)
     assert replay.main(["--journal", str(jpath), "--device", "cpu",
@@ -254,10 +256,10 @@ def test_replay_tool_exit_codes(ref, tmp_path, capsys):
                         "--kv-dtype", "int8", "--expect-divergence",
                         "--quiet"]) == 0
     capsys.readouterr()
-    for flag in ("--mesh", "--collective-dtype"):
-        with pytest.raises(SystemExit) as e:
-            replay.main(["--journal", str(ppath), flag, "2"])
-        assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
+        replay.main(["--journal", str(ppath), "--device", "cpu",
+                     "--collective-dtype", "int8"])
+    assert e.value.code == 2
     assert replay.main(["--selfcheck", "--device", "cpu", "--quiet"]) == 0
 
 

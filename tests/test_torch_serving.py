@@ -10,8 +10,8 @@ same weights (2 layers, hidden 64, 4 heads, vocab 128):
 - the page allocator (``refcount`` and ``unregister`` included) and the
   prefix-cache digests against the reference's, operation by operation;
 - a sampled request emits the same tokens alone or in a busy batch;
-- the levers not ported yet raise NotImplementedError, and unknown
-  quantization formats raise ValueError (the quantized levers
+- ``mesh=`` takes a ``make_mesh`` handle (one rank: the single-card
+  engine), and unknown quantization formats raise ValueError (the quantized levers
   themselves: tests/test_torch_quant_serving.py; ``mixed_step``:
   tests/test_torch_mixed_step.py)."""
 import json
@@ -245,15 +245,30 @@ def test_queue_bound_sheds_or_rejects(ref):
     dict(tracer=Tracer("t")), dict(watchdog=True),
 ])
 def test_unported_levers_raise(ref, lever, tmp_path):
-    """The constructor's unported lever (meshes) raises
-    NotImplementedError. The tracer (speculative engines too),
+    """Every lever of this list is ported now. ``mesh=`` takes a
+    ``make_mesh`` handle (anything else raises TypeError; one rank is the
+    single-card engine; tests/test_torch_tp_serving.py holds the sharded
+    engine to the reference's). The tracer (speculative engines too),
     ``add_request``'s and ``admit_migrated``'s ``trace_ctx=``, the
-    journal and the watchdog are ported: they serve
-    (tests/test_torch_serving_telemetry.py, tests/test_torch_journal.py
-    and tests/test_torch_slo.py hold them to the reference's)."""
+    journal and the watchdog serve (tests/test_torch_serving_telemetry.py,
+    tests/test_torch_journal.py and tests/test_torch_slo.py hold them to
+    the reference's)."""
     _, params = ref
     kw = dict(device="cpu", num_slots=1, page_size=8, prefill_chunk=8,
               max_seq_len=64, postmortem_path=str(tmp_path / "pm.json"))
+    if "mesh" in lever:
+        from paddle_tpu_torch.inference.tp import make_mesh
+        with pytest.raises(TypeError, match="make_mesh"):
+            ServingEngine(gpt2_tiny(), params, **kw, **lever)
+        outs = []
+        for mesh in (None, make_mesh(1)):
+            eng = ServingEngine(gpt2_tiny(), params, mesh=mesh, **kw)
+            u = eng.add_request([1, 2, 3], 4)
+            outs.append(eng.run()[u].tokens)
+            assert eng.chips == 1 and eng.tp is None
+            eng.close()
+        assert outs[0] == outs[1]
+        return
     if "journal" in lever or "watchdog" in lever:
         if "journal" in lever:
             lever = dict(journal=str(tmp_path / lever["journal"]))
@@ -279,8 +294,7 @@ def test_unported_levers_raise(ref, lever, tmp_path):
             "migrated"] is True
         eng.close()
         return
-    with pytest.raises(NotImplementedError):
-        ServingEngine(gpt2_tiny(), params, **kw, **lever)
+    raise AssertionError(f"lever {lever} has no case")
 
 
 @pytest.mark.parametrize("lever,match", [

@@ -447,8 +447,9 @@ def test_a_failing_tracer_is_swallowed(ref, tmp_path):
 
 def test_constructor_surface(ref, tmp_path):
     """The reference's telemetry keywords construct; ``add_request``
-    takes ``trace_ctx=`` and ``tenant=``; ``mesh=`` still raises
-    (``journal=`` and ``watchdog=`` are ported: tests/test_torch_journal.py
+    takes ``trace_ctx=`` and ``tenant=``; ``mesh=`` takes a ``make_mesh``
+    handle, anything else raises TypeError (tests/test_torch_tp_serving.py;
+    ``journal=`` and ``watchdog=`` are ported: tests/test_torch_journal.py
     and tests/test_torch_slo.py)."""
     reg, tracer = MetricsRegistry(), Tracer("caller")
     eng = ServingEngine(GPTConfig(**CFG), ref[2], device="cpu",
@@ -471,7 +472,7 @@ def test_constructor_surface(ref, tmp_path):
     assert lines and all(json.loads(x)["event"] == "serving_step"
                          for x in lines)
     assert json.load(open(tmp_path / "pm.json"))["reason"] == "close"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="make_mesh"):
         ServingEngine(GPTConfig(**CFG), ref[2], device="cpu",
                       mesh=object(), **KW)
 
@@ -505,8 +506,9 @@ BENCH_KEYS = (
 def test_bench_serving_prints_the_reference_keys(capsys):
     """``bench_serving.main`` at ``--model tiny`` on the CPU: one JSON
     line a ``--kv-dtype`` value, each with every key of the reference's
-    line; the ledger priced against one H100; the not-ported flags exit
-    non-zero."""
+    line; the ledger priced against one H100; the mesh flags outside the
+    default stream exit non-zero (the mesh sweep itself:
+    tests/test_torch_tp_tools.py)."""
     from paddle_tpu_torch.tools import bench_serving
     args = ["--model", "tiny", "--requests", "6", "--slots", "2",
             "--max-new", "6", "--min-prompt", "4", "--max-prompt", "12",
@@ -528,7 +530,9 @@ def test_bench_serving_prints_the_reference_keys(capsys):
         assert set(line["tenants"]) == {"a", "b", "default"}
         assert line["decode_compiles"] == 1
     assert out[1]["quant_logit_err_absmax"] is not None
-    for flag in ("--mesh", "--kv-shard", "--collective-dtype"):
+    for flag, value in (("--mesh", "2"), ("--kv-shard", "replicated"),
+                        ("--collective-dtype", "int8")):
         with pytest.raises(SystemExit) as e:
-            bench_serving.main(["--model", "tiny", flag, "2"])
+            bench_serving.main(["--model", "tiny", "--device", "cpu",
+                                "--overload", flag, value])
         assert e.value.code != 0
